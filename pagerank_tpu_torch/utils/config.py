@@ -1,0 +1,134 @@
+"""Configuration of a PageRank run.
+
+Port of ``pagerank_tpu/utils/config.py:132-212`` (``PageRankConfig``)
+and of the three ``RobustnessConfig`` fields the solve loop reads. The
+fields of layouts and modes that later slices of the port bring are
+kept so a caller can name them, and ``validate`` refuses them with the
+ROADMAP slice that ports them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+
+SEMANTICS_REFERENCE = "reference"
+SEMANTICS_TEXTBOOK = "textbook"
+
+#: The dtype strings the port accepts, and their torch dtypes.
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config dtype string ("float32"/"float64")."""
+    try:
+        return DTYPES[name]
+    except KeyError:
+        raise ValueError(
+            f"dtype {name!r} is not supported by the port; use one of "
+            f"{sorted(DTYPES)}"
+        ) from None
+
+
+@dataclass
+class RobustnessConfig:
+    """The self-healing knobs of the solve loop (engine.run)."""
+
+    #: Per-step health check: a non-finite step scalar (l1_delta,
+    #: dangling_mass) triggers rollback-or-raise.
+    health_checks: bool = True
+
+    #: Opt-in rank-mass drift bound: relative change of sum(ranks)
+    #: allowed per step. None disables.
+    mass_tol: Optional[float] = None
+
+    #: Snapshot rollbacks engine.run may perform before raising
+    #: SolverHealthError.
+    max_rollbacks: int = 3
+
+    def validate(self) -> "RobustnessConfig":
+        if self.max_rollbacks < 0:
+            raise ValueError(
+                f"max_rollbacks must be >= 0, got {self.max_rollbacks}"
+            )
+        if self.mass_tol is not None and not (0.0 < self.mass_tol):
+            raise ValueError(f"mass_tol must be positive, got {self.mass_tol}")
+        return self
+
+
+@dataclass
+class PageRankConfig:
+    """All knobs for a PageRank run of the port.
+
+    Defaults reproduce the reference workload: 10 iterations
+    (Sparky.java:187), damping 0.85 (:233), reference semantics.
+    """
+
+    num_iters: int = 10
+    damping: float = 0.85
+    semantics: str = SEMANTICS_REFERENCE
+
+    # dtype holds the rank vector; accum_dtype is used for the
+    # contribution sums, the dangling mass and the L1 delta.
+    dtype: str = "float32"
+    accum_dtype: str = "float32"
+
+    # "auto", "ell" and "pallas" all run the flat ELL form through the
+    # hand-written CUDA kernel (ops/ell_spmv.py): on the card the kernel
+    # is the hot op of every ELL form. "coo" is not ported.
+    kernel: str = "auto"
+
+    # Early stop when L1(r' - r) <= tol; None runs all num_iters.
+    tol: Optional[float] = None
+
+    # Fields of later slices (ROADMAP queue 1): accepted at their
+    # defaults only.
+    partition_span: int = 0
+    stream_dtype: str = ""
+    vertex_sharded: bool = False
+    num_devices: Optional[int] = None
+
+    robustness: RobustnessConfig = field(default_factory=RobustnessConfig)
+
+    def validate(self) -> "PageRankConfig":
+        self.robustness.validate()
+        if self.semantics not in (SEMANTICS_REFERENCE, SEMANTICS_TEXTBOOK):
+            raise ValueError(f"unknown semantics mode: {self.semantics!r}")
+        if not (0.0 < self.damping < 1.0):
+            raise ValueError(f"damping must be in (0,1), got {self.damping}")
+        if self.num_iters < 0:
+            raise ValueError("num_iters must be >= 0")
+        if self.tol is not None and not (0.0 < self.tol < float("inf")):
+            raise ValueError(
+                f"tol must be a finite positive float, got {self.tol}"
+            )
+        if self.kernel == "coo":
+            raise ValueError(
+                "kernel='coo' (the dst-sorted COO segment-sum form) is not "
+                "ported yet: ROADMAP slice 2"
+            )
+        if self.kernel not in ("auto", "ell", "pallas"):
+            raise ValueError(f"unknown kernel: {self.kernel!r}")
+        if self.partition_span or self.stream_dtype:
+            raise ValueError(
+                "partition_span/stream_dtype (the partition-centric layout "
+                "and kernel K2) are not ported yet: ROADMAP slice 2"
+            )
+        if self.vertex_sharded or (self.num_devices or 1) > 1:
+            raise ValueError(
+                "vertex_sharded/num_devices > 1 (more than one GPU) are "
+                "not ported yet: ROADMAP slice 6"
+            )
+        if torch_dtype(self.accum_dtype).itemsize < torch_dtype(
+                self.dtype).itemsize:
+            raise ValueError(
+                f"accum_dtype {self.accum_dtype} narrower than dtype "
+                f"{self.dtype}"
+            )
+        return self
+
+    def replace(self, **kw) -> "PageRankConfig":
+        return dataclasses.replace(self, **kw)
