@@ -11,14 +11,14 @@ What it does, in order:
   2. builds every kernel under pagerank_tpu_torch/csrc/ with nvcc for
      sm_90a (one nvcc per source, all at once) and prints the build
      seconds and the ptxas register report;
-  3. drives the main path through the CLI entry point in-process
+  3. drives the flat main path through the CLI entry point in-process
      (``pagerank_tpu_torch.cli.run``): --synthetic rmat:SCALE, reference
      semantics, 10 iterations, f32, --snapshot-dir and --out in a temp
      dir, on cuda. Every kernel's launch count is set to 0 just before
-     and read just after, and must equal the number of steps. The ranks
-     are checked against the port's f64 ReferenceCpuEngine on the same
-     graph (mass-normalised L1 <= 1e-4), and the last snapshot and the
-     --out file against the returned ranks;
+     and read just after: K1's must equal the number of steps, K2's 0.
+     The ranks are checked against the port's f64 ReferenceCpuEngine on
+     the same graph (mass-normalised L1 <= 1e-4), and the last snapshot
+     and the --out file against the returned ranks;
   4. holds K1 (ell_contrib) against its plain PyTorch twin on the card,
      at the main path's own shapes (the engine's packed slots, the
      prescaled final ranks) and on a small adversarial pack (a hub block
@@ -31,9 +31,27 @@ What it does, in order:
      beside K1's byte bound; then splits a main-path step's time by
      kernel with torch.profiler (K1's two passes, the elementwise
      kernels, the device's idle share);
-  5. resume determinism on the card: 6 iterations with snapshots, a
-     resume to 10, and an uninterrupted 10 give bit-equal ranks;
-  6. prints one JSON line with every kernel's numbers, then last
+  5. the partition-centric path on the graph phase 3 built: the span
+     from the CLI's resolver at -1, a TorchEngine on cuda for 10
+     iterations in f32 and again with the bf16 window stream. The
+     counts are set to 0 before each run and read after: K2's must be
+     10, K1's 0. Normalised L1 against phase 3's f64 oracle <= 1e-4
+     (f32), and in (1e-7, 5e-3) for bf16 (a real bf16 run, inside
+     quantization grade);
+  6. holds K2 (ell_contrib_partitioned) against its twin on the card at
+     that path's shapes, with f32 and bf16 windows, 3-byte and int32
+     words, and on an adversarial pack (deep hub pairs, empty
+     partitions, all-sentinel rows): normalised max error against the
+     twin's exact (f64) sums of the same (widened) values <= 1e-5, two
+     launches bit-identical. Times K2, the twin and one torch.sparse.mm
+     of the same pair-row x windowed-z matrix (f32) beside K2's byte
+     bound, times the pair -> block expansion, and splits the
+     partitioned step (f32 and bf16 windows) by kernel with
+     torch.profiler;
+  7. resume determinism on the card, for the flat form and through the
+     CLI's --partition-span -1: 6 iterations with snapshots, a resume
+     to 10, and an uninterrupted 10 give bit-equal ranks;
+  8. prints one JSON line with every kernel's numbers, then last
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; the script then exits non-zero and prints no
@@ -46,6 +64,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -109,27 +128,43 @@ def build_kernels():
     return secs
 
 
+def _reset_counts():
+    from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
+
+    ell_spmv.launches = 0
+    ell_spmv_partitioned.launches = 0
+
+
+def _read_counts():
+    """(K1 launches, K2 launches) since the last reset."""
+    from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
+
+    return ell_spmv.launches, ell_spmv_partitioned.launches
+
+
 def main_path(scale, tmp):
-    """Phase 3: the CLI's main path on cuda; returns (summary, report)."""
+    """Phase 3: the CLI's main path on cuda; returns (summary, report,
+    the f64 oracle's ranks)."""
     import numpy as np
 
     from pagerank_tpu_torch import PageRankConfig, ReferenceCpuEngine, cli
-    from pagerank_tpu_torch.ops import ell_spmv
 
     snap_dir = os.path.join(tmp, "snaps")
     out = os.path.join(tmp, "ranks.tsv")
-    ell_spmv.launches = 0
+    _reset_counts()
     summary = cli.run([
         "--synthetic", f"rmat:{scale}", "--iters", str(ITERS),
         "--semantics", "reference", "--dtype", "float32",
         "--snapshot-dir", snap_dir, "--out", out,
     ])
-    launches = ell_spmv.launches
+    launches, k2_launches = _read_counts()
     graph, ranks = summary["graph"], summary["ranks"]
     _check(summary["engine"].device.type == "cuda", "main path not on cuda")
-    _check(launches == summary["iterations"] == ITERS,
-           f"ell_contrib launched {launches} times in {summary['iterations']}"
-           f" steps (want one launch per step, {ITERS} steps)")
+    _check(summary["form"] == "flat_ell", f"main path ran {summary['form']}")
+    _check(launches == summary["iterations"] == ITERS and k2_launches == 0,
+           f"ell_contrib launched {launches} times (ell_contrib_partitioned "
+           f"{k2_launches}) in {summary['iterations']} steps (want one K1 "
+           f"launch per step, {ITERS} steps, no K2)")
     _check(ranks.shape == (graph.n,) and np.isfinite(ranks).all(),
            "ranks are not finite of shape (n,)")
     t0 = time.perf_counter()
@@ -156,7 +191,8 @@ def main_path(scale, tmp):
           f"{summary['graph_seconds']:.3f} s, ELL pack {bs['pack']:.3f} s, "
           f"planes + sentinels + segment plan {bs['plan']:.3f} s, placement "
           f"{bs['place']:.3f} s")
-    return summary, {"launches": launches, "ms_per_iter": ms, "l1": l1}
+    return summary, {"launches": launches, "ms_per_iter": ms, "l1": l1}, \
+        oracle
 
 
 def _k1_compare(z_ext, src, rb, nb, plan, accum, tol, label):
@@ -306,12 +342,14 @@ def kernel_checks(engine):
     }
 
 
-def step_breakdown(engine, steps=10):
-    """Where a main-path step's time goes, on the main path's engine:
-    the host wall per step of ``steps`` unprofiled steps, then the
-    device time per kernel over as many steps under torch.profiler —
-    K1's two passes apart, the step's other (elementwise) kernels — and
-    the device's idle share of the unprofiled wall."""
+def step_breakdown(engine, kernel="K1", passes=("segment_partials",
+                                                 "block_sums"), steps=10):
+    """Where a step's time goes, on a path's engine: the host wall per
+    step of ``steps`` unprofiled steps, then the device time per kernel
+    over as many steps under torch.profiler — the kernel's two
+    ``passes`` apart, the ``index_add_`` kernels of the pair expansion
+    (partitioned form), the step's other (elementwise) kernels — and the
+    device's idle share of the unprofiled wall."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -335,33 +373,276 @@ def step_breakdown(engine, steps=10):
         if us is None:
             us = ev.self_cuda_time_total
         per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / steps
-    seg = sum(v for k, v in per_kernel.items() if "segment_partials" in k)
-    blk = sum(v for k, v in per_kernel.items() if "block_sums" in k)
+    # A pass name not preceded by a letter or "_" (demangled "::name",
+    # mangled "16name"): K1's segment_partials must not match K2's
+    # pair_segment_partials.
+    def named(k, p):
+        return re.search(rf"(?<![A-Za-z_]){p}", k) is not None
+
+    def part(pred):
+        return sum(v for k, v in per_kernel.items() if pred(k))
+
+    def is_pass(k):
+        return any(named(k, p) for p in passes)
+
+    p1 = part(lambda k: named(k, passes[0]))
+    p2 = part(lambda k: named(k, passes[1]))
+    expand = part(lambda k: not is_pass(k) and "index" in k.lower())
     busy = sum(per_kernel.values())
-    other = busy - seg - blk
-    top = sorted(((v, k) for k, v in per_kernel.items()
-                  if "segment_partials" not in k and "block_sums" not in k),
+    other = busy - p1 - p2 - expand
+    top = sorted(((v, k) for k, v in per_kernel.items() if not is_pass(k)),
                  reverse=True)[:6]
-    print(f"step breakdown over {steps} steps: wall {wall_ms:.4f} ms/step; "
-          f"device busy {busy:.4f} ms/step = K1 pass 1 {seg:.4f} + K1 pass 2 "
-          f"{blk:.4f} + other kernels {other:.4f}; device idle "
+    print(f"{kernel} step breakdown over {steps} steps: wall {wall_ms:.4f} "
+          f"ms/step; device busy {busy:.4f} ms/step = {kernel} pass 1 "
+          f"{p1:.4f} + {kernel} pass 2 {p2:.4f} + index_add_ {expand:.4f} + "
+          f"other kernels {other:.4f}; device idle "
           f"{1 - busy / wall_ms:.1%} of the wall")
     for v, k in top:
         print(f"  other kernel {v:.4f} ms/step: {k[:100]}")
-    _check(seg > 0 and blk > 0, "the profiled steps show no K1 device time")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "k1_pass1_ms": seg,
-            "k1_pass2_ms": blk, "other_ms": other}
+    _check(p1 > 0 and p2 > 0,
+           f"the profiled steps show no {kernel} device time")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "pass1_ms": p1,
+            "pass2_ms": p2, "index_add_ms": expand, "other_ms": other}
 
 
-def resume_determinism(scale, tmp):
-    """Phase 5: 6 iterations + resume to 10 == 10 uninterrupted."""
+def partitioned_path(graph, oracle, flat_rows):
+    """Phase 5: the partition-centric path on the main path's graph, in
+    f32 and with the bf16 window stream; returns (f32 engine, bf16
+    engine, report)."""
+    import numpy as np
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine, cli
+
+    span = cli.plan_partition_span(PageRankConfig(), graph.n,
+                                   graph.num_edges, -1)
+    _check(span > 0, f"the auto rule turned the partitioned form off at "
+           f"n={graph.n} edges={graph.num_edges}")
+    engines, report = [], {}
+    for stream in ("", "bfloat16"):
+        cfg = PageRankConfig(num_iters=ITERS, partition_span=span,
+                             stream_dtype=stream)
+        eng = TorchEngine(cfg, device="cuda")
+        t0 = time.perf_counter()
+        eng.build(graph)
+        build_s = time.perf_counter() - t0
+        lay = eng.layout_info()
+        step_s = []
+        t_last = [time.perf_counter()]
+
+        def on_iteration(i, info):
+            now = time.perf_counter()
+            step_s.append(now - t_last[0])
+            t_last[0] = now
+
+        _reset_counts()
+        ranks = eng.run(on_iteration=on_iteration)
+        k1, k2 = _read_counts()
+        label = f"partitioned {stream or 'f32'}"
+        _check(k2 == ITERS == eng.iteration and k1 == 0,
+               f"{label}: ell_contrib_partitioned launched {k2} times "
+               f"(ell_contrib {k1}) in {eng.iteration} steps")
+        _check(ranks.shape == (graph.n,) and np.isfinite(ranks).all(),
+               f"{label}: ranks are not finite of shape (n,)")
+        l1 = float(np.abs(ranks - oracle).sum() / np.abs(oracle).sum())
+        if stream:
+            _check(1e-7 < l1 < 5e-3, f"{label}: normalised L1 {l1} vs the "
+                   f"f64 oracle outside (1e-7, 5e-3)")
+        else:
+            _check(l1 <= 1e-4, f"{label}: normalised L1 {l1} > 1e-4")
+        ms = statistics.median(step_s) * 1e3
+        bs = lay["build_seconds"]
+        print(f"{label} rmat path: span {lay['partition_span']} K="
+              f"{lay['partitions']} pairs {lay['pairs']} slot rows "
+              f"{lay['slot_rows']} ({lay['slot_rows'] / flat_rows:.4f}x the "
+              f"flat pack's {flat_rows}), {lay['num_segments']} segments, "
+              f"words24 {lay['words24']}, {lay['z_dtype']} windows; "
+              f"{ms:.3f} ms/iter {graph.num_edges / (ms / 1e3):.6g} edges/s, "
+              f"K2 launches {k2} in {ITERS} steps, f64 oracle normalised "
+              f"L1 {l1:.3e}; build {build_s:.3f} s = pack {bs['pack']:.3f} "
+              f"+ planes/pair ranks/words/plan {bs['plan']:.3f} + placement "
+              f"{bs['place']:.3f}")
+        engines.append(eng)
+        report[stream or "f32"] = {"launches": k2, "ms_per_iter": ms,
+                                   "l1": l1}
+    return engines[0], engines[1], report
+
+
+def _k2_compare(inputs, label, tol=1e-5):
+    """K2 vs its twin's exact (f64) sums of the same widened window
+    values, and bit-identity on repeat. Returns K2's max abs error."""
+    import torch
+
+    from pagerank_tpu_torch.ops import ell_spmv_partitioned as k2
+
+    zw, slots, rp, pp, npairs, plan = inputs
+    a = k2.ell_contrib_partitioned(zw, slots, rp, pp, npairs, plan=plan)
+    b = k2.ell_contrib_partitioned(zw, slots, rp, pp, npairs, plan=plan)
+    exact = k2.ell_contrib_partitioned_reference(zw.double(), slots, rp, pp,
+                                                 npairs)
+    twin = k2.ell_contrib_partitioned_reference(zw, slots, rp, pp, npairs)
+    torch.cuda.synchronize()
+    _check(torch.equal(a, b), f"K2 {label}: two launches differ")
+    scale = max(float(exact.abs().max()), 1e-300)
+    err = float((a.double() - exact).abs().max())
+    twin_err = float((twin.double() - exact).abs().max())
+    _check(err / scale <= tol,
+           f"K2 {label}: normalised max error {err / scale:.3e} > {tol:g}")
+    print(f"K2 {label}: vs exact sums max abs err {err:.3e}, normalised "
+          f"{err / scale:.3e} (<= {tol:g}); twin vs exact "
+          f"{twin_err / scale:.3e}; repeat bit-identical")
+    return err
+
+
+def adversarial_partitioned():
+    """Inputs of K2 on a pack with deep hub pairs (the hub's in-edges
+    cut over every partition), empty partitions (isolated vertices
+    relabeled last) and appended all-sentinel rows."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine, build_graph
+    from pagerank_tpu_torch.ops import ell_spmv
+    from pagerank_tpu_torch.ops.ell import segment_plan
+    from pagerank_tpu_torch.ops.spmv import pack_words24
+
+    rng = np.random.default_rng(5)
+    n, live = 60000, 40000  # ids >= 40000 are isolated
+    src = np.concatenate([np.arange(1, live), rng.integers(0, live, 60000)])
+    dst = np.concatenate([np.zeros(live - 1, np.int64),
+                          rng.integers(0, live // 4, 60000)])
+    g = build_graph(src, dst, n=n)
+    eng = TorchEngine(PageRankConfig(partition_span=4096),
+                      device="cuda").build(g)
+    eng.set_ranks(rng.random(n).astype(np.float32))
+    zw, slots, rp, pp, npairs, _ = eng.contrib_inputs()
+    # 100 rows of sentinels only, appended to the last pair.
+    sent = torch.full((1, 128), eng.layout_info()["partition_span"],
+                      dtype=torch.int32, device=zw.device)
+    slots = torch.cat([slots, pack_words24(sent).expand(100, -1)]).contiguous()
+    rp = torch.cat([rp, torch.full((100,), npairs - 1, dtype=torch.int32,
+                                   device=rp.device)])
+    plan = ell_spmv.plan_to(segment_plan(rp.cpu().numpy(), npairs), zw.device)
+    segs = torch.diff(plan.block_seg_start)
+    part_rows = torch.bincount(pp[rp.long()].long(), minlength=zw.shape[0])
+    _check(int(segs.max()) >= 50 and int((part_rows == 0).sum()) > 0,
+           "adversarial partitioned pack lacks a deep pair or an empty "
+           "partition")
+    return zw, slots, rp, pp, npairs, plan
+
+
+def _pair_csr(zw, slots, rp, pp, npairs, psz):
+    """The pair-row x windowed-z matrix of K2's inputs as a CSR tensor:
+    row pair*128 + lane, column part*W + word, one 1 per real slot."""
+    import torch
+
+    from pagerank_tpu_torch.ops.spmv import unpack_words24
+
+    words = unpack_words24(slots).long()
+    mask = words != psz
+    lanes = torch.arange(128, device=slots.device)
+    rows = (rp.long()[:, None] * 128 + lanes)[mask]
+    ncols = zw.numel()
+    cols = (pp.long()[rp.long()][:, None] * zw.shape[1] + words)[mask]
+    del words, mask
+    key, _ = torch.sort(rows * ncols + cols)
+    rows, cols = key // ncols, key % ncols
+    del key
+    crow = torch.zeros(npairs * 128 + 1, dtype=torch.long,
+                       device=slots.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=npairs * 128), 0)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            crow, cols, torch.ones(cols.shape[0], dtype=torch.float32,
+                                   device=slots.device),
+            size=(npairs * 128, ncols))
+
+
+def k2_checks(eng32, eng16):
+    """Phase 6: K2 against its twin, its timings and the expansion's;
+    returns the K2 record."""
+    import torch
+
+    from pagerank_tpu_torch.ops import ell_spmv_partitioned as k2
+    from pagerank_tpu_torch.ops import spmv
+
+    inputs = eng32.contrib_inputs()
+    zw, slots, rp, pp, npairs, plan = inputs
+    max_err = _k2_compare(inputs, "path f32 windows, words24")
+    int32 = (zw, spmv.unpack_words24(slots).contiguous()) + inputs[2:]
+    _k2_compare(int32, "path f32 windows, int32 words")
+    in16 = eng16.contrib_inputs()
+    _k2_compare(in16, "path bf16 windows, words24")
+    _k2_compare((in16[0],) + int32[1:], "path bf16 windows, int32 words")
+    adv = adversarial_partitioned()
+    _k2_compare(adv, "adversarial f32 windows, words24")
+    _k2_compare((adv[0].to(torch.bfloat16),) + adv[1:],
+                "adversarial bf16 windows, words24")
+
+    def kernel(args):
+        return lambda: k2.ell_contrib_partitioned(*args[:5], plan=args[5])
+
+    def twin():
+        k2.ell_contrib_partitioned_reference(*inputs[:5])
+
+    a_t = _pair_csr(zw, slots, rp, pp, npairs,
+                    eng32.layout_info()["partition_span"])
+    zcol = zw.reshape(-1, 1)
+
+    def library():
+        torch.sparse.mm(a_t, zcol)
+
+    lib_out = torch.sparse.mm(a_t, zcol)[:, 0]
+    k_out = kernel(inputs)()
+    lib_err = float((lib_out - k_out).abs().max()
+                    / max(float(k_out.abs().max()), 1e-300))
+    _check(lib_err <= 1e-5, f"torch.sparse.mm disagrees with K2: {lib_err}")
+
+    def expand():
+        eng32.expand_pairs(k_out)
+
+    ms = _median_ms(kernel(inputs), 30)
+    ms_int32 = _median_ms(kernel(int32), 30)
+    ms_bf16 = _median_ms(kernel(in16), 30)
+    plain_ms = _median_ms(twin, 20)
+    library_ms = _median_ms(library, 20)
+    expand_ms = _median_ms(expand, 30)
+    rows = slots.shape[0]
+    plan_bytes = sum(t.nbytes for t in (plan.seg_row_start, plan.seg_block,
+                                        plan.block_seg_start, pp))
+    bytes_moved = (slots.nbytes + zw.nbytes + npairs * 128 * 4 + plan_bytes)
+    bound_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    bf16_bytes = slots.nbytes + in16[0].nbytes + npairs * 128 * 4 + plan_bytes
+    print(f"K2 timing at path shapes ({rows} rows x 384 B, {zw.shape[0]} "
+          f"windows of {zw.shape[1]}, {plan.num_segments} segments, {npairs} "
+          f"pairs): {ms:.4f} ms (f32 windows, words24), {ms_int32:.4f} ms "
+          f"(int32 words), {ms_bf16:.4f} ms (bf16 windows; byte bound "
+          f"{bf16_bytes / H100_BYTES_PER_S * 1e3:.4f} ms); twin "
+          f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, byte "
+          f"bound {bound_ms:.4f} ms ({bytes_moved} B at 3.35 TB/s; "
+          f"{bound_ms / ms:.1%} of bound); pair -> block expansion "
+          f"{expand_ms:.4f} ms ({zw.shape[0]} partitions)")
+    return {
+        "name": "ell_contrib_partitioned", "route": "cuda",
+        "source": "pagerank_tpu_torch/csrc/ell_contrib_partitioned.cu",
+        "replaces": "pagerank_tpu/ops/pallas_spmv.py:241",
+        "checked": True, "max_abs_err": max_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def resume_determinism(scale, tmp, extra=()):
+    """Phase 7: 6 iterations + resume to 10 == 10 uninterrupted, through
+    the CLI with ``extra`` flags."""
     import numpy as np
 
     from pagerank_tpu_torch import cli
 
-    base = ["--synthetic", f"rmat:{scale}", "--dtype", "float32"]
-    cut = os.path.join(tmp, "cut")
-    ctrl = os.path.join(tmp, "ctrl")
+    base = ["--synthetic", f"rmat:{scale}", "--dtype", "float32", *extra]
+    tag = "-".join(extra) or "flat"
+    cut = os.path.join(tmp, f"cut{tag}")
+    ctrl = os.path.join(tmp, f"ctrl{tag}")
     cli.run(base + ["--iters", "6", "--snapshot-dir", cut])
     s = cli.run(base + ["--iters", str(ITERS), "--snapshot-dir", cut,
                         "--resume"])
@@ -370,8 +651,10 @@ def resume_determinism(scale, tmp):
     a = np.load(os.path.join(cut, f"ranks_iter{ITERS}.npz"))["ranks"]
     b = np.load(os.path.join(ctrl, f"ranks_iter{ITERS}.npz"))["ranks"]
     _check(np.array_equal(a, b), "resumed run differs from uninterrupted")
-    print(f"resume rmat:{scale}: 6 + resume to {ITERS} is bit-equal to an "
-          f"uninterrupted {ITERS}")
+    print(f"resume rmat:{scale} {' '.join(extra)} ({s['form']}, span "
+          f"{s['partition_span']}, K={s['partitions']}): 6 + resume to "
+          f"{ITERS} is bit-equal to an uninterrupted {ITERS}")
+    return s["form"]
 
 
 def main(argv=None) -> int:
@@ -403,14 +686,27 @@ def main(argv=None) -> int:
     scratch = os.path.join(ROOT, "build")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_", dir=scratch) as tmp:
-        summary, report = main_path(args.scale, tmp)
+        summary, report, oracle = main_path(args.scale, tmp)
         k1 = kernel_checks(summary["engine"])
         k1["launches"] = report["launches"]
         step_breakdown(summary["engine"])
+        graph = summary["graph"]
+        flat_rows = summary["engine"].layout_info()["num_rows"]
         del summary
+        eng32, eng16, part_report = partitioned_path(graph, oracle, flat_rows)
+        del graph, oracle
+        k2 = k2_checks(eng32, eng16)
+        k2["launches"] = part_report["f32"]["launches"]
+        for eng, label in ((eng32, "K2"), (eng16, "K2 (bf16 windows)")):
+            step_breakdown(eng, label, ("pair_segment_partials", "pair_sums"))
+        del eng32, eng16
         resume_determinism(args.resume_scale, tmp)
+        form = resume_determinism(args.resume_scale, tmp,
+                                  ("--partition-span", "-1"))
+        _check(form == "pallas_partitioned",
+               f"--partition-span -1 at rmat:{args.resume_scale} ran {form}")
     print(f"chip smoke took {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1]}))
+    print(json.dumps({"kernels": [k1, k2]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

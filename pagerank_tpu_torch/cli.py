@@ -1,11 +1,15 @@
 """Command-line entry point of the port: ``python -m pagerank_tpu_torch.cli``.
 
 Port of the main-path part of ``pagerank_tpu/cli.py``: the flags of
-:45-208 that the main path reads, ``load_graph`` (:713-869; here
-``load_edges`` + ``build_graph``) for edge lists, ``.npz`` and synthetic graphs, and the ``--out`` writer
-(:2305-2320), whose TSV matches the JAX CLI's. The solve runs on
-``--device`` (default cuda); ``--device cpu`` is the only way to run it
-on a host without a card.
+:45-208 that the main path reads (``--partition-span`` and
+``--stream-dtype`` with the JAX help text, :156-172), ``load_graph``
+(:713-869; here ``load_edges`` + ``build_graph``) for edge lists,
+``.npz`` and synthetic graphs, the partition-span resolution
+(:1639-1679, with the partition part of ``ops/device_build.py:
+plan_build``, :344-368, as :func:`plan_partition_span`) and the
+``--out`` writer (:2305-2320), whose TSV matches the JAX CLI's. The
+solve runs on ``--device`` (default cuda); ``--device cpu`` is the only
+way to run it on a host without a card.
 
 ``run(argv)`` is the programmatic entry point (it returns the solve's
 summary: ranks, graph, engine, timings); ``main(argv)`` wraps it.
@@ -47,6 +51,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="float32", choices=["float32", "float64"])
     p.add_argument("--accum-dtype", default=None,
                    choices=["float32", "float64"], help="defaults to --dtype")
+    p.add_argument(
+        "--partition-span", type=int, default=0,
+        help="partition-centric SpMV layout: sub-bin slots by source "
+        "partition of this many vertices so each gather reads one "
+        "partition's window of the rank vector (kernel K2). 0 = off "
+        "(default layout), -1 = auto (engine rule: dense cells + "
+        "resident window, off when not worth it), >0 = explicit span "
+        "(rounded down to a multiple of 128). 32-bit accumulation only",
+    )
+    p.add_argument(
+        "--stream-dtype", default="", choices=["", "bfloat16"],
+        help="stream the gather windows in this dtype with f32 "
+        "accumulation (~half the window bytes for ~2^-9 relative z "
+        "quantization). Requires --partition-span (only the "
+        "partitioned layout consumes the narrowed stream)",
+    )
     p.add_argument("--tol", type=float, default=None,
                    help="L1 early-stop (default: none)")
     p.add_argument("--snapshot-dir", default=None,
@@ -121,6 +141,65 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+def plan_partition_span(cfg, n: int, num_edges: Optional[int],
+                        partition_span: int) -> int:
+    """The partition span a build should use for ``cfg`` on a graph of
+    ``n`` vertices: 0 (off) under 64-bit accumulation, vertex sharding
+    or a non-ELL kernel; the engine's auto rule for -1
+    (``TorchEngine.partition_span``, 0 when the graph is too small or
+    sparse to win); then at most the padded vertex count, rounded down
+    to a multiple of 128."""
+    from pagerank_tpu_torch.engines.torch_engine import TorchEngine
+    from pagerank_tpu_torch.ops import LANES
+    from pagerank_tpu_torch.utils.config import torch_dtype
+
+    n_padded = -(-n // LANES) * LANES
+    z_item = max(torch_dtype(cfg.dtype).itemsize,
+                 torch_dtype(cfg.accum_dtype).itemsize)
+    part = partition_span
+    if part and (z_item > 4 or cfg.vertex_sharded
+                 or cfg.kernel not in ("auto", "ell", "pallas")):
+        if part > 0:
+            _log("partition_span requires an ELL kernel with 32-bit "
+                 "accumulation, replicated mode; planning the default "
+                 "layout")
+        part = 0
+    if part == -1:
+        part = TorchEngine.partition_span(n_padded, num_edges, z_item)
+    part = min(int(part or 0), n_padded)
+    if part:
+        rounded = max(LANES, part & ~(LANES - 1))
+        if rounded != part:
+            _log(f"partition_span rounded {part} -> {rounded} (must be a "
+                 f"multiple of {LANES})")
+            part = rounded
+    return part
+
+
+def resolve_layout(cfg, args, graph):
+    """``cfg`` with the run's partition span and stream dtype: the
+    span resolved by :func:`plan_partition_span`; an explicit span the
+    planner refused exits with the config error; ``--stream-dtype``
+    without a resolved span is dropped with a note on stderr."""
+    if args.partition_span:
+        part = plan_partition_span(cfg, graph.n, graph.num_edges,
+                                   args.partition_span)
+        if part:
+            cfg = cfg.replace(partition_span=part)
+        elif args.partition_span > 0:
+            try:
+                cfg.replace(partition_span=args.partition_span).validate()
+            except ValueError as e:
+                raise SystemExit(str(e))
+    if args.stream_dtype:
+        if cfg.partition_span:
+            cfg = cfg.replace(stream_dtype=args.stream_dtype)
+        else:
+            _log("--stream-dtype needs the partitioned layout "
+                 "(--partition-span); running without the narrowed stream")
+    return cfg.validate()
+
+
 def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Load, build, solve and write outputs; returns the summary:
     ``ranks`` (host, original id order), ``graph``, ``engine``,
@@ -128,8 +207,11 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     each ending in a device sync), ``input_seconds`` (read or generate
     the edges), ``graph_seconds`` (build_graph) and
     ``engine_build_seconds`` (pack, plan and placement; its split is in
-    ``engine.layout_info()["build_seconds"]``)."""
-    from pagerank_tpu_torch.engines.torch_engine import TorchEngine
+    ``engine.layout_info()["build_seconds"]``), and the layout that ran:
+    ``form``, ``partition_span`` (0 for the flat form) and
+    ``partitions``."""
+    from pagerank_tpu_torch.engines.torch_engine import (
+        TorchEngine, resolve_device)
     from pagerank_tpu_torch.utils.config import PageRankConfig
     from pagerank_tpu_torch.utils.snapshot import Snapshotter, resume_engine
 
@@ -138,8 +220,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
         num_iters=args.iters, damping=args.damping, semantics=args.semantics,
         dtype=args.dtype, accum_dtype=args.accum_dtype or args.dtype,
         tol=args.tol,
-    )
-    engine = TorchEngine(cfg, device=args.device)  # raises without a card
+    ).validate()
+    resolve_device(args.device)  # raises without a card, before any work
 
     t0 = time.perf_counter()
     src, dst, n = load_edges(args)
@@ -150,13 +232,23 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     input_s, graph_s = t1 - t0, t2 - t1
     _log(f"graph: n={graph.n:,} edges={graph.num_edges:,} (input "
          f"{input_s:.3f} s, build {graph_s:.3f} s)")
+    cfg = resolve_layout(cfg, args, graph)
+    engine = TorchEngine(cfg, device=args.device)
     t0 = time.perf_counter()
     engine.build(graph)
     build_s = time.perf_counter() - t0
     lay = engine.layout_info()
+    parts = lay.get("partitions", 1)
+    if lay["partition_span"]:
+        detail = (f"span {lay['partition_span']:,}, K={parts} partitions, "
+                  f"{lay['pairs']:,} pairs, "
+                  f"{'words24' if lay['words24'] else 'int32 words'}, "
+                  f"{lay['z_dtype']} windows, ")
+    else:
+        detail = ""
     _log(f"engine: {lay['form']} on {lay['device']}, kernel {lay['kernel']}, "
-         f"{lay['num_rows']:,} slot rows in {lay['num_segments']:,} segments "
-         f"(build {build_s:.3f} s)")
+         f"{detail}{lay['num_rows']:,} slot rows in {lay['num_segments']:,} "
+         f"segments (build {build_s:.3f} s)")
 
     snap = None
     resumed = 0
@@ -199,6 +291,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
         "resumed_from": resumed, "iterations": engine.iteration,
         "step_seconds": step_s, "input_seconds": input_s,
         "graph_seconds": graph_s, "engine_build_seconds": build_s,
+        "form": lay["form"], "partition_span": lay["partition_span"],
+        "partitions": parts,
     }
 
 

@@ -1,27 +1,40 @@
-"""TorchEngine — the single-device flat-ELL PageRank solve in PyTorch.
+"""TorchEngine — the single-device ELL PageRank solve in PyTorch.
 
-Port of the single-device flat ELL form of ``JaxTpuEngine``
-(``pagerank_tpu/engines/jax_engine.py``): the flat branch of the build
-(:578-665), the pallas branch of ``_setup_ell`` (:1066-1433 — sentinel
-repoint :1117-1121, prescale :1356-1358), ``_finalize`` with its
-``update_tail`` (:3331-3426) and ``rank_mass``/``ranks``/
-``decode_ranks``/``set_ranks``/``layout_info`` (:4560-4623).
+Port of the single-device ELL forms of ``JaxTpuEngine``
+(``pagerank_tpu/engines/jax_engine.py``) that run a hand kernel:
+
+- the flat form: the flat branch of the build (:578-665), the pallas
+  branch of ``_setup_ell`` (:1066-1433 — sentinel repoint :1117-1121,
+  prescale :1356-1358), run by K1;
+- the partition-centric form (``partition_span`` > 0): the routing
+  (:530-576), the layout of ``_setup_ell_partitioned`` (:1442-1626) and
+  the pallas-partitioned setup (:1720-1916), run by K2 — without the
+  XLA chunk autotune, the grouped lanes, the TPU's per-partition chunk
+  padding (:1523-1537, :1557), the probe and the
+  ``PallasUnavailableError`` downgrade;
+
+and ``_finalize`` with its ``update_tail`` (:3331-3426),
+``rank_mass``/``ranks``/``decode_ranks``/``set_ranks``/``layout_info``/
+``snapshot_meta`` (:4560-4650).
 
 Every device, the CPU included, runs the same host pack as the JAX
-engine's pallas form: lane group 1, one stripe, inert slots pointing at
-the sentinel ``n_state``, ``z_ext = [r·inv_out, 0×8]``, and z kept in
-``accum_dtype`` when that is wider than the rank dtype. Per step:
+engine's pallas forms: lane group 1, inert slots pointing at a zero
+sentinel, and (flat form) z kept in ``accum_dtype`` when that is wider
+than the rank dtype. Per step:
 
-    z       = r · inv_out                        (prescale, in place)
-    contrib = K1(z_ext, slots)                   (ops/ell_spmv.ell_contrib)
-    m       = Σ_dangling r                       (accum_dtype)
-    r'      = apply_update(contrib, r, ...)      (models/pagerank.py)
-    delta   = Σ |r' - r|                         (accum_dtype)
+    flat:         z_ext = [r·inv_out, 0×8]              (prescale)
+                  contrib = K1(z_ext, slots)            (ops/ell_spmv)
+    partitioned:  z_windows[k] = [(r·inv_out)[k·psz:(k+1)·psz], 0…]
+                  pairs = K2(z_windows, slots)          (ops/ell_spmv_partitioned)
+                  contrib = Σ_k expand(pairs of partition k)   (ops/spmv)
+    then          m = Σ_dangling r, r' = apply_update(contrib, r, ...),
+                  delta = Σ |r' - r|                    (accum_dtype)
 
-On ``cuda`` contrib is the hand-written kernel; on ``cpu`` the wrapper
-runs its plain version. There is no fallback between the two: a CUDA
-engine launches the kernel or raises. The kernel and z stay in device
-memory (the TPU form's whole-z VMEM limit has no counterpart here).
+On ``cuda`` the kernels are the hand-written ones; on ``cpu`` the
+wrappers run their plain versions. There is no fallback between the
+two: a CUDA engine launches the kernel or raises. The kernels, z and
+the windows stay in device memory (the TPU forms' VMEM limits have no
+counterpart here).
 """
 
 from __future__ import annotations
@@ -36,8 +49,9 @@ from pagerank_tpu_torch import graph as graph_mod
 from pagerank_tpu_torch.engine import PageRankEngine, register_engine
 from pagerank_tpu_torch.graph import Graph
 from pagerank_tpu_torch.models import pagerank as pr_model
+from pagerank_tpu_torch.ops import LANES
 from pagerank_tpu_torch.ops import ell as ell_lib
-from pagerank_tpu_torch.ops import ell_spmv
+from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
 from pagerank_tpu_torch.ops import spmv
 from pagerank_tpu_torch.utils.config import torch_dtype
 
@@ -62,7 +76,53 @@ def resolve_device(device=None) -> torch.device:
 
 @register_engine("torch")
 class TorchEngine(PageRankEngine):
-    """Flat blocked-ELL power iteration on one device."""
+    """Flat or partition-centric blocked-ELL power iteration on one
+    device."""
+
+    # Partition-centric layout rule, with the JAX engine's constants
+    # (jax_engine.py:289-305) so that -1 resolves to the same span in
+    # both packages: a (partition, 128-dst block) cell must hold about
+    # PART_MIN_CELL_EDGES edges on average or its ELL padding floor eats
+    # the stream savings, and the window is held to
+    # PART_MAX_WINDOW_BYTES. A rule of the H100's own comes with its
+    # measurements.
+    PART_MIN_CELL_EDGES = 512
+    PART_MAX_WINDOW_BYTES = 12 << 20
+    # Hard cap on the partition count: an undersized explicit span
+    # would multiply the per-partition expansion steps.
+    MAX_PARTITIONS = 256
+
+    @classmethod
+    def partition_span(cls, n_padded: int, num_edges, z_item: int = 4) -> int:
+        """Auto partition span (``jax_engine.py:307-341``): the SMALLEST
+        power-of-two span (>= 2^15) whose expected (partition, dst-block)
+        cell edges ``num_edges * span * 128 / n_padded^2`` reach
+        ``PART_MIN_CELL_EDGES``, with at least two partitions, at most
+        ``MAX_PARTITIONS`` and a window of at most
+        ``PART_MAX_WINDOW_BYTES``. 0 = not worth engaging."""
+        if not num_edges or n_padded < (2 << 15):
+            return 0
+        span = 1 << 15
+        while span * cls.MAX_PARTITIONS < n_padded:
+            span *= 2
+        while span * 2 <= n_padded:
+            cells = num_edges * span * 128.0 / float(n_padded) ** 2
+            if cells >= cls.PART_MIN_CELL_EDGES:
+                break
+            span *= 2
+        else:
+            return 0
+        if span * 2 > n_padded or span * z_item > cls.PART_MAX_WINDOW_BYTES:
+            return 0
+        return span
+
+    @staticmethod
+    def partition_words24(span: int) -> bool:
+        """Whether partition-local slot words (sentinel = span) fit 24
+        bits — the 3-byte planar slot stream (``ops/spmv.py:
+        pack_words24``); int32 words otherwise (``jax_engine.py:
+        343-351`` at lane group 1)."""
+        return span < (1 << 24)
 
     def __init__(self, config=None, device=None):
         super().__init__(config)
@@ -82,7 +142,20 @@ class TorchEngine(PageRankEngine):
         self.graph = graph
         n = graph.n
         t0 = time.perf_counter()
-        pack = ell_lib.ell_pack(graph)
+        if cfg.partition_span:
+            n_padded = -(-n // LANES) * LANES
+            psz = min(cfg.partition_span, max(LANES, n_padded))
+            parts = -(-n_padded // psz)
+            if parts > self.MAX_PARTITIONS:
+                raise ValueError(
+                    f"partition_span {psz} gives {parts} partitions "
+                    f"(> {self.MAX_PARTITIONS}): span too small for this "
+                    f"graph — raise partition_span (auto rule: "
+                    f"TorchEngine.partition_span)"
+                )
+            pack = ell_lib.ell_pack_striped(graph, stripe_size=psz)
+        else:
+            pack = ell_lib.ell_pack(graph)
         t1 = time.perf_counter()
         self._perm = pack.perm
         n_state = pack.n_padded
@@ -101,24 +174,35 @@ class TorchEngine(PageRankEngine):
         zero_in = relabel(graph.zero_in_mask)
         valid = relabel(np.ones(n, bool))
         inv = relabel(graph_mod.inv_out_degree(graph.out_degree))
-        src = ell_lib.sentinel_slots(pack)
-        plan = ell_lib.segment_plan(pack.row_block, pack.num_blocks)
+        if cfg.partition_span:
+            host, plan, layout = self._plan_partitioned(pack, psz)
+        else:
+            host, plan, layout = self._plan_flat(pack)
         t2 = time.perf_counter()
         self._dangling = dangling.to(dev)
         self._zero_in = zero_in.to(dev)
         self._valid = valid.to(dev)
         self._inv_out = inv.to(device=dev, dtype=self._z_dtype)
-        self._src = torch.from_numpy(src).to(dev)
-        self._row_block = torch.from_numpy(pack.row_block).to(dev)
+        self._arrays = {k: torch.from_numpy(v).to(dev)
+                        for k, v in host.items()}
         self._plan = ell_spmv.plan_to(plan, dev)
+        if cfg.partition_span:
+            table = torch.bfloat16 if cfg.stream_dtype else self._z_dtype
+            self._z_buf = torch.zeros((self._parts, self._window),
+                                      dtype=table, device=dev)
+            self._ids = [self._arrays["ids"][lo:hi].long() for lo, hi
+                         in zip(self._pair_offs[:-1], self._pair_offs[1:])]
+        else:
+            self._z_buf = torch.zeros(n_state + Z_PAD, dtype=self._z_dtype,
+                                      device=dev)
+        kernel = ("ell_contrib_partitioned" if cfg.partition_span
+                  else "ell_contrib")
         if dev.type == "cuda":
             # Build (or load) the kernel now, so nvcc never lands in a
             # timed step.
             from pagerank_tpu_torch.kernels import build as kbuild
 
-            kbuild.load("ell_contrib")
-        self._z_ext = torch.zeros(n_state + Z_PAD, dtype=self._z_dtype,
-                                  device=dev)
+            kbuild.load(kernel)
         # r0 over the TRUE n (1/n in textbook mode), zero in padding.
         self._r = torch.zeros(n_state, dtype=self._dtype, device=dev)
         self._r[:n] = pr_model.initial_rank(n, cfg.semantics, self._dtype,
@@ -128,42 +212,139 @@ class TorchEngine(PageRankEngine):
         t3 = time.perf_counter()
         self.iteration = 0
         self._layout = {
-            "form": "flat_ell",
-            "kernel": ("ell_contrib:cuda" if dev.type == "cuda"
-                       else "ell_contrib:reference"),
+            **layout,
+            "kernel": (f"{kernel}:cuda" if dev.type == "cuda"
+                       else f"{kernel}:reference"),
             "kernel_requested": cfg.kernel,
             "device": str(dev),
             "group": 1,
-            "num_rows": pack.num_rows,
-            "padding_ratio": pack.padding_ratio,
             "num_segments": plan.num_segments,
             "seg_rows": ell_lib.SEG_ROWS,
             "dtype": cfg.dtype,
             "accum_dtype": cfg.accum_dtype,
-            "z_dtype": str(self._z_dtype).replace("torch.", ""),
+            "z_dtype": str(self._z_buf.dtype).replace("torch.", ""),
             # Host wall of the build's stages: the ELL pack; the
-            # per-vertex planes, sentinel repoint and segment plan; and
-            # device placement (with the kernel build or load on cuda).
+            # per-vertex planes, sentinel repoint, pair ranks, word
+            # packing and segment plan; and device placement (with the
+            # kernel build or load on cuda).
             "build_seconds": {"pack": t1 - t0, "plan": t2 - t1,
                               "place": t3 - t2},
         }
         return self
 
+    def _plan_flat(self, pack):
+        """Host arrays, segment plan and layout keys of the flat form."""
+        host = {"src": ell_lib.sentinel_slots(pack),
+                "row_block": pack.row_block}
+        plan = ell_lib.segment_plan(pack.row_block, pack.num_blocks)
+        return host, plan, {
+            "form": "flat_ell", "partition_span": 0,
+            "num_rows": pack.num_rows, "padding_ratio": pack.padding_ratio,
+        }
+
+    def _plan_partitioned(self, pack, psz):
+        """Host arrays, segment plan and layout keys of the
+        partition-centric form (``jax_engine.py:1486-1575, 1807-1845``):
+        the partitions' slot rows concatenated partition-major with
+        inert slots at the local sentinel ``psz``, each partition's
+        (dst block, partition) pairs numbered densely after the ones
+        before it, and the per-partition expansion ids."""
+        K = pack.n_stripes
+        sent = np.int32(psz)
+        srcs, ranks, ids, counts, prefix = [], [], [], [], []
+        pair_off = 0
+        for p in range(K):
+            srcs.append(np.where(pack.weight[p] != 0, pack.src[p], sent))
+            rk, ids_p, pc, pre = ell_lib.dense_block_ranks(
+                pack.row_block[p], pack.num_blocks)
+            ranks.append(rk + np.int32(pair_off))
+            ids.append(ids_p)
+            counts.append(pc)
+            prefix.append(pre)
+            pair_off += pc
+        words24 = self.partition_words24(psz)
+        src = np.concatenate(srcs)
+        del srcs
+        if words24:
+            src = spmv.pack_words24(src)
+        row_pair = np.concatenate(ranks)
+        self._parts = K
+        self._psz = psz
+        # One zero row of 128 lanes after each window: the sentinel psz
+        # reads it, and every window starts 128-lane aligned.
+        self._window = psz + LANES
+        self._num_pairs = pair_off
+        self._pair_offs = np.concatenate([[0], np.cumsum(counts)]).tolist()
+        self._prefix = prefix
+        host = {
+            "src": src, "row_pair": row_pair,
+            "pair_part": np.repeat(np.arange(K, dtype=np.int32), counts),
+            "ids": np.concatenate(ids),
+        }
+        plan = ell_lib.segment_plan(row_pair, pair_off)
+        rows = int(row_pair.shape[0])
+        return host, plan, {
+            "form": "pallas_partitioned",
+            "partition_span": psz, "partitions": K,
+            "window_rows": self._window // LANES, "words24": words24,
+            "stream_dtype": self.config.stream_dtype or None,
+            "pairs": pair_off, "slot_rows": rows, "num_rows": rows,
+            "padding_ratio": pack.padding_ratio, "n_stripes": 1,
+            "stripe_span": pack.n_padded, "pair": False,
+        }
+
     def contrib_inputs(self):
-        """The kernel's inputs at the current state — ``(z_ext, src,
-        row_block, num_blocks, plan)`` — with z_ext freshly prescaled.
-        What the step feeds K1, for callers that check the kernel at the
-        main path's own shapes."""
-        torch.mul(self._r.to(self._z_dtype), self._inv_out,
-                  out=self._z_ext[: self._n_state])
-        return (self._z_ext, self._src, self._row_block, self._num_blocks,
+        """The form's kernel inputs at the current state, z freshly
+        prescaled: ``(z_ext, src, row_block, num_blocks, plan)`` for K1
+        (flat form), ``(z_windows, src, row_pair, pair_part, num_pairs,
+        plan)`` for K2 (partitioned form). What the step feeds the
+        kernel, for callers that check it at the main path's shapes."""
+        r = self._r.to(self._z_dtype)
+        a = self._arrays
+        if not self.config.partition_span:
+            torch.mul(r, self._inv_out, out=self._z_buf[: self._n_state])
+            return (self._z_buf, a["src"], a["row_block"], self._num_blocks,
+                    self._plan)
+        # Partition k's window holds z[k*psz : (k+1)*psz]; the last
+        # partition may be short of psz, its tail stays zero. torch.mul
+        # into a bf16 window rounds the f32 product to nearest even, as
+        # the JAX prescale's astype does.
+        psz, zw = self._psz, self._z_buf
+        q, rem = divmod(self._n_state, psz)
+        if q:
+            torch.mul(r[: q * psz].view(q, psz),
+                      self._inv_out[: q * psz].view(q, psz), out=zw[:q, :psz])
+        if rem:
+            torch.mul(r[q * psz:], self._inv_out[q * psz:], out=zw[q, :rem])
+        return (zw, a["src"], a["row_pair"], a["pair_part"], self._num_pairs,
                 self._plan)
 
+    def _contrib(self) -> torch.Tensor:
+        """contrib = Aᵀ_norm·r over the padded state, in relabeled order."""
+        if not self.config.partition_span:
+            z_ext, src, rb, nb, plan = self.contrib_inputs()
+            return ell_spmv.ell_contrib(
+                z_ext, src, rb, nb, accum_dtype=self._accum, plan=plan,
+            )[: self._n_state]
+        pairs = ell_spmv_partitioned.ell_contrib_partitioned(
+            *self.contrib_inputs()[:5], plan=self._plan)
+        return self.expand_pairs(pairs)[: self._n_state]
+
+    def expand_pairs(self, pairs: torch.Tensor) -> torch.Tensor:
+        """Pair sums [num_pairs*128] -> block sums [num_blocks*128] of the
+        partitioned form: one add per partition, in partition order
+        (``jax_engine.py:1855-1865``)."""
+        pairs = pairs.view(self._num_pairs, LANES)
+        total = torch.zeros((self._num_blocks, LANES), dtype=pairs.dtype,
+                            device=pairs.device)
+        offs = self._pair_offs
+        for j, ids in enumerate(self._ids):
+            spmv.scatter_block_sums(total, pairs[offs[j]:offs[j + 1]], ids,
+                                    self._prefix[j])
+        return total.reshape(-1)
+
     def step(self) -> Dict[str, float]:
-        z_ext, src, rb, nb, plan = self.contrib_inputs()
-        contrib = ell_spmv.ell_contrib(
-            z_ext, src, rb, nb, accum_dtype=self._accum, plan=plan,
-        )[: self._n_state]
+        contrib = self._contrib()
         r = self._r
         acc = self._accum
         m = spmv.dangling_mass(r, self._dangling, acc)
@@ -208,4 +389,5 @@ class TorchEngine(PageRankEngine):
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
         return {"engine": self.name, "num_devices": 1, "device": name,
-                "form": self._layout.get("form")}
+                "form": self._layout.get("form"),
+                "partition_span": self._layout.get("partition_span", 0)}

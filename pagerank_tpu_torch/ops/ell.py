@@ -1,8 +1,10 @@
-"""Blocked-ELL edge packing, and the segment plan the CUDA kernel reads.
+"""Blocked-ELL edge packing, and the segment plan the CUDA kernels read.
 
-Port of ``pagerank_tpu/ops/ell.py:65-110, 238-397`` at lane group 1 and
-one stripe (the only form this slice runs): ``ell_pack`` here gives the
-same arrays, bit for bit, as the JAX package's ``ell_pack(graph)``.
+Port of ``pagerank_tpu/ops/ell.py:65-153, 238-397`` at lane group 1
+with no block deal (grouped lanes are an XLA-path packing; the deal
+belongs to the multi-GPU forms): ``ell_pack`` and ``ell_pack_striped``
+here give the same arrays, bit for bit, as the JAX package's
+``ell_pack(graph)`` and ``ell_pack_striped(graph, stripe_size=s)``.
 
 Layout:
   - vertices are RELABELED by descending in-degree (stable), so the 128
@@ -18,6 +20,14 @@ Layout:
 All ids inside the packed arrays are RELABELED; ``perm`` maps relabeled
 -> original id, ``inv_perm`` the reverse.
 
+**Partition-centric layout.** Packing with ``stripe_size`` set to a
+partition span makes the stripes SOURCE partitions: slots are
+sub-binned by source partition within each dst block by the same one
+sort, with partition-local source ids. The engine concatenates the
+partitions partition-major, numbers each partition's (dst block,
+partition) pairs densely (:func:`dense_block_ranks`), sums slot rows
+into pairs with kernel K2 and expands the pairs into blocks.
+
 **Segment plan (new in the port).** The relabel makes block 0 the
 deepest: on an R-MAT scale-22 graph a hub block has ~10^5 rows. On the
 card blocks of a grid run in parallel and in no order, so one CTA per
@@ -25,7 +35,11 @@ dst block would leave the whole sweep waiting on block 0.
 :func:`segment_plan` cuts every block's row range into segments of at
 most ``SEG_ROWS`` rows; the kernel gives each segment a CTA and then
 sums each block's segment partials in segment order — a fixed order,
-so results are bit-identical from run to run without atomics.
+so results are bit-identical from run to run without atomics. K2 reads
+the same plan cut over the global dense pair ranks of the partitioned
+layout (pairs in place of blocks): pairs are contiguous and ascending
+in its partition-major row order, so a segment never straddles a pair
+or a partition.
 """
 
 from __future__ import annotations
@@ -67,10 +81,62 @@ class EllPack:
 
 def ell_pack(graph: Graph) -> EllPack:
     """Pack a dst-sorted COO graph into blocked-ELL form (lane group 1,
-    one stripe over the whole padded vertex range)."""
+    one stripe over the whole padded vertex range, so stripe-local
+    source ids equal relabeled ids)."""
+    n_padded = -(-graph.n // LANES) * LANES
+    sp = ell_pack_striped(graph, stripe_size=max(LANES, n_padded))
+    return EllPack(
+        n=sp.n, n_padded=sp.n_padded, num_blocks=sp.num_blocks,
+        src=sp.src[0], weight=sp.weight[0], row_block=sp.row_block[0],
+        perm=sp.perm, inv_perm=sp.inv_perm, num_real_edges=sp.num_real_edges,
+    )
+
+
+@dataclass
+class StripedEllPack:
+    """ELL packing split into contiguous SOURCE-range stripes: stripe s
+    packs only the edges whose relabeled source lies in
+    [s*stripe_size, (s+1)*stripe_size), with stripe-LOCAL source ids.
+    A dst block has rows in every stripe that feeds it."""
+
+    n: int
+    n_padded: int
+    num_blocks: int
+    stripe_size: int  # vertices per stripe (multiple of 128)
+    src: list  # [stripes] int32 [rows_s, 128] — stripe-local source per slot
+    weight: list  # [stripes] float64 [rows_s, 128]; 0 marks padding
+    row_block: list  # [stripes] int32 [rows_s], ascending per stripe
+    perm: np.ndarray
+    inv_perm: np.ndarray
+    num_real_edges: int
+
+    @property
+    def n_stripes(self) -> int:
+        return len(self.src)
+
+    @property
+    def num_rows(self) -> int:
+        return int(sum(s.shape[0] for s in self.src))
+
+    @property
+    def padding_ratio(self) -> float:
+        return self.num_rows * LANES / max(1, self.num_real_edges)
+
+
+def ell_pack_striped(graph: Graph, stripe_size: int) -> StripedEllPack:
+    """Pack a graph into source-striped blocked-ELL form at lane group 1.
+
+    ``stripe_size`` must be a positive multiple of 128. Slots are in
+    (stripe, relabeled dst, relabeled src) order — the JAX packer's
+    ``lexsort``, done here as one stable argsort of a composite int64
+    key when the key fits (the same order: a stable sort over the same
+    total order, ties kept in input order)."""
+    if stripe_size <= 0 or stripe_size % LANES:
+        raise ValueError(f"stripe_size must be a positive multiple of {LANES}")
     n = graph.n
     n_padded = -(-n // LANES) * LANES
     num_blocks = n_padded // LANES
+    n_stripes = -(-n_padded // stripe_size)
 
     order = np.argsort(-graph.in_degree.astype(np.int64), kind="stable")
     perm = order.astype(np.int32)
@@ -79,45 +145,78 @@ def ell_pack(graph: Graph) -> EllPack:
 
     new_dst = inv_perm[graph.dst].astype(np.int64)
     new_src = inv_perm[graph.src].astype(np.int64)
-    # dst-major slot order, relabeled-src-ascending within a dst: the
-    # JAX packer's (stripe, dst, src) order with one stripe.
-    sort = np.lexsort((new_src, new_dst))
+    stripe_of = new_src // stripe_size
+    if n_stripes * n_padded * n_padded < 1 << 62:
+        key = (stripe_of * n_padded + new_dst) * n_padded + new_src
+        sort = np.argsort(key, kind="stable")
+        del key
+    else:
+        sort = np.lexsort((new_src, new_dst, stripe_of))
     new_dst = new_dst[sort]
     new_src = new_src[sort]
     weight = graph.edge_weight[sort]
+    stripe_of = stripe_of[sort]
 
-    e = new_dst.shape[0]
-    if e == 0:
-        return EllPack(
-            n=n, n_padded=n_padded, num_blocks=num_blocks,
-            src=np.zeros((0, LANES), np.int32),
-            weight=np.zeros((0, LANES), np.float64),
-            row_block=np.zeros(0, np.int32), perm=perm, inv_perm=inv_perm,
-            num_real_edges=0,
-        )
-    # Depth of each slot within its dst's run of in-edges = its row.
-    starts = np.flatnonzero(np.r_[True, new_dst[1:] != new_dst[:-1]])
-    cnt = np.diff(np.r_[starts, e])
-    row = np.arange(e, dtype=np.int64) - np.repeat(starts, cnt)
-    # Rows per block = max in-degree over the block's lanes.
-    run_block = new_dst[starts] // LANES
-    bstarts = np.flatnonzero(np.r_[True, run_block[1:] != run_block[:-1]])
-    block_rows = np.zeros(num_blocks, np.int64)
-    block_rows[run_block[bstarts]] = np.maximum.reduceat(cnt, bstarts)
-    row_offset = np.concatenate([[0], np.cumsum(block_rows)])
-    rows_total = int(row_offset[-1])
+    srcs, weights, row_blocks = [], [], []
+    bounds = np.searchsorted(stripe_of, np.arange(n_stripes + 1))
+    for s in range(n_stripes):
+        lo, hi = bounds[s], bounds[s + 1]
+        d_s = new_dst[lo:hi]
+        e = d_s.shape[0]
+        if e == 0:
+            srcs.append(np.zeros((0, LANES), np.int32))
+            weights.append(np.zeros((0, LANES), np.float64))
+            row_blocks.append(np.zeros(0, np.int32))
+            continue
+        # Depth of each slot within its dst's run of in-edges = its row;
+        # rows per block (in this stripe) = max over the block's lanes.
+        starts = np.flatnonzero(np.r_[True, d_s[1:] != d_s[:-1]])
+        cnt = np.diff(np.r_[starts, e])
+        row = np.arange(e, dtype=np.int64) - np.repeat(starts, cnt)
+        run_block = d_s[starts] // LANES
+        bstarts = np.flatnonzero(np.r_[True, run_block[1:] != run_block[:-1]])
+        block_rows = np.zeros(num_blocks, np.int64)
+        block_rows[run_block[bstarts]] = np.maximum.reduceat(cnt, bstarts)
+        row_offset = np.concatenate([[0], np.cumsum(block_rows)])
+        rows_total = int(row_offset[-1])
+        src_slots = np.zeros((rows_total, LANES), np.int32)
+        w_slots = np.zeros((rows_total, LANES), np.float64)
+        flat = (row_offset[d_s // LANES] + row) * LANES + d_s % LANES
+        src_slots.reshape(-1)[flat] = (new_src[lo:hi]
+                                       - s * stripe_size).astype(np.int32)
+        w_slots.reshape(-1)[flat] = weight[lo:hi]
+        srcs.append(src_slots)
+        weights.append(w_slots)
+        row_blocks.append(
+            np.repeat(np.arange(num_blocks, dtype=np.int32), block_rows))
 
-    src_slots = np.zeros((rows_total, LANES), np.int32)
-    w_slots = np.zeros((rows_total, LANES), np.float64)
-    flat = (row_offset[new_dst // LANES] + row) * LANES + new_dst % LANES
-    src_slots.reshape(-1)[flat] = new_src.astype(np.int32)
-    w_slots.reshape(-1)[flat] = weight
-    row_block = np.repeat(np.arange(num_blocks, dtype=np.int32), block_rows)
-    return EllPack(
+    return StripedEllPack(
         n=n, n_padded=n_padded, num_blocks=num_blocks,
-        src=src_slots, weight=w_slots, row_block=row_block,
-        perm=perm, inv_perm=inv_perm, num_real_edges=int(e),
+        stripe_size=stripe_size, src=srcs, weight=weights,
+        row_block=row_blocks, perm=perm, inv_perm=inv_perm,
+        num_real_edges=int(new_dst.shape[0]),
     )
+
+
+def dense_block_ranks(row_block: np.ndarray, num_blocks: int):
+    """(ranks, present_ids, num_present, is_prefix) for a SORTED block-id
+    array: ``ranks`` renumbers each distinct block to its 0-based run
+    index, ``present_ids`` maps rank -> block id, ``is_prefix`` says the
+    present blocks are exactly 0..num_present-1 (the expansion is then a
+    slice add). Empty input gets one sentinel id (``num_blocks - 1``) so
+    shapes stay non-empty; its pair has no rows and sums to zero."""
+    rb = row_block
+    starts = (
+        np.concatenate([[True], rb[1:] != rb[:-1]])
+        if len(rb) else np.zeros(0, bool)
+    )
+    ids = rb[starts].astype(np.int32)
+    ranks = (np.cumsum(starts) - 1).astype(np.int32)
+    pcount = max(1, len(ids))
+    prefix = bool(len(ids) == ids[-1] + 1 if len(ids) else True)
+    if len(ids) == 0:
+        ids = np.array([num_blocks - 1], np.int32)
+    return ranks, ids, pcount, prefix
 
 
 def sentinel_slots(pack: EllPack) -> np.ndarray:

@@ -115,25 +115,34 @@ def ell_contrib(z_ext, src_slots, row_block, num_blocks, *, accum_dtype,
     return _launch(z_ext, src_slots, num_blocks, accum_dtype, plan)
 
 
-def _launch(z_ext, src_slots, num_blocks, accum_dtype, plan):
-    global launches
+def check_plan(plan, device, num_groups: int, num_rows: int) -> int:
+    """Raise unless ``plan`` is a device segment plan that fits
+    ``num_groups`` groups (dst blocks for K1, pairs for K2) and
+    ``num_rows`` slot rows; return its segment count."""
     if plan is None:
         raise ValueError("the CUDA kernel needs the segment plan")
     rs, sb, bs = plan.seg_row_start, plan.seg_block, plan.block_seg_start
     num_segs = sb.shape[0]
-    for name, t in (("seg_row_start", rs), ("block_seg_start", bs)):
-        if (t.dtype != torch.int32 or t.device != z_ext.device
+    for name, t in (("seg_row_start", rs), ("seg_block", sb),
+                    ("block_seg_start", bs)):
+        if (t.dtype != torch.int32 or t.device != device
                 or not t.is_contiguous() or t.dim() != 1):
             raise ValueError(
-                f"plan.{name} must be a contiguous int32 vector on "
-                f"{z_ext.device}")
-    if (rs.shape[0] != num_segs + 1 or bs.shape[0] != num_blocks + 1
-            or plan.num_rows != src_slots.shape[0]):
+                f"plan.{name} must be a contiguous int32 vector on {device}")
+    if (rs.shape[0] != num_segs + 1 or bs.shape[0] != num_groups + 1
+            or plan.num_rows != num_rows):
         raise ValueError(
             f"the plan (seg_row_start {tuple(rs.shape)}, block_seg_start "
             f"{tuple(bs.shape)}, {plan.num_rows} rows) does not fit "
-            f"{num_segs} segments, {num_blocks} blocks and "
-            f"{src_slots.shape[0]} slot rows")
+            f"{num_segs} segments, {num_groups} groups and {num_rows} slot "
+            f"rows")
+    return num_segs
+
+
+def _launch(z_ext, src_slots, num_blocks, accum_dtype, plan):
+    global launches
+    num_segs = check_plan(plan, z_ext.device, num_blocks, src_slots.shape[0])
+    rs, bs = plan.seg_row_start, plan.block_seg_start
     from pagerank_tpu_torch.kernels import build
 
     lib = build.load("ell_contrib")

@@ -1,7 +1,8 @@
 """Configuration of a PageRank run.
 
-Port of ``pagerank_tpu/utils/config.py:132-212`` (``PageRankConfig``)
-and of the three ``RobustnessConfig`` fields the solve loop reads. The
+Port of ``pagerank_tpu/utils/config.py:132-212`` (``PageRankConfig``),
+its partition-centric validation rules (``:445-480``, same messages)
+and the three ``RobustnessConfig`` fields the solve loop reads. The
 fields of layouts and modes that later slices of the port bring are
 kept so a caller can name them, and ``validate`` refuses them with the
 ROADMAP slice that ports them.
@@ -76,18 +77,26 @@ class PageRankConfig:
     dtype: str = "float32"
     accum_dtype: str = "float32"
 
-    # "auto", "ell" and "pallas" all run the flat ELL form through the
-    # hand-written CUDA kernel (ops/ell_spmv.py): on the card the kernel
-    # is the hot op of every ELL form. "coo" is not ported.
+    # "auto", "ell" and "pallas" all run the hand-written CUDA kernels:
+    # the flat ELL form through K1 (ops/ell_spmv.py), and with a
+    # partition_span the partition-centric form through K2
+    # (ops/ell_spmv_partitioned.py). On the card the kernel is the hot
+    # op of every ELL form. "coo" is not ported.
     kernel: str = "auto"
 
     # Early stop when L1(r' - r) <= tol; None runs all num_iters.
     tol: Optional[float] = None
 
+    # Partition-centric layout: sub-bin slots by source partitions of
+    # this many vertices (a positive multiple of 128; 0 = the flat
+    # form). 32-bit accumulation only.
+    partition_span: int = 0
+    # "bfloat16" streams the partition windows in bf16, summed in f32;
+    # "" streams them in the rank dtype. Needs partition_span.
+    stream_dtype: str = ""
+
     # Fields of later slices (ROADMAP queue 1): accepted at their
     # defaults only.
-    partition_span: int = 0
-    stream_dtype: str = ""
     vertex_sharded: bool = False
     num_devices: Optional[int] = None
 
@@ -105,18 +114,49 @@ class PageRankConfig:
             raise ValueError(
                 f"tol must be a finite positive float, got {self.tol}"
             )
+        # The partition rules come first, as in the JAX package, so the
+        # same invalid config raises the same message in both.
+        if self.stream_dtype not in ("", "bfloat16"):
+            raise ValueError(
+                f"stream_dtype must be '' or 'bfloat16', got "
+                f"{self.stream_dtype!r}"
+            )
+        if self.stream_dtype and not self.partition_span:
+            raise ValueError(
+                "stream_dtype is consumed by the partition-centric "
+                "layout only; set partition_span (the default layout "
+                "would silently ignore the narrowed stream)"
+            )
+        if self.partition_span:
+            if self.partition_span < 0 or self.partition_span % 128:
+                raise ValueError(
+                    f"partition_span must be a positive multiple of 128 "
+                    f"(0 disables), got {self.partition_span}"
+                )
+            if self.kernel not in ("auto", "ell", "pallas"):
+                raise ValueError(
+                    f"partition_span requires the ell or pallas kernel, "
+                    f"got {self.kernel!r}"
+                )
+            if self.vertex_sharded:
+                raise ValueError(
+                    "partition_span is a replicated-mode layout; it does "
+                    "not compose with vertex_sharded"
+                )
+        if (self.stream_dtype or self.partition_span) and torch_dtype(
+                self.accum_dtype).itemsize > 4:
+            raise ValueError(
+                "partition_span/stream_dtype support 32-bit "
+                "accumulation only (the pair/native wide paths keep "
+                "the default layout)"
+            )
         if self.kernel == "coo":
             raise ValueError(
                 "kernel='coo' (the dst-sorted COO segment-sum form) is not "
-                "ported yet: ROADMAP slice 2"
+                "ported yet: ROADMAP slice 4"
             )
         if self.kernel not in ("auto", "ell", "pallas"):
             raise ValueError(f"unknown kernel: {self.kernel!r}")
-        if self.partition_span or self.stream_dtype:
-            raise ValueError(
-                "partition_span/stream_dtype (the partition-centric layout "
-                "and kernel K2) are not ported yet: ROADMAP slice 2"
-            )
         if self.vertex_sharded or (self.num_devices or 1) > 1:
             raise ValueError(
                 "vertex_sharded/num_devices > 1 (more than one GPU) are "

@@ -1,6 +1,6 @@
-"""K1 and the engine on the card. These need an NVIDIA GPU and nvcc: on
-any other host each test skips with a reason. Run them on the card with
-``python -m pytest -m cuda tests/test_torch_cuda.py``."""
+"""K1, K2 and the engine on the card. These need an NVIDIA GPU and nvcc:
+on any other host each test skips with a reason. Run them on the card
+with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -9,7 +9,8 @@ import torch
 import pagerank_tpu_torch
 from pagerank_tpu_torch import PageRankConfig, TorchEngine
 from pagerank_tpu_torch.ops import ell as torch_ell
-from pagerank_tpu_torch.ops import ell_spmv
+from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
+from pagerank_tpu_torch.ops import spmv as torch_spmv
 from pagerank_tpu_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -53,6 +54,32 @@ def test_kernel_matches_twin_and_repeats_bitwise(cuda, dtype, acc, tol):
     assert err <= tol * float(ref.double().abs().max())
 
 
+@pytest.mark.parametrize("stream", ["", "bfloat16"])
+@pytest.mark.parametrize("words", ["words24", "int32"])
+def test_k2_matches_twin_and_repeats_bitwise(cuda, stream, words):
+    src, dst = synth.rmat_edges(12, seed=4)
+    g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
+    eng = TorchEngine(PageRankConfig(partition_span=512,
+                                     stream_dtype=stream)).build(g)
+    assert eng.layout_info()["kernel"] == "ell_contrib_partitioned:cuda"
+    eng.set_ranks(np.random.default_rng(1).random(g.n).astype(np.float32))
+    zw, slots, rp, pp, npairs, plan = eng.contrib_inputs()
+    if words == "int32":
+        slots = torch_spmv.unpack_words24(slots).contiguous()
+    before = ell_spmv_partitioned.launches
+    a = ell_spmv_partitioned.ell_contrib_partitioned(zw, slots, rp, pp,
+                                                     npairs, plan=plan)
+    b = ell_spmv_partitioned.ell_contrib_partitioned(zw, slots, rp, pp,
+                                                     npairs, plan=plan)
+    torch.cuda.synchronize()
+    assert ell_spmv_partitioned.launches == before + 2
+    assert a.dtype == torch.float32 and torch.equal(a, b)
+    exact = ell_spmv_partitioned.ell_contrib_partitioned_reference(
+        zw.double(), slots, rp, pp, npairs)
+    err = float((a.double() - exact).abs().max())
+    assert err <= 1e-5 * float(exact.abs().max())
+
+
 def test_engine_on_the_card_matches_the_cpu_twin(cuda):
     src, dst = synth.rmat_edges(12, seed=6)
     g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
@@ -63,3 +90,14 @@ def test_engine_on_the_card_matches_the_cpu_twin(cuda):
     r_card = on_card.run()
     r_cpu = TorchEngine(cfg, device="cpu").build(g).run()
     np.testing.assert_allclose(r_card, r_cpu, rtol=0, atol=1e-12)
+
+
+def test_partitioned_engine_on_the_card_matches_the_cpu_twin(cuda):
+    src, dst = synth.rmat_edges(12, seed=6)
+    g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
+    cfg = PageRankConfig(num_iters=10, partition_span=256)
+    before = ell_spmv_partitioned.launches
+    r_card = TorchEngine(cfg).build(g).run()
+    assert ell_spmv_partitioned.launches == before + 10
+    r_cpu = TorchEngine(cfg, device="cpu").build(g).run()
+    np.testing.assert_allclose(r_card, r_cpu, rtol=1e-5, atol=1e-7)

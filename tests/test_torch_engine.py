@@ -134,9 +134,11 @@ def test_make_engine_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,slice_no", [
-    (dict(partition_span=512), "slice 2"),
-    (dict(stream_dtype="bfloat16"), "slice 2"),
-    (dict(kernel="coo"), "slice 2"),
+    # Slice 2 is ported: these two still raise, under its rules.
+    (dict(partition_span=512, dtype="float64", accum_dtype="float64"),
+     "32-bit accumulation only"),
+    (dict(stream_dtype="bfloat16"), "set partition_span"),
+    (dict(kernel="coo"), "slice 4"),
     (dict(vertex_sharded=True), "slice 6"),
     (dict(num_devices=4), "slice 6"),
 ])

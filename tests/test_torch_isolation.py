@@ -57,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
     r = _run(
         "import sys, pagerank_tpu_torch, pagerank_tpu_torch.cli, "
         "pagerank_tpu_torch.convert, pagerank_tpu_torch.kernels.build, "
-        "pagerank_tpu_torch.ops.ell_spmv\n"
+        "pagerank_tpu_torch.ops.ell_spmv, "
+        "pagerank_tpu_torch.ops.ell_spmv_partitioned\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -83,7 +84,11 @@ def test_imports_without_triton_or_nvcc(tmp_path):
         "r = pt.TorchEngine(pt.PageRankConfig(num_iters=2), device='cpu')"
         ".build(g).run()\n"
         "assert np.isfinite(r).all()\n"
-        "assert build.sources() == ['ell_contrib']\n"
+        "assert build.sources() == ['ell_contrib', "
+        "'ell_contrib_partitioned']\n"
+        "r = pt.TorchEngine(pt.PageRankConfig(num_iters=2, "
+        "partition_span=128), device='cpu').build(g).run()\n"
+        "assert np.isfinite(r).all()\n"
         "try:\n"
         "    build.find_nvcc()\n"
         "except RuntimeError as e:\n"
