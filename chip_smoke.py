@@ -48,10 +48,25 @@ What it does, in order:
      bound, times the pair -> block expansion, and splits the
      partitioned step (f32 and bf16 windows) by kernel with
      torch.profiler;
-  7. resume determinism on the card, for the flat form and through the
+  7. the gather probe (P1-P3, ``pagerank_tpu_torch.scripts.
+     probe_gather.run_probe``): out = z[src]*w through each of the
+     three gather kernels and its plain version, (a) on the main path's
+     own slot arrays: K1's flat pack with z_ext (taken in phase 3) and
+     K2's windowed pack as global indices into the flattened windows,
+     f32 and bf16 windows (taken in phase 6), each printed beside that
+     kernel's profiled pass 1; (b) a uniform sweep, 2^19 rows x 128
+     slots, n in {2^15, 2^20, 2^22, 2^24}, f32 and bf16. At every point
+     the counts are set to 0 before run_probe and read after (each
+     kernel that applies launched warm-up + 30 times, the others 0);
+     each kernel is torch.equal to its plain version and bit-identical
+     on repeat; times are CUDA-event medians of 30 beside the byte
+     bound, the plain version and one torch.index_select. P3 runs
+     where z fits shared memory (n = 2^15 here), P2 where n % 8 == 0;
+  8. resume determinism on the card, for the flat form and through the
      CLI's --partition-span -1: 6 iterations with snapshots, a resume
      to 10, and an uninterrupted 10 give bit-equal ranks;
-  8. prints one JSON line with every kernel's numbers, then last
+  9. prints one JSON line with every kernel's numbers (K1, K2, P1 and
+     P2 at K1's slots, P3 at n = 2^15 f32), then last
      ``{"ok": true, "device": {...}}``.
 
 Any failed check raises; the script then exits non-zero and prints no
@@ -101,6 +116,11 @@ def _median_ms(fn, repeats, warmup=3):
     return statistics.median(times)
 
 
+def _dt(t):
+    """A tensor's dtype as its short name (float32, bfloat16, ...)."""
+    return str(t.dtype).removeprefix("torch.")
+
+
 def card_identity():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -129,17 +149,23 @@ def build_kernels():
 
 
 def _reset_counts():
-    from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
+    from pagerank_tpu_torch.ops import (ell_spmv, ell_spmv_partitioned,
+                                        gather_probe)
 
     ell_spmv.launches = 0
     ell_spmv_partitioned.launches = 0
+    for name in gather_probe.launches:
+        gather_probe.launches[name] = 0
 
 
 def _read_counts():
-    """(K1 launches, K2 launches) since the last reset."""
-    from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
+    """(K1 launches, K2 launches, {P1-P3 wrapper: launches}) since the
+    last reset."""
+    from pagerank_tpu_torch.ops import (ell_spmv, ell_spmv_partitioned,
+                                        gather_probe)
 
-    return ell_spmv.launches, ell_spmv_partitioned.launches
+    return (ell_spmv.launches, ell_spmv_partitioned.launches,
+            dict(gather_probe.launches))
 
 
 def main_path(scale, tmp):
@@ -157,14 +183,16 @@ def main_path(scale, tmp):
         "--semantics", "reference", "--dtype", "float32",
         "--snapshot-dir", snap_dir, "--out", out,
     ])
-    launches, k2_launches = _read_counts()
+    launches, k2_launches, probe = _read_counts()
     graph, ranks = summary["graph"], summary["ranks"]
     _check(summary["engine"].device.type == "cuda", "main path not on cuda")
     _check(summary["form"] == "flat_ell", f"main path ran {summary['form']}")
-    _check(launches == summary["iterations"] == ITERS and k2_launches == 0,
+    _check(launches == summary["iterations"] == ITERS and k2_launches == 0
+           and not any(probe.values()),
            f"ell_contrib launched {launches} times (ell_contrib_partitioned "
-           f"{k2_launches}) in {summary['iterations']} steps (want one K1 "
-           f"launch per step, {ITERS} steps, no K2)")
+           f"{k2_launches}, the probe kernels {probe}) in "
+           f"{summary['iterations']} steps (want one K1 launch per step, "
+           f"{ITERS} steps, no other kernel)")
     _check(ranks.shape == (graph.n,) and np.isfinite(ranks).all(),
            "ranks are not finite of shape (n,)")
     t0 = time.perf_counter()
@@ -339,6 +367,9 @@ def kernel_checks(engine):
         "checked": True, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": library_ms,
+        "shapes": f"z_ext {_dt(z_ext)}[{z_ext.shape[0]}], src int32"
+                  f"[{rows_n},128], {plan.num_segments} segments, {nb} "
+                  f"blocks",
     }
 
 
@@ -436,11 +467,13 @@ def partitioned_path(graph, oracle, flat_rows):
 
         _reset_counts()
         ranks = eng.run(on_iteration=on_iteration)
-        k1, k2 = _read_counts()
+        k1, k2, probe = _read_counts()
         label = f"partitioned {stream or 'f32'}"
-        _check(k2 == ITERS == eng.iteration and k1 == 0,
+        _check(k2 == ITERS == eng.iteration and k1 == 0
+               and not any(probe.values()),
                f"{label}: ell_contrib_partitioned launched {k2} times "
-               f"(ell_contrib {k1}) in {eng.iteration} steps")
+               f"(ell_contrib {k1}, the probe kernels {probe}) in "
+               f"{eng.iteration} steps")
         _check(ranks.shape == (graph.n,) and np.isfinite(ranks).all(),
                f"{label}: ranks are not finite of shape (n,)")
         l1 = float(np.abs(ranks - oracle).sum() / np.abs(oracle).sum())
@@ -629,11 +662,150 @@ def k2_checks(eng32, eng16):
         "checked": True, "max_abs_err": max_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
         "library_ms": library_ms,
+        "shapes": f"z_windows {_dt(zw)}[{zw.shape[0]},{zw.shape[1]}], "
+                  f"words24 int8[{rows},384], {plan.num_segments} "
+                  f"segments, {npairs} pairs",
     }
 
 
+# (kernel form, its plain form) of the gather probe, P1-P3.
+PROBE_PAIRS = (("probe_take", "take1d"), ("probe_group8", "onehot8"),
+               ("probe_rowsel_smem", "onehot128mxu"))
+PROBE_ITERS = 30
+# The Pallas body each kernel form replaces.
+PROBE_REPLACES = {"probe_take": "scripts/probe_gather.py:169",
+                  "probe_group8": "scripts/probe_gather.py:174",
+                  "probe_rowsel_smem": "scripts/probe_gather.py:183"}
+
+
+def _probe_point(label, z, src, w):
+    """One point of the gather probe: ``run_probe`` over P1-P3 (where
+    each applies) and their plain forms, with every count set to 0 just
+    before and read just after; then each kernel that ran against its
+    plain version (torch.equal), twice (bit-identical, counted), and one
+    ``torch.index_select`` as the library yardstick. Returns {kernel
+    form: numbers}."""
+    import torch
+
+    from pagerank_tpu_torch.ops import gather_probe as gp
+    from pagerank_tpu_torch.scripts import probe_gather as pg
+
+    rows, n = src.shape[0], z.shape[0]
+    ran = [k for k, _ in PROBE_PAIRS if pg.skip_reason(k, n, z.dtype) is None]
+    forms = [f for k, plain in PROBE_PAIRS
+             for f in ((k, plain) if k in ran else (k,))]
+    _reset_counts()
+    times = pg.run_probe(z, src, w, iters=PROBE_ITERS, forms=forms)
+    k1, k2, counts = _read_counts()
+    want = {pg.KERNELS[k]: pg.WARMUP + PROBE_ITERS if k in ran else 0
+            for k, _ in PROBE_PAIRS}
+    _check(counts == want and k1 == 0 and k2 == 0,
+           f"probe {label}: launches {counts} (K1 {k1}, K2 {k2}), want "
+           f"{want} and no K1 or K2")
+    bound_ms = gp.bound_bytes(rows, n, z.dtype) / H100_BYTES_PER_S * 1e3
+    library_ms = _median_ms(lambda: torch.index_select(z, 0, src.view(-1)),
+                            PROBE_ITERS)
+    out, parts = {}, []
+    for kform, plain in PROBE_PAIRS:
+        if kform not in ran:
+            parts.append(f"{kform} {times[kform]}")
+            continue
+        name = pg.KERNELS[kform]
+        before = gp.launches[name]
+        a = pg.FORMS[kform](z, src, w)
+        b = pg.FORMS[kform](z, src, w)
+        ref = pg.FORMS[plain](z, src, w)
+        torch.cuda.synchronize()
+        _check(gp.launches[name] == before + 2,
+               f"probe {label}: {name} counted {gp.launches[name] - before} "
+               f"of 2 launches")
+        _check(torch.equal(a, b), f"probe {label}: two {name} launches differ")
+        _check(torch.equal(a, ref),
+               f"probe {label}: {name} differs from its plain version")
+        ms = times[kform]
+        out[kform] = {"ms": ms, "plain_ms": times[plain],
+                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "launches": counts[name],
+                      "max_abs_err": float((a.float() - ref.float()).abs()
+                                           .max()),
+                      "shapes": f"z {_dt(z)}[{n}], src int32[{rows},128], "
+                                f"w {_dt(w)}[{rows},128]"}
+        parts.append(f"{kform} {ms:.4f} ms ({bound_ms / ms:.1%} of bound; "
+                     f"plain {times[plain]:.4f} ms)")
+    print(f"probe {label}: rows {rows} x 128, z {_dt(z)}[{n}]; byte bound "
+          f"{bound_ms:.4f} ms, index_select {library_ms:.4f} ms; "
+          + "; ".join(parts) + "; each kernel torch.equal to its plain "
+          "version, repeat bit-identical, launches counted")
+    return out
+
+
+def _k2_global_slots(eng):
+    """K2's slots of ``eng`` as global indices into its flattened
+    windows: (z [K*W], src int32 [rows, 128])."""
+    import torch
+
+    from pagerank_tpu_torch.ops.spmv import unpack_words24
+
+    zw, slots, rp, pp, _, _ = eng.contrib_inputs()
+    base = pp.long()[rp.long()] * zw.shape[1]
+    src = (base[:, None] + unpack_words24(slots).long()).to(torch.int32)
+    return zw.reshape(-1), src
+
+
+def gather_probe_phase(k1_slots, k2_slots, pass1):
+    """Phase 7: P1-P3 on the main path's own slot arrays (K1's flat
+    pack, K2's windowed pack as global indices, f32 and bf16 windows)
+    beside each kernel's profiled pass 1, then the uniform sweep at
+    2^19 rows. Returns the P1, P2, P3 records."""
+    import torch
+
+    from pagerank_tpu_torch.scripts.probe_gather import KERNELS
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+
+    def weights(src, dtype):
+        return torch.rand(src.shape, generator=gen, device="cuda").to(dtype)
+
+    t0 = time.perf_counter()
+    z, src = k1_slots
+    at_k1 = _probe_point("on K1's slots (flat pack, rmat:22)", z, src,
+                         weights(src, z.dtype))
+    print(f"  K1 pass 1 (profiled step) {pass1['K1']:.4f} ms against P1 "
+          f"{at_k1['probe_take']['ms']:.4f} ms and P2 "
+          f"{at_k1['probe_group8']['ms']:.4f} ms on the same slots")
+    for label, (z, src) in k2_slots.items():
+        at = _probe_point(f"on {label}'s slots (windowed pack, rmat:22)", z,
+                          src, weights(src, z.dtype))
+        print(f"  {label} pass 1 (profiled step) {pass1[label]:.4f} ms "
+              f"against P1 {at['probe_take']['ms']:.4f} ms and P2 "
+              f"{at['probe_group8']['ms']:.4f} ms on the same slots")
+    rows = 1 << 19
+    w32 = torch.rand((rows, 128), generator=gen, device="cuda")
+    sweep = {}
+    for log_n in (15, 20, 22, 24):
+        n = 1 << log_n
+        src = torch.randint(0, n, (rows, 128), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        z32 = torch.rand(n, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            sweep[log_n, dtype] = _probe_point(
+                f"uniform n=2^{log_n}", z32.to(dtype), src, w32.to(dtype))
+        del src, z32
+    for dtype in (torch.float32, torch.bfloat16):
+        _check("probe_rowsel_smem" in sweep[15, dtype],
+               f"P3 did not run at n=2^15 {dtype}")
+    print(f"gather probe phase took {time.perf_counter() - t0:.1f} s")
+    picks = (("probe_take", at_k1), ("probe_group8", at_k1),
+             ("probe_rowsel_smem", sweep[15, torch.float32]))
+    return [{"name": KERNELS[k], "route": "cuda",
+             "source": "pagerank_tpu_torch/csrc/gather_probe.cu",
+             "replaces": PROBE_REPLACES[k], "checked": True,
+             "bound_by": "bytes", **at[k]} for k, at in picks]
+
+
 def resume_determinism(scale, tmp, extra=()):
-    """Phase 7: 6 iterations + resume to 10 == 10 uninterrupted, through
+    """Phase 8: 6 iterations + resume to 10 == 10 uninterrupted, through
     the CLI with ``extra`` flags."""
     import numpy as np
 
@@ -689,7 +861,8 @@ def main(argv=None) -> int:
         summary, report, oracle = main_path(args.scale, tmp)
         k1 = kernel_checks(summary["engine"])
         k1["launches"] = report["launches"]
-        step_breakdown(summary["engine"])
+        pass1 = {"K1": step_breakdown(summary["engine"])["pass1_ms"]}
+        k1_slots = summary["engine"].contrib_inputs()[:2]
         graph = summary["graph"]
         flat_rows = summary["engine"].layout_info()["num_rows"]
         del summary
@@ -697,16 +870,21 @@ def main(argv=None) -> int:
         del graph, oracle
         k2 = k2_checks(eng32, eng16)
         k2["launches"] = part_report["f32"]["launches"]
+        k2_slots = {}
         for eng, label in ((eng32, "K2"), (eng16, "K2 (bf16 windows)")):
-            step_breakdown(eng, label, ("pair_segment_partials", "pair_sums"))
+            pass1[label] = step_breakdown(
+                eng, label, ("pair_segment_partials", "pair_sums"))["pass1_ms"]
+            k2_slots[label] = _k2_global_slots(eng)
         del eng32, eng16
+        probe = gather_probe_phase(k1_slots, k2_slots, pass1)
+        del k1_slots, k2_slots
         resume_determinism(args.resume_scale, tmp)
         form = resume_determinism(args.resume_scale, tmp,
                                   ("--partition-span", "-1"))
         _check(form == "pallas_partitioned",
                f"--partition-span -1 at rmat:{args.resume_scale} ran {form}")
     print(f"chip smoke took {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2]}))
+    print(json.dumps({"kernels": [k1, k2, *probe]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""K1, K2 and the engine on the card. These need an NVIDIA GPU and nvcc:
+"""K1, K2, the gather probe's P1-P3 and the engine on the card. These need an NVIDIA GPU and nvcc:
 on any other host each test skips with a reason. Run them on the card
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
@@ -10,7 +10,9 @@ import pagerank_tpu_torch
 from pagerank_tpu_torch import PageRankConfig, TorchEngine
 from pagerank_tpu_torch.ops import ell as torch_ell
 from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
+from pagerank_tpu_torch.ops import gather_probe
 from pagerank_tpu_torch.ops import spmv as torch_spmv
+from pagerank_tpu_torch.scripts import probe_gather
 from pagerank_tpu_torch.utils import synth
 
 pytestmark = pytest.mark.cuda
@@ -101,3 +103,47 @@ def test_partitioned_engine_on_the_card_matches_the_cpu_twin(cuda):
     assert ell_spmv_partitioned.launches == before + 10
     r_cpu = TorchEngine(cfg, device="cpu").build(g).run()
     np.testing.assert_allclose(r_card, r_cpu, rtol=1e-5, atol=1e-7)
+
+
+PROBE = {"gather_take": (gather_probe.gather_take,
+                         gather_probe.gather_take_reference),
+         "gather_group8": (gather_probe.gather_group8,
+                           gather_probe.gather_group_reference),
+         "gather_rowsel": (gather_probe.gather_rowsel,
+                           gather_probe.gather_rowsel_reference)}
+
+
+@pytest.mark.parametrize("n", [1 << 15, "limit"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", sorted(PROBE))
+def test_probe_kernels_equal_their_plain_versions(cuda, kernel, dtype, n):
+    """At n = 2^15 and at P3's shared-memory limit (58,112 f32, 116,224
+    bf16), on a ragged row count."""
+    if n == "limit":
+        n = gather_probe.SMEM_LIMIT // dtype.itemsize
+    z, src, w = probe_gather.make_inputs(999, n, dtype, 3, cuda)
+    fn, ref = PROBE[kernel]
+    before = gather_probe.launches[kernel]
+    a = fn(z, src, w)
+    b = fn(z, src, w)
+    torch.cuda.synchronize()
+    assert gather_probe.launches[kernel] == before + 2
+    assert a.dtype == dtype and torch.equal(a, b)
+    assert torch.equal(a, ref(z, src, w))
+
+
+def test_group8_refuses_a_misaligned_z(cuda):
+    z, src, w = probe_gather.make_inputs(4, 1 << 12, torch.float32, 0, cuda)
+    z = torch.cat([z, z[:4]])[4:]  # n % 8 == 0, 16 bytes off the group
+    before = dict(gather_probe.launches)
+    with pytest.raises(ValueError, match="aligned"):
+        gather_probe.gather_group8(z, src, w)
+    assert gather_probe.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rowsel_refuses_a_z_past_shared_memory(cuda, dtype):
+    n = gather_probe.SMEM_LIMIT // dtype.itemsize + 128
+    z, src, w = probe_gather.make_inputs(4, n, dtype, 0, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        gather_probe.gather_rowsel(z, src, w)

@@ -58,7 +58,9 @@ def test_importing_the_port_loads_no_jax():
         "import sys, pagerank_tpu_torch, pagerank_tpu_torch.cli, "
         "pagerank_tpu_torch.convert, pagerank_tpu_torch.kernels.build, "
         "pagerank_tpu_torch.ops.ell_spmv, "
-        "pagerank_tpu_torch.ops.ell_spmv_partitioned\n"
+        "pagerank_tpu_torch.ops.ell_spmv_partitioned, "
+        "pagerank_tpu_torch.ops.gather_probe, "
+        "pagerank_tpu_torch.scripts.probe_gather\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -85,7 +87,7 @@ def test_imports_without_triton_or_nvcc(tmp_path):
         ".build(g).run()\n"
         "assert np.isfinite(r).all()\n"
         "assert build.sources() == ['ell_contrib', "
-        "'ell_contrib_partitioned']\n"
+        "'ell_contrib_partitioned', 'gather_probe']\n"
         "r = pt.TorchEngine(pt.PageRankConfig(num_iters=2, "
         "partition_span=128), device='cpu').build(g).run()\n"
         "assert np.isfinite(r).all()\n"
