@@ -65,9 +65,28 @@ What it does, in order:
   8. resume determinism on the card, for the flat form and through the
      CLI's --partition-span -1: 6 iterations with snapshots, a resume
      to 10, and an uninterrupted 10 give bit-equal ranks;
-  9. prints one JSON line with every kernel's numbers (K1, K2, P1 and
-     P2 at K1's slots, P3 at n = 2^15 f32), then last
+  9. the kernel-plane check (``pagerank_tpu_torch.analysis``): (a)
+     ``python -m pagerank_tpu_torch.analysis --select PTK --compiled
+     --json`` as subprocesses, all at once: the shipped registry exits
+     0 with no finding and each ``--kernel-fixture NAME`` exits 1 with
+     exactly its rule, with the compile facts read from the built
+     libraries (every shipped symbol's registers, shared bytes and
+     spills printed); (b) F1-F6 on the card at the JAX fixtures'
+     shapes, the counts set to 0 before and read after: F1 at its
+     geometry refused with no error left pending and equal to its plain
+     copy at 2^15, F2 and F5 equal, F3 equal with NaN at exactly the
+     elements PTK003 names, F4 one of its two writers in every element,
+     F6 within 1e-5 of an f64 matmul; each timed beside its bound,
+     its plain version and ``Tensor.copy_`` / ``torch.matmul``;
+ 10. prints one JSON line with every kernel's numbers (K1, K2, P1 and
+     P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
      ``{"ok": true, "device": {...}}``.
+
+Every byte bound comes from the registry's cost models
+(``pagerank_tpu_torch/analysis/kernels.py``: ``k1_cost``, ``k2_cost``,
+``probe_cost``) and the card's memory rate from the device table
+(``pagerank_tpu_torch/obs/costs.py``); K1's and K2's cases are also
+held to PTK001-005 on the main path's own rmat:22 plans.
 
 Any failed check raises; the script then exits non-zero and prints no
 result line. It also exits non-zero when no CUDA device is available,
@@ -88,7 +107,6 @@ import time
 import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 ITERS = 10
 
 
@@ -114,6 +132,25 @@ def _median_ms(fn, repeats, warmup=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def _card():
+    """The device table's entry of the card (obs/costs.py)."""
+    import torch
+
+    from pagerank_tpu_torch.obs import costs
+
+    return costs.device_spec(torch.cuda.get_device_name(0))
+
+
+def _bound_ms(cost):
+    """The least time for a cost model {flops, bytes} on this card: the
+    larger of bytes over the memory rate and FLOPs over the f32 rate
+    (outside the tensor cores); returns (ms, "bytes" or "operations")."""
+    card = _card()
+    t_bytes = cost["bytes"] / card.hbm_bytes_per_s * 1e3
+    t_ops = cost["flops"] / card.fp32_flops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _dt(t):
@@ -149,23 +186,34 @@ def build_kernels():
 
 
 def _reset_counts():
-    from pagerank_tpu_torch.ops import (ell_spmv, ell_spmv_partitioned,
-                                        gather_probe)
+    from pagerank_tpu_torch.ops import (defect_fixtures, ell_spmv,
+                                        ell_spmv_partitioned, gather_probe)
 
     ell_spmv.launches = 0
     ell_spmv_partitioned.launches = 0
-    for name in gather_probe.launches:
-        gather_probe.launches[name] = 0
+    for counts in (gather_probe.launches, defect_fixtures.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _read_counts():
     """(K1 launches, K2 launches, {P1-P3 wrapper: launches}) since the
-    last reset."""
-    from pagerank_tpu_torch.ops import (ell_spmv, ell_spmv_partitioned,
-                                        gather_probe)
+    last reset; the F1-F6 counts join P1-P3's dict, keyed fx:<name>."""
+    from pagerank_tpu_torch.ops import (defect_fixtures, ell_spmv,
+                                        ell_spmv_partitioned, gather_probe)
 
     return (ell_spmv.launches, ell_spmv_partitioned.launches,
-            dict(gather_probe.launches))
+            {**gather_probe.launches,
+             **{f"fx:{k}": v for k, v in defect_fixtures.launches.items()}})
+
+
+def _check_case(case):
+    """Hold one launch case of a path's real plan to PTK001-005."""
+    from pagerank_tpu_torch.analysis import kernels
+
+    found = kernels.check_kernel_case(case)
+    _check(not found, f"{case.label}: " + "; ".join(f.render()
+                                                     for f in found))
 
 
 def main_path(scale, tmp):
@@ -278,6 +326,7 @@ def kernel_checks(engine):
     import torch
 
     from pagerank_tpu_torch import PageRankConfig, TorchEngine
+    from pagerank_tpu_torch.analysis import kernels
     from pagerank_tpu_torch.ops import ell_spmv
     from pagerank_tpu_torch.ops.ell import segment_plan
 
@@ -351,21 +400,23 @@ def kernel_checks(engine):
     plain_ms = _median_ms(twin, 20)
     library_ms = _median_ms(library, 20)
     rows_n = src.shape[0]
-    item = z_ext.element_size()
-    bytes_moved = (rows_n * 128 * 4 + n_state * item + nb * 128 * item
-                   + plan.seg_row_start.nbytes + plan.block_seg_start.nbytes)
-    bound_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    case = kernels.k1_case_from_inputs("ell_contrib@main-path", z_ext, src,
+                                       rb, nb, plan)
+    _check_case(case)
+    bytes_moved = int(case.cost_model["bytes"])
+    bound_ms, bound_by = _bound_ms(case.cost_model)
     print(f"K1 timing at main-path shapes ({rows_n} rows x 128, "
           f"{plan.num_segments} segments, {nb} blocks): {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, byte "
-          f"bound {bound_ms:.4f} ms ({bytes_moved} B at 3.35 TB/s; "
-          f"{bound_ms / ms:.1%} of bound)")
+          f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, "
+          f"{bound_by} bound {bound_ms:.4f} ms ({bytes_moved} B at "
+          f"{_card().hbm_bytes_per_s / 1e12:g} TB/s; {bound_ms / ms:.1%} of "
+          f"bound); PTK001-005 clean on the main path's plan")
     return {
         "name": "ell_contrib", "route": "cuda",
         "source": "pagerank_tpu_torch/csrc/ell_contrib.cu",
         "replaces": "pagerank_tpu/ops/pallas_spmv.py:98",
         "checked": True, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "shapes": f"z_ext {_dt(z_ext)}[{z_ext.shape[0]}], src int32"
                   f"[{rows_n},128], {plan.num_segments} segments, {nb} "
@@ -596,6 +647,7 @@ def k2_checks(eng32, eng16):
     returns the K2 record."""
     import torch
 
+    from pagerank_tpu_torch.analysis import kernels
     from pagerank_tpu_torch.ops import ell_spmv_partitioned as k2
     from pagerank_tpu_torch.ops import spmv
 
@@ -641,26 +693,33 @@ def k2_checks(eng32, eng16):
     library_ms = _median_ms(library, 20)
     expand_ms = _median_ms(expand, 30)
     rows = slots.shape[0]
-    plan_bytes = sum(t.nbytes for t in (plan.seg_row_start, plan.seg_block,
-                                        plan.block_seg_start, pp))
-    bytes_moved = (slots.nbytes + zw.nbytes + npairs * 128 * 4 + plan_bytes)
-    bound_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-    bf16_bytes = slots.nbytes + in16[0].nbytes + npairs * 128 * 4 + plan_bytes
+    case = kernels.k2_case_from_inputs("ell_contrib_partitioned@path",
+                                       *inputs)
+    case16 = kernels.k2_case_from_inputs(
+        "ell_contrib_partitioned@path-bf16", *in16)
+    for c in (case, case16,
+              kernels.k2_case_from_inputs("ell_contrib_partitioned@int32",
+                                          *int32)):
+        _check_case(c)
+    bytes_moved = int(case.cost_model["bytes"])
+    bound_ms, bound_by = _bound_ms(case.cost_model)
     print(f"K2 timing at path shapes ({rows} rows x 384 B, {zw.shape[0]} "
           f"windows of {zw.shape[1]}, {plan.num_segments} segments, {npairs} "
           f"pairs): {ms:.4f} ms (f32 windows, words24), {ms_int32:.4f} ms "
           f"(int32 words), {ms_bf16:.4f} ms (bf16 windows; byte bound "
-          f"{bf16_bytes / H100_BYTES_PER_S * 1e3:.4f} ms); twin "
-          f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, byte "
-          f"bound {bound_ms:.4f} ms ({bytes_moved} B at 3.35 TB/s; "
-          f"{bound_ms / ms:.1%} of bound); pair -> block expansion "
-          f"{expand_ms:.4f} ms ({zw.shape[0]} partitions)")
+          f"{_bound_ms(case16.cost_model)[0]:.4f} ms); twin "
+          f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, "
+          f"{bound_by} bound {bound_ms:.4f} ms ({bytes_moved} B at "
+          f"{_card().hbm_bytes_per_s / 1e12:g} TB/s; {bound_ms / ms:.1%} of "
+          f"bound); pair -> block expansion {expand_ms:.4f} ms "
+          f"({zw.shape[0]} partitions); PTK001-005 clean on the path's plans "
+          f"(f32, bf16, int32 words)")
     return {
         "name": "ell_contrib_partitioned", "route": "cuda",
         "source": "pagerank_tpu_torch/csrc/ell_contrib_partitioned.cu",
         "replaces": "pagerank_tpu/ops/pallas_spmv.py:241",
         "checked": True, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "shapes": f"z_windows {_dt(zw)}[{zw.shape[0]},{zw.shape[1]}], "
                   f"words24 int8[{rows},384], {plan.num_segments} "
@@ -687,6 +746,7 @@ def _probe_point(label, z, src, w):
     form: numbers}."""
     import torch
 
+    from pagerank_tpu_torch.analysis.kernels import probe_cost
     from pagerank_tpu_torch.ops import gather_probe as gp
     from pagerank_tpu_torch.scripts import probe_gather as pg
 
@@ -699,10 +759,11 @@ def _probe_point(label, z, src, w):
     k1, k2, counts = _read_counts()
     want = {pg.KERNELS[k]: pg.WARMUP + PROBE_ITERS if k in ran else 0
             for k, _ in PROBE_PAIRS}
+    want.update({k: 0 for k in counts if k.startswith("fx:")})
     _check(counts == want and k1 == 0 and k2 == 0,
            f"probe {label}: launches {counts} (K1 {k1}, K2 {k2}), want "
            f"{want} and no K1 or K2")
-    bound_ms = gp.bound_bytes(rows, n, z.dtype) / H100_BYTES_PER_S * 1e3
+    bound_ms = _bound_ms(probe_cost(rows, n, z.element_size()))[0]
     library_ms = _median_ms(lambda: torch.index_select(z, 0, src.view(-1)),
                             PROBE_ITERS)
     out, parts = {}, []
@@ -804,6 +865,209 @@ def gather_probe_phase(k1_slots, k2_slots, pass1):
              "bound_by": "bytes", **at[k]} for k, at in picks]
 
 
+def _analysis(*args):
+    """Start ``python -m pagerank_tpu_torch.analysis --select PTK
+    --compiled --json`` with ``args``."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.Popen(
+        [sys.executable, "-m", "pagerank_tpu_torch.analysis", "--select",
+         "PTK", "--compiled", "--json", *args], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def analysis_phase():
+    """Phase 9a: the kernel-plane check with the compile facts read from
+    the built libraries: the shipped registry exits 0 with no finding,
+    each defect fixture exits 1 with exactly its rule. Prints every
+    shipped symbol's registers, shared bytes and spills."""
+    from pagerank_tpu_torch.analysis import kernels
+
+    t0 = time.perf_counter()
+    fixtures = {c.label.split(":")[1]: c for c in kernels.defect_cases()}
+    procs = {"shipped": _analysis()}
+    procs.update({n: _analysis("--kernel-fixture", n) for n in fixtures})
+    docs = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        want = 0 if name == "shipped" else 1
+        _check(proc.returncode == want,
+               f"analysis --compiled {name}: exit {proc.returncode}, want "
+               f"{want}\n{out[-2000:]}\n{err[-2000:]}")
+        docs[name] = json.loads(out)
+        _check(docs[name]["compiled"], f"analysis {name}: no compile facts")
+    _check(not docs["shipped"]["findings"],
+           f"shipped kernels have findings: {docs['shipped']['findings']}")
+    rules = {}
+    for name, case in fixtures.items():
+        got = {f["rule"] for f in docs[name]["findings"]}
+        want = {f.rule for f in kernels.check_kernel_case(case)}
+        _check(len(want) == 1 and got == want,
+               f"fixture {name}: rules {sorted(got)} with compile facts, "
+               f"want exactly {sorted(want)}")
+        rules[name] = got.pop()
+    dyn = {}
+    shipped = kernels.shipped_cases()
+    for case in shipped:
+        for ln in case.launches:
+            dyn[ln.key] = max(dyn.get(ln.key, 0), ln.dynamic_smem)
+    facts = docs["shipped"]["compile_facts"]
+    print(f"kernel-plane check with compile facts (cuobjdump): "
+          f"{len(shipped)} shipped cases clean over "
+          f"{len(facts)} symbols; fixtures trip "
+          + ", ".join(f"{n} {r}" for n, r in rules.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    for key, f in sorted(facts.items()):
+        print(f"  {key}: {f['regs']} registers, {f['shared']} B static "
+              f"shared, up to {dyn[key]} B dynamic, {f['local']} B local "
+              f"(spills), launch bounds {f['max_threads']}, f64 ops "
+              f"{list(f['f64_ops']) or 'none'}")
+    return rules
+
+
+# F1-F6: the JAX fixture's pl.pallas_call each kernel replaces.
+FIXTURE_REPLACES = {
+    "vmem_overflow": "pagerank_tpu/analysis/kernels.py:358",
+    "misaligned_tile": "pagerank_tpu/analysis/kernels.py:371",
+    "index_gap": "pagerank_tpu/analysis/kernels.py:384",
+    "index_overlap": "pagerank_tpu/analysis/kernels.py:398",
+    "f64_scratch": "pagerank_tpu/analysis/kernels.py:411",
+    "cost_mismatch": "pagerank_tpu/analysis/kernels.py:425",
+}
+
+
+def fixture_phase(rules):
+    """Phase 9b: F1-F6 on the card at the JAX fixtures' shapes, the counts
+    set to 0 before and read after. F1 at its geometry must be refused
+    and leave no error pending; at 2^15 it equals its plain copy. F2 and
+    F5 equal their plain versions; F3 too, with NaN at exactly the
+    elements PTK003 names; F4 holds one of its two writers in every
+    element; F6 is within 1e-5 (normalised) of an f64 matmul. Each is
+    timed beside its bound and a library call. Returns the records."""
+    import torch
+
+    from pagerank_tpu_torch.analysis import kernels
+    from pagerank_tpu_torch.ops import defect_fixtures as fx
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+
+    def rnd(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    cases = {c.label.split(":")[1]: c for c in kernels.defect_cases()}
+    inputs = {"vmem_overflow": (rnd(1 << 15),),
+              "misaligned_tile": (rnd(200, 128),),
+              "index_gap": (rnd(16, 128),), "index_overlap": (rnd(32, 128),),
+              "f64_scratch": (rnd(16, 128),),
+              "cost_mismatch": (rnd(256, 128), rnd(128, 128))}
+    big = rnd(fx.OVERFLOW_N)
+    _reset_counts()
+    try:
+        fx.vmem_overflow(big)
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+    torch.cuda.synchronize()
+    pending = fx.last_error()
+    outs = {n: getattr(fx, n)(*a) for n, a in inputs.items()}
+    torch.cuda.synchronize()
+    k1, k2, counts = _read_counts()
+    del big
+    _check(refused is not None, "F1 launched 32 MiB of shared memory")
+    _check(pending == 0, f"F1's refusal left CUDA error {pending} pending")
+    want = {f"fx:{n}": 1 for n in inputs}
+    _check({k: v for k, v in counts.items() if k.startswith("fx:")} == want
+           and k1 == k2 == 0
+           and not any(v for k, v in counts.items()
+                       if not k.startswith("fx:")),
+           f"fixture launches {counts} (K1 {k1}, K2 {k2}), want {want}")
+    print(f"F1 at its geometry (x f32 [{fx.OVERFLOW_N}], "
+          f"{fx.OVERFLOW_N * 4} B of shared memory; the checker says "
+          f"{rules['vmem_overflow']}) refused: {refused}; no error pending "
+          f"after it")
+    errs = {}
+    for name, args in inputs.items():
+        got = outs[name]
+        ref = getattr(fx, f"{name}_reference")(*args)
+        if name == "index_overlap":
+            x = args[0]
+            one = torch.zeros_like(got, dtype=torch.bool)
+            err = torch.zeros_like(got)
+            for t in range(got.shape[0] // 8):
+                o = got[t * 8:(t + 1) * 8]
+                a, b = x[t * 8:(t + 1) * 8], x[(t + 2) * 8:(t + 3) * 8]
+                one[t * 8:(t + 1) * 8] = (o == a) | (o == b)
+                err[t * 8:(t + 1) * 8] = torch.minimum((o - a).abs(),
+                                                       (o - b).abs())
+            _check(bool(one.all()), "F4: an element holds neither writer")
+            errs[name] = float(err.max())
+        elif name == "cost_mismatch":
+            exact = args[0].double() @ args[1].double()
+            errs[name] = float((got.double() - exact).abs().max())
+            _check(errs[name] <= 1e-5 * float(exact.abs().max()),
+                   f"F6: max error {errs[name]} vs the f64 matmul")
+        else:
+            _check(got.shape == ref.shape and torch.equal(
+                torch.nan_to_num(got, nan=-1.0),
+                torch.nan_to_num(ref, nan=-1.0))
+                and torch.equal(got.isnan(), ref.isnan()),
+                f"{name} differs from its plain version")
+            errs[name] = 0.0
+        if name == "index_gap":
+            nan = torch.zeros(got.numel(), dtype=torch.bool, device="cuda")
+            for a, b in kernels.write_gaps(cases[name], "out"):
+                nan[a:b] = True
+            _check(torch.equal(got.reshape(-1).isnan(), nan),
+                   "F3: NaN elements differ from the gaps PTK003 names")
+    print("F2, F3 (NaN at exactly the PTK003 gaps "
+          f"{kernels.write_gaps(cases['index_gap'], 'out')}) and F5 equal "
+          f"their plain versions; F4 holds one writer per element (max "
+          f"distance to the nearer writer {errs['index_overlap']}); F6 max "
+          f"abs error {errs['cost_mismatch']:.3e} vs an f64 matmul")
+    records = []
+    for name, args in inputs.items():
+        fn = getattr(fx, name)
+        ref = getattr(fx, f"{name}_reference")
+        if name == "cost_mismatch":
+            lib_out = torch.empty_like(outs[name])
+
+            def library():
+                torch.matmul(*args, out=lib_out)
+        else:
+            lib_out = torch.empty_like(args[0])
+
+            def library():
+                lib_out.copy_(args[0])
+        before = fx.launches[name]
+        ms = _median_ms(lambda: fn(*args), 30)
+        timed = fx.launches[name] - before
+        plain_ms = _median_ms(lambda: ref(*args), 30)
+        library_ms = _median_ms(library, 30)
+        # Each input read once and the output written once; F6 also its
+        # 2mkn FLOPs.
+        cost = {"bytes": float(sum(a.numel() for a in args)
+                               + outs[name].numel()) * 4,
+                "flops": (2.0 * args[0].shape[0] * args[0].shape[1]
+                          * args[1].shape[1] if name == "cost_mismatch"
+                          else 0.0)}
+        bound_ms, bound_by = _bound_ms(cost)
+        print(f"F {name}: {ms:.4f} ms a wrapper call, its NaN fill "
+              f"included ({timed} launches timed), plain "
+              f"{plain_ms:.4f} ms, {'torch.matmul' if name == 'cost_mismatch' else 'Tensor.copy_'} "
+              f"{library_ms:.4f} ms, {bound_by} bound {bound_ms:.6f} ms "
+              f"({int(cost['bytes'])} B, {int(cost['flops'])} FLOP)")
+        records.append({
+            "name": f"fx_{name}", "route": "cuda",
+            "source": "pagerank_tpu_torch/csrc/defect_fixtures.cu",
+            "replaces": FIXTURE_REPLACES[name], "checked": True,
+            "launches": counts[f"fx:{name}"], "max_abs_err": errs[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "rule": rules[name],
+            "shapes": ", ".join(f"{_dt(a)}{list(a.shape)}" for a in args)})
+    return records
+
+
 def resume_determinism(scale, tmp, extra=()):
     """Phase 8: 6 iterations + resume to 10 == 10 uninterrupted, through
     the CLI with ``extra`` flags."""
@@ -883,8 +1147,9 @@ def main(argv=None) -> int:
                                   ("--partition-span", "-1"))
         _check(form == "pallas_partitioned",
                f"--partition-span -1 at rmat:{args.resume_scale} ran {form}")
+    fixtures = fixture_phase(analysis_phase())
     print(f"chip smoke took {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, *probe]}))
+    print(json.dumps({"kernels": [k1, k2, *probe, *fixtures]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -14,8 +14,8 @@ card in each form:
   gather served from there.
 
 What bounds them on the H100: device-memory bytes
-(:func:`bound_bytes`), but the random gathers of z keep them off it:
-each pulls a 32-byte sector for 4 (or 2) useful bytes.
+(``analysis/kernels.py:probe_cost``), but the random gathers of z keep
+them off it: each pulls a 32-byte sector for 4 (or 2) useful bytes.
 
 Inputs: z [n], src int32 [rows, 128], w [rows, 128]; z and w both
 float32 or both bfloat16. Precondition: every src value lies in
@@ -35,25 +35,20 @@ import ctypes
 
 import torch
 
+from pagerank_tpu_torch.obs import costs
 from pagerank_tpu_torch.ops import LANES
 
 #: Kernel launches made by each wrapper in this process.
 launches = {"gather_take": 0, "gather_group8": 0, "gather_rowsel": 0}
 
-#: Dynamic shared memory one block can use on the H100 (227 KB): the
-#: most of z that :func:`gather_rowsel` can stage.
-SMEM_LIMIT = 232_448
+#: Shared memory one block can use on the H100 (227 KB, the device
+#: table's, which the PTK001 check reads too): the most of z that
+#: :func:`gather_rowsel` can stage.
+SMEM_LIMIT = costs.device_spec().smem_per_block
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # Bytes of one gathered intermediate of a plain version's row chunk.
 _CHUNK_BYTES = 1 << 28
-
-
-def bound_bytes(rows: int, n: int, dtype: torch.dtype) -> int:
-    """Bytes the function must move: src (4 B), w and out (itemsize
-    each) once per slot, and z once."""
-    item = dtype.itemsize
-    return rows * LANES * (4 + 2 * item) + n * item
 
 
 def rowsel_fits(n: int, dtype: torch.dtype) -> bool:

@@ -37,10 +37,11 @@ import time
 import numpy as np
 import torch
 
+from pagerank_tpu_torch.analysis.kernels import probe_cost
+from pagerank_tpu_torch.obs import costs
 from pagerank_tpu_torch.ops import LANES
 from pagerank_tpu_torch.ops import gather_probe as gp
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 WARMUP = 3
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -127,10 +128,11 @@ def report(results, rows: int, n: int, dtype: torch.dtype, device):
     slots = rows * LANES
     gb = slots * (4 + 2 * dtype.itemsize) / 1e9  # src + w + out
     bound_ms = None
-    if device.type == "cuda":
-        bound_ms = gp.bound_bytes(rows, n, dtype) / H100_BYTES_PER_S * 1e3
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
+    if device.type == "cuda":
+        bound_ms = (probe_cost(rows, n, dtype.itemsize)["bytes"]
+                    / costs.device_spec(name).hbm_bytes_per_s * 1e3)
     dt = str(dtype).removeprefix("torch.")
     print(f"\nrows={rows} slots={slots:,} n={n:,} dtype={dt} on {name}; "
           + (f"byte bound {bound_ms:.4f} ms" if bound_ms is not None

@@ -1,4 +1,5 @@
-"""K1, K2, the gather probe's P1-P3 and the engine on the card. These need an NVIDIA GPU and nvcc:
+"""K1, K2, the gather probe's P1-P3, the defect fixtures F1-F6 and the
+engine on the card. These need an NVIDIA GPU and nvcc:
 on any other host each test skips with a reason. Run them on the card
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
@@ -10,7 +11,7 @@ import pagerank_tpu_torch
 from pagerank_tpu_torch import PageRankConfig, TorchEngine
 from pagerank_tpu_torch.ops import ell as torch_ell
 from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
-from pagerank_tpu_torch.ops import gather_probe
+from pagerank_tpu_torch.ops import defect_fixtures, gather_probe
 from pagerank_tpu_torch.ops import spmv as torch_spmv
 from pagerank_tpu_torch.scripts import probe_gather
 from pagerank_tpu_torch.utils import synth
@@ -147,3 +148,56 @@ def test_rowsel_refuses_a_z_past_shared_memory(cuda, dtype):
     z, src, w = probe_gather.make_inputs(4, n, dtype, 0, cuda)
     with pytest.raises(ValueError, match="shared memory"):
         gather_probe.gather_rowsel(z, src, w)
+
+
+FIXTURE_INPUTS = {"misaligned_tile": [(200, 128)], "index_gap": [(16, 128)],
+                  "index_overlap": [(32, 128)], "f64_scratch": [(16, 128)],
+                  "cost_mismatch": [(256, 128), (128, 128)]}
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURE_INPUTS))
+def test_defect_fixture_kernels_against_their_plain_versions(cuda, name):
+    """F2-F6 at the JAX fixtures' shapes: F2, F3 (NaN included) and F5
+    equal their plain versions, F4 holds one of its two writers in every
+    element, F6 is within 1e-5 of an f64 matmul."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(3)
+    args = [torch.rand(s, generator=g, device=cuda)
+            for s in FIXTURE_INPUTS[name]]
+    before = defect_fixtures.launches[name]
+    got = getattr(defect_fixtures, name)(*args)
+    torch.cuda.synchronize()
+    assert defect_fixtures.launches[name] == before + 1
+    ref = getattr(defect_fixtures, f"{name}_reference")(*args)
+    if name == "cost_mismatch":
+        exact = args[0].double() @ args[1].double()
+        err = float((got.double() - exact).abs().max())
+        assert err <= 1e-5 * float(exact.abs().max())
+    elif name == "index_overlap":
+        x = args[0]
+        for t in range(2):
+            o = got[t * 8:(t + 1) * 8]
+            assert bool(((o == x[t * 8:(t + 1) * 8])
+                         | (o == x[(t + 2) * 8:(t + 3) * 8])).all())
+    else:
+        assert torch.equal(got.isnan(), ref.isnan())
+        assert torch.equal(got.nan_to_num(-1.0), ref.nan_to_num(-1.0))
+
+
+def test_vmem_overflow_is_refused_and_leaves_no_error(cuda):
+    before = defect_fixtures.launches["vmem_overflow"]
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        defect_fixtures.vmem_overflow(
+            torch.zeros(defect_fixtures.OVERFLOW_N, device=cuda))
+    torch.cuda.synchronize()
+    assert defect_fixtures.last_error() == 0
+    assert defect_fixtures.launches["vmem_overflow"] == before
+    x = torch.rand(1 << 15, device=cuda)
+    assert torch.equal(defect_fixtures.vmem_overflow(x), x)
+    assert defect_fixtures.launches["vmem_overflow"] == before + 1
+
+
+def test_compiled_check_is_clean_on_the_shipped_registry(cuda):
+    from pagerank_tpu_torch.analysis import kernels
+
+    assert kernels.check_kernel_plane(compiled=True) == []

@@ -252,11 +252,17 @@ def test_rowsel_fits_the_shared_memory_of_a_block(dtype, limit):
 
 
 def test_bound_bytes():
-    assert gp.bound_bytes(1 << 19, 1 << 22, torch.float32) == 822_083_584
-    assert round(822_083_584 / pg.H100_BYTES_PER_S * 1e3, 4) == 0.2454
-    assert gp.bound_bytes(1 << 19, 1 << 22, torch.bfloat16) == (
+    """The probe's byte bound, now the registry's cost model, with the
+    device table's memory rate."""
+    from pagerank_tpu_torch.analysis.kernels import probe_cost
+    from pagerank_tpu_torch.obs import costs
+
+    assert probe_cost(1 << 19, 1 << 22, 4)["bytes"] == 822_083_584
+    rate = costs.device_spec("NVIDIA H100 80GB HBM3").hbm_bytes_per_s
+    assert round(822_083_584 / rate * 1e3, 4) == 0.2454
+    assert probe_cost(1 << 19, 1 << 22, 2)["bytes"] == (
         (1 << 19) * 128 * 8 + (1 << 22) * 2)
-    assert gp.bound_bytes(10, 0, torch.float32) == 10 * 128 * 12
+    assert probe_cost(10, 0, 4)["bytes"] == 10 * 128 * 12
 
 
 def test_skip_reasons_follow_the_geometry():

@@ -60,7 +60,12 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.ops.ell_spmv, "
         "pagerank_tpu_torch.ops.ell_spmv_partitioned, "
         "pagerank_tpu_torch.ops.gather_probe, "
-        "pagerank_tpu_torch.scripts.probe_gather\n"
+        "pagerank_tpu_torch.scripts.probe_gather, "
+        "pagerank_tpu_torch.ops.defect_fixtures, "
+        "pagerank_tpu_torch.analysis.kernels, "
+        "pagerank_tpu_torch.analysis.resources, "
+        "pagerank_tpu_torch.analysis.__main__, "
+        "pagerank_tpu_torch.obs.costs\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
@@ -86,7 +91,7 @@ def test_imports_without_triton_or_nvcc(tmp_path):
         "r = pt.TorchEngine(pt.PageRankConfig(num_iters=2), device='cpu')"
         ".build(g).run()\n"
         "assert np.isfinite(r).all()\n"
-        "assert build.sources() == ['ell_contrib', "
+        "assert build.sources() == ['defect_fixtures', 'ell_contrib', "
         "'ell_contrib_partitioned', 'gather_probe']\n"
         "r = pt.TorchEngine(pt.PageRankConfig(num_iters=2, "
         "partition_span=128), device='cpu').build(g).run()\n"
