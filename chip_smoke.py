@@ -19,18 +19,22 @@ What it does, in order:
      The ranks are checked against the port's f64 ReferenceCpuEngine on
      the same graph (mass-normalised L1 <= 1e-4), and the last snapshot
      and the --out file against the returned ranks;
-  4. holds K1 (ell_contrib) against its plain PyTorch twin on the card,
+  4. holds K1 (ell_contrib, one persistent launch a call) on the card
      at the main path's own shapes (the engine's packed slots, the
-     prescaled final ranks) and on a small adversarial pack (a hub block
-     hundreds of segments deep, empty blocks, all-sentinel rows):
-     normalised max error against the twin's exact (f64) sums of the
-     same values <= 1e-5 in f32 (the sum order differs), <= 1e-12 in
-     f64, and two launches on the same inputs bit-identical.
-     Times K1 (CUDA events, median of 30 launches after warm-up), the
-     twin, and one torch.sparse.mm of the same matrix as a yardstick,
+     prescaled final ranks) in every entry (f32/f32, f32/f64, f64/f64)
+     and on a small adversarial pack (a hub block hundreds of segments
+     deep, empty blocks, all-sentinel rows): torch.equal to its plain
+     plan-order version computed on the CPU from the same inputs; two
+     launches on one workspace and a head of 0 bit-identical; normalised max error against exact (f64) sums <=
+     1e-5 (f32), 1e-6 (f32/f64), 1e-12 (f64). Prints the share of real
+     slots below the head and of sentinels. Times the wrapper call
+     (CUDA events, median of 30), the bare launch of the bound launcher
+     (50 launches between two events, median of 7 rounds) with the
+     largest head and a head of 0, in turns, the
+     twin and one torch.sparse.mm of the same matrix as a yardstick,
      beside K1's byte bound; then splits a main-path step's time by
-     kernel with torch.profiler (K1's two passes, the elementwise
-     kernels, the device's idle share);
+     kernel with torch.profiler (K1 once a step, no pass-2 kernel, the
+     elementwise kernels, the device's idle share);
   5. the partition-centric path on the graph phase 3 built: the span
      from the CLI's resolver at -1, a TorchEngine on cuda for 10
      iterations in f32 and again with the bf16 window stream. The
@@ -38,23 +42,25 @@ What it does, in order:
      10, K1's 0. Normalised L1 against phase 3's f64 oracle <= 1e-4
      (f32), and in (1e-7, 5e-3) for bf16 (a real bf16 run, inside
      quantization grade);
-  6. holds K2 (ell_contrib_partitioned) against its twin on the card at
-     that path's shapes, with f32 and bf16 windows, 3-byte and int32
-     words, and on an adversarial pack (deep hub pairs, empty
-     partitions, all-sentinel rows): normalised max error against the
-     twin's exact (f64) sums of the same (widened) values <= 1e-5, two
-     launches bit-identical. Times K2, the twin and one torch.sparse.mm
-     of the same pair-row x windowed-z matrix (f32) beside K2's byte
-     bound, times the pair -> block expansion, and splits the
-     partitioned step (f32 and bf16 windows) by kernel with
-     torch.profiler;
+  6. holds K2 (ell_contrib_partitioned, which now writes the block sums
+     itself) the same way at that path's shapes in every entry (f32 and
+     bf16 windows, 3-byte and int32 words) and on adversarial packs
+     (deep hub pairs, empty partitions, empty blocks, all-sentinel
+     rows; at 59 partitions a hub block fed by more than 32 pairs),
+     against its plain plan-order version on the CPU and exact
+     (f64) sums of the same widened values (<= 1e-5). Prints the head's
+     share of partition 0's slots. Times the wrapper call, the bare
+     launches in turns (largest head and 0, f32 and bf16 windows), the twin and one torch.sparse.mm of the same
+     block-row x windowed-z matrix (f32) beside K2's byte bound, and
+     splits the partitioned step (f32 and bf16 windows) by kernel with
+     torch.profiler: K2 once a step, no expansion kernel;
   7. the gather probe (P1-P3, ``pagerank_tpu_torch.scripts.
      probe_gather.run_probe``): out = z[src]*w through each of the
      three gather kernels and its plain version, (a) on the main path's
      own slot arrays: K1's flat pack with z_ext (taken in phase 3) and
      K2's windowed pack as global indices into the flattened windows,
      f32 and bf16 windows (taken in phase 6), each printed beside that
-     kernel's profiled pass 1; (b) a uniform sweep, 2^19 rows x 128
+     kernel's profiled device time; (b) a uniform sweep, 2^19 rows x 128
      slots, n in {2^15, 2^20, 2^22, 2^24}, f32 and bf16. At every point
      the counts are set to 0 before run_probe and read after (each
      kernel that applies launched warm-up + 30 times, the others 0);
@@ -271,36 +277,98 @@ def main_path(scale, tmp):
         oracle
 
 
-def _k1_compare(z_ext, src, rb, nb, plan, accum, tol, label):
-    """K1 vs its plain twin on the same inputs; bit-identity on repeat.
+def _launch_ms(launchers, launches=50, rounds=7):
+    """Per-launch device time of bound launchers, in turns on one card:
+    each round times ``launches`` back-to-back calls of each launcher
+    between two CUDA events, the order reversed every other round;
+    returns {name: median over the rounds}."""
+    import torch
 
-    The gate holds K1 against the twin run on the same z values widened
-    to f64 with f64 sums (the exact answer to ~1e-16): a hub block sums
-    ~10^5 terms, so at f32 any two summation orders — K1's segments and
-    the twin's atomics — differ by ~1e-5 of the largest sum, and the
-    gate must say which one is off. K1 against the twin in K1's own
-    dtypes is printed beside it. Returns K1's max abs error."""
+    for fn in launchers.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in launchers}
+    names = list(launchers)
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(launches):
+                launchers[k]()
+            b.record()
+            b.synchronize()
+            times[k].append(a.elapsed_time(b) / launches)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _host_ms(fn, repeats=200):
+    """Mean host-clock time of ``fn`` over ``repeats`` calls (what a call
+    costs the host before the card sees its launch)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / repeats
+
+
+def _held(label, got, want, exact, tol):
+    """``got`` (a kernel's output on the card) torch.equal to ``want``
+    (its plain plan-order version computed on the CPU), and its
+    normalised distance to ``exact`` (f64 sums of the same values) within
+    ``tol``. Returns the max abs error against ``exact``."""
+    _check(_equal(got, want),
+           f"{label}: the kernel differs from its plain plan-order version "
+           f"computed on the CPU")
+    scale = max(float(exact.abs().max()), 1e-300)
+    err = float((got.double().cpu() - exact.cpu()).abs().max())
+    _check(err / scale <= tol,
+           f"{label}: normalised max error {err / scale:.3e} > {tol:g}")
+    return err
+
+
+def _equal(a, b):
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.cpu(), b.cpu())
+
+
+def _variants(bind):
+    """The two launchers of one kernel's inputs: the largest head (what
+    the path uses) and a head of 0. ``bind(head)`` binds one."""
+    return {"head max": bind(None), "head 0": bind(0)}
+
+
+def _k1_entry(z_ext, src, rb, nb, plan, accum, tol, label):
+    """K1 at one entry: torch.equal to the plain plan-order sums computed
+    on the CPU from the same inputs; two launches on one workspace
+    bit-identical, its counters left zero; a head of 0 bit-identical too;
+    within ``tol`` of the exact (f64) sums.
+    Returns K1's max abs error against the exact sums."""
     import torch
 
     from pagerank_tpu_torch.ops import ell_spmv
 
-    a = ell_spmv.ell_contrib(z_ext, src, rb, nb, accum_dtype=accum, plan=plan)
-    b = ell_spmv.ell_contrib(z_ext, src, rb, nb, accum_dtype=accum, plan=plan)
+    work = ell_spmv.workspace(plan, accum, z_ext.device)
+
+    def run(**kw):
+        return ell_spmv.ell_contrib(z_ext, src, rb, nb, accum_dtype=accum,
+                                    plan=plan, work=work, **kw)
+
+    a, b, c = run(), run(), run(head=0)
+    torch.cuda.synchronize()
+    _check(torch.equal(a, b), f"K1 {label}: two launches differ")
+    _check(not work.counter.any(), f"K1 {label}: counters left non-zero")
+    _check(torch.equal(a, c), f"K1 {label}: a head of 0 changed bits")
+    want = ell_spmv.ell_contrib_plan_reference(
+        z_ext.cpu(), src.cpu(), accum_dtype=accum,
+        plan=ell_spmv.plan_to(plan, "cpu"))
     exact = ell_spmv.ell_contrib_reference(z_ext.double(), src, rb, nb,
                                            accum_dtype=torch.float64)
-    twin = ell_spmv.ell_contrib_reference(z_ext, src, rb, nb,
-                                          accum_dtype=accum)
-    torch.cuda.synchronize()
-    _check(torch.equal(a, b), f"{label}: two launches differ")
-    scale = max(float(exact.abs().max()), 1e-300)
-    err = float((a.double() - exact).abs().max())
-    twin_err = float((twin.double() - exact).abs().max())
-    k_vs_twin = float((a.double() - twin.double()).abs().max())
-    _check(err / scale <= tol,
-           f"{label}: normalised max error {err / scale:.3e} > {tol:g}")
-    print(f"K1 {label}: vs exact sums max abs err {err:.3e}, normalised "
-          f"{err / scale:.3e} (<= {tol:g}); twin vs exact {twin_err / scale:.3e}"
-          f"; K1 vs twin {k_vs_twin / scale:.3e}; repeat bit-identical")
+    err = _held(f"K1 {label}", a, want, exact, tol)
+    print(f"K1 {label}: torch.equal to the CPU plan-order sums; repeat "
+          f"and head 0 bit-identical; vs exact f64 sums max abs err "
+          f"{err:.3e} (normalised <= {tol:g})")
     return err
 
 
@@ -320,8 +388,16 @@ def adversarial_pack():
     return build_graph(src, dst, n=n)
 
 
+def _shares(words, real, below):
+    """'x% of real slots below the head, y% of slots sentinels'."""
+    n_real = max(int(real.sum()), 1)
+    return (f"{int(below.sum()) / n_real:.1%} of real slots below the head, "
+            f"{1 - n_real / words.numel():.1%} of slots sentinels")
+
+
 def kernel_checks(engine):
-    """Phase 4: K1 against its twin and timings; returns the K1 record."""
+    """Phase 4: K1 against its plain versions, the head's share, and its
+    timings; returns the K1 record."""
     import numpy as np
     import torch
 
@@ -330,15 +406,16 @@ def kernel_checks(engine):
     from pagerank_tpu_torch.ops import ell_spmv
     from pagerank_tpu_torch.ops.ell import segment_plan
 
-    # -- at the main path's own shapes (f32, then f64 on the same slots)
+    # -- at the main path's own shapes, every entry on the same slots
     z_ext, src, rb, nb, plan = engine.contrib_inputs()
-    f32 = torch.float32
-    max_err = _k1_compare(z_ext, src, rb, nb, plan, f32, 1e-5,
-                          "main-path f32/f32")
-    _k1_compare(z_ext.double(), src, rb, nb, plan, torch.float64, 1e-12,
-                "main-path f64/f64")
+    f32, f64 = torch.float32, torch.float64
+    max_err = _k1_entry(z_ext, src, rb, nb, plan, f32, 1e-5,
+                        "main-path f32/f32")
+    _k1_entry(z_ext, src, rb, nb, plan, f64, 1e-6, "main-path f32/f64")
+    _k1_entry(z_ext.double(), src, rb, nb, plan, f64, 1e-12,
+              "main-path f64/f64")
 
-    # -- the adversarial pack, in every dtype pair the kernel has
+    # -- the adversarial pack, in every entry
     g = adversarial_pack()
     eng = TorchEngine(PageRankConfig(), device="cuda").build(g)
     eng.set_ranks(np.random.default_rng(9).random(g.n).astype(np.float32))
@@ -354,20 +431,29 @@ def kernel_checks(engine):
     segs = torch.diff(pa.block_seg_start)
     _check(int(segs[0]) >= 100 and int((segs == 0).sum()) > 0,
            "adversarial pack lacks a deep hub block or an empty block")
-    _k1_compare(za, sa, ra, na, pa, f32, 1e-5, "adversarial f32/f32")
-    _k1_compare(za, sa, ra, na, pa, torch.float64, 1e-6,
-                "adversarial f32/f64")
-    _k1_compare(za.double(), sa, ra, na, pa, torch.float64, 1e-12,
-                "adversarial f64/f64")
+    _k1_entry(za, sa, ra, na, pa, f32, 1e-5, "adversarial f32/f32")
+    _k1_entry(za, sa, ra, na, pa, f64, 1e-6, "adversarial f32/f64")
+    _k1_entry(za.double(), sa, ra, na, pa, f64, 1e-12,
+              "adversarial f64/f64")
+    del za, sa, ra, pa, eng
+
+    # -- the head's share of the main path's slots
+    n_state = z_ext.shape[0] - 8
+    real = src != n_state
+    head = ell_spmv.check_head(None, 4, n_state,
+                               torch.cuda.get_device_name(0))
+    print(f"K1 head {head} (f32): " + _shares(src, real, real & (src < head)))
 
     # -- times at the main path's shapes (f32/f32, as the main path runs)
+    work = ell_spmv.workspace(plan, f32, z_ext.device)
+
     def k1():
-        ell_spmv.ell_contrib(z_ext, src, rb, nb, accum_dtype=f32, plan=plan)
+        ell_spmv.ell_contrib(z_ext, src, rb, nb, accum_dtype=f32, plan=plan,
+                             work=work)
 
     def twin():
         ell_spmv.ell_contrib_reference(z_ext, src, rb, nb, accum_dtype=f32)
 
-    n_state = z_ext.shape[0] - 8
     mask = src != n_state
     lanes = torch.arange(128, device=src.device)
     rows = (rb.long()[:, None] * 128 + lanes)[mask]
@@ -397,43 +483,63 @@ def kernel_checks(engine):
     _check(lib_err <= 1e-5, f"torch.sparse.mm disagrees with K1: {lib_err}")
 
     ms = _median_ms(k1, 30)
+    bind_ms = _host_ms(lambda: ell_spmv.bind(z_ext, src, nb, accum_dtype=f32,
+                                             plan=plan, work=work))
     plain_ms = _median_ms(twin, 20)
     library_ms = _median_ms(library, 20)
+    bare = _launch_ms(_variants(
+        lambda head: ell_spmv.bind(z_ext, src, nb, accum_dtype=f32,
+                                   plan=plan, head=head)))
+    used = "head max"
     rows_n = src.shape[0]
-    case = kernels.k1_case_from_inputs("ell_contrib@main-path", z_ext, src,
-                                       rb, nb, plan)
+    case = kernels.k1_case_from_inputs(
+        "ell_contrib@main-path", z_ext, src, rb, nb, plan,
+        device_kind=torch.cuda.get_device_name(0))
     _check_case(case)
     bytes_moved = int(case.cost_model["bytes"])
     bound_ms, bound_by = _bound_ms(case.cost_model)
     print(f"K1 timing at main-path shapes ({rows_n} rows x 128, "
-          f"{plan.num_segments} segments, {nb} blocks): {ms:.4f} ms, twin "
-          f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, "
+          f"{plan.num_segments} segments, {nb} blocks, "
+          f"{plan.empty_groups.shape[0]} empty): wrapper call {ms:.4f} ms "
+          f"(its bind alone {bind_ms:.4f} ms on the host clock); "
+          f"bare launch (bound launcher, 50 launches between two events, "
+          f"median of 7 rounds in turns): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in bare.items())
+          + f"; twin {plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, "
           f"{bound_by} bound {bound_ms:.4f} ms ({bytes_moved} B at "
           f"{_card().hbm_bytes_per_s / 1e12:g} TB/s; {bound_ms / ms:.1%} of "
-          f"bound); PTK001-005 clean on the main path's plan")
+          f"bound for the wrapper call, {bound_ms / bare[used]:.1%} for the "
+          f"bare launch); PTK001-005 clean on the main path's plan")
     return {
         "name": "ell_contrib", "route": "cuda",
         "source": "pagerank_tpu_torch/csrc/ell_contrib.cu",
         "replaces": "pagerank_tpu/ops/pallas_spmv.py:98",
         "checked": True, "max_abs_err": max_err, "ms": ms,
+        "launch_ms": bare[used], "variants_ms": bare,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "shapes": f"z_ext {_dt(z_ext)}[{z_ext.shape[0]}], src int32"
                   f"[{rows_n},128], {plan.num_segments} segments, {nb} "
-                  f"blocks",
+                  f"blocks, head {head}",
     }
 
 
-def step_breakdown(engine, kernel="K1", passes=("segment_partials",
-                                                 "block_sums"), steps=10):
+#: The old passes' kernel names: none may run in a step now.
+OLD_PASSES = ("segment_partials", "block_sums", "pair_segment_partials",
+              "pair_sums")
+
+
+def step_breakdown(engine, kernel="K1", symbol="ell_contrib_kernel",
+                   steps=10):
     """Where a step's time goes, on a path's engine: the host wall per
     step of ``steps`` unprofiled steps, then the device time per kernel
-    over as many steps under torch.profiler — the kernel's two
-    ``passes`` apart, the ``index_add_`` kernels of the pair expansion
-    (partitioned form), the step's other (elementwise) kernels — and the
-    device's idle share of the unprofiled wall."""
+    over as many steps under torch.profiler — the path's one kernel
+    ``symbol`` (launched once a step), the step's other (elementwise)
+    kernels — and the device's idle share of the unprofiled wall. Fails
+    if a pass-2 kernel of the first form, an ``index_add_`` or a slice
+    add of the old pair expansion runs in the step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     engine.step()
     torch.cuda.synchronize()
@@ -442,49 +548,59 @@ def step_breakdown(engine, kernel="K1", passes=("segment_partials",
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
+    # One warm-up step inside the profiler, whose events are dropped: the
+    # first launch after the tracer starts can go unrecorded. The active
+    # steps' events are taken when their cycle ends.
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps),
+                 on_trace_ready=lambda p: traced.append(p.key_averages())
+                 ) as prof:
+        for _ in range(steps + 1):
             engine.step()
-        torch.cuda.synchronize()
-    per_kernel = {}
-    for ev in prof.key_averages():
+            torch.cuda.synchronize()
+            prof.step()
+    _check(len(traced) == 1, f"the profiler closed {len(traced)} cycles")
+    per_kernel, calls, ops = {}, {}, set()
+    for ev in traced[0]:
         if str(getattr(ev, "device_type", "")) != "DeviceType.CUDA":
+            ops.add(ev.key)
             continue
+        if ev.key.startswith("ProfilerStep"):
+            continue  # the schedule's step ranges, not kernels
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
             us = ev.self_cuda_time_total
         per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / steps
-    # A pass name not preceded by a letter or "_" (demangled "::name",
-    # mangled "16name"): K1's segment_partials must not match K2's
-    # pair_segment_partials.
-    def named(k, p):
+        calls[ev.key] = calls.get(ev.key, 0) + ev.count
+
+    def named(k, p):  # "p" not preceded by a letter or "_"
         return re.search(rf"(?<![A-Za-z_]){p}", k) is not None
 
-    def part(pred):
-        return sum(v for k, v in per_kernel.items() if pred(k))
-
-    def is_pass(k):
-        return any(named(k, p) for p in passes)
-
-    p1 = part(lambda k: named(k, passes[0]))
-    p2 = part(lambda k: named(k, passes[1]))
-    expand = part(lambda k: not is_pass(k) and "index" in k.lower())
+    mine = [k for k in per_kernel if named(k, symbol)]
+    k_ms = sum(per_kernel[k] for k in mine)
+    old = [k for k in per_kernel if any(named(k, p) for p in OLD_PASSES)
+           or "index" in k.lower()]
+    expand_ops = sorted(o for o in ops if o in ("aten::index_add_",
+                                               "aten::add_"))
     busy = sum(per_kernel.values())
-    other = busy - p1 - p2 - expand
-    top = sorted(((v, k) for k, v in per_kernel.items() if not is_pass(k)),
+    other = busy - k_ms
+    top = sorted(((v, k) for k, v in per_kernel.items() if k not in mine),
                  reverse=True)[:6]
     print(f"{kernel} step breakdown over {steps} steps: wall {wall_ms:.4f} "
-          f"ms/step; device busy {busy:.4f} ms/step = {kernel} pass 1 "
-          f"{p1:.4f} + {kernel} pass 2 {p2:.4f} + index_add_ {expand:.4f} + "
-          f"other kernels {other:.4f}; device idle "
-          f"{1 - busy / wall_ms:.1%} of the wall")
+          f"ms/step; device busy {busy:.4f} ms/step = {kernel} {k_ms:.4f} "
+          f"({sum(calls[k] for k in mine)} launches) + other kernels "
+          f"{other:.4f}; device idle {1 - busy / wall_ms:.1%} of the wall")
     for v, k in top:
         print(f"  other kernel {v:.4f} ms/step: {k[:100]}")
-    _check(p1 > 0 and p2 > 0,
-           f"the profiled steps show no {kernel} device time")
-    return {"wall_ms": wall_ms, "busy_ms": busy, "pass1_ms": p1,
-            "pass2_ms": p2, "index_add_ms": expand, "other_ms": other}
+    _check(k_ms > 0 and sum(calls[k] for k in mine) == steps,
+           f"the profiled steps show {sum(calls[k] for k in mine)} {kernel} "
+           f"launches for {steps} steps")
+    _check(not old and not expand_ops,
+           f"a pass-2 or expansion kernel runs in the {kernel} step: "
+           f"{old} {expand_ops}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "kernel_ms": k_ms,
+            "other_ms": other}
 
 
 def partitioned_path(graph, oracle, flat_rows):
@@ -551,42 +667,54 @@ def partitioned_path(graph, oracle, flat_rows):
     return engines[0], engines[1], report
 
 
-def _k2_compare(inputs, label, tol=1e-5):
-    """K2 vs its twin's exact (f64) sums of the same widened window
-    values, and bit-identity on repeat. Returns K2's max abs error."""
+def _k2_entry(inputs, label, tol=1e-5):
+    """K2 at one entry: its block sums torch.equal to the plain
+    plan-order sums computed on the CPU from the same inputs; repeat and a
+    head of 0 bit-identical on one workspace, its counters left zero; within ``tol`` of the exact (f64) sums of the
+    same widened values. Returns K2's max abs error."""
     import torch
 
+    from pagerank_tpu_torch.ops import ell_spmv
     from pagerank_tpu_torch.ops import ell_spmv_partitioned as k2
 
     zw, slots, rp, pp, npairs, plan = inputs
-    a = k2.ell_contrib_partitioned(zw, slots, rp, pp, npairs, plan=plan)
-    b = k2.ell_contrib_partitioned(zw, slots, rp, pp, npairs, plan=plan)
-    exact = k2.ell_contrib_partitioned_reference(zw.double(), slots, rp, pp,
-                                                 npairs)
-    twin = k2.ell_contrib_partitioned_reference(zw, slots, rp, pp, npairs)
+    work = k2.workspace(plan, zw.device)
+
+    def run(**kw):
+        return k2.ell_contrib_partitioned(zw, slots, rp, pp, npairs,
+                                          plan=plan, work=work, **kw)
+
+    a, b, c = run(), run(), run(head=0)
     torch.cuda.synchronize()
     _check(torch.equal(a, b), f"K2 {label}: two launches differ")
-    scale = max(float(exact.abs().max()), 1e-300)
-    err = float((a.double() - exact).abs().max())
-    twin_err = float((twin.double() - exact).abs().max())
-    _check(err / scale <= tol,
-           f"K2 {label}: normalised max error {err / scale:.3e} > {tol:g}")
-    print(f"K2 {label}: vs exact sums max abs err {err:.3e}, normalised "
-          f"{err / scale:.3e} (<= {tol:g}); twin vs exact "
-          f"{twin_err / scale:.3e}; repeat bit-identical")
+    _check(not work.counter.any(), f"K2 {label}: counters left non-zero")
+    _check(torch.equal(a, c), f"K2 {label}: a head of 0 changed bits")
+    want = k2.ell_contrib_partitioned_plan_reference(
+        zw.cpu(), slots.cpu(), pp.cpu(), plan=ell_spmv.plan_to(plan, "cpu"))
+    exact = k2.expand_pairs(
+        k2.ell_contrib_partitioned_reference(zw.double(), slots, rp, pp,
+                                             npairs),
+        pp, plan.pair_block, plan.num_blocks)
+    err = _held(f"K2 {label}", a, want, exact, tol)
+    print(f"K2 {label}: block sums torch.equal to the CPU plan-order sums; "
+          f"repeat and head 0 bit-identical; vs exact f64 sums max abs err "
+          f"{err:.3e} (normalised <= {tol:g})")
     return err
 
 
-def adversarial_partitioned():
+def adversarial_partitioned(span=4096, deep=50):
     """Inputs of K2 on a pack with deep hub pairs (the hub's in-edges
-    cut over every partition), empty partitions (isolated vertices
-    relabeled last) and appended all-sentinel rows."""
+    cut over every partition; at least ``deep`` segments), empty
+    partitions (isolated vertices relabeled last), empty blocks and
+    appended all-sentinel rows. At a span of 1024 (59 partitions, hub
+    pairs of 16 segments) the hub's block is fed by 40 pairs, more than
+    the 32 segments of a finisher's chunk."""
     import numpy as np
     import torch
 
     from pagerank_tpu_torch import PageRankConfig, TorchEngine, build_graph
     from pagerank_tpu_torch.ops import ell_spmv
-    from pagerank_tpu_torch.ops.ell import segment_plan
+    from pagerank_tpu_torch.ops.ell import pair_plan
     from pagerank_tpu_torch.ops.spmv import pack_words24
 
     rng = np.random.default_rng(5)
@@ -595,83 +723,106 @@ def adversarial_partitioned():
     dst = np.concatenate([np.zeros(live - 1, np.int64),
                           rng.integers(0, live // 4, 60000)])
     g = build_graph(src, dst, n=n)
-    eng = TorchEngine(PageRankConfig(partition_span=4096),
+    eng = TorchEngine(PageRankConfig(partition_span=span),
                       device="cuda").build(g)
     eng.set_ranks(rng.random(n).astype(np.float32))
-    zw, slots, rp, pp, npairs, _ = eng.contrib_inputs()
+    zw, slots, rp, pp, npairs, plan = eng.contrib_inputs()
     # 100 rows of sentinels only, appended to the last pair.
-    sent = torch.full((1, 128), eng.layout_info()["partition_span"],
-                      dtype=torch.int32, device=zw.device)
+    sent = torch.full((1, 128), plan.sentinel, dtype=torch.int32,
+                      device=zw.device)
     slots = torch.cat([slots, pack_words24(sent).expand(100, -1)]).contiguous()
     rp = torch.cat([rp, torch.full((100,), npairs - 1, dtype=torch.int32,
                                    device=rp.device)])
-    plan = ell_spmv.plan_to(segment_plan(rp.cpu().numpy(), npairs), zw.device)
+    plan = ell_spmv.plan_to(pair_plan(
+        rp.cpu().numpy(), npairs, plan.pair_block.cpu().numpy(),
+        plan.num_blocks, plan.sentinel), zw.device)
     segs = torch.diff(plan.block_seg_start)
     part_rows = torch.bincount(pp[rp.long()].long(), minlength=zw.shape[0])
-    _check(int(segs.max()) >= 50 and int((part_rows == 0).sum()) > 0,
-           "adversarial partitioned pack lacks a deep pair or an empty "
-           "partition")
+    _check(int(segs.max()) >= deep and int((part_rows == 0).sum()) > 0
+           and plan.empty_blocks.shape[0] > 0
+           and int(torch.diff(plan.block_pair_start).max()) > 1,
+           "adversarial partitioned pack lacks a deep pair, an empty "
+           "partition, an empty block or a block of several pairs")
     return zw, slots, rp, pp, npairs, plan
 
 
-def _pair_csr(zw, slots, rp, pp, npairs, psz):
-    """The pair-row x windowed-z matrix of K2's inputs as a CSR tensor:
-    row pair*128 + lane, column part*W + word, one 1 per real slot."""
+def _block_csr(zw, slots, rp, pp, plan):
+    """K2's function as a CSR matrix: row block*128 + lane, column
+    part*W + word, one 1 per real slot (block sums = matrix x windows)."""
     import torch
 
     from pagerank_tpu_torch.ops.spmv import unpack_words24
 
     words = unpack_words24(slots).long()
-    mask = words != psz
+    mask = words != plan.sentinel
     lanes = torch.arange(128, device=slots.device)
-    rows = (rp.long()[:, None] * 128 + lanes)[mask]
+    rows = (plan.pair_block.long()[rp.long()][:, None] * 128 + lanes)[mask]
     ncols = zw.numel()
     cols = (pp.long()[rp.long()][:, None] * zw.shape[1] + words)[mask]
     del words, mask
     key, _ = torch.sort(rows * ncols + cols)
     rows, cols = key // ncols, key % ncols
     del key
-    crow = torch.zeros(npairs * 128 + 1, dtype=torch.long,
-                       device=slots.device)
-    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=npairs * 128), 0)
+    nrows = plan.num_blocks * 128
+    crow = torch.zeros(nrows + 1, dtype=torch.long, device=slots.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows, minlength=nrows), 0)
     with warnings.catch_warnings():  # "sparse CSR support is in beta"
         warnings.simplefilter("ignore", UserWarning)
         return torch.sparse_csr_tensor(
             crow, cols, torch.ones(cols.shape[0], dtype=torch.float32,
                                    device=slots.device),
-            size=(npairs * 128, ncols))
+            size=(nrows, ncols))
 
 
 def k2_checks(eng32, eng16):
-    """Phase 6: K2 against its twin, its timings and the expansion's;
-    returns the K2 record."""
+    """Phase 6: K2 against its plain versions in every entry, the head's
+    share, and its timings; returns the K2 record."""
     import torch
 
     from pagerank_tpu_torch.analysis import kernels
+    from pagerank_tpu_torch.ops import ell_spmv
     from pagerank_tpu_torch.ops import ell_spmv_partitioned as k2
     from pagerank_tpu_torch.ops import spmv
 
     inputs = eng32.contrib_inputs()
     zw, slots, rp, pp, npairs, plan = inputs
-    max_err = _k2_compare(inputs, "path f32 windows, words24")
+    max_err = _k2_entry(inputs, "path f32 windows, words24")
     int32 = (zw, spmv.unpack_words24(slots).contiguous()) + inputs[2:]
-    _k2_compare(int32, "path f32 windows, int32 words")
+    _k2_entry(int32, "path f32 windows, int32 words")
     in16 = eng16.contrib_inputs()
-    _k2_compare(in16, "path bf16 windows, words24")
-    _k2_compare((in16[0],) + int32[1:], "path bf16 windows, int32 words")
+    _k2_entry(in16, "path bf16 windows, words24")
+    _k2_entry((in16[0],) + int32[1:], "path bf16 windows, int32 words")
     adv = adversarial_partitioned()
-    _k2_compare(adv, "adversarial f32 windows, words24")
-    _k2_compare((adv[0].to(torch.bfloat16),) + adv[1:],
-                "adversarial bf16 windows, words24")
+    _k2_entry(adv, "adversarial f32 windows, words24")
+    _k2_entry((adv[0].to(torch.bfloat16),) + adv[1:],
+              "adversarial bf16 windows, words24")
+    adv = adversarial_partitioned(1024, deep=16)
+    _check(int(torch.diff(adv[5].block_pair_start).max()) > ell_spmv.CHUNK,
+           "the 59-partition pack has no block of more than 32 pairs")
+    _k2_entry(adv, "adversarial 59 partitions, f32 windows, words24")
+    del adv
+
+    words = spmv.unpack_words24(slots)
+    real = words != plan.sentinel
+    part0 = (pp.long()[rp.long()] == 0)[:, None]
+    kind = torch.cuda.get_device_name(0)
+    for table, item in (("f32", 4), ("bf16", 2)):
+        h = ell_spmv.check_head(None, item, plan.sentinel, kind)
+        print(f"K2 head {h} of partition 0 ({table} windows, words24): "
+              + _shares(words, real, real & part0 & (words < h)))
+    del words, real, part0
+
+    work = k2.workspace(plan, zw.device)
 
     def kernel(args):
-        return lambda: k2.ell_contrib_partitioned(*args[:5], plan=args[5])
+        return lambda: k2.ell_contrib_partitioned(*args[:5], plan=args[5],
+                                                  work=work)
 
     def twin():
-        k2.ell_contrib_partitioned_reference(*inputs[:5])
+        k2.expand_pairs(k2.ell_contrib_partitioned_reference(*inputs[:5]),
+                        pp, plan.pair_block, plan.num_blocks)
 
-    a_t = _pair_csr(zw, slots, rp, pp, npairs,
-                    eng32.layout_info()["partition_span"])
+    a_t = _block_csr(zw, slots, rp, pp, plan)
     zcol = zw.reshape(-1, 1)
 
     def library():
@@ -683,47 +834,62 @@ def k2_checks(eng32, eng16):
                     / max(float(k_out.abs().max()), 1e-300))
     _check(lib_err <= 1e-5, f"torch.sparse.mm disagrees with K2: {lib_err}")
 
-    def expand():
-        eng32.expand_pairs(k_out)
-
     ms = _median_ms(kernel(inputs), 30)
+    bind_ms = _host_ms(lambda: k2.bind(zw, slots, pp, npairs, plan=plan,
+                                       work=work))
     ms_int32 = _median_ms(kernel(int32), 30)
     ms_bf16 = _median_ms(kernel(in16), 30)
     plain_ms = _median_ms(twin, 20)
     library_ms = _median_ms(library, 20)
-    expand_ms = _median_ms(expand, 30)
+
+    def binder(args):
+        return lambda head: k2.bind(args[0], args[1], args[3], args[4],
+                                    plan=args[5], head=head)
+
+    bare = _launch_ms(_variants(binder(inputs)))
+    bare16 = _launch_ms(_variants(binder(in16)))
+    used = "head max"
     rows = slots.shape[0]
     case = kernels.k2_case_from_inputs("ell_contrib_partitioned@path",
-                                       *inputs)
+                                       *inputs, device_kind=kind)
     case16 = kernels.k2_case_from_inputs(
-        "ell_contrib_partitioned@path-bf16", *in16)
+        "ell_contrib_partitioned@path-bf16", *in16, device_kind=kind)
     for c in (case, case16,
               kernels.k2_case_from_inputs("ell_contrib_partitioned@int32",
-                                          *int32)):
+                                          *int32, device_kind=kind)):
         _check_case(c)
     bytes_moved = int(case.cost_model["bytes"])
     bound_ms, bound_by = _bound_ms(case.cost_model)
     print(f"K2 timing at path shapes ({rows} rows x 384 B, {zw.shape[0]} "
           f"windows of {zw.shape[1]}, {plan.num_segments} segments, {npairs} "
-          f"pairs): {ms:.4f} ms (f32 windows, words24), {ms_int32:.4f} ms "
-          f"(int32 words), {ms_bf16:.4f} ms (bf16 windows; byte bound "
-          f"{_bound_ms(case16.cost_model)[0]:.4f} ms); twin "
-          f"{plain_ms:.4f} ms, torch.sparse.mm {library_ms:.4f} ms, "
-          f"{bound_by} bound {bound_ms:.4f} ms ({bytes_moved} B at "
-          f"{_card().hbm_bytes_per_s / 1e12:g} TB/s; {bound_ms / ms:.1%} of "
-          f"bound); pair -> block expansion {expand_ms:.4f} ms "
-          f"({zw.shape[0]} partitions); PTK001-005 clean on the path's plans "
-          f"(f32, bf16, int32 words)")
+          f"pairs, {plan.num_blocks} blocks, {plan.empty_blocks.shape[0]} "
+          f"empty): wrapper call {ms:.4f} ms (f32 windows, words24; block "
+          f"sums, the expansion included; its bind alone {bind_ms:.4f} ms "
+          f"on the host clock), {ms_int32:.4f} ms (int32 words), "
+          f"{ms_bf16:.4f} ms (bf16 windows; byte bound "
+          f"{_bound_ms(case16.cost_model)[0]:.4f} ms); bare launch (50 "
+          f"between two events, median of 7 rounds in turns), f32: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in bare.items())
+          + "; bf16: " + ", ".join(f"{k} {v:.4f} ms"
+                                   for k, v in bare16.items())
+          + f"; twin + expansion {plain_ms:.4f} ms, torch.sparse.mm "
+          f"{library_ms:.4f} ms, {bound_by} bound {bound_ms:.4f} ms "
+          f"({bytes_moved} B at {_card().hbm_bytes_per_s / 1e12:g} TB/s; "
+          f"{bound_ms / ms:.1%} of bound for the wrapper call, "
+          f"{bound_ms / bare[used]:.1%} for the bare launch); PTK001-005 "
+          f"clean on the path's plans (f32, bf16, int32 words)")
     return {
         "name": "ell_contrib_partitioned", "route": "cuda",
         "source": "pagerank_tpu_torch/csrc/ell_contrib_partitioned.cu",
         "replaces": "pagerank_tpu/ops/pallas_spmv.py:241",
         "checked": True, "max_abs_err": max_err, "ms": ms,
+        "launch_ms": bare[used], "variants_ms": bare,
+        "variants_bf16_ms": bare16,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms,
         "shapes": f"z_windows {_dt(zw)}[{zw.shape[0]},{zw.shape[1]}], "
                   f"words24 int8[{rows},384], {plan.num_segments} "
-                  f"segments, {npairs} pairs",
+                  f"segments, {npairs} pairs, {plan.num_blocks} blocks",
     }
 
 
@@ -813,11 +979,11 @@ def _k2_global_slots(eng):
     return zw.reshape(-1), src
 
 
-def gather_probe_phase(k1_slots, k2_slots, pass1):
+def gather_probe_phase(k1_slots, k2_slots, step_ms):
     """Phase 7: P1-P3 on the main path's own slot arrays (K1's flat
     pack, K2's windowed pack as global indices, f32 and bf16 windows)
-    beside each kernel's profiled pass 1, then the uniform sweep at
-    2^19 rows. Returns the P1, P2, P3 records."""
+    beside each kernel's device time in a profiled step, then the
+    uniform sweep at 2^19 rows. Returns the P1, P2, P3 records."""
     import torch
 
     from pagerank_tpu_torch.scripts.probe_gather import KERNELS
@@ -832,13 +998,13 @@ def gather_probe_phase(k1_slots, k2_slots, pass1):
     z, src = k1_slots
     at_k1 = _probe_point("on K1's slots (flat pack, rmat:22)", z, src,
                          weights(src, z.dtype))
-    print(f"  K1 pass 1 (profiled step) {pass1['K1']:.4f} ms against P1 "
+    print(f"  K1 (profiled step) {step_ms['K1']:.4f} ms against P1 "
           f"{at_k1['probe_take']['ms']:.4f} ms and P2 "
           f"{at_k1['probe_group8']['ms']:.4f} ms on the same slots")
     for label, (z, src) in k2_slots.items():
         at = _probe_point(f"on {label}'s slots (windowed pack, rmat:22)", z,
                           src, weights(src, z.dtype))
-        print(f"  {label} pass 1 (profiled step) {pass1[label]:.4f} ms "
+        print(f"  {label} (profiled step) {step_ms[label]:.4f} ms "
               f"against P1 {at['probe_take']['ms']:.4f} ms and P2 "
               f"{at['probe_group8']['ms']:.4f} ms on the same slots")
     rows = 1 << 19
@@ -1125,7 +1291,7 @@ def main(argv=None) -> int:
         summary, report, oracle = main_path(args.scale, tmp)
         k1 = kernel_checks(summary["engine"])
         k1["launches"] = report["launches"]
-        pass1 = {"K1": step_breakdown(summary["engine"])["pass1_ms"]}
+        step_ms = {"K1": step_breakdown(summary["engine"])["kernel_ms"]}
         k1_slots = summary["engine"].contrib_inputs()[:2]
         graph = summary["graph"]
         flat_rows = summary["engine"].layout_info()["num_rows"]
@@ -1136,11 +1302,11 @@ def main(argv=None) -> int:
         k2["launches"] = part_report["f32"]["launches"]
         k2_slots = {}
         for eng, label in ((eng32, "K2"), (eng16, "K2 (bf16 windows)")):
-            pass1[label] = step_breakdown(
-                eng, label, ("pair_segment_partials", "pair_sums"))["pass1_ms"]
+            step_ms[label] = step_breakdown(
+                eng, label, "ell_contrib_part_kernel")["kernel_ms"]
             k2_slots[label] = _k2_global_slots(eng)
         del eng32, eng16
-        probe = gather_probe_phase(k1_slots, k2_slots, pass1)
+        probe = gather_probe_phase(k1_slots, k2_slots, step_ms)
         del k1_slots, k2_slots
         resume_determinism(args.resume_scale, tmp)
         form = resume_determinism(args.resume_scale, tmp,

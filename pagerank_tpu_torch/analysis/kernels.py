@@ -7,10 +7,12 @@ Port of ``pagerank_tpu/analysis/kernels.py``. There a case was a
 the grid. Here a **launch case** is one ``__global__`` symbol of
 ``pagerank_tpu_torch/csrc/`` at one instantiated geometry
 (:class:`Launch`): grid and block, dynamic shared bytes, and a read and
-a write model per operand — the element intervals its CTAs read or
-write, evaluated over the whole grid. One wrapper call is a
-:class:`KernelCase`: its launches (K1 and K2 are two passes each), the
-operands they share, the config dtypes and an analytic cost model.
+a write model per operand — the element intervals its CTAs (or, in a
+persistent kernel, its lane groups' work items) read, write or update
+atomically, evaluated over the whole grid. One wrapper call is a
+:class:`KernelCase`: its launches (K1 and K2 are one persistent launch
+each), the operands they share, the config dtypes and an analytic cost
+model.
 
 What the source says is read from the source: each symbol's
 ``__launch_bounds__``, its ``__shared__`` declarations, whether the
@@ -31,10 +33,13 @@ real pack's plan; nothing of the geometry is restated by hand.
   PTK003  CTA coverage: every read in bounds; every output element
           written by exactly one CTA (CTAs run in no order, so any
           double write is a race: the TPU's ordered revisit has no
-          counterpart); a scratch buffer is read exactly where it was
-          written; an input a kernel must partition (K1's and K2's slot
-          rows) is read exactly once; and every segment's rows belong to
-          the block (pair) whose pass-2 thread sums it.
+          counterpart); a plain store to an element that another work
+          item stores to or updates atomically is a race too, while
+          atomic updates (the finishers' tickets on their counters) may
+          meet; a scratch buffer is read exactly where it was written;
+          an input a kernel must partition (K1's and K2's slot rows) is
+          read exactly once; and every segment's rows belong to the
+          block (pair) whose finisher sums it.
   PTK004  f64 discipline: no f64 template argument, shared buffer or
           operand in a case whose config is f32. The TPU rule's third
           clause (HBM refs touched only by DMA) has no Hopper
@@ -337,8 +342,9 @@ def read_source(name: str, csrc_dir: Optional[Path] = None) -> CuSource:
 @dataclasses.dataclass
 class Operand:
     """A device buffer of a case. ``role``: "in", "out" (every element
-    written exactly once over the case's launches) or "scratch" (written
-    by one launch, read by a later one: read exactly where written).
+    written exactly once over the case's launches), "scratch" (written,
+    then read by a later work item: read exactly where written) or
+    "counter" (ticket counters, updated atomically).
     ``align``: the byte alignment of its base that the wrapper
     guarantees (the caching allocator's 256 B for a fresh tensor).
     ``partition``: its reads must cover it exactly once."""
@@ -356,15 +362,16 @@ class Operand:
 
 @dataclasses.dataclass
 class Access:
-    """One launch's reads or writes of one operand: element intervals
-    [lo, hi), one per CTA touch (an interval read by g CTAs appears g
-    times). A ``gather`` reads data-dependent indices in
+    """One launch's reads, writes or atomic updates of one operand:
+    element intervals [lo, hi), one per CTA touch (or work item of a
+    persistent kernel; an interval read by g of them appears g times).
+    A ``gather`` reads data-dependent indices in
     [0, index_max]; it counts the operand's bytes once (the table the
     CTAs share through L2). ``vector_bytes``: the widest load or store
     the kernel issues on the operand (its base must be aligned to it)."""
 
     operand: str
-    mode: str  # "read" | "write" | "gather"
+    mode: str  # "read" | "write" | "atomic" | "gather"
     lo: Optional[np.ndarray] = None
     hi: Optional[np.ndarray] = None
     index_max: int = 0
@@ -433,27 +440,31 @@ def _ceil(a: int, b: int) -> int:
 
 
 def k1_cost(rows: int, n_state: int, num_blocks: int, num_segs: int,
-            z_item: int) -> Dict[str, float]:
+            num_empty: int, z_item: int) -> Dict[str, float]:
     """K1's bound: the slot table once (rows x 128 int32), z and the
     output once (n_state and num_blocks x 128 elements of z's type) and
-    the plan (seg_row_start, block_seg_start); one add a slot."""
+    the plan (seg_row_start, seg_block, block_seg_start and the empty
+    blocks); one add a slot."""
+    plan = (num_segs + 1 + num_segs + num_blocks + 1 + num_empty) * 4
     return {"flops": float(rows * LANES),
             "bytes": float(rows * LANES * 4 + n_state * z_item
-                           + num_blocks * LANES * z_item
-                           + (num_segs + 1) * 4 + (num_blocks + 1) * 4)}
+                           + num_blocks * LANES * z_item + plan)}
 
 
 def k2_cost(rows: int, word_bytes: int, table_numel: int, table_item: int,
-            num_pairs: int, num_segs: int) -> Dict[str, float]:
+            num_pairs: int, num_segs: int, num_blocks: int, num_live: int,
+            num_empty: int) -> Dict[str, float]:
     """K2's bound: the slot words once (``word_bytes`` a row: 384 for
-    words24, 512 for int32), the windows once, the f32 pair output, and
-    the plan (seg_row_start, seg_pair, pair_seg_start, pair_part); one
-    add a slot."""
-    plan = (num_segs + 1) * 4 + num_segs * 4 + (num_pairs + 1) * 4 \
-        + num_pairs * 4
-    return {"flops": float(rows * LANES),
+    words24, 512 for int32), the windows once, the f32 block output, and
+    the plan (seg_row_start, seg_pair, pair_seg_start, pair_part,
+    pair_block, block_pair_start, the ``num_live`` block_pairs and the
+    empty blocks); one add a slot, and one a lane of each pair that has
+    rows (the block sums)."""
+    plan = ((num_segs + 1) + num_segs + (num_pairs + 1) + 2 * num_pairs
+            + (num_blocks + 1) + num_live + num_empty) * 4
+    return {"flops": float((rows + num_live) * LANES),
             "bytes": float(rows * word_bytes + table_numel * table_item
-                           + num_pairs * LANES * 4 + plan)}
+                           + num_blocks * LANES * 4 + plan)}
 
 
 def probe_cost(rows: int, n: int, item: int) -> Dict[str, float]:
@@ -463,100 +474,263 @@ def probe_cost(rows: int, n: int, item: int) -> Dict[str, float]:
             "bytes": float(rows * LANES * (4 + 2 * item) + n * item)}
 
 
-# -- K1 ------------------------------------------------------------------------
+# -- K1 and K2: one persistent launch ------------------------------------------
+
+
+def head_capacity(src: CuSource, symbol: str, item: int,
+                  device_kind: Optional[str] = None) -> int:
+    """The head (table elements of ``item`` bytes) a CTA of ``symbol``
+    can stage: the block's shared memory less the symbol's static
+    shared bytes, whole 16-byte vectors."""
+    free = (costs.device_spec(device_kind).smem_per_block
+            - src.kernels[symbol].static_smem)
+    return free // 16 * 16 // item
+
+
+def _persistent_grid(items: int, device_kind: Optional[str]) -> int:
+    """The wrapper's grid (``ops/ell_spmv.py:persistent_grid``)."""
+    from pagerank_tpu_torch.ops.ell_spmv import persistent_grid
+
+    return persistent_grid(items, device_kind)
+
+
+def _runs(starts, stops):
+    """The concatenated ranges [starts[i], stops[i])."""
+    n = np.maximum(stops - starts, 0)
+    return (np.repeat(starts, n) + np.arange(int(n.sum()), dtype=np.int64)
+            - np.repeat(np.cumsum(n) - n, n))
+
+
+def _rows_of(idx):
+    """Element intervals of the 128-wide rows ``idx``."""
+    idx = np.asarray(idx, np.int64)
+    return idx * LANES, idx * LANES + LANES
+
+
+def _finishers(gss, group_of_seg, chunk: int, counter: str, active=None):
+    """The finishers' accesses of groups (blocks or pairs) cut into
+    segments [gss[g], gss[g+1]) (``ell_persistent.cuh:finish_group``):
+    a segment of a group of 2+ writes its partial; a group of up to
+    ``chunk`` segments draws tickets on ``counter`` and its finisher
+    reads the partials; a deeper group's chunks of ``chunk`` segments
+    draw tickets on chunk_counter (at their first segment), each chunk's
+    finisher reads the chunk's partials and writes chunk_sum at its
+    first segment, and the chunks draw tickets on ``counter`` for the
+    finisher that reads the chunk sums. Every counter is reset by its
+    finisher. Only the ``active`` groups (default all) are finished so:
+    the others are summed whole by one lane group. Returns (accesses,
+    adds, finished groups of 2+ segments)."""
+    nseg = np.maximum(gss[1:] - gss[:-1], 0)
+    if active is not None:
+        nseg = np.where(active, nseg, 0)
+    seg = np.arange(len(group_of_seg), dtype=np.int64)
+    multi = nseg[group_of_seg] > 1
+    deep = nseg[group_of_seg] > chunk
+    shallow_g = np.flatnonzero((nseg > 1) & (nseg <= chunk))
+    deep_g = np.flatnonzero(nseg > chunk)
+    nch = -(-nseg[deep_g] // chunk)  # chunks of each deep group
+    ordinal = (np.arange(int(nch.sum()), dtype=np.int64)
+               - np.repeat(np.cumsum(nch) - nch, nch))
+    c0 = np.repeat(gss[deep_g], nch) + ordinal * chunk  # first segments
+    c1 = np.minimum(c0 + chunk, np.repeat(gss[deep_g + 1], nch))
+    chunk_of = (gss[group_of_seg] + (seg - gss[group_of_seg]) // chunk
+                * chunk)[deep]
+    lanes = LANES
+    accesses = [
+        Access("partial", "write", *_rows_of(seg[multi])),
+        Access("partial", "read", gss[shallow_g] * lanes,
+               gss[shallow_g + 1] * lanes),
+        Access("partial", "read", c0 * lanes, c1 * lanes),
+        Access("chunk_sum", "write", *_rows_of(c0)),
+        Access("chunk_sum", "read", *_rows_of(c0)),
+        Access(counter, "atomic", group_of_seg[multi & ~deep],
+               group_of_seg[multi & ~deep] + 1),
+        Access(counter, "atomic", shallow_g, shallow_g + 1),  # the reset
+        Access("chunk_counter", "atomic", chunk_of, chunk_of + 1),
+        Access("chunk_counter", "atomic", c0, c0 + 1),  # the reset
+        Access(counter, "atomic", np.repeat(deep_g, nch),
+               np.repeat(deep_g, nch) + 1),
+        Access(counter, "atomic", deep_g, deep_g + 1),  # the reset
+    ]
+    adds = (nseg[shallow_g].sum() + nseg[deep_g].sum() + len(c0)) * lanes
+    return accesses, float(adds), np.flatnonzero(nseg > 1)
+
+
+
+
+def _items(item_start, item_segs, num_split, groups_segs, seg_row_start):
+    """The work items of a case: the given table, or ``ops/ell.py:
+    work_items`` over ``groups_segs`` (each non-empty group's segments
+    in sum order) at the default segment length. Returns (item_start,
+    item_segs, num_split) as int64 arrays and an int."""
+    if item_start is None:
+        from pagerank_tpu_torch.ops.ell import SEG_ROWS, WHOLE, work_items
+
+        it = work_items(groups_segs, seg_row_start, WHOLE * SEG_ROWS)
+        item_start, item_segs, num_split = (it["item_start"],
+                                            it["item_segs"], it["num_split"])
+    return (np.asarray(item_start, np.int64), np.asarray(item_segs, np.int64),
+            int(num_split))
+
+
+def _item_reads(ist):
+    """The work items' table reads: each item reads its two bounds and
+    its segment ids."""
+    it = np.arange(len(ist) - 1, dtype=np.int64)
+    return [Access("item_start", "read", it, it + 2),
+            Access("item_segs", "read", ist[:-1], ist[1:])]
 
 
 _K1_INSTANCE = {"float32": "float", "float64": "double"}
 
 
 def k1_case(label: str, *, seg_row_start, block_seg_start, row_block,
-            n_state: int, z_dtype: str = "float32",
+            n_state: int, seg_block=None, item_start=None, item_segs=None,
+            num_split: Optional[int] = None, z_dtype: str = "float32",
             accum_dtype: str = "float32", src_max: Optional[int] = None,
+            head: Optional[int] = None, device_kind: Optional[str] = None,
             csrc_dir=None) -> KernelCase:
-    """K1 (``csrc/ell_contrib.cu``) on a segment plan: pass 1
-    ``segment_partials`` one CTA per segment, pass 2 ``block_sums`` one
-    thread per (block, lane). ``src_max``: the largest slot index (the
-    sentinel n_state when None)."""
+    """K1 (``csrc/ell_contrib.cu``) on a segment plan: one persistent
+    launch of ``ell_contrib_kernel``, the wrapper's grid, the block and
+    the dynamic shared bytes (the head) from the source. Each
+    interval is one lane group's work item (the plan's, by default
+    ``ops/ell.py:work_items`` of the blocks): a whole block (its
+    segments' rows, its block), one segment of a deep block (its rows,
+    its partial), a finisher (the block's partials or chunk sums, its
+    counters, its block; see :func:`_finishers`) or an empty block.
+    ``seg_block`` defaults to the blocks ``block_seg_start`` gives;
+    ``src_max``: the largest slot index (the sentinel n_state when
+    None); ``head``: default the most that fits."""
     src = read_source("ell_contrib", csrc_dir)
-    lanes, threads = src.const("kLanes"), src.const("threads")
+    symbol = "ell_contrib_kernel"
+    lanes, threads = src.const("kLanes"), src.const("kThreads")
     rs = np.asarray(seg_row_start, np.int64)
     bss = np.asarray(block_seg_start, np.int64)
     num_segs, nb = len(rs) - 1, len(bss) - 1
+    nseg = np.maximum(bss[1:] - bss[:-1], 0)
+    sb = (np.repeat(np.arange(nb, dtype=np.int64), nseg) if seg_block is None
+          else np.asarray(seg_block, np.int64))
+    ist, isegs, num_split = _items(
+        item_start, item_segs, num_split,
+        [np.arange(bss[b], bss[b + 1]) for b in np.flatnonzero(nseg)], rs)
     rows = int(np.asarray(row_block).shape[0])
-    z_item, acc_item = _DTYPE_BYTES[z_dtype], _DTYPE_BYTES[accum_dtype]
-    inst = f"{_K1_INSTANCE[z_dtype]},{_K1_INSTANCE[accum_dtype]}"
+    z_item = _DTYPE_BYTES[z_dtype]
+    if head is None:
+        head = min(head_capacity(src, symbol, z_item, device_kind), n_state)
+    empty = np.flatnonzero(nseg == 0)
+    split = np.zeros(nb, bool)
+    split[sb[isegs[:num_split]]] = True
+    fin_acc, fin_adds, fin = _finishers(bss, sb, src.const("kChunk"),
+                                        "counter", active=split)
+    item_acc = _item_reads(ist)
+    whole_first = isegs[ist[num_split:-1]]  # each whole item's first segment
+    r1 = np.maximum(rs[1:], rs[:-1])  # the loop reads nothing past r1
     short = {"float32": "f32", "float64": "f64"}
-    entry = f"ell_contrib_{short[z_dtype]}_{short[accum_dtype]}"
     ops = {
         "z_ext": Operand(z_dtype, n_state + 8),
         "src": Operand("int32", rows * lanes, partition=True),
         "seg_row_start": Operand("int32", num_segs + 1),
+        "seg_block": Operand("int32", num_segs),
         "block_seg_start": Operand("int32", nb + 1),
+        "item_start": Operand("int32", len(ist)),
+        "item_segs": Operand("int32", len(isegs)),
+        "empty_blocks": Operand("int32", len(empty)),
         "partial": Operand(accum_dtype, num_segs * lanes, role="scratch"),
+        "chunk_sum": Operand(accum_dtype, num_segs * lanes, role="scratch"),
+        "counter": Operand("int32", nb, role="counter"),
+        "chunk_counter": Operand("int32", num_segs, role="counter"),
         "out": Operand(z_dtype, nb * lanes, role="out"),
     }
-    seg = np.arange(num_segs, dtype=np.int64)
-    r1 = np.maximum(rs[1:], rs[:-1])  # the loop reads nothing past r1
-    pass1 = Launch(
-        source="ell_contrib", symbol="segment_partials", instance=inst,
-        entry=entry,
-        grid=_grid1(num_segs), block=lanes, block_const="kLanes",
-        flops=float((r1 - rs[:-1]).sum() * lanes),
+    written = np.concatenate([sb[whole_first], fin, empty])
+    e = np.arange(len(empty), dtype=np.int64)
+    ssplit = isegs[:num_split]
+    launch = Launch(
+        source="ell_contrib", symbol=symbol,
+        instance=f"{_K1_INSTANCE[z_dtype]},{_K1_INSTANCE[accum_dtype]}",
+        entry=f"ell_contrib_{short[z_dtype]}_{short[accum_dtype]}",
+        grid=_grid1(_persistent_grid(len(ist) - 1 + len(empty), device_kind)),
+        block=threads, block_const="kThreads",
+        dynamic_smem=_ceil(head * z_item, 16) * 16,
+        flops=float(((r1 - rs[:-1])[isegs].sum() + len(isegs)) * lanes)
+        + fin_adds,
         accesses=[
-            Access("src", "read", rs[:-1] * lanes, r1 * lanes),
+            Access("src", "read", rs[isegs] * lanes, r1[isegs] * lanes),
             Access("z_ext", "gather",
-                   index_max=n_state if src_max is None else int(src_max)),
-            Access("seg_row_start", "read", seg, seg + 2),
-            Access("partial", "write", seg * lanes, seg * lanes + lanes),
-        ])
-    # Pass 2: thread i is (block i // 128, lane i % 128); a CTA of
-    # ``threads`` threads covers a run of blocks.
-    c_lo, c_hi = _cta_spans(nb * lanes, threads)
-    b0, b1 = c_lo // lanes, (c_hi - 1) // lanes + 1
-    blk = np.arange(nb, dtype=np.int64)
-    s1 = np.maximum(bss[1:], bss[:-1])
-    pass2 = Launch(
-        source="ell_contrib", symbol="block_sums", instance=inst,
-        entry=entry, grid=_grid1(_ceil(nb * lanes, threads)),
-        block=threads, block_const="threads",
-        flops=float((s1 - bss[:-1]).sum() * lanes),
-        accesses=[
-            Access("partial", "read", bss[:-1] * lanes, s1 * lanes),
-            Access("block_seg_start", "read", b0, b1 + 1),
-            Access("out", "write", blk * lanes, blk * lanes + lanes),
+                   index_max=max(n_state if src_max is None else int(src_max),
+                                 head - 1), vector_bytes=16),
+            *item_acc,
+            Access("seg_row_start", "read", isegs, isegs + 2),
+            Access("seg_block", "read", isegs[ist[:-1]], isegs[ist[:-1]] + 1),
+            Access("block_seg_start", "read", sb[ssplit], sb[ssplit] + 2),
+            Access("empty_blocks", "read", e, e + 1),
+            *fin_acc,
+            Access("out", "write", *_rows_of(written)),
         ])
     return KernelCase(
         label=label, config={"z": z_dtype, "accum": accum_dtype},
-        operands=ops, launches=[pass1, pass2],
-        cost_model=k1_cost(rows, n_state, nb, num_segs, z_item),
+        operands=ops, launches=[launch],
+        cost_model=k1_cost(rows, n_state, nb, num_segs, len(empty), z_item),
         segments=(rs, bss, np.asarray(row_block, np.int64)))
 
 
-# -- K2 ------------------------------------------------------------------------
-
-
 def k2_case(label: str, *, seg_row_start, seg_pair, pair_seg_start,
-            row_pair, pair_part, num_windows: int, window: int,
-            table_dtype: str = "float32", words24: bool = True,
-            gather_max: Optional[int] = None, csrc_dir=None) -> KernelCase:
-    """K2 (``csrc/ell_contrib_partitioned.cu``) on a segment plan over
-    dense pair ranks: pass 1 ``pair_segment_partials`` one CTA per
-    segment (a one-segment pair written straight to out), pass 2
-    ``pair_sums`` one thread per (pair, lane) of a longer pair.
+            row_pair, pair_part, pair_block, num_blocks: int,
+            num_windows: int, window: int, item_start=None, item_segs=None,
+            num_split: Optional[int] = None, table_dtype: str = "float32",
+            words24: bool = True, gather_max: Optional[int] = None,
+            sentinel: Optional[int] = None, head: Optional[int] = None,
+            device_kind: Optional[str] = None, csrc_dir=None) -> KernelCase:
+    """K2 (``csrc/ell_contrib_partitioned.cu``) on a pair plan: one
+    persistent launch of ``ell_contrib_part_kernel``. A lane group's
+    work item (the plan's, by default ``ops/ell.py:work_items`` of the
+    blocks' pairs) is a whole block (the rows of its pairs' segments,
+    its block), or one segment of a split block (its rows, its partial
+    or its pair), a pair finisher (the pair's partials or chunk sums, its
+    counters; see :func:`_finishers`), a pair's hand-off (its pair sum
+    and block ticket, or its block), a block finisher (the block's pair
+    sums in partition order, its counter, its block); or an empty block.
     ``gather_max``: the largest flat window index a slot reads (the last
-    window's sentinel when None)."""
+    window's sentinel when None); ``sentinel``: the local sentinel
+    (default ``window - 128``)."""
     src = read_source("ell_contrib_partitioned", csrc_dir)
-    lanes, threads = src.const("kLanes"), src.const("threads")
+    symbol = "ell_contrib_part_kernel"
+    lanes, threads = src.const("kLanes"), src.const("kThreads")
     rs = np.asarray(seg_row_start, np.int64)
     sp = np.asarray(seg_pair, np.int64)
     pss = np.asarray(pair_seg_start, np.int64)
-    pp = np.asarray(pair_part, np.int64)
-    num_segs, npairs = len(rs) - 1, len(pss) - 1
+    pb = np.asarray(pair_block, np.int64)
+    num_segs, npairs, nb = len(rs) - 1, len(pss) - 1, int(num_blocks)
     rows = int(np.asarray(row_pair).shape[0])
     row_elems, wdt = (3 * lanes, "int8") if words24 else (lanes, "int32")
     t_item = _DTYPE_BYTES[table_dtype]
+    sentinel = window - lanes if sentinel is None else int(sentinel)
+    if head is None:
+        head = min(head_capacity(src, symbol, t_item, device_kind), sentinel)
+    nseg = np.maximum(pss[1:] - pss[:-1], 0)  # per pair
+    live = np.flatnonzero(nseg > 0)
+    per_block = np.bincount(pb[live], minlength=nb)
+    bps = np.concatenate([[0], np.cumsum(per_block)])
+    block_pairs = live[np.argsort(pb[live], kind="stable")]
+    empty = np.flatnonzero(per_block == 0)
+    ist, isegs, num_split = _items(
+        item_start, item_segs, num_split,
+        [np.concatenate([np.arange(pss[p], pss[p + 1])
+                         for p in block_pairs[bps[b]:bps[b + 1]]])
+         for b in np.flatnonzero(per_block)], rs)
+    ssplit = isegs[:num_split]
+    split_b = np.zeros(nb, bool)
+    split_b[pb[sp[ssplit]]] = True
+    fin_acc, fin_adds, _ = _finishers(pss, sp, src.const("kChunk"),
+                                      "pair_counter", active=split_b[pb])
+    item_acc = _item_reads(ist)
+    lp = live[split_b[pb[live]]]  # the split blocks' pairs with rows
+    bfin = np.flatnonzero(split_b & (per_block > 1))  # blocks a finisher sums
+    shared = lp[per_block[pb[lp]] > 1]  # pairs that hand a pair sum on
+    handed = _runs(bps[bfin], bps[bfin + 1])  # block_pairs entries read
+    whole_last = sp[isegs[ist[num_split + 1:] - 1]]  # a whole item's last pair
+    r1 = np.maximum(rs[1:], rs[:-1])
     inst = ("unsigned short" if table_dtype == "bfloat16" else "float") \
-        + ("," + ("true" if words24 else "false"))
+        + f",{'true' if words24 else 'false'}"
     entry = ("ell_contrib_part_" + ("bf16" if table_dtype == "bfloat16"
                                     else "f32")
              + ("_w24" if words24 else "_w32"))
@@ -567,51 +741,63 @@ def k2_case(label: str, *, seg_row_start, seg_pair, pair_seg_start,
         "seg_pair": Operand("int32", num_segs),
         "pair_seg_start": Operand("int32", npairs + 1),
         "pair_part": Operand("int32", npairs),
+        "pair_block": Operand("int32", npairs),
+        "block_pair_start": Operand("int32", nb + 1),
+        "block_pairs": Operand("int32", len(block_pairs)),
+        "item_start": Operand("int32", len(ist)),
+        "item_segs": Operand("int32", len(isegs)),
+        "empty_blocks": Operand("int32", len(empty)),
         "partial": Operand("float32", num_segs * lanes, role="scratch"),
-        "out": Operand("float32", npairs * lanes, role="out"),
+        "chunk_sum": Operand("float32", num_segs * lanes, role="scratch"),
+        "pair_sum": Operand("float32", npairs * lanes, role="scratch"),
+        "pair_counter": Operand("int32", npairs, role="counter"),
+        "block_counter": Operand("int32", nb, role="counter"),
+        "chunk_counter": Operand("int32", num_segs, role="counter"),
+        "out": Operand("float32", nb * lanes, role="out"),
     }
-    seg = np.arange(num_segs, dtype=np.int64)
-    r1 = np.maximum(rs[1:], rs[:-1])
-    nseg = np.maximum(pss[1:] - pss[:-1], 0)
-    single = nseg[sp] == 1  # per segment: its pair has one segment
-    dst = np.where(single, sp, seg) * lanes
-    pass1 = Launch(
-        source="ell_contrib_partitioned", symbol="pair_segment_partials",
-        instance=inst, entry=entry, grid=_grid1(num_segs), block=lanes,
-        block_const="kLanes", flops=float((r1 - rs[:-1]).sum() * lanes),
+    written = np.concatenate([pb[whole_last],
+                              pb[lp[per_block[pb[lp]] == 1]], bfin, empty])
+    e = np.arange(len(empty), dtype=np.int64)
+    launch = Launch(
+        source="ell_contrib_partitioned", symbol=symbol, instance=inst,
+        entry=entry,
+        grid=_grid1(_persistent_grid(len(ist) - 1 + len(empty), device_kind)),
+        block=threads, block_const="kThreads",
+        dynamic_smem=_ceil(head * t_item, 16) * 16,
+        flops=float(((r1 - rs[:-1])[isegs].sum() + len(isegs)
+                     + per_block[bfin].sum()) * lanes) + fin_adds,
         accesses=[
-            Access("src", "read", rs[:-1] * row_elems, r1 * row_elems),
+            Access("src", "read", rs[isegs] * row_elems,
+                   r1[isegs] * row_elems),
             Access("z_windows", "gather",
-                   index_max=((num_windows - 1) * window + window - lanes
-                              if gather_max is None else int(gather_max))),
-            Access("seg_row_start", "read", seg, seg + 2),
-            Access("seg_pair", "read", seg, seg + 1),
-            Access("pair_seg_start", "read", sp, sp + 2),
-            Access("pair_part", "read", sp, sp + 1),
-            Access("out", "write", dst[single], dst[single] + lanes),
-            Access("partial", "write", dst[~single], dst[~single] + lanes),
-        ])
-    c_lo, c_hi = _cta_spans(npairs * lanes, threads)
-    multi = np.flatnonzero(nseg != 1)
-    s1 = np.maximum(pss[1:], pss[:-1])[multi]
-    pass2 = Launch(
-        source="ell_contrib_partitioned", symbol="pair_sums", instance="",
-        entry=entry, grid=_grid1(_ceil(npairs * lanes, threads)),
-        block=threads, block_const="threads",
-        flops=float((s1 - pss[multi]).sum() * lanes),
-        accesses=[
-            Access("pair_seg_start", "read", c_lo // lanes,
-                   (c_hi - 1) // lanes + 2),
-            Access("partial", "read", pss[multi] * lanes, s1 * lanes),
-            Access("out", "write", multi * lanes, multi * lanes + lanes),
+                   index_max=max((num_windows - 1) * window + sentinel
+                                 if gather_max is None else int(gather_max),
+                                 head - 1), vector_bytes=16),
+            *item_acc,
+            Access("seg_row_start", "read", isegs, isegs + 2),
+            Access("seg_pair", "read", isegs, isegs + 1),
+            Access("pair_part", "read", sp[isegs], sp[isegs] + 1),
+            Access("pair_seg_start", "read", sp[ssplit], sp[ssplit] + 2),
+            *fin_acc,
+            Access("pair_block", "read", whole_last, whole_last + 1),
+            Access("pair_block", "read", lp, lp + 1),
+            Access("block_pair_start", "read", pb[lp], pb[lp] + 2),
+            Access("pair_sum", "write", *_rows_of(shared)),
+            Access("block_counter", "atomic", pb[shared], pb[shared] + 1),
+            Access("block_pairs", "read", bps[bfin], bps[bfin + 1]),
+            Access("pair_sum", "read", *_rows_of(block_pairs[handed])),
+            Access("block_counter", "atomic", bfin, bfin + 1),  # the reset
+            Access("empty_blocks", "read", e, e + 1),
+            Access("out", "write", *_rows_of(written)),
         ])
     return KernelCase(
         label=label,
         config={"table": table_dtype, "sum": "float32",
                 "words": "words24" if words24 else "int32"},
-        operands=ops, launches=[pass1, pass2],
+        operands=ops, launches=[launch],
         cost_model=k2_cost(rows, row_elems * _DTYPE_BYTES[wdt],
-                           num_windows * window, t_item, npairs, num_segs),
+                           num_windows * window, t_item, npairs, num_segs,
+                           nb, len(live), len(empty)),
         segments=(rs, pss, np.asarray(row_pair, np.int64)))
 
 
@@ -626,6 +812,8 @@ def _dtype_name(t) -> str:
 
 def k1_case_from_inputs(label: str, z_ext, src, row_block, num_blocks,
                         plan, *, accum_dtype: str = "float32",
+                        head: Optional[int] = None,
+                        device_kind: Optional[str] = None,
                         csrc_dir=None) -> KernelCase:
     """K1's case on the tensors a path feeds it (``TorchEngine.
     contrib_inputs()`` of the flat form), the largest slot index read
@@ -634,17 +822,22 @@ def k1_case_from_inputs(label: str, z_ext, src, row_block, num_blocks,
         raise ValueError("the plan does not fit num_blocks")
     return k1_case(label, seg_row_start=_np(plan.seg_row_start),
                    block_seg_start=_np(plan.block_seg_start),
+                   seg_block=_np(plan.seg_block),
+                   item_start=_np(plan.item_start),
+                   item_segs=_np(plan.item_segs), num_split=plan.num_split,
                    row_block=_np(row_block), n_state=int(z_ext.shape[0]) - 8,
                    z_dtype=_dtype_name(z_ext), accum_dtype=accum_dtype,
-                   src_max=int(src.max()) if src.numel() else 0,
-                   csrc_dir=csrc_dir)
+                   src_max=int(src.max()) if src.numel() else 0, head=head, device_kind=device_kind, csrc_dir=csrc_dir)
 
 
 def k2_case_from_inputs(label: str, z_windows, src, row_pair, pair_part,
-                        num_pairs, plan, *, csrc_dir=None) -> KernelCase:
+                        num_pairs, plan, *, head: Optional[int] = None,
+                        device_kind: Optional[str] = None,
+                        csrc_dir=None) -> KernelCase:
     """K2's case on the tensors a path feeds it (``TorchEngine.
-    contrib_inputs()`` of the partitioned form): the largest flat window
-    index from the words and each row's partition."""
+    contrib_inputs()`` of the partitioned form, its plan a ``PairPlan``):
+    the largest flat window index from the words and each row's
+    partition."""
     import torch
 
     from pagerank_tpu_torch.ops.spmv import unpack_words24
@@ -660,10 +853,14 @@ def k2_case_from_inputs(label: str, z_windows, src, row_pair, pair_part,
                    seg_pair=_np(plan.seg_block),
                    pair_seg_start=_np(plan.block_seg_start),
                    row_pair=_np(row_pair), pair_part=_np(pair_part),
+                   pair_block=_np(plan.pair_block),
+                   num_blocks=plan.num_blocks,
+                   item_start=_np(plan.item_start),
+                   item_segs=_np(plan.item_segs), num_split=plan.num_split,
                    num_windows=int(z_windows.shape[0]),
                    window=int(z_windows.shape[1]),
                    table_dtype=_dtype_name(z_windows), words24=words24,
-                   gather_max=gmax, csrc_dir=csrc_dir)
+                   gather_max=gmax, sentinel=plan.sentinel, head=head, device_kind=device_kind, csrc_dir=csrc_dir)
 
 
 # -- P1-P3 ---------------------------------------------------------------------
@@ -756,8 +953,9 @@ def _synth_k1(label, scale=None, *, n_pad=None, rows=None, **kw):
     rb = _synth_ranks(rows, nb)
     plan = segment_plan(rb, nb)
     return k1_case(label, seg_row_start=plan.seg_row_start,
-                   block_seg_start=plan.block_seg_start, row_block=rb,
-                   n_state=n_pad, **kw)
+                   block_seg_start=plan.block_seg_start,
+                   seg_block=plan.seg_block, row_block=rb, n_state=n_pad,
+                   **kw)
 
 
 def campaign_span(n_pad: int, edges: int, item: int) -> int:
@@ -789,7 +987,8 @@ def _synth_k2(label, scale, table_dtype="float32", words=None, **kw):
     K = _ceil(n_pad, psz)
     nb = n_pad // LANES
     rows_per_part = EDGE_FACTOR * n_pad // LANES // K
-    # About 16 slot rows a pair, at most every block in every partition.
+    # About 16 slot rows a pair, at most every block in every partition;
+    # a partition's pairs spread evenly over the blocks.
     per_part = max(1, min(nb, rows_per_part // 16))
     row_pair = np.concatenate([
         k * per_part + _synth_ranks(rows_per_part, per_part)
@@ -802,8 +1001,12 @@ def _synth_k2(label, scale, table_dtype="float32", words=None, **kw):
                    pair_seg_start=plan.block_seg_start, row_pair=row_pair,
                    pair_part=np.repeat(np.arange(K, dtype=np.int32),
                                        per_part),
-                   num_windows=K, window=psz + LANES,
-                   table_dtype=table_dtype, words24=words24, **kw)
+                   pair_block=np.tile(
+                       np.arange(per_part, dtype=np.int64) * nb // per_part,
+                       K),
+                   num_blocks=nb, num_windows=K, window=psz + LANES,
+                   sentinel=psz, table_dtype=table_dtype, words24=words24,
+                   **kw)
 
 
 def shipped_cases(csrc_dir=None) -> List[KernelCase]:
@@ -811,18 +1014,20 @@ def shipped_cases(csrc_dir=None) -> List[KernelCase]:
     K1 (f32/f32) at a toy geometry and at the bench scales, K1's
     f32/f64 and f64/f64 entries under their own configs; K2 at scale 18
     (toy span), at the bench scales, in bf16 at scale 24, and with int32
-    words; P1 and P2 at 2^19 rows (n = 2^22, f32 and bf16); P3 at 2^19
-    rows at n = 2^15 and at its shared-memory limit in f32 and bf16."""
+    words; P1 and P2 at 2^19 rows (n = 2^22, f32 and bf16); P3 at
+    2^19 rows at n = 2^15 and at its shared-memory limit in f32 and
+    bf16."""
     kw = {"csrc_dir": csrc_dir}
     cases = [_synth_k1("ell_contrib@toy", n_pad=1 << 20, rows=1 << 16, **kw)]
     cases += [_synth_k1(f"ell_contrib@scale{s}", s, **kw)
               for s in BENCH_SCALES]
-    cases += [
-        _synth_k1("ell_contrib@scale22-f32-f64", 22, accum_dtype="float64",
-                  **kw),
-        _synth_k1("ell_contrib@scale22-f64-f64", 22, z_dtype="float64",
-                  accum_dtype="float64", **kw),
-        _synth_k2("ell_contrib_partitioned@toy-span", 18, **kw)]
+    k1_dtypes = {"f32-f32": {}, "f32-f64": {"accum_dtype": "float64"},
+                 "f64-f64": {"z_dtype": "float64", "accum_dtype": "float64"}}
+    for tag, dt in k1_dtypes.items():
+        if tag != "f32-f32":
+            cases.append(_synth_k1(f"ell_contrib@scale22-{tag}", 22, **dt,
+                                   **kw))
+    cases += [_synth_k2("ell_contrib_partitioned@toy-span", 18, **kw)]
     cases += [_synth_k2(f"ell_contrib_partitioned@scale{s}", s, **kw)
               for s in BENCH_SCALES]
     cases += [
@@ -1112,7 +1317,8 @@ def check_coverage(case, spec=None, csrc_dir=None) -> List[Finding]:
                               f"{a.operand}: {a.mode} of [{int(a.lo[i])}, "
                               f"{int(a.hi[i])}) outside its {op.numel} "
                               f"elements"))
-            d = per_op.setdefault(a.operand, {"read": [], "write": []})
+            d = per_op.setdefault(a.operand,
+                                  {"read": [], "write": [], "atomic": []})
             d[a.mode].append((a.lo, a.hi, ln))
     for name, d in per_op.items():
         op = case.operands[name]
@@ -1124,7 +1330,7 @@ def check_coverage(case, spec=None, csrc_dir=None) -> List[Finding]:
             ln = d[mode][0][2]
             exact = (mode == "write" and op.role == "out") or (
                 mode == "read" and op.partition)
-            if op.role == "scratch" or exact:
+            if op.role in ("scratch", "counter") or exact:
                 overlap, gaps = _cover(lo, hi, op.numel)
                 if overlap is not None:
                     what = ("written by two CTAs (a race: CTAs run in no "
@@ -1142,6 +1348,8 @@ def check_coverage(case, spec=None, csrc_dir=None) -> List[Finding]:
                     out.append(_f(case, ln, "PTK003",
                                   f"{name}: elements {shown}{more} of "
                                   f"{op.numel} {what}"))
+        if d["write"] and d["atomic"]:
+            out += _plain_meets_atomic(case, name, d)
         if op.role == "scratch":
             w = _union(*(np.concatenate([x[i] for x in d["write"]])
                          for i in (0, 1))) if d["write"] else []
@@ -1156,6 +1364,30 @@ def check_coverage(case, spec=None, csrc_dir=None) -> List[Finding]:
     if case.segments is not None:
         out += _segment_ownership(case)
     return out
+
+
+def _plain_meets_atomic(case, name, d) -> List[Finding]:
+    """A plain store to an element that some work item updates
+    atomically: the store and the atomics race."""
+    atomic = _union(*(np.concatenate([x[i] for x in d["atomic"]])
+                      for i in (0, 1)))
+    if not atomic:
+        return []
+    a_lo = np.array([a for a, _ in atomic], np.int64)
+    a_hi = np.array([b for _, b in atomic], np.int64)
+    for lo, hi, ln in d["write"]:
+        keep = hi > lo
+        lo, hi = lo[keep], hi[keep]
+        # the last atomic run starting before each store's end
+        k = np.searchsorted(a_lo, hi, side="left") - 1
+        hit = (k >= 0) & (a_hi[np.maximum(k, 0)] > lo)
+        if np.any(hit):
+            i = int(np.flatnonzero(hit)[0])
+            return [_f(case, ln, "PTK003",
+                       f"{name}: element {max(int(lo[i]), int(a_lo[k[i]]))} "
+                       f"is stored plainly and updated atomically by other "
+                       f"work items (a race: CTAs run in no order)")]
+    return []
 
 
 def _span(iv):

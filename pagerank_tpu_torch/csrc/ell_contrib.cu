@@ -7,111 +7,184 @@
 //
 // summed in acc_t (float or double) and written in z_t. z_ext is the rank
 // vector prescaled by 1/out-degree with 8 trailing zeros; inert slots hold
-// the sentinel index n_state, which reads one of those zeros.
+// the sentinel index n_state (`sentinel`).
 //
 // Bound: device-memory bytes. Each step must stream the whole slot table
-// (rows*128*4 bytes) once, plus z (n_pad*sizeof(z_t)), the output
-// (n_pad*sizeof(z_t)) and the plan; at 3.35 TB/s that is the least time the
-// card can take. The gathers of z are random, so they are served by the
-// 50 MB L2 (z is 16.8 MB in f32 at R-MAT scale 22) rather than by HBM.
+// (rows*128*4 bytes) once, plus z (n_pad*sizeof(z_t)), the output and the
+// plan; at 3.35 TB/s that is the least time the card can take. What held
+// the first (two-pass) form far from it was the gathers: one divergent L1
+// access per slot, near one a clock per SM, with the slot words streaming
+// through the same L1 and evicting the z lines that are read again.
 //
-// What the design does about it. On the TPU the grid ran in order and each
-// 256-row chunk read-modify-wrote its partial into the chunk's first dst
-// block. Hopper runs blocks in parallel and in no order, and the in-degree
-// relabel makes block 0 the deepest (about 1e5 rows on a scale-22 hub), so
-// one CTA per dst block would leave the sweep waiting on block 0. Instead
-// this is a two-pass segmented reduction with no atomics:
+// What the design does about it. One launch a call: persistent CTAs of
+// kThreads threads (about one per SM; the grid is the wrapper's), each
+// cut into lane groups of 128 threads, one thread per lane. Work items
+// come from the host (ops/ell.py:segment_plan): first each segment of a
+// block longer than kWhole segments of SEG_ROWS rows (the hubs the
+// in-degree relabel puts first), then each other block whole (its
+// segments, at most kWhole x SEG_ROWS rows), then the empty blocks; item i goes to CTA
+// i % grid, lane group (i / grid) % kGroups, so the hubs spread over
+// every SM. Each CTA first copies the hot head z_ext[0:head] into shared
+// memory (the relabel puts the hot sources first): a slot below the head
+// reads it there, the sentinel reads no memory (it adds +0.0), any other
+// slot reads through L1/L2. The slot words are read with loads that do
+// not allocate in L1; a thread issues kBatch rows' gathers before it adds
+// them, in row order, while the next kBatch rows' words are already on
+// their way. (A ring of 1-D bulk copies in shared memory in place of
+// those loads was measured slower on the H100, and left out: PERF.md.)
 //
-//   pass 1: one CTA of 128 threads per segment of at most SEG_ROWS rows
-//           (the host's segment_plan, pagerank_tpu_torch/ops/ell.py); one
-//           thread per lane walks the segment's rows: a coalesced 512-byte
-//           read of src per row, a gathered read of z through L2, a register
-//           sum in acc_t. It writes partial[seg, lane] in acc_t.
-//   pass 2: one thread per (block, lane) sums the block's partials in
-//           segment order and writes out (0 for an empty block).
-//
-// The order of every sum is fixed by the plan, so the result is
-// bit-identical from run to run on one card (the resume test needs that).
-// The kernel allocates nothing: the caller passes partial [S, 128] and out
-// [num_blocks*128]. Each entry point launches on the caller's stream, does
-// not synchronise, and returns cudaGetLastError().
+// The sums keep the plan's order, so the output is bit-identical from run
+// to run and equal to the plain plan-order version
+// (ops/ell_spmv.py:ell_contrib_plan_reference): a lane sums each segment's
+// rows in row order from 0 (the rows a last batch runs past the segment
+// add +0.0, which leaves every sum that starts at +0.0 as it was), and a
+// block's segment sums are added in segment order from 0. A whole block
+// does that in one lane group and writes the block: no ticket. A deep
+// block's segments write their partials, and the lane group that draws
+// the block's last ticket sums them and resets the counter; a block of
+// more than kChunk segments is summed in chunks of kChunk segments, then
+// the chunk sums in order (ell_persistent.cuh:finish_group), so the hub's
+// finisher sums some hundred rows, not its thousands of segments. An
+// empty block is written 0. The caller passes the workspace (partial and
+// chunk_sum [segs, 128] acc_t; counter [blocks], chunk_counter [segs]
+// int32, zero, left zero by each launch) and out [blocks*128]. Each entry
+// point launches on the caller's stream, does not synchronise, and
+// returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ell_persistent.cuh"
+
 namespace {
 
 constexpr int kLanes = 128;
+constexpr int kThreads = 1024;
+constexpr int kGroups = kThreads / kLanes;
+// Rows a thread keeps in flight.
+constexpr int kBatch = 8;
+// Partials a finisher keeps in flight, and the segments of a chunk of a
+// deep block (ell_persistent.cuh:finish_group).
+constexpr int kFinish = 16;
+constexpr int kChunk = 32;
+// A block of at most kWhole segments' rows (kWhole x SEG_ROWS) is summed
+// whole by one lane group (the host cuts its work items by it:
+// ops/ell.py:WHOLE).
+constexpr int kWhole = 4;
 
 template <typename z_t, typename acc_t>
-__global__ void __launch_bounds__(kLanes)
-segment_partials(const z_t* __restrict__ z_ext,
-                 const int32_t* __restrict__ src,
-                 const int32_t* __restrict__ seg_row_start,
-                 acc_t* __restrict__ partial) {
-  const int64_t seg = blockIdx.x;
-  const int lane = threadIdx.x;
-  const int64_t r0 = seg_row_start[seg];
-  const int64_t r1 = seg_row_start[seg + 1];
-  const int32_t* row = src + r0 * kLanes + lane;
-  acc_t acc = acc_t(0);
-#pragma unroll 4
-  for (int64_t r = r0; r < r1; ++r, row += kLanes) {
-    acc += static_cast<acc_t>(__ldg(z_ext + __ldg(row)));
-  }
-  partial[seg * kLanes + lane] = acc;
-}
+__global__ void __launch_bounds__(kThreads, 1)
+ell_contrib_kernel(const z_t* __restrict__ z_ext,
+                   const int32_t* __restrict__ src,
+                   const int32_t* __restrict__ seg_row_start,
+                   const int32_t* __restrict__ seg_block,
+                   const int32_t* __restrict__ block_seg_start,
+                   const int32_t* __restrict__ item_start,
+                   const int32_t* __restrict__ item_segs,
+                   const int32_t* __restrict__ empty_blocks,
+                   acc_t* __restrict__ partial, acc_t* __restrict__ chunk_sum,
+                   int32_t* __restrict__ counter,
+                   int32_t* __restrict__ chunk_counter, z_t* __restrict__ out,
+                   int64_t num_items, int64_t num_split, int64_t num_empty,
+                   uint32_t sentinel, uint32_t head) {
+  __shared__ int tickets[kGroups];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int group = threadIdx.x / kLanes;
+  const int lane = threadIdx.x % kLanes;
+  z_t* zh = reinterpret_cast<z_t*>(smem);
 
-template <typename z_t, typename acc_t>
-__global__ void block_sums(const acc_t* __restrict__ partial,
-                           const int32_t* __restrict__ block_seg_start,
-                           z_t* __restrict__ out, int64_t num_blocks) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= num_blocks * kLanes) return;
-  const int64_t b = i / kLanes;
-  const int64_t lane = i % kLanes;
-  const int64_t s0 = block_seg_start[b];
-  const int64_t s1 = block_seg_start[b + 1];
-  acc_t acc = acc_t(0);
-  for (int64_t s = s0; s < s1; ++s) {
-    acc += partial[s * kLanes + lane];
+  ellp::stage_head(zh, z_ext, head, threadIdx.x, kThreads);
+  __syncthreads();
+
+  const int64_t first = static_cast<int64_t>(group) * gridDim.x + blockIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kGroups;
+  const ellp::SlotStream<false, kBatch> rows{
+      reinterpret_cast<const unsigned char*>(src)};
+
+  int64_t i = first;
+  for (; i < num_items; i += stride) {
+    const int64_t k0 = item_start[i], k1 = item_start[i + 1];
+    const int64_t b = seg_block[item_segs[k0]];
+    if (i >= num_split) {
+      // A whole block: its segments, each from 0, added in order from 0.
+      acc_t tot = acc_t(0);
+      for (int64_t k = k0; k < k1; ++k) {
+        const int64_t s = item_segs[k];
+        acc_t acc = acc_t(0);
+        rows.sum(acc, seg_row_start[s], seg_row_start[s + 1], lane, zh,
+                 z_ext, head, sentinel);
+        tot += acc;
+      }
+      out[b * kLanes + lane] = static_cast<z_t>(tot);
+      continue;
+    }
+    // One segment of a deep block: its partial, then the block's tickets.
+    const int64_t s = item_segs[k0];
+    acc_t acc = acc_t(0);
+    rows.sum(acc, seg_row_start[s], seg_row_start[s + 1], lane, zh,
+             z_ext, head, sentinel);
+    partial[s * kLanes + lane] = acc;
+    acc_t tot;
+    if (ellp::finish_group<kChunk, kFinish>(
+            partial, chunk_sum, counter + b, chunk_counter, s,
+            block_seg_start[b], block_seg_start[b + 1], tickets + group,
+            group, lane, tot))
+      out[b * kLanes + lane] = static_cast<z_t>(tot);
   }
-  out[i] = static_cast<z_t>(acc);
+  for (; i < num_items + num_empty; i += stride)
+    out[static_cast<int64_t>(empty_blocks[i - num_items]) * kLanes + lane] =
+        z_t(0);
 }
 
 template <typename z_t, typename acc_t>
 int launch(const void* z_ext, const void* src, const void* seg_row_start,
-           const void* block_seg_start, void* partial, void* out,
-           int64_t num_segs, int64_t num_blocks, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (num_segs > 0) {
-    segment_partials<z_t, acc_t><<<static_cast<unsigned>(num_segs), kLanes, 0, s>>>(
-        static_cast<const z_t*>(z_ext), static_cast<const int32_t*>(src),
-        static_cast<const int32_t*>(seg_row_start),
-        static_cast<acc_t*>(partial));
+           const void* seg_block, const void* block_seg_start,
+           const void* item_start, const void* item_segs,
+           const void* empty_blocks, void* partial, void* chunk_sum,
+           void* counter, void* chunk_counter, void* out, int64_t num_items,
+           int64_t num_split, int64_t num_empty, int64_t sentinel,
+           int64_t head, int64_t grid, void* stream) {
+  const int64_t smem =
+      (head * static_cast<int64_t>(sizeof(z_t)) + 15) / 16 * 16;
+  static int64_t opted = 0;  // the bytes this instance may launch with
+  if (smem > opted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ell_contrib_kernel<z_t, acc_t>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted = smem;
   }
-  const int64_t total = num_blocks * kLanes;
-  if (total > 0) {
-    const int threads = 256;
-    const int64_t grid = (total + threads - 1) / threads;
-    block_sums<z_t, acc_t><<<static_cast<unsigned>(grid), threads, 0, s>>>(
-        static_cast<const acc_t*>(partial),
-        static_cast<const int32_t*>(block_seg_start), static_cast<z_t*>(out),
-        num_blocks);
-  }
+  ell_contrib_kernel<z_t, acc_t>
+      <<<static_cast<unsigned>(grid), kThreads, static_cast<size_t>(smem),
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const z_t*>(z_ext), static_cast<const int32_t*>(src),
+          static_cast<const int32_t*>(seg_row_start),
+          static_cast<const int32_t*>(seg_block),
+          static_cast<const int32_t*>(block_seg_start),
+          static_cast<const int32_t*>(item_start),
+          static_cast<const int32_t*>(item_segs),
+          static_cast<const int32_t*>(empty_blocks),
+          static_cast<acc_t*>(partial), static_cast<acc_t*>(chunk_sum),
+          static_cast<int32_t*>(counter), static_cast<int32_t*>(chunk_counter),
+          static_cast<z_t*>(out), num_items, num_split, num_empty,
+          static_cast<uint32_t>(sentinel), static_cast<uint32_t>(head));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // One entry point per (z dtype, accumulation dtype) pair the port runs.
-#define ELL_CONTRIB_ENTRY(NAME, Z_T, ACC_T)                                   \
-  extern "C" int NAME(const void* z_ext, const void* src,                     \
-                      const void* seg_row_start, const void* block_seg_start, \
-                      void* partial, void* out, int64_t num_segs,             \
-                      int64_t num_blocks, void* stream) {                     \
-    return launch<Z_T, ACC_T>(z_ext, src, seg_row_start, block_seg_start,     \
-                              partial, out, num_segs, num_blocks, stream);    \
+// Its arguments come packed in one int64 array, so a call from Python
+// converts two values, not twenty: a[0..12] the pointers z_ext, src,
+// seg_row_start, seg_block, block_seg_start, item_start, item_segs,
+// empty_blocks, partial, chunk_sum, counter, chunk_counter, out; then
+// num_items, num_split, num_empty, sentinel, head and grid.
+#define ELL_CONTRIB_ENTRY(NAME, Z_T, ACC_T)                                  \
+  extern "C" int NAME(const int64_t* a, void* stream) {                      \
+    auto p = [a](int i) { return reinterpret_cast<void*>(a[i]); };          \
+    return launch<Z_T, ACC_T>(p(0), p(1), p(2), p(3), p(4), p(5), p(6),     \
+                              p(7), p(8), p(9), p(10), p(11), p(12), a[13], \
+                              a[14], a[15], a[16], a[17], a[18], stream);   \
   }
 
 ELL_CONTRIB_ENTRY(ell_contrib_f32_f32, float, float)

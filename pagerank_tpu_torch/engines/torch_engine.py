@@ -25,16 +25,18 @@ than the rank dtype. Per step:
     flat:         z_ext = [r·inv_out, 0×8]              (prescale)
                   contrib = K1(z_ext, slots)            (ops/ell_spmv)
     partitioned:  z_windows[k] = [(r·inv_out)[k·psz:(k+1)·psz], 0…]
-                  pairs = K2(z_windows, slots)          (ops/ell_spmv_partitioned)
-                  contrib = Σ_k expand(pairs of partition k)   (ops/spmv)
+                  contrib = K2(z_windows, slots)        (ops/ell_spmv_partitioned:
+                            the pair sums, added into their dst blocks
+                            in partition order, in the one launch)
     then          m = Σ_dangling r, r' = apply_update(contrib, r, ...),
                   delta = Σ |r' - r|                    (accum_dtype)
 
-On ``cuda`` the kernels are the hand-written ones; on ``cpu`` the
-wrappers run their plain versions. There is no fallback between the
-two: a CUDA engine launches the kernel or raises. The kernels, z and
-the windows stay in device memory (the TPU forms' VMEM limits have no
-counterpart here).
+On ``cuda`` the kernels are the hand-written ones, bound once at build
+(``ell_spmv.bind``: inputs, plan and workspace checked once, so a step
+pays one ctypes call); on ``cpu`` the wrappers run their plain
+versions. There is no fallback between the two: a CUDA engine launches
+the kernel or raises. The kernels, z and the windows stay in device
+memory (the TPU forms' VMEM limits have no counterpart here).
 """
 
 from __future__ import annotations
@@ -135,6 +137,7 @@ class TorchEngine(PageRankEngine):
                          > self._dtype.itemsize else self._dtype)
         self._layout: Dict[str, object] = {}
         self._perm: Optional[np.ndarray] = None
+        self._launch: Optional[ell_spmv.Launcher] = None
 
     def build(self, graph: Graph) -> "TorchEngine":
         cfg = self.config
@@ -190,19 +193,26 @@ class TorchEngine(PageRankEngine):
             table = torch.bfloat16 if cfg.stream_dtype else self._z_dtype
             self._z_buf = torch.zeros((self._parts, self._window),
                                       dtype=table, device=dev)
-            self._ids = [self._arrays["ids"][lo:hi].long() for lo, hi
-                         in zip(self._pair_offs[:-1], self._pair_offs[1:])]
         else:
             self._z_buf = torch.zeros(n_state + Z_PAD, dtype=self._z_dtype,
                                       device=dev)
         kernel = ("ell_contrib_partitioned" if cfg.partition_span
                   else "ell_contrib")
+        launch_info = {}
         if dev.type == "cuda":
-            # Build (or load) the kernel now, so nvcc never lands in a
-            # timed step.
-            from pagerank_tpu_torch.kernels import build as kbuild
-
-            kbuild.load(kernel)
+            # Bind the kernel now (building it if need be), so nvcc and
+            # the input checks never land in a timed step.
+            a = self._arrays
+            if cfg.partition_span:
+                self._launch = ell_spmv_partitioned.bind(
+                    self._z_buf, a["src"], a["pair_part"], self._num_pairs,
+                    plan=self._plan)
+            else:
+                self._launch = ell_spmv.bind(
+                    self._z_buf, a["src"], self._num_blocks,
+                    accum_dtype=self._accum, plan=self._plan)
+            launch_info = {"head": self._launch.head,
+                           "grid": self._launch.grid}
         # r0 over the TRUE n (1/n in textbook mode), zero in padding.
         self._r = torch.zeros(n_state, dtype=self._dtype, device=dev)
         self._r[:n] = pr_model.initial_rank(n, cfg.semantics, self._dtype,
@@ -220,6 +230,7 @@ class TorchEngine(PageRankEngine):
             "group": 1,
             "num_segments": plan.num_segments,
             "seg_rows": ell_lib.SEG_ROWS,
+            **launch_info,
             "dtype": cfg.dtype,
             "accum_dtype": cfg.accum_dtype,
             "z_dtype": str(self._z_buf.dtype).replace("torch.", ""),
@@ -243,24 +254,23 @@ class TorchEngine(PageRankEngine):
         }
 
     def _plan_partitioned(self, pack, psz):
-        """Host arrays, segment plan and layout keys of the
+        """Host arrays, pair plan and layout keys of the
         partition-centric form (``jax_engine.py:1486-1575, 1807-1845``):
         the partitions' slot rows concatenated partition-major with
         inert slots at the local sentinel ``psz``, each partition's
         (dst block, partition) pairs numbered densely after the ones
-        before it, and the per-partition expansion ids."""
+        before it, and each pair's dst block (the expansion ids)."""
         K = pack.n_stripes
         sent = np.int32(psz)
-        srcs, ranks, ids, counts, prefix = [], [], [], [], []
+        srcs, ranks, ids, counts = [], [], [], []
         pair_off = 0
         for p in range(K):
             srcs.append(np.where(pack.weight[p] != 0, pack.src[p], sent))
-            rk, ids_p, pc, pre = ell_lib.dense_block_ranks(
+            rk, ids_p, pc, _ = ell_lib.dense_block_ranks(
                 pack.row_block[p], pack.num_blocks)
             ranks.append(rk + np.int32(pair_off))
             ids.append(ids_p)
             counts.append(pc)
-            prefix.append(pre)
             pair_off += pc
         words24 = self.partition_words24(psz)
         src = np.concatenate(srcs)
@@ -274,14 +284,12 @@ class TorchEngine(PageRankEngine):
         # reads it, and every window starts 128-lane aligned.
         self._window = psz + LANES
         self._num_pairs = pair_off
-        self._pair_offs = np.concatenate([[0], np.cumsum(counts)]).tolist()
-        self._prefix = prefix
         host = {
             "src": src, "row_pair": row_pair,
             "pair_part": np.repeat(np.arange(K, dtype=np.int32), counts),
-            "ids": np.concatenate(ids),
         }
-        plan = ell_lib.segment_plan(row_pair, pair_off)
+        plan = ell_lib.pair_plan(row_pair, pair_off, np.concatenate(ids),
+                                 pack.num_blocks, psz)
         rows = int(row_pair.shape[0])
         return host, plan, {
             "form": "pallas_partitioned",
@@ -320,28 +328,18 @@ class TorchEngine(PageRankEngine):
                 self._plan)
 
     def _contrib(self) -> torch.Tensor:
-        """contrib = Aᵀ_norm·r over the padded state, in relabeled order."""
+        """contrib = Aᵀ_norm·r over the padded state, in relabeled order:
+        the bound kernel on cuda, the wrapper's plain version on cpu."""
+        inputs = self.contrib_inputs()
+        if self._launch is not None:
+            return self._launch()[: self._n_state]
         if not self.config.partition_span:
-            z_ext, src, rb, nb, plan = self.contrib_inputs()
+            z_ext, src, rb, nb, plan = inputs
             return ell_spmv.ell_contrib(
                 z_ext, src, rb, nb, accum_dtype=self._accum, plan=plan,
             )[: self._n_state]
-        pairs = ell_spmv_partitioned.ell_contrib_partitioned(
-            *self.contrib_inputs()[:5], plan=self._plan)
-        return self.expand_pairs(pairs)[: self._n_state]
-
-    def expand_pairs(self, pairs: torch.Tensor) -> torch.Tensor:
-        """Pair sums [num_pairs*128] -> block sums [num_blocks*128] of the
-        partitioned form: one add per partition, in partition order
-        (``jax_engine.py:1855-1865``)."""
-        pairs = pairs.view(self._num_pairs, LANES)
-        total = torch.zeros((self._num_blocks, LANES), dtype=pairs.dtype,
-                            device=pairs.device)
-        offs = self._pair_offs
-        for j, ids in enumerate(self._ids):
-            spmv.scatter_block_sums(total, pairs[offs[j]:offs[j + 1]], ids,
-                                    self._prefix[j])
-        return total.reshape(-1)
+        return ell_spmv_partitioned.ell_contrib_partitioned(
+            *inputs[:5], plan=inputs[5])[: self._n_state]
 
     def step(self) -> Dict[str, float]:
         contrib = self._contrib()

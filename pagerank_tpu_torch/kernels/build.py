@@ -5,7 +5,8 @@ Hopper (``sm_90a``) into its own shared library with a plain C
 interface, at first use, under ``build/kernels/`` at the root of the
 checkout, and loaded with ``ctypes``. The output name carries a hash of
 the source and the flags, so an edited source rebuilds and a stale
-library is never loaded. :func:`build_all` starts one ``nvcc`` per
+library is never loaded (the hash covers the shared headers,
+``csrc/*.cuh``, as well). :func:`build_all` starts one ``nvcc`` per
 source at once and waits for all of them.
 
 Nothing here runs at import: the CPU tests import every module on a
@@ -61,9 +62,12 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of ``csrc/<name>.cu`` is built: keyed by a hash
-    of the source text and the compiler flags."""
-    src = CSRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    of the source text, every header under csrc/ (``*.cuh``) and the
+    compiler flags, so a header edit rebuilds too."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -30,16 +30,18 @@ into pairs with kernel K2 and expands the pairs into blocks.
 
 **Segment plan (new in the port).** The relabel makes block 0 the
 deepest: on an R-MAT scale-22 graph a hub block has ~10^5 rows. On the
-card blocks of a grid run in parallel and in no order, so one CTA per
-dst block would leave the whole sweep waiting on block 0.
-:func:`segment_plan` cuts every block's row range into segments of at
-most ``SEG_ROWS`` rows; the kernel gives each segment a CTA and then
-sums each block's segment partials in segment order — a fixed order,
-so results are bit-identical from run to run without atomics. K2 reads
-the same plan cut over the global dense pair ranks of the partitioned
-layout (pairs in place of blocks): pairs are contiguous and ascending
-in its partition-major row order, so a segment never straddles a pair
-or a partition.
+card CTAs run in parallel and in no order, so one worker per dst block
+would leave the whole sweep waiting on block 0. :func:`segment_plan`
+cuts every block's row range into segments of at most ``SEG_ROWS`` rows
+and lists the blocks that have none; the kernel's lane groups take the
+segments in plan order (hubs first), and each block's partials are
+summed in segment order — a fixed order, so results are bit-identical
+from run to run. K2 reads the same plan cut over the global dense pair
+ranks of the partitioned layout (pairs in place of blocks): pairs are
+contiguous and ascending in its partition-major row order, so a
+segment never straddles a pair or a partition. :func:`pair_plan` adds
+what K2 needs to write dst blocks itself: each pair's block, each
+block's pairs in partition order, and the blocks no pair feeds.
 """
 
 from __future__ import annotations
@@ -51,9 +53,15 @@ import numpy as np
 from pagerank_tpu_torch.graph import Graph
 from pagerank_tpu_torch.ops import LANES
 
-#: Rows per segment of the kernel's work table: one CTA sums at most
-#: this many slot rows before its partial goes to the second pass.
+#: Rows per segment of the kernels' work table: a lane group sums at most
+#: this many slot rows before its partial is added to its group's.
 SEG_ROWS = 64
+#: A dst block of at most WHOLE x seg_rows slot rows is summed whole by
+#: one lane group of K1 or K2 (``kWhole`` of csrc/ell_contrib*.cu); a
+#: longer block's segments go to lane groups one by one and meet by
+#: tickets. Counting rows, not segments, keeps a K2 block of many short
+#: pairs whole: it hands no pair sums on.
+WHOLE = 4
 
 
 @dataclass
@@ -238,12 +246,28 @@ class SegmentPlan:
         [block_seg_start[b], block_seg_start[b+1]); empty blocks none.
     num_rows: the slot rows the plan covers (seg_row_start[-1]), kept
         on the host so a caller can check a plan against its slots.
+    empty_groups: int32 [E] — the blocks with no segment, ascending
+        (K1 writes them 0).
+    item_start, item_segs: int32 [I+1], [S] — the kernels' work items:
+        item i is the segments item_segs[item_start[i]:item_start[i+1]].
+        The first ``num_split`` items are one segment each, of the
+        blocks of more than ``WHOLE`` x ``seg_rows`` slot rows; each
+        later item is a whole block (:func:`work_items`).
+    num_split: the items that are segments of split blocks.
     """
 
     seg_row_start: np.ndarray
     seg_block: np.ndarray
     block_seg_start: np.ndarray
     num_rows: int
+    empty_groups: np.ndarray
+    item_start: np.ndarray
+    item_segs: np.ndarray
+    num_split: int
+
+    @property
+    def num_items(self) -> int:
+        return int(self.item_start.shape[0]) - 1
 
     @property
     def num_segments(self) -> int:
@@ -271,11 +295,105 @@ def segment_plan(row_block: np.ndarray, num_blocks: int,
     seg_row_start = np.concatenate([
         block_row_start[seg_block] + k * seg_rows, [rb.size]
     ])
+    items = work_items([np.arange(block_seg_start[b], block_seg_start[b + 1])
+                        for b in np.flatnonzero(nseg)], seg_row_start,
+                       WHOLE * seg_rows)
     return SegmentPlan(
         seg_row_start=seg_row_start.astype(np.int32),
         seg_block=seg_block.astype(np.int32),
         block_seg_start=block_seg_start.astype(np.int32),
         num_rows=int(rb.size),
+        empty_groups=np.flatnonzero(nseg == 0).astype(np.int32),
+        **items,
+    )
+
+
+def work_items(block_segs, seg_row_start, whole_rows: int):
+    """The kernels' work items from each non-empty block's segments (a
+    list, in block order, of the segment ids each block sums, in its sum
+    order; segment s is rows [seg_row_start[s], seg_row_start[s+1])):
+    every segment of a block of more than ``whole_rows`` rows as an item
+    of its own, in segment order, then each other block as one item.
+    Returns the ``item_start``, ``item_segs`` and ``num_split`` fields
+    of a plan."""
+    seg_rows = np.diff(np.asarray(seg_row_start, np.int64))
+    deep = [int(seg_rows[np.asarray(segs, np.int64)].sum()) > whole_rows
+            for segs in block_segs]
+    split = [s for segs, d in zip(block_segs, deep) if d for s in segs]
+    kept = [segs for segs, d in zip(block_segs, deep) if not d]
+    sizes = [1] * len(split) + [len(segs) for segs in kept]
+    segs = np.concatenate([np.asarray(split, np.int64)]
+                          + [np.asarray(x, np.int64) for x in kept]) \
+        if sizes else np.zeros(0, np.int64)
+    return {"item_start": np.concatenate([[0], np.cumsum(sizes)])
+            .astype(np.int32),
+            "item_segs": np.asarray(segs, np.int32),
+            "num_split": len(split)}
+
+
+@dataclass
+class PairPlan(SegmentPlan):
+    """K2's work table: the segment plan over the dense pair ranks
+    (groups are pairs; ``empty_groups`` the pairs with no row, as an
+    empty partition's sentinel pair; the work items cut by dst block:
+    a whole block's item holds the segments of all its pairs, in
+    partition order), plus the pair -> block tables:
+
+    pair_block: int32 [P] — the dst block of each pair.
+    block_pair_start: int32 [num_blocks+1] — block b is fed by the pairs
+        block_pairs[block_pair_start[b]:block_pair_start[b+1]].
+    block_pairs: int32 [L] — the pairs that have rows, by block, each
+        block's in partition order (pair order).
+    empty_blocks: int32 [E] — the blocks no pair with rows feeds.
+    sentinel: the local sentinel of the slot words (the span), which
+        reads a zero of every window.
+    """
+
+    pair_block: np.ndarray
+    block_pair_start: np.ndarray
+    block_pairs: np.ndarray
+    empty_blocks: np.ndarray
+    sentinel: int
+
+    @property
+    def num_blocks(self) -> int:
+        return int(self.block_pair_start.shape[0]) - 1
+
+
+def pair_plan(row_pair: np.ndarray, num_pairs: int, pair_block: np.ndarray,
+              num_blocks: int, sentinel: int,
+              seg_rows: int = SEG_ROWS) -> PairPlan:
+    """The segment plan of ``row_pair`` over ``num_pairs`` pairs and
+    the tables by which K2 sums pairs into their ``num_blocks`` dst
+    blocks in partition order. A pair with no row (it sums to zero) is
+    left out of its block's list: adding +0.0 to a sum that starts at
+    +0.0 changes no bit."""
+    seg = segment_plan(row_pair, num_pairs, seg_rows)
+    pb = np.asarray(pair_block, dtype=np.int64)
+    if pb.shape != (num_pairs,) or (pb.size and (
+            pb.min() < 0 or pb.max() >= num_blocks)):
+        raise ValueError(f"pair_block must be {num_pairs} block ids in "
+                         f"[0, {num_blocks})")
+    pss = seg.block_seg_start
+    live = np.diff(pss) > 0
+    pairs = np.flatnonzero(live)
+    order = np.argsort(pb[pairs], kind="stable")  # pair order within a block
+    block_pairs = pairs[order]
+    counts = np.bincount(pb[pairs], minlength=num_blocks)
+    bps = np.concatenate([[0], np.cumsum(counts)])
+    fields = vars(seg)
+    fields.update(work_items([
+        np.concatenate([np.arange(pss[p], pss[p + 1])
+                        for p in block_pairs[bps[b]:bps[b + 1]]])
+        for b in np.flatnonzero(counts)], seg.seg_row_start,
+        WHOLE * seg_rows))
+    return PairPlan(
+        **fields,
+        pair_block=pb.astype(np.int32),
+        block_pair_start=bps.astype(np.int32),
+        block_pairs=block_pairs.astype(np.int32),
+        empty_blocks=np.flatnonzero(counts == 0).astype(np.int32),
+        sentinel=int(sentinel),
     )
 
 

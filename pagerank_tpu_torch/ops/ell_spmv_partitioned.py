@@ -1,6 +1,7 @@
-"""K2: the pair sums of the partition-centric layout.
+"""K2: the block sums of the partition-centric layout.
 
-Replaces ``pagerank_tpu/ops/pallas_spmv.py:ell_contrib_pallas_partitioned``:
+Replaces ``pagerank_tpu/ops/pallas_spmv.py:ell_contrib_pallas_partitioned``
+and the pair -> block expansion after it (``jax_engine.py:1855-1865``):
 the kernel is ``pagerank_tpu_torch/csrc/ell_contrib_partitioned.cu``,
 built for ``sm_90a`` at first use (kernels/build.py) and called through
 ctypes.
@@ -12,36 +13,41 @@ stream); slot rows concatenated partition-major with partition-LOCAL
 source words, as 3-byte planar int8 [rows, 384] (``ops/spmv.py:
 pack_words24``) or int32 [rows, 128]; ``row_pair`` the ascending global
 dense (dst block, partition) pair rank of each row, ``pair_part`` the
-partition of each pair. Inert slots hold the local sentinel psz (< W),
-which reads a zero of the window's tail. The TPU form's chunk-local
-ranks, chunk bases and chunk padding exist for its ordered grid and are
-not carried over.
+partition of each pair. Inert slots hold the local sentinel (the plan's
+``sentinel``, psz), which reads a zero of the window's tail. The TPU
+form's chunk-local ranks, chunk bases and chunk padding exist for its
+ordered grid and are not carried over.
 
 What bounds it on the H100: device-memory bytes — the slot words once
-(3 bytes a slot with words24), the windows, the plan, and the f32 pair
-output. What the design does about it: K1's two-pass segmented
-reduction with no atomics, over pairs (see the source note); a pair
-with one segment is written by pass 1 directly. The sum order is fixed
-by the plan, so results are bit-identical from run to run.
+(3 bytes a slot with words24), the windows, the plan, and the f32 block
+output. What the design does about it: K1's persistent shape
+(ops/ell_spmv.py, the source note), over the pairs of a
+:class:`~pagerank_tpu_torch.ops.ell.PairPlan`; each CTA stages the head
+of partition 0's window, and the kernel sums pairs into their dst
+blocks itself, in partition order, so a step runs K2 alone. The order
+is the plan's: the kernel equals
+:func:`ell_contrib_partitioned_plan_reference` bit for bit.
 
 The wrapper launches the kernel for a CUDA tensor, or raises; it takes
-the plain version, :func:`ell_contrib_partitioned_reference`, only for
-tensors on the CPU. ``launches`` counts the kernel launches (one per
-call that ran both passes).
+the plain version, :func:`ell_contrib_partitioned_plan_reference`, only
+for tensors on the CPU. :func:`bind` checks
+a call's inputs once and returns a launcher. ``launches`` counts the
+kernel launches, one a call.
 """
 
 from __future__ import annotations
 
-import ctypes
+import dataclasses
+from typing import Optional
 
 import torch
 
 from pagerank_tpu_torch.ops import LANES
-from pagerank_tpu_torch.ops.ell_spmv import check_plan
-from pagerank_tpu_torch.ops.spmv import unpack_words24
+from pagerank_tpu_torch.ops import ell_spmv
+from pagerank_tpu_torch.ops.ell import PairPlan
+from pagerank_tpu_torch.ops.spmv import scatter_block_sums, unpack_words24
 
-#: Kernel launches made by :func:`ell_contrib_partitioned` in this
-#: process (a call that runs both passes counts one).
+#: Kernel launches made through this module in this process.
 launches = 0
 
 _ENTRY = {
@@ -50,6 +56,33 @@ _ENTRY = {
     (torch.bfloat16, torch.int8): "ell_contrib_part_bf16_w24",
     (torch.bfloat16, torch.int32): "ell_contrib_part_bf16_w32",
 }
+
+
+@dataclasses.dataclass
+class Workspace:
+    """K2's scratch: ``partial`` and ``chunk_sum`` [segments, 128] and
+    ``pair_sum`` [pairs, 128] float32; ``counter`` int32 [pairs + blocks
+    + segments], zero (the pairs' tickets, the blocks', then the
+    chunks'; each launch leaves it zero)."""
+
+    partial: torch.Tensor
+    chunk_sum: torch.Tensor
+    pair_sum: torch.Tensor
+    counter: torch.Tensor
+
+
+def workspace(plan: PairPlan, device) -> Workspace:
+    """A zeroed workspace for ``plan``."""
+    num_pairs = len(plan.block_seg_start) - 1
+    f32 = torch.float32
+    return Workspace(
+        partial=torch.empty((plan.num_segments, LANES), dtype=f32,
+                            device=device),
+        chunk_sum=torch.empty((plan.num_segments, LANES), dtype=f32,
+                              device=device),
+        pair_sum=torch.empty((num_pairs, LANES), dtype=f32, device=device),
+        counter=torch.zeros(num_pairs + plan.num_blocks + plan.num_segments,
+                            dtype=torch.int32, device=device))
 
 
 def _check(z_windows, src_slots, row_pair, pair_part, num_pairs):
@@ -87,8 +120,10 @@ def _check(z_windows, src_slots, row_pair, pair_part, num_pairs):
 
 
 def ell_contrib_partitioned(z_windows, src_slots, row_pair, pair_part,
-                            num_pairs, *, plan):
-    """Per-(dst block, partition) pair sums over the partitioned slots.
+                            num_pairs, *, plan,
+                            work: Optional[Workspace] = None,
+                            head: Optional[int] = None):
+    """Per-dst-block sums over the partitioned slots.
 
     Args:
       z_windows: [K, W] prescaled rank windows, float32 or bfloat16; the
@@ -98,53 +133,93 @@ def ell_contrib_partitioned(z_windows, src_slots, row_pair, pair_part,
       row_pair: int32 [rows] ascending global pair rank per row.
       pair_part: int32 [num_pairs] partition of each pair.
       num_pairs: number of (dst block, partition) pairs.
-      plan: the segment plan of ``row_pair`` over ``num_pairs``
-        (``ell_spmv.plan_to(segment_plan(...), device)``); read by the
-        kernel.
+      plan: the :class:`~pagerank_tpu_torch.ops.ell.PairPlan` of
+        ``row_pair`` (``ell_spmv.plan_to(pair_plan(...), device)``).
+      work: the kernel's workspace (:func:`workspace`); a fresh one
+        when None.
+      head: the staged head of partition 0's window; see :func:`bind`.
 
     Returns:
-      [num_pairs * 128] float32 pair sums (f32 whatever the table).
+      [num_blocks * 128] float32 block sums (f32 whatever the table):
+      each block's pair sums added in partition order.
     """
     _check(z_windows, src_slots, row_pair, pair_part, num_pairs)
     if z_windows.device.type == "cpu":
-        return ell_contrib_partitioned_reference(
-            z_windows, src_slots, row_pair, pair_part, num_pairs)
+        return ell_contrib_partitioned_plan_reference(z_windows, src_slots,
+                                                      pair_part, plan=plan)
     if z_windows.device.type != "cuda":
         raise ValueError(
             f"ell_contrib_partitioned runs on cuda or cpu, not "
             f"{z_windows.device}")
-    return _launch(z_windows, src_slots, pair_part, num_pairs, plan)
+    return bind(z_windows, src_slots, pair_part, num_pairs, plan=plan,
+                work=work, head=head)()
 
 
-def _launch(z_windows, src_slots, pair_part, num_pairs, plan):
+def _count():
     global launches
-    num_segs = check_plan(plan, z_windows.device, num_pairs,
-                          src_slots.shape[0])
-    rs, sp, ps = plan.seg_row_start, plan.seg_block, plan.block_seg_start
-    from pagerank_tpu_torch.kernels import build
-
-    lib = build.load("ell_contrib_partitioned")
-    fn = getattr(lib, _ENTRY[(z_windows.dtype, src_slots.dtype)])
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int64] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    dev = z_windows.device
-    partial = torch.empty((num_segs, LANES), dtype=torch.float32, device=dev)
-    out = torch.empty(num_pairs * LANES, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        rc = fn(z_windows.data_ptr(), src_slots.data_ptr(), rs.data_ptr(),
-                sp.data_ptr(), ps.data_ptr(), pair_part.data_ptr(),
-                partial.data_ptr(), out.data_ptr(), z_windows.shape[1],
-                num_segs, num_pairs, stream)
-    if rc != 0:
-        lib.ell_contrib_part_error_string.restype = ctypes.c_char_p
-        lib.ell_contrib_part_error_string.argtypes = [ctypes.c_int]
-        msg = lib.ell_contrib_part_error_string(rc).decode()
-        raise RuntimeError(f"ell_contrib_partitioned kernel launch failed: "
-                           f"CUDA error {rc} ({msg})")
     launches += 1
-    return out
+
+
+def bind(z_windows, src_slots, pair_part, num_pairs, *, plan,
+         work: Optional[Workspace] = None,
+         head: Optional[int] = None) -> ell_spmv.Launcher:
+    """Check K2's inputs on the card once and return its launcher.
+
+    The tensors are read by address at every call: refill the windows
+    in place, never reallocate them. ``head``: the elements of partition
+    0's window staged in shared memory (0 stages none; default the most
+    that fits, at most the sentinel). ``work``: default a fresh
+    workspace."""
+    dev = z_windows.device
+    if dev.type != "cuda":
+        raise ValueError(f"bind launches on cuda, not {dev}")
+    num_segs = ell_spmv.check_plan(plan, dev, num_pairs, src_slots.shape[0])
+    if not isinstance(plan, PairPlan):
+        raise ValueError("K2 needs a PairPlan (ops/ell.py:pair_plan)")
+    num_blocks = plan.num_blocks
+    if plan.pair_block.shape != (num_pairs,):
+        raise ValueError("the plan's pair_block does not fit num_pairs")
+    if plan.item_segs.shape != (num_segs,):
+        raise ValueError("the plan's work items do not cover its segments")
+    if not 0 < plan.sentinel < z_windows.shape[1]:
+        raise ValueError(f"sentinel {plan.sentinel} outside the window of "
+                         f"{z_windows.shape[1]}")
+    if z_windows.data_ptr() % 16 or src_slots.data_ptr() % 16:
+        raise ValueError("z_windows and src_slots must be 16-byte aligned")
+    kind = ell_spmv.device_kind(dev)
+    head = ell_spmv.check_head(head, z_windows.element_size(), plan.sentinel,
+                               kind)
+    work = workspace(plan, dev) if work is None else work
+    if (work.partial.shape != (num_segs, LANES)
+            or work.chunk_sum.shape != (num_segs, LANES)
+            or work.pair_sum.shape != (num_pairs, LANES)
+            or work.counter.shape != (num_pairs + num_blocks + num_segs,)
+            or work.counter.dtype != torch.int32
+            or any(t.device != dev for t in (work.partial, work.chunk_sum,
+                                             work.pair_sum, work.counter))):
+        raise ValueError("the workspace does not fit the plan")
+    out = torch.empty(num_blocks * LANES, dtype=torch.float32, device=dev)
+    num_empty = plan.empty_blocks.shape[0]
+    grid = ell_spmv.persistent_grid(plan.num_items + num_empty, kind)
+    counter = work.counter.data_ptr()  # pairs', blocks', chunks' tickets
+    args = (z_windows.data_ptr(), src_slots.data_ptr(),
+            plan.seg_row_start.data_ptr(), plan.seg_block.data_ptr(),
+            plan.block_seg_start.data_ptr(), pair_part.data_ptr(),
+            plan.pair_block.data_ptr(), plan.block_pair_start.data_ptr(),
+            plan.block_pairs.data_ptr(), plan.item_start.data_ptr(),
+            plan.item_segs.data_ptr(), plan.empty_blocks.data_ptr(),
+            work.partial.data_ptr(), work.chunk_sum.data_ptr(),
+            work.pair_sum.data_ptr(), counter, counter + 4 * num_pairs,
+            counter + 4 * (num_pairs + num_blocks), out.data_ptr(),
+            z_windows.shape[1], plan.num_items, plan.num_split, num_empty,
+            plan.sentinel, head, grid)
+    return ell_spmv.Launcher(
+        library="ell_contrib_partitioned",
+        entry=_ENTRY[(z_windows.dtype, src_slots.dtype)],
+        error="ell_contrib_part_error_string", args=args, out=out,
+        device=dev, count=_count,
+        keep=(z_windows, src_slots, pair_part, plan, work), head=head,
+        grid=grid, smem=ell_spmv.dynamic_smem(head, z_windows.element_size()))
 
 
 def _gathered(z_windows, src_slots, row_pair, pair_part):
@@ -159,11 +234,12 @@ def _gathered(z_windows, src_slots, row_pair, pair_part):
 
 def ell_contrib_partitioned_reference(z_windows, src_slots, row_pair,
                                       pair_part, num_pairs):
-    """The plain PyTorch version: unpack the words, gather from each
-    row's partition window, widen, and add each slot row into its pair.
-    Also takes an f64 table, summed in f64. On a CUDA tensor
-    ``index_add_`` uses atomics, so its sum order (and last bits) vary
-    from run to run: it is a comparison twin, never the main path."""
+    """A plain PyTorch twin of the pair sums, in another order: unpack
+    the words, gather from each row's partition window, widen, and add
+    each slot row into its pair (:func:`expand_pairs` then gives the
+    block sums). Also takes an f64 table, summed in f64. On a CUDA
+    tensor ``index_add_`` uses atomics, so its sum order (and last bits)
+    vary from run to run: it is a comparison twin, never the main path."""
     v = _gathered(z_windows, src_slots, row_pair, pair_part)
     out = torch.zeros((num_pairs, LANES), dtype=v.dtype,
                       device=z_windows.device)
@@ -171,22 +247,70 @@ def ell_contrib_partitioned_reference(z_windows, src_slots, row_pair,
     return out.reshape(-1)
 
 
-def ell_contrib_partitioned_segmented_reference(z_windows, src_slots,
-                                                pair_part, num_pairs, *,
-                                                plan):
-    """The kernel's two-pass order in plain PyTorch, for the CPU tests of
-    the host plan: rows summed into their segment's partial, then each
-    pair's partials summed in segment order."""
+def expand_pairs(pairs, pair_part, pair_block, num_blocks):
+    """Pair sums [num_pairs*128] -> block sums [num_blocks*128]: a zero
+    block array, then each partition's pairs added into their blocks,
+    one partition after another (``jax_engine.py:1855-1865``; the pairs
+    of a partition are contiguous and feed distinct blocks)."""
+    pairs = pairs.reshape(-1, LANES)
+    dev = pairs.device
+    part = torch.as_tensor(pair_part, dtype=torch.long, device=dev)
+    blk = torch.as_tensor(pair_block, dtype=torch.long, device=dev)
+    total = torch.zeros((num_blocks, LANES), dtype=pairs.dtype, device=dev)
+    bounds = torch.searchsorted(
+        part, torch.arange(int(part.max()) + 2 if part.numel() else 1,
+                           device=dev)).tolist()
+    for lo, hi in zip(bounds[:-1], bounds[1:]):
+        scatter_block_sums(total, pairs[lo:hi], blk[lo:hi], False)
+    return total.reshape(-1)
+
+
+def _pair_sums(z_windows, src_slots, pair_part, plan):
+    """Each pair's sum in the kernel's order: its segments' rows in row
+    order from 0, then its partials as ``ell_spmv.group_sums`` orders
+    them (a pair of more than ``CHUNK`` segments chunk by chunk).
+    [pairs, 128]."""
     dev = z_windows.device
     rs = torch.as_tensor(plan.seg_row_start, dtype=torch.long, device=dev)
     sp = torch.as_tensor(plan.seg_block, dtype=torch.long, device=dev)
-    num_segs = sp.shape[0]
     seg_of_row = torch.repeat_interleave(
-        torch.arange(num_segs, device=dev), rs[1:] - rs[:-1])
-    row_pair = sp[seg_of_row].to(torch.int32)
-    v = _gathered(z_windows, src_slots, row_pair, pair_part)
-    partial = torch.zeros((num_segs, LANES), dtype=v.dtype, device=dev)
-    partial.index_add_(0, seg_of_row, v)
+        torch.arange(sp.shape[0], device=dev), rs[1:] - rs[:-1])
+    v = _gathered(z_windows, src_slots, sp[seg_of_row].to(torch.int32),
+                  pair_part)
+    return ell_spmv.group_sums(ell_spmv.row_partials(v, plan),
+                               plan.block_seg_start)
+
+
+def ell_contrib_partitioned_plan_reference(z_windows, src_slots, pair_part,
+                                           *, plan):
+    """K2's function in the kernel's order, in plain PyTorch: the pair
+    sums (:func:`_pair_sums`), then each block's pairs that have rows
+    summed in partition order from 0, in one run however many there are
+    (the kernel's block finisher, and the order of :func:`expand_pairs`)
+    — a block of one such pair taking its sum, a block of none 0. On the
+    CPU (``index_add_`` adds in index order) this is the kernel's output
+    bit for bit. Also takes an f64 table, summed in f64."""
+    pairs = _pair_sums(z_windows, src_slots, pair_part, plan)
+    dev = pairs.device
+    bp = torch.as_tensor(plan.block_pairs, dtype=torch.long, device=dev)
+    return ell_spmv.group_sums(pairs[bp], plan.block_pair_start,
+                               chunk=None).reshape(-1)
+
+
+def ell_contrib_partitioned_segmented_reference(z_windows, src_slots,
+                                                pair_part, num_pairs, *,
+                                                plan):
+    """The first kernel's two-pass order in plain PyTorch (pair sums):
+    rows summed into their segment's partial, then each pair's partials
+    added into a zero pair in segment order."""
+    dev = z_windows.device
+    rs = torch.as_tensor(plan.seg_row_start, dtype=torch.long, device=dev)
+    sp = torch.as_tensor(plan.seg_block, dtype=torch.long, device=dev)
+    seg_of_row = torch.repeat_interleave(
+        torch.arange(sp.shape[0], device=dev), rs[1:] - rs[:-1])
+    v = _gathered(z_windows, src_slots, sp[seg_of_row].to(torch.int32),
+                  pair_part)
+    partial = ell_spmv.row_partials(v, plan)
     out = torch.zeros((num_pairs, LANES), dtype=v.dtype, device=dev)
     out.index_add_(0, sp, partial)
     return out.reshape(-1)

@@ -83,6 +83,26 @@ def k2_real(rmat14):
     return eng.contrib_inputs()
 
 
+@pytest.mark.parametrize("span", [512, 2048, 8192])
+def test_short_pairs_stay_whole_and_k2_checks_clean(rmat14, span):
+    """At 2 to 32 partitions of rmat:14 (a pair holds some 2 to 23 slot
+    rows), a block of short pairs is one lane group's work item, so K2
+    hands no pair sum of it on (a 512-byte write and read a pair, which
+    would outweigh its rows): the launch model moves within a few per
+    cent of the bound formula, and nothing trips."""
+    eng = pt.TorchEngine(pt.PageRankConfig(partition_span=span),
+                         device="cpu").build(rmat14)
+    assert eng.layout_info()["partitions"] == (1 << 14) // span
+    inputs = eng.contrib_inputs()
+    plan = inputs[-1]
+    assert (np.diff(plan.item_start)[plan.num_split:] > 4).any() \
+        == (span < 8192)
+    case = K.k2_case_from_inputs(f"k2@rmat14-span{span}", *inputs)
+    assert K.check_kernel_case(case) == []
+    ratio = K.derived_cost(case)["bytes"] / case.cost_model["bytes"]
+    assert 1.0 < ratio < 1.1
+
+
 # -- the shipped registry ------------------------------------------------------
 
 
@@ -103,16 +123,14 @@ def test_shipped_registry_holds_every_kernel_at_every_scale(shipped):
             "probe_rowsel_smem@rows2^19-n58112-limit-f32",
             "probe_rowsel_smem@rows2^19-n116224-limit-bf16"} <= set(labels)
     keys = {ln.key for c in shipped for ln in c.launches}
-    # every instantiation an entry point runs: K1 3 x 2 passes, K2 4 + 1,
-    # P1-P3 in f32 and bf16
+    # every instantiation an entry point runs: K1 3 dtype pairs, K2 4
+    # entries, P1-P3 in f32 and bf16
     assert keys == {
-        "segment_partials<float,float>", "block_sums<float,float>",
-        "segment_partials<float,double>", "block_sums<float,double>",
-        "segment_partials<double,double>", "block_sums<double,double>",
-        "pair_segment_partials<float,true>",
-        "pair_segment_partials<float,false>",
-        "pair_segment_partials<unsignedshort,true>",
-        "pair_segment_partials<unsignedshort,false>", "pair_sums",
+        f"ell_contrib_kernel<{z},{a}>"
+        for z, a in (("float", "float"), ("float", "double"),
+                     ("double", "double"))} | {
+        f"ell_contrib_part_kernel<{t},{w}>"
+        for t in ("float", "unsignedshort") for w in ("true", "false")} | {
         "probe_take<F32>", "probe_take<BF16>", "probe_group8<F32>",
         "probe_group8<BF16>", "probe_rowsel_smem<F32>",
         "probe_rowsel_smem<BF16>"}
@@ -130,12 +148,20 @@ def test_bench_scale_costs_hold_the_bound_formula(shipped, label):
 
 
 def test_bound_formulas_reproduce_the_pr3_bounds():
-    """The registry's formulas give PERF.md's bytes for K1's and K2's
-    rmat:22 shapes (chip_smoke.py's old formulas, moved here)."""
-    assert K.k1_cost(592_595, 4_194_304, 32_768, 22_421, 4)["bytes"] \
-        == 337_183_836
-    assert K.k2_cost(614_545, 384, 2 * 2_097_280, 4, 28_632,
-                     35_343)["bytes"] == 267_934_912
+    """The registry's formulas give PERF.md's bytes of the two-pass
+    kernels at K1's and K2's rmat:22 shapes plus what the one-launch
+    kernels read and write besides: K1 each segment's block and the empty-block list; K2 the
+    block output in place of the pair output, each pair's block, the
+    block -> pairs table and the empty-block list."""
+    e1, e2, live = 100, 200, 28_000
+    assert K.k1_cost(592_595, 4_194_304, 32_768, 22_421, e1, 4)["bytes"] \
+        == 337_183_836 + (22_421 + e1) * 4
+    assert K.k2_cost(614_545, 384, 2 * 2_097_280, 4, 28_632, 35_343,
+                     32_768, live, e2)["bytes"] \
+        == 267_934_912 + (32_768 - 28_632) * 128 * 4 \
+        + (28_632 + 32_768 + 1 + live + e2) * 4
+    assert K.k2_cost(614_545, 384, 2 * 2_097_280, 4, 28_632, 35_343,
+                     32_768, live, e2)["flops"] == (614_545 + live) * 128
     assert K.probe_cost(1 << 19, 1 << 15, 4)["bytes"] == 805_437_440
 
 
@@ -143,6 +169,32 @@ def test_real_rmat14_plans_are_clean(k1_real, k2_real):
     for case in (K.k1_case_from_inputs("k1@rmat14", *k1_real),
                  K.k2_case_from_inputs("k2@rmat14", *k2_real)):
         assert K.check_kernel_case(case) == []
+
+
+def test_deep_groups_finished_chunk_by_chunk_are_clean():
+    """A hub block (K1) and a hub pair (K2) of more than CHUNK segments:
+    the chunk finishers' partial reads, chunk sums and chunk counters
+    model clean, and their chunk tickets are atomic."""
+    rng = np.random.default_rng(5)
+    n = 8000
+    src = np.concatenate([np.arange(1, 5001), rng.integers(0, n // 2, 4000)])
+    dst = np.concatenate([np.zeros(5000, np.int64),
+                          rng.integers(0, n // 5, 4000)])
+    g = pt.build_graph(src, dst, n=n)
+    flat = pt.TorchEngine(pt.PageRankConfig(), device="cpu").build(g)
+    part = pt.TorchEngine(pt.PageRankConfig(partition_span=4096),
+                          device="cpu").build(g)
+    for case, gss in (
+            (K.k1_case_from_inputs("k1@hub", *flat.contrib_inputs()),
+             flat.contrib_inputs()[-1].block_seg_start),
+            (K.k2_case_from_inputs("k2@hub", *part.contrib_inputs()),
+             part.contrib_inputs()[-1].block_seg_start)):
+        assert int(np.diff(gss.numpy()).max()) > 32
+        assert K.check_kernel_case(case) == []
+        chunk = [a for a in case.launches[0].accesses
+                 if a.operand == "chunk_counter"]
+        assert chunk and all(a.mode == "atomic" for a in chunk)
+        assert len(chunk[0].lo) > 32
 
 
 # -- the defect fixtures --------------------------------------------------------
@@ -319,11 +371,42 @@ def test_duplicated_segment_is_an_overlap(k1_real, k2_real, kernel):
         case = K.k2_case("k2@dup", seg_row_start=rs2,
                          seg_pair=np.insert(sp, s + 1, [sp[s], sp[s]]),
                          pair_seg_start=bss2, row_pair=rp.numpy(),
-                         pair_part=pp.numpy(), num_windows=zw.shape[0],
-                         window=zw.shape[1])
+                         pair_part=pp.numpy(),
+                         pair_block=plan.pair_block.numpy(),
+                         num_blocks=plan.num_blocks,
+                         num_windows=zw.shape[0], window=zw.shape[1])
     msgs = [f.message for f in K.check_kernel_case(case)]
     assert _rules(case) == ["PTK003"]
     assert any("src: element" in m and "read by two CTAs" in m for m in msgs)
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_finisher_tickets_are_atomic_and_a_plain_store_still_races(
+        k1_real, k2_real, kernel):
+    """The finishers draw tickets on one counter from many work items:
+    as atomic updates that is clean. The same touches as plain stores
+    are the F4 race, and so is one plain store (the counter's reset)
+    beside the atomic tickets."""
+    case = (K.k1_case_from_inputs("k1", *k1_real) if kernel == "K1"
+            else K.k2_case_from_inputs("k2", *k2_real))
+    assert K.check_kernel_case(case) == []
+    ln = case.launches[0]
+    counter = "counter" if kernel == "K1" else "pair_counter"
+    # tickets then resets: of the split groups of up to CHUNK segments,
+    # then of the deeper ones (a ticket a chunk); the first that exist
+    atomics = [a for a in ln.accesses
+               if a.operand == counter and a.mode == "atomic"]
+    tickets, reset = atomics[:2] if len(atomics[0].lo) else atomics[2:4]
+    assert len(tickets.lo) > len(reset.lo) > 0  # groups of 2+ tickets
+    reset.mode = "write"
+    msgs = [f.message for f in K.check_kernel_case(case)]
+    assert _rules(case) == ["PTK003"]
+    assert any("stored plainly and updated atomically" in m for m in msgs)
+    reset.mode, tickets.mode = "atomic", "write"
+    msgs = [f.message for f in K.check_kernel_case(case)]
+    assert _rules(case) == ["PTK003"]
+    assert any(f"{counter}: element" in m and "written by two CTAs" in m
+               for m in msgs)
 
 
 def test_segment_summed_by_the_wrong_block_is_named(k1_real):
@@ -367,10 +450,11 @@ def _edited_csrc(tmp_path, name, old, new):
 
 
 def test_a_100_thread_block_trips_ptk002(tmp_path):
-    d = _edited_csrc(tmp_path, "ell_contrib", "const int threads = 256;",
-                     "const int threads = 100;")
+    d = _edited_csrc(tmp_path, "ell_contrib",
+                     "constexpr int kThreads = 1024;",
+                     "constexpr int kThreads = 100;")
     case = K._synth_k1("k1@100", n_pad=1 << 14, rows=1 << 11, csrc_dir=d)
-    assert case.launches[1].block == 100
+    assert case.launches[0].block == 100
     findings = [f for f in K.check_kernel_case(case, csrc_dir=d)]
     assert sorted({f.rule for f in findings}) == ["PTK002"]
 
@@ -443,8 +527,12 @@ def test_source_facts():
     fxs = K.read_source("defect_fixtures")
     assert fxs.kernels["fx_scratch"].static_smem == 8 * 128 * 8
     assert fxs.kernels["fx_matmul"].static_smem == 2 * 128 * 32 * 4
-    assert K.read_source("ell_contrib").kernels[
-        "block_sums"].launch_bounds is None
+    for name, sym in (("ell_contrib", "ell_contrib_kernel"),
+                      ("ell_contrib_partitioned", "ell_contrib_part_kernel")):
+        k = K.read_source(name).kernels[sym]
+        assert k.opt_in and k.launch_bounds == 1024
+        assert k.static_smem == 4 * 8  # one ticket slot per lane group
+        assert [d.dynamic for d in k.shared] == [False, True]
 
 
 # -- the CLI --------------------------------------------------------------------
@@ -553,14 +641,17 @@ def test_cuobjdump_parser_on_recorded_dumps():
     assert facts["fx_matmul"].regs == 128
     assert facts["fx_copy"].f64_ops == () == facts["fx_matmul"].f64_ops
     k1 = _recorded_facts("ell_contrib")
-    assert set(k1) == {f"{p}<{a}>" for p in ("segment_partials", "block_sums")
+    assert set(k1) == {f"ell_contrib_kernel<{a}>"
                        for a in ("float,float", "float,double",
                                  "double,double")}
-    assert k1["segment_partials<float,float>"].max_threads == 128
-    assert k1["block_sums<float,float>"].max_threads is None
-    assert k1["segment_partials<float,float>"].f64_ops == ()
-    assert "DADD" in k1["segment_partials<float,double>"].f64_ops
-    assert k1["block_sums<float,float>"].shared == 0
+    src1 = K.read_source("ell_contrib").kernels["ell_contrib_kernel"]
+    for f in k1.values():
+        # 1024 threads, one CTA an SM: at most 64 registers, no spill;
+        # the tickets (32 B) and the card's 1 KB reservation
+        assert f.max_threads == 1024 and f.regs <= 64 and f.local == 0
+        assert f.shared == src1.static_smem + reserved
+    assert k1["ell_contrib_kernel<float,float>"].f64_ops == ()
+    assert "DADD" in k1["ell_contrib_kernel<float,double>"].f64_ops
 
 
 def test_shipped_registry_is_clean_with_recorded_compile_facts(shipped):
@@ -575,8 +666,8 @@ def test_shipped_registry_is_clean_with_recorded_compile_facts(shipped):
     keys = {ln.key for c in shipped for ln in c.launches}
     assert keys <= set(facts), sorted(keys - set(facts))
     assert facts["probe_take<F32>"].shared == 1024
-    assert facts["pair_segment_partials<unsignedshort,true>"].max_threads \
-        == 128
+    assert facts["ell_contrib_part_kernel<unsignedshort,true>"] \
+        .max_threads == 1024
     found = [f for c in shipped for f in
              K.check_kernel_case(c, facts=facts)]
     assert found == [], [f.render() for f in found[:5]]
@@ -640,7 +731,7 @@ def test_cli_compiled_on_recorded_facts(capsys, monkeypatch, recorded,
         assert {f["rule"] for f in doc["findings"]} == {
             FIXTURE_RULES[f"fixture:{fixture}"]}
     else:
-        assert len(doc["compile_facts"]) == 17
+        assert len(doc["compile_facts"]) == 13  # K1 3, K2 4, P1-P3 6
 
 
 def test_symbol_key():

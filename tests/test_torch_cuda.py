@@ -45,21 +45,83 @@ def _inputs(device, dtype):
     (torch.float64, torch.float64, 1e-12),
 ])
 def test_kernel_matches_twin_and_repeats_bitwise(cuda, dtype, acc, tol):
+    """K1 equals its plain version in plan order computed on the CPU, bit
+    for bit; two launches on one workspace are bit-identical; a head of 0
+    changes no bit; one launch a call."""
     z, src, rb, nb, plan = _inputs(cuda, dtype)
+    work = ell_spmv.workspace(plan, acc, cuda)
     before = ell_spmv.launches
-    a = ell_spmv.ell_contrib(z, src, rb, nb, accum_dtype=acc, plan=plan)
-    b = ell_spmv.ell_contrib(z, src, rb, nb, accum_dtype=acc, plan=plan)
+    a = ell_spmv.ell_contrib(z, src, rb, nb, accum_dtype=acc, plan=plan,
+                             work=work)
+    b = ell_spmv.ell_contrib(z, src, rb, nb, accum_dtype=acc, plan=plan,
+                             work=work)
+    c = ell_spmv.ell_contrib(z, src, rb, nb, accum_dtype=acc, plan=plan,
+                             work=work, head=0)
     torch.cuda.synchronize()
-    assert ell_spmv.launches == before + 2
-    assert torch.equal(a, b)
+    assert ell_spmv.launches == before + 3
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert not work.counter.any()  # each launch leaves its counters zero
+    cpu = ell_spmv.plan_to(plan, "cpu")
+    assert torch.equal(a.cpu(), ell_spmv.ell_contrib_plan_reference(
+        z.cpu(), src.cpu(), accum_dtype=acc, plan=cpu))
     ref = ell_spmv.ell_contrib_reference(z, src, rb, nb, accum_dtype=acc)
     err = float((a.double() - ref.double()).abs().max())
     assert err <= tol * float(ref.double().abs().max())
 
 
+def test_the_largest_head_fills_shared_memory(cuda):
+    """At rmat:17 the head is the most shared memory allows (58,104 f32
+    vertices, or 116,208 bf16 of partition 0): the launch is accepted and
+    its output still equals the CPU plan-order sums."""
+    src, dst = synth.rmat_edges(17, seed=2)
+    g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 17)
+    eng = TorchEngine(PageRankConfig(), device="cpu").build(g)
+    eng.set_ranks(np.random.default_rng(3).random(g.n).astype(np.float32))
+    z, slots, rb, nb, plan = (t.to(cuda) if isinstance(t, torch.Tensor)
+                              else t for t in eng.contrib_inputs())
+    plan = ell_spmv.plan_to(plan, cuda)
+    launch = ell_spmv.bind(z, slots, nb, accum_dtype=torch.float32,
+                           plan=plan)
+    assert launch.head == ell_spmv.head_capacity(4)
+    assert launch.smem == 232_448 - ell_spmv.STATIC_SMEM
+    got = launch()
+    want = ell_spmv.ell_contrib_plan_reference(
+        z.cpu(), slots.cpu(), accum_dtype=torch.float32,
+        plan=ell_spmv.plan_to(plan, "cpu"))
+    assert torch.equal(got.cpu(), want)
+    eng = TorchEngine(PageRankConfig(partition_span=1 << 17,
+                                     stream_dtype="bfloat16"),
+                      device="cuda").build(g)
+    eng.set_ranks(np.random.default_rng(3).random(g.n).astype(np.float32))
+    zw, words, rp, pp, npairs, pplan = eng.contrib_inputs()
+    launch = ell_spmv_partitioned.bind(zw, words, pp, npairs, plan=pplan)
+    assert launch.head == min(ell_spmv.head_capacity(2), pplan.sentinel)
+    got = launch()
+    want = ell_spmv_partitioned.ell_contrib_partitioned_plan_reference(
+        zw.cpu(), words.cpu(), pp.cpu(), plan=ell_spmv.plan_to(pplan, "cpu"))
+    assert torch.equal(got.cpu(), want)
+
+
+def test_bound_launcher_launches_once_a_call(cuda):
+    z, src, rb, nb, plan = _inputs(cuda, torch.float32)
+    launch = ell_spmv.bind(z, src, nb, accum_dtype=torch.float32, plan=plan)
+    assert launch.head == min(ell_spmv.head_capacity(4), z.shape[0] - 8)
+    before = ell_spmv.launches
+    outs = [launch().clone() for _ in range(3)]
+    torch.cuda.synchronize()
+    assert ell_spmv.launches == before + 3
+    assert all(torch.equal(outs[0], o) for o in outs)
+    with pytest.raises(ValueError, match="head"):
+        ell_spmv.bind(z, src, nb, accum_dtype=torch.float32, plan=plan,
+                      head=launch.head + 1)
+
+
 @pytest.mark.parametrize("stream", ["", "bfloat16"])
 @pytest.mark.parametrize("words", ["words24", "int32"])
 def test_k2_matches_twin_and_repeats_bitwise(cuda, stream, words):
+    """K2's block sums equal its plain version in plan order computed on
+    the CPU, bit for bit; repeat bit-identical on one workspace; a head
+    of 0 changes no bit."""
     src, dst = synth.rmat_edges(12, seed=4)
     g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
     eng = TorchEngine(PageRankConfig(partition_span=512,
@@ -69,18 +131,59 @@ def test_k2_matches_twin_and_repeats_bitwise(cuda, stream, words):
     zw, slots, rp, pp, npairs, plan = eng.contrib_inputs()
     if words == "int32":
         slots = torch_spmv.unpack_words24(slots).contiguous()
+    work = ell_spmv_partitioned.workspace(plan, cuda)
     before = ell_spmv_partitioned.launches
-    a = ell_spmv_partitioned.ell_contrib_partitioned(zw, slots, rp, pp,
-                                                     npairs, plan=plan)
-    b = ell_spmv_partitioned.ell_contrib_partitioned(zw, slots, rp, pp,
-                                                     npairs, plan=plan)
+    a, b, c = (ell_spmv_partitioned.ell_contrib_partitioned(
+        zw, slots, rp, pp, npairs, plan=plan, work=work, head=h)
+        for h in (None, None, 0))
     torch.cuda.synchronize()
-    assert ell_spmv_partitioned.launches == before + 2
-    assert a.dtype == torch.float32 and torch.equal(a, b)
-    exact = ell_spmv_partitioned.ell_contrib_partitioned_reference(
-        zw.double(), slots, rp, pp, npairs)
+    assert ell_spmv_partitioned.launches == before + 3
+    assert a.dtype == torch.float32 and a.shape == (plan.num_blocks * 128,)
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert not work.counter.any()
+    cpu = ell_spmv.plan_to(plan, "cpu")
+    assert torch.equal(
+        a.cpu(), ell_spmv_partitioned.ell_contrib_partitioned_plan_reference(
+            zw.cpu(), slots.cpu(), pp.cpu(), plan=cpu))
+    exact = ell_spmv_partitioned.expand_pairs(
+        ell_spmv_partitioned.ell_contrib_partitioned_reference(
+            zw.double(), slots, rp, pp, npairs), pp, plan.pair_block,
+        plan.num_blocks)
     err = float((a.double() - exact).abs().max())
     assert err <= 1e-5 * float(exact.abs().max())
+
+
+@pytest.mark.parametrize("stream", ["", "bfloat16"])
+def test_k2_block_of_more_than_chunk_pairs_is_bitwise(cuda, stream):
+    """At 64 partitions a hub block is fed by more than CHUNK pairs and
+    split over lane groups: its finisher sums the pair sums in one run in
+    partition order, as the CPU plan-order sums (and expand_pairs) do."""
+    rng = np.random.default_rng(7)
+    n, hub_in = 8192, 6000
+    src = np.concatenate([rng.permutation(np.arange(1, n))[:hub_in],
+                          rng.integers(0, n, 4000)])
+    dst = np.concatenate([np.zeros(hub_in, np.int64),
+                          rng.integers(0, n // 4, 4000)])
+    g = pagerank_tpu_torch.build_graph(src, dst, n=n)
+    eng = TorchEngine(PageRankConfig(partition_span=128,
+                                     stream_dtype=stream)).build(g)
+    assert eng.layout_info()["partitions"] == 64
+    eng.set_ranks(rng.random(g.n).astype(np.float32))
+    zw, slots, rp, pp, npairs, plan = eng.contrib_inputs()
+    cpu = ell_spmv.plan_to(plan, "cpu")
+    per_block = np.diff(cpu.block_pair_start.numpy())
+    split = np.zeros(plan.num_blocks, bool)
+    split[cpu.pair_block.numpy()[cpu.seg_block.numpy()[
+        cpu.item_segs.numpy()[:plan.num_split]]]] = True
+    assert (per_block[split] > ell_spmv.CHUNK).any()
+    work = ell_spmv_partitioned.workspace(plan, cuda)
+    a, b = (ell_spmv_partitioned.ell_contrib_partitioned(
+        zw, slots, rp, pp, npairs, plan=plan, work=work) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and not work.counter.any()
+    assert torch.equal(
+        a.cpu(), ell_spmv_partitioned.ell_contrib_partitioned_plan_reference(
+            zw.cpu(), slots.cpu(), pp.cpu(), plan=cpu))
 
 
 def test_engine_on_the_card_matches_the_cpu_twin(cuda):

@@ -297,21 +297,47 @@ def _jax_kernel(f, src, table):
     ))
 
 
+def _pair_blocks(pair_part):
+    """Blocks for the JAX form's pairs: a partition's pairs feed blocks
+    0, 1, ... in order (the form has no blocks of its own)."""
+    first = np.searchsorted(pair_part, pair_part)
+    return np.arange(pair_part.size) - first, int((np.arange(
+        pair_part.size) - first).max()) + 1
+
+
 def _port_twins(f, words24, table):
+    """The pair twins (atomic-order and segmented) and the block sums in
+    the kernel's order, which a CPU tensor runs through the wrapper and
+    which equal the segmented twin expanded in partition order, bit for
+    bit; also the JAX kernel's pairs expanded the same way."""
     row_pair, pair_part = _port_inputs(f)
     src = torch.from_numpy(f["src"])
     if words24:
         src = torch_spmv.pack_words24(src)
     rp, pp = torch.from_numpy(row_pair), torch.from_numpy(pair_part)
-    plan = torch_ell.segment_plan(row_pair, f["pairs"])
+    pair_block, nb = _pair_blocks(pair_part)
+    plan = torch_ell.pair_plan(row_pair, f["pairs"], pair_block, nb,
+                               sentinel=256)
     twin = ell_spmv_partitioned.ell_contrib_partitioned_reference(
         table, src, rp, pp, f["pairs"])
     seg = ell_spmv_partitioned.ell_contrib_partitioned_segmented_reference(
         table, src, pp, f["pairs"], plan=plan)
+    blocks = ell_spmv_partitioned.ell_contrib_partitioned_plan_reference(
+        table, src, pp, plan=plan)
     via = ell_spmv_partitioned.ell_contrib_partitioned(
         table, src, rp, pp, f["pairs"], plan=ell_spmv.plan_to(plan, "cpu"))
-    assert torch.equal(via, twin)  # a CPU tensor runs the twin, only it
-    return twin, seg, plan
+    assert torch.equal(via, blocks)  # a CPU tensor runs the plain version
+    assert torch.equal(blocks, ell_spmv_partitioned.expand_pairs(
+        seg, pp, pair_block, nb))
+    return twin, seg, plan, blocks
+
+
+def _expanded(y, f, plan):
+    """JAX pair sums expanded into the port's blocks in partition order,
+    in f64."""
+    return ell_spmv_partitioned.expand_pairs(
+        torch.from_numpy(np.asarray(y, np.float64)), _port_inputs(f)[1],
+        plan.pair_block, plan.num_blocks).numpy()
 
 
 FORMS = {"random": _partitioned_form, "adversarial": _adversarial_form}
@@ -325,12 +351,16 @@ def test_twins_match_interpret_pallas_f32(form, words24):
     if words24:
         src = jax_spmv.pack_words24(src, jnp)
     want = _jax_kernel(f, src, jnp.asarray(f["zt"]))
-    twin, seg, plan = _port_twins(f, words24, torch.from_numpy(f["zt"]))
+    twin, seg, plan, blocks = _port_twins(f, words24,
+                                          torch.from_numpy(f["zt"]))
     for got in (twin, seg):
         assert got.dtype == torch.float32 and got.shape == want.shape
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-6, atol=2e-7)
         np.testing.assert_allclose(got.numpy(), f["oracle"], rtol=2e-6,
                                    atol=2e-7)
+    assert blocks.dtype == torch.float32
+    np.testing.assert_allclose(blocks.numpy(), _expanded(want, f, plan),
+                               rtol=2e-6, atol=2e-7)
     if form == "adversarial":
         counts = np.diff(plan.block_seg_start)
         assert counts.max() >= 3 and (counts == 0).any()
@@ -348,8 +378,10 @@ def test_twins_match_interpret_pallas_bf16(form):
     # Both sides round the same f32 table to bf16 (nearest even).
     np.testing.assert_array_equal(
         table.float().numpy(), np.asarray(tb.astype(jnp.float32)))
-    twin, seg, _ = _port_twins(f, True, table)
+    twin, seg, plan, blocks = _port_twins(f, True, table)
     scale = np.abs(want).max()
+    np.testing.assert_allclose(blocks.numpy(), _expanded(want, f, plan),
+                               rtol=1e-5, atol=1e-6 * scale)
     for got in (twin, seg):
         assert got.dtype == torch.float32
         # Same bf16 values, f32 sums in another order: sum-order noise.

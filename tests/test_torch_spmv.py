@@ -65,11 +65,15 @@ def test_twin_matches_interpret_pallas(case, dtype, tol):
     got = ell_spmv.ell_contrib_reference(z, src, rb, nb, accum_dtype=acc)
     assert got.dtype == acc and got.shape == (nb * 128,)
     np.testing.assert_allclose(got.numpy(), want, **tol)
-    # The wrapper takes the twin for CPU tensors — and only the twin.
+    # The wrapper takes the plain version in the kernel's order for CPU
+    # tensors — and only it; that version sits at the same gate.
     plan = ell_spmv.plan_to(
         torch_ell.segment_plan(pack.row_block, nb), "cpu")
     via = ell_spmv.ell_contrib(z, src, rb, nb, accum_dtype=acc, plan=plan)
-    assert torch.equal(via, got)
+    ordered = ell_spmv.ell_contrib_plan_reference(z, src, accum_dtype=acc,
+                                                  plan=plan)
+    assert torch.equal(via, ordered)
+    np.testing.assert_allclose(ordered.numpy(), want, **tol)
 
 
 def test_twin_matches_csr_oracle():
