@@ -16,6 +16,10 @@ What it does, in order:
      semantics, 10 iterations, f32, --snapshot-dir and --out in a temp
      dir, on cuda. Every kernel's launch count is set to 0 just before
      and read just after: K1's must equal the number of steps, K2's 0.
+     build_graph must take the native radix sorter where the JAX
+     package's auto rule does (rmat:22 on a host of more than one
+     core); the host build split and the host facts (numpy, cores,
+     MemAvailable, peak RSS) are printed.
      The ranks are checked against the port's f64 ReferenceCpuEngine on
      the same graph (mass-normalised L1 <= 1e-4), and the last snapshot
      and the --out file against the returned ranks;
@@ -71,7 +75,24 @@ What it does, in order:
   8. resume determinism on the card, for the flat form and through the
      CLI's --partition-span -1: 6 iterations with snapshots, a resume
      to 10, and an uninterrupted 10 give bit-equal ranks;
-  9. the kernel-plane check (``pagerank_tpu_torch.analysis``): (a)
+  9. the crawl job (the reference's own input, Sparky.java:44-124): a
+     301-file block-compressed SequenceFile segment of 10,000 records
+     a file (``utils/synth.crawl_segment``, seed 23) written under
+     build/, then through ``cli.run`` on cuda: format detected as
+     seqfile, ingested by the native L1 (the Python route, said on a
+     line, where the host cannot build it), 10 iterations flat with
+     --snapshot-every 1, --jsonl, --top 1000 and --out. K1 launches 10
+     and K2 0; dangling = the uncrawled targets (not out-degree 0);
+     mass-normalised L1 <= 1e-4 against the f64 oracle; --out is the
+     top 1000 by (rank desc, id asc) keyed by URL, the JSONL has 10
+     records, snapshots 1-10 exist and the last equals the ranks. Then
+     the same segment at --partition-span 2^21 (K = 3; K2 10, K1 0,
+     <= 1e-4), and with --host-mem-cap-gb 0.25 (the out-of-core build:
+     every graph field identical, ranks bit-equal), and the native and
+     serial Python routes bit-equal on the first 10 files. Each run
+     prints its stages: ingest (threads), build_graph (sort route),
+     pack, median ms/iter and edges/s, snapshot save, --out write;
+ 10. the kernel-plane check (``pagerank_tpu_torch.analysis``): (a)
      ``python -m pagerank_tpu_torch.analysis --select PTK --compiled
      --json`` as subprocesses, all at once: the shipped registry exits
      0 with no finding and each ``--kernel-fixture NAME`` exits 1 with
@@ -84,7 +105,7 @@ What it does, in order:
      elements PTK003 names, F4 one of its two writers in every element,
      F6 within 1e-5 of an f64 matmul; each timed beside its bound,
      its plain version and ``Tensor.copy_`` / ``torch.matmul``;
- 10. prints one JSON line with every kernel's numbers (K1, K2, P1 and
+ 11. prints one JSON line with every kernel's numbers (K1, K2, P1 and
      P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
      ``{"ok": true, "device": {...}}``.
 
@@ -228,6 +249,8 @@ def main_path(scale, tmp):
     import numpy as np
 
     from pagerank_tpu_torch import PageRankConfig, ReferenceCpuEngine, cli
+    from pagerank_tpu_torch.graph import native_sort_auto
+    from pagerank_tpu_torch.ingest import native
 
     snap_dir = os.path.join(tmp, "snaps")
     out = os.path.join(tmp, "ranks.tsv")
@@ -264,15 +287,21 @@ def main_path(scale, tmp):
     bs = summary["engine"].layout_info()["build_seconds"]
     host_s = (summary["input_seconds"] + summary["graph_seconds"]
               + summary["engine_build_seconds"])
+    want_sort = "native" if native_sort_auto(16 << scale) else "numpy"
+    _check(summary["sort_route"] == want_sort,
+           f"build_graph took the {summary['sort_route']} sort at rmat:"
+           f"{scale}, not {want_sort} (native sorter: "
+           f"{native.build_error('fast_ingest')})")
     print(f"main path rmat:{scale}: n={graph.n} edges={graph.num_edges} "
           f"{ms:.3f} ms/iter {graph.num_edges / (ms / 1e3):.6g} edges/s, "
           f"ell_contrib launches {launches} in {ITERS} steps, f64 oracle "
           f"normalised L1 {l1:.3e} ({oracle_s:.1f} s)")
     print(f"host build {host_s:.3f} s: R-MAT edges "
           f"{summary['input_seconds']:.3f} s, build_graph "
-          f"{summary['graph_seconds']:.3f} s, ELL pack {bs['pack']:.3f} s, "
-          f"planes + sentinels + segment plan {bs['plan']:.3f} s, placement "
-          f"{bs['place']:.3f} s")
+          f"{summary['graph_seconds']:.3f} s ({summary['sort_route']} "
+          f"sort), ELL pack {bs['pack']:.3f} s, planes + sentinels + "
+          f"segment plan {bs['plan']:.3f} s, placement {bs['place']:.3f} s")
+    _host_facts_line()
     return summary, {"launches": launches, "ms_per_iter": ms, "l1": l1}, \
         oracle
 
@@ -1042,7 +1071,7 @@ def _analysis(*args):
 
 
 def analysis_phase():
-    """Phase 9a: the kernel-plane check with the compile facts read from
+    """Phase 10a: the kernel-plane check with the compile facts read from
     the built libraries: the shipped registry exits 0 with no finding,
     each defect fixture exits 1 with exactly its rule. Prints every
     shipped symbol's registers, shared bytes and spills."""
@@ -1102,7 +1131,7 @@ FIXTURE_REPLACES = {
 
 
 def fixture_phase(rules):
-    """Phase 9b: F1-F6 on the card at the JAX fixtures' shapes, the counts
+    """Phase 10b: F1-F6 on the card at the JAX fixtures' shapes, the counts
     set to 0 before and read after. F1 at its geometry must be refused
     and leave no error pending; at 2^15 it equals its plain copy. F2 and
     F5 equal their plain versions; F3 too, with NaN at exactly the
@@ -1259,6 +1288,232 @@ def resume_determinism(scale, tmp, extra=()):
     return s["form"]
 
 
+def _host_facts_line():
+    from pagerank_tpu_torch.scripts.host_ingest_bench import host_facts, rss_gb
+
+    f = host_facts()
+    print(f"host: numpy {f['numpy']}, os.cpu_count() {f['cpu_count']}, "
+          f"usable cores {f['usable_cores']}, MemAvailable "
+          f"{f['mem_available_gb']:.3f} GB, peak RSS so far {rss_gb():.3f} GB")
+
+
+# The crawl job: the reference's segment shape (Sparky.java:44-58).
+CRAWL_FILES = 301
+CRAWL_RECORDS = 10_000
+CRAWL_SEED = 23
+CRAWL_SPAN = 1 << 21  # K = 3 partitions on the segment's 4.95M vertices
+
+
+def _graph_digest(graph):
+    """sha256 of every array field of a graph and of its names."""
+    import hashlib
+
+    d = {f: hashlib.sha256(getattr(graph, f).tobytes()).hexdigest()
+         for f in ("src", "dst", "out_degree", "in_degree", "dangling_mask",
+                   "zero_in_mask", "edge_weight")}
+    d["n"] = graph.n
+    if graph.vertex_names is not None:
+        d["names"] = hashlib.sha256("\n".join(graph.vertex_names).encode(
+            "utf-8", "surrogatepass")).hexdigest()
+    return d
+
+
+def _stage_line(label, s):
+    bs = s["engine"].layout_info()["build_seconds"]
+    ms = statistics.median(s["step_seconds"]) * 1e3
+    saves = (f", snapshot save median {statistics.median(s['snapshot_seconds']) * 1e3:.3f} ms "
+             f"(max {max(s['snapshot_seconds']) * 1e3:.3f})"
+             if s["snapshot_seconds"] else "")
+    out = (f", --out write {s['out_seconds']:.3f} s"
+           if s["out_seconds"] is not None else "")
+    threads = (f" on {s['ingest_threads']} threads"
+               if s["ingest_threads"] else "")
+    print(f"{label} stages: ingest ({s['ingest_route']}{threads}) "
+          f"{s['input_seconds']:.3f} s, build_graph ({s['sort_route']} sort) "
+          f"{s['graph_seconds']:.3f} s, pack {bs['pack']:.3f} s, planes + "
+          f"plans {bs['plan']:.3f} s, placement {bs['place']:.3f} s, solve "
+          f"median {ms:.3f} ms/iter "
+          f"{s['graph'].num_edges / (ms / 1e3):.6g} edges/s{saves}{out}")
+
+
+def crawl_phase(tmp):
+    """Phase 9: the crawl job through ``cli.run`` on cuda: a 301-file
+    block-compressed segment ingested (native route unless the card's
+    host cannot build the crawl L1), solved flat through K1 and at span
+    2^21 through K2, each within 1e-4 (mass-normalised L1) of the f64
+    oracle; --top/--out, --jsonl and snapshots checked; the out-of-core
+    build field-identical with bit-equal ranks; the native and the
+    serial Python routes bit-equal on the first 10 files."""
+    import numpy as np
+
+    from pagerank_tpu_torch import PageRankConfig, ReferenceCpuEngine, cli
+    from pagerank_tpu_torch.ingest import native
+    from pagerank_tpu_torch.ingest.edgelist import save_binary_edges
+    from pagerank_tpu_torch.ingest.seqfile import load_crawl_seqfile_routed
+    from pagerank_tpu_torch.utils.metrics import oracle_l1
+    from pagerank_tpu_torch.utils.synth import crawl_segment
+
+    t_phase = time.perf_counter()
+    seg = os.path.join(tmp, "segment")
+    t0 = time.perf_counter()
+    made = crawl_segment(seg, files=CRAWL_FILES, per_file=CRAWL_RECORDS,
+                         seed=CRAWL_SEED, compression="block")
+    print(f"crawl segment: {made['files']} block-compressed SequenceFiles "
+          f"(metadata-%05d) x {CRAWL_RECORDS} records, {made['links']:,} "
+          f"links, {made['bytes']:,} B written in "
+          f"{time.perf_counter() - t0:.3f} s")
+    want_route, crawl_input = "native", ["--input", seg]
+    if not native.available("crawl_ingest"):
+        # The serial Python parser: no fork once CUDA is up.
+        want_route, crawl_input = "python", ["--input", seg,
+                                             "--ingest-workers", "1"]
+        print(f"the native crawl L1 does not build on this host "
+              f"({native.build_error('crawl_ingest')}): the crawl job runs "
+              f"the Python route")
+    snaps = os.path.join(tmp, "crawl_snaps")
+    jsonl = os.path.join(tmp, "crawl.jsonl")
+    out = os.path.join(tmp, "crawl_top.tsv")
+    _reset_counts()
+    s = cli.run(crawl_input + ["--iters", str(ITERS), "--snapshot-dir",
+                 snaps, "--snapshot-every", "1", "--jsonl", jsonl,
+                 "--log-every", "0", "--top", "1000", "--out", out])
+    k1, k2, probe = _read_counts()
+    graph, ranks = s["graph"], s["ranks"]
+    _check(s["engine"].device.type == "cuda" and s["form"] == "flat_ell",
+           f"crawl job ran {s['form']} on {s['engine'].device}")
+    _check(k1 == ITERS == s["iterations"] and k2 == 0
+           and not any(probe.values()),
+           f"crawl job: ell_contrib launched {k1} times "
+           f"(ell_contrib_partitioned {k2}, the probe kernels {probe}) in "
+           f"{s['iterations']} steps")
+    _check(s["format"] == "seqfile" and s["ingest_route"] == want_route,
+           f"crawl job: format {s['format']}, ingest route "
+           f"{s['ingest_route']} (want seqfile, {want_route})")
+    crawled = int((~graph.dangling_mask).sum())
+    dangling = int(graph.dangling_mask.sum())
+    zero_out = int((graph.out_degree == 0).sum())
+    _check(crawled == CRAWL_FILES * CRAWL_RECORDS
+           and crawled + dangling == graph.n and dangling != zero_out,
+           f"crawl job: {crawled} crawled, {dangling} dangling, {zero_out} "
+           f"with out-degree 0 of n={graph.n}")
+    _check(ranks.shape == (graph.n,) and np.isfinite(ranks).all(),
+           "crawl job: ranks are not finite of shape (n,)")
+    t0 = time.perf_counter()
+    oracle = ReferenceCpuEngine(PageRankConfig(num_iters=ITERS)).build(
+        graph).run()
+    oracle_s = time.perf_counter() - t0
+    raw_l1, norm_l1, mass_l1 = oracle_l1(ranks, oracle)
+    _check(mass_l1 <= 1e-4, f"crawl job vs the f64 oracle: mass-normalised "
+           f"L1 {mass_l1} > 1e-4")
+    names = graph.vertex_names
+    order = np.lexsort((np.arange(graph.n), -ranks))[:1000]
+    with open(out) as f:
+        lines = f.read().splitlines()
+    want = [f"{names[i]}\t{float(ranks[i])!r}" for i in order]
+    _check(lines == want, "crawl job: --out is not the top 1000 by (rank "
+           "desc, id asc) keyed by URL")
+    with open(jsonl) as f:
+        recs = [json.loads(line) for line in f]
+    _check(len(recs) == ITERS and [r["iter"] for r in recs]
+           == list(range(ITERS)), f"crawl job: {len(recs)} JSONL records")
+    have = sorted(int(re.match(r"ranks_iter(\d+)\.npz$", f).group(1))
+                  for f in os.listdir(snaps) if f.endswith(".npz"))
+    _check(have == list(range(1, ITERS + 1)),
+           f"crawl job: snapshots at iterations {have}")
+    last = np.load(os.path.join(snaps, f"ranks_iter{ITERS}.npz"))["ranks"]
+    _check(np.array_equal(last, ranks), "crawl job: last snapshot != ranks")
+    print(f"crawl job: n={graph.n} edges={graph.num_edges} crawled={crawled} "
+          f"dangling (uncrawled targets)={dangling} out-degree 0={zero_out}; "
+          f"K1 launches {k1} in {ITERS} steps, f64 oracle mass-normalised L1 "
+          f"{mass_l1:.3e} (normalised {norm_l1:.3e}; oracle {oracle_s:.1f} s)")
+    _stage_line("crawl job", s)
+    digest = _graph_digest(graph)
+    fingerprint = graph.fingerprint()
+    flat_ranks = ranks
+    del s, graph, ranks, names, order, want
+
+    # The same segment, partition-centric at CRAWL_SPAN.
+    parts = -(-digest["n"] // CRAWL_SPAN)
+    _reset_counts()
+    s = cli.run(crawl_input + ["--iters", str(ITERS), "--partition-span",
+                               str(CRAWL_SPAN), "--log-every", "0"])
+    k1, k2, probe = _read_counts()
+    _check(s["graph"].fingerprint() == fingerprint,
+           "partitioned crawl run built another graph")
+    _check(s["form"] == "pallas_partitioned" and s["partitions"] == parts,
+           f"partitioned crawl run: {s['form']}, K={s['partitions']} "
+           f"(want {parts})")
+    _check(k2 == ITERS == s["iterations"] and k1 == 0
+           and not any(probe.values()),
+           f"partitioned crawl run: ell_contrib_partitioned launched {k2} "
+           f"times (ell_contrib {k1}, the probe kernels {probe})")
+    part_l1 = oracle_l1(s["ranks"], oracle)[2]
+    _check(part_l1 <= 1e-4, f"partitioned crawl run vs the f64 oracle: "
+           f"mass-normalised L1 {part_l1} > 1e-4")
+    print(f"crawl job partitioned: span {s['partition_span']} K="
+          f"{s['partitions']}, K2 launches {k2} in {ITERS} steps, f64 oracle "
+          f"mass-normalised L1 {part_l1:.3e}")
+    _stage_line("crawl job partitioned", s)
+    if want_route != "native":
+        # The crawl drain needs the native L1: hold the out-of-core
+        # build on the crawl graph's edges saved as .npz instead.
+        g = s["graph"]
+        ooc_input = os.path.join(tmp, "crawl_edges.npz")
+        save_binary_edges(ooc_input, g.src, g.dst, n=g.n)
+        del g
+    del s
+
+    # Out-of-core: the same job under a 0.25 GiB working-memory cap.
+    ooc = crawl_input if want_route == "native" else ["--input", ooc_input]
+    _reset_counts()
+    s = cli.run(ooc + ["--iters", str(ITERS), "--host-mem-cap-gb", "0.25",
+                       "--log-every", "0"])
+    k1, _, _ = _read_counts()
+    if want_route == "native":
+        same = _graph_digest(s["graph"]) == digest
+        ranks_equal = np.array_equal(s["ranks"], flat_ranks)
+    else:  # no names and no crawl mask on an .npz input
+        g = s["graph"]
+        same = all(_graph_digest(g)[f] == digest[f] for f in ("src", "dst"))
+        ranks_equal = True
+    _check(s["sort_route"] == "external" and same and ranks_equal
+           and k1 == ITERS,
+           f"out-of-core crawl build: sort {s['sort_route']}, field-identical "
+           f"{same}, ranks bit-equal {ranks_equal}, K1 launches {k1}")
+    held = ("every graph field identical to the in-memory build, ranks "
+            "bit-equal" if want_route == "native" else "src and dst "
+            "identical to the in-memory build (its edges as .npz)")
+    print(f"crawl job out-of-core (--host-mem-cap-gb 0.25, {s['ingest_route']}"
+          f" ingest + external sort {s['input_seconds']:.3f} s): {held}")
+    del s
+
+    # Route parity on the first 10 files: native threads against the
+    # serial Python parser (no fork: CUDA is up).
+    first = ",".join(os.path.join(seg, f"metadata-{i:05d}")
+                     for i in range(10))
+    runs = {}
+    for label, kw in (("native", {"native": "auto"}),
+                      ("python", {"native": "off", "workers": 1})):
+        if label == "native" and want_route != "native":
+            continue
+        t0 = time.perf_counter()
+        (src, dst, crawled_mask, ids), route = load_crawl_seqfile_routed(
+            first, raw=True, **kw)
+        _check(route == label, f"asked for the {label} route, ran {route}")
+        runs[label] = (src, dst, crawled_mask, ids.names,
+                       time.perf_counter() - t0)
+    if len(runs) == 2:
+        a, b = runs["native"], runs["python"]
+        _check(all(np.array_equal(x, y) for x, y in zip(a[:3], b[:3]))
+               and a[3] == b[3], "native and Python routes differ on the "
+               "first 10 files")
+        print(f"crawl route parity, first 10 files: native ({a[4]:.3f} s) "
+              f"and serial Python ({b[4]:.3f} s) bit-equal in src, dst, "
+              f"crawled mask and names ({len(a[0]):,} raw edges, "
+              f"{len(a[3]):,} vertices)")
+    print(f"crawl phase took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -1313,6 +1568,7 @@ def main(argv=None) -> int:
                                   ("--partition-span", "-1"))
         _check(form == "pallas_partitioned",
                f"--partition-span -1 at rmat:{args.resume_scale} ran {form}")
+        crawl_phase(tmp)
     fixtures = fixture_phase(analysis_phase())
     print(f"chip smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, *probe, *fixtures]}))

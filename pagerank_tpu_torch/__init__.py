@@ -12,7 +12,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 torch, numpy and scipy, never jax or pagerank_tpu.
 
 Layer map:
-  L1 ingestion             -> ingest/ (integer edge lists)
+  L1 ingestion             -> ingest/ (edge lists, crawl TSV/JSONL,
+                              SequenceFiles; native/*.cpp via ctypes)
   L2 graph construction    -> graph.py
   L3 iterative solver      -> models/, engines/, ops/ (+ csrc/, kernels/)
   L4 output/persistence    -> utils/snapshot.py, cli.py

@@ -1,18 +1,22 @@
 """Command-line entry point of the port: ``python -m pagerank_tpu_torch.cli``.
 
 Port of the main-path part of ``pagerank_tpu/cli.py``: the flags of
-:45-208 that the main path reads (``--partition-span`` and
-``--stream-dtype`` with the JAX help text, :156-172), ``load_graph``
-(:713-869; here ``load_edges`` + ``build_graph``) for edge lists,
-``.npz`` and synthetic graphs, the partition-span resolution
-(:1639-1679, with the partition part of ``ops/device_build.py:
-plan_build``, :344-368, as :func:`plan_partition_span`) and the
-``--out`` writer (:2305-2320), whose TSV matches the JAX CLI's. The
-solve runs on ``--device`` (default cuda); ``--device cpu`` is the only
-way to run it on a host without a card.
+:45-304 and :440-470 that the main path reads (``--partition-span`` and
+``--stream-dtype`` with the JAX help text, :156-172; the robustness
+flags :230-272; the ingest flags :440-470), ``load_graph`` (:713-869)
+for edge lists, ``.npz``, synthetic graphs, crawl TSV/JSONL files and
+SequenceFile segments (a file, a directory or a comma list; the SEQ
+magic rule), the out-of-core build (``--host-mem-cap-gb``), the
+partition-span resolution (:1639-1679, with the partition part of
+``ops/device_build.py:plan_build``, :344-368, as
+:func:`plan_partition_span`) and the ``--out`` writer (:2305-2320, with
+``--top``), whose TSV matches the JAX CLI's. The solve runs on
+``--device`` (default cuda) through the torch engine; ``--device cpu``,
+or ``--engine cpu`` (the f64 oracle), runs it on a host without a card.
 
 ``run(argv)`` is the programmatic entry point (it returns the solve's
-summary: ranks, graph, engine, timings); ``main(argv)`` wraps it.
+summary: ranks, graph, ids, engine, timings, the input format and the
+ingest route); ``main(argv)`` wraps it.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import statistics
 import sys
 import time
 from typing import Dict, List, Optional
+
+import numpy as np
 
 from pagerank_tpu_torch.graph import build_graph
 from pagerank_tpu_torch.utils import fsio
@@ -35,14 +41,20 @@ def build_parser() -> argparse.ArgumentParser:
         "CUDA kernel.",
     )
     src = p.add_mutually_exclusive_group(required=True)
-    src.add_argument("--input", help="edge list (text: 'src dst' per line) "
-                     "or binary .npz with src/dst (+ n)")
+    src.add_argument(
+        "--input",
+        help="edge list (text: 'src dst' per line), binary .npz with "
+        "src/dst (+ n), crawl TSV/JSONL, or Hadoop SequenceFile(s) of "
+        "(Text url, Text json): a file, a segment directory, or a "
+        "comma-joined list (the reference's input form, "
+        "Sparky.java:42-61)")
     src.add_argument("--synthetic", help="synthetic graph: rmat:SCALE or "
                      "uniform:N:E")
     p.add_argument("--format", default="auto",
                    choices=["auto", "edgelist", "npz", "crawl", "seqfile"],
-                   help="input format (auto: .npz by extension, else a text "
-                   "edge list; crawl and seqfile inputs are not ported yet)")
+                   help="input format (auto: by extension/magic — 'SEQ' "
+                   "magic => seqfile, .npz => npz, text with non-integer "
+                   "columns => crawl)")
     p.add_argument("--iters", type=int, default=10,
                    help="iterations (reference: 10)")
     p.add_argument("--damping", type=float, default=0.85)
@@ -69,15 +81,68 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--tol", type=float, default=None,
                    help="L1 early-stop (default: none)")
+    p.add_argument("--engine", choices=["torch", "cpu"], default="torch",
+                   help="torch: the ELL engine on --device (default); cpu: "
+                   "the f64 numpy/scipy oracle on the host")
     p.add_argument("--snapshot-dir", default=None,
-                   help="write ranks_iter{i}.npz after every iteration")
+                   help="write ranks_iter{i}.npz snapshots here")
+    p.add_argument("--snapshot-every", type=int, default=1,
+                   help="snapshot cadence in iterations; 0 disables "
+                   "(reference: every iter)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest valid snapshot")
     p.add_argument("--out", default=None,
-                   help="write final ranks (TSV: id, rank)")
+                   help="write final ranks (TSV: id/url, rank)")
+    p.add_argument("--top", type=int, default=0,
+                   help="write only the N highest-ranked vertices to --out, "
+                   "sorted by rank descending (ties by id ascending); 0 = "
+                   "the full vector in id order (the reference's dump "
+                   "shape, Sparky.java:237)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the solve runs (default cuda; cpu only when "
-                   "asked)")
+                   help="where the torch engine's solve runs (default cuda; "
+                   "cpu only when asked)")
+    ft = p.add_argument_group("fault tolerance")
+    ft.add_argument("--max-rollbacks", type=int, default=3,
+                    help="snapshot rollbacks the self-healing solve loop "
+                    "may perform on an unhealthy step (NaN/Inf, mass "
+                    "drift) before raising; needs --snapshot-dir to have "
+                    "anything to roll back to")
+    ft.add_argument("--mass-tol", type=float, default=None,
+                    help="opt-in per-step relative rank-mass drift "
+                    "tolerance for the health check (default: NaN/Inf "
+                    "checks only)")
+    ft.add_argument("--no-health-checks", action="store_true",
+                    help="disable the per-step solver health check")
+    p.add_argument("--log-every", type=int, default=1,
+                   help="0 silences per-iter logs")
+    p.add_argument("--jsonl", default=None,
+                   help="append per-iter metrics to this JSONL file")
+    p.add_argument("--strict-parse", action="store_true",
+                   help="crawl mode: die on bad records")
+    p.add_argument(
+        "--ingest-workers", type=int, default=None,
+        help="parallel parse processes for multi-file SequenceFile "
+        "segments (the reference parses its 301 segment files across "
+        "the cluster, Sparky.java:61). Setting this selects the Python "
+        "process-pool path explicitly (default: the native C++ parser "
+        "when available — one thread per core, capped by file count; "
+        "1 = serial). Record order (and so vertex ids) is identical on "
+        "every path",
+    )
+    p.add_argument(
+        "--no-native-ingest", action="store_true",
+        help="force the pure-Python crawl/SequenceFile parser instead "
+        "of the native C++ L1 (native/crawl_ingest.cpp)",
+    )
+    p.add_argument(
+        "--host-mem-cap-gb", type=float, default=None,
+        help="route the host build through the out-of-core external "
+        "sort (ingest/external.py) with this working-memory cap in GiB. "
+        "Integer edge inputs (text/.npz) stream directly; "
+        "crawl/SequenceFile inputs drain the native L1's edges per "
+        "batch into the same sort (the url table, O(vertices), stays "
+        "in RAM). Identical graph. Not with --synthetic",
+    )
     return p
 
 
@@ -102,39 +167,141 @@ def _synthetic(spec: str):
     raise SystemExit(f"unknown synthetic spec {spec!r}")
 
 
-def load_edges(args):
-    """(src, dst, n or None) of the run's input: synthetic, .npz or a
-    text edge list."""
+def detect_format(args) -> str:
+    """The input's format: ``--format`` unless "auto"; then a directory
+    or comma list is a SequenceFile segment (its first file must carry
+    the SEQ magic), a file starting with ``SEQ`` and a version byte <= 6
+    is a SequenceFile, ``.npz`` is binary edges, a text file whose first
+    non-comment line is two integers is an edge list, anything else a
+    crawl TSV/JSONL (``pagerank_tpu/cli.py:743-785``)."""
+    from pagerank_tpu_torch.ingest.seqfile import expand_seqfile_paths
+
+    fmt, path = args.format, args.input
+    if fmt != "auto":
+        return fmt
+    probe = path
+    if fsio.isdir(path) or ("," in path and not fsio.exists(path)):
+        probe = expand_seqfile_paths(path)[0]
+    with fsio.fopen(probe, "rb") as fb:
+        magic = fb.read(4)
+    # A text file that merely starts with "SEQ" ("SEQ\t", "SEQ\n")
+    # falls through to the text detection: the version byte must be one
+    # the reader supports.
+    if magic[:3] == b"SEQ" and len(magic) == 4 and magic[3] <= 6:
+        return "seqfile"
+    if probe != path:
+        raise SystemExit(
+            f"{path}: directory / comma-list inputs are for Hadoop "
+            f"SequenceFile segments, but {probe} has no SEQ magic")
+    if path.endswith(".npz"):
+        return "npz"
+    with fsio.fopen(path, "r", errors="replace") as f:
+        first = f.readline()
+        while first.startswith("#"):
+            first = f.readline()
+    tokens = first.split()
+    return ("edgelist" if len(tokens) == 2
+            and all(t.lstrip("-").isdigit() for t in tokens) else "crawl")
+
+
+def load_graph(args):
+    """``(graph, ids, info)`` for the run's input: the graph, the
+    IdMap of a crawl input (else None), and ``info``: ``format``,
+    ``ingest_route`` (the parser that ran: "native" or "python"),
+    ``ingest_threads`` (the native L1's threads, else None),
+    ``input_seconds`` (read, parse or generate) and ``graph_seconds``
+    (``build_graph``; 0.0 where the out-of-core build does both)."""
     from pagerank_tpu_torch.ingest import edgelist as el
 
-    if args.synthetic:
-        return _synthetic(args.synthetic)
-    fmt, path = args.format, args.input
-    if fmt == "auto":
-        with fsio.fopen(path, "rb") as fb:
-            magic = fb.read(4)
-        if magic[:3] == b"SEQ" and len(magic) == 4 and magic[3] <= 6:
-            fmt = "seqfile"
-        elif path.endswith(".npz"):
-            fmt = "npz"
-        else:
-            with fsio.fopen(path, "r", errors="replace") as f:
-                first = f.readline()
-                while first.startswith("#"):
-                    first = f.readline()
-            tokens = first.split()
-            fmt = ("edgelist" if len(tokens) == 2
-                   and all(t.lstrip("-").isdigit() for t in tokens)
-                   else "crawl")
-    if fmt in ("crawl", "seqfile"):
+    if args.host_mem_cap_gb and args.synthetic:
+        # Never silently drop a memory-bound promise.
         raise SystemExit(
-            f"{path}: {fmt} inputs are not ported yet (crawl ingest: "
-            f"ROADMAP slice 3); use pagerank_tpu.cli or an edge list"
-        )
+            "--host-mem-cap-gb applies to the HOST build of file inputs "
+            "(text/.npz/crawl/SequenceFile); it cannot combine with "
+            "--synthetic")
+    info = {"format": "synthetic", "ingest_route": "python",
+            "ingest_threads": None, "graph_seconds": 0.0}
+    t0 = time.perf_counter()
+    if args.synthetic:
+        src, dst, n = _synthetic(args.synthetic)
+        return _build(info, t0, src, dst, n=n), None, info
+    fmt = info["format"] = detect_format(args)
+    path = args.input
+    mem_cap = (int(args.host_mem_cap_gb * (1 << 30))
+               if args.host_mem_cap_gb else None)
+    if fmt in ("seqfile", "crawl"):
+        return _load_crawl(args, fmt, mem_cap, info, t0)
+    if mem_cap:
+        from pagerank_tpu_torch.ingest import external
+
+        graph = external.build_graph_external(path, mem_cap_bytes=mem_cap)
+        info["input_seconds"] = time.perf_counter() - t0
+        return graph, None, info
     if fmt == "npz":
-        return el.load_binary_edges(path)
-    src, dst = el.load_edgelist(path)
-    return src, dst, None
+        src, dst, n = el.load_binary_edges(path)
+        return _build(info, t0, src, dst, n=n), None, info
+    (src, dst), info["ingest_route"] = el.load_edgelist_routed(path)
+    return _build(info, t0, src, dst), None, info
+
+
+def _build(info, t0, src, dst, **kw):
+    """build_graph on loaded edges, timing the load (from ``t0``) and
+    the build into ``info``."""
+    t1 = time.perf_counter()
+    info["input_seconds"] = t1 - t0
+    graph = build_graph(src, dst, **kw)
+    info["graph_seconds"] = time.perf_counter() - t1
+    return graph
+
+
+def _load_crawl(args, fmt, mem_cap, info, t0):
+    """Crawl TSV/JSONL or SequenceFile input: the native L1 unless
+    ``--no-native-ingest`` or ``--ingest-workers`` asks for the Python
+    parser (or its library is unavailable, which the route reports);
+    then the graph build with the uncrawled-targets dangling mask."""
+    from pagerank_tpu_torch.ingest import native as native_mod
+    from pagerank_tpu_torch.ingest.crawljson import load_crawl_file_routed
+    from pagerank_tpu_torch.ingest.seqfile import (
+        expand_seqfile_paths, load_crawl_seqfile_routed)
+
+    native = "off" if args.no_native_ingest else "auto"
+    paths = expand_seqfile_paths(args.input) if fmt == "seqfile" else [
+        args.input]
+    kind = "seqfile" if fmt == "seqfile" else "tsv"
+    if mem_cap:
+        # Out-of-core: native L1 batches drained into the external
+        # sort. Without the native path the memory bound cannot be
+        # kept, so it is refused, never dropped.
+        if native == "off":
+            raise SystemExit(
+                "--host-mem-cap-gb with crawl/SequenceFile inputs needs "
+                "the native ingest path; drop --no-native-ingest")
+        res = native_mod.crawl_load_external(
+            paths, kind, mem_cap_bytes=mem_cap, strict=args.strict_parse,
+            threads=args.ingest_workers)
+        if res is None:
+            raise SystemExit(
+                "--host-mem-cap-gb with crawl/SequenceFile inputs needs "
+                "the native library (g++ and zlib), which is unavailable: "
+                f"{native_mod.build_error('crawl_ingest')}")
+        info.update(ingest_route="native",
+                    ingest_threads=native_mod.default_threads(
+                        paths, args.ingest_workers),
+                    input_seconds=time.perf_counter() - t0)
+        return res[0], res[1], info
+    if fmt == "seqfile":
+        (src, dst, crawled, ids), route = load_crawl_seqfile_routed(
+            args.input, strict=args.strict_parse,
+            workers=args.ingest_workers, native=native, raw=True)
+    else:
+        (src, dst, crawled, ids), route = load_crawl_file_routed(
+            args.input, strict=args.strict_parse, native=native, raw=True)
+    info["ingest_route"] = route
+    if route == "native":
+        info["ingest_threads"] = native_mod.default_threads(paths, None)
+    graph = _build(info, t0, src, dst, n=len(ids), dangling_mask=~crawled,
+                   vertex_names=ids.names)
+    return graph, ids, info
 
 
 def _log(msg: str) -> None:
@@ -202,53 +369,70 @@ def resolve_layout(cfg, args, graph):
 
 def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Load, build, solve and write outputs; returns the summary:
-    ``ranks`` (host, original id order), ``graph``, ``engine``,
-    ``resumed_from``, ``iterations``, ``step_seconds`` (one per step,
-    each ending in a device sync), ``input_seconds`` (read or generate
-    the edges), ``graph_seconds`` (build_graph) and
-    ``engine_build_seconds`` (pack, plan and placement; its split is in
-    ``engine.layout_info()["build_seconds"]``), and the layout that ran:
-    ``form``, ``partition_span`` (0 for the flat form) and
+    ``ranks`` (host, original id order), ``graph``, ``ids`` (the IdMap
+    of a crawl input, else None), ``engine``, ``resumed_from``,
+    ``iterations``, ``step_seconds`` (one per step, each ending in a
+    device sync; snapshot saves are not in them), ``snapshot_seconds``
+    (one per save), ``out_seconds`` (the ``--out`` write, else None),
+    ``format`` (the detected input format), ``ingest_route`` ("native"
+    or "python": the parser that ran), ``ingest_threads``,
+    ``input_seconds`` (read, parse or generate the edges),
+    ``graph_seconds`` (build_graph), ``sort_route`` (``Graph.sort_route``)
+    and ``engine_build_seconds`` (pack, plan and placement; its split is
+    in ``engine.layout_info()["build_seconds"]``), and the layout that
+    ran: ``form``, ``partition_span`` (0 for the flat form) and
     ``partitions``."""
+    from pagerank_tpu_torch.engine import make_engine
     from pagerank_tpu_torch.engines.torch_engine import (
         TorchEngine, resolve_device)
-    from pagerank_tpu_torch.utils.config import PageRankConfig
+    from pagerank_tpu_torch.utils.config import (PageRankConfig,
+                                                 RobustnessConfig)
+    from pagerank_tpu_torch.utils.metrics import MetricsLogger
     from pagerank_tpu_torch.utils.snapshot import Snapshotter, resume_engine
 
     args = build_parser().parse_args(argv)
-    cfg = PageRankConfig(
-        num_iters=args.iters, damping=args.damping, semantics=args.semantics,
-        dtype=args.dtype, accum_dtype=args.accum_dtype or args.dtype,
-        tol=args.tol,
-    ).validate()
-    resolve_device(args.device)  # raises without a card, before any work
+    try:
+        cfg = PageRankConfig(
+            num_iters=args.iters, damping=args.damping,
+            semantics=args.semantics, dtype=args.dtype,
+            accum_dtype=args.accum_dtype or args.dtype, tol=args.tol,
+            robustness=RobustnessConfig(
+                health_checks=not args.no_health_checks,
+                mass_tol=args.mass_tol, max_rollbacks=args.max_rollbacks),
+        ).validate()
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.resume and not args.snapshot_dir:
+        raise SystemExit("--resume needs --snapshot-dir")
+    if args.engine == "torch":
+        resolve_device(args.device)  # raises without a card, before work
 
+    try:
+        graph, ids, info = load_graph(args)
+    except ValueError as e:
+        # e.g. "empty graph: no vertices": a clean CLI error
+        raise SystemExit(str(e))
+    threads = (f", {info['ingest_threads']} threads"
+               if info["ingest_threads"] else "")
+    _log(f"graph: n={graph.n:,} edges={graph.num_edges:,} ({info['format']} "
+         f"input, {info['ingest_route']} ingest{threads} "
+         f"{info['input_seconds']:.3f} s, {graph.sort_route or 'no'} sort, "
+         f"build {info['graph_seconds']:.3f} s)")
     t0 = time.perf_counter()
-    src, dst, n = load_edges(args)
-    t1 = time.perf_counter()
-    graph = build_graph(src, dst, n=n)
-    del src, dst
-    t2 = time.perf_counter()
-    input_s, graph_s = t1 - t0, t2 - t1
-    _log(f"graph: n={graph.n:,} edges={graph.num_edges:,} (input "
-         f"{input_s:.3f} s, build {graph_s:.3f} s)")
-    cfg = resolve_layout(cfg, args, graph)
-    engine = TorchEngine(cfg, device=args.device)
-    t0 = time.perf_counter()
-    engine.build(graph)
-    build_s = time.perf_counter() - t0
-    lay = engine.layout_info()
-    parts = lay.get("partitions", 1)
-    if lay["partition_span"]:
-        detail = (f"span {lay['partition_span']:,}, K={parts} partitions, "
-                  f"{lay['pairs']:,} pairs, "
-                  f"{'words24' if lay['words24'] else 'int32 words'}, "
-                  f"{lay['z_dtype']} windows, ")
+    if args.engine == "cpu":
+        engine = make_engine("cpu", cfg).build(graph)
+        lay = {"form": "cpu_f64", "partition_span": 0}
+        _log(f"engine: the f64 oracle on the host (build "
+             f"{time.perf_counter() - t0:.3f} s)")
     else:
-        detail = ""
-    _log(f"engine: {lay['form']} on {lay['device']}, kernel {lay['kernel']}, "
-         f"{detail}{lay['num_rows']:,} slot rows in {lay['num_segments']:,} "
-         f"segments (build {build_s:.3f} s)")
+        cfg = resolve_layout(cfg, args, graph)
+        engine = TorchEngine(cfg, device=args.device)
+        t0 = time.perf_counter()
+        engine.build(graph)
+        lay = engine.layout_info()
+        _log_layout(lay, time.perf_counter() - t0)
+    build_s = time.perf_counter() - t0
+    parts = lay.get("partitions", 1)
 
     snap = None
     resumed = 0
@@ -259,41 +443,86 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
             resumed = resume_engine(engine, snap)
             if resumed:
                 _log(f"resumed from iteration {resumed}")
-    elif args.resume:
-        raise SystemExit("--resume needs --snapshot-dir")
 
+    metrics = MetricsLogger(graph.num_edges, 1, log_every=args.log_every,
+                            jsonl_path=args.jsonl)
     step_s: List[float] = []
+    save_s: List[float] = []
     t_last = [time.perf_counter()]
 
     def on_iteration(i, info):
-        now = time.perf_counter()
-        step_s.append(now - t_last[0])
-        _log(f"iter {i + 1}: l1_delta={info['l1_delta']:.6e} "
-             f"dangling_mass={info['dangling_mass']:.6e} "
-             f"({step_s[-1] * 1e3:.3f} ms)")
-        if snap is not None:
+        step_s.append(time.perf_counter() - t_last[0])
+        metrics.record(i, info, step_s[-1])
+        if snap is not None and args.snapshot_every and (
+                (i + 1) % args.snapshot_every == 0):
+            t_save = time.perf_counter()
             snap.save(i + 1, engine.ranks())
+            save_s.append(time.perf_counter() - t_save)
         t_last[0] = time.perf_counter()
 
-    ranks = engine.run(on_iteration=on_iteration, snapshotter=snap)
+    try:
+        ranks = engine.run(on_iteration=on_iteration, snapshotter=snap)
+    finally:
+        metrics.close()
     if step_s:
         ms = statistics.median(step_s) * 1e3
+        saves = (f", snapshot save median "
+                 f"{statistics.median(save_s) * 1e3:.3f} ms" if save_s
+                 else "")
         _log(f"solve: {len(step_s)} iteration(s), median {ms:.3f} ms/iter, "
-             f"{graph.num_edges / (ms / 1e3):.4g} edges/s")
+             f"{graph.num_edges / (ms / 1e3):.4g} edges/s{saves}")
 
+    out_s = None
     if args.out:
-        with fsio.fopen(args.out, "w") as f:
-            for i in range(len(ranks)):
-                f.write(f"{i}\t{float(ranks[i])!r}\n")
-        _log(f"wrote {len(ranks):,} ranks to {args.out}")
+        t0 = time.perf_counter()
+        n_out = write_ranks(args.out, ranks,
+                            ids.names if ids is not None else None, args.top)
+        out_s = time.perf_counter() - t0
+        _log(f"wrote {n_out:,} ranks to {args.out}")
     return {
-        "ranks": ranks, "graph": graph, "engine": engine,
+        "ranks": ranks, "graph": graph, "ids": ids, "engine": engine,
         "resumed_from": resumed, "iterations": engine.iteration,
-        "step_seconds": step_s, "input_seconds": input_s,
-        "graph_seconds": graph_s, "engine_build_seconds": build_s,
+        "step_seconds": step_s, "snapshot_seconds": save_s,
+        "out_seconds": out_s, "format": info["format"],
+        "ingest_route": info["ingest_route"],
+        "ingest_threads": info["ingest_threads"],
+        "input_seconds": info["input_seconds"],
+        "graph_seconds": info["graph_seconds"],
+        "sort_route": graph.sort_route, "engine_build_seconds": build_s,
         "form": lay["form"], "partition_span": lay["partition_span"],
         "partitions": parts,
     }
+
+
+def _log_layout(lay, build_s):
+    if lay["partition_span"]:
+        detail = (f"span {lay['partition_span']:,}, K={lay['partitions']} "
+                  f"partitions, {lay['pairs']:,} pairs, "
+                  f"{'words24' if lay['words24'] else 'int32 words'}, "
+                  f"{lay['z_dtype']} windows, ")
+    else:
+        detail = ""
+    _log(f"engine: {lay['form']} on {lay['device']}, kernel {lay['kernel']}, "
+         f"{detail}{lay['num_rows']:,} slot rows in {lay['num_segments']:,} "
+         f"segments (build {build_s:.3f} s)")
+
+
+def write_ranks(path: str, ranks: np.ndarray, names=None, top: int = 0) -> int:
+    """Write ``key<TAB>repr(rank)`` lines (the key is the vertex's name
+    when ``names`` is given, else its id): the full vector in id order,
+    or with ``top`` > 0 the ``top`` highest ranks, rank descending and
+    ties by id ascending (a total order before the cut, so boundary
+    ties select by id), clamped to n. Returns the lines written."""
+    if top > 0:
+        k = min(top, len(ranks))
+        order = np.lexsort((np.arange(len(ranks)), -ranks))[:k]
+    else:
+        order = range(len(ranks))
+    with fsio.fopen(path, "w") as f:
+        for i in order:
+            key = names[i] if names else i
+            f.write(f"{key}\t{float(ranks[i])!r}\n")
+    return len(order)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -70,6 +70,11 @@ class PageRankEngine(abc.ABC):
     def set_ranks(self, r: np.ndarray, iteration: int = 0) -> None:
         """Overwrite solver state — used by checkpoint resume."""
 
+    def snapshot_meta(self) -> Dict[str, object]:
+        """Provenance recorded in snapshot metadata
+        (``Snapshotter.mesh_meta``); engines with a device override it."""
+        return {"num_devices": 1, "engine": self.name}
+
     def rank_mass(self) -> float:
         """sum(ranks) as a host scalar — the mass-drift health probe."""
         return float(np.asarray(self.ranks(), dtype=np.float64).sum())

@@ -1,9 +1,10 @@
 """Host-side graph construction (L2).
 
-Copy of ``pagerank_tpu/graph.py:37-253`` without its tracer span and
-without the native radix sorter (that comes with ROADMAP slice 3): the
-dedup + sort always takes the ``np.unique`` path here, which is also
-the path the JAX package takes below 2^22 edges.
+Copy of ``pagerank_tpu/graph.py:37-253`` without its tracer span. The
+dedup + sort takes the native C++ radix sorter (``native/fast_ingest.cpp``
+through ``ingest/native.py``) by the JAX package's auto rule
+(``pagerank_tpu/graph.py:159-172``), else ``np.unique``; the route
+taken is recorded on the graph (``Graph.sort_route``).
 
 Reference semantics (``Sparky.java:78-184``):
   - duplicate edges collapse before out-degree is counted (``.distinct()``);
@@ -19,6 +20,7 @@ per-edge weights w[e] = 1/out_degree[src[e]].
 from __future__ import annotations
 
 import hashlib
+import os
 from dataclasses import dataclass, field
 from typing import Optional, Sequence
 
@@ -38,6 +40,10 @@ class Graph:
       zero_in_mask: bool [n] — in_degree == 0.
       edge_weight: float64 [num_edges] — 1 / out_degree[src[e]].
       vertex_names: optional id->name table.
+      sort_route: how the edges were deduplicated and sorted:
+        "native" (the C++ radix sorter), "numpy" (``np.unique``, or
+        ``np.sort`` without dedup), "external" (the out-of-core build)
+        or "" (no edges).
     """
 
     n: int
@@ -49,6 +55,7 @@ class Graph:
     zero_in_mask: np.ndarray
     edge_weight: np.ndarray
     vertex_names: Optional[Sequence[str]] = field(default=None, repr=False)
+    sort_route: str = field(default="", compare=False)
 
     @property
     def num_edges(self) -> int:
@@ -76,6 +83,7 @@ def build_graph(
     dedup: bool = True,
     dangling_mask: Optional[np.ndarray] = None,
     vertex_names: Optional[Sequence[str]] = None,
+    use_native_sort: Optional[bool] = None,
 ) -> Graph:
     """Build a :class:`Graph` from raw (src, dst) edge arrays.
 
@@ -87,6 +95,11 @@ def build_graph(
       dangling_mask: explicit dangling-mass membership; default
         out_degree == 0.
       vertex_names: optional id->name table carried on the graph.
+      use_native_sort: route dedup + sort through the C++ radix sorter.
+        None = auto, the JAX package's rule: when the host has more
+        than one core and there are at least 2^22 edges, or at least
+        2^27 edges on any host. Without its library (no g++) the
+        ``np.unique`` route runs; ``Graph.sort_route`` says which did.
     """
     src = np.ascontiguousarray(src, dtype=np.int64)
     dst = np.ascontiguousarray(dst, dtype=np.int64)
@@ -107,20 +120,35 @@ def build_graph(
         raise ValueError("edge endpoint out of range [0, n)")
 
     # Dedup + sort by (dst, src) in one pass via a packed 64-bit key.
+    out_degree = in_degree = None
+    route = ""
     if len(src) > 0:
-        key = dst * np.int64(n) + src
-        if dedup:
-            key = np.unique(key)  # unique() also sorts
+        native_out = None
+        if use_native_sort is None:
+            use_native_sort = native_sort_auto(len(src))
+        if dedup and use_native_sort:
+            from pagerank_tpu_torch.ingest import native as native_lib
+
+            native_out = native_lib.sort_dedup_degrees_native(src, dst, n)
+        if native_out is not None:
+            src_s, dst_s, out_degree, in_degree = native_out
+            route = "native"
         else:
-            key = np.sort(key, kind="stable")
-        dst_s = (key // n).astype(np.int32)
-        src_s = (key % n).astype(np.int32)
+            key = dst * np.int64(n) + src
+            if dedup:
+                key = np.unique(key)  # unique() also sorts
+            else:
+                key = np.sort(key, kind="stable")
+            dst_s = (key // n).astype(np.int32)
+            src_s = (key % n).astype(np.int32)
+            route = "numpy"
     else:
         src_s = np.zeros(0, dtype=np.int32)
         dst_s = np.zeros(0, dtype=np.int32)
 
-    out_degree = np.bincount(src_s, minlength=n).astype(np.int32)
-    in_degree = np.bincount(dst_s, minlength=n).astype(np.int32)
+    if out_degree is None:
+        out_degree = np.bincount(src_s, minlength=n).astype(np.int32)
+        in_degree = np.bincount(dst_s, minlength=n).astype(np.int32)
 
     if dangling_mask is None:
         dangling_mask = out_degree == 0
@@ -143,7 +171,16 @@ def build_graph(
         zero_in_mask=zero_in_mask,
         edge_weight=edge_weight,
         vertex_names=vertex_names,
+        sort_route=route,
     )
+
+
+def native_sort_auto(num_edges: int) -> bool:
+    """The JAX package's auto rule for the native sorter
+    (``pagerank_tpu/graph.py:159-165``): more than one core and at
+    least 2^22 edges, or at least 2^27 edges on any host."""
+    return (((os.cpu_count() or 1) > 1 and num_edges >= (1 << 22))
+            or num_edges >= (1 << 27))
 
 
 def inv_out_degree(out_degree: np.ndarray, dtype=np.float64) -> np.ndarray:

@@ -40,6 +40,14 @@ def exists(path: str) -> bool:
     return os.path.exists(_local(path))
 
 
+def isdir(path: str) -> bool:
+    return os.path.isdir(_local(path))
+
+
+def isfile(path: str) -> bool:
+    return os.path.isfile(_local(path))
+
+
 def listdir(path: str) -> List[str]:
     return os.listdir(_local(path))
 

@@ -65,7 +65,11 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.analysis.kernels, "
         "pagerank_tpu_torch.analysis.resources, "
         "pagerank_tpu_torch.analysis.__main__, "
-        "pagerank_tpu_torch.obs.costs\n"
+        "pagerank_tpu_torch.obs.costs, pagerank_tpu_torch.ingest, "
+        "pagerank_tpu_torch.ingest.native, "
+        "pagerank_tpu_torch.ingest.external, "
+        "pagerank_tpu_torch.utils.metrics, "
+        "pagerank_tpu_torch.scripts.host_ingest_bench\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
