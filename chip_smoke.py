@@ -74,7 +74,8 @@ What it does, in order:
      where z fits shared memory (n = 2^15 here), P2 where n % 8 == 0;
   8. resume determinism on the card, for the flat form and through the
      CLI's --partition-span -1: 6 iterations with snapshots, a resume
-     to 10, and an uninterrupted 10 give bit-equal ranks;
+     to 10, and an uninterrupted 10 give bit-equal ranks, the form's
+     kernel launched once a step (20 times) and the other kernels not;
   9. the crawl job (the reference's own input, Sparky.java:44-124): a
      301-file block-compressed SequenceFile segment of 10,000 records
      a file (``utils/synth.crawl_segment``, seed 23) written under
@@ -92,7 +93,32 @@ What it does, in order:
      serial Python routes bit-equal on the first 10 files. Each run
      prints its stages: ingest (threads), build_graph (sort route),
      pack, median ms/iter and edges/s, snapshot save, --out write;
- 10. the kernel-plane check (``pagerank_tpu_torch.analysis``): (a)
+ 10. the graph built on the card (``ops/device_build.py``,
+     ``TorchEngine.build_device``, ``--device-build``): (a) phase 3's
+     deduplicated host edges uploaded and built flat and at phase 5's
+     span: the engines' slot planes, row blocks/pairs and perm
+     torch.equal to the host pack's, ranks bit-equal to phase 3's K1 and
+     phase 5's K2 ranks; a checkpoint_arrays -> restore_device_graph
+     round trip on the card keeps the fingerprint and the ranks bit for
+     bit; (b) ``cli.run --synthetic rmat:SCALE --device-build`` flat
+     (snapshots, --out) and at --partition-span -1 (span resolved over
+     the raw edge count), each against the f64 oracle of the same
+     generated edges (copied to the host first; normalised L1 <= 1e-4),
+     K1 10 and K2 0, then the reverse; the stage split, slot rows
+     against the host pack's, K, peak device memory, ms/iter, edges/s;
+     the plain f64 PageRank on the card of (e) is held there to the
+     f64 oracle on the same edges (normalised L1 <= 1e-12); (c) phase
+     8's resume check with --device-build, both forms; (d) phase 9's
+     segment once more, flat, with --device-build, within 1e-4 of that
+     phase's oracle and beside the host-built ranks; (e) rmat:24 (past
+     L2) flat from a seed, K1 10: K1 at that path's own slots and plan
+     torch.equal to its plain plan-order version on the CPU and within
+     1e-5 of exact f64 sums, and the ranks within 1e-4 (normalised L1)
+     of a plain f64 PageRank on the card over the same seed's edges
+     (torch.unique dedup, one index_add_ a step: no pack, plan or
+     kernel of the port), whose unique edges and out-degrees equal the
+     device graph's;
+ 11. the kernel-plane check (``pagerank_tpu_torch.analysis``): (a)
      ``python -m pagerank_tpu_torch.analysis --select PTK --compiled
      --json`` as subprocesses, all at once: the shipped registry exits
      0 with no finding and each ``--kernel-fixture NAME`` exits 1 with
@@ -105,7 +131,7 @@ What it does, in order:
      elements PTK003 names, F4 one of its two writers in every element,
      F6 within 1e-5 of an f64 matmul; each timed beside its bound,
      its plain version and ``Tensor.copy_`` / ``torch.matmul``;
- 11. prints one JSON line with every kernel's numbers (K1, K2, P1 and
+ 12. prints one JSON line with every kernel's numbers (K1, K2, P1 and
      P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
      ``{"ok": true, "device": {...}}``.
 
@@ -692,7 +718,7 @@ def partitioned_path(graph, oracle, flat_rows):
               f"{bs['place']:.3f}")
         engines.append(eng)
         report[stream or "f32"] = {"launches": k2, "ms_per_iter": ms,
-                                   "l1": l1}
+                                   "l1": l1, "ranks": ranks}
     return engines[0], engines[1], report
 
 
@@ -1274,17 +1300,25 @@ def resume_determinism(scale, tmp, extra=()):
     tag = "-".join(extra) or "flat"
     cut = os.path.join(tmp, f"cut{tag}")
     ctrl = os.path.join(tmp, f"ctrl{tag}")
+    _reset_counts()
     cli.run(base + ["--iters", "6", "--snapshot-dir", cut])
     s = cli.run(base + ["--iters", str(ITERS), "--snapshot-dir", cut,
                         "--resume"])
     _check(s["resumed_from"] == 6, f"resumed from {s['resumed_from']}, not 6")
     cli.run(base + ["--iters", str(ITERS), "--snapshot-dir", ctrl])
+    k1, k2, probe = _read_counts()
+    steps = 6 + (ITERS - 6) + ITERS
+    want = (steps, 0) if s["form"] == "flat_ell" else (0, steps)
+    _check((k1, k2) == want and not any(probe.values()),
+           f"resume rmat:{scale} {' '.join(extra)}: K1 {k1}, K2 {k2} "
+           f"launches in {steps} steps (want {want})")
     a = np.load(os.path.join(cut, f"ranks_iter{ITERS}.npz"))["ranks"]
     b = np.load(os.path.join(ctrl, f"ranks_iter{ITERS}.npz"))["ranks"]
     _check(np.array_equal(a, b), "resumed run differs from uninterrupted")
     print(f"resume rmat:{scale} {' '.join(extra)} ({s['form']}, span "
           f"{s['partition_span']}, K={s['partitions']}): 6 + resume to "
-          f"{ITERS} is bit-equal to an uninterrupted {ITERS}")
+          f"{ITERS} is bit-equal to an uninterrupted {ITERS}; K1 {k1} K2 "
+          f"{k2} launches in {steps} steps")
     return s["form"]
 
 
@@ -1429,7 +1463,7 @@ def crawl_phase(tmp):
     _stage_line("crawl job", s)
     digest = _graph_digest(graph)
     fingerprint = graph.fingerprint()
-    flat_ranks = ranks
+    flat_ranks, flat_rows = ranks, s["num_rows"]
     del s, graph, ranks, names, order, want
 
     # The same segment, partition-centric at CRAWL_SPAN.
@@ -1512,6 +1546,286 @@ def crawl_phase(tmp):
               f"crawled mask and names ({len(a[0]):,} raw edges, "
               f"{len(a[3]):,} vertices)")
     print(f"crawl phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"input": crawl_input, "oracle": oracle, "ranks": flat_ranks,
+            "rows": flat_rows}
+
+
+def _peak_gb(base):
+    """Peak device memory since the last reset, above ``base`` bytes."""
+    import torch
+
+    return (torch.cuda.max_memory_allocated() - base) / 1e9
+
+
+def _device_stages(s):
+    """A cli.run summary's device-build line: generation or ingest,
+    upload, the four build stages, the engine's plans and placement."""
+    d = s["device_build_seconds"]
+    bs = s["engine"].layout_info()["build_seconds"]
+    up = (f"upload {s['upload_seconds']:.3f} s, "
+          if s["upload_seconds"] is not None else "")
+    return (f"{s['ingest_route']} input {s['input_seconds']:.3f} s, {up}"
+            f"device build {s['graph_seconds']:.3f} s (relabel "
+            f"{d['relabel_s']:.3f}, sort {d['sort_s']:.3f}, slots "
+            f"{d['slots_s']:.3f}, scatter {d['scatter_s']:.3f}), plans "
+            f"{bs['plan']:.3f} s, placement {bs['place']:.3f} s")
+
+
+def _parity(label, dg, cfg, host):
+    """10(a) for one form: a TorchEngine built from ``dg`` on the card
+    has the host-built engine's planes (torch.equal, kernel inputs and
+    perm) and its ranks, bit for bit."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import TorchEngine
+
+    eng = TorchEngine(cfg, device=dg.device).build_device(dg)
+    _check(np.array_equal(eng._perm, host["perm"]), f"{label}: perm differs")
+    _check(eng._arrays.keys() == host["arrays"].keys() and all(
+        torch.equal(eng._arrays[k], host["arrays"][k]) for k in eng._arrays),
+        f"{label}: the device-built planes differ from the host pack's")
+    _reset_counts()
+    ranks = eng.run()
+    k1, k2, _ = _read_counts()
+    want = (ITERS, 0) if not cfg.partition_span else (0, ITERS)
+    _check((k1, k2) == want, f"{label}: launches K1 {k1} K2 {k2}, want {want}")
+    _check(np.array_equal(ranks, host["ranks"]),
+           f"{label}: ranks are not bit-equal to the host-built run's")
+    return eng
+
+
+def _plain_pagerank(src, dst, n):
+    """An independent plain f64 PageRank (reference semantics, ITERS
+    steps, ReferenceCpuEngine's update) on the device of the raw edges
+    ``src``/``dst``: dedup by torch.unique, degrees by bincount, each
+    step's A^T r by one index_add_; nothing of the port's pack, plans
+    or kernels. Returns the host ranks, the unique edge count and the
+    host out-degrees."""
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig
+
+    d = PageRankConfig().damping
+    key = torch.unique(src.to(torch.int64) * n + dst)
+    s, t = key // n, key % n
+    del key
+    out = torch.bincount(s, minlength=n)
+    zero_in = (torch.bincount(t, minlength=n) == 0).double()
+    dangling = out == 0
+    w = 1.0 / out[s].double()
+    r = torch.ones(n, dtype=torch.float64, device=src.device)
+    for _ in range(ITERS):
+        contrib = torch.zeros_like(r).index_add_(0, t, r[s] * w)
+        r = (1.0 - d) + d * (contrib + zero_in * r + r[dangling].sum() / n)
+    return r.cpu().numpy(), s.numel(), out.cpu().numpy()
+
+
+#: Phase 10(e)'s R-MAT scale: the first solve past L2.
+BIG_SCALE = 24
+
+
+def device_build_phase(scale, resume_scale, tmp, flat, part, crawl):
+    """Phase 10: the graph built on the card (ops/device_build.py,
+    TorchEngine.build_device, --device-build); see the module docstring."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import (PageRankConfig, ReferenceCpuEngine,
+                                    build_graph, cli)
+    from pagerank_tpu_torch.ops import device_build as db
+    from pagerank_tpu_torch.utils.metrics import oracle_l1
+
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+
+    # (a) The host edges of phase 3 (deduplicated) uploaded and built on
+    # the card, flat and at phase 5's span: the host pack's planes and
+    # the host-built ranks, bit for bit.
+    g = flat["graph"]
+    t0 = time.perf_counter()
+    src = torch.from_numpy(g.src).to(cuda)
+    dst = torch.from_numpy(g.dst).to(cuda)
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    builds, splits = {}, {}
+    for label, stripe in (("flat", 0), ("span", part["span"])):
+        splits[label] = {}
+        builds[label] = db.build_ell_device(src, dst, g.n, stripe_size=stripe,
+                                            with_weights=False,
+                                            timings=splits[label])
+    del src, dst
+    dg = builds["flat"]
+    rows = {k: b.num_rows for k, b in builds.items()}
+    _check(torch.equal(dg.src, flat["arrays"]["src"])
+           and torch.equal(dg.row_block, flat["arrays"]["row_block"]),
+           "device build: flat slots/row blocks differ from the host pack")
+    # (c, restore) checkpoint_arrays -> restore_device_graph on the card
+    t0 = time.perf_counter()
+    restored = db.restore_device_graph(*db.checkpoint_arrays(dg),
+                                       device=cuda)
+    ck_s = time.perf_counter() - t0
+    _check(restored.fingerprint() == dg.fingerprint(),
+           "restored device graph: another fingerprint")
+    cfg = PageRankConfig(num_iters=ITERS)
+    _parity("device build flat (host edges)", dg, cfg, flat)
+    _parity("restored device graph", restored, cfg, flat)
+    del restored
+    _parity(f"device build span {part['span']} (host edges)",
+            builds["span"], cfg.replace(partition_span=part["span"]), part)
+    split = {k: ", ".join(f"{n[:-2]} {v:.3f}" for n, v in t.items())
+             for k, t in splits.items()}
+    print(f"device build of phase 3's {g.num_edges:,} host edges (upload "
+          f"{up_s:.3f} s): flat {rows['flat']:,} rows ({split['flat']} s) "
+          f"and span {part['span']:,} {rows['span']:,} rows "
+          f"({split['span']} s), planes torch.equal to the host pack's, "
+          f"ranks bit-equal to phase 3's K1 and phase 5's K2; checkpoint -> "
+          f"restore on the card {ck_s:.3f} s, fingerprint {dg.fingerprint()} "
+          f"kept, ranks bit-equal")
+    del builds, dg, g, flat, part
+
+    # (b) From a seed: the CLI with --device-build, flat with snapshots
+    # and --out, then at --partition-span -1, against the f64 oracle of
+    # the same generated edges (copied to the host before the build).
+    t0 = time.perf_counter()
+    src, dst = db.rmat_edges_device(scale, device=cuda)
+    hs, hd = src.cpu().numpy(), dst.cpu().numpy()
+    g = build_graph(hs, hd, n=1 << scale)
+    # The host pack's rows: a device build of the deduplicated edges is
+    # the host pack (tests/test_torch_device_build.py).
+    host_rows = db.build_ell_device(torch.from_numpy(g.src).to(cuda),
+                                    torch.from_numpy(g.dst).to(cuda), g.n,
+                                    with_weights=False).num_rows
+    oracle = ReferenceCpuEngine(PageRankConfig(num_iters=ITERS)).build(
+        g).run()
+    t_oracle = time.perf_counter() - t0
+    # (e)'s plain f64 PageRank on the card, held here to the f64 oracle.
+    t0 = time.perf_counter()
+    plain, plain_edges, plain_out = _plain_pagerank(src, dst, g.n)
+    t_plain = time.perf_counter() - t0
+    del src, dst, hs, hd
+    plain_l1 = oracle_l1(plain, oracle)[1]
+    _check(plain_edges == g.num_edges
+           and np.array_equal(plain_out, g.out_degree)
+           and plain_l1 <= 1e-12, f"the plain f64 PageRank on the card: "
+           f"{plain_edges} edges, normalised L1 {plain_l1} to the oracle")
+    print(f"seed rmat:{scale} on the card: {16 << scale:,} raw edges, "
+          f"{g.num_edges:,} unique; host pack {host_rows:,} rows; the f64 "
+          f"oracle took {t_oracle:.1f} s; the plain f64 PageRank on the "
+          f"card {t_plain:.3f} s, normalised L1 {plain_l1:.3e} to it")
+    snaps = os.path.join(tmp, "dev_snaps")
+    out = os.path.join(tmp, "dev_ranks.tsv")
+    for extra in ((), ("--partition-span", "-1")):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        flags = (["--snapshot-dir", snaps, "--out", out] if not extra
+                 else ["--log-every", "0"])
+        s = cli.run(["--synthetic", f"rmat:{scale}", "--device-build",
+                     "--iters", str(ITERS), "--dtype", "float32",
+                     *extra, *flags])
+        k1, k2, probe = _read_counts()
+        peak = _peak_gb(base)
+        dg, ranks = s["graph"], s["ranks"]
+        want = (ITERS, 0) if not extra else (0, ITERS)
+        label = f"--device-build rmat:{scale} {' '.join(extra) or 'flat'}"
+        _check((k1, k2) == want and not any(probe.values()),
+               f"{label}: K1 {k1}, K2 {k2} launches (want {want}), probe "
+               f"{probe}")
+        _check(s["sort_route"] == "device" and dg.num_edges == g.num_edges
+               and np.array_equal(dg.out_degree.cpu().numpy(), g.out_degree),
+               f"{label}: not the generated graph ({dg.num_edges} edges)")
+        l1 = oracle_l1(ranks, oracle)[1]
+        _check(l1 <= 1e-4, f"{label}: normalised L1 {l1} > 1e-4")
+        if not extra:
+            last = np.load(os.path.join(snaps, f"ranks_iter{ITERS}.npz"))
+            _check(np.array_equal(last["ranks"], ranks)
+                   and last["fingerprint"].astype(str).item()
+                   == dg.fingerprint(), f"{label}: last snapshot")
+            with open(out) as f:
+                _check(sum(1 for _ in f) == g.n, f"{label}: --out lines")
+        else:
+            _check(s["form"] == "pallas_partitioned",
+                   f"{label}: ran {s['form']}")
+        ms = statistics.median(s["step_seconds"]) * 1e3
+        print(f"{label}: {s['form']}, span {s['partition_span']:,} K="
+              f"{s['partitions']}, {s['num_rows']:,} slot rows "
+              f"({s['num_rows'] / host_rows:.4f}x the host pack's "
+              f"{host_rows:,}); {_device_stages(s)}; peak device memory "
+              f"{peak:.3f} GB; {ms:.3f} ms/iter "
+              f"{g.num_edges / (ms / 1e3):.6g} edges/s; K1 {k1} K2 {k2}; "
+              f"f64 oracle normalised L1 {l1:.3e}")
+        del s, dg, ranks
+    del g, oracle
+
+    # (c) Resume through the CLI with --device-build, both forms.
+    resume_determinism(resume_scale, tmp, ("--device-build",))
+    form = resume_determinism(resume_scale, tmp, ("--device-build",
+                                                  "--partition-span", "-1"))
+    _check(form == "pallas_partitioned", f"--device-build --partition-span "
+           f"-1 at rmat:{resume_scale} ran {form}")
+
+    # (d) The crawl segment of phase 9, flat, built on the card.
+    _reset_counts()
+    s = cli.run(crawl["input"] + ["--device-build", "--iters", str(ITERS),
+                                  "--log-every", "0"])
+    k1, k2, _ = _read_counts()
+    _check((k1, k2) == (ITERS, 0) and s["format"] == "seqfile",
+           f"crawl --device-build: K1 {k1} K2 {k2}, format {s['format']}")
+    mass_l1 = oracle_l1(s["ranks"], crawl["oracle"])[2]
+    _check(mass_l1 <= 1e-4, f"crawl --device-build vs the f64 oracle: "
+           f"mass-normalised L1 {mass_l1} > 1e-4")
+    vs_host = oracle_l1(s["ranks"], crawl["ranks"])[2]
+    ms = statistics.median(s["step_seconds"]) * 1e3
+    print(f"crawl job --device-build: {s['num_rows']:,} slot rows "
+          f"({s['num_rows'] / crawl['rows']:.4f}x the host pack's "
+          f"{crawl['rows']:,}); "
+          f"{_device_stages(s)}; {ms:.3f} ms/iter; K1 {k1}; f64 oracle "
+          f"mass-normalised L1 {mass_l1:.3e}, against the host-built run "
+          f"{vs_host:.3e}")
+    del s
+
+    # (e) rmat:24 flat from a seed (past L2): K1 at this path's own
+    # slots and plan against its plain version, and the ranks against a
+    # plain f64 PageRank on the card over the same seed's edges.
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    s = cli.run(["--synthetic", f"rmat:{BIG_SCALE}", "--device-build",
+                 "--iters", str(ITERS), "--dtype", "float32", "--log-every",
+                 "0"])
+    k1, k2, _ = _read_counts()
+    peak = _peak_gb(base)
+    label = f"--device-build rmat:{BIG_SCALE} flat"
+    _check((k1, k2) == (ITERS, 0) and s["form"] == "flat_ell",
+           f"{label}: {s['form']}, K1 {k1} K2 {k2}")
+    dg, ranks = s["graph"], s["ranks"]
+    ms = statistics.median(s["step_seconds"]) * 1e3
+    t0 = time.perf_counter()
+    z_ext, src, rb, nb, plan = s["engine"].contrib_inputs()
+    _k1_entry(z_ext, src, rb, nb, plan, torch.float32, 1e-5,
+              f"rmat:{BIG_SCALE} f32/f32")
+    t_k1 = time.perf_counter() - t0
+    stages, rows = _device_stages(s), s["num_rows"]
+    del s, z_ext, src, rb, plan
+    t0 = time.perf_counter()
+    ref, ref_edges, ref_out = _plain_pagerank(
+        *db.rmat_edges_device(BIG_SCALE, device=cuda), dg.n)
+    t_ref = time.perf_counter() - t0
+    _check(ref_edges == dg.num_edges and np.array_equal(
+        ref_out, dg.out_degree.cpu().numpy()), f"{label}: the seed's "
+        f"edges give {ref_edges} unique edges, the graph has {dg.num_edges}")
+    l1 = oracle_l1(ranks, ref)[1]
+    _check(l1 <= 1e-4, f"{label} vs the plain f64 PageRank: normalised "
+           f"L1 {l1} > 1e-4")
+    print(f"{label}: n={dg.n:,}, {16 << BIG_SCALE:,} raw edges, "
+          f"{dg.num_edges:,} unique, {rows:,} slot rows; {stages}; peak "
+          f"device memory {peak:.3f} GB; {ms:.3f} ms/iter "
+          f"{dg.num_edges / (ms / 1e3):.6g} edges/s; K1 {k1}; K1 check "
+          f"{t_k1:.1f} s; plain f64 PageRank on the card ({t_ref:.1f} s) "
+          f"normalised L1 {l1:.3e}")
+    del dg
+    print(f"device build phase took {time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -1550,8 +1864,14 @@ def main(argv=None) -> int:
         k1_slots = summary["engine"].contrib_inputs()[:2]
         graph = summary["graph"]
         flat_rows = summary["engine"].layout_info()["num_rows"]
+        flat = {"graph": graph, "ranks": summary["ranks"],
+                "arrays": dict(summary["engine"]._arrays),
+                "perm": summary["engine"]._perm}
         del summary
         eng32, eng16, part_report = partitioned_path(graph, oracle, flat_rows)
+        part = {"span": eng32.config.partition_span,
+                "ranks": part_report["f32"]["ranks"],
+                "arrays": dict(eng32._arrays), "perm": eng32._perm}
         del graph, oracle
         k2 = k2_checks(eng32, eng16)
         k2["launches"] = part_report["f32"]["launches"]
@@ -1568,7 +1888,10 @@ def main(argv=None) -> int:
                                   ("--partition-span", "-1"))
         _check(form == "pallas_partitioned",
                f"--partition-span -1 at rmat:{args.resume_scale} ran {form}")
-        crawl_phase(tmp)
+        crawl = crawl_phase(tmp)
+        device_build_phase(args.scale, args.resume_scale, tmp, flat, part,
+                           crawl)
+        del flat, part, crawl
     fixtures = fixture_phase(analysis_phase())
     print(f"chip smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, *probe, *fixtures]}))

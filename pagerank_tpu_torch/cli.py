@@ -7,9 +7,11 @@ flags :230-272; the ingest flags :440-470), ``load_graph`` (:713-869)
 for edge lists, ``.npz``, synthetic graphs, crawl TSV/JSONL files and
 SequenceFile segments (a file, a directory or a comma list; the SEQ
 magic rule), the out-of-core build (``--host-mem-cap-gb``), the
-partition-span resolution (:1639-1679, with the partition part of
-``ops/device_build.py:plan_build``, :344-368, as
-:func:`plan_partition_span`) and the ``--out`` writer (:2305-2320, with
+partition-span resolution (:1639-1679, through
+``ops/device_build.plan_partition_span``), ``--device-build`` (:64-76,
+648-705, 716-869: the graph built on the card by
+``ops/device_build.py`` from a seed or the uploaded raw edges, the span
+resolved before the build) and the ``--out`` writer (:2305-2320, with
 ``--top``), whose TSV matches the JAX CLI's. The solve runs on
 ``--device`` (default cuda) through the torch engine; ``--device cpu``,
 or ``--engine cpu`` (the f64 oracle), runs it on a host without a card.
@@ -30,6 +32,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from pagerank_tpu_torch.graph import build_graph
+from pagerank_tpu_torch.ops.device_build import plan_partition_span
 from pagerank_tpu_torch.utils import fsio
 
 
@@ -55,6 +58,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="input format (auto: by extension/magic — 'SEQ' "
                    "magic => seqfile, .npz => npz, text with non-integer "
                    "columns => crawl)")
+    p.add_argument(
+        "--device-build", action="store_true",
+        help="build + pack the graph ON THE DEVICE (ops/device_build): "
+        "--synthetic ships only a seed and integer edge inputs "
+        "(npz/edgelist) ship 8 bytes/edge instead of the packed layout; "
+        "dedup, degrees, the in-degree relabel and the ELL pack run as "
+        "torch ops on --device. Crawl/seqfile inputs work too: ids are "
+        "assigned host-side (the url->int map is inherently host work), "
+        "then the dedup/sort/pack runs on the device with the "
+        "reference's uncrawled-targets dangling mask. Requires --engine "
+        "torch. Snapshots taken with --device-build resume only with "
+        "--device-build (different fingerprint derivation)")
     p.add_argument("--iters", type=int, default=10,
                    help="iterations (reference: 10)")
     p.add_argument("--damping", type=float, default=0.85)
@@ -141,26 +156,32 @@ def build_parser() -> argparse.ArgumentParser:
         "Integer edge inputs (text/.npz) stream directly; "
         "crawl/SequenceFile inputs drain the native L1's edges per "
         "batch into the same sort (the url table, O(vertices), stays "
-        "in RAM). Identical graph. Not with --synthetic",
+        "in RAM). Identical graph. Not with --synthetic or "
+        "--device-build",
     )
     return p
 
 
-def _synthetic(spec: str):
+def _synthetic(spec: str, device=None):
     """(src, dst, n) for a --synthetic spec: the JAX CLI's grammar and
-    defaults (rmat scale 20, 16 edges per vertex, seed 0)."""
+    defaults (rmat scale 20, 16 edges per vertex, seed 0). With a
+    ``device`` the edges are generated there (only the seed crosses)."""
     from pagerank_tpu_torch.utils import synth
 
+    if device is not None:
+        from pagerank_tpu_torch.ops import device_build as db
     kind, _, rest = spec.partition(":")
     try:
         if kind == "rmat":
             scale = int(rest or 20)
-            src, dst = synth.rmat_edges(scale)
+            src, dst = (synth.rmat_edges(scale) if device is None else
+                        db.rmat_edges_device(scale, device=device))
             return src, dst, 1 << scale
         if kind == "uniform":
             n_s, _, e_s = rest.partition(":")
-            n = int(n_s)
-            src, dst = synth.uniform_edges(n, int(e_s or 16 * n))
+            n, e = int(n_s), int(e_s or 16 * int(n_s))
+            src, dst = (synth.uniform_edges(n, e) if device is None else
+                        db.uniform_edges_device(n, e, device=device))
             return src, dst, n
     except ValueError:
         pass
@@ -204,25 +225,34 @@ def detect_format(args) -> str:
             and all(t.lstrip("-").isdigit() for t in tokens) else "crawl")
 
 
-def load_graph(args):
-    """``(graph, ids, info)`` for the run's input: the graph, the
-    IdMap of a crawl input (else None), and ``info``: ``format``,
-    ``ingest_route`` (the parser that ran: "native" or "python"),
-    ``ingest_threads`` (the native L1's threads, else None),
-    ``input_seconds`` (read, parse or generate) and ``graph_seconds``
-    (``build_graph``; 0.0 where the out-of-core build does both)."""
+def load_graph(args, cfg):
+    """``(graph, ids, info)`` for the run's input (``cfg`` is the run's
+    config, which plans a device build's layout): the graph (a
+    ``DeviceEllGraph`` under ``--device-build``), the IdMap of a crawl
+    input (else None), and ``info``: ``format``, ``ingest_route`` (the
+    parser that ran: "native" or "python"), ``ingest_threads`` (the
+    native L1's threads, else None), ``input_seconds`` (read, parse or
+    generate) and ``graph_seconds`` (``build_graph``, or the device
+    build; 0.0 where the out-of-core build does both); a device build
+    adds ``partition_span`` (resolved before the build),
+    ``device_build_seconds`` (its four stages) and, for file inputs,
+    ``upload_seconds``."""
     from pagerank_tpu_torch.ingest import edgelist as el
 
-    if args.host_mem_cap_gb and args.synthetic:
+    if args.host_mem_cap_gb and (args.device_build or args.synthetic):
         # Never silently drop a memory-bound promise.
         raise SystemExit(
             "--host-mem-cap-gb applies to the HOST build of file inputs "
             "(text/.npz/crawl/SequenceFile); it cannot combine with "
-            "--synthetic")
+            "--device-build or --synthetic")
     info = {"format": "synthetic", "ingest_route": "python",
             "ingest_threads": None, "graph_seconds": 0.0}
     t0 = time.perf_counter()
     if args.synthetic:
+        if args.device_build:
+            info["ingest_route"] = "device"
+            *edges, n = _synthetic(args.synthetic, device=_device(args))
+            return _device_build(args, cfg, info, t0, edges, n), None, info
         src, dst, n = _synthetic(args.synthetic)
         return _build(info, t0, src, dst, n=n), None, info
     fmt = info["format"] = detect_format(args)
@@ -230,7 +260,7 @@ def load_graph(args):
     mem_cap = (int(args.host_mem_cap_gb * (1 << 30))
                if args.host_mem_cap_gb else None)
     if fmt in ("seqfile", "crawl"):
-        return _load_crawl(args, fmt, mem_cap, info, t0)
+        return _load_crawl(args, cfg, fmt, mem_cap, info, t0)
     if mem_cap:
         from pagerank_tpu_torch.ingest import external
 
@@ -239,9 +269,70 @@ def load_graph(args):
         return graph, None, info
     if fmt == "npz":
         src, dst, n = el.load_binary_edges(path)
-        return _build(info, t0, src, dst, n=n), None, info
-    (src, dst), info["ingest_route"] = el.load_edgelist_routed(path)
-    return _build(info, t0, src, dst), None, info
+    else:
+        (src, dst), info["ingest_route"] = el.load_edgelist_routed(path)
+        n = None
+    if args.device_build:
+        if n is None:  # mirror build_graph's max + 1
+            n = int(max(src.max(), dst.max())) + 1 if len(src) else 0
+        edges = [src, dst]
+        del src, dst
+        return _device_build(args, cfg, info, t0, edges, n), None, info
+    return _build(info, t0, src, dst, n=n), None, info
+
+
+def _device(args):
+    from pagerank_tpu_torch.engines.torch_engine import resolve_device
+
+    return resolve_device(args.device)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(dev)
+
+
+def _device_build(args, cfg, info, t0, edges, n, dangling_mask=None):
+    """The graph built on the device from the raw ``edges`` = [src, dst]
+    — device tensors (a seed crossed) or host arrays, uploaded once (8 B
+    an edge) — with the span planned first over the raw edge count, as
+    the JAX CLI's ``_device_build_graph`` does: lane group 1, the
+    resolved partition span as the stripe span, no weight plane. The
+    list is emptied, so the build holds the only references to the
+    edges and frees them before its sort's peak. Times the load (from
+    ``t0``), the upload and the build into ``info``."""
+    import torch
+
+    from pagerank_tpu_torch.ops import device_build as db
+
+    if n == 0:
+        raise ValueError("empty graph: no vertices")
+    dev = _device(args)
+    _sync(dev)  # edges generated on the device are there: time the load
+    t1 = time.perf_counter()
+    info["input_seconds"] = t1 - t0
+    stripe = info["partition_span"] = (plan_partition_span(
+        cfg, n, len(edges[0]), args.partition_span)
+        if args.partition_span else 0)
+    if not isinstance(edges[0], torch.Tensor):
+        edges[:] = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+                    .to(dev) for a in edges]
+        if dangling_mask is not None:
+            dangling_mask = torch.from_numpy(dangling_mask).to(dev)
+        _sync(dev)
+        t2 = time.perf_counter()
+        info["upload_seconds"] = t2 - t1
+        t1 = t2
+    timings = {}
+    dg = db.build_ell_device(edges.pop(0), edges.pop(0), n,
+                             stripe_size=stripe, with_weights=False,
+                             dangling_mask=dangling_mask, timings=timings,
+                             device=dev)
+    info["graph_seconds"] = time.perf_counter() - t1
+    info["device_build_seconds"] = dict(timings)
+    return dg
 
 
 def _build(info, t0, src, dst, **kw):
@@ -254,7 +345,7 @@ def _build(info, t0, src, dst, **kw):
     return graph
 
 
-def _load_crawl(args, fmt, mem_cap, info, t0):
+def _load_crawl(args, cfg, fmt, mem_cap, info, t0):
     """Crawl TSV/JSONL or SequenceFile input: the native L1 unless
     ``--no-native-ingest`` or ``--ingest-workers`` asks for the Python
     parser (or its library is unavailable, which the route reports);
@@ -299,6 +390,11 @@ def _load_crawl(args, fmt, mem_cap, info, t0):
     info["ingest_route"] = route
     if route == "native":
         info["ingest_threads"] = native_mod.default_threads(paths, None)
+    if args.device_build:
+        edges = [src, dst]
+        del src, dst
+        return _device_build(args, cfg, info, t0, edges, len(ids),
+                             dangling_mask=~crawled), ids, info
     graph = _build(info, t0, src, dst, n=len(ids), dangling_mask=~crawled,
                    vertex_names=ids.names)
     return graph, ids, info
@@ -308,49 +404,16 @@ def _log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def plan_partition_span(cfg, n: int, num_edges: Optional[int],
-                        partition_span: int) -> int:
-    """The partition span a build should use for ``cfg`` on a graph of
-    ``n`` vertices: 0 (off) under 64-bit accumulation, vertex sharding
-    or a non-ELL kernel; the engine's auto rule for -1
-    (``TorchEngine.partition_span``, 0 when the graph is too small or
-    sparse to win); then at most the padded vertex count, rounded down
-    to a multiple of 128."""
-    from pagerank_tpu_torch.engines.torch_engine import TorchEngine
-    from pagerank_tpu_torch.ops import LANES
-    from pagerank_tpu_torch.utils.config import torch_dtype
-
-    n_padded = -(-n // LANES) * LANES
-    z_item = max(torch_dtype(cfg.dtype).itemsize,
-                 torch_dtype(cfg.accum_dtype).itemsize)
-    part = partition_span
-    if part and (z_item > 4 or cfg.vertex_sharded
-                 or cfg.kernel not in ("auto", "ell", "pallas")):
-        if part > 0:
-            _log("partition_span requires an ELL kernel with 32-bit "
-                 "accumulation, replicated mode; planning the default "
-                 "layout")
-        part = 0
-    if part == -1:
-        part = TorchEngine.partition_span(n_padded, num_edges, z_item)
-    part = min(int(part or 0), n_padded)
-    if part:
-        rounded = max(LANES, part & ~(LANES - 1))
-        if rounded != part:
-            _log(f"partition_span rounded {part} -> {rounded} (must be a "
-                 f"multiple of {LANES})")
-            part = rounded
-    return part
-
-
-def resolve_layout(cfg, args, graph):
+def resolve_layout(cfg, args, graph, part=None):
     """``cfg`` with the run's partition span and stream dtype: the
-    span resolved by :func:`plan_partition_span`; an explicit span the
-    planner refused exits with the config error; ``--stream-dtype``
-    without a resolved span is dropped with a note on stderr."""
+    span resolved by :func:`plan_partition_span` (``part`` when a
+    device build resolved it already); an explicit span the planner
+    refused exits with the config error; ``--stream-dtype`` without a
+    resolved span is dropped with a note on stderr."""
     if args.partition_span:
-        part = plan_partition_span(cfg, graph.n, graph.num_edges,
-                                   args.partition_span)
+        if part is None:
+            part = plan_partition_span(cfg, graph.n, graph.num_edges,
+                                       args.partition_span)
         if part:
             cfg = cfg.replace(partition_span=part)
         elif args.partition_span > 0:
@@ -377,11 +440,15 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ``format`` (the detected input format), ``ingest_route`` ("native"
     or "python": the parser that ran), ``ingest_threads``,
     ``input_seconds`` (read, parse or generate the edges),
-    ``graph_seconds`` (build_graph), ``sort_route`` (``Graph.sort_route``)
-    and ``engine_build_seconds`` (pack, plan and placement; its split is
-    in ``engine.layout_info()["build_seconds"]``), and the layout that
-    ran: ``form``, ``partition_span`` (0 for the flat form) and
-    ``partitions``."""
+    ``graph_seconds`` (build_graph, or the device build's wall),
+    ``sort_route`` (``Graph.sort_route``; "device" under
+    ``--device-build``), ``device_build_seconds`` (the device build's
+    relabel/sort/slots/scatter stages, else None), ``upload_seconds``
+    (the raw edges of a device-built file input, else None) and
+    ``engine_build_seconds`` (pack, plan and placement; its split is in
+    ``engine.layout_info()["build_seconds"]``), and the layout that ran:
+    ``form``, ``partition_span`` (0 for the flat form), ``partitions``
+    and ``num_rows`` (slot rows; None for the cpu engine)."""
     from pagerank_tpu_torch.engine import make_engine
     from pagerank_tpu_torch.engines.torch_engine import (
         TorchEngine, resolve_device)
@@ -404,20 +471,30 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
         raise SystemExit(str(e))
     if args.resume and not args.snapshot_dir:
         raise SystemExit("--resume needs --snapshot-dir")
+    if args.device_build and args.engine != "torch":
+        raise SystemExit("--device-build requires --engine torch")
     if args.engine == "torch":
         resolve_device(args.device)  # raises without a card, before work
 
     try:
-        graph, ids, info = load_graph(args)
+        graph, ids, info = load_graph(args, cfg)
     except ValueError as e:
         # e.g. "empty graph: no vertices": a clean CLI error
         raise SystemExit(str(e))
     threads = (f", {info['ingest_threads']} threads"
                if info["ingest_threads"] else "")
+    sort_route = "device" if args.device_build else graph.sort_route
+    stages = info.get("device_build_seconds")
+    detail = ""
+    if stages is not None:
+        upload = info.get("upload_seconds")
+        split = ", ".join(f"{k[:-2]} {v:.3f}" for k, v in stages.items())
+        detail = (f"{f', upload {upload:.3f} s' if upload is not None else ''}"
+                  f"; {split} s; {graph.num_rows:,} slot rows")
     _log(f"graph: n={graph.n:,} edges={graph.num_edges:,} ({info['format']} "
          f"input, {info['ingest_route']} ingest{threads} "
-         f"{info['input_seconds']:.3f} s, {graph.sort_route or 'no'} sort, "
-         f"build {info['graph_seconds']:.3f} s)")
+         f"{info['input_seconds']:.3f} s, {sort_route or 'no'} sort, "
+         f"build {info['graph_seconds']:.3f} s{detail})")
     t0 = time.perf_counter()
     if args.engine == "cpu":
         engine = make_engine("cpu", cfg).build(graph)
@@ -425,10 +502,13 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
         _log(f"engine: the f64 oracle on the host (build "
              f"{time.perf_counter() - t0:.3f} s)")
     else:
-        cfg = resolve_layout(cfg, args, graph)
+        cfg = resolve_layout(cfg, args, graph, info.get("partition_span"))
         engine = TorchEngine(cfg, device=args.device)
         t0 = time.perf_counter()
-        engine.build(graph)
+        if args.device_build:
+            engine.build_device(graph)
+        else:
+            engine.build(graph)
         lay = engine.layout_info()
         _log_layout(lay, time.perf_counter() - t0)
     build_s = time.perf_counter() - t0
@@ -488,9 +568,12 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
         "ingest_threads": info["ingest_threads"],
         "input_seconds": info["input_seconds"],
         "graph_seconds": info["graph_seconds"],
-        "sort_route": graph.sort_route, "engine_build_seconds": build_s,
+        "sort_route": sort_route,
+        "device_build_seconds": info.get("device_build_seconds"),
+        "upload_seconds": info.get("upload_seconds"),
+        "engine_build_seconds": build_s,
         "form": lay["form"], "partition_span": lay["partition_span"],
-        "partitions": parts,
+        "partitions": parts, "num_rows": lay.get("num_rows"),
     }
 
 

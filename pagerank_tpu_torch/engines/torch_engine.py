@@ -139,32 +139,36 @@ class TorchEngine(PageRankEngine):
         self._perm: Optional[np.ndarray] = None
         self._launch: Optional[ell_spmv.Launcher] = None
 
+    def _check_span(self, psz: int, n_padded: int) -> int:
+        """The partition count of span ``psz``; raises past
+        ``MAX_PARTITIONS``."""
+        parts = -(-n_padded // psz)
+        if parts > self.MAX_PARTITIONS:
+            raise ValueError(
+                f"partition_span {psz} gives {parts} partitions "
+                f"(> {self.MAX_PARTITIONS}): span too small for this "
+                f"graph — raise partition_span (auto rule: "
+                f"TorchEngine.partition_span)"
+            )
+        return parts
+
     def build(self, graph: Graph) -> "TorchEngine":
+        """Build from a host :class:`Graph`: the ELL pack, planes and
+        plans on the host, then placement on the engine's device."""
         cfg = self.config
-        dev = self.device
         self.graph = graph
         n = graph.n
         t0 = time.perf_counter()
         if cfg.partition_span:
             n_padded = -(-n // LANES) * LANES
             psz = min(cfg.partition_span, max(LANES, n_padded))
-            parts = -(-n_padded // psz)
-            if parts > self.MAX_PARTITIONS:
-                raise ValueError(
-                    f"partition_span {psz} gives {parts} partitions "
-                    f"(> {self.MAX_PARTITIONS}): span too small for this "
-                    f"graph — raise partition_span (auto rule: "
-                    f"TorchEngine.partition_span)"
-                )
+            self._check_span(psz, n_padded)
             pack = ell_lib.ell_pack_striped(graph, stripe_size=psz)
         else:
             pack = ell_lib.ell_pack(graph)
         t1 = time.perf_counter()
         self._perm = pack.perm
-        n_state = pack.n_padded
-        pad = n_state - n
-        self._n_state = n_state
-        self._num_blocks = pack.num_blocks
+        pad = pack.n_padded - n
 
         mass_mask = (graph.dangling_mask if cfg.semantics == "reference"
                      else graph.out_degree == 0)
@@ -173,21 +177,131 @@ class TorchEngine(PageRankEngine):
             return torch.from_numpy(
                 np.concatenate([a[pack.perm], np.zeros(pad, a.dtype)]))
 
-        dangling = relabel(mass_mask)
-        zero_in = relabel(graph.zero_in_mask)
-        valid = relabel(np.ones(n, bool))
-        inv = relabel(graph_mod.inv_out_degree(graph.out_degree))
+        planes = {"dangling": relabel(mass_mask),
+                  "zero_in": relabel(graph.zero_in_mask),
+                  "valid": relabel(np.ones(n, bool)),
+                  "inv_out": relabel(graph_mod.inv_out_degree(
+                      graph.out_degree))}
         if cfg.partition_span:
-            host, plan, layout = self._plan_partitioned(pack, psz)
+            srcs = [np.where(pack.weight[p] != 0, pack.src[p], np.int32(psz))
+                    for p in range(pack.n_stripes)]
+            src = np.concatenate(srcs)
+            del srcs
+            arrays, plan, layout = self._plan_partitioned(
+                src, pack.row_block, pack.num_blocks, psz, pack.padding_ratio)
         else:
-            host, plan, layout = self._plan_flat(pack)
+            arrays, plan, layout = self._plan_flat(
+                ell_lib.sentinel_slots(pack), pack.row_block, pack.num_blocks,
+                pack.padding_ratio)
         t2 = time.perf_counter()
-        self._dangling = dangling.to(dev)
-        self._zero_in = zero_in.to(dev)
-        self._valid = valid.to(dev)
-        self._inv_out = inv.to(device=dev, dtype=self._z_dtype)
-        self._arrays = {k: torch.from_numpy(v).to(dev)
-                        for k, v in host.items()}
+        return self._place(pack.n_padded, pack.num_blocks, planes, arrays,
+                           plan, {**layout, "build": "host"},
+                           {"pack": t1 - t0, "plan": t2 - t1}, t2)
+
+    def build_device(self, dg) -> "TorchEngine":
+        """Build from a :class:`~pagerank_tpu_torch.ops.device_build.
+        DeviceEllGraph` (``jax_engine.py:369-470``) on the engine's
+        device: the masks and 1/out-degree are relabeled there, only
+        ``perm`` (n x 4 B) and the row blocks (for the plans) cross to
+        the host, and the slot plane never does. The flat form takes the
+        graph's sentinel-ized plane as K1's ``src`` as it is (no copy);
+        the partitioned form takes the stripes' one buffer whole and
+        packs the 3-byte words on the device. The graph is left whole:
+        its int32 plane of the partitioned form is freed once the caller
+        drops the graph."""
+        from pagerank_tpu_torch.ops.device_build import (DeviceEllGraph,
+                                                         joined)
+
+        if not isinstance(dg, DeviceEllGraph):
+            raise TypeError(f"build_device needs a DeviceEllGraph, got "
+                            f"{type(dg).__name__}")
+        cfg, dev = self.config, self.device
+        if dg.device.type != dev.type:
+            raise ValueError(f"device graph on {dg.device}, engine on {dev}: "
+                             f"build the graph on the engine's device")
+        if dg.group != 1:
+            raise ValueError("the port's kernels need a group=1 device graph; "
+                             "pass group=1 to build_ell_device")
+        stripe = dg.stripe_size or dg.n_padded
+        part = int(cfg.partition_span)
+        if part:
+            part = min(part, dg.n_padded) if dg.n_padded else part
+            # The partitioned layout consumes a device graph whose
+            # STRIPES are the partitions (plan_partition_span sizes
+            # the build so).
+            if stripe != part:
+                raise ValueError(
+                    f"partition_span {part} needs a device graph built "
+                    f"with stripe_size={part} (got {stripe}); plan the "
+                    f"build via ops/device_build.plan_partition_span")
+            self._check_span(part, dg.n_padded)
+        elif stripe < dg.n_padded:
+            raise ValueError(
+                "a flat engine (no partition_span) needs a single-stripe "
+                "device graph; pass stripe_size=0 to build_ell_device (or "
+                "set partition_span to run the partitioned kernel)")
+        fp = dg.fingerprint()
+        self.graph = dg
+        n, n_padded = dg.n, dg.n_padded
+        t1 = time.perf_counter()
+        perm = dg.perm
+        self._perm = perm.cpu().numpy()
+        mass = (dg.dangling_mask if cfg.semantics == "reference"
+                else dg.out_degree == 0)
+        inv = torch.where(dg.out_degree > 0,
+                          1.0 / dg.out_degree.to(torch.float64), 0.0)
+
+        def relabel(a):  # per-vertex plane -> relabeled, zero-padded
+            out = torch.zeros(n_padded, dtype=a.dtype, device=a.device)
+            out[:n] = a[perm]
+            return out
+
+        planes = {"dangling": relabel(mass), "zero_in": relabel(
+            dg.zero_in_mask), "valid": relabel(torch.ones(
+                n, dtype=torch.bool, device=dev)), "inv_out": relabel(inv)}
+        del inv
+        rows = dg.num_rows
+        ratio = rows * LANES / max(1, dg.num_edges)
+        src, rbs = joined(dg.src), dg.row_block
+        if not dg.presentinel:  # point the inert (weight 0) slots at it
+            src = torch.where(joined(dg.weight) != 0, src, stripe)
+        if part:
+            rbs = rbs if isinstance(rbs, (list, tuple)) else [rbs]
+            cuts = np.cumsum([r.shape[0] for r in rbs])[:-1]
+            arrays, plan, layout = self._plan_partitioned(
+                src, np.split(joined(rbs).cpu().numpy(), cuts),
+                dg.num_blocks, part, ratio)
+        else:
+            arrays, plan, layout = self._plan_flat(src, joined(rbs),
+                                                   dg.num_blocks, ratio)
+        del src, rbs
+        t2 = time.perf_counter()
+        stages = {k.removesuffix("_s"): v
+                  for k, v in (dg.timings or {}).items()}
+        return self._place(n_padded, dg.num_blocks, planes, arrays, plan,
+                           {**layout, "build": "device", "fingerprint": fp},
+                           {**stages, "plan": t2 - t1}, t2)
+
+    def _place(self, n_state, num_blocks, planes, arrays, plan, layout,
+               build_seconds, t2) -> "TorchEngine":
+        """The shared tail of both builds: per-vertex planes, slot arrays
+        and plan on the device, the z buffer, the kernel bound (cuda),
+        r0, and the layout record. ``planes`` and ``arrays`` hold torch
+        tensors or numpy arrays; ``t2`` is when placement began."""
+        cfg, dev = self.config, self.device
+        n = self.graph.n
+
+        def put(a):
+            return (a if isinstance(a, torch.Tensor)
+                    else torch.from_numpy(a)).to(dev)
+
+        self._n_state = n_state
+        self._num_blocks = num_blocks
+        self._dangling = put(planes["dangling"])
+        self._zero_in = put(planes["zero_in"])
+        self._valid = put(planes["valid"])
+        self._inv_out = put(planes["inv_out"]).to(self._z_dtype)
+        self._arrays = {k: put(v) for k, v in arrays.items()}
         self._plan = ell_spmv.plan_to(plan, dev)
         if cfg.partition_span:
             table = torch.bfloat16 if cfg.stream_dtype else self._z_dtype
@@ -209,7 +323,7 @@ class TorchEngine(PageRankEngine):
                     plan=self._plan)
             else:
                 self._launch = ell_spmv.bind(
-                    self._z_buf, a["src"], self._num_blocks,
+                    self._z_buf, a["src"], num_blocks,
                     accum_dtype=self._accum, plan=self._plan)
             launch_info = {"head": self._launch.head,
                            "grid": self._launch.grid}
@@ -234,47 +348,48 @@ class TorchEngine(PageRankEngine):
             "dtype": cfg.dtype,
             "accum_dtype": cfg.accum_dtype,
             "z_dtype": str(self._z_buf.dtype).replace("torch.", ""),
-            # Host wall of the build's stages: the ELL pack; the
-            # per-vertex planes, sentinel repoint, pair ranks, word
-            # packing and segment plan; and device placement (with the
-            # kernel build or load on cuda).
-            "build_seconds": {"pack": t1 - t0, "plan": t2 - t1,
-                              "place": t3 - t2},
+            # Wall of the build's stages: the host build's ELL pack, or
+            # the device build's relabel/sort/slots/scatter (when it was
+            # timed); the per-vertex planes, sentinel repoint, pair
+            # ranks, word packing and plans; and device placement (with
+            # the kernel build or load on cuda).
+            "build_seconds": {**build_seconds, "place": t3 - t2},
         }
         return self
 
-    def _plan_flat(self, pack):
-        """Host arrays, segment plan and layout keys of the flat form."""
-        host = {"src": ell_lib.sentinel_slots(pack),
-                "row_block": pack.row_block}
-        plan = ell_lib.segment_plan(pack.row_block, pack.num_blocks)
-        return host, plan, {
+    def _plan_flat(self, src, row_block, num_blocks, padding_ratio):
+        """Slot arrays, segment plan and layout keys of the flat form;
+        ``src`` holds the sentinel n_padded in its inert slots."""
+        plan = ell_lib.segment_plan(
+            row_block.cpu().numpy() if isinstance(row_block, torch.Tensor)
+            else row_block, num_blocks)
+        return {"src": src, "row_block": row_block}, plan, {
             "form": "flat_ell", "partition_span": 0,
-            "num_rows": pack.num_rows, "padding_ratio": pack.padding_ratio,
+            "num_rows": int(src.shape[0]), "padding_ratio": padding_ratio,
         }
 
-    def _plan_partitioned(self, pack, psz):
-        """Host arrays, pair plan and layout keys of the
+    def _plan_partitioned(self, src, row_blocks, num_blocks, psz,
+                          padding_ratio):
+        """Slot arrays, pair plan and layout keys of the
         partition-centric form (``jax_engine.py:1486-1575, 1807-1845``):
-        the partitions' slot rows concatenated partition-major with
-        inert slots at the local sentinel ``psz``, each partition's
-        (dst block, partition) pairs numbered densely after the ones
-        before it, and each pair's dst block (the expansion ids)."""
-        K = pack.n_stripes
-        sent = np.int32(psz)
-        srcs, ranks, ids, counts = [], [], [], []
+        ``src`` is the partitions' slot rows concatenated partition-major
+        with inert slots at the local sentinel ``psz`` (numpy, or a
+        tensor: the 3-byte words are packed where it lies);
+        ``row_blocks`` each partition's host row blocks. Each
+        partition's (dst block, partition) pairs are numbered densely
+        after the ones before it, with each pair's dst block (the
+        expansion ids)."""
+        K = len(row_blocks)
+        ranks, ids, counts = [], [], []
         pair_off = 0
-        for p in range(K):
-            srcs.append(np.where(pack.weight[p] != 0, pack.src[p], sent))
-            rk, ids_p, pc, _ = ell_lib.dense_block_ranks(
-                pack.row_block[p], pack.num_blocks)
+        for rb in row_blocks:
+            rk, ids_p, pc, _ = ell_lib.dense_block_ranks(rb, num_blocks)
             ranks.append(rk + np.int32(pair_off))
             ids.append(ids_p)
             counts.append(pc)
             pair_off += pc
         words24 = self.partition_words24(psz)
-        src = np.concatenate(srcs)
-        del srcs
+        rows = int(src.shape[0])
         if words24:
             src = spmv.pack_words24(src)
         row_pair = np.concatenate(ranks)
@@ -284,21 +399,20 @@ class TorchEngine(PageRankEngine):
         # reads it, and every window starts 128-lane aligned.
         self._window = psz + LANES
         self._num_pairs = pair_off
-        host = {
+        arrays = {
             "src": src, "row_pair": row_pair,
             "pair_part": np.repeat(np.arange(K, dtype=np.int32), counts),
         }
         plan = ell_lib.pair_plan(row_pair, pair_off, np.concatenate(ids),
-                                 pack.num_blocks, psz)
-        rows = int(row_pair.shape[0])
-        return host, plan, {
+                                 num_blocks, psz)
+        return arrays, plan, {
             "form": "pallas_partitioned",
             "partition_span": psz, "partitions": K,
             "window_rows": self._window // LANES, "words24": words24,
             "stream_dtype": self.config.stream_dtype or None,
             "pairs": pair_off, "slot_rows": rows, "num_rows": rows,
-            "padding_ratio": pack.padding_ratio, "n_stripes": 1,
-            "stripe_span": pack.n_padded, "pair": False,
+            "padding_ratio": padding_ratio, "n_stripes": 1,
+            "stripe_span": num_blocks * LANES, "pair": False,
         }
 
     def contrib_inputs(self):

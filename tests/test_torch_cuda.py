@@ -330,3 +330,40 @@ def test_toy_crawl_job_on_cuda_matches_the_cpu_run(cuda, tmp_path, span):
     assert gpu["ingest_route"] == "native" and gpu["form"] == cpu["form"]
     assert gpu["graph"].fingerprint() == cpu["graph"].fingerprint()
     assert oracle_l1(gpu["ranks"], cpu["ranks"])[2] <= 1e-5
+
+
+@pytest.mark.parametrize("stripe", [0, 1024])
+@pytest.mark.parametrize("weights", [False, True])
+def test_device_build_on_the_card_equals_the_cpu_build(cuda, stripe,
+                                                       weights):
+    """build_ell_device on the card, from the same uploaded raw edges
+    (duplicates in) and a crawl-style mask, is torch.equal plane by
+    plane to the CPU build, with the same fingerprint; the engine built
+    from it runs K1 (flat) or K2 (striped) within 1e-5 of the CPU run."""
+    from pagerank_tpu_torch.ops import device_build as db
+
+    src, dst = synth.rmat_edges(12, seed=4)
+    mask = np.zeros(1 << 12, bool)
+    mask[np.setdiff1d(np.arange(1 << 12), src)[::2]] = True
+    builds = {d: db.build_ell_device(src, dst, 1 << 12, stripe_size=stripe,
+                                     with_weights=weights, dangling_mask=mask,
+                                     device=d) for d in (cuda, "cpu")}
+    gpu, cpu = builds[cuda], builds["cpu"]
+    assert gpu.src[0].is_cuda if stripe else gpu.src.is_cuda
+    for f in ("src", "weight", "row_block"):
+        for a, b in zip(db._as_list(getattr(gpu, f)),
+                        db._as_list(getattr(cpu, f))):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.cpu(), b), f
+    for f in ("perm", "dangling_mask", "zero_in_mask", "out_degree"):
+        assert torch.equal(getattr(gpu, f).cpu(), getattr(cpu, f)), f
+    assert gpu.num_edges == cpu.num_edges and gpu.num_rows == cpu.num_rows
+    assert gpu.fingerprint() == cpu.fingerprint()
+    cfg = PageRankConfig(num_iters=10, partition_span=stripe)
+    k1, k2 = ell_spmv.launches, ell_spmv_partitioned.launches
+    r_gpu = TorchEngine(cfg, device=cuda).build_device(gpu).run()
+    assert (ell_spmv.launches - k1, ell_spmv_partitioned.launches - k2) == (
+        (10, 0) if not stripe else (0, 10))
+    r_cpu = TorchEngine(cfg, device="cpu").build_device(cpu).run()
+    assert np.abs(r_gpu - r_cpu).sum() / np.abs(r_cpu).sum() <= 1e-5

@@ -59,6 +59,7 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.convert, pagerank_tpu_torch.kernels.build, "
         "pagerank_tpu_torch.ops.ell_spmv, "
         "pagerank_tpu_torch.ops.ell_spmv_partitioned, "
+        "pagerank_tpu_torch.ops.device_build, "
         "pagerank_tpu_torch.ops.gather_probe, "
         "pagerank_tpu_torch.scripts.probe_gather, "
         "pagerank_tpu_torch.ops.defect_fixtures, "
