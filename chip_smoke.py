@@ -73,9 +73,12 @@ What it does, in order:
      bound, the plain version and one torch.index_select. P3 runs
      where z fits shared memory (n = 2^15 here), P2 where n % 8 == 0;
   8. resume determinism on the card, for the flat form and through the
-     CLI's --partition-span -1: 6 iterations with snapshots, a resume
-     to 10, and an uninterrupted 10 give bit-equal ranks, the form's
-     kernel launched once a step (20 times) and the other kernels not;
+     CLI's --partition-span -1, and for the coo form through
+     ``TorchEngine(kernel="coo")`` and the snapshot API (``Snapshotter``,
+     ``resume_engine``): 6 iterations with snapshots, a resume to 10,
+     and an uninterrupted 10 give bit-equal ranks, the form's kernel
+     launched once a step (20 times) and the other kernels not (the coo
+     form launches none);
   9. the crawl job (the reference's own input, Sparky.java:44-124): a
      301-file block-compressed SequenceFile segment of 10,000 records
      a file (``utils/synth.crawl_segment``, seed 23) written under
@@ -131,9 +134,45 @@ What it does, in order:
      elements PTK003 names, F4 one of its two writers in every element,
      F6 within 1e-5 of an f64 matmul; each timed beside its bound,
      its plain version and ``Tensor.copy_`` / ``torch.matmul``;
- 12. prints one JSON line with every kernel's numbers (K1, K2, P1 and
-     P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
-     ``{"ok": true, "device": {...}}``.
+ 12. personalized PageRank and its daemon at the size of the repo's
+     PPR acceptance runs (BASELINE.md:154-160), and the coo form:
+     (a) ``cli.run --synthetic rmat:20 --ppr-sources random:256
+     --ppr-topk 100 --ppr-chunk 64 --iters 20 --dtype float32 --out``
+     on cuda: K1 launched exactly 5,120 times (one a column, 64 x 20 x
+     4 chunks), K2 and the probe kernels 0; held to a plain f64 PPR on
+     the card over all 256 sources (``torch.sparse.mm`` of A_T, none of
+     the port's pack, plans or kernels; itself within 1e-12 of the host
+     ``ppr_cpu`` on 16 sources) by the acceptance gates: per-source
+     top-100 id overlap >= 0.999 and score L1 <= 1e-4; prints ms an
+     iteration a chunk, edge·vectors/s, the host build split and the
+     peak device memory; (b) K1's 64 column launchers at (a)'s shapes
+     torch.equal to the plan-order plain version per column (PTK001-005
+     clean on that plan), the same batch twice bit-equal, a source
+     alone against the same source in its batch (ids equal, scores
+     within 1e-6 relative), an f64/f64 run within 1e-12 of ``ppr_cpu``
+     on 16 sources, and one chunk iteration (CUDA events) beside its
+     64 launches, the byte bound of the 64-column SpMM they compute
+     (``k1_cost(columns=64)``: the slots and plan once, each column's z
+     and output once) and one ``torch.sparse.mm`` of A_T with a dense
+     [n, 64] f32 matrix; (c) ``serve.main(["--serve-smoke",
+     "64", "--scale", "20", "--iters", "20", "--topk", "100",
+     "--max-batch", "8"])`` in process: exit 0, no query unsettled,
+     every outcome answered, K1 launched 20 times a column dispatched
+     (the live queries of each batch, unpadded) plus 8 x 20 for the
+     warm-up;
+     then a ``PprServer`` behind ``QueryIngress`` on an ephemeral port:
+     16 concurrent HTTP queries whose ids equal ``PprTorchEngine.run``,
+     a repeat answered from the cache with equal ids and scores, and
+     ``/healthz``, then a lone query (one column: 20 K1 launches);
+     prints the warm-up and the batch walls (first, p50, p99, lone);
+     (d) (run right after phase 5, on phase 3's graph) the coo
+     form on cuda for 10 iterations, twice: torch.equal, K1 and K2 0,
+     within 1e-4 of the f64 oracle, its median step beside the flat
+     form's (phase 3's engine, 10 more steps through ``engine.run``,
+     timed the same way) and the partitioned form's;
+ 13. prints one JSON line with every kernel's numbers (K1, K2, P1 and
+     P2 at K1's slots, P3 at n = 2^15 f32, F1-F6; K1's carries its PPR
+     path under ``ppr``), then last ``{"ok": true, "device": {...}}``.
 
 Every byte bound comes from the registry's cost models
 (``pagerank_tpu_torch/analysis/kernels.py``: ``k1_cost``, ``k2_cost``,
@@ -1322,6 +1361,56 @@ def resume_determinism(scale, tmp, extra=()):
     return s["form"]
 
 
+def coo_resume_determinism(scale, tmp):
+    """Phase 8 for the coo form: 6 iterations + resume to 10 == 10
+    uninterrupted, through ``TorchEngine(kernel="coo")`` and the
+    snapshot API, on the CLI's ``--synthetic rmat:SCALE`` graph."""
+    import numpy as np
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine, build_graph
+    from pagerank_tpu_torch.utils import synth
+    from pagerank_tpu_torch.utils.snapshot import Snapshotter, resume_engine
+
+    src, dst = synth.rmat_edges(scale)
+    graph = build_graph(src, dst, n=1 << scale)
+    del src, dst
+
+    def solve(iters, directory, resume=False):
+        cfg = PageRankConfig(num_iters=iters, dtype="float32",
+                             accum_dtype="float32", kernel="coo")
+        eng = TorchEngine(cfg, device="cuda").build(graph)
+        snap = Snapshotter(directory, graph.fingerprint(), cfg.semantics,
+                           mesh_meta=eng.snapshot_meta())
+        resumed = resume_engine(eng, snap) if resume else 0
+        eng.run(on_iteration=lambda i, info: snap.save(i + 1, eng.ranks()),
+                snapshotter=snap)
+        _check(eng.layout_info()["form"] == "coo" and eng.iteration == iters
+               and eng.device.type == "cuda",
+               f"coo resume: form {eng.layout_info()['form']}, "
+               f"{eng.iteration} steps on {eng.device}")
+        return resumed
+
+    cut = os.path.join(tmp, "cut-coo")
+    ctrl = os.path.join(tmp, "ctrl-coo")
+    _reset_counts()
+    solve(6, cut)
+    resumed = solve(ITERS, cut, resume=True)
+    _check(resumed == 6, f"coo: resumed from {resumed}, not 6")
+    solve(ITERS, ctrl)
+    k1, k2, probe = _read_counts()
+    _check(k1 == 0 and k2 == 0 and not any(probe.values()),
+           f"coo resume rmat:{scale}: K1 {k1}, K2 {k2}, probes {probe} "
+           f"(want none)")
+    a = np.load(os.path.join(cut, f"ranks_iter{ITERS}.npz"))["ranks"]
+    b = np.load(os.path.join(ctrl, f"ranks_iter{ITERS}.npz"))["ranks"]
+    _check(np.array_equal(a, b), "coo: resumed run differs from "
+           "uninterrupted")
+    print(f"resume rmat:{scale} coo (TorchEngine(kernel=\"coo\") + "
+          f"Snapshotter/resume_engine, {graph.num_edges} dst-sorted edges): "
+          f"6 + resume to {ITERS} is bit-equal to an uninterrupted "
+          f"{ITERS}; K1 0 K2 0 launches in {6 + (ITERS - 6) + ITERS} steps")
+
+
 def _host_facts_line():
     from pagerank_tpu_torch.scripts.host_ingest_bench import host_facts, rss_gb
 
@@ -1828,6 +1917,449 @@ def device_build_phase(scale, resume_scale, tmp, flat, part, crawl):
     print(f"device build phase took {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 12: personalized PageRank and its daemon, at the size of the
+# repo's PPR acceptance runs (BASELINE.md:154-160; scripts/acceptance.py
+# "P" and its gates, :369-371).
+PPR_SCALE = 20
+PPR_SOURCES = 256
+PPR_CHUNK = 64
+PPR_ITERS = 20
+PPR_TOPK = 100
+PPR_TIE_EPS = 1e-6
+PPR_OVERLAP_GATE = 0.999
+PPR_SCORE_L1_GATE = 1e-4
+PPR_ORACLE_SOURCES = 16
+
+
+def _csr_transpose(graph, dtype):
+    """A_T = the row-normalised adjacency transposed, as a CSR tensor on
+    the card from the graph's own edges (no pack, plan or kernel of the
+    port)."""
+    import numpy as np
+    import torch
+
+    dev = "cuda"
+    idx = torch.stack([torch.from_numpy(graph.dst.astype(np.int64)),
+                       torch.from_numpy(graph.src.astype(np.int64))]).to(dev)
+    w = torch.from_numpy(graph.edge_weight).to(dev, dtype)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_coo_tensor(idx, w, (graph.n, graph.n)
+                                       ).coalesce().to_sparse_csr()
+
+
+def _plain_ppr(graph, sources, iters, damping=0.85):
+    """Plain f64 PPR on the card (dangling mass back to the source): one
+    torch.sparse.mm of A_T a step over all the sources at once, the
+    dangling mass by one matrix-vector product. [n, s] f64."""
+    import numpy as np
+    import torch
+
+    a_t = _csr_transpose(graph, torch.float64)
+    s = len(sources)
+    p = torch.zeros((graph.n, s), dtype=torch.float64, device="cuda")
+    p[torch.from_numpy(np.asarray(sources)).cuda(),
+      torch.arange(s, device="cuda")] = 1.0
+    d = torch.from_numpy((graph.out_degree == 0).astype(np.float64)).cuda()
+    r = p.clone()
+    for _ in range(iters):
+        contrib = torch.sparse.mm(a_t, r)
+        mass = d @ r
+        r = (1.0 - damping) * p + damping * (contrib + p * mass[None, :])
+        del contrib
+    return r
+
+
+def ppr_cli_phase(tmp):
+    """Phase 12(a): PPR through the CLI on cuda at the acceptance size;
+    returns (summary, the host oracle's columns of the first sources,
+    report)."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.engines.ppr import ppr_cpu
+
+    out = os.path.join(tmp, "ppr.tsv")
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    s = cli.run(["--synthetic", f"rmat:{PPR_SCALE}", "--ppr-sources",
+                 f"random:{PPR_SOURCES}", "--ppr-topk", str(PPR_TOPK),
+                 "--ppr-chunk", str(PPR_CHUNK), "--iters", str(PPR_ITERS),
+                 "--dtype", "float32", "--out", out])
+    wall = time.perf_counter() - t0
+    k1, k2, probe = _read_counts()
+    peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    graph, res, eng = s["graph"], s["ppr"], s["engine"]
+    want = PPR_CHUNK * PPR_ITERS * (PPR_SOURCES // PPR_CHUNK)
+    _check(eng.device.type == "cuda", "the PPR path did not run on cuda")
+    _check(k1 == want and k2 == 0 and not any(probe.values()),
+           f"PPR: ell_contrib launched {k1} times (want {want}: one a "
+           f"column, {PPR_CHUNK} columns x {PPR_ITERS} iterations x "
+           f"{PPR_SOURCES // PPR_CHUNK} chunks), ell_contrib_partitioned "
+           f"{k2}, the probe kernels {probe}")
+    ids, scores = res.topk_ids, res.topk_scores
+    _check(ids.shape == scores.shape == (PPR_SOURCES, PPR_TOPK)
+           and np.isfinite(scores).all() and (ids >= 0).all()
+           and (ids < graph.n).all(), "PPR result not finite of shape "
+           f"({PPR_SOURCES}, {PPR_TOPK}) with ids in range")
+    with open(out) as f:
+        rows = sum(1 for _ in f)
+    _check(rows == PPR_SOURCES * PPR_TOPK, f"--out has {rows} rows")
+    # The reference: plain f64 PPR on the card over all the sources,
+    # itself held to the host oracle on the first 16.
+    t1 = time.perf_counter()
+    ref = _plain_ppr(graph, res.sources, PPR_ITERS)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    host = ppr_cpu(graph, res.sources[:PPR_ORACLE_SOURCES],
+                   num_iters=PPR_ITERS)
+    t_host = time.perf_counter() - t1
+    ref_err = float(np.abs(ref[:, :PPR_ORACLE_SOURCES].cpu().numpy()
+                           - host).max())
+    _check(ref_err <= 1e-12, f"plain f64 PPR on the card vs the host "
+           f"oracle: max abs {ref_err:.3e} > 1e-12")
+    # The acceptance gates: top-k id overlap (a device id counts when
+    # its reference score reaches the k-th within PPR_TIE_EPS) and the
+    # L1 over the sorted top-k scores, per source.
+    top = torch.topk(ref, PPR_TOPK, dim=0).values  # [k, s] descending
+    kth = top[-1]
+    cols = torch.arange(PPR_SOURCES, device="cuda")
+    ids_t = torch.from_numpy(ids.astype(np.int64)).cuda()
+    true = ref[ids_t, cols[:, None]]  # [s, k]
+    overlap = (true >= kth[:, None] - PPR_TIE_EPS).double().mean(1)
+    l1 = (torch.from_numpy(scores.astype(np.float64)).cuda()
+          - top.T).abs().sum(1)
+    ov_min, ov_mean = float(overlap.min()), float(overlap.mean())
+    l1_max = float(l1.max())
+    del ref, top, true, ids_t
+    _check(ov_min >= PPR_OVERLAP_GATE and l1_max <= PPR_SCORE_L1_GATE,
+           f"PPR vs the plain f64 reference: min top-k overlap {ov_min} "
+           f"(gate >= {PPR_OVERLAP_GATE}), max score L1 {l1_max} (gate <= "
+           f"{PPR_SCORE_L1_GATE})")
+    solve_s = sum(eng.chunk_seconds)
+    per_iter = [c / PPR_ITERS * 1e3 for c in eng.chunk_seconds]
+    evs = graph.num_edges * PPR_SOURCES * PPR_ITERS / solve_s
+    bs = eng.layout_info()["build_seconds"]
+    print(f"PPR rmat:{PPR_SCALE} through the CLI on cuda: n={graph.n} "
+          f"edges={graph.num_edges}, {PPR_SOURCES} sources x {PPR_ITERS} "
+          f"iterations in chunks of {PPR_CHUNK}, top-{PPR_TOPK}; K1 launches "
+          f"{k1} (one a column), K2 {k2}; wall {wall:.3f} s; solve "
+          f"{solve_s:.3f} s over {len(eng.chunk_seconds)} chunks ("
+          + ", ".join(f"{c:.4f}" for c in eng.chunk_seconds)
+          + f" s; {statistics.median(per_iter):.4f} ms an iteration a "
+          f"{PPR_CHUNK}-column chunk, top-k and fetch included), "
+          f"{evs:.6g} edge·vectors/s; peak device memory {peak:.3f} GB "
+          f"above the process's baseline")
+    print(f"PPR host build: R-MAT edges {s['input_seconds']:.3f} s, "
+          f"build_graph {s['graph_seconds']:.3f} s ({s['sort_route']} "
+          f"sort), ELL pack {bs['pack']:.3f} s, sentinels + segment plan "
+          f"{bs['plan']:.3f} s, placement {bs['place']:.3f} s, K1 bound "
+          f"at {PPR_CHUNK} columns {eng.layout_info()['bind_seconds']:.3f} "
+          f"s; {eng.layout_info()['num_rows']} slot rows")
+    print(f"PPR vs a plain f64 PPR on the card (torch.sparse.mm, "
+          f"{t_ref:.1f} s; {ref_err:.3e} max abs from the host oracle on "
+          f"{PPR_ORACLE_SOURCES} sources, {t_host:.1f} s): top-{PPR_TOPK} "
+          f"overlap min {ov_min:.4f} mean {ov_mean:.4f} (gate >= "
+          f"{PPR_OVERLAP_GATE}), max score L1 {l1_max:.3e} (gate <= "
+          f"{PPR_SCORE_L1_GATE})")
+    return s, host, {"launches": k1, "solve_s": solve_s, "evs": evs,
+                     "chunk_iter_ms": statistics.median(per_iter),
+                     "overlap_min": ov_min, "l1_max": l1_max,
+                     "peak_gb": peak}
+
+
+def ppr_kernel_phase(s, host):
+    """Phase 12(b): K1 on the PPR path: the column launchers at (a)'s
+    shapes against the plan-order plain version, run-to-run and
+    batch-to-alone bit-identity, f64 against the host oracle, and the
+    chunk-iteration time beside torch.sparse.mm."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig
+    from pagerank_tpu_torch.analysis import kernels
+    from pagerank_tpu_torch.engines.ppr import PprTorchEngine
+    from pagerank_tpu_torch.ops import ell as ell_lib
+    from pagerank_tpu_torch.ops import ell_spmv
+
+    eng, graph, res = s["engine"], s["graph"], s["ppr"]
+    f32 = torch.float32
+    t0 = time.perf_counter()
+    launchers = eng._launchers
+    _check(len(launchers) == PPR_CHUNK, f"{len(launchers)} column launchers "
+           f"bound, want {PPR_CHUNK}")
+    z_cols = eng._z_cols  # (a)'s last prescaled chunk
+    for ln in launchers:
+        ln()
+    got = launchers[0].out_cols.cpu()
+    plan_cpu = ell_lib.segment_plan(eng._row_block.cpu().numpy(),
+                                    eng._num_blocks)
+    want = ell_spmv.ell_contrib_spmm_reference(
+        z_cols.cpu(), eng._src.cpu(), accum_dtype=f32, plan=plan_cpu)
+    bad = [j for j in range(PPR_CHUNK) if not torch.equal(got[j], want[j])]
+    _check(not bad, f"K1 column launchers differ from the plan-order plain "
+           f"version at columns {bad[:8]}")
+    exact = ell_spmv.ell_contrib_spmm_reference(
+        z_cols.cpu().double(), eng._src.cpu(), accum_dtype=torch.float64,
+        plan=plan_cpu)
+    err = float((got.double() - exact).abs().max())
+    scale = max(float(exact.abs().max()), 1e-300)
+    _check(err / scale <= 1e-5, f"K1 columns vs exact f64 sums: normalised "
+           f"{err / scale:.3e} > 1e-5")
+    case = kernels.k1_case_from_inputs(
+        "ell_contrib@ppr", z_cols[0], eng._src, eng._row_block,
+        eng._num_blocks, eng._plan, device_kind=torch.cuda.get_device_name(0))
+    _check_case(case)
+    # The bound of the function the chunk computes, one PPR_CHUNK-wide
+    # SpMM (the slots and plan once, each column's z and output once);
+    # one column's bound is a launch's.
+    bound_col = _bound_ms(case.cost_model)[0]
+    spmm_cost = kernels.k1_cost(
+        int(eng._src.shape[0]), eng._n_state, eng._num_blocks,
+        plan_cpu.num_segments, case.operands["empty_blocks"].numel,
+        z_cols.element_size(), columns=PPR_CHUNK)
+    bound_ms, bound_by = _bound_ms(spmm_cost)
+    # The same 64-column batch twice, and one source alone.
+    batch = res.sources[:PPR_CHUNK]
+    r1 = eng.solve_chunk(batch, PPR_ITERS)
+    r2 = eng.solve_chunk(batch, PPR_ITERS)
+    _check(torch.equal(r1, r2), "the same PPR batch twice differs")
+    ids_b, sc_b = eng.topk(r1, PPR_TOPK)
+    alone = eng.run(batch[5:6], topk=PPR_TOPK)
+    ids_a = eng._perm[ids_b[5].cpu().numpy()]
+    sc_a = sc_b[5].cpu().numpy()
+    _check(np.array_equal(alone.topk_ids[0], ids_a),
+           "a source alone gives other ids than in its batch")
+    rel = float(np.abs(alone.topk_scores[0] - sc_a).max()
+                / np.abs(sc_a).max())
+    _check(rel <= 1e-6, f"a source alone vs in its batch: scores {rel:.3e} "
+           f"relative apart")
+    same = np.array_equal(alone.topk_scores[0], sc_a)
+    # f64/f64 against the host oracle.
+    e64 = PprTorchEngine(PageRankConfig(num_iters=PPR_ITERS,
+                                        dtype="float64",
+                                        accum_dtype="float64")).build(graph)
+    r64 = e64.solve_chunk(res.sources[:PPR_ORACLE_SOURCES], PPR_ITERS)
+    full = np.empty((PPR_ORACLE_SOURCES, graph.n))
+    full[:, e64._perm] = r64[:, : graph.n].cpu().numpy()
+    err64 = float(np.abs(full - host.T).max())
+    _check(err64 <= 1e-12, f"f64/f64 PPR vs the host oracle on "
+           f"{PPR_ORACLE_SOURCES} sources: max abs {err64:.3e} > 1e-12")
+    del e64, r64
+    # Times: one iteration of a 64-column chunk (CUDA events), its 64
+    # launches alone, and the library yardstick.
+    p = torch.zeros_like(r1)
+    p[torch.arange(PPR_CHUNK), torch.from_numpy(
+        eng._inv_perm[batch].astype(np.int64)).cuda()] = 1.0
+    p_acc, r = p.to(eng._accum), r1.clone()
+    step_ms = _median_ms(lambda: eng._step(r, p_acc), 20)
+    k1_ms = _median_ms(lambda: [ln() for ln in launchers], 20)
+    plain_ms = _median_ms(lambda: [ell_spmv.ell_contrib_reference(
+        z, eng._src, eng._row_block, eng._num_blocks, accum_dtype=f32)
+        for z in z_cols], 5, warmup=1)
+    a_t = _csr_transpose(graph, f32)
+    zd = torch.rand((graph.n, PPR_CHUNK), dtype=f32, device="cuda")
+    lib_ms = _median_ms(lambda: torch.sparse.mm(a_t, zd), 20)
+    del a_t, zd
+    print(f"K1 on the PPR path ({launchers[0].grid} CTAs, head "
+          f"{launchers[0].head}, {eng.layout_info()['num_rows']} rows x 128, "
+          f"{plan_cpu.num_segments} segments): {PPR_CHUNK} column launchers "
+          f"torch.equal to the plan-order plain version on the CPU (max "
+          f"abs {err:.3e} from exact f64 sums), PTK001-005 clean on this "
+          f"plan; the same {PPR_CHUNK}-column batch twice bit-equal; a "
+          f"source alone: ids equal, scores "
+          f"{'bit-equal' if same else f'{rel:.3e} relative apart'}; f64/f64 "
+          f"{err64:.3e} max abs from the host oracle on "
+          f"{PPR_ORACLE_SOURCES} sources")
+    print(f"PPR chunk iteration ({PPR_CHUNK} columns, CUDA events, median "
+          f"of 20): {step_ms:.4f} ms, of which the {PPR_CHUNK} K1 launches "
+          f"{k1_ms:.4f} ms ({k1_ms / PPR_CHUNK:.4f} ms a column); the "
+          f"{PPR_CHUNK}-column SpMM's {bound_by} bound {bound_ms:.4f} ms "
+          f"({spmm_cost['bytes']:.0f} B; {bound_ms / k1_ms:.1%} of bound "
+          f"for the {PPR_CHUNK} launches), a launch's {bound_col:.4f} ms "
+          f"({case.cost_model['bytes']:.0f} B); the plain twin (index_add_) over "
+          f"the {PPR_CHUNK} columns {plain_ms:.4f} ms; one "
+          f"torch.sparse.mm of A_T (CSR, "
+          f"f32) with a dense [n, {PPR_CHUNK}] f32 matrix {lib_ms:.4f} ms "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"chunk_iter_ms": step_ms, "k1_chunk_ms": k1_ms,
+            "plain_ms": plain_ms, "sparse_mm_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_ms_per_launch": bound_col}
+
+
+def serve_phase(s):
+    """Phase 12(c): the daemon — the serve smoke in process at the
+    acceptance size, then a PprServer behind QueryIngress on an
+    ephemeral port."""
+    import contextlib
+    import io
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from pagerank_tpu_torch import PageRankConfig, serve
+    from pagerank_tpu_torch.serving import PprServer, QueryIngress, ServeConfig
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    _reset_counts()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(["--serve-smoke", "64", "--scale", str(PPR_SCALE),
+                         "--iters", str(PPR_ITERS), "--topk",
+                         str(PPR_TOPK), "--max-batch", "8"])
+    k1, k2, _ = _read_counts()
+    text = buf.getvalue().strip()
+    print(f"serve smoke: {text.splitlines()[-1] if text else '(no output)'}")
+    _check(rc == 0, f"serve --serve-smoke exited {rc}")
+    doc = json.loads(text.splitlines()[-1])
+    _check(doc["unsettled"] == 0 and all(
+        o.startswith("answered") for o in doc["outcomes"]),
+        f"serve smoke outcomes {doc['outcomes']}, unsettled "
+        f"{doc['unsettled']}")
+    # One column a computed answer (no padding to the batch width), plus
+    # the warm-up batch bound at 8; cached answers launch nothing.
+    columns = doc["outcomes"].get("answered", 0)
+    want = (columns + 8) * PPR_ITERS
+    _check(k1 == want and k2 == 0, f"serve smoke: K1 launched {k1} times "
+           f"(want {want}: {columns} computed answers + the 8-column "
+           f"warm-up, x {PPR_ITERS} iterations), K2 {k2}")
+    smoke_s = time.perf_counter() - t0
+    walls = doc["batch_wall_ms"]
+    print(f"serve smoke at rmat:{PPR_SCALE}: warm-up {doc['warmup_s']:.3f} s "
+          f"(engine build, kernel load, K1 bound at 8 columns), "
+          f"{doc['batches']} batches, batch wall first {walls['first']:.3f} "
+          f"ms, p50 {walls['p50']:.3f} ms, p99 {walls['p99']:.3f} ms; K1 "
+          f"launches {k1} for {columns} computed answers + warm-up "
+          f"({smoke_s:.1f} s with the graph build)")
+    # The HTTP ingress over the graph of (a).
+    graph, res, eng = s["graph"], s["ppr"], s["engine"]
+    srv = PprServer(graph, config=PageRankConfig(num_iters=PPR_ITERS),
+                    serve_config=ServeConfig(max_batch=8, topk=PPR_TOPK,
+                                             deadline_ms=5000.0))
+    srv.start()
+    try:
+        with QueryIngress(srv, port=0) as ing:
+            base = f"http://127.0.0.1:{ing.port}"
+
+            def get(path):
+                with urllib.request.urlopen(base + path, timeout=60) as r:
+                    return r.status, json.loads(r.read())
+
+            sources = [int(x) for x in res.sources[:16]]
+            with ThreadPoolExecutor(16) as pool:
+                bodies = list(pool.map(
+                    lambda v: get(f"/ppr?source={v}&k={PPR_TOPK}"), sources))
+            want = eng.run(np.array(sources), topk=PPR_TOPK)
+            for i, (status, body) in enumerate(bodies):
+                _check(status == 200 and body["outcome"] == "answered",
+                       f"HTTP query {i}: {status} {body.get('outcome')}")
+                _check(body["ids"] == want.topk_ids[i].tolist(),
+                       f"HTTP query {i} (source {sources[i]}): ids differ "
+                       f"from PprTorchEngine.run")
+            exact = all(b["scores"] == want.topk_scores[i].tolist()
+                        for i, (_, b) in enumerate(bodies))
+            status, again = get(f"/ppr?source={sources[3]}&k={PPR_TOPK}")
+            _check(status == 200 and again["outcome"] == "answered_cache"
+                   and json.dumps(again["ids"]) == json.dumps(
+                       bodies[3][1]["ids"])
+                   and json.dumps(again["scores"]) == json.dumps(
+                       bodies[3][1]["scores"]),
+                   "the repeat query was not answered from the cache with "
+                   "equal bytes")
+            status, health = get("/healthz")
+            _check(status == 200 and health["status"] == "serving",
+                   f"/healthz: {status} {health}")
+        # A lone query runs one column: PPR_ITERS launches, no padding.
+        walls_before = len(srv.batch_walls)
+        _reset_counts()
+        lone_src = next(int(v) for v in res.sources if int(v) not in sources)
+        lone = srv.submit(lone_src, k=PPR_TOPK, deadline_s=1.0)
+        lone.wait(30)
+        k1_lone, _, _ = _read_counts()
+        _check(lone.outcome == "answered" and k1_lone == PPR_ITERS
+               and len(srv.batch_walls) == walls_before + 1,
+               f"a lone query: {lone.outcome}, K1 {k1_lone} launches (want "
+               f"{PPR_ITERS}: one column)")
+        lone_ms = srv.batch_walls[walls_before] * 1e3
+    finally:
+        srv.drain()
+    print(f"HTTP ingress: 16 concurrent queries answered in "
+          f"{walls_before} batches, ids equal to PprTorchEngine.run (scores "
+          f"{'bit-equal' if exact else 'not bit-equal'}), the repeat "
+          f"answered from the cache with equal ids and scores, /healthz "
+          f"{health['status']}; warm-up {srv.warmup_seconds:.3f} s, batch "
+          f"walls " + ", ".join(f"{w * 1e3:.3f}" for w in
+                                srv.batch_walls[:walls_before])
+          + f" ms; a lone query after them: one column, K1 {k1_lone} "
+          f"launches, batch wall {lone_ms:.3f} ms")
+    return {"warmup_s": doc["warmup_s"],
+            "batch_wall_ms": dict(doc["batch_wall_ms"], lone=lone_ms),
+            "http_warmup_s": srv.warmup_seconds}
+
+
+def coo_phase(graph, oracle, flat_eng, part_ms):
+    """Phase 12(d): the coo form on phase 3's graph, on cuda, twice,
+    beside ``ITERS`` more steps of phase 3's flat engine, each timed
+    through ``engine.run`` by the same per-step host clock."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine
+
+    def timed_run(eng, num_iters):
+        """eng.run to ``num_iters``; the median host wall of a step."""
+        step_s = []
+        t_last = [time.perf_counter()]
+
+        def on_iteration(i, info):
+            now = time.perf_counter()
+            step_s.append(now - t_last[0])
+            t_last[0] = now
+
+        ranks = eng.run(num_iters, on_iteration=on_iteration)
+        return ranks, statistics.median(step_s) * 1e3
+
+    _reset_counts()
+    _, flat_ms = timed_run(flat_eng, flat_eng.iteration + ITERS)
+    k1, _, _ = _read_counts()
+    _check(k1 == ITERS, f"flat form: K1 launched {k1} times in {ITERS} steps")
+    cfg = PageRankConfig(num_iters=ITERS, kernel="coo")
+    runs = []
+    for _ in range(2):
+        eng = TorchEngine(cfg, device="cuda")
+        t0 = time.perf_counter()
+        eng.build(graph)
+        build_s = time.perf_counter() - t0
+        _reset_counts()
+        ranks, ms_run = timed_run(eng, ITERS)
+        k1, k2, probe = _read_counts()
+        _check(eng.layout_info()["form"] == "coo" and k1 == 0 and k2 == 0
+               and not any(probe.values()) and eng.iteration == ITERS,
+               f"coo: K1 {k1}, K2 {k2}, probes {probe} in {eng.iteration} "
+               f"steps (want none)")
+        runs.append((eng._r.clone(), ranks, ms_run, build_s))
+        del eng
+    (ra, ranks, ms, build_s), (rb, _, ms2, _) = runs
+    _check(torch.equal(ra, rb), "coo: two runs on the card differ")
+    l1 = float(np.abs(ranks - oracle).sum() / np.abs(oracle).sum())
+    _check(l1 <= 1e-4, f"coo vs the f64 oracle: normalised L1 {l1} > 1e-4")
+    print(f"coo form rmat path ({graph.num_edges} dst-sorted edges, "
+          f"segment_reduce): two runs torch.equal, K1 0 K2 0 launches, f64 "
+          f"oracle normalised L1 {l1:.3e}; median step {ms:.3f} / {ms2:.3f} "
+          f"ms/iter ({graph.num_edges / (ms / 1e3):.6g} edges/s) beside the "
+          f"flat form's {flat_ms:.3f} in the same phase ({ms / flat_ms:.2f}x; "
+          f"both engine.run, no snapshots) and the partitioned f32 form's "
+          f"{part_ms:.3f} (engine.run, phase 5); build {build_s:.3f} s")
+    return {"ms_per_iter": ms, "flat_ms_per_iter": flat_ms, "l1": l1}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -1862,6 +2394,7 @@ def main(argv=None) -> int:
         k1["launches"] = report["launches"]
         step_ms = {"K1": step_breakdown(summary["engine"])["kernel_ms"]}
         k1_slots = summary["engine"].contrib_inputs()[:2]
+        flat_eng = summary["engine"]
         graph = summary["graph"]
         flat_rows = summary["engine"].layout_info()["num_rows"]
         flat = {"graph": graph, "ranks": summary["ranks"],
@@ -1872,7 +2405,9 @@ def main(argv=None) -> int:
         part = {"span": eng32.config.partition_span,
                 "ranks": part_report["f32"]["ranks"],
                 "arrays": dict(eng32._arrays), "perm": eng32._perm}
-        del graph, oracle
+        coo = coo_phase(graph, oracle, flat_eng,
+                        part_report["f32"]["ms_per_iter"])
+        del graph, oracle, flat_eng
         k2 = k2_checks(eng32, eng16)
         k2["launches"] = part_report["f32"]["launches"]
         k2_slots = {}
@@ -1888,10 +2423,32 @@ def main(argv=None) -> int:
                                   ("--partition-span", "-1"))
         _check(form == "pallas_partitioned",
                f"--partition-span -1 at rmat:{args.resume_scale} ran {form}")
+        coo_resume_determinism(args.resume_scale, tmp)
         crawl = crawl_phase(tmp)
         device_build_phase(args.scale, args.resume_scale, tmp, flat, part,
                            crawl)
         del flat, part, crawl
+        t_ppr = time.perf_counter()
+        ppr, host, ppr_report = ppr_cli_phase(tmp)
+        ppr_report.update(ppr_kernel_phase(ppr, host))
+        del host
+        serving = serve_phase(ppr)
+        del ppr
+        print(f"PPR and serving phase took {time.perf_counter() - t_ppr:.1f} "
+              f"s")
+        k1["ppr"] = {"launches": ppr_report["launches"],
+                     "chunk_iter_ms": ppr_report["chunk_iter_ms"],
+                     "k1_chunk_ms": ppr_report["k1_chunk_ms"],
+                     "plain_ms": ppr_report["plain_ms"],
+                     "bound_ms": ppr_report["bound_ms"],
+                     "bound_by": ppr_report["bound_by"],
+                     "bound_ms_per_launch": ppr_report["bound_ms_per_launch"],
+                     "library_ms": ppr_report["sparse_mm_ms"],
+                     "edge_vectors_per_s": ppr_report["evs"],
+                     "serve_warmup_s": serving["warmup_s"],
+                     "serve_batch_wall_ms": serving["batch_wall_ms"],
+                     "coo_ms_per_iter": coo["ms_per_iter"],
+                     "flat_ms_per_iter": coo["flat_ms_per_iter"]}
     fixtures = fixture_phase(analysis_phase())
     print(f"chip smoke took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [k1, k2, *probe, *fixtures]}))

@@ -440,15 +440,18 @@ def _ceil(a: int, b: int) -> int:
 
 
 def k1_cost(rows: int, n_state: int, num_blocks: int, num_segs: int,
-            num_empty: int, z_item: int) -> Dict[str, float]:
+            num_empty: int, z_item: int, columns: int = 1) -> Dict[str, float]:
     """K1's bound: the slot table once (rows x 128 int32), z and the
     output once (n_state and num_blocks x 128 elements of z's type) and
     the plan (seg_row_start, seg_block, block_seg_start and the empty
-    blocks); one add a slot."""
+    blocks); one add a slot. With ``columns`` > 1, the bound of the
+    ``columns``-wide SpMM over the same slots (the PPR path): the slots
+    and the plan once, each column's z and output once, one add a slot
+    a column."""
     plan = (num_segs + 1 + num_segs + num_blocks + 1 + num_empty) * 4
-    return {"flops": float(rows * LANES),
-            "bytes": float(rows * LANES * 4 + n_state * z_item
-                           + num_blocks * LANES * z_item + plan)}
+    per_column = n_state * z_item + num_blocks * LANES * z_item
+    return {"flops": float(rows * LANES * columns),
+            "bytes": float(rows * LANES * 4 + columns * per_column + plan)}
 
 
 def k2_cost(rows: int, word_bytes: int, table_numel: int, table_item: int,
@@ -932,6 +935,8 @@ def probe_case(wrapper: str, label: str, *, rows: int, n: int,
 #: BENCH_SCALES``), R-MAT edge factor 16.
 BENCH_SCALES = (22, 23, 24, 25)
 EDGE_FACTOR = 16
+#: The R-MAT scale of the PPR path's launches (BASELINE.md:154-160).
+PPR_SCALE = 20
 #: The probe's rows (the rmat:22 slot count at 2^19 x 128).
 PROBE_ROWS = 1 << 19
 
@@ -1011,7 +1016,8 @@ def _synth_k2(label, scale, table_dtype="float32", words=None, **kw):
 
 def shipped_cases(csrc_dir=None) -> List[KernelCase]:
     """Every kernel of the port's paths at the geometries it runs:
-    K1 (f32/f32) at a toy geometry and at the bench scales, K1's
+    K1 (f32/f32) at a toy geometry, at the bench scales and at the PPR
+    path's scale (one launch a column), K1's
     f32/f64 and f64/f64 entries under their own configs; K2 at scale 18
     (toy span), at the bench scales, in bf16 at scale 24, and with int32
     words; P1 and P2 at 2^19 rows (n = 2^22, f32 and bf16); P3 at
@@ -1021,6 +1027,10 @@ def shipped_cases(csrc_dir=None) -> List[KernelCase]:
     cases = [_synth_k1("ell_contrib@toy", n_pad=1 << 20, rows=1 << 16, **kw)]
     cases += [_synth_k1(f"ell_contrib@scale{s}", s, **kw)
               for s in BENCH_SCALES]
+    # The PPR path: one launch a column of each chunk, every column at
+    # this geometry (R-MAT 20, the PPR acceptance runs' size).
+    cases.append(_synth_k1(f"ell_contrib@ppr-scale{PPR_SCALE}", PPR_SCALE,
+                           **kw))
     k1_dtypes = {"f32-f32": {}, "f32-f64": {"accum_dtype": "float64"},
                  "f64-f64": {"z_dtype": "float64", "accum_dtype": "float64"}}
     for tag, dt in k1_dtypes.items():

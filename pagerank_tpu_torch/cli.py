@@ -12,9 +12,13 @@ partition-span resolution (:1639-1679, through
 648-705, 716-869: the graph built on the card by
 ``ops/device_build.py`` from a seed or the uploaded raw edges, the span
 resolved before the build) and the ``--out`` writer (:2305-2320, with
-``--top``), whose TSV matches the JAX CLI's. The solve runs on
-``--device`` (default cuda) through the torch engine; ``--device cpu``,
-or ``--engine cpu`` (the f64 oracle), runs it on a host without a card.
+``--top``), whose TSV matches the JAX CLI's, and personalized PageRank
+(``--ppr-sources``, ``--ppr-topk``, ``--ppr-chunk``, ``--ppr-dangling``,
+:475-493; ``parse_ppr_sources``, ``reject_ppr_incompatible_flags`` and
+``run_ppr``, :496-645; the ``--device-build`` refusal, :1439-1443). The
+solve runs on ``--device`` (default cuda) through the torch engines;
+``--device cpu``, or ``--engine cpu`` (the f64 oracle), runs it on a
+host without a card.
 
 ``run(argv)`` is the programmatic entry point (it returns the solve's
 summary: ranks, graph, ids, engine, timings, the input format and the
@@ -24,6 +28,7 @@ ingest route); ``main(argv)`` wraps it.
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
 import sys
 import time
@@ -159,7 +164,161 @@ def build_parser() -> argparse.ArgumentParser:
         "in RAM). Identical graph. Not with --synthetic or "
         "--device-build",
     )
+    ppr = p.add_argument_group("personalized PageRank (batched SpMM)")
+    ppr.add_argument(
+        "--ppr-sources",
+        default=None,
+        help="run PPR instead of global PageRank: comma-separated vertex "
+        "ids, 'random:K' for K random sources, or a file with one id/url "
+        "per line",
+    )
+    ppr.add_argument("--ppr-topk", type=int, default=100,
+                     help="top-k ranked vertices reported per source")
+    ppr.add_argument("--ppr-chunk", type=int, default=64,
+                     help="source-batch columns processed per device pass")
+    ppr.add_argument(
+        "--ppr-dangling",
+        choices=["source", "uniform"],
+        default="source",
+        help="where dangling mass re-enters (source = standard PPR)",
+    )
     return p
+
+
+def parse_ppr_sources(spec: str, ids, n: int) -> np.ndarray:
+    """--ppr-sources value -> vertex id array. Accepts 'random:K', a
+    comma list of ids (or urls when the graph has an id map), or a path
+    to a file of one id/url per line (a local path: the port has no
+    remote file systems yet, so a URI is a url list)."""
+
+    def resolve(tok: str) -> int:
+        tok = tok.strip()
+        if tok.lstrip("-").isdigit():
+            v = int(tok)
+            if not 0 <= v < n:
+                raise SystemExit(f"--ppr-sources: id {v} out of range [0, {n})")
+            return v
+        if ids is None:
+            raise SystemExit(
+                f"--ppr-sources: {tok!r} is not an integer id and this "
+                f"input has no url->id table"
+            )
+        v = ids.get(tok)
+        if v is None:
+            raise SystemExit(f"--ppr-sources: unknown url {tok!r}")
+        return v
+
+    if spec.startswith("random:"):
+        try:
+            k = int(spec.split(":", 1)[1])
+        except ValueError:
+            raise SystemExit(f"--ppr-sources: bad count in {spec!r}")
+        if k <= 0:
+            raise SystemExit(f"--ppr-sources: count must be positive in {spec!r}")
+        rng = np.random.default_rng(0)
+        return rng.choice(n, size=min(k, n), replace=False).astype(np.int64)
+    # URL-named vertices (crawl graphs) contain "://": "http://a/,http://b/"
+    # resolves through the id map, not as a file.
+    if fsio.scheme_of(spec) is None and os.path.exists(spec):
+        with fsio.fopen(spec) as f:
+            toks = [ln for ln in (l.strip() for l in f) if ln]
+        return np.array([resolve(t) for t in toks], dtype=np.int64)
+    return np.array([resolve(t) for t in spec.split(",")], dtype=np.int64)
+
+
+def reject_ppr_incompatible_flags(args) -> None:
+    """Flags that only apply to the global-PageRank path; reject loudly
+    rather than silently dropping what the user asked for. Pure-args —
+    called before the graph load. The JAX CLI's list over the flags the
+    port has, plus the layout flags of the global solve (the PPR engine
+    runs the flat form through K1)."""
+    ignored = [
+        (name, flag)
+        for name, flag in (
+            ("--semantics", args.semantics != "reference"),
+            ("--tol", args.tol is not None),
+            ("--snapshot-dir", args.snapshot_dir is not None),
+            ("--resume", args.resume),
+            ("--jsonl", args.jsonl is not None),
+            ("--partition-span", bool(args.partition_span)),
+            ("--stream-dtype", bool(args.stream_dtype)),
+        )
+        if flag
+    ]
+    if ignored:
+        raise SystemExit(
+            "ppr mode does not support: "
+            + ", ".join(name for name, _ in ignored)
+        )
+    if args.ppr_chunk is not None and args.ppr_chunk <= 0:
+        raise SystemExit("--ppr-chunk must be positive")
+
+
+def run_ppr(args, graph, ids) -> Dict[str, object]:
+    """PPR of the ``--ppr-sources`` on ``graph``: ``--engine cpu`` runs
+    the f64 oracle, else :class:`~pagerank_tpu_torch.engines.ppr.
+    PprTorchEngine` on ``--device``. Writes ``source<TAB>vertex<TAB>
+    repr(score)`` rows (keys are urls where the input has an id map) to
+    ``--out`` or stdout, as the JAX CLI does; returns ``ppr`` (the
+    PprResult), ``engine`` (None for the oracle), ``sources`` and
+    ``ppr_seconds`` (engine build and solve, as the stderr line)."""
+    from pagerank_tpu_torch.utils.config import PageRankConfig
+
+    try:
+        cfg = PageRankConfig(
+            num_iters=args.iters,
+            damping=args.damping,
+            dtype=args.dtype,
+            accum_dtype=args.accum_dtype or args.dtype,
+        ).validate()
+    except ValueError as e:
+        raise SystemExit(str(e))
+    sources = parse_ppr_sources(args.ppr_sources, ids, graph.n)
+    t0 = time.perf_counter()
+    eng = None
+    if args.engine == "cpu":
+        from pagerank_tpu_torch.engines.ppr import ppr_cpu_topk
+
+        print(
+            "ppr --engine cpu runs the float64 numpy oracle; "
+            "--ppr-chunk/--device/--dtype/--accum-dtype do not apply",
+            file=sys.stderr,
+        )
+        res = ppr_cpu_topk(
+            graph, cfg, sources, topk=args.ppr_topk,
+            dangling_to=args.ppr_dangling,
+        )
+    else:
+        from pagerank_tpu_torch.engines.ppr import PprTorchEngine
+
+        eng = PprTorchEngine(cfg, dangling_to=args.ppr_dangling,
+                             device=args.device).build(graph)
+        res = eng.run(sources, topk=args.ppr_topk, chunk=args.ppr_chunk)
+    dt = time.perf_counter() - t0
+    topk = int(res.topk_ids.shape[1])
+    print(
+        f"ppr: {len(sources)} sources x {args.iters} iters, top-{topk} "
+        f"in {dt:.2f}s ({graph.num_edges * len(sources) * args.iters / dt:.3g} "
+        f"edge·vectors/s)",
+        file=sys.stderr,
+    )
+    names = ids.names if ids is not None else None
+    out = args.out
+    f = fsio.fopen(out, "w") if out else sys.stdout
+    try:
+        for si, s in enumerate(res.sources):
+            skey = names[s] if names else s
+            for v, r in zip(res.topk_ids[si], res.topk_scores[si]):
+                vkey = names[v] if names else v
+                f.write(f"{skey}\t{vkey}\t{float(r)!r}\n")
+    finally:
+        if out:
+            f.close()
+    if out:
+        print(f"wrote {len(res.sources)}x{topk} ppr rows to {out}",
+              file=sys.stderr)
+    return {"ppr": res, "engine": eng, "sources": sources,
+            "ppr_seconds": dt}
 
 
 def _synthetic(spec: str, device=None):
@@ -448,7 +607,8 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ``engine_build_seconds`` (pack, plan and placement; its split is in
     ``engine.layout_info()["build_seconds"]``), and the layout that ran:
     ``form``, ``partition_span`` (0 for the flat form), ``partitions``
-    and ``num_rows`` (slot rows; None for the cpu engine)."""
+    and ``num_rows`` (slot rows; None for the cpu engine). With ``--ppr-sources`` it returns, after the load, ``graph``,
+    ``ids``, the load's timings and what :func:`run_ppr` returns."""
     from pagerank_tpu_torch.engine import make_engine
     from pagerank_tpu_torch.engines.torch_engine import (
         TorchEngine, resolve_device)
@@ -473,6 +633,11 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
         raise SystemExit("--resume needs --snapshot-dir")
     if args.device_build and args.engine != "torch":
         raise SystemExit("--device-build requires --engine torch")
+    if args.device_build and args.ppr_sources:
+        raise SystemExit("--device-build does not support --ppr-sources "
+                         "(the PPR engine builds from a host graph)")
+    if args.ppr_sources:
+        reject_ppr_incompatible_flags(args)
     if args.engine == "torch":
         resolve_device(args.device)  # raises without a card, before work
 
@@ -495,6 +660,9 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
          f"input, {info['ingest_route']} ingest{threads} "
          f"{info['input_seconds']:.3f} s, {sort_route or 'no'} sort, "
          f"build {info['graph_seconds']:.3f} s{detail})")
+    if args.ppr_sources:
+        return {"graph": graph, "ids": ids, **info, "sort_route": sort_route,
+                **run_ppr(args, graph, ids)}
     t0 = time.perf_counter()
     if args.engine == "cpu":
         engine = make_engine("cpu", cfg).build(graph)

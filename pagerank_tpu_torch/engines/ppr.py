@@ -1,0 +1,313 @@
+"""Batched Personalized PageRank engines (SpMM power iteration).
+
+Port of ``pagerank_tpu/engines/ppr.py``: ``PprResult``, ``ppr_cpu`` and
+``ppr_cpu_topk`` (:24-75, host numpy: copies) and
+:class:`PprTorchEngine`, from ``PprJaxEngine`` (:77-303).
+
+The source batch runs in column chunks. Where the JAX engine keeps a
+[n, k] rank matrix and gathers one k-wide row per slot
+(``ops/spmv.py:ell_contrib_spmm``), this engine keeps the chunk
+column-major — r, p and z are [k, n_state] — and sums each column with
+K1, the repo's hand kernel for one column of that SpMM
+(``ops/ell_spmv.py:ell_contrib_spmm``; k launches an iteration, bound
+once). Each column's sums keep K1's plan order, so an answer repeats
+itself bit for bit and does not depend on its batch-mates.
+
+Layout: the flat blocked-ELL pack K1 reads (``ops/ell.py:ell_pack`` +
+``sentinel_slots`` + ``segment_plan``); the in-degree relabel is the
+JAX pack's. The JAX engine's source stripes (2^17 - 128 sources, the
+TPU's fast-gather limit) and its gather chunking are not applicable: K1
+reads the whole prescaled column. Per iteration, per chunk:
+
+    z[j]      = [r[j] · inv_out, 0×8]          (prescale, in the wider
+                                                of dtype and accum)
+    contrib[j] = K1(z[j], slots)                (one launch a column)
+    m[j]      = Σ_{out-degree 0} r[j]           (accum)
+    r'        = (1-d)·p + d·(contrib + dangling redistribution),
+                padding lanes masked to 0
+
+The top-k runs on the device — a stable descending sort per column, so
+that ties go to the lower relabeled index as ``jax.lax.top_k`` breaks
+them — and only [batch, k] comes back to the host, mapped back through
+the relabel.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from pagerank_tpu_torch import graph as graph_lib
+from pagerank_tpu_torch.engines.torch_engine import Z_PAD, resolve_device
+from pagerank_tpu_torch.graph import Graph
+from pagerank_tpu_torch.models import ppr as ppr_model
+from pagerank_tpu_torch.ops import ell as ell_lib
+from pagerank_tpu_torch.ops import ell_spmv, spmv
+from pagerank_tpu_torch.utils.config import PageRankConfig, torch_dtype
+
+
+@dataclass
+class PprResult:
+    sources: np.ndarray  # [s] source vertex ids
+    topk_ids: np.ndarray  # [s, k] highest-rank vertex ids per source
+    topk_scores: np.ndarray  # [s, k]
+
+    def rank_of(self, source_index: int):
+        return self.topk_ids[source_index], self.topk_scores[source_index]
+
+
+def ppr_cpu(
+    graph: Graph,
+    sources: np.ndarray,
+    num_iters: int = 20,
+    damping: float = 0.85,
+    dangling_to: str = ppr_model.DANGLING_TO_SOURCE,
+) -> np.ndarray:
+    """Float64 oracle: full [n, s] PPR matrix (small graphs only)."""
+    from pagerank_tpu_torch.graph import to_csr_transpose
+
+    at = to_csr_transpose(graph)
+    n, s = graph.n, len(sources)
+    p = np.zeros((n, s))
+    p[sources, np.arange(s)] = 1.0
+    d = (graph.out_degree == 0).astype(np.float64)
+    r = p.copy()
+    for _ in range(num_iters):
+        contrib = at @ r
+        mass = d @ r
+        r = ppr_model.apply_ppr_update(
+            contrib, p, mass, n, damping, dangling_to, np
+        )
+    return r
+
+
+def ppr_cpu_topk(
+    graph: Graph, config: PageRankConfig, sources: np.ndarray,
+    topk: int = 100, dangling_to: str = ppr_model.DANGLING_TO_SOURCE,
+) -> PprResult:
+    """Run the float64 CPU oracle and shape its full [n, s] matrix into
+    the same top-k ``PprResult`` the device engine returns (CLI
+    ``--engine cpu`` path)."""
+    sources = np.asarray(sources, dtype=np.int64)
+    r = ppr_cpu(
+        graph, sources, num_iters=config.num_iters,
+        damping=config.damping, dangling_to=dangling_to,
+    )  # [n, s]
+    k = min(topk, graph.n)
+    order = np.argsort(-r, axis=0, kind="stable")[:k]  # [k, s]
+    ids = order.T.astype(np.int32)  # [s, k]
+    scores = np.take_along_axis(r, order, axis=0).T
+    return PprResult(sources=sources, topk_ids=ids, topk_scores=scores)
+
+
+class PprTorchEngine:
+    """Chunked batched PPR on one device, K1 column by column.
+
+    ``build(graph)`` packs and places the graph; ``run(sources, ...)``
+    solves chunk by chunk. :meth:`bind` sizes the chunk buffers and, on
+    cuda, binds K1's column launchers (building the kernel if need be);
+    ``run`` binds at its chunk width when nothing wider is bound, so a
+    server binds once, at warm-up. The chunk buffers and K1's workspace
+    are the engine's own, so runs take turns: a dispatch a server
+    abandoned at its deadline still holds the engine until it ends, and
+    the next one waits rather than share the buffers."""
+
+    def __init__(self, config: Optional[PageRankConfig] = None,
+                 dangling_to: str = ppr_model.DANGLING_TO_SOURCE,
+                 device=None):
+        self.config = (config or PageRankConfig()).validate()
+        if dangling_to not in (ppr_model.DANGLING_TO_SOURCE,
+                               ppr_model.DANGLING_TO_UNIFORM):
+            raise ValueError(f"unknown dangling_to: {dangling_to!r}")
+        self.dangling_to = dangling_to
+        self.device = resolve_device(device)
+        self.graph: Optional[Graph] = None
+        self._dtype = torch_dtype(self.config.dtype)
+        self._accum = torch_dtype(self.config.accum_dtype)
+        # Prescale in the widest dtype the solver uses, so per-edge
+        # products carry accum precision into the sums (the JAX
+        # engine's rule, ppr.py:178-183); K1 has that entry.
+        self._z_dtype = (self._accum if self._accum.itemsize
+                         > self._dtype.itemsize else self._dtype)
+        self._width = 0
+        self._launchers: List[ell_spmv.Launcher] = []
+        self._layout: Dict[str, object] = {}
+        self._run_lock = threading.Lock()
+        #: Wall seconds of each chunk of the last ``run`` (solve + top-k
+        #: + fetch, ending in the fetch's sync).
+        self.chunk_seconds: List[float] = []
+
+    def build(self, graph: Graph) -> "PprTorchEngine":
+        dev = self.device
+        t0 = time.perf_counter()
+        pack = ell_lib.ell_pack(graph)
+        t1 = time.perf_counter()
+        n, n_state = graph.n, pack.n_padded
+        pad = n_state - n
+        plan = ell_lib.segment_plan(pack.row_block, pack.num_blocks)
+        src = torch.from_numpy(ell_lib.sentinel_slots(pack)).to(dev)
+        row_block = torch.from_numpy(pack.row_block).to(dev)
+        inv_np = np.float64 if self._z_dtype == torch.float64 else np.float32
+        inv = graph_lib.inv_out_degree(graph.out_degree, dtype=inv_np)
+        inv_rel = np.concatenate([inv[pack.perm], np.zeros(pad, inv_np)])
+        dang = np.concatenate([(graph.out_degree == 0)[pack.perm],
+                               np.zeros(pad, bool)])
+        valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+        t2 = time.perf_counter()
+        self.graph = graph
+        self._n_state = n_state
+        self._num_blocks = pack.num_blocks
+        self._perm = pack.perm  # relabeled -> original
+        self._inv_perm = pack.inv_perm  # original -> relabeled
+        self._src, self._row_block = src, row_block
+        self._plan = ell_spmv.plan_to(plan, dev)
+        self._inv_out = torch.from_numpy(inv_rel).to(dev)
+        self._dangling = torch.from_numpy(dang).to(dev)
+        self._valid = torch.from_numpy(valid).to(dev)
+        self._width = 0
+        self._launchers = []
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t3 = time.perf_counter()
+        self._layout = {
+            "form": "ppr_flat_ell",
+            "kernel": ("ell_contrib:cuda" if dev.type == "cuda"
+                       else "ell_contrib:reference"),
+            "device": str(dev), "n_state": n_state,
+            "num_blocks": pack.num_blocks, "num_rows": pack.num_rows,
+            "num_segments": plan.num_segments,
+            "padding_ratio": pack.padding_ratio,
+            "dtype": self.config.dtype,
+            "accum_dtype": self.config.accum_dtype,
+            "z_dtype": str(self._z_dtype).replace("torch.", ""),
+            "width": 0,
+            "build_seconds": {"pack": t1 - t0, "plan": t2 - t1,
+                              "place": t3 - t2},
+        }
+        return self
+
+    def bind(self, width: int) -> "PprTorchEngine":
+        """Size the chunk buffers for ``width`` columns and, on cuda,
+        bind K1 once per column over them (one shared workspace).
+        Rebinding at a width no larger than the bound one is a no-op."""
+        if self.graph is None:
+            raise RuntimeError("call build(graph) before bind()")
+        if width <= self._width:
+            return self
+        dev = self.device
+        t0 = time.perf_counter()
+        # Row j is column j's z_ext: n_state + 8 entries, the last 8
+        # zero (inert slots read the sentinel n_state).
+        self._z_cols = torch.zeros((width, self._n_state + Z_PAD),
+                                   dtype=self._z_dtype, device=dev)
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                self._launchers = ell_spmv.bind_columns(
+                    self._z_cols, self._src, self._num_blocks,
+                    accum_dtype=self._accum, plan=self._plan)
+                torch.cuda.synchronize(dev)
+            self._layout.update(head=self._launchers[0].head,
+                                grid=self._launchers[0].grid)
+        self._width = width
+        self._layout["width"] = width
+        self._layout["bind_seconds"] = time.perf_counter() - t0
+        return self
+
+    def _contrib(self, kc: int) -> torch.Tensor:
+        """[kc, n_state] contribution sums of the first kc columns of
+        z (z dtype): K1 once per column on cuda, its plain plan-order
+        version on the CPU."""
+        if self._launchers:
+            for launch in self._launchers[:kc]:
+                launch()
+            out = self._launchers[0].out_cols[:kc]
+        else:
+            out = ell_spmv.ell_contrib_spmm(
+                self._z_cols[:kc], self._src, self._row_block,
+                self._num_blocks, accum_dtype=self._accum, plan=self._plan)
+        return out[:, : self._n_state]
+
+    def _step(self, r: torch.Tensor, p_acc: torch.Tensor) -> torch.Tensor:
+        kc, acc = r.shape[0], self._accum
+        torch.mul(r, self._inv_out, out=self._z_cols[:kc, : self._n_state])
+        contrib = self._contrib(kc).to(acc)
+        mass = spmv.dangling_mass(r, self._dangling, acc)
+        # The model's layout is [n, k]: hand it the transposes.
+        r_new = ppr_model.apply_ppr_update(
+            contrib.T, p_acc.T, mass, self.graph.n, self.config.damping,
+            self.dangling_to, torch,
+        ).T
+        return (r_new * self._valid.to(acc)).to(r.dtype)
+
+    def solve_chunk(self, batch: np.ndarray, num_iters: int) -> torch.Tensor:
+        """[len(batch), n_state] PPR columns of the sources ``batch``
+        (original ids) after ``num_iters`` iterations, on the device,
+        in relabeled order."""
+        kc = len(batch)
+        self.bind(kc)
+        p = torch.zeros((kc, self._n_state), dtype=self._dtype,
+                        device=self.device)
+        rel = torch.from_numpy(self._inv_perm[batch].astype(np.int64))
+        p[torch.arange(kc), rel.to(self.device)] = 1.0
+        p_acc = p.to(self._accum)
+        r = p.clone()
+        for _ in range(num_iters):
+            r = self._step(r, p_acc)
+        return r
+
+    def topk(self, r: torch.Tensor, k: int):
+        """Per column, the k highest scores and their relabeled ids on
+        the device: a stable descending sort over the n real lanes, so
+        equal scores keep the lower index first (``lax.top_k``'s
+        order)."""
+        vals, idx = torch.sort(r[:, : self.graph.n], dim=1, descending=True,
+                               stable=True)
+        return idx[:, :k], vals[:, :k]
+
+    def run(
+        self,
+        sources: np.ndarray,
+        num_iters: Optional[int] = None,
+        topk: int = 100,
+        chunk: int = 64,
+    ) -> PprResult:
+        if self.graph is None:
+            raise RuntimeError("call build(graph) before run()")
+        if chunk < 1:
+            raise ValueError(f"chunk must be positive, got {chunk}")
+        cfg = self.config
+        iters = cfg.num_iters if num_iters is None else num_iters
+        n = self.graph.n
+        sources = np.asarray(sources, dtype=np.int64)
+        topk = min(topk, n)
+        ids_out = np.zeros((len(sources), topk), np.int32)
+        np_dtype = np.float32 if self._dtype == torch.float32 else np.float64
+        scores_out = np.zeros((len(sources), topk), np_dtype)
+        # A thread that launches (a server's dispatcher, a deadline
+        # worker) starts on device 0: make the engine's device current.
+        with self._run_lock, (
+                torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext()):
+            self.chunk_seconds = []
+            self.bind(min(chunk, max(1, len(sources))))
+            for lo in range(0, len(sources), chunk):
+                t0 = time.perf_counter()
+                batch = sources[lo: lo + chunk]
+                r = self.solve_chunk(batch, iters)
+                ids, scores = self.topk(r, topk)
+                ids_rel = ids.cpu().numpy()
+                ids_out[lo: lo + len(batch)] = self._perm[ids_rel]
+                scores_out[lo: lo + len(batch)] = scores.cpu().numpy()
+                self.chunk_seconds.append(time.perf_counter() - t0)
+        return PprResult(sources=sources, topk_ids=ids_out,
+                         topk_scores=scores_out)
+
+    def layout_info(self) -> Dict[str, object]:
+        """The resolved layout of this build: what actually runs."""
+        return dict(self._layout)

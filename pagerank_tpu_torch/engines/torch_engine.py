@@ -13,6 +13,13 @@ Port of the single-device ELL forms of ``JaxTpuEngine``
   padding (:1523-1537, :1557), the probe and the
   ``PallasUnavailableError`` downgrade;
 
+- the coo form (``kernel="coo"``, :666-694): the dst-sorted edge list
+  of one shard (``parallel/partition.py:42 partition_edges`` at one
+  shard needs no padding: the graph's own arrays), weights 1/out-degree
+  of the source in the rank dtype, a state of n with no padding, and
+  ``ops/spmv.edge_contrib_segment_sum`` (torch ops in a fixed order; no
+  hand kernel);
+
 and ``_finalize`` with its ``update_tail`` (:3331-3426),
 ``rank_mass``/``ranks``/``decode_ranks``/``set_ranks``/``layout_info``/
 ``snapshot_meta`` (:4560-4650).
@@ -22,6 +29,7 @@ engine's pallas forms: lane group 1, inert slots pointing at a zero
 sentinel, and (flat form) z kept in ``accum_dtype`` when that is wider
 than the rank dtype. Per step:
 
+    coo:          contrib = Σ_{dst-sorted edges} r[src]·w (ops/spmv)
     flat:         z_ext = [r·inv_out, 0×8]              (prescale)
                   contrib = K1(z_ext, slots)            (ops/ell_spmv)
     partitioned:  z_windows[k] = [(r·inv_out)[k·psz:(k+1)·psz], 0…]
@@ -159,6 +167,8 @@ class TorchEngine(PageRankEngine):
         self.graph = graph
         n = graph.n
         t0 = time.perf_counter()
+        if cfg.kernel == "coo":
+            return self._build_coo(graph, t0)
         if cfg.partition_span:
             n_padded = -(-n // LANES) * LANES
             psz = min(cfg.partition_span, max(LANES, n_padded))
@@ -216,6 +226,9 @@ class TorchEngine(PageRankEngine):
             raise TypeError(f"build_device needs a DeviceEllGraph, got "
                             f"{type(dg).__name__}")
         cfg, dev = self.config, self.device
+        if cfg.kernel == "coo":
+            raise ValueError("build_device supports the ell/pallas kernels "
+                             "only")
         if dg.device.type != dev.type:
             raise ValueError(f"device graph on {dg.device}, engine on {dev}: "
                              f"build the graph on the engine's device")
@@ -281,6 +294,46 @@ class TorchEngine(PageRankEngine):
         return self._place(n_padded, dg.num_blocks, planes, arrays, plan,
                            {**layout, "build": "device", "fingerprint": fp},
                            {**stages, "plan": t2 - t1}, t2)
+
+    def _build_coo(self, graph: Graph, t0: float) -> "TorchEngine":
+        """The coo form (``jax_engine.py:666-694``): the graph's
+        dst-sorted edges as they are, w = 1/out-degree[src] in the rank
+        dtype (``partition_edges``' ``weight_dtype``), the per-dst edge
+        counts that ``edge_contrib_segment_sum`` segments by, and a
+        state of n with no padding (nothing relabeled: ``perm`` is the
+        identity)."""
+        cfg, dev = self.config, self.device
+        n = graph.n
+        dt = np.float32 if self._dtype == torch.float32 else np.float64
+        lengths = np.bincount(graph.dst, minlength=n).astype(np.int64)
+        mass_mask = (graph.dangling_mask if cfg.semantics == "reference"
+                     else graph.out_degree == 0)
+        t1 = time.perf_counter()
+        self._perm = np.arange(n, dtype=np.int32)
+        self._n_state = n
+        self._arrays = {
+            "src": torch.from_numpy(graph.src.astype(np.int64)).to(dev),
+            "lengths": torch.from_numpy(lengths).to(dev),
+            "w": torch.from_numpy(graph.edge_weight.astype(dt)).to(dev),
+        }
+        self._dangling = torch.from_numpy(np.asarray(mass_mask, bool)).to(dev)
+        self._zero_in = torch.from_numpy(
+            np.asarray(graph.zero_in_mask, bool)).to(dev)
+        self._valid = torch.ones(n, dtype=torch.bool, device=dev)
+        self._r = pr_model.initial_rank(n, cfg.semantics, self._dtype, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t2 = time.perf_counter()
+        self.iteration = 0
+        self._layout = {
+            "form": "coo", "partition_span": 0, "build": "host",
+            "kernel": "segment_reduce", "kernel_requested": cfg.kernel,
+            "device": str(dev), "num_edges": graph.num_edges,
+            "num_rows": None, "dtype": cfg.dtype,
+            "accum_dtype": cfg.accum_dtype,
+            "build_seconds": {"pack": t1 - t0, "place": t2 - t1},
+        }
+        return self
 
     def _place(self, n_state, num_blocks, planes, arrays, plan, layout,
                build_seconds, t2) -> "TorchEngine":
@@ -443,7 +496,12 @@ class TorchEngine(PageRankEngine):
 
     def _contrib(self) -> torch.Tensor:
         """contrib = Aᵀ_norm·r over the padded state, in relabeled order:
-        the bound kernel on cuda, the wrapper's plain version on cpu."""
+        the bound kernel on cuda, the wrapper's plain version on cpu; the
+        coo form's fixed-order segment sum on either."""
+        if self.config.kernel == "coo":
+            a = self._arrays
+            return spmv.edge_contrib_segment_sum(
+                self._r, a["src"], a["lengths"], a["w"], self._accum)
         inputs = self.contrib_inputs()
         if self._launch is not None:
             return self._launch()[: self._n_state]

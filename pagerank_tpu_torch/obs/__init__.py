@@ -1,3 +1,6 @@
-"""Observability of the port. Only the device table of
-``pagerank_tpu/obs/costs.py`` is ported so far (``obs/costs.py``); the
-tracer, metrics, reports and history come with slice 8."""
+"""Observability of the port: the Hopper device table
+(``obs/costs.py``, from ``pagerank_tpu/obs/costs.py``), and for the
+serving layer copies of the tracer (``obs/trace.py``), the metrics
+registry (``obs/metrics.py``) and the diagnostic channel
+(``obs/log.py``). Reports, the live exporter, history, probes and the
+rest come with ROADMAP slice 8."""

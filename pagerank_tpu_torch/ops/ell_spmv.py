@@ -27,13 +27,24 @@ the plain version, :func:`ell_contrib_plan_reference`, only for tensors
 on the CPU. :func:`bind` checks a call's inputs once and returns a
 launcher that a step calls with no further checks (``TorchEngine``
 keeps one). ``launches`` counts the kernel launches, one a call.
+
+**The batched form (PPR).** ``pagerank_tpu/ops/spmv.py:380
+ell_contrib_spmm`` sums k prescaled rank columns at once; K1 computes
+exactly one column of it. :func:`ell_contrib_spmm` runs K1 once per
+column over a column-major ``z_cols`` buffer (k, n_state + 8), each row
+a ``z_ext``; :func:`bind_columns` binds the k launches once, sharing
+one workspace (launched one at a time on one stream, as K1 leaves it
+zero). Each column's sums keep the plan's order, so a column's result
+does not depend on its batch-mates (a ``gather (rows, 128, k)`` +
+``index_add_`` on the card would, through its atomics). ``launches``
+counts every column launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -294,13 +305,16 @@ def check_head(head, item, sentinel,
 
 def bind(z_ext, src_slots, num_blocks, *, accum_dtype, plan,
          work: Optional[Workspace] = None,
-         head: Optional[int] = None) -> Launcher:
+         head: Optional[int] = None,
+         out: Optional[torch.Tensor] = None) -> Launcher:
     """Check K1's inputs on the card once and return its launcher.
 
     ``z_ext``, ``src_slots`` and the plan are read by address at every
     call: refill them in place, never reallocate them. ``head``: the
     elements of z staged in shared memory (0 stages none; default the
-    most that fits). ``work``: default a fresh workspace."""
+    most that fits). ``work``: default a fresh workspace. ``out``: the
+    contiguous [num_blocks * 128] buffer in z_ext's dtype the launch
+    writes; default a fresh one."""
     dev = z_ext.device
     if dev.type != "cuda":
         raise ValueError(f"bind launches on cuda, not {dev}")
@@ -328,7 +342,12 @@ def bind(z_ext, src_slots, num_blocks, *, accum_dtype, plan,
             or any(t.device != dev for t in (work.partial, work.chunk_sum,
                                              work.counter))):
         raise ValueError("the workspace does not fit the plan")
-    out = torch.empty(num_blocks * LANES, dtype=z_ext.dtype, device=dev)
+    if out is None:
+        out = torch.empty(num_blocks * LANES, dtype=z_ext.dtype, device=dev)
+    elif (out.shape != (num_blocks * LANES,) or out.dtype != z_ext.dtype
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [{num_blocks * LANES}] "
+                         f"{z_ext.dtype} tensor on {dev}")
     num_empty = plan.empty_groups.shape[0]
     grid = persistent_grid(plan.num_items + num_empty, kind)
     args = (z_ext.data_ptr(), src_slots.data_ptr(),
@@ -345,6 +364,82 @@ def bind(z_ext, src_slots, num_blocks, *, accum_dtype, plan,
         count=_count,
         keep=(z_ext, src_slots, plan, work), head=head, grid=grid,
         smem=dynamic_smem(head, z_ext.element_size()))
+
+
+def _check_columns(z_cols, src_slots, row_block, num_blocks, accum_dtype):
+    if z_cols.dim() != 2 or z_cols.stride(1) != 1:
+        raise ValueError(f"want z_cols [k, n+8] with contiguous rows, got "
+                         f"{tuple(z_cols.shape)} strides {z_cols.stride()}")
+    for j in range(z_cols.shape[0]):
+        _check(z_cols[j], src_slots, row_block, num_blocks, accum_dtype)
+
+
+def bind_columns(z_cols, src_slots, num_blocks, *, accum_dtype, plan,
+                 work: Optional[Workspace] = None,
+                 head: Optional[int] = None) -> List[Launcher]:
+    """K1 bound once per column of a batch, on the card: launcher ``j``
+    reads row ``j`` of ``z_cols`` (k, n_state + 8) as its ``z_ext`` and
+    writes row ``j`` of one (k, num_blocks * 128) output, which every
+    launcher's ``out_cols`` attribute holds (``out`` is its own row).
+    All share one workspace, so they run one at a time on one stream.
+    Each row must be 16-byte aligned: rows of (n_state + 8) x itemsize
+    bytes, n_state a multiple of 128, are."""
+    dev = z_cols.device
+    if dev.type != "cuda":
+        raise ValueError(f"bind_columns launches on cuda, not {dev}")
+    if z_cols.dim() != 2 or z_cols.stride(1) != 1:
+        raise ValueError(f"want z_cols [k, n+8] with contiguous rows, got "
+                         f"{tuple(z_cols.shape)} strides {z_cols.stride()}")
+    work = workspace(plan, accum_dtype, dev) if work is None else work
+    out_cols = torch.empty((z_cols.shape[0], num_blocks * LANES),
+                           dtype=z_cols.dtype, device=dev)
+    launchers = [bind(z_cols[j], src_slots, num_blocks,
+                      accum_dtype=accum_dtype, plan=plan, work=work,
+                      head=head, out=out_cols[j])
+                 for j in range(z_cols.shape[0])]
+    for ln in launchers:
+        ln.out_cols = out_cols
+        ln._keep = (*ln._keep, z_cols, out_cols)
+    return launchers
+
+
+def ell_contrib_spmm(z_cols, src_slots, row_block, num_blocks, *,
+                     accum_dtype, plan, work: Optional[Workspace] = None):
+    """The batched contribution (``pagerank_tpu/ops/spmv.py:380``), one
+    column a row: [k, num_blocks * 128] sums in z_cols's dtype from the
+    prescaled columns ``z_cols`` [k, n_state + 8] (each row's trailing
+    8 entries zero). On cuda, K1 once per column (:func:`bind_columns`;
+    k launches); on the CPU, the plain plan-order version
+    (:func:`ell_contrib_spmm_reference`). Where the JAX op returns
+    [num_blocks * 128, k], this returns the transpose: the port keeps
+    PPR state column-major, so that each column is a ``z_ext``."""
+    _check_columns(z_cols, src_slots, row_block, num_blocks, accum_dtype)
+    if z_cols.device.type == "cpu":
+        return ell_contrib_spmm_reference(z_cols, src_slots,
+                                          accum_dtype=accum_dtype, plan=plan)
+    if z_cols.device.type != "cuda":
+        raise ValueError(
+            f"ell_contrib_spmm runs on cuda or cpu, not {z_cols.device}")
+    launchers = bind_columns(z_cols, src_slots, num_blocks,
+                             accum_dtype=accum_dtype, plan=plan, work=work)
+    for ln in launchers:
+        ln()
+    return launchers[0].out_cols if launchers else torch.empty(
+        (0, num_blocks * LANES), dtype=z_cols.dtype, device=z_cols.device)
+
+
+def ell_contrib_spmm_reference(z_cols, src_slots, *, accum_dtype, plan):
+    """:func:`ell_contrib_spmm` in plain PyTorch: each column through
+    :func:`ell_contrib_plan_reference` (K1's own order), stacked
+    [k, num_blocks * 128]. On the CPU this is the kernel's output bit
+    for bit, column by column."""
+    nb = len(plan.block_seg_start) - 1
+    if z_cols.shape[0] == 0:
+        return torch.empty((0, nb * LANES), dtype=z_cols.dtype,
+                           device=z_cols.device)
+    return torch.stack([
+        ell_contrib_plan_reference(z, src_slots, accum_dtype=accum_dtype,
+                                   plan=plan) for z in z_cols])
 
 
 def ell_contrib_reference(z_ext, src_slots, row_block, num_blocks, *,

@@ -1,13 +1,18 @@
-"""Elementwise reductions of the step, the 3-byte slot words and the
-pair -> block expansion of the partition-centric layout.
+"""The COO contribution sum, elementwise reductions of the step, the
+3-byte slot words and the pair -> block expansion of the
+partition-centric layout.
 
-Port of ``pagerank_tpu/ops/spmv.py:437`` (``dangling_mass``),
-``:178-198`` (``unpack_words24`` / ``pack_words24``) and ``:425-434``
+Port of ``pagerank_tpu/ops/spmv.py:25-49``
+(``edge_contrib_segment_sum``, the ``kernel="coo"`` form), ``:437``
+(``dangling_mass``, with its 2-D PPR batch form), ``:178-198``
+(``unpack_words24`` / ``pack_words24``) and ``:425-434``
 (``scatter_block_sums``). The word and expansion helpers take numpy
 arrays and torch tensors alike.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -15,12 +20,52 @@ import torch
 from pagerank_tpu_torch.ops import LANES
 
 
+def edge_contrib_segment_sum(r: torch.Tensor, src: torch.Tensor,
+                             lengths: torch.Tensor, w: torch.Tensor,
+                             accum_dtype: Optional[torch.dtype] = None
+                             ) -> torch.Tensor:
+    """contrib = Aᵀ_norm r over a dst-sorted COO edge list.
+
+    Args:
+      r: [n] rank vector, or [n, k] for a batch of columns.
+      src: int64 [e] edge sources, the edges sorted by dst.
+      lengths: int64 [n] edges per dst (the in-degree of the edge list;
+        ``sum(lengths) == e``): the dst of edge i is implied by the
+        sorted order, so no dst array is read.
+      w: [e] per-edge weight 1/out_degree[src].
+      accum_dtype: the products' and sums' dtype; default r's.
+
+    Returns:
+      [n] (or [n, k]) sums in ``accum_dtype``. Each dst's in-edges are
+      summed by ``torch.segment_reduce`` in a fixed order — not by
+      ``index_add_``, whose CUDA atomics add in no set order — so a run
+      repeats itself bit for bit on the card, as a resumed run must.
+    """
+    acc = accum_dtype or r.dtype
+    wa = w.to(acc)
+    vals = r[src].to(acc) * (wa[:, None] if r.dim() == 2 else wa)
+    if vals.shape[0] == 0:  # segment_reduce needs data; no edges sum to 0
+        return torch.zeros((lengths.shape[0],) + tuple(r.shape[1:]),
+                           dtype=acc, device=r.device)
+    return torch.segment_reduce(vals, "sum", lengths=lengths, axis=0)
+
+
 def dangling_mass(r: torch.Tensor, dangling: torch.Tensor,
                   accum_dtype: torch.dtype) -> torch.Tensor:
     """m = Σ_dangling r — the reference's ``danglingContrib`` loop
     (Sparky.java:219-222) as one masked sum in ``accum_dtype``: a
-    multiply + sum, never a dot, like the JAX op's 64-bit path."""
-    return torch.sum(dangling.to(accum_dtype) * r.to(accum_dtype))
+    multiply + sum, never a dot, like the JAX op's 64-bit path. For a
+    2-D ``r`` ([k, n], one PPR column a row) the sum is per row: [k],
+    each row reduced on its own as a 1-D sum, so that a row's mass does
+    not depend on how many rows its batch has (a ``sum(dim=1)`` picks
+    its reduction order by the shape) and a PPR answer is the same bits
+    in any batch."""
+    prod = dangling.to(accum_dtype) * r.to(accum_dtype)
+    if r.dim() == 2:
+        if prod.shape[0] == 0:
+            return prod.new_zeros(0)
+        return torch.stack([torch.sum(row) for row in prod])
+    return torch.sum(prod)
 
 
 def unpack_words24(slots8):

@@ -1,8 +1,8 @@
 """Configuration of a PageRank run.
 
 Port of ``pagerank_tpu/utils/config.py:132-212`` (``PageRankConfig``),
-its partition-centric validation rules (``:445-480``, same messages)
-and the three ``RobustnessConfig`` fields the solve loop reads. The
+its kernel and partition-centric validation rules (``:404-410``,
+``:445-480``, same messages) and the three ``RobustnessConfig`` fields the solve loop reads. The
 fields of layouts and modes that later slices of the port bring are
 kept so a caller can name them, and ``validate`` refuses them with the
 ROADMAP slice that ports them.
@@ -81,7 +81,9 @@ class PageRankConfig:
     # the flat ELL form through K1 (ops/ell_spmv.py), and with a
     # partition_span the partition-centric form through K2
     # (ops/ell_spmv_partitioned.py). On the card the kernel is the hot
-    # op of every ELL form. "coo" is not ported.
+    # op of every ELL form. "coo" = dst-sorted COO + a per-edge segment
+    # sum in fixed order (ops/spmv.py:edge_contrib_segment_sum; torch
+    # ops, no hand kernel): the portable baseline.
     kernel: str = "auto"
 
     # Early stop when L1(r' - r) <= tol; None runs all num_iters.
@@ -114,8 +116,16 @@ class PageRankConfig:
             raise ValueError(
                 f"tol must be a finite positive float, got {self.tol}"
             )
-        # The partition rules come first, as in the JAX package, so the
-        # same invalid config raises the same message in both.
+        # The kernel and partition rules come first, in the JAX
+        # package's order, so the same invalid config raises the same
+        # message in both.
+        if self.kernel not in ("auto", "ell", "coo", "pallas"):
+            raise ValueError(f"unknown kernel: {self.kernel!r}")
+        if self.vertex_sharded and self.kernel in ("coo", "pallas"):
+            raise ValueError(
+                f"vertex_sharded requires the ell kernel, got "
+                f"{self.kernel!r}"
+            )
         if self.stream_dtype not in ("", "bfloat16"):
             raise ValueError(
                 f"stream_dtype must be '' or 'bfloat16', got "
@@ -150,13 +160,6 @@ class PageRankConfig:
                 "accumulation only (the pair/native wide paths keep "
                 "the default layout)"
             )
-        if self.kernel == "coo":
-            raise ValueError(
-                "kernel='coo' (the dst-sorted COO segment-sum form) is not "
-                "ported yet: ROADMAP slice 4"
-            )
-        if self.kernel not in ("auto", "ell", "pallas"):
-            raise ValueError(f"unknown kernel: {self.kernel!r}")
         if self.vertex_sharded or (self.num_devices or 1) > 1:
             raise ValueError(
                 "vertex_sharded/num_devices > 1 (more than one GPU) are "

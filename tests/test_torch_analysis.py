@@ -113,7 +113,8 @@ def test_shipped_registry_is_clean_on_the_host_rules(shipped):
 
 def test_shipped_registry_holds_every_kernel_at_every_scale(shipped):
     labels = [c.label for c in shipped]
-    assert len(labels) == len(set(labels)) == 22
+    assert len(labels) == len(set(labels)) == 23
+    assert f"ell_contrib@ppr-scale{K.PPR_SCALE}" in labels
     for s in K.BENCH_SCALES:
         assert f"ell_contrib@scale{s}" in labels
         assert f"ell_contrib_partitioned@scale{s}" in labels
@@ -163,6 +164,19 @@ def test_bound_formulas_reproduce_the_pr3_bounds():
     assert K.k2_cost(614_545, 384, 2 * 2_097_280, 4, 28_632, 35_343,
                      32_768, live, e2)["flops"] == (614_545 + live) * 128
     assert K.probe_cost(1 << 19, 1 << 15, 4)["bytes"] == 805_437_440
+
+
+def test_k1_cost_of_k_columns_reads_the_slots_once():
+    """The PPR path's k-column SpMM reads the slots and the plan once
+    and each column's z and output once: not k one-column bounds."""
+    rows, n, nb, segs, empty = 159_670, 1 << 20, 8_192, 6_198, 3
+    one = K.k1_cost(rows, n, nb, segs, empty, 4)
+    assert K.k1_cost(rows, n, nb, segs, empty, 4, columns=1) == one
+    wide = K.k1_cost(rows, n, nb, segs, empty, 4, columns=64)
+    column = (n + nb * 128) * 4
+    assert wide["bytes"] == one["bytes"] + 63 * column
+    assert wide["bytes"] < 64 * one["bytes"] / 5
+    assert wide["flops"] == 64 * one["flops"]
 
 
 def test_real_rmat14_plans_are_clean(k1_real, k2_real):

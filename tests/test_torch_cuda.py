@@ -3,6 +3,8 @@ engine on the card. These need an NVIDIA GPU and nvcc:
 on any other host each test skips with a reason. Run them on the card
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -367,3 +369,94 @@ def test_device_build_on_the_card_equals_the_cpu_build(cuda, stripe,
         (10, 0) if not stripe else (0, 10))
     r_cpu = TorchEngine(cfg, device="cpu").build_device(cpu).run()
     assert np.abs(r_gpu - r_cpu).sum() / np.abs(r_cpu).sum() <= 1e-5
+
+
+# -- personalized PageRank: K1 column by column --------------------------------
+
+@pytest.mark.parametrize("dtype,acc", [(torch.float32, torch.float32),
+                                       (torch.float32, torch.float64),
+                                       (torch.float64, torch.float64)])
+def test_column_launchers_equal_the_plain_version_per_column(cuda, dtype,
+                                                             acc):
+    """bind_columns: one K1 launch a column (k launches), each column
+    torch.equal to its plain plan-order version on the CPU; the batch
+    launched twice is bit-identical."""
+    z, src, rb, nb, plan = _inputs(cuda, dtype)
+    k = 6
+    z_cols = torch.zeros((k, z.shape[0]), dtype=dtype, device=cuda)
+    for j in range(k):
+        z_cols[j] = z.roll(37 * j) * (z != 0)  # zero tail stays zero
+    before = ell_spmv.launches
+    launchers = ell_spmv.bind_columns(z_cols, src, nb, accum_dtype=acc,
+                                      plan=plan)
+    for ln in launchers:
+        ln()
+    a = launchers[0].out_cols.clone()
+    for ln in launchers:
+        ln()
+    torch.cuda.synchronize()
+    assert ell_spmv.launches == before + 2 * k
+    assert torch.equal(a, launchers[0].out_cols)
+    cpu_plan = torch_ell.segment_plan(rb.cpu().numpy(), nb)
+    want = ell_spmv.ell_contrib_spmm_reference(
+        z_cols.cpu(), src.cpu(), accum_dtype=acc, plan=cpu_plan)
+    assert torch.equal(a.cpu(), want)
+    got = ell_spmv.ell_contrib_spmm(z_cols, src, rb, nb, accum_dtype=acc,
+                                    plan=plan)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
+                                       ("float32", 1e-6)])
+def test_ppr_on_the_card_matches_the_cpu_run_and_repeats(cuda, dtype, tol):
+    """PprTorchEngine on cuda: K1 launched once a column an iteration,
+    within tol of the CPU run (its plain version), the same batch twice
+    bit-identical, a source alone equal in ids to the source in a
+    batch."""
+    from pagerank_tpu_torch.engines.ppr import PprTorchEngine
+
+    src, dst = synth.rmat_edges(12, seed=6)
+    g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
+    cfg = PageRankConfig(num_iters=10, dtype=dtype, accum_dtype=dtype)
+    sources = np.array([0, 17, 999, 4095, 17])
+    eng = PprTorchEngine(cfg).build(g)
+    before = ell_spmv.launches
+    a = eng.run(sources, topk=50, chunk=4)
+    assert ell_spmv.launches == before + 10 * 5
+    assert eng.layout_info()["kernel"] == "ell_contrib:cuda"
+    b = eng.run(sources, topk=50, chunk=4)
+    np.testing.assert_array_equal(a.topk_ids, b.topk_ids)
+    np.testing.assert_array_equal(a.topk_scores, b.topk_scores)
+    c = PprTorchEngine(cfg, device="cpu").build(g).run(sources, topk=50,
+                                                       chunk=4)
+    np.testing.assert_allclose(a.topk_scores, c.topk_scores, rtol=0,
+                               atol=tol)
+    solo = eng.run(sources[1:2], topk=50)
+    np.testing.assert_array_equal(solo.topk_ids[0], a.topk_ids[1])
+    np.testing.assert_allclose(solo.topk_scores[0], a.topk_scores[1],
+                               rtol=1e-6, atol=0)
+
+
+def test_coo_on_the_card_repeats_bitwise_and_matches_the_cpu(cuda):
+    src, dst = synth.rmat_edges(12, seed=6)
+    g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
+    cfg = PageRankConfig(num_iters=10, kernel="coo")
+    k1 = ell_spmv.launches
+    a = TorchEngine(cfg).build(g)
+    assert a.layout_info()["device"].startswith("cuda")
+    ra = a.run()
+    rb = TorchEngine(cfg).build(g).run()
+    assert ell_spmv.launches == k1
+    np.testing.assert_array_equal(ra, rb)
+    rc = TorchEngine(cfg, device="cpu").build(g).run()
+    assert np.abs(ra - rc).sum() / np.abs(rc).sum() <= 1e-6
+
+
+def test_serve_smoke_on_the_card(cuda, capsys):
+    from pagerank_tpu_torch import serve
+
+    assert serve.main(["--serve-smoke", "8", "--scale", "10", "--iters",
+                       "5", "--max-batch", "4"]) == 0
+    doc = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert doc["unsettled"] == 0
+    assert set(doc["outcomes"]) <= {"answered", "answered_cache"}

@@ -138,13 +138,27 @@ def test_make_engine_without_a_card_raises(monkeypatch):
     (dict(partition_span=512, dtype="float64", accum_dtype="float64"),
      "32-bit accumulation only"),
     (dict(stream_dtype="bfloat16"), "set partition_span"),
-    (dict(kernel="coo"), "slice 4"),
     (dict(vertex_sharded=True), "slice 6"),
     (dict(num_devices=4), "slice 6"),
 ])
 def test_later_slice_fields_name_their_slice(kw, slice_no):
     with pytest.raises(ValueError, match=slice_no):
         PageRankConfig(**kw).validate()
+
+
+@pytest.mark.parametrize("semantics", ["reference", "textbook"])
+def test_kernel_coo_runs_the_coo_form(semantics):
+    """kernel="coo" (slice 4's last form) builds and runs: the COO
+    segment sum, no padding, within 1e-12 of the f64 oracle."""
+    gj, gt = _random_graphs(2, 200, 1500)
+    cfg = PageRankConfig(num_iters=10, dtype="float64",
+                         accum_dtype="float64", semantics=semantics,
+                         kernel="coo")
+    eng = TorchEngine(cfg, device="cpu").build(gt)
+    assert eng.layout_info()["form"] == "coo"
+    assert eng._r.shape == (gt.n,)
+    oracle, _ = _jax_runs(gj, cfg)
+    np.testing.assert_allclose(eng.run(), oracle, rtol=0, atol=1e-12)
 
 
 @pytest.mark.parametrize("kernel", ["auto", "ell", "pallas"])
