@@ -126,8 +126,8 @@ What it does, in order:
      --json`` as subprocesses, all at once: the shipped registry exits
      0 with no finding and each ``--kernel-fixture NAME`` exits 1 with
      exactly its rule, with the compile facts read from the built
-     libraries (every shipped symbol's registers, shared bytes and
-     spills printed); (b) F1-F6 on the card at the JAX fixtures'
+     libraries (every shipped symbol's registers, shared bytes, local
+     memory and stack frame printed); (b) F1-F6 on the card at the JAX fixtures'
      shapes, the counts set to 0 before and read after: F1 at its
      geometry refused with no error left pending and equal to its plain
      copy at 2^15, F2 and F5 equal, F3 equal with NaN at exactly the
@@ -138,45 +138,54 @@ What it does, in order:
      PPR acceptance runs (BASELINE.md:154-160), and the coo form:
      (a) ``cli.run --synthetic rmat:20 --ppr-sources random:256
      --ppr-topk 100 --ppr-chunk 64 --iters 20 --dtype float32 --out``
-     on cuda: K1 launched exactly 5,120 times (one a column, 64 x 20 x
-     4 chunks), K2 and the probe kernels 0; held to a plain f64 PPR on
-     the card over all 256 sources (``torch.sparse.mm`` of A_T, none of
-     the port's pack, plans or kernels; itself within 1e-12 of the host
-     ``ppr_cpu`` on 16 sources) by the acceptance gates: per-source
-     top-100 id overlap >= 0.999 and score L1 <= 1e-4; prints ms an
-     iteration a chunk, edge·vectors/s, the host build split and the
-     peak device memory; (b) K1's 64 column launchers at (a)'s shapes
-     torch.equal to the plan-order plain version per column (PTK001-005
-     clean on that plan), the same batch twice bit-equal, a source
-     alone against the same source in its batch (ids equal, scores
-     within 1e-6 relative), an f64/f64 run within 1e-12 of ``ppr_cpu``
-     on 16 sources, and one chunk iteration (CUDA events) beside its
-     64 launches, the byte bound of the 64-column SpMM they compute
-     (``k1_cost(columns=64)``: the slots and plan once, each column's z
-     and output once) and one ``torch.sparse.mm`` of A_T with a dense
-     [n, 64] f32 matrix; (c) ``serve.main(["--serve-smoke",
-     "64", "--scale", "20", "--iters", "20", "--topk", "100",
-     "--max-batch", "8"])`` in process: exit 0, no query unsettled,
-     every outcome answered, K1 launched 20 times a column dispatched
-     (the live queries of each batch, unpadded) plus 8 x 20 for the
-     warm-up;
+     on cuda: K1w (ell_contrib_spmm) launched exactly 80 times (one an
+     iteration a chunk, 20 x 4 chunks), K1, K2 and the probe kernels 0;
+     held to a plain f64 PPR on the card over all 256 sources
+     (``torch.sparse.mm`` of A_T, none of the port's pack, plans or
+     kernels; itself within 1e-12 of the host ``ppr_cpu`` on 16
+     sources) by the acceptance gates: per-source top-100 id overlap
+     >= 0.999 and score L1 <= 1e-4; prints ms an iteration a chunk,
+     edge·vectors/s, the host build split and the peak device memory;
+     (b) K1w at (a)'s shapes (its bound launcher and z2) torch.equal to
+     its plain version on the CPU and to K1's 64 column launches at k =
+     1, 8 and 64 in f32/f32 and f64/f64 and at 64 in f32/f64 (max error
+     against f64 sums <= 1e-5), its fold of block 0's lanes (the
+     dangling mass) torch.equal to the plain fold, PTK001-005 clean on
+     that plan at k = 64, 8 and 1; the 64-column SpMM at every built
+     tile (4 to 64), and over f64 sums at tiles 16, 32 and 64, each
+     torch.equal to the plain version and timed; the same batch twice bit-equal, a source alone bit-equal
+     (ids and scores) to the same source in its batch, an f64/f64 run
+     within 1e-12 of ``ppr_cpu`` on 16 sources; one chunk iteration
+     (CUDA events, and split by kernel with torch.profiler, K1w's
+     launches counted by its wrapper) and K1w's launch beside K1's 64
+     column launches, the
+     byte bound of the 64-column SpMM (``k1_cost(columns=64)``: the
+     slots and plan once, each column's z and output once), the plain
+     version on the card and one ``torch.sparse.mm`` of A_T with a
+     dense [n, 64] f32 matrix; (c) ``serve.main(["--serve-smoke", "64",
+     "--scale", "20", "--iters", "20", "--topk", "100", "--max-batch",
+     "8"])`` in process: exit 0, no query unsettled, every outcome
+     answered, K1w launched 20 times a dispatched batch (its live
+     columns only) plus 20 for the warm-up, K1 0;
      then a ``PprServer`` behind ``QueryIngress`` on an ephemeral port:
      16 concurrent HTTP queries whose ids equal ``PprTorchEngine.run``,
      a repeat answered from the cache with equal ids and scores, and
-     ``/healthz``, then a lone query (one column: 20 K1 launches);
-     prints the warm-up and the batch walls (first, p50, p99, lone);
-     (d) (run right after phase 5, on phase 3's graph) the coo
-     form on cuda for 10 iterations, twice: torch.equal, K1 and K2 0,
-     within 1e-4 of the f64 oracle, its median step beside the flat
+     ``/healthz``, then a lone query (one column: 20 K1w launches at a
+     4-column tile); prints the warm-up and the batch walls (first, p50,
+     p99, lone), and one of the lone query's iterations split by kernel
+     (torch.profiler) with its K1w launch timed alone; (d) (run right after phase 5, on phase 3's graph) the
+     coo form on cuda for 10 iterations, twice: torch.equal, K1 and K2
+     0, within 1e-4 of the f64 oracle, its median step beside the flat
      form's (phase 3's engine, 10 more steps through ``engine.run``,
      timed the same way) and the partitioned form's;
- 13. prints one JSON line with every kernel's numbers (K1, K2, P1 and
-     P2 at K1's slots, P3 at n = 2^15 f32, F1-F6; K1's carries its PPR
-     path under ``ppr``), then last ``{"ok": true, "device": {...}}``.
+ 13. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+     the PPR path with its tile sweep, P1 and P2 at K1's slots, P3 at n
+     = 2^15 f32, F1-F6), then last ``{"ok": true, "device": {...}}``.
 
 Every byte bound comes from the registry's cost models
 (``pagerank_tpu_torch/analysis/kernels.py``: ``k1_cost``, ``k2_cost``,
-``probe_cost``) and the card's memory rate from the device table
+``probe_cost``; K1w's is ``k1_cost(columns=64)``) and the card's memory
+rate from the device table
 (``pagerank_tpu_torch/obs/costs.py``); K1's and K2's cases are also
 held to PTK001-005 on the main path's own rmat:22 plans.
 
@@ -278,11 +287,12 @@ def build_kernels():
 
 
 def _reset_counts():
-    from pagerank_tpu_torch.ops import (defect_fixtures, ell_spmv,
+    from pagerank_tpu_torch.ops import (defect_fixtures, ell_spmm, ell_spmv,
                                         ell_spmv_partitioned, gather_probe)
 
     ell_spmv.launches = 0
     ell_spmv_partitioned.launches = 0
+    ell_spmm.launches = 0
     for counts in (gather_probe.launches, defect_fixtures.launches):
         for name in counts:
             counts[name] = 0
@@ -290,13 +300,15 @@ def _reset_counts():
 
 def _read_counts():
     """(K1 launches, K2 launches, {P1-P3 wrapper: launches}) since the
-    last reset; the F1-F6 counts join P1-P3's dict, keyed fx:<name>."""
-    from pagerank_tpu_torch.ops import (defect_fixtures, ell_spmv,
+    last reset; the F1-F6 counts join P1-P3's dict, keyed fx:<name>,
+    and K1w's, keyed K1w."""
+    from pagerank_tpu_torch.ops import (defect_fixtures, ell_spmm, ell_spmv,
                                         ell_spmv_partitioned, gather_probe)
 
     return (ell_spmv.launches, ell_spmv_partitioned.launches,
             {**gather_probe.launches,
-             **{f"fx:{k}": v for k, v in defect_fixtures.launches.items()}})
+             **{f"fx:{k}": v for k, v in defect_fixtures.launches.items()},
+             "K1w": ell_spmm.launches})
 
 
 def _check_case(case):
@@ -623,23 +635,17 @@ OLD_PASSES = ("segment_partials", "block_sums", "pair_segment_partials",
               "pair_sums")
 
 
-def step_breakdown(engine, kernel="K1", symbol="ell_contrib_kernel",
-                   steps=10):
-    """Where a step's time goes, on a path's engine: the host wall per
-    step of ``steps`` unprofiled steps, then the device time per kernel
-    over as many steps under torch.profiler — the path's one kernel
-    ``symbol`` (launched once a step), the step's other (elementwise)
-    kernels — and the device's idle share of the unprofiled wall. Fails
-    if a pass-2 kernel of the first form, an ``index_add_`` or a slice
-    add of the old pair expansion runs in the step."""
+def _profile_steps(step, steps):
+    """(host wall ms a step over ``steps`` unprofiled steps, then over
+    as many steps under torch.profiler: {kernel: device ms a step},
+    {kernel: launches}, the host ops' names)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    engine.step()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(steps):
-        engine.step()
+        step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     # One warm-up step inside the profiler, whose events are dropped: the
@@ -651,7 +657,7 @@ def step_breakdown(engine, kernel="K1", symbol="ell_contrib_kernel",
                  on_trace_ready=lambda p: traced.append(p.key_averages())
                  ) as prof:
         for _ in range(steps + 1):
-            engine.step()
+            step()
             torch.cuda.synchronize()
             prof.step()
     _check(len(traced) == 1, f"the profiler closed {len(traced)} cycles")
@@ -667,13 +673,30 @@ def step_breakdown(engine, kernel="K1", symbol="ell_contrib_kernel",
             us = ev.self_cuda_time_total
         per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / steps
         calls[ev.key] = calls.get(ev.key, 0) + ev.count
+    return wall_ms, per_kernel, calls, ops
 
-    def named(k, p):  # "p" not preceded by a letter or "_"
-        return re.search(rf"(?<![A-Za-z_]){p}", k) is not None
 
-    mine = [k for k in per_kernel if named(k, symbol)]
+def _named(k, p):
+    """Whether kernel name ``k`` has ``p`` not preceded by a letter or
+    "_"."""
+    return re.search(rf"(?<![A-Za-z_]){p}", k) is not None
+
+
+def step_breakdown(engine, kernel="K1", symbol="ell_contrib_kernel",
+                   steps=10):
+    """Where a step's time goes, on a path's engine: the host wall per
+    step of ``steps`` unprofiled steps, then the device time per kernel
+    over as many steps under torch.profiler — the path's one kernel
+    ``symbol`` (launched once a step), the step's other (elementwise)
+    kernels — and the device's idle share of the unprofiled wall. Fails
+    if a pass-2 kernel of the first form, an ``index_add_`` or a slice
+    add of the old pair expansion runs in the step."""
+    engine.step()
+    wall_ms, per_kernel, calls, ops = _profile_steps(engine.step, steps)
+
+    mine = [k for k in per_kernel if _named(k, symbol)]
     k_ms = sum(per_kernel[k] for k in mine)
-    old = [k for k in per_kernel if any(named(k, p) for p in OLD_PASSES)
+    old = [k for k in per_kernel if any(_named(k, p) for p in OLD_PASSES)
            or "index" in k.lower()]
     expand_ops = sorted(o for o in ops if o in ("aten::index_add_",
                                                "aten::add_"))
@@ -1019,7 +1042,7 @@ def _probe_point(label, z, src, w):
     k1, k2, counts = _read_counts()
     want = {pg.KERNELS[k]: pg.WARMUP + PROBE_ITERS if k in ran else 0
             for k, _ in PROBE_PAIRS}
-    want.update({k: 0 for k in counts if k.startswith("fx:")})
+    want.update({k: 0 for k in counts if k.startswith("fx:")}, K1w=0)
     _check(counts == want and k1 == 0 and k2 == 0,
            f"probe {label}: launches {counts} (K1 {k1}, K2 {k2}), want "
            f"{want} and no K1 or K2")
@@ -1178,8 +1201,8 @@ def analysis_phase():
           + f" ({time.perf_counter() - t0:.1f} s)")
     for key, f in sorted(facts.items()):
         print(f"  {key}: {f['regs']} registers, {f['shared']} B static "
-              f"shared, up to {dyn[key]} B dynamic, {f['local']} B local "
-              f"(spills), launch bounds {f['max_threads']}, f64 ops "
+              f"shared, up to {dyn[key]} B dynamic, {f['local']} B local, "
+              f"{f['stack']} B stack frame, launch bounds {f['max_threads']}, f64 ops "
               f"{list(f['f64_ops']) or 'none'}")
     return rules
 
@@ -1992,15 +2015,18 @@ def ppr_cli_phase(tmp):
                  "--dtype", "float32", "--out", out])
     wall = time.perf_counter() - t0
     k1, k2, probe = _read_counts()
+    k1w = probe.pop("K1w")
     peak = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
     graph, res, eng = s["graph"], s["ppr"], s["engine"]
-    want = PPR_CHUNK * PPR_ITERS * (PPR_SOURCES // PPR_CHUNK)
+    want = PPR_ITERS * (PPR_SOURCES // PPR_CHUNK)
     _check(eng.device.type == "cuda", "the PPR path did not run on cuda")
-    _check(k1 == want and k2 == 0 and not any(probe.values()),
-           f"PPR: ell_contrib launched {k1} times (want {want}: one a "
-           f"column, {PPR_CHUNK} columns x {PPR_ITERS} iterations x "
-           f"{PPR_SOURCES // PPR_CHUNK} chunks), ell_contrib_partitioned "
-           f"{k2}, the probe kernels {probe}")
+    _check(k1w == want and k1 == 0 and k2 == 0 and not any(probe.values()),
+           f"PPR: ell_contrib_spmm launched {k1w} times (want {want}: one "
+           f"an iteration, {PPR_ITERS} iterations x "
+           f"{PPR_SOURCES // PPR_CHUNK} chunks of {PPR_CHUNK}), ell_contrib "
+           f"{k1}, ell_contrib_partitioned {k2}, the probe kernels {probe}")
+    _check(eng.layout_info()["kernel"] == "ell_contrib_spmm:cuda",
+           f"PPR ran {eng.layout_info()['kernel']}")
     ids, scores = res.topk_ids, res.topk_scores
     _check(ids.shape == scores.shape == (PPR_SOURCES, PPR_TOPK)
            and np.isfinite(scores).all() and (ids >= 0).all()
@@ -2047,8 +2073,10 @@ def ppr_cli_phase(tmp):
     bs = eng.layout_info()["build_seconds"]
     print(f"PPR rmat:{PPR_SCALE} through the CLI on cuda: n={graph.n} "
           f"edges={graph.num_edges}, {PPR_SOURCES} sources x {PPR_ITERS} "
-          f"iterations in chunks of {PPR_CHUNK}, top-{PPR_TOPK}; K1 launches "
-          f"{k1} (one a column), K2 {k2}; wall {wall:.3f} s; solve "
+          f"iterations in chunks of {PPR_CHUNK}, top-{PPR_TOPK}; K1w "
+          f"launches {k1w} (one an iteration a chunk, tile "
+          f"{eng.layout_info()['kt']}), K1 {k1}, K2 {k2}; wall {wall:.3f} "
+          f"s; solve "
           f"{solve_s:.3f} s over {len(eng.chunk_seconds)} chunks ("
           + ", ".join(f"{c:.4f}" for c in eng.chunk_seconds)
           + f" s; {statistics.median(per_iter):.4f} ms an iteration a "
@@ -2058,7 +2086,7 @@ def ppr_cli_phase(tmp):
     print(f"PPR host build: R-MAT edges {s['input_seconds']:.3f} s, "
           f"build_graph {s['graph_seconds']:.3f} s ({s['sort_route']} "
           f"sort), ELL pack {bs['pack']:.3f} s, sentinels + segment plan "
-          f"{bs['plan']:.3f} s, placement {bs['place']:.3f} s, K1 bound "
+          f"{bs['plan']:.3f} s, placement {bs['place']:.3f} s, K1w bound "
           f"at {PPR_CHUNK} columns {eng.layout_info()['bind_seconds']:.3f} "
           f"s; {eng.layout_info()['num_rows']} slot rows")
     print(f"PPR vs a plain f64 PPR on the card (torch.sparse.mm, "
@@ -2067,17 +2095,55 @@ def ppr_cli_phase(tmp):
           f"overlap min {ov_min:.4f} mean {ov_mean:.4f} (gate >= "
           f"{PPR_OVERLAP_GATE}), max score L1 {l1_max:.3e} (gate <= "
           f"{PPR_SCORE_L1_GATE})")
-    return s, host, {"launches": k1, "solve_s": solve_s, "evs": evs,
+    return s, host, {"launches": k1w, "solve_s": solve_s, "evs": evs,
                      "chunk_iter_ms": statistics.median(per_iter),
                      "overlap_min": ov_min, "l1_max": l1_max,
                      "peak_gb": peak}
 
 
+def _k1w_step_split(label, step, steps):
+    """A PPR step's time by kernel: the host wall a step over ``steps``
+    back-to-back steps, then as many under torch.profiler (after a
+    warm-up step): device busy, K1w's share and the other kernels, the
+    idle share; prints it and returns it. The launch count is the
+    wrapper's; the profiler may miss an event of a kernel launched from
+    outside PyTorch, so K1w's device time a step is taken per recorded
+    launch, and the recorded count is printed."""
+    from pagerank_tpu_torch.ops import ell_spmm
+
+    before = ell_spmm.launches
+    wall_ms, per_kernel, calls, _ = _profile_steps(step, steps)
+    _check(ell_spmm.launches - before == 2 * steps + 1,
+           f"{2 * steps + 1} PPR steps launched K1w "
+           f"{ell_spmm.launches - before} times")
+    mine = [n for n in per_kernel if _named(n, "ell_contrib_spmm_kernel")]
+    seen = sum(calls[n] for n in mine)
+    _check(seen >= 1, "the profiler recorded no K1w launch")
+    k1w_dev = sum(per_kernel[n] for n in mine) * steps / seen
+    busy = sum(per_kernel.values()) - sum(per_kernel[n] for n in mine) \
+        + k1w_dev
+    kernels = (sum(calls.values()) - seen) // steps + 1
+    print(f"{label} breakdown over {steps} steps (torch.profiler, {seen} "
+          f"of {steps} K1w launches recorded; K1w's device time scaled "
+          f"per recorded launch): wall {wall_ms:.4f} ms/step; device busy "
+          f"{busy:.4f} ms/step = K1w {k1w_dev:.4f} + other kernels "
+          f"{busy - k1w_dev:.4f} ({kernels} kernels a step); device idle "
+          f"{1 - busy / wall_ms:.1%} of the wall")
+    top = sorted(((v, n) for n, v in per_kernel.items() if n not in mine),
+                 reverse=True)[:6]
+    for v, n in top:
+        print(f"  other kernel {v:.4f} ms/step ({calls[n] // steps} a "
+              f"step): {n[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "k1w_ms": k1w_dev,
+            "seen": seen, "kernels": kernels}
+
+
 def ppr_kernel_phase(s, host):
-    """Phase 12(b): K1 on the PPR path: the column launchers at (a)'s
-    shapes against the plan-order plain version, run-to-run and
-    batch-to-alone bit-identity, f64 against the host oracle, and the
-    chunk-iteration time beside torch.sparse.mm."""
+    """Phase 12(b): K1w on the PPR path at (a)'s shapes against its plain
+    version and K1's column launchers, in every entry; PTK001-005 on its
+    plan; run-to-run and batch-to-alone bit-identity, f64 against the
+    host oracle; the tile sweep, the chunk iteration, K1's 64 launches
+    and torch.sparse.mm."""
     import numpy as np
     import torch
 
@@ -2085,112 +2151,171 @@ def ppr_kernel_phase(s, host):
     from pagerank_tpu_torch.analysis import kernels
     from pagerank_tpu_torch.engines.ppr import PprTorchEngine
     from pagerank_tpu_torch.ops import ell as ell_lib
-    from pagerank_tpu_torch.ops import ell_spmv
+    from pagerank_tpu_torch.ops import ell_spmm, ell_spmv
 
     eng, graph, res = s["engine"], s["graph"], s["ppr"]
-    f32 = torch.float32
+    f32, f64 = torch.float32, torch.float64
     t0 = time.perf_counter()
-    launchers = eng._launchers
-    _check(len(launchers) == PPR_CHUNK, f"{len(launchers)} column launchers "
-           f"bound, want {PPR_CHUNK}")
-    z_cols = eng._z_cols  # (a)'s last prescaled chunk
-    for ln in launchers:
-        ln()
-    got = launchers[0].out_cols.cpu()
-    plan_cpu = ell_lib.segment_plan(eng._row_block.cpu().numpy(),
-                                    eng._num_blocks)
-    want = ell_spmv.ell_contrib_spmm_reference(
-        z_cols.cpu(), eng._src.cpu(), accum_dtype=f32, plan=plan_cpu)
-    bad = [j for j in range(PPR_CHUNK) if not torch.equal(got[j], want[j])]
-    _check(not bad, f"K1 column launchers differ from the plan-order plain "
-           f"version at columns {bad[:8]}")
-    exact = ell_spmv.ell_contrib_spmm_reference(
-        z_cols.cpu().double(), eng._src.cpu(), accum_dtype=torch.float64,
-        plan=plan_cpu)
+    launcher, z2 = eng._launcher, eng._z2  # (a)'s last prescaled chunk
+    src, rb, nb, plan = eng._src, eng._row_block, eng._num_blocks, eng._plan
+    k = PPR_CHUNK
+    _check(launcher is not None and launcher.width == k
+           and z2.shape[1] == k, f"K1w bound at {launcher and launcher.width} "
+           f"columns over z2 {tuple(z2.shape)}, want {k}")
+    plan_cpu = ell_lib.segment_plan(rb.cpu().numpy(), nb)
+    src_cpu = src.cpu()
+
+    def plain(z, acc):
+        """The plain version on the CPU, 8 columns at a time (any tile
+        gives the same bits; 8 keeps the host's gather at ~1 GB): the
+        sums, and block 0's lanes folded (the dangling mass)."""
+        kw = {"accum_dtype": acc, "plan": plan_cpu, "k": k, "kt": 8}
+        return (ell_spmm.ell_contrib_spmm_rows_reference(z.cpu(), src_cpu,
+                                                         **kw),
+                ell_spmm.mass_reference(z.cpu(), src_cpu, **kw))
+
+    def columns(z, acc):
+        """K1 once a column (the yardstick), bound over z's columns."""
+        return ell_spmv.bind_columns(z.T.contiguous(), src, nb,
+                                     accum_dtype=acc, plan=plan)
+
+    # Each entry at k = 1, 8 and 64 (f32/f64 at 64) against its plain
+    # version on the CPU and against K1's 64 column launches.
+    z64 = z2.to(f64)
+    held, wants = [], {}
+    for z, acc, ks in ((z2, f32, (1, 8, k)), (z64, f64, (1, 8, k)),
+                       (z2, f64, (k,))):
+        want, mass = wants[z.dtype, acc] = plain(z, acc)
+        cols = columns(z, acc)
+        for ln in cols:
+            ln()
+        _check(torch.equal(cols[0].out_cols.cpu().T, want),
+               f"K1's column launchers ({_dt(z)}/{acc}) differ from the "
+               f"plain version")
+        wide = ell_spmm.bind_spmm(z, src, nb, accum_dtype=acc, plan=plan)
+        for kc in ks:
+            got = wide(kc)[:, :kc].cpu()
+            _check(torch.equal(got, want[:, :kc])
+                   and torch.equal(wide.mass[:kc].cpu(), mass[:kc]),
+                   f"K1w ({_dt(z)}/{acc}, k={kc}, tile {wide.last_tile}) "
+                   f"differs from its plain version and K1's columns, or "
+                   f"its folded mass from the plain fold")
+            held.append(f"{_dt(z)}/{str(acc)[6:]} k={kc} (tile "
+                        f"{wide.last_tile})")
+        del cols, wide
+    # z2's f32 values are exact in f64: the f64/f64 sums are exact sums.
+    (exact, _), (want32, mass32) = wants[f64, f64], wants[f32, f32]
+    got = launcher(k).cpu()
     err = float((got.double() - exact).abs().max())
     scale = max(float(exact.abs().max()), 1e-300)
-    _check(err / scale <= 1e-5, f"K1 columns vs exact f64 sums: normalised "
+    _check(err / scale <= 1e-5, f"K1w vs exact f64 sums: normalised "
            f"{err / scale:.3e} > 1e-5")
-    case = kernels.k1_case_from_inputs(
-        "ell_contrib@ppr", z_cols[0], eng._src, eng._row_block,
-        eng._num_blocks, eng._plan, device_kind=torch.cuda.get_device_name(0))
-    _check_case(case)
-    # The bound of the function the chunk computes, one PPR_CHUNK-wide
-    # SpMM (the slots and plan once, each column's z and output once);
-    # one column's bound is a launch's.
-    bound_col = _bound_ms(case.cost_model)[0]
-    spmm_cost = kernels.k1_cost(
-        int(eng._src.shape[0]), eng._n_state, eng._num_blocks,
-        plan_cpu.num_segments, case.operands["empty_blocks"].numel,
-        z_cols.element_size(), columns=PPR_CHUNK)
+    kind = torch.cuda.get_device_name(0)
+    for kc in (k, 8, 1):
+        _check_case(kernels.k1w_case_from_inputs(
+            f"ell_contrib_spmm@ppr-k{kc}", z2, src, rb, nb, plan, k=kc,
+            device_kind=kind))
+    # The bound of the function, one 64-column SpMM (the slots and plan
+    # once, each column's z and output once).
+    num_empty = int(plan.empty_groups.numel())
+    spmm_cost = kernels.k1_cost(int(src.shape[0]), eng._n_state, nb,
+                                plan_cpu.num_segments, num_empty,
+                                z2.element_size(), columns=k)
     bound_ms, bound_by = _bound_ms(spmm_cost)
+    # The tile sweep: the 64-column SpMM at every built tile, each
+    # torch.equal to the plain version.
+    sweep = {}
+    for kt in ell_spmm.TILES:
+        ln = ell_spmm.bind_spmm(z2, src, nb, accum_dtype=f32, plan=plan,
+                                kt=kt)
+        _check(torch.equal(ln(k).cpu(), want32)
+               and torch.equal(ln.mass[:k].cpu(), mass32),
+               f"K1w at tile {kt} differs from its plain version")
+        sweep[f"kt{kt}"] = _median_ms(lambda: ln(k), 20)
+        del ln
+    # Over f64 sums (z2 in f64) at the tiles that hold the most sums a
+    # thread: what KT_F64 was chosen by.
+    want64, mass64 = wants[f64, f64]
+    for kt in (16, 32, 64):
+        ln = ell_spmm.bind_spmm(z64, src, nb, accum_dtype=f64, plan=plan,
+                                kt=kt)
+        _check(torch.equal(ln(k).cpu(), want64)
+               and torch.equal(ln.mass[:k].cpu(), mass64),
+               f"K1w f64/f64 at tile {kt} differs from its plain version")
+        sweep[f"f64-kt{kt}"] = _median_ms(lambda: ln(k), 20)
+        del ln
     # The same 64-column batch twice, and one source alone.
-    batch = res.sources[:PPR_CHUNK]
+    batch = res.sources[:k]
     r1 = eng.solve_chunk(batch, PPR_ITERS)
     r2 = eng.solve_chunk(batch, PPR_ITERS)
     _check(torch.equal(r1, r2), "the same PPR batch twice differs")
     ids_b, sc_b = eng.topk(r1, PPR_TOPK)
     alone = eng.run(batch[5:6], topk=PPR_TOPK)
-    ids_a = eng._perm[ids_b[5].cpu().numpy()]
-    sc_a = sc_b[5].cpu().numpy()
-    _check(np.array_equal(alone.topk_ids[0], ids_a),
-           "a source alone gives other ids than in its batch")
-    rel = float(np.abs(alone.topk_scores[0] - sc_a).max()
-                / np.abs(sc_a).max())
-    _check(rel <= 1e-6, f"a source alone vs in its batch: scores {rel:.3e} "
-           f"relative apart")
-    same = np.array_equal(alone.topk_scores[0], sc_a)
+    _check(np.array_equal(alone.topk_ids[0],
+                          eng._perm[ids_b[5].cpu().numpy()])
+           and np.array_equal(alone.topk_scores[0], sc_b[5].cpu().numpy()),
+           "a source alone gives other ids or score bits than in its batch")
     # f64/f64 against the host oracle.
     e64 = PprTorchEngine(PageRankConfig(num_iters=PPR_ITERS,
                                         dtype="float64",
                                         accum_dtype="float64")).build(graph)
     r64 = e64.solve_chunk(res.sources[:PPR_ORACLE_SOURCES], PPR_ITERS)
-    full = np.empty((PPR_ORACLE_SOURCES, graph.n))
-    full[:, e64._perm] = r64[:, : graph.n].cpu().numpy()
-    err64 = float(np.abs(full - host.T).max())
+    full = np.empty((graph.n, PPR_ORACLE_SOURCES))
+    full[e64._perm] = r64[: graph.n].cpu().numpy()
+    err64 = float(np.abs(full - host).max())
     _check(err64 <= 1e-12, f"f64/f64 PPR vs the host oracle on "
            f"{PPR_ORACLE_SOURCES} sources: max abs {err64:.3e} > 1e-12")
     del e64, r64
-    # Times: one iteration of a 64-column chunk (CUDA events), its 64
-    # launches alone, and the library yardstick.
+    # Times: one iteration of a 64-column chunk (CUDA events), its K1w
+    # launch, K1's 64 column launches, the plain version and the
+    # library yardstick.
     p = torch.zeros_like(r1)
-    p[torch.arange(PPR_CHUNK), torch.from_numpy(
-        eng._inv_perm[batch].astype(np.int64)).cuda()] = 1.0
+    p[torch.from_numpy(eng._inv_perm[batch].astype(np.int64)).cuda(),
+      torch.arange(k, device="cuda")] = 1.0
     p_acc, r = p.to(eng._accum), r1.clone()
     step_ms = _median_ms(lambda: eng._step(r, p_acc), 20)
-    k1_ms = _median_ms(lambda: [ln() for ln in launchers], 20)
-    plain_ms = _median_ms(lambda: [ell_spmv.ell_contrib_reference(
-        z, eng._src, eng._row_block, eng._num_blocks, accum_dtype=f32)
-        for z in z_cols], 5, warmup=1)
+    split = _k1w_step_split(f"PPR chunk iteration ({k} columns)",
+                            lambda: eng._step(r, p_acc), 10)
+    wall_ms, busy = split["wall_ms"], split["busy_ms"]
+    k1w_ms = _median_ms(lambda: launcher(k), 20)
+    cols = columns(z2, f32)
+    k1_ms = _median_ms(lambda: [ln() for ln in cols], 20)
+    del cols
+    plain_ms = _median_ms(lambda: ell_spmm.ell_contrib_spmm_rows_reference(
+        z2, src, accum_dtype=f32, plan=plan, k=k), 5, warmup=1)
     a_t = _csr_transpose(graph, f32)
-    zd = torch.rand((graph.n, PPR_CHUNK), dtype=f32, device="cuda")
+    zd = torch.rand((graph.n, k), dtype=f32, device="cuda")
     lib_ms = _median_ms(lambda: torch.sparse.mm(a_t, zd), 20)
     del a_t, zd
-    print(f"K1 on the PPR path ({launchers[0].grid} CTAs, head "
-          f"{launchers[0].head}, {eng.layout_info()['num_rows']} rows x 128, "
-          f"{plan_cpu.num_segments} segments): {PPR_CHUNK} column launchers "
-          f"torch.equal to the plan-order plain version on the CPU (max "
-          f"abs {err:.3e} from exact f64 sums), PTK001-005 clean on this "
-          f"plan; the same {PPR_CHUNK}-column batch twice bit-equal; a "
-          f"source alone: ids equal, scores "
-          f"{'bit-equal' if same else f'{rel:.3e} relative apart'}; f64/f64 "
-          f"{err64:.3e} max abs from the host oracle on "
-          f"{PPR_ORACLE_SOURCES} sources")
-    print(f"PPR chunk iteration ({PPR_CHUNK} columns, CUDA events, median "
-          f"of 20): {step_ms:.4f} ms, of which the {PPR_CHUNK} K1 launches "
-          f"{k1_ms:.4f} ms ({k1_ms / PPR_CHUNK:.4f} ms a column); the "
-          f"{PPR_CHUNK}-column SpMM's {bound_by} bound {bound_ms:.4f} ms "
-          f"({spmm_cost['bytes']:.0f} B; {bound_ms / k1_ms:.1%} of bound "
-          f"for the {PPR_CHUNK} launches), a launch's {bound_col:.4f} ms "
-          f"({case.cost_model['bytes']:.0f} B); the plain twin (index_add_) over "
-          f"the {PPR_CHUNK} columns {plain_ms:.4f} ms; one "
-          f"torch.sparse.mm of A_T (CSR, "
-          f"f32) with a dense [n, {PPR_CHUNK}] f32 matrix {lib_ms:.4f} ms "
+    print(f"K1w on the PPR path ({launcher.grid} CTAs, tile {launcher.kt}, "
+          f"{eng.layout_info()['num_rows']} rows x "
+          f"128, {plan_cpu.num_segments} segments, workspace "
+          f"{launcher.work.seg_stride} segments a tile): torch.equal to its "
+          f"plain version on the CPU and to K1's {k} column launches in "
+          + ", ".join(held) + f"; max abs {err:.3e} from exact f64 sums; "
+          f"PTK001-005 clean on this plan at k = {k}, 8, 1; the same "
+          f"{k}-column batch twice bit-equal; a source alone: ids and "
+          f"scores bit-equal; f64/f64 {err64:.3e} max abs from the host "
+          f"oracle on {PPR_ORACLE_SOURCES} sources")
+    print(f"K1w tile sweep, the {k}-column SpMM (CUDA events, median of "
+          f"20; each torch.equal to the plain version): "
+          + ", ".join(f"{t} {v:.4f} ms" for t, v in sweep.items()))
+    print(f"PPR chunk iteration ({k} columns, CUDA events, median of 20): "
+          f"{step_ms:.4f} ms, of which the K1w launch {k1w_ms:.4f} ms; "
+          f"K1's {k} column launches {k1_ms:.4f} ms ({k1_ms / k1w_ms:.2f}x "
+          f"K1w); the {k}-column SpMM's {bound_by} bound {bound_ms:.4f} ms "
+          f"({spmm_cost['bytes']:.0f} B; {bound_ms / k1w_ms:.1%} of bound "
+          f"for K1w, {bound_ms / k1_ms:.1%} for the {k} launches); the "
+          f"plain version on the card {plain_ms:.4f} ms; one "
+          f"torch.sparse.mm of A_T (CSR, f32) with a dense [n, {k}] f32 "
+          f"matrix {lib_ms:.4f} ms ({k1w_ms / lib_ms:.2f}x) "
           f"({time.perf_counter() - t0:.1f} s)")
-    return {"chunk_iter_ms": step_ms, "k1_chunk_ms": k1_ms,
+    return {"chunk_iter_ms": step_ms, "chunk_iter_wall_ms": wall_ms,
+            "chunk_iter_busy_ms": busy, "k1w_ms": k1w_ms,
+            "k1_chunk_ms": k1_ms,
             "plain_ms": plain_ms, "sparse_mm_ms": lib_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_ms_per_launch": bound_col}
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "kt": launcher.kt, "sweep_ms": sweep}
 
 
 def serve_phase(s):
@@ -2203,6 +2328,7 @@ def serve_phase(s):
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
+    import torch
 
     from pagerank_tpu_torch import PageRankConfig, serve
     from pagerank_tpu_torch.serving import PprServer, QueryIngress, ServeConfig
@@ -2214,7 +2340,8 @@ def serve_phase(s):
         rc = serve.main(["--serve-smoke", "64", "--scale", str(PPR_SCALE),
                          "--iters", str(PPR_ITERS), "--topk",
                          str(PPR_TOPK), "--max-batch", "8"])
-    k1, k2, _ = _read_counts()
+    k1, k2, probe = _read_counts()
+    k1w = probe["K1w"]
     text = buf.getvalue().strip()
     print(f"serve smoke: {text.splitlines()[-1] if text else '(no output)'}")
     _check(rc == 0, f"serve --serve-smoke exited {rc}")
@@ -2223,20 +2350,22 @@ def serve_phase(s):
         o.startswith("answered") for o in doc["outcomes"]),
         f"serve smoke outcomes {doc['outcomes']}, unsettled "
         f"{doc['unsettled']}")
-    # One column a computed answer (no padding to the batch width), plus
-    # the warm-up batch bound at 8; cached answers launch nothing.
-    columns = doc["outcomes"].get("answered", 0)
-    want = (columns + 8) * PPR_ITERS
-    _check(k1 == want and k2 == 0, f"serve smoke: K1 launched {k1} times "
-           f"(want {want}: {columns} computed answers + the 8-column "
-           f"warm-up, x {PPR_ITERS} iterations), K2 {k2}")
+    # One K1w launch an iteration a dispatched batch (over its live
+    # columns only), plus the warm-up batch; cached answers launch
+    # nothing.
+    want = (doc["batches"] + 1) * PPR_ITERS
+    _check(k1w == want and k1 == 0 and k2 == 0,
+           f"serve smoke: K1w launched {k1w} times (want {want}: "
+           f"{doc['batches']} batches + the warm-up, x {PPR_ITERS} "
+           f"iterations), K1 {k1}, K2 {k2}")
     smoke_s = time.perf_counter() - t0
     walls = doc["batch_wall_ms"]
     print(f"serve smoke at rmat:{PPR_SCALE}: warm-up {doc['warmup_s']:.3f} s "
-          f"(engine build, kernel load, K1 bound at 8 columns), "
+          f"(engine build, kernel load, K1w bound at 8 columns), "
           f"{doc['batches']} batches, batch wall first {walls['first']:.3f} "
-          f"ms, p50 {walls['p50']:.3f} ms, p99 {walls['p99']:.3f} ms; K1 "
-          f"launches {k1} for {columns} computed answers + warm-up "
+          f"ms, p50 {walls['p50']:.3f} ms, p99 {walls['p99']:.3f} ms; K1w "
+          f"launches {k1w} for {doc['outcomes'].get('answered', 0)} "
+          f"computed answers in {doc['batches']} batches + warm-up "
           f"({smoke_s:.1f} s with the graph build)")
     # The HTTP ingress over the graph of (a).
     graph, res, eng = s["graph"], s["ppr"], s["engine"]
@@ -2276,18 +2405,56 @@ def serve_phase(s):
             status, health = get("/healthz")
             _check(status == 200 and health["status"] == "serving",
                    f"/healthz: {status} {health}")
-        # A lone query runs one column: PPR_ITERS launches, no padding.
+        # A lone query runs one column: a K1w launch an iteration at a
+        # 4-column tile, no padding.
         walls_before = len(srv.batch_walls)
         _reset_counts()
         lone_src = next(int(v) for v in res.sources if int(v) not in sources)
         lone = srv.submit(lone_src, k=PPR_TOPK, deadline_s=1.0)
         lone.wait(30)
-        k1_lone, _, _ = _read_counts()
-        _check(lone.outcome == "answered" and k1_lone == PPR_ITERS
+        k1, _, probe = _read_counts()
+        k1w_lone, tile = probe["K1w"], srv._engine._launcher.last_tile
+        _check(lone.outcome == "answered" and k1w_lone == PPR_ITERS
+               and k1 == 0 and tile == 4
                and len(srv.batch_walls) == walls_before + 1,
-               f"a lone query: {lone.outcome}, K1 {k1_lone} launches (want "
-               f"{PPR_ITERS}: one column)")
-        lone_ms = srv.batch_walls[walls_before] * 1e3
+               f"a lone query: {lone.outcome}, K1w {k1w_lone} launches at "
+               f"tile {tile} (want {PPR_ITERS} at 4: one column), K1 {k1}")
+        # Four more lone queries, each a source not asked before: the
+        # first pays for what a 1-column call allocates.
+        asked, more = set(sources) | {lone_src}, []
+        for v in map(int, res.sources):
+            if v not in asked and len(more) < 4:
+                asked.add(v)
+                more.append(v)
+        for v in more:
+            q = srv.submit(v, k=PPR_TOPK, deadline_s=1.0)
+            q.wait(30)
+            _check(q.outcome == "answered", f"lone query {v}: {q.outcome}")
+        lone_walls = [w * 1e3 for w in srv.batch_walls[walls_before:]]
+        _check(len(lone_walls) == 1 + len(more),
+               f"{len(lone_walls)} batch walls for {1 + len(more)} lone "
+               f"queries")
+        lone_ms = statistics.median(lone_walls)
+        # What bounds it: the same query through the engine alone (host
+        # wall, top-k and fetch included), one of its iterations split
+        # by kernel on the daemon's engine (bound at 8 columns), its K1w
+        # launch and its top-k.
+        eng1 = srv._engine
+        run_ms = []
+        for v in more:
+            t1 = time.perf_counter()
+            eng1.run(np.array([v]), topk=PPR_TOPK)
+            run_ms.append((time.perf_counter() - t1) * 1e3)
+        with eng1._run_lock:
+            p1 = torch.zeros((eng1._n_state, 1), dtype=eng1._dtype,
+                             device="cuda")
+            p1[int(eng1._inv_perm[lone_src]), 0] = 1.0
+            p1_acc, r1 = p1.to(eng1._accum), p1.clone()
+            lone_split = _k1w_step_split(
+                "a lone query's iteration (1 column, the daemon's engine)",
+                lambda: eng1._step(r1, p1_acc), 20)
+            lone_k1w_ms = _median_ms(lambda: eng1._launcher(1), 20)
+            topk_ms = _median_ms(lambda: eng1.topk(r1, PPR_TOPK), 20)
     finally:
         srv.drain()
     print(f"HTTP ingress: 16 concurrent queries answered in "
@@ -2297,11 +2464,22 @@ def serve_phase(s):
           f"{health['status']}; warm-up {srv.warmup_seconds:.3f} s, batch "
           f"walls " + ", ".join(f"{w * 1e3:.3f}" for w in
                                 srv.batch_walls[:walls_before])
-          + f" ms; a lone query after them: one column, K1 {k1_lone} "
-          f"launches, batch wall {lone_ms:.3f} ms")
+          + f" ms; a lone query after them: one column, K1w {k1w_lone} "
+          f"launches at tile {tile}; {len(lone_walls)} lone queries' batch "
+          f"walls " + ", ".join(f"{w:.3f}" for w in lone_walls)
+          + f" ms (median {lone_ms:.3f}); the same queries through "
+          f"PprTorchEngine.run alone " + ", ".join(f"{w:.3f}" for w in run_ms)
+          + f" ms (host wall, top-k and fetch included); its K1w launch "
+          f"alone {lone_k1w_ms:.4f} ms, its top-k {topk_ms:.4f} ms (CUDA "
+          f"events, median of 20)")
     return {"warmup_s": doc["warmup_s"],
             "batch_wall_ms": dict(doc["batch_wall_ms"], lone=lone_ms),
-            "http_warmup_s": srv.warmup_seconds}
+            "http_warmup_s": srv.warmup_seconds,
+            "lone_walls_ms": lone_walls,
+            "lone_run_ms": run_ms, "lone_k1w_ms": lone_k1w_ms,
+            "lone_topk_ms": topk_ms,
+            "lone_step": {k: lone_split[k] for k in
+                          ("wall_ms", "busy_ms", "k1w_ms", "kernels")}}
 
 
 def coo_phase(graph, oracle, flat_eng, part_ms):
@@ -2436,22 +2614,31 @@ def main(argv=None) -> int:
         del ppr
         print(f"PPR and serving phase took {time.perf_counter() - t_ppr:.1f} "
               f"s")
-        k1["ppr"] = {"launches": ppr_report["launches"],
-                     "chunk_iter_ms": ppr_report["chunk_iter_ms"],
-                     "k1_chunk_ms": ppr_report["k1_chunk_ms"],
-                     "plain_ms": ppr_report["plain_ms"],
-                     "bound_ms": ppr_report["bound_ms"],
-                     "bound_by": ppr_report["bound_by"],
-                     "bound_ms_per_launch": ppr_report["bound_ms_per_launch"],
-                     "library_ms": ppr_report["sparse_mm_ms"],
-                     "edge_vectors_per_s": ppr_report["evs"],
-                     "serve_warmup_s": serving["warmup_s"],
-                     "serve_batch_wall_ms": serving["batch_wall_ms"],
-                     "coo_ms_per_iter": coo["ms_per_iter"],
+        k1["coo"] = {"coo_ms_per_iter": coo["ms_per_iter"],
                      "flat_ms_per_iter": coo["flat_ms_per_iter"]}
+        k1w = {"name": "ell_contrib_spmm", "route": "cuda",
+               "source": "pagerank_tpu_torch/csrc/ell_contrib_spmm.cu",
+               "replaces": "pagerank_tpu/ops/spmv.py:380",
+               "checked": True, "launches": ppr_report["launches"],
+               "max_abs_err": ppr_report["max_abs_err"],
+               "ms": ppr_report["k1w_ms"], "plain_ms": ppr_report["plain_ms"],
+               "bound_ms": ppr_report["bound_ms"],
+               "bound_by": ppr_report["bound_by"],
+               "library_ms": ppr_report["sparse_mm_ms"],
+               "kt": ppr_report["kt"], "sweep_ms": ppr_report["sweep_ms"],
+               "k1_column_launches_ms": ppr_report["k1_chunk_ms"],
+               "chunk_iter_ms": ppr_report["chunk_iter_ms"],
+               "edge_vectors_per_s": ppr_report["evs"],
+               "serve_warmup_s": serving["warmup_s"],
+               "serve_batch_wall_ms": serving["batch_wall_ms"],
+               "lone_k1w_ms": serving["lone_k1w_ms"],
+               "lone_step": serving["lone_step"],
+               "shapes": f"z2 float32[{1 << PPR_SCALE}+8, {PPR_CHUNK}] "
+                         f"(rmat:{PPR_SCALE}), {PPR_SOURCES} sources x "
+                         f"{PPR_ITERS} iterations"}
     fixtures = fixture_phase(analysis_phase())
     print(f"chip smoke took {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [k1, k2, *probe, *fixtures]}))
+    print(json.dumps({"kernels": [k1, k2, k1w, *probe, *fixtures]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

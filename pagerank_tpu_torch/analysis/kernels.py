@@ -48,19 +48,24 @@ real pack's plan; nothing of the geometry is restated by hand.
           (each interval's bytes as often as CTAs touch it, a gathered
           table once) against the case's analytic model within 25%. The
           analytic model is the byte formula PERF.md's bounds use
-          (:func:`k1_cost`, :func:`k2_cost`, :func:`probe_cost`).
+          (:func:`k1_cost`, :func:`k2_cost`, :func:`probe_cost`; K1w's
+          :func:`k1w_cost` adds the slot passes of its column tiles, its
+          partials and its fold to the bound).
 
 With compile facts (``--compiled``, :mod:`.resources`, read from the
 built libraries), PTK001 also holds the declared static shared bytes
 against the compiler's, PTK002 the declared __launch_bounds__ against
-the compiler's and registers x threads against the SM's 65,536 and
-local memory (a spill) against 0, and PTK004 looks for f64
+the compiler's and registers x threads against the SM's 65,536, and
+local memory and the stack frame (a spill, or an array kept in memory)
+against 0, or against the bytes :data:`STACK_EXCEPTIONS` records for a
+named instance; PTK004 looks for f64
 instructions in the SASS of a symbol registered under an f32 config.
 
 Verdicts are deterministic and run on the CPU; the CLI is ``python -m
 pagerank_tpu_torch.analysis --select PTK``. The shipped registry
 (:func:`shipped_cases`) holds K1 and K2 at a toy geometry and at the
-JAX campaign's bench scales 22-25, and P1-P3 at the probe's 2^19 rows;
+JAX campaign's bench scales 22-25, K1w at the PPR path's scale, and
+P1-P3 at the probe's 2^19 rows;
 the seeded-defect fixtures F1-F6 (:func:`defect_cases`) each trip
 exactly their rule.
 """
@@ -88,7 +93,8 @@ RULES: Dict[str, str] = {
               "cudaFuncSetAttribute opt-in",
     "PTK002": "launch geometry: threads a multiple of 32 within "
               "__launch_bounds__ and 1024, grid limits, vector-load "
-              "alignment; compiled: registers x threads, no spills",
+              "alignment; compiled: registers x threads, no local memory "
+              "or stack frame (spills)",
     "PTK003": "CTA coverage: reads in bounds; every output element "
               "written by exactly one CTA (gaps AND races); segments "
               "partition the slot rows",
@@ -347,13 +353,15 @@ class Operand:
     "counter" (ticket counters, updated atomically).
     ``align``: the byte alignment of its base that the wrapper
     guarantees (the caching allocator's 256 B for a fresh tensor).
-    ``partition``: its reads must cover it exactly once."""
+    ``partition``: its reads must cover it exactly ``passes`` times
+    (once, or once a column tile of K1w)."""
 
     dtype: str
     numel: int
     role: str = "in"
     align: int = 256
     partition: bool = False
+    passes: int = 1
 
     @property
     def itemsize(self) -> int:
@@ -454,6 +462,26 @@ def k1_cost(rows: int, n_state: int, num_blocks: int, num_segs: int,
             "bytes": float(rows * LANES * 4 + columns * per_column + plan)}
 
 
+def k1w_cost(rows: int, n_state: int, num_blocks: int, num_segs: int,
+             num_empty: int, z_item: int, columns: int, tiles: int = 1,
+             partials: int = 0, fold: int = 0,
+             acc_item: int = 4) -> Dict[str, float]:
+    """What K1w (``csrc/ell_contrib_spmm.cu``) moves for a
+    ``columns``-wide SpMM cut into ``tiles`` column tiles: the bound
+    :func:`k1_cost` of that width, plus the slot table and the plan once
+    more for each tile after the first, plus ``partials`` elements of
+    ``acc_item`` bytes that the deep blocks' segments write and their
+    finishers read back, plus the ``fold`` elements block 0's lanes are
+    folded in (written once). At one tile, no partials and no fold it is
+    the bound."""
+    cost = k1_cost(rows, n_state, num_blocks, num_segs, num_empty, z_item,
+                   columns)
+    plan = (num_segs + 1 + num_segs + num_blocks + 1 + num_empty) * 4
+    cost["bytes"] += ((tiles - 1) * (rows * LANES * 4 + plan)
+                      + 2 * partials * acc_item + fold * acc_item)
+    return cost
+
+
 def k2_cost(rows: int, word_bytes: int, table_numel: int, table_item: int,
             num_pairs: int, num_segs: int, num_blocks: int, num_live: int,
             num_empty: int) -> Dict[str, float]:
@@ -504,13 +532,15 @@ def _runs(starts, stops):
             - np.repeat(np.cumsum(n) - n, n))
 
 
-def _rows_of(idx):
-    """Element intervals of the 128-wide rows ``idx``."""
+def _rows_of(idx, width: int = LANES):
+    """Element intervals of the ``width``-wide (default 128) rows
+    ``idx``."""
     idx = np.asarray(idx, np.int64)
-    return idx * LANES, idx * LANES + LANES
+    return idx * width, idx * width + width
 
 
-def _finishers(gss, group_of_seg, chunk: int, counter: str, active=None):
+def _finishers(gss, group_of_seg, chunk: int, counter: str, active=None,
+               width: int = LANES):
     """The finishers' accesses of groups (blocks or pairs) cut into
     segments [gss[g], gss[g+1]) (``ell_persistent.cuh:finish_group``):
     a segment of a group of 2+ writes its partial; a group of up to
@@ -521,8 +551,9 @@ def _finishers(gss, group_of_seg, chunk: int, counter: str, active=None):
     first segment, and the chunks draw tickets on ``counter`` for the
     finisher that reads the chunk sums. Every counter is reset by its
     finisher. Only the ``active`` groups (default all) are finished so:
-    the others are summed whole by one lane group. Returns (accesses,
-    adds, finished groups of 2+ segments)."""
+    the others are summed whole by one lane group. ``width``: the
+    elements of a partial row (128 lanes, x the columns of a K1w tile).
+    Returns (accesses, adds, finished groups of 2+ segments)."""
     nseg = np.maximum(gss[1:] - gss[:-1], 0)
     if active is not None:
         nseg = np.where(active, nseg, 0)
@@ -538,14 +569,14 @@ def _finishers(gss, group_of_seg, chunk: int, counter: str, active=None):
     c1 = np.minimum(c0 + chunk, np.repeat(gss[deep_g + 1], nch))
     chunk_of = (gss[group_of_seg] + (seg - gss[group_of_seg]) // chunk
                 * chunk)[deep]
-    lanes = LANES
+    lanes = width
     accesses = [
-        Access("partial", "write", *_rows_of(seg[multi])),
+        Access("partial", "write", *_rows_of(seg[multi], width)),
         Access("partial", "read", gss[shallow_g] * lanes,
                gss[shallow_g + 1] * lanes),
         Access("partial", "read", c0 * lanes, c1 * lanes),
-        Access("chunk_sum", "write", *_rows_of(c0)),
-        Access("chunk_sum", "read", *_rows_of(c0)),
+        Access("chunk_sum", "write", *_rows_of(c0, width)),
+        Access("chunk_sum", "read", *_rows_of(c0, width)),
         Access(counter, "atomic", group_of_seg[multi & ~deep],
                group_of_seg[multi & ~deep] + 1),
         Access(counter, "atomic", shallow_g, shallow_g + 1),  # the reset
@@ -673,6 +704,144 @@ def k1_case(label: str, *, seg_row_start, block_seg_start, row_block,
         label=label, config={"z": z_dtype, "accum": accum_dtype},
         operands=ops, launches=[launch],
         cost_model=k1_cost(rows, n_state, nb, num_segs, len(empty), z_item),
+        segments=(rs, bss, np.asarray(row_block, np.int64)))
+
+
+def _shifted(accesses, offsets):
+    """The accesses with each interval of operand ``name`` moved by
+    ``offsets[name]`` elements (one tile's share of a K1w workspace)."""
+    return [dataclasses.replace(a, lo=a.lo + offsets[a.operand],
+                                hi=a.hi + offsets[a.operand])
+            for a in accesses]
+
+
+def k1w_case(label: str, *, seg_row_start, block_seg_start, row_block,
+             n_state: int, k: int, kt: Optional[int] = None, seg_block=None,
+             item_start=None, item_segs=None, num_split: Optional[int] = None,
+             z_dtype: str = "float32", accum_dtype: str = "float32",
+             src_max: Optional[int] = None,
+             seg_stride: Optional[int] = None,
+             device_kind: Optional[str] = None, csrc_dir=None) -> KernelCase:
+    """K1w (``csrc/ell_contrib_spmm.cu``) on a segment plan over ``k``
+    live columns: one persistent launch of ``ell_contrib_spmm_kernel``
+    at the tile ``ops/ell_spmm.py:tile_width(k, kt)`` picks (``kt``
+    default the engine's, ``default_tile``), the wrapper's grid and the block from the
+    source. Each tile runs K1's work items (see :func:`k1_case`)
+    over its columns: the slot rows once a tile (``src`` is partitioned
+    once per tile), the tile's partials, chunk sums and counters in the
+    tile's share of the workspace (``seg_stride`` segments a tile,
+    default ``ops/ell_spmm.py:split_extent``). ``out`` [blocks x 128,
+    kp] is modelled in tile-major element order, a bijection of its
+    elements: tile t's columns of row r at t x tw x rows + r x w_t (w_t
+    the tile's live columns rounded up to whole vectors), so one block's
+    write in a tile is one interval; ``fold`` [128, kp] (block 0's lanes
+    folded, written by the lane group that finishes block 0) likewise,
+    one interval a tile. The analytic model is :func:`k1w_cost` at kp
+    columns, the case's tiles, its partials (each split segment's
+    tile-wide row, once a tile) and the fold."""
+    import torch
+
+    from pagerank_tpu_torch.ops import ell_spmm
+
+    src = read_source("ell_contrib_spmm", csrc_dir)
+    symbol = "ell_contrib_spmm_kernel"
+    lanes, threads = src.const("kLanes"), src.const("kThreads")
+    z_item = _DTYPE_BYTES[z_dtype]
+    vec = src.const("kVecBytes") // z_item
+    if kt is None:
+        kt = ell_spmm.default_tile(getattr(torch, accum_dtype))
+    tw = ell_spmm.tile_width(k, kt)
+    kp = _ceil(k, vec) * vec
+    tiles = _ceil(k, tw)
+    tpl = min(tw // vec, threads // lanes)
+    groups = threads // (lanes * tpl)
+    rs = np.asarray(seg_row_start, np.int64)
+    bss = np.asarray(block_seg_start, np.int64)
+    num_segs, nb = len(rs) - 1, len(bss) - 1
+    nseg = np.maximum(bss[1:] - bss[:-1], 0)
+    sb = (np.repeat(np.arange(nb, dtype=np.int64), nseg) if seg_block is None
+          else np.asarray(seg_block, np.int64))
+    ist, isegs, num_split = _items(
+        item_start, item_segs, num_split,
+        [np.arange(bss[b], bss[b + 1]) for b in np.flatnonzero(nseg)], rs)
+    if seg_stride is None:
+        seg_stride = int(isegs[:num_split].max()) + 1 if num_split else 0
+    rows = int(np.asarray(row_block).shape[0])
+    empty = np.flatnonzero(nseg == 0)
+    split = np.zeros(nb, bool)
+    split[sb[isegs[:num_split]]] = True
+    whole_first = isegs[ist[num_split:-1]]
+    r1 = np.maximum(rs[1:], rs[:-1])
+    e = np.arange(len(empty), dtype=np.int64)
+    ssplit = isegs[:num_split]
+    width = lanes * tw
+    accesses, flops = [], 0.0
+    written = None
+    for t in range(tiles):
+        live = min(kp - t * tw, tw)  # the tile's columns, whole vectors
+        fin_acc, fin_adds, fin = _finishers(bss, sb, src.const("kChunk"),
+                                            "counter", active=split,
+                                            width=width)
+        accesses += _shifted(fin_acc, {
+            "partial": t * seg_stride * width,
+            "chunk_sum": t * seg_stride * width,
+            "counter": t * nb, "chunk_counter": t * seg_stride})
+        written = np.concatenate([sb[whole_first], fin, empty])
+        base = t * tw * nb * lanes
+        accesses += [
+            Access("src", "read", rs[isegs] * lanes, r1[isegs] * lanes),
+            *_item_reads(ist),
+            Access("seg_row_start", "read", isegs, isegs + 2),
+            Access("seg_block", "read", isegs[ist[:-1]],
+                   isegs[ist[:-1]] + 1),
+            Access("block_seg_start", "read", sb[ssplit], sb[ssplit] + 2),
+            Access("empty_blocks", "read", e, e + 1),
+            Access("out", "write", base + written * lanes * live,
+                   base + (written + 1) * lanes * live),
+            Access("fold", "write", np.array([t * tw * lanes]),
+                   np.array([t * tw * lanes + lanes * live])),
+        ]
+        # one add a slot a live column, one a segment (its sum into the
+        # block's), and the finishers' (counted over the whole tile)
+        flops += float(((r1 - rs[:-1])[isegs].sum() + len(isegs)) * lanes
+                       * live) + fin_adds * live / tw
+    smax = n_state if src_max is None else int(src_max)
+    accesses.append(Access("z2", "gather", index_max=(smax + 1) * kp - 1,
+                           vector_bytes=src.const("kVecBytes")))
+    short = {"float32": "f32", "float64": "f64"}
+    work = seg_stride * lanes * tiles * tw
+    ops = {
+        "z2": Operand(z_dtype, (n_state + 8) * kp),
+        "src": Operand("int32", rows * lanes, partition=True, passes=tiles),
+        "seg_row_start": Operand("int32", num_segs + 1),
+        "seg_block": Operand("int32", num_segs),
+        "block_seg_start": Operand("int32", nb + 1),
+        "item_start": Operand("int32", len(ist)),
+        "item_segs": Operand("int32", len(isegs)),
+        "empty_blocks": Operand("int32", len(empty)),
+        "partial": Operand(accum_dtype, work, role="scratch"),
+        "chunk_sum": Operand(accum_dtype, work, role="scratch"),
+        "counter": Operand("int32", tiles * nb, role="counter"),
+        "chunk_counter": Operand("int32", tiles * seg_stride,
+                                 role="counter"),
+        "out": Operand(z_dtype, nb * lanes * kp, role="out"),
+        "fold": Operand(accum_dtype, lanes * kp, role="out"),
+    }
+    grid = max(1, min(costs.device_spec(device_kind).sms,
+                      _ceil((len(ist) - 1 + len(empty)) * tiles, groups)))
+    launch = Launch(
+        source="ell_contrib_spmm", symbol=symbol,
+        instance=f"{_K1_INSTANCE[z_dtype]},{_K1_INSTANCE[accum_dtype]},{tw}",
+        entry=f"ell_contrib_spmm_{short[z_dtype]}_{short[accum_dtype]}_kt{tw}",
+        grid=_grid1(grid), block=threads, block_const="kThreads",
+        flops=flops, accesses=accesses)
+    return KernelCase(
+        label=label, config={"z": z_dtype, "accum": accum_dtype},
+        operands=ops, launches=[launch],
+        cost_model=k1w_cost(rows, n_state, nb, num_segs, len(empty), z_item,
+                            kp, tiles, partials=num_split * width * tiles,
+                            fold=lanes * kp,
+                            acc_item=_DTYPE_BYTES[accum_dtype]),
         segments=(rs, bss, np.asarray(row_block, np.int64)))
 
 
@@ -933,6 +1102,28 @@ def probe_case(wrapper: str, label: str, *, rows: int, n: int,
 
 #: The JAX campaign's bench scales (``pagerank_tpu/analysis/kernels.py:
 #: BENCH_SCALES``), R-MAT edge factor 16.
+def k1w_case_from_inputs(label: str, z2, src, row_block, num_blocks, plan,
+                         *, k: int, kt: Optional[int] = None,
+                         accum_dtype: str = "float32",
+                         device_kind: Optional[str] = None,
+                         csrc_dir=None) -> KernelCase:
+    """K1w's case on the tensors a path feeds it (``PprTorchEngine``'s
+    z2, slots, row blocks and plan) at ``k`` live columns, the largest
+    slot index read from the slots."""
+    if int(num_blocks) + 1 != len(plan.block_seg_start):
+        raise ValueError("the plan does not fit num_blocks")
+    return k1w_case(label, seg_row_start=_np(plan.seg_row_start),
+                    block_seg_start=_np(plan.block_seg_start),
+                    seg_block=_np(plan.seg_block),
+                    item_start=_np(plan.item_start),
+                    item_segs=_np(plan.item_segs), num_split=plan.num_split,
+                    row_block=_np(row_block), n_state=int(z2.shape[0]) - 8,
+                    k=k, kt=kt, z_dtype=_dtype_name(z2),
+                    accum_dtype=accum_dtype,
+                    src_max=int(src.max()) if src.numel() else 0,
+                    device_kind=device_kind, csrc_dir=csrc_dir)
+
+
 BENCH_SCALES = (22, 23, 24, 25)
 EDGE_FACTOR = 16
 #: The R-MAT scale of the PPR path's launches (BASELINE.md:154-160).
@@ -961,6 +1152,20 @@ def _synth_k1(label, scale=None, *, n_pad=None, rows=None, **kw):
                    block_seg_start=plan.block_seg_start,
                    seg_block=plan.seg_block, row_block=rb, n_state=n_pad,
                    **kw)
+
+
+def _synth_k1w(label, scale=None, *, n_pad=None, rows=None, **kw):
+    from pagerank_tpu_torch.ops.ell import segment_plan
+
+    n_pad = n_pad or 1 << scale
+    rows = rows or EDGE_FACTOR * n_pad // LANES
+    nb = n_pad // LANES
+    rb = _synth_ranks(rows, nb)
+    plan = segment_plan(rb, nb)
+    return k1w_case(label, seg_row_start=plan.seg_row_start,
+                    block_seg_start=plan.block_seg_start,
+                    seg_block=plan.seg_block, row_block=rb, n_state=n_pad,
+                    **kw)
 
 
 def campaign_span(n_pad: int, edges: int, item: int) -> int:
@@ -1017,8 +1222,10 @@ def _synth_k2(label, scale, table_dtype="float32", words=None, **kw):
 def shipped_cases(csrc_dir=None) -> List[KernelCase]:
     """Every kernel of the port's paths at the geometries it runs:
     K1 (f32/f32) at a toy geometry, at the bench scales and at the PPR
-    path's scale (one launch a column), K1's
-    f32/f64 and f64/f64 entries under their own configs; K2 at scale 18
+    path's scale (one launch a column, the yardstick), K1's
+    f32/f64 and f64/f64 entries under their own configs; K1w at the PPR
+    path's scale (64, 8 and 1 columns) and its f32/f64 and f64/f64
+    entries at a toy geometry; K2 at scale 18
     (toy span), at the bench scales, in bf16 at scale 24, and with int32
     words; P1 and P2 at 2^19 rows (n = 2^22, f32 and bf16); P3 at
     2^19 rows at n = 2^15 and at its shared-memory limit in f32 and
@@ -1037,6 +1244,17 @@ def shipped_cases(csrc_dir=None) -> List[KernelCase]:
         if tag != "f32-f32":
             cases.append(_synth_k1(f"ell_contrib@scale22-{tag}", 22, **dt,
                                    **kw))
+    # K1w on the PPR path at R-MAT 20: a 64-column chunk, the daemon's
+    # batch of 8 and a lone query (a 4-column tile); its other entries at
+    # a toy geometry.
+    for k in (64, 8, 1):
+        cases.append(_synth_k1w(f"ell_contrib_spmm@ppr-scale{PPR_SCALE}-k{k}",
+                                PPR_SCALE, k=k, **kw))
+    for tag, dt in k1_dtypes.items():
+        if tag != "f32-f32":
+            cases.append(_synth_k1w(f"ell_contrib_spmm@toy-k64-{tag}",
+                                    n_pad=1 << 16, rows=1 << 13, k=64, **dt,
+                                    **kw))
     cases += [_synth_k2("ell_contrib_partitioned@toy-span", 18, **kw)]
     cases += [_synth_k2(f"ell_contrib_partitioned@scale{s}", s, **kw)
               for s in BENCH_SCALES]
@@ -1283,6 +1501,30 @@ def _cover(lo, hi, numel):
     return overlap, gaps
 
 
+def _cover_n(lo, hi, numel, n):
+    """:func:`_cover` for intervals that should cover [0, numel) exactly
+    ``n`` times: (first element covered more often or None, the ranges
+    covered less often)."""
+    keep = hi > lo
+    if not keep.any():
+        return None, [(0, numel)] if numel else []
+    pts = np.concatenate([lo[keep], hi[keep]])
+    delta = np.concatenate([np.ones(int(keep.sum()), np.int64),
+                            -np.ones(int(keep.sum()), np.int64)])
+    order = np.argsort(pts, kind="stable")
+    pts, delta = pts[order], delta[order]
+    at, first = np.unique(pts, return_index=True)
+    depth = np.cumsum(np.add.reduceat(delta, first))  # on [at[i], at[i+1])
+    over = np.flatnonzero(depth[:-1] > n)
+    overlap = int(at[over[0]]) if len(over) else None
+    gaps = [(0, int(at[0]))] if at[0] > 0 else []
+    gaps += [(int(at[i]), int(at[i + 1]))
+             for i in np.flatnonzero(depth[:-1] < n)]
+    if at[-1] < numel:
+        gaps.append((int(at[-1]), numel))
+    return overlap, gaps
+
+
 def write_gaps(case: KernelCase, operand: str) -> List[Tuple[int, int]]:
     """The element ranges [a, b) of an output that no launch of the case
     writes: where PTK003 names a gap (and where F3's output stays NaN)."""
@@ -1341,17 +1583,23 @@ def check_coverage(case, spec=None, csrc_dir=None) -> List[Finding]:
             exact = (mode == "write" and op.role == "out") or (
                 mode == "read" and op.partition)
             if op.role in ("scratch", "counter") or exact:
-                overlap, gaps = _cover(lo, hi, op.numel)
+                passes = op.passes if mode == "read" else 1
+                overlap, gaps = (_cover_n(lo, hi, op.numel, passes)
+                                 if passes > 1 else _cover(lo, hi, op.numel))
                 if overlap is not None:
                     what = ("written by two CTAs (a race: CTAs run in no "
                             "order)" if mode == "write"
-                            else "read by two CTAs (counted twice)")
+                            else "read by two CTAs (counted twice)"
+                            if passes == 1 else
+                            f"read more than {passes} times (counted twice)")
                     out.append(_f(case, ln, "PTK003",
                                   f"{name}: element {overlap} {what}"))
                 if exact and gaps:
                     what = ("never written" if mode == "write"
                             else "never read (those rows never reach the "
-                                 "output)")
+                                 "output)" if passes == 1 else
+                            f"read fewer than {passes} times (those rows "
+                            f"miss a tile of the output)")
                     shown = ", ".join(f"[{a}, {b})" for a, b in gaps[:8])
                     more = f" and {len(gaps) - 8} more" if len(gaps) > 8 \
                         else ""
@@ -1484,6 +1732,25 @@ def check_cost(case, spec=None, csrc_dir=None) -> List[Finding]:
     return out
 
 
+#: Compiled instances with a stack frame that is known and accepted, by
+#: launch key: (the frame's bytes a thread, why). PTK002 flags any other
+#: frame, and these once they grow.
+STACK_EXCEPTIONS = {
+    "ell_contrib_part_kernel<unsignedshort,false>": (
+        16, "K2 with bf16 windows and int32 slot words (PR 5): 16 B of "
+            "spill at 64 registers, off every main path (the bf16 form "
+            "runs 3-byte words, a frame of 0)"),
+    "ell_contrib_spmm_kernel<float,float,64>": (
+        64, "K1w's PPR tile over f32 sums (PR 9): 64 B of spill at 64 "
+            "registers a thread (1024 threads); tile 32 has none and ran "
+            "the 64-column SpMM slower in chip_smoke.py's tile sweep on "
+            "the H100 (PERF.md)"),
+    "ell_contrib_spmm_kernel<float,double,16>": (
+        8, "K1w's f32/f64 entry at the f64-sum tile: 8 B of spill, off "
+           "every path (the PPR engine prescales z in the sum's dtype)"),
+}
+
+
 def check_compiled(case, facts, spec) -> List[Finding]:
     """The compile-fact clauses of PTK001, PTK002 and PTK004. ``facts``:
     {launch key: resources.SymbolFacts} of the built libraries; a
@@ -1521,10 +1788,12 @@ def check_compiled(case, facts, spec) -> List[Finding]:
                           f"{fc.regs} registers x {ln.block} threads = "
                           f"{fc.regs * ln.block} > the SM's "
                           f"{spec.regs_per_sm}: the launch is refused"))
-        if fc.local:
+        allowed = STACK_EXCEPTIONS.get(ln.key, (0, ""))[0]
+        if fc.local or fc.stack > allowed:
             out.append(_f(case, ln, "PTK002",
-                          f"{fc.local} B of local memory a thread: "
-                          f"registers spill"))
+                          f"{fc.local} B of local memory and {fc.stack} B "
+                          f"of stack frame a thread (accepted: {allowed}): "
+                          f"registers spill, or an array lives in memory"))
         if f32 and fc.f64_ops:
             out.append(_f(case, ln, "PTK004",
                           f"f64 instructions in the SASS under config "

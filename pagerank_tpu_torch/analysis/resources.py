@@ -81,10 +81,12 @@ def find_tools() -> Dict[str, str]:
 def symbol_key(demangled: str) -> str:
     """``void <unnamed>::segment_partials<float, float>(const T1 *,
     ...)`` (cu++filt's spelling) -> ``segment_partials<float,float>``;
-    a bool argument ``(bool)1`` reads ``true``."""
+    a bool argument ``(bool)1`` reads ``true``, an int ``(int)64``
+    reads ``64``."""
     s = re.sub(r"<unnamed>::|\(anonymous namespace\)::", "", demangled)
     s = re.sub(r"^\s*void\s+", "", s)
     s = s.replace("(bool)1", "true").replace("(bool)0", "false")
+    s = re.sub(r"\(int\)(-?\d+)", r"\1", s)
     depth, cut = 0, len(s)
     for i, ch in enumerate(s):
         if ch == "<":

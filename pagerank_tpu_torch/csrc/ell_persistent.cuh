@@ -1,6 +1,7 @@
-// Device helpers of the persistent ELL kernels, K1 (ell_contrib.cu) and K2
-// (ell_contrib_partitioned.cu). Each __global__ kernel and its constants
-// stay in its .cu; what both share is here.
+// Device helpers of the persistent ELL kernels, K1 (ell_contrib.cu), K2
+// (ell_contrib_partitioned.cu) and K1w (ell_contrib_spmm.cu). Each
+// __global__ kernel and its constants stay in its .cu; what they share is
+// here.
 //
 // The shape both kernels have: persistent CTAs of kThreads threads, cut
 // into lane groups of 128 threads (one thread per lane of a slot row).
@@ -182,6 +183,94 @@ __device__ bool finish_group(const acc_t* partial, acc_t* chunk_sum,
     return false;
   tot = sum_rows<kFinish>(chunk_sum, s0, chunks, kChunk, lane);
   if (lane == 0) atomicExch(counter, 0);
+  return true;
+}
+
+// -- the finisher at any row width (K1w, ell_contrib_spmm.cu) -------------------
+// The same protocol for a lane group of `nthreads` threads (128 x the
+// threads a lane) whose partial rows are `row` elements wide: thread
+// `tid` of the group owns the kN elements at offsets off[] of each row.
+
+// The `nthreads` threads of lane group `group` (named barrier group + 1).
+__device__ __forceinline__ void group_sync_n(int group, int nthreads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "r"(nthreads) : "memory");
+}
+
+// last_ticket for a group of `nthreads` threads; `tid` 0 draws.
+__device__ __forceinline__ bool last_ticket_n(int32_t* counter, int count,
+                                              int* slot, int group, int tid,
+                                              int nthreads) {
+  group_sync_n(group, nthreads);
+  if (tid == 0) {
+    fence_acq_rel();
+    const int t = atomicAdd(counter, 1);
+    if (t == count - 1) fence_acq_rel();
+    *slot = t;
+  }
+  group_sync_n(group, nthreads);
+  return *slot == count - 1;
+}
+
+// tot[e] = 0 + p[first * row + off[e]] + p[(first + stride) * row + off[e]]
+// + ... (count rows), in row order, kFinish rows in flight.
+template <int kFinish, int kN, typename acc_t>
+__device__ void sum_rows_n(acc_t (&tot)[kN], const acc_t* p, int64_t first,
+                           int64_t count, int64_t stride, int64_t row,
+                           const int (&off)[kN]) {
+#pragma unroll
+  for (int e = 0; e < kN; ++e) tot[e] = acc_t(0);
+  const acc_t* q = p + first * row;
+  int64_t j = 0;
+  for (; j + kFinish <= count; j += kFinish) {
+    acc_t v[kFinish][kN];
+#pragma unroll
+    for (int k = 0; k < kFinish; ++k)
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        v[k][e] = __ldcg(q + (j + k) * stride * row + off[e]);
+#pragma unroll
+    for (int k = 0; k < kFinish; ++k)
+#pragma unroll
+      for (int e = 0; e < kN; ++e) tot[e] += v[k][e];
+  }
+  for (; j < count; ++j)
+#pragma unroll
+    for (int e = 0; e < kN; ++e) tot[e] += __ldcg(q + j * stride * row + off[e]);
+}
+
+// finish_group over rows of `row` elements: the same tickets, chunks and
+// sum order, each element of the thread's kN on its own.
+template <int kChunk, int kFinish, int kN, typename acc_t>
+__device__ bool finish_group_n(const acc_t* partial, acc_t* chunk_sum,
+                               int32_t* counter, int32_t* chunk_counter,
+                               int64_t s, int64_t s0, int64_t s1, int* slot,
+                               int group, int tid, int nthreads, int64_t row,
+                               const int (&off)[kN], acc_t (&tot)[kN]) {
+  const int64_t n = s1 - s0;
+  if (n <= kChunk) {
+    if (!last_ticket_n(counter, static_cast<int>(n), slot, group, tid,
+                       nthreads))
+      return false;
+    sum_rows_n<kFinish>(tot, partial, s0, n, 1, row, off);
+    if (tid == 0) atomicExch(counter, 0);
+    return true;
+  }
+  const int64_t c0 = s0 + (s - s0) / kChunk * kChunk;
+  const int64_t c1 = c0 + kChunk < s1 ? c0 + kChunk : s1;
+  if (!last_ticket_n(chunk_counter + c0, static_cast<int>(c1 - c0), slot,
+                     group, tid, nthreads))
+    return false;
+  acc_t cs[kN];
+  sum_rows_n<kFinish>(cs, partial, c0, c1 - c0, 1, row, off);
+#pragma unroll
+  for (int e = 0; e < kN; ++e) chunk_sum[c0 * row + off[e]] = cs[e];
+  if (tid == 0) atomicExch(chunk_counter + c0, 0);
+  const int64_t chunks = (n + kChunk - 1) / kChunk;
+  if (!last_ticket_n(counter, static_cast<int>(chunks), slot, group, tid,
+                     nthreads))
+    return false;
+  sum_rows_n<kFinish>(tot, chunk_sum, s0, chunks, kChunk, row, off);
+  if (tid == 0) atomicExch(counter, 0);
   return true;
 }
 

@@ -4,32 +4,35 @@ Port of ``pagerank_tpu/engines/ppr.py``: ``PprResult``, ``ppr_cpu`` and
 ``ppr_cpu_topk`` (:24-75, host numpy: copies) and
 :class:`PprTorchEngine`, from ``PprJaxEngine`` (:77-303).
 
-The source batch runs in column chunks. Where the JAX engine keeps a
-[n, k] rank matrix and gathers one k-wide row per slot
-(``ops/spmv.py:ell_contrib_spmm``), this engine keeps the chunk
-column-major — r, p and z are [k, n_state] — and sums each column with
-K1, the repo's hand kernel for one column of that SpMM
-(``ops/ell_spmv.py:ell_contrib_spmm``; k launches an iteration, bound
-once). Each column's sums keep K1's plan order, so an answer repeats
-itself bit for bit and does not depend on its batch-mates.
+The source batch runs in column chunks. Like the JAX engine, this one
+keeps a chunk row-major — r, p and z2 are [n_state, k], row v the
+vertex's value in each column — and sums it with K1w, the port's hand
+kernel for the SpMM the JAX op ``ops/spmv.py:ell_contrib_spmm``
+computes (``ops/ell_spmm.py``; one launch an iteration, bound once).
+Each column's sums keep K1's plan order, so an answer repeats itself
+bit for bit and does not depend on its batch-mates.
 
-Layout: the flat blocked-ELL pack K1 reads (``ops/ell.py:ell_pack`` +
+Layout: the flat blocked-ELL pack K1w reads (``ops/ell.py:ell_pack`` +
 ``sentinel_slots`` + ``segment_plan``); the in-degree relabel is the
 JAX pack's. The JAX engine's source stripes (2^17 - 128 sources, the
-TPU's fast-gather limit) and its gather chunking are not applicable: K1
-reads the whole prescaled column. Per iteration, per chunk:
+TPU's fast-gather limit) and its gather chunking are not applicable:
+K1w reads the whole prescaled chunk. Per iteration, per chunk:
 
-    z[j]      = [r[j] · inv_out, 0×8]          (prescale, in the wider
-                                                of dtype and accum)
-    contrib[j] = K1(z[j], slots)                (one launch a column)
-    m[j]      = Σ_{out-degree 0} r[j]           (accum)
+    z2        = [r · inv_out, 0×8 rows]      (prescale, in the wider
+                                              of dtype and accum; 1 in
+                                              place of inv_out on the
+                                              dangling rows)
+    contrib   = K1w(z2, slots)                (one launch; it sums its
+                                              extra dangling block
+    m[j]      = Σ_{out-degree 0} r[:, j]       into 128 lanes and folds
+                                              them pairwise, in-kernel)
     r'        = (1-d)·p + d·(contrib + dangling redistribution),
                 padding lanes masked to 0
 
-The top-k runs on the device — a stable descending sort per column, so
-that ties go to the lower relabeled index as ``jax.lax.top_k`` breaks
-them — and only [batch, k] comes back to the host, mapped back through
-the relabel.
+The top-k runs on the device — a stable descending sort along the
+vertex axis, so that ties go to the lower relabeled index as
+``jax.lax.top_k`` breaks them — and only [batch, k] comes back to the
+host, mapped back through the relabel.
 """
 
 from __future__ import annotations
@@ -44,11 +47,12 @@ import numpy as np
 import torch
 
 from pagerank_tpu_torch import graph as graph_lib
-from pagerank_tpu_torch.engines.torch_engine import Z_PAD, resolve_device
+from pagerank_tpu_torch.engines.torch_engine import resolve_device
 from pagerank_tpu_torch.graph import Graph
 from pagerank_tpu_torch.models import ppr as ppr_model
+from pagerank_tpu_torch.ops import LANES
 from pagerank_tpu_torch.ops import ell as ell_lib
-from pagerank_tpu_torch.ops import ell_spmv, spmv
+from pagerank_tpu_torch.ops import ell_spmm, ell_spmv, spmv
 from pagerank_tpu_torch.utils.config import PageRankConfig, torch_dtype
 
 
@@ -107,13 +111,14 @@ def ppr_cpu_topk(
 
 
 class PprTorchEngine:
-    """Chunked batched PPR on one device, K1 column by column.
+    """Chunked batched PPR on one device, one K1w launch an iteration.
 
     ``build(graph)`` packs and places the graph; ``run(sources, ...)``
     solves chunk by chunk. :meth:`bind` sizes the chunk buffers and, on
-    cuda, binds K1's column launchers (building the kernel if need be);
+    cuda, binds K1w at their width (building the kernel if need be);
     ``run`` binds at its chunk width when nothing wider is bound, so a
-    server binds once, at warm-up. The chunk buffers and K1's workspace
+    server binds once, at warm-up, and a narrower chunk runs only its
+    live columns. The chunk buffers and K1w's workspace
     are the engine's own, so runs take turns: a dispatch a server
     abandoned at its deadline still holds the engine until it ends, and
     the next one waits rather than share the buffers."""
@@ -132,11 +137,11 @@ class PprTorchEngine:
         self._accum = torch_dtype(self.config.accum_dtype)
         # Prescale in the widest dtype the solver uses, so per-edge
         # products carry accum precision into the sums (the JAX
-        # engine's rule, ppr.py:178-183); K1 has that entry.
+        # engine's rule, ppr.py:178-183); K1w has that entry.
         self._z_dtype = (self._accum if self._accum.itemsize
                          > self._dtype.itemsize else self._dtype)
         self._width = 0
-        self._launchers: List[ell_spmv.Launcher] = []
+        self._launcher: Optional[ell_spmm.SpmmLauncher] = None
         self._layout: Dict[str, object] = {}
         self._run_lock = threading.Lock()
         #: Wall seconds of each chunk of the last ``run`` (solve + top-k
@@ -150,37 +155,54 @@ class PprTorchEngine:
         t1 = time.perf_counter()
         n, n_state = graph.n, pack.n_padded
         pad = n_state - n
-        plan = ell_lib.segment_plan(pack.row_block, pack.num_blocks)
-        src = torch.from_numpy(ell_lib.sentinel_slots(pack)).to(dev)
-        row_block = torch.from_numpy(pack.row_block).to(dev)
+        dang = np.concatenate([(graph.out_degree == 0)[pack.perm],
+                               np.zeros(pad, bool)])
+        # The dangling block: one more dst block, block 0, whose slots
+        # are the dangling vertices, 128 a row. No slot of a real block
+        # reads a dangling vertex (it is no edge's source), so its z2
+        # row holds r itself (a prescale of 1), and K1w sums each
+        # column's dangling mass into block 0's 128 lanes in its own
+        # fixed order: no other kernel, and the same bits in any batch.
+        # First, so that the deep blocks' segments (it and the hubs)
+        # stay a prefix and the workspace small.
+        d_rows = np.flatnonzero(dang).astype(np.int32)
+        d_slots = np.full(-(-len(d_rows) // LANES) * LANES, n_state, np.int32)
+        d_slots[: len(d_rows)] = d_rows
+        num_blocks = pack.num_blocks + 1
+        row_block_np = np.concatenate([
+            np.zeros(len(d_slots) // LANES, np.int32), pack.row_block + 1])
+        plan = ell_lib.segment_plan(row_block_np, num_blocks)
+        src = torch.from_numpy(np.concatenate([
+            d_slots.reshape(-1, LANES),
+            ell_lib.sentinel_slots(pack)])).to(dev)
+        row_block = torch.from_numpy(row_block_np).to(dev)
         inv_np = np.float64 if self._z_dtype == torch.float64 else np.float32
         inv = graph_lib.inv_out_degree(graph.out_degree, dtype=inv_np)
         inv_rel = np.concatenate([inv[pack.perm], np.zeros(pad, inv_np)])
-        dang = np.concatenate([(graph.out_degree == 0)[pack.perm],
-                               np.zeros(pad, bool)])
-        valid = np.concatenate([np.ones(n, bool), np.zeros(pad, bool)])
+        inv_rel[dang] = 1
+        valid = np.concatenate([np.ones(n), np.zeros(pad)])
         t2 = time.perf_counter()
         self.graph = graph
         self._n_state = n_state
-        self._num_blocks = pack.num_blocks
+        self._num_blocks = num_blocks
         self._perm = pack.perm  # relabeled -> original
         self._inv_perm = pack.inv_perm  # original -> relabeled
         self._src, self._row_block = src, row_block
         self._plan = ell_spmv.plan_to(plan, dev)
         self._inv_out = torch.from_numpy(inv_rel).to(dev)
-        self._dangling = torch.from_numpy(dang).to(dev)
-        self._valid = torch.from_numpy(valid).to(dev)
+        self._valid = torch.from_numpy(valid).to(dev, self._accum)
         self._width = 0
-        self._launchers = []
+        self._launcher = None
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
         self._layout = {
             "form": "ppr_flat_ell",
-            "kernel": ("ell_contrib:cuda" if dev.type == "cuda"
+            "kernel": ("ell_contrib_spmm:cuda" if dev.type == "cuda"
                        else "ell_contrib:reference"),
             "device": str(dev), "n_state": n_state,
-            "num_blocks": pack.num_blocks, "num_rows": pack.num_rows,
+            "num_blocks": num_blocks, "num_rows": int(src.shape[0]),
+            "dangling_rows": len(d_slots) // LANES,
             "num_segments": plan.num_segments,
             "padding_ratio": pack.padding_ratio,
             "dtype": self.config.dtype,
@@ -194,67 +216,71 @@ class PprTorchEngine:
 
     def bind(self, width: int) -> "PprTorchEngine":
         """Size the chunk buffers for ``width`` columns and, on cuda,
-        bind K1 once per column over them (one shared workspace).
-        Rebinding at a width no larger than the bound one is a no-op."""
+        bind K1w once over them. Rebinding at a width no larger than the
+        bound one is a no-op."""
         if self.graph is None:
             raise RuntimeError("call build(graph) before bind()")
         if width <= self._width:
             return self
         dev = self.device
         t0 = time.perf_counter()
-        # Row j is column j's z_ext: n_state + 8 entries, the last 8
-        # zero (inert slots read the sentinel n_state).
-        self._z_cols = torch.zeros((width, self._n_state + Z_PAD),
-                                   dtype=self._z_dtype, device=dev)
+        # Row v is vertex v's prescaled value in each column; the last 8
+        # rows stay zero (inert slots read the sentinel n_state).
+        self._z2 = ell_spmm.z2_buffer(self._n_state, width, self._z_dtype,
+                                      dev)
         if dev.type == "cuda":
             with torch.cuda.device(dev):
-                self._launchers = ell_spmv.bind_columns(
-                    self._z_cols, self._src, self._num_blocks,
-                    accum_dtype=self._accum, plan=self._plan)
+                self._launcher = ell_spmm.bind_spmm(
+                    self._z2, self._src, self._num_blocks,
+                    accum_dtype=self._accum, plan=self._plan, width=width)
                 torch.cuda.synchronize(dev)
-            self._layout.update(head=self._launchers[0].head,
-                                grid=self._launchers[0].grid)
+            self._layout.update(kt=self._launcher.kt,
+                                grid=self._launcher.grid)
         self._width = width
         self._layout["width"] = width
         self._layout["bind_seconds"] = time.perf_counter() - t0
         return self
 
-    def _contrib(self, kc: int) -> torch.Tensor:
-        """[kc, n_state] contribution sums of the first kc columns of
-        z (z dtype): K1 once per column on cuda, its plain plan-order
-        version on the CPU."""
-        if self._launchers:
-            for launch in self._launchers[:kc]:
-                launch()
-            out = self._launchers[0].out_cols[:kc]
+    def _contrib(self, kc: int):
+        """The contribution sums of the first kc columns of z2, [n_state,
+        kc] (z dtype; blocks 1..), and the dangling mass, [kc] (accum):
+        the dangling block's 128 lane sums folded pairwise
+        (``ops/spmv.py:fold_rows``' order), so a column's mass is the
+        same bits alone or in any batch. On cuda one K1w launch, which
+        folds the lanes itself; on the CPU its plain version and
+        ``fold_rows`` (z2 is in the sum's dtype: the same bits)."""
+        if self._launcher is not None:
+            out = self._launcher(kc)
+            mass = self._launcher.mass[:kc]
         else:
-            out = ell_spmv.ell_contrib_spmm(
-                self._z_cols[:kc], self._src, self._row_block,
-                self._num_blocks, accum_dtype=self._accum, plan=self._plan)
-        return out[:, : self._n_state]
+            out = ell_spmm.ell_contrib_spmm_rows(
+                self._z2, self._src, self._row_block, self._num_blocks,
+                accum_dtype=self._accum, plan=self._plan, k=kc)
+            mass = spmv.fold_rows(out[:LANES, :kc].to(self._accum))
+        return out[LANES: LANES + self._n_state, :kc], mass
 
     def _step(self, r: torch.Tensor, p_acc: torch.Tensor) -> torch.Tensor:
-        kc, acc = r.shape[0], self._accum
-        torch.mul(r, self._inv_out, out=self._z_cols[:kc, : self._n_state])
-        contrib = self._contrib(kc).to(acc)
-        mass = spmv.dangling_mass(r, self._dangling, acc)
-        # The model's layout is [n, k]: hand it the transposes.
+        kc, acc = r.shape[1], self._accum
+        # z2 = r / out-degree, and r itself in the dangling rows.
+        torch.mul(r, self._inv_out[:, None],
+                  out=self._z2[: self._n_state, :kc])
+        contrib, mass = self._contrib(kc)
         r_new = ppr_model.apply_ppr_update(
-            contrib.T, p_acc.T, mass, self.graph.n, self.config.damping,
-            self.dangling_to, torch,
-        ).T
-        return (r_new * self._valid.to(acc)).to(r.dtype)
+            contrib.to(acc), p_acc, mass, self.graph.n,
+            self.config.damping, self.dangling_to, torch,
+        )
+        return (r_new * self._valid[:, None]).to(r.dtype)
 
     def solve_chunk(self, batch: np.ndarray, num_iters: int) -> torch.Tensor:
-        """[len(batch), n_state] PPR columns of the sources ``batch``
+        """[n_state, len(batch)] PPR columns of the sources ``batch``
         (original ids) after ``num_iters`` iterations, on the device,
         in relabeled order."""
         kc = len(batch)
         self.bind(kc)
-        p = torch.zeros((kc, self._n_state), dtype=self._dtype,
+        p = torch.zeros((self._n_state, kc), dtype=self._dtype,
                         device=self.device)
         rel = torch.from_numpy(self._inv_perm[batch].astype(np.int64))
-        p[torch.arange(kc), rel.to(self.device)] = 1.0
+        p[rel.to(self.device), torch.arange(kc, device=self.device)] = 1.0
         p_acc = p.to(self._accum)
         r = p.clone()
         for _ in range(num_iters):
@@ -263,12 +289,12 @@ class PprTorchEngine:
 
     def topk(self, r: torch.Tensor, k: int):
         """Per column, the k highest scores and their relabeled ids on
-        the device: a stable descending sort over the n real lanes, so
-        equal scores keep the lower index first (``lax.top_k``'s
-        order)."""
-        vals, idx = torch.sort(r[:, : self.graph.n], dim=1, descending=True,
+        the device, [columns, k] each: a stable descending sort over the
+        n real vertices, so equal scores keep the lower index first
+        (``lax.top_k``'s order)."""
+        vals, idx = torch.sort(r[: self.graph.n], dim=0, descending=True,
                                stable=True)
-        return idx[:, :k], vals[:, :k]
+        return idx[:k].T, vals[:k].T
 
     def run(
         self,

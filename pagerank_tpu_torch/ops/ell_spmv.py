@@ -28,16 +28,16 @@ on the CPU. :func:`bind` checks a call's inputs once and returns a
 launcher that a step calls with no further checks (``TorchEngine``
 keeps one). ``launches`` counts the kernel launches, one a call.
 
-**The batched form (PPR).** ``pagerank_tpu/ops/spmv.py:380
+**The batched form, column by column.** ``pagerank_tpu/ops/spmv.py:380
 ell_contrib_spmm`` sums k prescaled rank columns at once; K1 computes
 exactly one column of it. :func:`ell_contrib_spmm` runs K1 once per
 column over a column-major ``z_cols`` buffer (k, n_state + 8), each row
 a ``z_ext``; :func:`bind_columns` binds the k launches once, sharing
 one workspace (launched one at a time on one stream, as K1 leaves it
-zero). Each column's sums keep the plan's order, so a column's result
-does not depend on its batch-mates (a ``gather (rows, 128, k)`` +
-``index_add_`` on the card would, through its atomics). ``launches``
-counts every column launch.
+zero). ``launches`` counts every column launch. The PPR path runs K1w
+instead, one launch for all k columns (``ops/ell_spmm.py``); these
+stay as its yardstick and its per-column plain version
+(:func:`ell_contrib_spmm_reference`).
 """
 
 from __future__ import annotations
@@ -458,13 +458,15 @@ def ell_contrib_reference(z_ext, src_slots, row_block, num_blocks, *,
 
 def row_partials(v, plan):
     """Each segment's rows summed in row order from 0 (``index_add_`` on
-    the CPU adds in index order): [segments, 128]."""
+    the CPU adds in index order): [segments, 128], or [segments, 128,
+    k] for rows of k columns (each column on its own)."""
     dev = v.device
     rs = torch.as_tensor(plan.seg_row_start, dtype=torch.long, device=dev)
     num_segs = rs.shape[0] - 1
     seg_of_row = torch.repeat_interleave(
         torch.arange(num_segs, device=dev), rs[1:] - rs[:-1])
-    partial = torch.zeros((num_segs, LANES), dtype=v.dtype, device=dev)
+    partial = torch.zeros((num_segs,) + tuple(v.shape[1:]), dtype=v.dtype,
+                          device=dev)
     return partial.index_add_(0, seg_of_row, v)
 
 
@@ -482,13 +484,16 @@ def group_sums(partial, group_seg_start, chunk: Optional[int] = CHUNK):
     group of up to ``chunk`` segments sums them in segment order from 0,
     and a deeper group sums each run of ``chunk`` consecutive segments
     from 0, then those chunk sums in order from 0. ``chunk=None`` sums
-    every group in one run from 0. [groups, 128]."""
+    every group in one run from 0. [groups, 128] (or [groups, 128, k]
+    for partials of k columns)."""
     dev = partial.device
     gss = torch.as_tensor(group_seg_start, dtype=torch.long, device=dev)
     nseg = gss[1:] - gss[:-1]
     if chunk is None:
         chunk = max(int(nseg.max()) if nseg.numel() else 0, 1)
-    out = torch.zeros((nseg.shape[0], LANES), dtype=partial.dtype, device=dev)
+    tail = tuple(partial.shape[1:])
+    out = torch.zeros((nseg.shape[0],) + tail, dtype=partial.dtype,
+                      device=dev)
     one = torch.nonzero(nseg == 1).reshape(-1)
     out[one] = partial[gss[one]]
     many = torch.nonzero((nseg > 1) & (nseg <= chunk)).reshape(-1)
@@ -503,7 +508,7 @@ def group_sums(partial, group_seg_start, chunk: Optional[int] = CHUNK):
         chunk_of = (torch.repeat_interleave(first, nseg[deep])
                     + (segs - torch.repeat_interleave(gss[deep], nseg[deep]))
                     // chunk)
-        sums = torch.zeros((int(nchunks.sum()), LANES), dtype=partial.dtype,
+        sums = torch.zeros((int(nchunks.sum()),) + tail, dtype=partial.dtype,
                            device=dev)
         sums.index_add_(0, chunk_of, partial[segs])
         out.index_add_(0, torch.repeat_interleave(deep, nchunks), sums)

@@ -4,7 +4,9 @@ partition-centric layout.
 
 Port of ``pagerank_tpu/ops/spmv.py:25-49``
 (``edge_contrib_segment_sum``, the ``kernel="coo"`` form), ``:437``
-(``dangling_mass``, with its 2-D PPR batch form), ``:178-198``
+(``dangling_mass``; its 2-D PPR batch form is K1w's dangling block
+and :func:`fold_rows`),
+``:178-198``
 (``unpack_words24`` / ``pack_words24``) and ``:425-434``
 (``scatter_block_sums``). The word and expansion helpers take numpy
 arrays and torch tensors alike.
@@ -54,18 +56,26 @@ def dangling_mass(r: torch.Tensor, dangling: torch.Tensor,
                   accum_dtype: torch.dtype) -> torch.Tensor:
     """m = Σ_dangling r — the reference's ``danglingContrib`` loop
     (Sparky.java:219-222) as one masked sum in ``accum_dtype``: a
-    multiply + sum, never a dot, like the JAX op's 64-bit path. For a
-    2-D ``r`` ([k, n], one PPR column a row) the sum is per row: [k],
-    each row reduced on its own as a 1-D sum, so that a row's mass does
-    not depend on how many rows its batch has (a ``sum(dim=1)`` picks
-    its reduction order by the shape) and a PPR answer is the same bits
-    in any batch."""
-    prod = dangling.to(accum_dtype) * r.to(accum_dtype)
-    if r.dim() == 2:
-        if prod.shape[0] == 0:
-            return prod.new_zeros(0)
-        return torch.stack([torch.sum(row) for row in prod])
-    return torch.sum(prod)
+    multiply + sum, never a dot, like the JAX op's 64-bit path."""
+    return torch.sum(dangling.to(accum_dtype) * r.to(accum_dtype))
+
+
+def fold_rows(x: torch.Tensor) -> torch.Tensor:
+    """[m, ...] -> [...]: the rows summed by a fixed pairwise fold, row
+    i plus row i + h, halving, in elementwise adds. An elementwise add
+    is exact IEEE whatever the tensor's shape, so each column's sum is
+    the same bits alone or in any batch (a reduction kernel picks its
+    order by the shape). The JAX op's 2-D (PPR batch) mass form sums
+    the dangling rows this way in the port (``engines/ppr.py``)."""
+    while x.shape[0] > 1:
+        m = x.shape[0]
+        h = (m + 1) // 2
+        y = torch.empty((h,) + tuple(x.shape[1:]), dtype=x.dtype,
+                        device=x.device)
+        torch.add(x[: m - h], x[h:], out=y[: m - h])
+        y[m - h:] = x[m - h: h]  # the middle row of an odd count
+        x = y
+    return x[0] if x.shape[0] else x.new_zeros(x.shape[1:])
 
 
 def unpack_words24(slots8):

@@ -5,7 +5,7 @@
 
 Port of ``pagerank_tpu/serve/__main__.py``. Builds a synthetic R-MAT
 graph (the repo's zero-egress workload stand-in), warms the engine at
-the serving shapes (the kernel built, K1 bound at ``--max-batch``) on
+the serving shapes (the kernel built, K1w bound at ``--max-batch``) on
 ``--device`` (default cuda), and serves ``GET /ppr?source=<id>`` over
 loopback HTTP until SIGTERM enters the drain (admission closes with
 typed rejections, in-flight batches finish, exit 75). ``--serve-smoke

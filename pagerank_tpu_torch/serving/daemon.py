@@ -2,17 +2,18 @@
 
 Port of ``pagerank_tpu/serving/daemon.py`` over
 :class:`~pagerank_tpu_torch.engines.ppr.PprTorchEngine`. :class:`PprServer`
-owns a resident graph and one engine whose K1 column launchers are
-bound at ``max_batch`` by the ``start()`` warm-up, which builds the
+owns a resident graph and one engine whose K1w launcher is bound at
+``max_batch`` columns by the ``start()`` warm-up, which builds the
 kernel first if need be (the JAX daemon's AOT compile and its
 ``compile_cache`` have no counterpart: ``kernels/build.py`` caches the
 built library under ``build/kernels/``). A dispatched batch runs only
-its live sources, at most ``max_batch`` columns of the bound launchers
-with static ``num_iters``/``topk``, so no query ever waits on a build
-or a bind. The JAX daemon pads every batch to ``max_batch`` to keep one
-compiled shape; here a column is its own chain of K1 launches, so
-padding would only add launches (a column's answer does not depend on
-its batch-mates).
+its live sources: one K1w launch an iteration over its live columns, at
+most ``max_batch``, with static ``num_iters``/``topk``, so no query
+ever waits on a build or a bind. The JAX daemon pads every batch to
+``max_batch`` to keep one compiled shape; here the launcher takes the
+live column count per call, so padding would only add columns (a
+column's answer does not depend on its batch-mates): a lone query is
+one launch of a 4-column tile an iteration.
 Top-k runs on the device — only ``[batch, k]`` leaves the card.
 
 Failure modes map to typed, bounded, observable outcomes:
@@ -238,7 +239,7 @@ class PprServer:
 
     def start(self, dispatcher: bool = True) -> "PprServer":
         """Build the engine, warm it at the serving shapes (the kernel
-        built and K1 bound at ``max_batch``), then (daemon mode) start
+        built and K1w bound at ``max_batch``), then (daemon mode) start
         the named dispatcher thread. ``warmup_seconds`` holds the
         warm-up's wall, engine build included."""
         t0 = self._clock()

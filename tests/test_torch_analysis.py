@@ -32,6 +32,7 @@ from pagerank_tpu_torch.analysis import resources
 from pagerank_tpu_torch.analysis.__main__ import main as analysis_main
 from pagerank_tpu_torch.obs import costs
 from pagerank_tpu_torch.ops import defect_fixtures as fx
+from pagerank_tpu_torch.ops import ell_spmm
 from pagerank_tpu_torch.utils import synth
 
 DATA = Path(__file__).resolve().parent / "data" / "cuobjdump"
@@ -113,8 +114,10 @@ def test_shipped_registry_is_clean_on_the_host_rules(shipped):
 
 def test_shipped_registry_holds_every_kernel_at_every_scale(shipped):
     labels = [c.label for c in shipped]
-    assert len(labels) == len(set(labels)) == 23
+    assert len(labels) == len(set(labels)) == 28
     assert f"ell_contrib@ppr-scale{K.PPR_SCALE}" in labels
+    for k in (64, 8, 1):
+        assert f"ell_contrib_spmm@ppr-scale{K.PPR_SCALE}-k{k}" in labels
     for s in K.BENCH_SCALES:
         assert f"ell_contrib@scale{s}" in labels
         assert f"ell_contrib_partitioned@scale{s}" in labels
@@ -125,8 +128,8 @@ def test_shipped_registry_holds_every_kernel_at_every_scale(shipped):
             "probe_rowsel_smem@rows2^19-n116224-limit-bf16"} <= set(labels)
     keys = {ln.key for c in shipped for ln in c.launches}
     # every instantiation an entry point runs: K1 3 dtype pairs, K2 4
-    # entries, P1-P3 in f32 and bf16
-    assert keys == {
+    # entries, P1-P3 in f32 and bf16, K1w's at the PPR path's tiles
+    assert keys == _k1w_keys() | {
         f"ell_contrib_kernel<{z},{a}>"
         for z, a in (("float", "float"), ("float", "double"),
                      ("double", "double"))} | {
@@ -135,6 +138,18 @@ def test_shipped_registry_holds_every_kernel_at_every_scale(shipped):
         "probe_take<F32>", "probe_take<BF16>", "probe_group8<F32>",
         "probe_group8<BF16>", "probe_rowsel_smem<F32>",
         "probe_rowsel_smem<BF16>"}
+
+
+def _k1w_keys():
+    """K1w's shipped instantiations: the engine's tile in each dtype
+    pair (by its sums), and the tiles of the daemon's batch of 8 and a
+    lone query."""
+    kt, kt64 = ell_spmm.KT, ell_spmm.KT_F64
+    return {f"ell_contrib_spmm_kernel<{z},{a},{t}>" for z, a, t in (
+        ("float", "float", kt), ("float", "double", kt64),
+        ("double", "double", kt64),
+        ("float", "float", ell_spmm.tile_width(8, kt)),
+        ("float", "float", ell_spmm.tile_width(1, kt)))}
 
 
 @pytest.mark.parametrize("label", [f"ell_contrib@scale{s}"
@@ -675,7 +690,7 @@ def test_shipped_registry_is_clean_with_recorded_compile_facts(shipped):
     shared memory, because P3 in the same library does."""
     facts = {}
     for lib in ("ell_contrib", "ell_contrib_partitioned", "gather_probe",
-                "defect_fixtures"):
+                "defect_fixtures", "ell_contrib_spmm"):
         facts.update(_recorded_facts(lib))
     keys = {ln.key for c in shipped for ln in c.launches}
     assert keys <= set(facts), sorted(keys - set(facts))
@@ -718,11 +733,41 @@ def test_compiled_rules_on_recorded_facts(defects, k1_real):
         K.check_kernel_case(K.shipped_cases()[-1], facts=facts)
 
 
+def test_a_stack_frame_trips_ptk002_unless_recorded(shipped):
+    """PTK002's compiled clause reads the stack frame as well as local
+    memory: a frame on K1w's engine instance is flagged; the one named
+    exception passes at its recorded bytes and is flagged past them."""
+    import dataclasses
+
+    facts = {}
+    for lib in ("ell_contrib_partitioned", "ell_contrib_spmm"):
+        facts.update(_recorded_facts(lib))
+
+    def case_of(key):
+        return next(c for c in shipped
+                    if [ln.key for ln in c.launches] == [key])
+
+    k1w = "ell_contrib_spmm_kernel<float,float,8>"
+    assert k1w not in K.STACK_EXCEPTIONS
+    assert facts[k1w].stack == 0 == facts[k1w].local
+    framed = dict(facts, **{k1w: dataclasses.replace(facts[k1w], stack=88)})
+    found = K.check_kernel_case(case_of(k1w), facts=framed)
+    assert [f.rule for f in found] == ["PTK002"]
+    assert "88 B of stack frame" in found[0].message
+    for key, (nbytes, why) in K.STACK_EXCEPTIONS.items():
+        assert facts[key].stack == nbytes > 0 and why
+        assert K.check_kernel_case(case_of(key), facts=facts) == []
+        grown = dict(facts, **{key: dataclasses.replace(
+            facts[key], stack=nbytes + 8)})
+        assert [f.rule for f in K.check_kernel_case(
+            case_of(key), facts=grown)] == ["PTK002"]
+
+
 @pytest.fixture(scope="module")
 def recorded():
     facts = {}
     for lib in ("ell_contrib", "ell_contrib_partitioned", "gather_probe",
-                "defect_fixtures"):
+                "defect_fixtures", "ell_contrib_spmm"):
         facts.update(_recorded_facts(lib))
     return facts
 
@@ -745,7 +790,8 @@ def test_cli_compiled_on_recorded_facts(capsys, monkeypatch, recorded,
         assert {f["rule"] for f in doc["findings"]} == {
             FIXTURE_RULES[f"fixture:{fixture}"]}
     else:
-        assert len(doc["compile_facts"]) == 13  # K1 3, K2 4, P1-P3 6
+        # K1 3, K2 4, P1-P3 6, K1w's
+        assert len(doc["compile_facts"]) == 13 + len(_k1w_keys())
 
 
 def test_symbol_key():
@@ -761,3 +807,7 @@ def test_symbol_key():
     assert resources.symbol_key(
         "void <unnamed>::pair_segment_partials<unsigned short, (bool)1>("
         "const T1 *, long)") == "pair_segment_partials<unsignedshort,true>"
+    assert resources.symbol_key(
+        "void <unnamed>::ell_contrib_spmm_kernel<float, double, (int)64>("
+        "<unnamed>::Params<T1, T2>)") == \
+        "ell_contrib_spmm_kernel<float,double,64>"

@@ -1,5 +1,5 @@
-"""K1, K2, the gather probe's P1-P3, the defect fixtures F1-F6 and the
-engine on the card. These need an NVIDIA GPU and nvcc:
+"""K1, K2, K1w, the gather probe's P1-P3, the defect fixtures F1-F6 and
+the engine on the card. These need an NVIDIA GPU and nvcc:
 on any other host each test skips with a reason. Run them on the card
 with ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
@@ -12,7 +12,7 @@ import torch
 import pagerank_tpu_torch
 from pagerank_tpu_torch import PageRankConfig, TorchEngine
 from pagerank_tpu_torch.ops import ell as torch_ell
-from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
+from pagerank_tpu_torch.ops import ell_spmm, ell_spmv, ell_spmv_partitioned
 from pagerank_tpu_torch.ops import defect_fixtures, gather_probe
 from pagerank_tpu_torch.ops import spmv as torch_spmv
 from pagerank_tpu_torch.scripts import probe_gather
@@ -409,10 +409,10 @@ def test_column_launchers_equal_the_plain_version_per_column(cuda, dtype,
 @pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
                                        ("float32", 1e-6)])
 def test_ppr_on_the_card_matches_the_cpu_run_and_repeats(cuda, dtype, tol):
-    """PprTorchEngine on cuda: K1 launched once a column an iteration,
-    within tol of the CPU run (its plain version), the same batch twice
-    bit-identical, a source alone equal in ids to the source in a
-    batch."""
+    """PprTorchEngine on cuda: K1w launched once an iteration a chunk
+    (K1 not at all), within tol of the CPU run (its plain version), the
+    same batch twice bit-identical, a source alone equal in ids to the
+    source in a batch."""
     from pagerank_tpu_torch.engines.ppr import PprTorchEngine
 
     src, dst = synth.rmat_edges(12, seed=6)
@@ -420,10 +420,11 @@ def test_ppr_on_the_card_matches_the_cpu_run_and_repeats(cuda, dtype, tol):
     cfg = PageRankConfig(num_iters=10, dtype=dtype, accum_dtype=dtype)
     sources = np.array([0, 17, 999, 4095, 17])
     eng = PprTorchEngine(cfg).build(g)
-    before = ell_spmv.launches
+    before, k1 = ell_spmm.launches, ell_spmv.launches
     a = eng.run(sources, topk=50, chunk=4)
-    assert ell_spmv.launches == before + 10 * 5
-    assert eng.layout_info()["kernel"] == "ell_contrib:cuda"
+    assert ell_spmm.launches == before + 10 * 2  # 2 chunks
+    assert ell_spmv.launches == k1
+    assert eng.layout_info()["kernel"] == "ell_contrib_spmm:cuda"
     b = eng.run(sources, topk=50, chunk=4)
     np.testing.assert_array_equal(a.topk_ids, b.topk_ids)
     np.testing.assert_array_equal(a.topk_scores, b.topk_scores)
@@ -435,6 +436,85 @@ def test_ppr_on_the_card_matches_the_cpu_run_and_repeats(cuda, dtype, tol):
     np.testing.assert_array_equal(solo.topk_ids[0], a.topk_ids[1])
     np.testing.assert_allclose(solo.topk_scores[0], a.topk_scores[1],
                                rtol=1e-6, atol=0)
+
+
+# -- personalized PageRank: K1w, all columns in one launch ----------------------
+
+def _z2_columns(z, k):
+    """k columns of z, rolled, as a row-major z2 whose zero tail stays
+    zero."""
+    item = z.element_size()
+    z2 = torch.zeros((z.shape[0], ell_spmm.row_width(k, item)),
+                     dtype=z.dtype, device=z.device)
+    for j in range(k):
+        z2[:, j] = z.roll(37 * j) * (z != 0)
+    return z2
+
+
+@pytest.mark.parametrize("dtype,acc", [(torch.float32, torch.float32),
+                                       (torch.float32, torch.float64),
+                                       (torch.float64, torch.float64)])
+def test_k1w_equals_its_plain_version_and_the_column_launchers(cuda, dtype,
+                                                              acc):
+    """K1w at every built tile is torch.equal to its plain version on
+    the CPU and to K1 launched once a column (bind_columns), and repeats
+    itself bit for bit; its fold of block 0's lanes equals the plain
+    version's."""
+    z, src, rb, nb, plan = _inputs(cuda, dtype)
+    k = 64
+    z2 = _z2_columns(z, k)
+    cpu_plan = torch_ell.segment_plan(rb.cpu().numpy(), nb)
+    want = ell_spmm.ell_contrib_spmm_rows_reference(
+        z2.cpu(), src.cpu(), accum_dtype=acc, plan=cpu_plan, k=k)
+    mass = ell_spmm.mass_reference(z2.cpu(), src.cpu(), accum_dtype=acc,
+                                   plan=cpu_plan, k=k)
+    cols = ell_spmv.bind_columns(z2.T.contiguous(), src, nb,
+                                 accum_dtype=acc, plan=plan)
+    for ln in cols:
+        ln()
+    assert torch.equal(cols[0].out_cols.cpu().T, want)
+    for kt in ell_spmm.TILES:
+        before = ell_spmm.launches
+        ln = ell_spmm.bind_spmm(z2, src, nb, accum_dtype=acc, plan=plan,
+                                kt=kt)
+        a = ln(k).cpu()
+        b = ln(k).cpu()
+        assert ell_spmm.launches == before + 2
+        assert torch.equal(a, want) and torch.equal(a, b), kt
+        assert ln.mass.dtype == acc
+        assert torch.equal(ln.mass[:k].cpu(), mass), kt
+    got = ell_spmm.ell_contrib_spmm_rows(z2, src, rb, nb, accum_dtype=acc,
+                                         plan=plan, k=5)
+    assert torch.equal(got.cpu(), want[:, :5])
+
+
+def test_k1w_launcher_runs_only_its_live_columns(cuda):
+    """A launcher bound at 8 columns, called at kc = 1, 3 and 8: the
+    first kc columns (and of the folded mass) equal the plain version's,
+    one launch a call, each
+    at the narrowest tile that holds kc columns, and the columns past
+    kc are left as they were."""
+    z, src, rb, nb, plan = _inputs(cuda, torch.float32)
+    z2 = _z2_columns(z, 8)
+    cpu_plan = torch_ell.segment_plan(rb.cpu().numpy(), nb)
+    want = ell_spmm.ell_contrib_spmm_rows_reference(
+        z2.cpu(), src.cpu(), accum_dtype=torch.float32, plan=cpu_plan, k=8)
+    mass = ell_spmm.mass_reference(z2.cpu(), src.cpu(),
+                                   accum_dtype=torch.float32, plan=cpu_plan,
+                                   k=8)
+    ln = ell_spmm.bind_spmm(z2, src, nb, accum_dtype=torch.float32,
+                            plan=plan, width=8)
+    ln.out.fill_(float("nan"))
+    for kc, tile in ((1, 4), (3, 4), (8, 8)):
+        before = ell_spmm.launches
+        out = ln(kc)
+        assert ell_spmm.launches == before + 1 and ln.last_tile == tile
+        assert torch.equal(out[:, :kc].cpu(), want[:, :kc])
+        assert torch.equal(ln.mass[:kc].cpu(), mass[:kc])
+        if kc == 1:
+            assert torch.isnan(out[:, 4:]).all()
+    with pytest.raises(ValueError, match="outside"):
+        ln(9)
 
 
 def test_coo_on_the_card_repeats_bitwise_and_matches_the_cpu(cuda):

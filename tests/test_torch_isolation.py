@@ -97,7 +97,7 @@ def test_imports_without_triton_or_nvcc(tmp_path):
         ".build(g).run()\n"
         "assert np.isfinite(r).all()\n"
         "assert build.sources() == ['defect_fixtures', 'ell_contrib', "
-        "'ell_contrib_partitioned', 'gather_probe']\n"
+        "'ell_contrib_partitioned', 'ell_contrib_spmm', 'gather_probe']\n"
         "r = pt.TorchEngine(pt.PageRankConfig(num_iters=2, "
         "partition_span=128), device='cpu').build(g).run()\n"
         "assert np.isfinite(r).all()\n"
