@@ -15,20 +15,31 @@ resolved before the build) and the ``--out`` writer (:2305-2320, with
 ``--top``), whose TSV matches the JAX CLI's, and personalized PageRank
 (``--ppr-sources``, ``--ppr-topk``, ``--ppr-chunk``, ``--ppr-dangling``,
 :475-493; ``parse_ppr_sources``, ``reject_ppr_incompatible_flags`` and
-``run_ppr``, :496-645; the ``--device-build`` refusal, :1439-1443). The
-solve runs on ``--device`` (default cuda) through the torch engines;
-``--device cpu``, or ``--engine cpu`` (the f64 oracle), runs it on a
-host without a card.
+``run_ppr``, :496-645; the ``--device-build`` refusal, :1439-1443),
+and the robustness plane: the per-iteration sinks (``--dump-text-dir``,
+``--sync-io``, ``--write-retries``, ``--on-write-failure``, :195-228,
+wired as :1705-1860: the async writer by default), the resumable job
+(``--job-dir``, ``--drain-deadline``, :242-263, and the stage hooks of
+:667-690, :1234-1335, :1551-1585, :1937-2001, :2304-2323) and the
+SDC-checked step (``--sdc-check-every``, ``--sdc-seed``,
+``--sdc-redo-deadline``, :274-302, with the quarantine hook of :1557).
+Every input and sink path may be a URI of a registered scheme
+(``utils/fsio``; ``s3://`` through ``utils/s3``). The elastic runner's
+and the observability plane's flags exit 2 naming their ROADMAP slice.
+The solve runs on ``--device`` (default cuda) through the torch
+engines; ``--device cpu``, or ``--engine cpu`` (the f64 oracle), runs it
+on a host without a card.
 
 ``run(argv)`` is the programmatic entry point (it returns the solve's
 summary: ranks, graph, ids, engine, timings, the input format and the
-ingest route); ``main(argv)`` wraps it.
+ingest route); ``main(argv)`` wraps it with the SIGTERM/SIGINT drain.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import signal
 import statistics
 import sys
 import time
@@ -36,7 +47,9 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from pagerank_tpu_torch.exitcodes import ExitCode
 from pagerank_tpu_torch.graph import build_graph
+from pagerank_tpu_torch import jobs
 from pagerank_tpu_torch.ops.device_build import plan_partition_span
 from pagerank_tpu_torch.utils import fsio
 
@@ -111,6 +124,16 @@ def build_parser() -> argparse.ArgumentParser:
                    "(reference: every iter)")
     p.add_argument("--resume", action="store_true",
                    help="resume from the newest valid snapshot")
+    p.add_argument(
+        "--sync-io", action="store_true",
+        help="write snapshots/text dumps synchronously in the iteration "
+        "loop instead of overlapping the device->host offload with "
+        "compute (AsyncRankWriter)")
+    p.add_argument(
+        "--dump-text-dir", default=None,
+        help="also write plain-text rank dumps per iteration "
+        "(PageRank{i}/part-00000 tuple lines, mirroring the reference's "
+        "per-iteration saveAsTextFile); a local path or a URI")
     p.add_argument("--out", default=None,
                    help="write final ranks (TSV: id/url, rank)")
     p.add_argument("--top", type=int, default=0,
@@ -122,6 +145,70 @@ def build_parser() -> argparse.ArgumentParser:
                    help="where the torch engine's solve runs (default cuda; "
                    "cpu only when asked)")
     ft = p.add_argument_group("fault tolerance")
+    ft.add_argument(
+        "--write-retries", type=int, default=3,
+        help="total attempts per snapshot/text-dump write before the "
+        "--on-write-failure policy applies (1 disables retries)")
+    ft.add_argument(
+        "--on-write-failure", choices=["fail", "warn_and_drop"],
+        default="fail",
+        help="when a snapshot/dump write exhausts its retries: 'fail' "
+        "aborts the run (default); 'warn_and_drop' records the dropped "
+        "iteration in a dead_letter.json manifest next to the snapshots "
+        "and keeps solving")
+    ft.add_argument(
+        "--job-dir", default=None, metavar="PATH",
+        help="run as a RESUMABLE job: each pipeline stage (ingest -> "
+        "build -> solve -> output) persists a checksummed durable "
+        "artifact into PATH, snapshots default into PATH/snapshots, and "
+        "a restarted job with the same command validates the artifacts "
+        "(graph fingerprint + layout geometry + config hash) and SKIPS "
+        "completed stages. SIGTERM/SIGINT trigger a graceful drain "
+        f"(exit {int(ExitCode.INTERRUPTED)}); corrupt or mismatched "
+        "artifacts are recomputed, never trusted")
+    ft.add_argument(
+        "--drain-deadline", type=float, default=jobs.DEFAULT_DRAIN_DEADLINE_S,
+        metavar="SECONDS",
+        help="budget for the graceful SIGTERM/SIGINT drain: finish the "
+        "in-flight step, flush the async writer (a failing sink still "
+        "honors the dead-letter policy), write a final snapshot. A "
+        "flush still hanging at the deadline is abandoned with a "
+        "warning; a SECOND signal hard-exits 128+signum immediately")
+    ft.add_argument(
+        "--sdc-check-every", type=int, default=0, metavar="K",
+        help="silent-data-corruption defense (sdc.py): every K-th step "
+        "runs the checked variant — the same kernel launch and update, "
+        "then a dual w.r random-projection fingerprint, link-mass "
+        "conservation and the mass-ledger identity. A breach triggers a "
+        "deadline-bounded re-execution from the retained device state: "
+        "a clean redo is TRANSIENT (counted, continue); a repeat breach "
+        "on the same device is STICKY and quarantines it (persisted in "
+        "job.json under --job-dir). 0 (default) disables: the solve is "
+        "bit-identical with zero check computations")
+    ft.add_argument(
+        "--sdc-seed", type=int, default=0,
+        help="seed of the SDC random-projection fingerprint vector")
+    ft.add_argument(
+        "--sdc-redo-deadline", type=float, default=30.0, metavar="SECONDS",
+        help="wall-clock budget for one SDC breach's bounded "
+        "re-execution before the episode escalates")
+    ft.add_argument("--max-rescues", type=int, default=None,
+                    help="elastic-rescue budget (not ported yet: ROADMAP "
+                    "slice 6)")
+    ft.add_argument("--stall-timeout", type=float, default=None,
+                    help="stall watchdog (not ported yet: ROADMAP slice 6 "
+                    "and 8)")
+    ft.add_argument("--stall-action", default=None,
+                    help="what the stall watchdog does (not ported yet: "
+                    "ROADMAP slice 6)")
+    ob = p.add_argument_group("observability (not ported yet: ROADMAP "
+                              "slice 8)")
+    ob.add_argument("--probe-every", type=int, default=0,
+                    help="convergence probes (ROADMAP slice 8)")
+    ob.add_argument("--run-report", default=None,
+                    help="the run report (ROADMAP slice 8)")
+    ob.add_argument("--trace", default=None,
+                    help="the span trace (ROADMAP slice 8)")
     ft.add_argument("--max-rollbacks", type=int, default=3,
                     help="snapshot rollbacks the self-healing solve loop "
                     "may perform on an unhealthy step (NaN/Inf, mass "
@@ -188,8 +275,8 @@ def build_parser() -> argparse.ArgumentParser:
 def parse_ppr_sources(spec: str, ids, n: int) -> np.ndarray:
     """--ppr-sources value -> vertex id array. Accepts 'random:K', a
     comma list of ids (or urls when the graph has an id map), or a path
-    to a file of one id/url per line (a local path: the port has no
-    remote file systems yet, so a URI is a url list)."""
+    (local, or a URI of a registered scheme) to a file of one id/url
+    per line."""
 
     def resolve(tok: str) -> int:
         tok = tok.strip()
@@ -217,9 +304,13 @@ def parse_ppr_sources(spec: str, ids, n: int) -> np.ndarray:
             raise SystemExit(f"--ppr-sources: count must be positive in {spec!r}")
         rng = np.random.default_rng(0)
         return rng.choice(n, size=min(k, n), replace=False).astype(np.int64)
+    # Treat the spec as a source FILE only when it plausibly is one: a
+    # local path that exists, or a registered-scheme URI that exists.
     # URL-named vertices (crawl graphs) contain "://": "http://a/,http://b/"
     # resolves through the id map, not as a file.
-    if fsio.scheme_of(spec) is None and os.path.exists(spec):
+    scheme = fsio.scheme_of(spec)
+    if (fsio.exists(spec) if scheme is not None and fsio.registered(scheme)
+            else scheme is None and os.path.exists(spec)):
         with fsio.fopen(spec) as f:
             toks = [ln for ln in (l.strip() for l in f) if ln]
         return np.array([resolve(t) for t in toks], dtype=np.int64)
@@ -453,7 +544,8 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _device_build(args, cfg, info, t0, edges, n, dangling_mask=None):
+def _device_build(args, cfg, info, t0, edges, n, dangling_mask=None,
+                  names=None):
     """The graph built on the device from the raw ``edges`` = [src, dst]
     — device tensors (a seed crossed) or host arrays, uploaded once (8 B
     an edge) — with the span planned first over the raw edge count, as
@@ -470,6 +562,27 @@ def _device_build(args, cfg, info, t0, edges, n, dangling_mask=None):
         raise ValueError("empty graph: no vertices")
     dev = _device(args)
     _sync(dev)  # edges generated on the device are there: time the load
+    job = getattr(args, "_job", None)
+    if job is not None:
+        # Resumable-job hook (armed by _job_load_graph): a file input's
+        # raw edges (and a crawl's names) become the ingest artifact
+        # BEFORE the build, so a job killed mid-build resumes without
+        # re-parsing. A seed's edges are on the device: only the seed
+        # crossed, nothing worth persisting.
+        if not isinstance(edges[0], torch.Tensor):
+            arrays = {"src": np.asarray(edges[0]),
+                      "dst": np.asarray(edges[1])}
+            if dangling_mask is not None:
+                arrays["dangling_mask"] = np.asarray(dangling_mask)
+            job.save_stage_artifact(
+                "ingest", arrays,
+                {"key": args._job_key, "kind": "raw_edges", "n": int(n)})
+            if names is not None:
+                job.save_names(names, args._job_key)
+            job.complete("ingest")
+        else:
+            job.complete("ingest", synthetic=True)
+        job.begin("build")
     t1 = time.perf_counter()
     info["input_seconds"] = t1 - t0
     stripe = info["partition_span"] = (plan_partition_span(
@@ -553,7 +666,8 @@ def _load_crawl(args, cfg, fmt, mem_cap, info, t0):
         edges = [src, dst]
         del src, dst
         return _device_build(args, cfg, info, t0, edges, len(ids),
-                             dangling_mask=~crawled), ids, info
+                             dangling_mask=~crawled,
+                             names=ids.names), ids, info
     graph = _build(info, t0, src, dst, n=len(ids), dangling_mask=~crawled,
                    vertex_names=ids.names)
     return graph, ids, info
@@ -589,47 +703,33 @@ def resolve_layout(cfg, args, graph, part=None):
     return cfg.validate()
 
 
-def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
-    """Load, build, solve and write outputs; returns the summary:
-    ``ranks`` (host, original id order), ``graph``, ``ids`` (the IdMap
-    of a crawl input, else None), ``engine``, ``resumed_from``,
-    ``iterations``, ``step_seconds`` (one per step, each ending in a
-    device sync; snapshot saves are not in them), ``snapshot_seconds``
-    (one per save), ``out_seconds`` (the ``--out`` write, else None),
-    ``format`` (the detected input format), ``ingest_route`` ("native"
-    or "python": the parser that ran), ``ingest_threads``,
-    ``input_seconds`` (read, parse or generate the edges),
-    ``graph_seconds`` (build_graph, or the device build's wall),
-    ``sort_route`` (``Graph.sort_route``; "device" under
-    ``--device-build``), ``device_build_seconds`` (the device build's
-    relabel/sort/slots/scatter stages, else None), ``upload_seconds``
-    (the raw edges of a device-built file input, else None) and
-    ``engine_build_seconds`` (pack, plan and placement; its split is in
-    ``engine.layout_info()["build_seconds"]``), and the layout that ran:
-    ``form``, ``partition_span`` (0 for the flat form), ``partitions``
-    and ``num_rows`` (slot rows; None for the cpu engine). With ``--ppr-sources`` it returns, after the load, ``graph``,
-    ``ids``, the load's timings and what :func:`run_ppr` returns."""
-    from pagerank_tpu_torch.engine import make_engine
-    from pagerank_tpu_torch.engines.torch_engine import (
-        TorchEngine, resolve_device)
-    from pagerank_tpu_torch.utils.config import (PageRankConfig,
-                                                 RobustnessConfig)
-    from pagerank_tpu_torch.utils.metrics import MetricsLogger
-    from pagerank_tpu_torch.utils.snapshot import Snapshotter, resume_engine
+def _usage(msg: str):
+    """Print a usage error and exit with the taxonomy's USAGE code."""
+    print(msg, file=sys.stderr)
+    raise SystemExit(int(ExitCode.USAGE))
 
-    args = build_parser().parse_args(argv)
-    try:
-        cfg = PageRankConfig(
-            num_iters=args.iters, damping=args.damping,
-            semantics=args.semantics, dtype=args.dtype,
-            accum_dtype=args.accum_dtype or args.dtype, tol=args.tol,
-            robustness=RobustnessConfig(
-                health_checks=not args.no_health_checks,
-                mass_tol=args.mass_tol, max_rollbacks=args.max_rollbacks),
-        ).validate()
-    except ValueError as e:
-        raise SystemExit(str(e))
-    if args.resume and not args.snapshot_dir:
+
+def _check_args(args) -> None:
+    """Pure-args validation before any work (``pagerank_tpu/cli.py:
+    1435-1535`` at one device): the flags of later slices exit 2 naming
+    their slice; the SDC and job flags keep the JAX CLI's refusals."""
+    later = [flag for flag, on in (
+        ("--max-rescues", args.max_rescues is not None),
+        ("--stall-timeout", args.stall_timeout is not None),
+        ("--stall-action", args.stall_action is not None),
+    ) if on]
+    if later:
+        _usage(f"{', '.join(later)}: the elastic runner and the device "
+               f"health monitor are not ported yet (ROADMAP slice 6)")
+    later = [flag for flag, on in (
+        ("--probe-every", bool(args.probe_every)),
+        ("--run-report", args.run_report is not None),
+        ("--trace", args.trace is not None),
+    ) if on]
+    if later:
+        _usage(f"{', '.join(later)}: probes, the run report and the "
+               f"tracer are not ported yet (ROADMAP slice 8)")
+    if args.resume and not args.snapshot_dir and not args.job_dir:
         raise SystemExit("--resume needs --snapshot-dir")
     if args.device_build and args.engine != "torch":
         raise SystemExit("--device-build requires --engine torch")
@@ -638,14 +738,289 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
                          "(the PPR engine builds from a host graph)")
     if args.ppr_sources:
         reject_ppr_incompatible_flags(args)
+    if args.sdc_check_every:
+        if args.sdc_check_every < 0:
+            _usage("--sdc-check-every must be >= 0")
+        if args.engine != "torch":
+            _usage("--sdc-check-every requires --engine torch (the ABFT "
+                   "invariants are device measurements)")
+    if args.job_dir:
+        if args.ppr_sources:
+            _usage("--job-dir does not support --ppr-sources (the stage "
+                   "machine covers the global-PageRank pipeline)")
+        if args.drain_deadline <= 0:
+            _usage("--drain-deadline must be positive")
+        if not args.snapshot_dir:
+            args.snapshot_dir = fsio.join(args.job_dir, "snapshots")
+        args.resume = True
+
+
+def _input_stamp(path):
+    """Best-effort identity of a LOCAL input beyond its path string:
+    (size, mtime_ns) — a file regenerated in place between runs must
+    not let a resumed job serve the old graph's artifacts. Remote
+    paths, comma lists and vanished files give None: the checksum and
+    fingerprint still guard the artifacts' integrity."""
+    if not path:
+        return None
+    try:
+        st = os.stat(path)
+    except OSError:
+        return None
+    return [int(st.st_size), int(st.st_mtime_ns)]
+
+
+def _job_graph_key(args) -> str:
+    """Hash of everything that determines the ingest/build artifacts'
+    content (input spec and layout-shaping args): artifacts of another
+    input or layout never satisfy this run's stages."""
+    return jobs.key_hash({
+        "input": args.input or args.synthetic,
+        "input_stamp": _input_stamp(args.input),
+        "format": args.format,
+        "strict_parse": bool(args.strict_parse),
+        "device_build": bool(args.device_build),
+        "host_mem_cap_gb": args.host_mem_cap_gb,
+        "dtype": args.dtype,
+        "accum_dtype": args.accum_dtype or args.dtype,
+        "partition_span": args.partition_span,
+        "device": args.device if args.device_build else None,
+    })
+
+
+def _restored_info(t0) -> Dict[str, object]:
+    return {"format": "restored", "ingest_route": "restored",
+            "ingest_threads": None,
+            "input_seconds": time.perf_counter() - t0, "graph_seconds": 0.0}
+
+
+def _job_load_graph(args, cfg, job, drain):
+    """The ingest and build stages of a resumable job
+    (``pagerank_tpu/cli.py:1234-1335``): restore the graph from a
+    validated artifact keyed to this run, else run the loaders and
+    persist the artifacts. A host build's artifact is the built Graph
+    (the engine packs at its own build); a device build's is the packed
+    planes (``checkpoint_arrays``), with the raw edges of a file input
+    saved as the ingest artifact before the build. Corrupt or
+    mismatched artifacts are recomputed, never trusted."""
+    import warnings
+
+    key = _job_graph_key(args)
+    t0 = time.perf_counter()
+    if not args.device_build:
+        hit = job.load_stage_artifact("ingest", expect={"key": key})
+        if hit is not None:
+            arrays, meta = hit
+            try:
+                graph = jobs.graph_from_arrays(arrays, meta)
+            except jobs.ArtifactCorruptError as e:
+                warnings.warn(f"job ingest artifact rejected ({e}); "
+                              "recomputing", RuntimeWarning)
+            else:
+                job.skip("ingest", fingerprint=meta.get("fingerprint"))
+                job.skip("build", note="host layout packs at engine build")
+                names = jobs.decode_names(arrays)
+                return (graph, jobs.RestoredIds(names) if names else None,
+                        _restored_info(t0))
+        job.begin("ingest")
+        graph, ids, info = load_graph(args, cfg)
+        arrays, meta = jobs.graph_to_arrays(graph)
+        meta["key"] = key
+        job.save_stage_artifact("ingest", arrays, meta)
+        job.complete("ingest", fingerprint=meta["fingerprint"])
+        job.begin("build")
+        job.complete("build", note="host layout packs at engine build")
+        # Drain AFTER the artifact commit: the resume skips this work.
+        drain.check("ingest")
+        return graph, ids, info
+
+    from pagerank_tpu_torch.ops import device_build as db
+
+    hit = job.load_stage_artifact("build", expect={"key": key})
+    if hit is not None:
+        arrays, meta = hit
+        try:
+            graph = db.restore_device_graph(arrays, meta,
+                                            device=_device(args))
+        except (ValueError, jobs.ArtifactCorruptError) as e:
+            warnings.warn(f"job build artifact rejected ({e}); "
+                          "recomputing", RuntimeWarning)
+        else:
+            job.skip("ingest", note="covered by build artifact")
+            job.skip("build", fingerprint=meta.get("fingerprint"))
+            info = _restored_info(t0)
+            info["partition_span"] = int(meta.get("partition_span") or 0)
+            names = job.load_names(key)
+            return graph, (jobs.RestoredIds(names) if names else None), info
+    graph = ids = None
+    if not args.synthetic:
+        # A prior run may have died DURING the build: the raw-edges
+        # ingest artifact still skips the host parse.
+        ing = job.load_stage_artifact("ingest", expect={"key": key})
+        if ing is not None:
+            arrs, imeta = ing
+            job.skip("ingest")
+            drain.check("ingest")
+            names = job.load_names(key)
+            ids = jobs.RestoredIds(names) if names else None
+            job.begin("build")
+            info = _restored_info(t0)
+            mask = arrs.get("dangling_mask")
+            graph = _device_build(args, cfg, info, t0,
+                                  [arrs["src"], arrs["dst"]],
+                                  int(imeta["n"]), dangling_mask=mask)
+    if graph is None:
+        # Fresh run: the loaders, with the hook armed so _device_build
+        # persists a file input's raw edges and marks the stages.
+        args._job, args._job_key = job, key
+        try:
+            graph, ids, info = load_graph(args, cfg)
+        finally:
+            args._job = None
+    arrays, meta = db.checkpoint_arrays(graph)
+    meta["key"] = key
+    if info.get("partition_span"):
+        meta["partition_span"] = int(info["partition_span"])
+    job.save_stage_artifact("build", arrays, meta)
+    job.complete("build", fingerprint=meta["fingerprint"])
+    drain.check("build")
+    return graph, ids, info
+
+
+def _s3_retry_total(paths) -> int:
+    """Transparent request retries across the distinct S3FileSystem
+    instances serving the given paths (for the robustness summary)."""
+    from pagerank_tpu_torch.utils.s3 import S3FileSystem
+
+    seen, total = set(), 0
+    for p in paths:
+        scheme = fsio.scheme_of(p) if p else None
+        if scheme is None or not fsio.registered(scheme):
+            continue
+        fs = fsio.get_fs(p)
+        if isinstance(fs, S3FileSystem) and id(fs) not in seen:
+            seen.add(id(fs))
+            total += fs.retry_stats.retries
+    return total
+
+
+def _robustness_line(args, engine, guard, dead_letter) -> None:
+    """The robustness summary on stderr (``pagerank_tpu/cli.py:
+    2195-2225``), printed only when something is worth reporting:
+    rollbacks, write retries, SDC breaches, S3 request retries and
+    dropped writes."""
+    from pagerank_tpu_torch import sdc as sdc_mod
+
+    rollbacks = (getattr(engine, "health", {}) or {}).get("rollbacks", 0)
+    sdc = sdc_mod.report_section()
+    detected = int(sdc.get("flips_detected", 0)) if sdc else 0
+    io_retries = _s3_retry_total(
+        (args.snapshot_dir, args.dump_text_dir, args.out, args.jsonl))
+    if not (rollbacks or guard.retries or guard.dropped or io_retries
+            or detected):
+        return
+    parts = [f"{rollbacks} rollback(s)", f"{guard.retries} write retr(y/ies)"]
+    if detected:
+        parts.append(f"{detected} SDC breach(es) ({sdc['transient']} "
+                     f"transient, {len(sdc['quarantined_devices'])} "
+                     f"quarantined chip(s))")
+    if io_retries:
+        parts.append(f"{io_retries} s3 request retr(y/ies)")
+    if guard.dropped:
+        parts.append(
+            f"{len(guard.dropped)} DROPPED write(s) (iterations "
+            f"{[d['iteration'] for d in guard.dropped]}"
+            + (f", manifest {dead_letter}" if dead_letter else "") + ")")
+    _log("robustness: " + ", ".join(parts))
+
+
+def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
+    """Load, build, solve and write outputs; returns the summary:
+    ``ranks`` (host, original id order), ``graph``, ``ids`` (the IdMap
+    of a crawl input, else None), ``engine`` (None when a job's solve
+    stage was restored), ``resumed_from``, ``iterations``,
+    ``step_seconds`` (one per step, each ending in a device sync; the
+    sinks are not in them), ``snapshot_seconds`` and ``dump_seconds``
+    (one per save and per text dump, timed where they ran: on the
+    writer's thread unless ``--sync-io``), ``queue_wait_seconds`` (the
+    async writer's waits on a full queue), ``decode_seconds`` (the
+    fetch of the ranks to the host for the sinks: the async writer's
+    decode of each payload, or ``engine.ranks()`` under ``--sync-io``),
+    ``writer_item_seconds`` (each async item's whole wall on the
+    writer's thread), ``writer`` ("async", "sync"
+    or None), ``dump_route`` (the text formatter that ran, else None),
+    ``solve_seconds`` (the solve's wall to the last flushed write),
+    ``out_seconds`` (the ``--out`` write, else None), ``format`` (the
+    detected input format; "restored" from a job artifact),
+    ``ingest_route`` ("native", "python" or "restored"),
+    ``ingest_threads``, ``input_seconds``, ``graph_seconds``
+    (build_graph, or the device build's wall), ``sort_route``
+    (``Graph.sort_route``; "device" under ``--device-build``),
+    ``device_build_seconds``, ``upload_seconds``,
+    ``engine_build_seconds`` (pack, plan and placement; its split is in
+    ``engine.layout_info()["build_seconds"]``), the layout that ran
+    (``form``, ``partition_span``, ``partitions``, ``num_rows``),
+    ``sdc`` (the SDC section, empty when off), ``dropped`` (writes
+    dropped under ``--on-write-failure warn_and_drop``) and ``job``
+    (the job manifest, else None). With ``--ppr-sources`` it returns,
+    after the load, ``graph``, ``ids``, the load's timings and what
+    :func:`run_ppr` returns. No signal handler is installed here (see
+    :func:`main`)."""
+    args = build_parser().parse_args(argv)
+    return _run(args, jobs.GracefulDrain(deadline_s=args.drain_deadline))
+
+
+def _run(args, drain) -> Dict[str, object]:
+    """:func:`run` on parsed ``args`` under ``drain`` (a
+    :class:`~pagerank_tpu_torch.jobs.GracefulDrain`, installed by
+    :func:`main`): a drain request surfaces as
+    :class:`~pagerank_tpu_torch.jobs.DrainInterrupt` after the writer
+    was flushed and a final snapshot written."""
+    from pagerank_tpu_torch import sdc as sdc_mod
+    from pagerank_tpu_torch.engine import make_engine
+    from pagerank_tpu_torch.engines.torch_engine import (
+        TorchEngine, resolve_device)
+    from pagerank_tpu_torch.utils.config import (PageRankConfig,
+                                                 RobustnessConfig)
+    from pagerank_tpu_torch.utils.metrics import MetricsLogger
+    from pagerank_tpu_torch.utils.snapshot import (
+        AsyncRankWriter, SinkGuard, Snapshotter, TextDumper,
+        WriterSyncedSnapshotter, resume_engine)
+
+    _check_args(args)
+    try:
+        cfg = PageRankConfig(
+            num_iters=args.iters, damping=args.damping,
+            semantics=args.semantics, dtype=args.dtype,
+            accum_dtype=args.accum_dtype or args.dtype, tol=args.tol,
+            sdc_check_every=args.sdc_check_every, sdc_seed=args.sdc_seed,
+            robustness=RobustnessConfig(
+                health_checks=not args.no_health_checks,
+                mass_tol=args.mass_tol, max_rollbacks=args.max_rollbacks,
+                write_attempts=args.write_retries,
+                on_write_failure=args.on_write_failure,
+                sdc_redo_deadline_s=args.sdc_redo_deadline),
+        ).validate()
+    except ValueError as e:
+        raise SystemExit(str(e))
     if args.engine == "torch":
         resolve_device(args.device)  # raises without a card, before work
+    sdc_mod.reset()
+    job = jobs.JobSupervisor(args.job_dir) if args.job_dir else None
+    if job is not None and args.sdc_check_every:
+        # Convictions persist AT conviction time: a sticky chip lands
+        # in job.json before the quarantine error raises.
+        sdc_mod.set_quarantine_hook(job.quarantine_devices)
 
     try:
-        graph, ids, info = load_graph(args, cfg)
+        if job is not None:
+            graph, ids, info = _job_load_graph(args, cfg, job, drain)
+        else:
+            graph, ids, info = load_graph(args, cfg)
     except ValueError as e:
         # e.g. "empty graph: no vertices": a clean CLI error
         raise SystemExit(str(e))
+    drain.check("ingest")
     threads = (f", {info['ingest_threads']} threads"
                if info["ingest_threads"] else "")
     sort_route = "device" if args.device_build else graph.sort_route
@@ -663,74 +1038,251 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     if args.ppr_sources:
         return {"graph": graph, "ids": ids, **info, "sort_route": sort_route,
                 **run_ppr(args, graph, ids)}
-    t0 = time.perf_counter()
-    if args.engine == "cpu":
-        engine = make_engine("cpu", cfg).build(graph)
-        lay = {"form": "cpu_f64", "partition_span": 0}
-        _log(f"engine: the f64 oracle on the host (build "
-             f"{time.perf_counter() - t0:.3f} s)")
-    else:
+    if args.engine == "torch":
         cfg = resolve_layout(cfg, args, graph, info.get("partition_span"))
-        engine = TorchEngine(cfg, device=args.device)
-        t0 = time.perf_counter()
-        if args.device_build:
-            engine.build_device(graph)
-        else:
-            engine.build(graph)
-        lay = engine.layout_info()
-        _log_layout(lay, time.perf_counter() - t0)
-    build_s = time.perf_counter() - t0
-    parts = lay.get("partitions", 1)
 
-    snap = None
-    resumed = 0
-    if args.snapshot_dir:
-        snap = Snapshotter(args.snapshot_dir, graph.fingerprint(),
-                           cfg.semantics, mesh_meta=engine.snapshot_meta())
-        if args.resume:
-            resumed = resume_engine(engine, snap)
-            if resumed:
-                _log(f"resumed from iteration {resumed}")
-
-    metrics = MetricsLogger(graph.num_edges, 1, log_every=args.log_every,
-                            jsonl_path=args.jsonl)
+    # The solve stage of a job: a validated final-ranks artifact of a
+    # completed prior solve satisfies it outright (no engine is built).
+    solve_fp = solve_hash = solve_hit = None
+    if job is not None:
+        solve_fp = graph.fingerprint()
+        solve_hash = jobs.solve_config_hash(cfg)
+        # Snapshots scoped by solve config: a rerun with other solve
+        # flags must not warm-start the old config's trajectory.
+        args.snapshot_dir = fsio.join(args.snapshot_dir, solve_hash)
+        solve_hit = job.load_stage_artifact(
+            "solve",
+            expect={"fingerprint": solve_fp, "solve_config": solve_hash})
+    guard = SinkGuard()
+    dead_letter = None
     step_s: List[float] = []
     save_s: List[float] = []
-    t_last = [time.perf_counter()]
+    dump_s: List[float] = []
+    fetch_s: List[float] = []
+    writer = dumper = engine = None
+    resumed, build_s, solve_s = 0, 0.0, None
+    lay = {"form": None, "partition_span": 0}
+    if solve_hit is not None:
+        ranks = solve_hit[0]["ranks"]
+        job.skip("solve", iterations=solve_hit[1].get("iterations"))
+        _log("solve stage satisfied by durable artifact "
+             f"({solve_hit[1].get('iterations')} iteration(s) recorded)")
+        iterations = solve_hit[1].get("iterations")
+    else:
+        if job is not None:
+            job.begin("solve")
+        t0 = time.perf_counter()
+        if args.engine == "cpu":
+            engine = make_engine("cpu", cfg).build(graph)
+            lay = {"form": "cpu_f64", "partition_span": 0}
+            _log(f"engine: the f64 oracle on the host (build "
+                 f"{time.perf_counter() - t0:.3f} s)")
+        else:
+            from pagerank_tpu_torch.parallel.mesh import device_id
 
-    def on_iteration(i, info):
-        step_s.append(time.perf_counter() - t_last[0])
-        metrics.record(i, info, step_s[-1])
-        if snap is not None and args.snapshot_every and (
-                (i + 1) % args.snapshot_every == 0):
-            t_save = time.perf_counter()
-            snap.save(i + 1, engine.ranks())
-            save_s.append(time.perf_counter() - t_save)
-        t_last[0] = time.perf_counter()
+            quarantined = (set(job.quarantined_devices()) if job is not None
+                           else set())
+            if device_id(resolve_device(args.device)) in quarantined:
+                # One device: a chip a prior run of this job convicted
+                # of sticky corruption leaves nothing to build on.
+                raise SystemExit(
+                    f"device {args.device} was quarantined for silent "
+                    f"data corruption by a prior run of this job "
+                    f"({job.manifest_path}); no device is left")
+            engine = TorchEngine(cfg, device=args.device)
+            if args.device_build:
+                engine.build_device(graph)
+            else:
+                engine.build(graph)
+            lay = engine.layout_info()
+            _log_layout(lay, time.perf_counter() - t0)
+        build_s = time.perf_counter() - t0
+        # A signal during the engine build surfaces here, not after a
+        # whole first iteration.
+        drain.check("solve")
 
-    try:
-        ranks = engine.run(on_iteration=on_iteration, snapshotter=snap)
-    finally:
-        metrics.close()
-    if step_s:
-        ms = statistics.median(step_s) * 1e3
-        saves = (f", snapshot save median "
-                 f"{statistics.median(save_s) * 1e3:.3f} ms" if save_s
-                 else "")
-        _log(f"solve: {len(step_s)} iteration(s), median {ms:.3f} ms/iter, "
-             f"{graph.num_edges / (ms / 1e3):.4g} edges/s{saves}")
+        snap = None
+        if args.snapshot_dir:
+            snap = Snapshotter(args.snapshot_dir, graph.fingerprint(),
+                               cfg.semantics, mesh_meta=engine.snapshot_meta())
+            if args.resume:
+                try:
+                    resumed = resume_engine(engine, snap)
+                except ValueError as e:
+                    # A job dir reused for another graph: recompute
+                    # from r0, never trust (a plain --resume refuses).
+                    if job is None:
+                        raise
+                    import warnings
+
+                    warnings.warn(f"job snapshots do not match this graph "
+                                  f"({e}); solving from r0", RuntimeWarning)
+                    resumed = 0
+                if resumed:
+                    _log(f"resumed from iteration {resumed}")
+        metrics = MetricsLogger(graph.num_edges, 1, log_every=args.log_every,
+                                jsonl_path=args.jsonl)
+        if args.dump_text_dir:
+            dumper = TextDumper(args.dump_text_dir,
+                                names=ids.names if ids is not None else None)
+
+        def write_sinks(i, payload):
+            # THE single sink path: async and --sync-io runs write the
+            # same bytes.
+            want_snap, ranks = payload
+            if want_snap:
+                t = time.perf_counter()
+                snap.save(i + 1, ranks)
+                save_s.append(time.perf_counter() - t)
+            if dumper is not None:
+                t = time.perf_counter()
+                dumper.dump(i, ranks)
+                dump_s.append(time.perf_counter() - t)
+
+        if args.on_write_failure == "warn_and_drop":
+            base = args.snapshot_dir or args.dump_text_dir
+            if base:
+                dead_letter = fsio.join(base, "dead_letter.json")
+        guard = SinkGuard(retry_policy=cfg.robustness.write_retry_policy(),
+                          on_failure=args.on_write_failure,
+                          dead_letter_path=dead_letter)
+        # Async offload: the loop submits the engine's payload (a copy
+        # to pinned host memory on a side stream) and keeps stepping; a
+        # worker thread decodes it and feeds the sinks. --sync-io keeps
+        # the reference-like barrier; the f64 oracle's ranks are on the
+        # host already, so it stays synchronous.
+        can_write = dumper is not None or (snap and args.snapshot_every)
+        if can_write and args.engine == "torch" and not args.sync_io:
+            writer = AsyncRankWriter(
+                lambda p: (p[0], engine.decode_ranks(p[1])), [write_sinks],
+                guard=guard)
+        t_last = [time.perf_counter()]
+
+        def on_iteration(i, step_info):
+            step_s.append(time.perf_counter() - t_last[0])
+            metrics.record(i, step_info, step_s[-1])
+            want_snap = bool(snap and args.snapshot_every
+                             and (i + 1) % args.snapshot_every == 0)
+            if want_snap or dumper is not None:
+                if writer is not None:
+                    writer.submit(i, (want_snap, engine.device_ranks()))
+                else:
+                    def fetch_and_write():
+                        # one device->host fetch for both sinks
+                        t = time.perf_counter()
+                        ranks = engine.ranks()
+                        fetch_s.append(time.perf_counter() - t)
+                        write_sinks(i, (want_snap, ranks))
+
+                    guard(i, fetch_and_write)
+            # Preemption points, AFTER this step's sinks were queued:
+            # the seeded chaos plan may deliver its signal here and a
+            # pending drain request surfaces here.
+            if job is not None:
+                job.tick("solve", i)
+            drain.check("solve")
+            t_last[0] = time.perf_counter()
+
+        roll_snap = snap
+        if snap is not None and writer is not None:
+            # Rollback scans drain the writer's queue first.
+            roll_snap = WriterSyncedSnapshotter(snap, writer)
+        interrupted = None
+        t_solve = time.perf_counter()
+        try:
+            ranks = engine.run(on_iteration=on_iteration,
+                               snapshotter=roll_snap)
+        except jobs.DrainInterrupt as di:
+            interrupted = di
+        finally:
+            propagating = sys.exc_info()[0] is not None
+            metrics.close()
+            if writer is not None:
+                try:
+                    # A drain bounds the flush by its deadline: a
+                    # hanging sink is abandoned (warned and counted).
+                    writer.close(timeout=drain.remaining()
+                                 if drain.requested else None)
+                except Exception:
+                    if not propagating:
+                        raise
+        solve_s = time.perf_counter() - t_solve
+        if interrupted is not None:
+            # Final snapshot of the drained state (the last completed
+            # step), then the manifest, then the interrupt.
+            if snap is not None:
+                try:
+                    guard(engine.iteration,
+                          lambda: snap.save(engine.iteration,
+                                            engine.ranks()))
+                except Exception as e:
+                    _log(f"pagerank_tpu_torch: final drain snapshot "
+                         f"failed: {e!r}")
+            if job is not None:
+                job.interrupt("solve", iteration=int(engine.iteration),
+                              signal=interrupted.signum)
+            raise interrupted
+        iterations = engine.iteration
+        if step_s:
+            ms = statistics.median(step_s) * 1e3
+            sinks = ""
+            if save_s:
+                sinks += (f", snapshot save median "
+                          f"{statistics.median(save_s) * 1e3:.3f} ms")
+            if dump_s:
+                sinks += (f", text dump median "
+                          f"{statistics.median(dump_s) * 1e3:.3f} ms "
+                          f"({dumper.route})")
+            if writer is not None:
+                sinks += (f", async writer (queue wait "
+                          f"{sum(writer.queue_wait_s) * 1e3:.3f} ms)")
+            _log(f"solve: {len(step_s)} iteration(s), median {ms:.3f} "
+                 f"ms/iter, {graph.num_edges / (ms / 1e3):.4g} edges/s, "
+                 f"wall {solve_s:.3f} s to the last write{sinks}")
+        if job is not None:
+            # Durable solve artifact: a later restart skips straight to
+            # the output stage.
+            job.save_stage_artifact(
+                "solve", {"ranks": np.asarray(ranks)},
+                {"fingerprint": solve_fp, "solve_config": solve_hash,
+                 "iterations": int(iterations)})
+            job.complete("solve", iterations=int(iterations))
+            drain.check("solve")
+    _robustness_line(args, engine, guard, dead_letter)
 
     out_s = None
+    if job is not None:
+        job.begin("output")
     if args.out:
         t0 = time.perf_counter()
         n_out = write_ranks(args.out, ranks,
                             ids.names if ids is not None else None, args.top)
         out_s = time.perf_counter() - t0
         _log(f"wrote {n_out:,} ranks to {args.out}")
+    if job is not None:
+        job.complete("output", out=args.out)
+        job.finish()
+        skipped = [s for s, r in job.manifest["stages"].items()
+                   if r.get("skipped")]
+        _log(f"job complete in {args.job_dir} (resume "
+             f"#{job.manifest['resumes']}, {len(skipped)} stage(s) "
+             f"satisfied by durable artifacts"
+             + (f": {', '.join(skipped)}" if skipped else "") + ")")
     return {
         "ranks": ranks, "graph": graph, "ids": ids, "engine": engine,
-        "resumed_from": resumed, "iterations": engine.iteration,
+        "resumed_from": resumed, "iterations": iterations,
         "step_seconds": step_s, "snapshot_seconds": save_s,
+        "dump_seconds": dump_s,
+        "queue_wait_seconds": (list(writer.queue_wait_s)
+                               if writer is not None else []),
+        "decode_seconds": (list(writer.decode_s)
+                           if writer is not None else fetch_s),
+        "writer_item_seconds": (list(writer.item_s)
+                                if writer is not None else []),
+        "writer": ("async" if writer is not None else
+                   "sync" if (save_s or dump_s) else None),
+        "dump_route": dumper.route if dumper is not None else None,
+        "solve_seconds": solve_s,
         "out_seconds": out_s, "format": info["format"],
         "ingest_route": info["ingest_route"],
         "ingest_threads": info["ingest_threads"],
@@ -741,7 +1293,11 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
         "upload_seconds": info.get("upload_seconds"),
         "engine_build_seconds": build_s,
         "form": lay["form"], "partition_span": lay["partition_span"],
-        "partitions": parts, "num_rows": lay.get("num_rows"),
+        "partitions": lay.get("partitions", 1),
+        "num_rows": lay.get("num_rows"),
+        "sdc": sdc_mod.report_section(),
+        "dropped": list(guard.dropped),
+        "job": dict(job.manifest) if job is not None else None,
     }
 
 
@@ -777,7 +1333,28 @@ def write_ranks(path: str, ranks: np.ndarray, names=None, top: int = 0) -> int:
 
 
 def main(argv: Optional[List[str]] = None) -> int:
-    run(argv)
+    """The process entry point: SIGTERM/SIGINT handlers installed around
+    :func:`run` only (``pagerank_tpu/cli.py:1380-1400``). A first signal
+    drains at the next safe point (the in-flight step finishes, the
+    writer flushes within ``--drain-deadline``, a final snapshot is
+    written) and exits 75; a second hard-exits 128 + signum."""
+    args = build_parser().parse_args(argv)
+    drain = jobs.GracefulDrain(deadline_s=args.drain_deadline)
+    with drain:
+        try:
+            _run(args, drain)
+        except jobs.DrainInterrupt as e:
+            spent = drain.finish()
+            try:
+                sig = signal.Signals(e.signum).name if e.signum else "signal"
+            except ValueError:
+                sig = f"signal {e.signum}"
+            _log(f"pagerank_tpu_torch: interrupted by {sig}; drained in "
+                 f"{spent:.2f}s"
+                 + (f" — rerun with --job-dir {args.job_dir} to resume"
+                    if args.job_dir else "")
+                 + f" (exit {int(ExitCode.INTERRUPTED)})")
+            return int(ExitCode.INTERRUPTED)
     return 0
 
 

@@ -1,10 +1,13 @@
 """``PageRankEngine`` — the engine interface and the solve loop.
 
 Port of ``pagerank_tpu/engine.py:26-430``: the ``run`` loop with its
-per-step health check, snapshot rollback and ``tol`` stop. The loop
-plays the role of the reference's ``for (iter = 0; iter < 10; iter++)``
-block (Sparky.java:187-238): step, hook, snapshot, repeat. Probes, the
-SDC guard, the stall watchdog and the tracer come with later slices.
+per-step health check, snapshot rollback, ``tol`` stop and the SDC
+guard's checked step (``:261-287``, ``:368-373``), and the engine hooks
+the guard reads (``sdc_supported``, ``retain_state``, ``restore_state``,
+``ledger_values``, ``:93-110``, ``:132``). The loop plays the role of the
+reference's ``for (iter = 0; iter < 10; iter++)`` block
+(Sparky.java:187-238): step, hook, snapshot, repeat. Probes, the stall
+watchdog and the tracer come with ROADMAP slice 8.
 """
 
 from __future__ import annotations
@@ -79,6 +82,44 @@ class PageRankEngine(abc.ABC):
         """sum(ranks) as a host scalar — the mass-drift health probe."""
         return float(np.asarray(self.ranks(), dtype=np.float64).sum())
 
+    def device_ids(self):
+        """Ids of the devices holding the rank vector, in mesh-position
+        order (what an SDC suspect position names); none for a host
+        engine."""
+        return []
+
+    def sdc_supported(self) -> bool:
+        """Whether this engine can run the SDC-checked step (sdc.py).
+        The base engine cannot."""
+        return False
+
+    def retain_state(self, iteration=None):
+        """Opaque rewind token (iteration, rank copy) — the SDC redo's
+        double buffer. Base impl holds a host copy; the torch engine
+        keeps it on its device."""
+        it = self.iteration if iteration is None else int(iteration)
+        return (it, np.array(self.ranks(), copy=True))
+
+    def restore_state(self, token) -> None:
+        it, ranks = token
+        self.set_ranks(np.array(ranks, copy=True), iteration=int(it))
+
+    def ledger_values(self):
+        """Raw rank-mass-ledger sums of the step just taken —
+        ``(mass_prev, contrib_total, retained_total)`` — or None when
+        this engine cannot measure them."""
+        return None
+
+    def _ledger_eps(self) -> float:
+        """Machine epsilon of the accumulation dtype the ledger sums
+        were computed in."""
+        return float(np.finfo(np.float64).eps)
+
+    def _stale_slack(self) -> float:
+        """Staleness bound on the conservation identities of the step
+        just taken: 0.0 for every synchronous engine."""
+        return 0.0
+
     def run(
         self,
         num_iters: Optional[int] = None,
@@ -102,14 +143,30 @@ class PageRankEngine(abc.ABC):
         rb = self.config.robustness
         self.health = {"rollbacks": 0, "first_bad_iteration": None}
         last_mass: Optional[float] = None
+        # SDC guard (sdc.py): built ONCE per run, None when
+        # sdc_check_every is 0 — the loop body then adds one `is not
+        # None` check per iteration and the solve is bit-identical to
+        # the unchecked path (zero check computations).
+        sdc_guard = None
+        if self.config.sdc_check_every:
+            from pagerank_tpu_torch import sdc as sdc_mod
+
+            sdc_guard = sdc_mod.attach_guard(self)
         while self.iteration < total:
-            info = self.step()
+            if sdc_guard is not None and sdc_guard.wants(self.iteration):
+                # Checked step: detect -> bounded redo ->
+                # transient/sticky; a sticky conviction raises
+                # DeviceQuarantinedError.
+                info = sdc_guard.checked_step()
+            else:
+                info = self.step()
             i = self.iteration
             reason = None
             if rb.health_checks:
                 reason = _health_reason(info)
                 if reason is None and rb.mass_tol is not None:
-                    mass = self.rank_mass()
+                    mass = info.get("rank_mass")
+                    mass = self.rank_mass() if mass is None else float(mass)
                     if not math.isfinite(mass):
                         reason = f"non-finite rank mass {mass!r}"
                     elif (last_mass is not None
@@ -148,6 +205,12 @@ class PageRankEngine(abc.ABC):
                     )
                 it0, ranks, _meta = rolled
                 self.set_ranks(ranks, iteration=it0)
+                if sdc_guard is not None:
+                    # The SDC double buffer must follow the rollback: a
+                    # retained token AHEAD of the restored iteration
+                    # would let a later redo jump the solve forward
+                    # onto the rejected state.
+                    sdc_guard.note_rollback()
                 self.health["rollbacks"] += 1
                 last_mass = None  # re-baseline the drift check
                 continue

@@ -22,7 +22,15 @@ Port of the single-device ELL forms of ``JaxTpuEngine``
 
 and ``_finalize`` with its ``update_tail`` (:3331-3426),
 ``rank_mass``/``ranks``/``decode_ranks``/``set_ranks``/``layout_info``/
-``snapshot_meta`` (:4560-4650).
+``snapshot_meta`` (:4560-4650), the async writer's payload
+(``device_ranks``, ``cli.py:1856-1861``) and the SDC-checked step
+(:3826-4075: ``sdc_supported``, ``retain_state``, ``restore_state``,
+``sdc_state_values``, ``step_sdc``; the ledger sums of ``_ledger_sums``
+:103). The checked step runs the same contribution launch and update as
+``step()`` (so a checked run is bit-identical to a plain one), then a
+check tail of torch reductions in the accumulation dtype (w·r in and
+out, the masses, the source mass over out-degree > 0, the contribution
+and retained totals), fetched to the host in one transfer.
 
 Every device, the CPU included, runs the same host pack as the JAX
 engine's pallas forms: lane group 1, inert slots pointing at a zero
@@ -49,6 +57,7 @@ memory (the TPU forms' VMEM limits have no counterpart here).
 
 from __future__ import annotations
 
+import collections
 import time
 from typing import Dict, Optional
 
@@ -146,6 +155,13 @@ class TorchEngine(PageRankEngine):
         self._layout: Dict[str, object] = {}
         self._perm: Optional[np.ndarray] = None
         self._launch: Optional[ell_spmv.Launcher] = None
+        # The async writer's side stream, the relabel on the device and
+        # the free pinned buffers (device_ranks), made at the first
+        # payload.
+        self._copy_stream = None
+        self._perm_dev: Optional[torch.Tensor] = None
+        self._pinned = collections.deque()
+        self._sdc_w_vec: Optional[torch.Tensor] = None
 
     def _check_span(self, psz: int, n_padded: int) -> int:
         """The partition count of span ``psz``; raises past
@@ -513,9 +529,10 @@ class TorchEngine(PageRankEngine):
         return ell_spmv_partitioned.ell_contrib_partitioned(
             *inputs[:5], plan=inputs[5])[: self._n_state]
 
-    def step(self) -> Dict[str, float]:
-        contrib = self._contrib()
-        r = self._r
+    def _update(self, contrib: torch.Tensor, r: torch.Tensor):
+        """The update tail of a step over ``contrib``: ``(r', delta,
+        m)`` as device tensors — the one spelling shared by ``step`` and
+        ``step_sdc``, so a checked step computes the same bits."""
         acc = self._accum
         m = spmv.dangling_mass(r, self._dangling, acc)
         r_new = pr_model.apply_update(
@@ -524,8 +541,151 @@ class TorchEngine(PageRankEngine):
         )
         r_new = (r_new * self._valid.to(acc)).to(r.dtype)
         delta = torch.sum(torch.abs(r_new.to(acc) - r.to(acc)))
+        return r_new, delta, m
+
+    def step(self) -> Dict[str, float]:
+        r_new, delta, m = self._update(self._contrib(), self._r)
         self._r = r_new
         return {"l1_delta": float(delta), "dangling_mass": float(m)}
+
+    # -- silent-data-corruption checks (sdc.py) -----------------------------
+
+    def device_ids(self):
+        from pagerank_tpu_torch.parallel.mesh import device_id
+
+        return [device_id(self.device)]
+
+    def sdc_supported(self) -> bool:
+        """Every form measures the invariants, as every single-device
+        form of the JAX engine does: the flat and partitioned forms with
+        the source mass, the coo form (no prescale) without it."""
+        return self.graph is not None
+
+    def retain_state(self, iteration: Optional[int] = None):
+        """Device-side double buffer for the SDC redo: ``(iteration,
+        rank copy)``, the copy on the engine's device."""
+        it = self.iteration if iteration is None else int(iteration)
+        return (it, self._r.clone())
+
+    def restore_state(self, token) -> None:
+        """Rewind to a :meth:`retain_state` token (the token stays
+        reusable: a second redo restores the same bits)."""
+        it, r = token[0], token[1]
+        self._r = r.clone()
+        self.iteration = int(it)
+
+    def _ledger_eps(self) -> float:
+        return float(torch.finfo(self._accum).eps)
+
+    def _sdc_w(self) -> torch.Tensor:
+        """The seeded Rademacher projection vector over the padded
+        state, in the accumulation dtype (+-1 is exact), on the device;
+        built at the first checked step — a disarmed run never makes
+        it."""
+        if self._sdc_w_vec is None:
+            from pagerank_tpu_torch import sdc as sdc_mod
+
+            w = sdc_mod.fingerprint_vector(self.config.sdc_seed,
+                                           self._n_state)
+            self._sdc_w_vec = torch.from_numpy(w).to(self._accum).to(
+                self.device)
+        return self._sdc_w_vec
+
+    def _has_src(self) -> bool:
+        return self.config.kernel != "coo"
+
+    def _sdc_sums(self, r: torch.Tensor):
+        """(w·r, sum r, source mass) of ``r`` in the accumulation dtype;
+        the source mass (vertices with out-degree > 0) only where the
+        form prescales (not coo)."""
+        ra = r.to(self._accum)
+        sums = [torch.sum(ra * self._sdc_w()), torch.sum(ra)]
+        if self._has_src():
+            sums.append(torch.sum(torch.where(
+                self._inv_out != 0, ra, torch.zeros((), dtype=ra.dtype,
+                                                    device=ra.device))))
+        return sums
+
+    def sdc_state_values(self):
+        """The standalone boundary-state check over the current state:
+        ``fp``, ``mass``, ``src`` as one-device arrays (one transfer)."""
+        host = torch.stack(self._sdc_sums(self._r)).cpu().numpy()
+        return {"fp": host[0:1], "mass": host[1:2],
+                "src": host[2:3] if self._has_src() else None}
+
+    def step_sdc(self):
+        """One SDC-checked iteration: ``(info, check record)``. The
+        contribution launch and the update are ``step()``'s; the check
+        tail's sums (the ledger's contribution, retained and previous
+        totals, then w·r, mass and source mass of the input and w·r and
+        mass of the output) come to the host in one transfer. Never
+        called when SDC checking is off."""
+        r = self._r
+        acc = self._accum
+        contrib = self._contrib()
+        r_new, delta, m = self._update(contrib, r)
+        zero = torch.zeros((), dtype=acc, device=r.device)
+        ins = self._sdc_sums(r)
+        outs = self._sdc_sums(r_new)[:2]
+        vals = [delta, m, torch.sum(contrib.to(acc)),
+                torch.sum(torch.where(self._zero_in, r.to(acc), zero)),
+                torch.sum(r.to(acc)), *ins, *outs]
+        host = torch.stack(vals).cpu().numpy()
+        self._r = r_new
+        chk = {
+            "sharded": False,
+            "fp_in": host[5:6], "mass_in": host[6:7],
+            "src_in": host[7:8] if self._has_src() else None,
+            "fp_out": host[-2:-1], "mass_out": host[-1:],
+            "contrib": host[2:3], "retained": host[3:4],
+            "mass_prev": host[4:5],
+            "dangling_mass": float(host[1]),
+            "stale_slack": 0.0,
+        }
+        info = {"l1_delta": float(host[0]), "dangling_mass": float(host[1]),
+                "rank_mass": float(host[-1])}
+        return info, chk
+
+    # -- the async writer's payload -----------------------------------------
+
+    def device_ranks(self):
+        """The rank vector as a payload for the async writer
+        (``utils/snapshot.AsyncRankWriter``), decoded by
+        :meth:`decode_ranks` on its worker thread. On a card: queued on
+        a side stream that first waits for the compute stream's work so
+        far, the in-degree relabel undone on the device (a scatter
+        through ``perm``) and the result copied into a pinned host
+        buffer, with an event the worker waits on; ``record_stream``
+        keeps the rank tensor's memory until the side stream has read
+        it, and the steps queued after it overlap the work. The pinned
+        buffers come from a pool of this engine's own, which holds as
+        many as are in flight (the writer's ``max_pending`` bounds
+        them): a fresh pinned allocation a payload slowed the steps
+        beside it (``cudaHostAlloc`` on the main thread). On the CPU:
+        the tensor itself (a step rebinds the rank vector, it never
+        writes it in place)."""
+        r = self._r
+        if r.device.type != "cuda":
+            return r
+        n = self.graph.n
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=r.device)
+            self._perm_dev = torch.from_numpy(
+                np.ascontiguousarray(self._perm, dtype=np.int64)).to(r.device)
+        side = self._copy_stream
+        try:
+            host = self._pinned.popleft()
+        except IndexError:
+            host = torch.empty(n, dtype=r.dtype, pin_memory=True)
+        side.wait_stream(torch.cuda.current_stream(r.device))
+        with torch.cuda.stream(side):
+            orig = torch.empty(n, dtype=r.dtype, device=r.device)
+            orig[self._perm_dev] = r[:n]
+            host.copy_(orig, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        r.record_stream(side)
+        return _PinnedRanks(host, done, self._pinned)
 
     def rank_mass(self) -> float:
         """sum(ranks) by one device reduction; padding lanes are zero."""
@@ -534,9 +694,14 @@ class TorchEngine(PageRankEngine):
     def ranks(self) -> np.ndarray:
         return self.decode_ranks(self._r)
 
-    def decode_ranks(self, padded: torch.Tensor) -> np.ndarray:
-        """Fetch a padded relabeled rank vector to the host and undo the
-        in-degree relabel."""
+    def decode_ranks(self, padded) -> np.ndarray:
+        """A padded relabeled rank vector (a tensor, or a
+        :meth:`device_ranks` payload) on the host with the in-degree
+        relabel undone. A pinned payload (relabeled on the device) is
+        waited on, its copy's event, copied out of its buffer and the
+        buffer returned to the pool."""
+        if isinstance(padded, _PinnedRanks):
+            return padded.decode()
         r = padded.detach().cpu().numpy()[: self.graph.n]
         out = np.empty(self.graph.n, dtype=r.dtype)
         out[self._perm] = r
@@ -561,3 +726,20 @@ class TorchEngine(PageRankEngine):
         return {"engine": self.name, "num_devices": 1, "device": name,
                 "form": self._layout.get("form"),
                 "partition_span": self._layout.get("partition_span", 0)}
+
+
+class _PinnedRanks:
+    """A rank vector on its way to the host, in original id order: the
+    pinned buffer, the event of the side-stream copy into it, and the
+    pool the buffer goes back to once read."""
+
+    def __init__(self, host: torch.Tensor, done, pool):
+        self.host = host
+        self.done = done
+        self._pool = pool
+
+    def decode(self) -> np.ndarray:
+        self.done.synchronize()
+        out = self.host.numpy().copy()
+        self._pool.append(self.host)
+        return out

@@ -5,7 +5,8 @@ of the repo are compiled, unedited, with ``g++`` into two shared
 libraries under ``build/native/`` at the root of the checkout:
 
 - ``fast_ingest`` (``native/fast_ingest.cpp``): the radix sort-dedup
-  behind ``build_graph`` and the mmap edge-list parser; needs no zlib;
+  behind ``build_graph``, the mmap edge-list parser and the text-dump
+  formatter (``format_rank_lines_native``); needs no zlib;
 - ``crawl_ingest`` (``native/crawl_ingest.cpp``, linked with ``-lz``):
   the crawl L1 (SequenceFile decode + JSON link extraction + interning).
 
@@ -130,6 +131,16 @@ def _bind_fast_ingest(lib: ctypes.CDLL) -> None:
         i64p, i64p, ctypes.c_int64, ctypes.c_int64,
         _i32p(), _i32p(), _i32p(), _i32p(),
     ]
+    lib.format_rank_lines2.restype = ctypes.c_int64
+    lib.format_rank_lines2.argtypes = [
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+        ctypes.c_int64,   # key_base for integer keys
+        ctypes.c_char_p,  # names blob (or None)
+        ctypes.c_void_p,  # int64 offsets (or None)
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        ctypes.c_int64,
+    ]
 
 
 def _bind_crawl_ingest(lib: ctypes.CDLL) -> None:
@@ -195,6 +206,47 @@ def build_error(name: str) -> Optional[str]:
     """Why library ``name`` is unavailable (None when it loaded or was
     never asked for)."""
     return _errors.get(name)
+
+
+def format_rank_lines_native(
+    ranks: np.ndarray,
+    names_blob: Optional[bytes] = None,
+    name_offsets: Optional[np.ndarray] = None,
+    key_base: int = 0,
+) -> Optional[bytes]:
+    """Bulk "(key,repr(value))\\n" text formatting
+    (``format_rank_lines2`` of ``native/fast_ingest.cpp``; port of
+    ``pagerank_tpu/ingest/native.py:364``) — the native route of
+    ``utils/snapshot.TextDumper``, byte-identical to the Python
+    per-line formatter. Returns None when the library is unavailable or
+    was built by a toolchain without floating-point charconv (callers
+    take the Python loop and report that route). ``key_base`` offsets
+    the integer keys so callers can format bounded row chunks; with
+    names, pass the chunk's rebased blob/offsets instead."""
+    lib = get_lib("fast_ingest")
+    if lib is None:
+        return None
+    ranks = np.ascontiguousarray(ranks, dtype=np.float64)
+    n = ranks.shape[0]
+    if names_blob is not None:
+        offs = np.ascontiguousarray(name_offsets, dtype=np.int64)
+        if offs.shape[0] != n + 1:
+            raise ValueError(
+                f"name_offsets must have length n+1={n + 1}, got "
+                f"{offs.shape[0]}")
+        cap = len(names_blob) + 28 * n + 1
+        offs_p = offs.ctypes.data_as(ctypes.c_void_p)
+    else:
+        cap = 48 * n + 1
+        offs_p = None
+    out = np.empty(cap, np.uint8)
+    wrote = lib.format_rank_lines2(ranks, n, key_base, names_blob, offs_p,
+                                   out, cap)
+    if wrote == -2:  # library built without floating-point charconv
+        return None
+    if wrote < 0:  # cap bound violated — impossible per the line math
+        raise RuntimeError("format_rank_lines overflow")
+    return out[:wrote].tobytes()
 
 
 def parse_edgelist_native(path: str, num_threads: int = 0):

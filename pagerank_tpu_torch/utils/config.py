@@ -2,7 +2,12 @@
 
 Port of ``pagerank_tpu/utils/config.py:132-212`` (``PageRankConfig``),
 its kernel and partition-centric validation rules (``:404-410``,
-``:445-480``, same messages) and the three ``RobustnessConfig`` fields the solve loop reads. The
+``:445-480``, same messages), its SDC fields (``sdc_check_every``,
+``sdc_seed``, ``:339-390``) and the ``RobustnessConfig`` fields of the
+solve loop, the sinks and the SDC redo (``:22-125``: health checks,
+rollbacks, ``write_attempts``, ``on_write_failure``,
+``write_retry_policy()``, ``sdc_redo_deadline_s``, ``sdc_max_redos``;
+same defaults and messages). The
 fields of layouts and modes that later slices of the port bring are
 kept so a caller can name them, and ``validate`` refuses them with the
 ROADMAP slice that ports them.
@@ -15,6 +20,8 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import torch
+
+from pagerank_tpu_torch.utils.retry import RetryPolicy
 
 SEMANTICS_REFERENCE = "reference"
 SEMANTICS_TEXTBOOK = "textbook"
@@ -50,14 +57,55 @@ class RobustnessConfig:
     #: SolverHealthError.
     max_rollbacks: int = 3
 
+    #: Sink-write retry budget for snapshots/text dumps (total
+    #: attempts; 1 disables) and what to do when it is exhausted:
+    #: 'fail' aborts the run, 'warn_and_drop' records the iteration in
+    #: the dead-letter manifest and keeps solving.
+    write_attempts: int = 3
+    on_write_failure: str = "fail"
+
+    #: Wall-clock budget for one SDC breach's bounded re-execution
+    #: window (sdc.py): past it the episode escalates (quarantine when
+    #: an attribution stands, SdcExhaustedError otherwise).
+    sdc_redo_deadline_s: float = 30.0
+
+    #: Re-executions one SDC breach episode may spend before
+    #: escalating: the first clean redo classifies TRANSIENT, a repeat
+    #: breach attributing to the same device classifies STICKY.
+    sdc_max_redos: int = 2
+
     def validate(self) -> "RobustnessConfig":
         if self.max_rollbacks < 0:
             raise ValueError(
                 f"max_rollbacks must be >= 0, got {self.max_rollbacks}"
             )
+        if self.write_attempts < 1:
+            raise ValueError(
+                f"write_attempts must be >= 1, got {self.write_attempts}"
+            )
+        if self.on_write_failure not in ("fail", "warn_and_drop"):
+            raise ValueError(
+                f"on_write_failure must be 'fail' or 'warn_and_drop', "
+                f"got {self.on_write_failure!r}"
+            )
         if self.mass_tol is not None and not (0.0 < self.mass_tol):
             raise ValueError(f"mass_tol must be positive, got {self.mass_tol}")
+        if self.sdc_redo_deadline_s <= 0:
+            raise ValueError(
+                f"sdc_redo_deadline_s must be positive, got "
+                f"{self.sdc_redo_deadline_s}"
+            )
+        if self.sdc_max_redos < 1:
+            raise ValueError(
+                f"sdc_max_redos must be >= 1, got {self.sdc_max_redos}"
+            )
         return self
+
+    def write_retry_policy(self) -> Optional[RetryPolicy]:
+        """RetryPolicy for sink writes, or None when retries are off."""
+        if self.write_attempts <= 1:
+            return None
+        return RetryPolicy(max_attempts=self.write_attempts)
 
 
 @dataclass
@@ -102,6 +150,18 @@ class PageRankConfig:
     vertex_sharded: bool = False
     num_devices: Optional[int] = None
 
+    # Silent-data-corruption defense (sdc.py): every K-th step runs
+    # the SDC-checked step (the same contribution launch and update as
+    # step(), plus a check tail of reductions), a breach triggering the
+    # bounded redo -> transient/sticky -> quarantine machine. 0
+    # disables: the solve takes the unchecked code path, with zero
+    # check computations.
+    sdc_check_every: int = 0
+
+    # Seed of the Rademacher random-projection vector the SDC
+    # fingerprints contract against (sdc.fingerprint_vector).
+    sdc_seed: int = 0
+
     robustness: RobustnessConfig = field(default_factory=RobustnessConfig)
 
     def validate(self) -> "PageRankConfig":
@@ -115,6 +175,11 @@ class PageRankConfig:
         if self.tol is not None and not (0.0 < self.tol < float("inf")):
             raise ValueError(
                 f"tol must be a finite positive float, got {self.tol}"
+            )
+        if self.sdc_check_every < 0:
+            raise ValueError(
+                f"sdc_check_every must be >= 0 (0 disables), got "
+                f"{self.sdc_check_every}"
             )
         # The kernel and partition rules come first, in the JAX
         # package's order, so the same invalid config raises the same

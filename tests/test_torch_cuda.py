@@ -540,3 +540,78 @@ def test_serve_smoke_on_the_card(cuda, capsys):
     doc = json.loads(capsys.readouterr().out.splitlines()[-1])
     assert doc["unsettled"] == 0
     assert set(doc["outcomes"]) <= {"answered", "answered_cache"}
+
+
+@pytest.mark.parametrize("extra", [[], ["--partition-span", "1024"]],
+                         ids=["flat", "partitioned"])
+def test_async_writer_on_the_card_writes_the_sync_bytes(cuda, tmp_path,
+                                                        extra):
+    """The async writer's payload (a copy to pinned memory on a side
+    stream, waited on by the worker) gives the same snapshot and text
+    dump bytes as --sync-io, and the ranks of a run with no sink."""
+    import hashlib
+    import os
+
+    from pagerank_tpu_torch import cli
+
+    def digests(root):
+        out = {}
+        for d, _, files in os.walk(root):
+            for f in files:
+                with open(os.path.join(d, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(d, f), root)] = (
+                        hashlib.sha256(fh.read()).hexdigest())
+        return out
+
+    base = ["--synthetic", "rmat:13", "--iters", "6", "--log-every", "0",
+            *extra]
+    plain = cli.run(base)
+    runs = {}
+    for label, flag in (("async", []), ("sync", ["--sync-io"])):
+        d = tmp_path / label
+        runs[label] = cli.run(base + ["--snapshot-dir", str(d / "s"),
+                                      "--dump-text-dir", str(d / "t"),
+                                      *flag])
+        assert runs[label]["writer"] == label
+        np.testing.assert_array_equal(runs[label]["ranks"], plain["ranks"])
+    a, b = digests(tmp_path / "async"), digests(tmp_path / "sync")
+    assert a == b and len(a) == 6 + 6 * 2
+
+
+@pytest.mark.parametrize("partition_span", [0, 1024])
+def test_a_flip_on_the_card_is_detected_and_redone(cuda, partition_span):
+    """An exponent flip of a CUDA rank tensor at iteration 4 (its seed
+    the first whose element clears twice the detection floor) is
+    detected, classified transient and redone to the clean bits, with
+    one more kernel launch than the steps."""
+    from pagerank_tpu_torch import build_graph, sdc
+    from pagerank_tpu_torch.testing.faults import (DeviceFaultSchedule,
+                                                   flip_element,
+                                                   install_device_faults)
+
+    src, dst = synth.rmat_edges(13, seed=2)
+    g = build_graph(src, dst, n=1 << 13)
+    cfg = PageRankConfig(num_iters=8, partition_span=partition_span)
+    clean = TorchEngine(cfg, device="cuda").build(g)
+    clean.run(num_iters=4)
+    r = clean._r.cpu().numpy()[: g.n].astype(np.float64)
+    floor = sdc.copy_tolerance(float(np.finfo(np.float32).eps), g.n) * g.n
+    size = clean._r.numel()
+    seed = next(
+        s for s in range(100000)
+        if r[flip_element(DeviceFaultSchedule(seed=s).flip_fraction(4), g.n,
+                          size)] > 4 * floor)
+    want = TorchEngine(cfg, device="cuda").build(g).run()
+    sdc.reset()
+    eng = TorchEngine(cfg.replace(sdc_check_every=1),
+                      device="cuda").build(g)
+    install_device_faults(eng, DeviceFaultSchedule(
+        seed=seed, flip={4: (0, "exponent")}))
+    counter = ell_spmv_partitioned if partition_span else ell_spmv
+    before = counter.launches
+    got = eng.run()
+    rep = sdc.report_section()
+    sdc.reset()
+    assert (rep["flips_detected"], rep["transient"], rep["redos"]) == (1, 1, 1)
+    np.testing.assert_array_equal(got, want)
+    assert counter.launches - before == 8 + 1

@@ -70,7 +70,13 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.ingest.native, "
         "pagerank_tpu_torch.ingest.external, "
         "pagerank_tpu_torch.utils.metrics, "
-        "pagerank_tpu_torch.scripts.host_ingest_bench\n"
+        "pagerank_tpu_torch.scripts.host_ingest_bench, "
+        "pagerank_tpu_torch.jobs, pagerank_tpu_torch.sdc, "
+        "pagerank_tpu_torch.testing, pagerank_tpu_torch.testing.faults, "
+        "pagerank_tpu_torch.testing.schedules, "
+        "pagerank_tpu_torch.obs.graph_profile, "
+        "pagerank_tpu_torch.utils.retry, pagerank_tpu_torch.utils.s3, "
+        "pagerank_tpu_torch.utils.fsio, pagerank_tpu_torch.utils.snapshot\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"
