@@ -215,7 +215,29 @@ What it does, in order:
      with K1/K2 launched steps + 1, and a sticky one raising
      ``DeviceQuarantinedError`` after its redo also breaches (K1/K2 6
      launches);
- 14. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+ 14. the run's own observability (``obs/``): (a) rmat:22 built on the
+     card, flat (K1) and at --partition-span -1 (K2, f32 windows),
+     ``engine.run(probes=ConvergenceProbes(1, topk=64))``: the ranks
+     bit-equal to the unprobed run, every probe's engine-space ids,
+     churn and top-k mass equal to a stable argsort of the engine-space
+     ranks on the host, the ledger clean, K1/K2 10 launches, the probed
+     step beside the plain step (CUDA events); (b) one flat rmat:22
+     ``cli.run`` with --run-report, --trace, --metrics-textfile,
+     --metrics-port (scraped once over HTTP), --device-sample-every 1,
+     --graph-profile and --history: every report section, one
+     solve/step span an iteration, the sampler's watermark at or above
+     ``max_memory_allocated``, the device profile's integer stats equal
+     to ``profile_graph`` over the same edges on the host; (c)
+     --preflight's predicted peak within [1, FIT_BAND] of the measured
+     ``max_memory_allocated`` of the device-built runs at rmat:22 and
+     rmat:24, and the smallest refused R-MAT scale exiting 3 with
+     nothing allocated; (d) a step stalled 2 s by ``testing/faults.py``
+     under --stall-timeout 0.5: ``raise`` drains and exits 75 with the
+     JAX CLI's diagnostic, ``warn`` logs and finishes; (e)
+     --profile-dir writes a trace naming ``ell_contrib_kernel``; (f)
+     the daemon as a process with --metrics-port (OpenMetrics, scraped
+     once) and --run-report (written on the SIGTERM drain, exit 75);
+ 15. prints one JSON line with every kernel's numbers (K1, K2, K1w on
      the PPR path with its tile sweep, P1 and P2 at K1's slots, P3 at n
      = 2^15 f32, F1-F6), then last ``{"ok": true, "device": {...}}``.
 
@@ -3142,6 +3164,446 @@ def robustness_phase(tmp):
     return rep
 
 
+# Phase 14: the run's own observability, at rmat:OBS_SCALE built on the
+# card (flat through K1, partitioned through K2 with f32 windows).
+
+OBS_SCALE = 22
+OBS_TOPK = 64
+#: The fit check's band: the predicted peak must hold the measured one
+#: (an upper bound) and stay within this factor of it.
+FIT_BAND = 1.25
+STALL_SCALE = 16
+DAEMON_SCALE = 16
+
+
+def _obs_graph(scale, span):
+    """rmat:``scale`` generated and built on the card (the CLI's
+    --device-build graph: raw edges, no weight plane)."""
+    import torch
+
+    from pagerank_tpu_torch.ops import device_build as db
+
+    cuda = torch.device("cuda")
+    src, dst = db.rmat_edges_device(scale, device=cuda)
+    return db.build_ell_device(src, dst, 1 << scale, stripe_size=span,
+                               with_weights=False, device=cuda)
+
+
+def probes_phase():
+    """14(a): ``engine.run(probes=ConvergenceProbes(1, 64))`` flat (K1)
+    and at --partition-span -1 (K2, f32 windows): the ranks bit-equal
+    to the unprobed run's; every probe's engine-space ids, churn and
+    top-k mass equal to a stable argsort of the engine-space rank
+    vector on the host; the ledger names no leak; K1/K2 10 launches a
+    run; the probed step beside the plain step (CUDA events)."""
+    import numpy as np
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine
+    from pagerank_tpu_torch.obs.probes import ConvergenceProbes
+    from pagerank_tpu_torch.ops.device_build import plan_partition_span
+
+    n = 1 << OBS_SCALE
+    out = {}
+    for label, part in (("flat (K1)", 0), ("partitioned (K2)", -1)):
+        cfg = PageRankConfig(num_iters=ITERS)
+        span = plan_partition_span(cfg, n, 16 << OBS_SCALE, part) if part \
+            else 0
+        cfg = cfg.replace(partition_span=span)
+        dg = _obs_graph(OBS_SCALE, span)
+        plain = TorchEngine(cfg).build_device(dg).run()
+        eng = TorchEngine(cfg).build_device(dg)
+        held = {"probes": 0, "prev": None}
+
+        class HeldProbes(ConvergenceProbes):
+            def commit(self, iteration, info, ids_engine, ids_original):
+                r = eng._r[:n].double().cpu().numpy()
+                want = np.argsort(-r, kind="stable")[:OBS_TOPK]
+                got = ids_engine.cpu().numpy()
+                _check(np.array_equal(got, want),
+                       f"14(a) {label}: probe {iteration}'s ids differ from "
+                       f"the host's stable argsort")
+                _check(np.array_equal(eng._perm[want], ids_original),
+                       f"14(a) {label}: original-space ids differ")
+                churn = (0 if held["prev"] is None else
+                         int(OBS_TOPK - np.isin(want, held["prev"]).sum()))
+                _check(info["topk_churn"] == churn,
+                       f"14(a) {label}: churn {info['topk_churn']} != "
+                       f"{churn}")
+                tm = float(r[want].sum())
+                _check(abs(info["topk_mass"] - tm) <= 1e-5 * abs(tm),
+                       f"14(a) {label}: top-k mass {info['topk_mass']} vs "
+                       f"{tm}")
+                _check(info["mass_ledger"]["leak"] is None,
+                       f"14(a) {label}: the ledger names "
+                       f"{info['mass_ledger']['leak']}")
+                held["prev"], held["probes"] = want, held["probes"] + 1
+                return super().commit(iteration, info, ids_engine,
+                                      ids_original)
+
+        _reset_counts()
+        probed = eng.run(probes=HeldProbes(1, topk=OBS_TOPK))
+        k1, k2, others = _read_counts()
+        launches = k2 if part else k1
+        _check(launches == ITERS and (k1 if part else k2) == 0
+               and not any(others.values()),
+               f"14(a) {label}: K1 {k1}, K2 {k2}, others {others}")
+        _check(np.array_equal(probed, plain),
+               f"14(a) {label}: probed ranks differ from the unprobed run")
+        _check(held["probes"] == ITERS, f"14(a) {label}: {held} probes")
+        # The probed step beside the plain step, on one engine.
+        timer = TorchEngine(cfg).build_device(dg)
+        tp = ConvergenceProbes(1, topk=OBS_TOPK)
+        plain_ms = _median_ms(timer.step, 21)
+        probed_ms = _median_ms(lambda: timer.step_probed(tp), 21)
+        print(f"14(a) {label} rmat:{OBS_SCALE} (span {span}): probed ranks "
+              f"bit-equal to the unprobed run; {held['probes']} probes' "
+              f"ids, churn and top-{OBS_TOPK} mass equal to the host's "
+              f"stable argsort, ledger clean; {'K2' if part else 'K1'} "
+              f"{launches} launches; step {plain_ms:.4f} ms plain, "
+              f"{probed_ms:.4f} ms probed ({probed_ms / plain_ms:.2f}x; "
+              f"CUDA events, median of 21)")
+        # Where the probed step's time goes, beside the plain step's.
+        sym = "ell_contrib_part_kernel" if part else "ell_contrib_kernel"
+        split = {}
+        for name, fn in (("plain", timer.step),
+                         ("probed", lambda: timer.step_probed(tp))):
+            wall, per_kernel, calls, _ = _profile_steps(fn, 10)
+            busy = sum(per_kernel.values())
+            k_ms = sum(v for k, v in per_kernel.items() if _named(k, sym))
+            top = sorted(((v, k) for k, v in per_kernel.items()
+                          if not _named(k, sym)), reverse=True)[:6]
+            split[name] = {"wall_ms": wall, "busy_ms": busy,
+                           "kernel_ms": k_ms}
+            print(f"  {name} step split: wall {wall:.4f} ms/step; device "
+                  f"busy {busy:.4f} = {'K2' if part else 'K1'} {k_ms:.4f} "
+                  f"+ other {busy - k_ms:.4f} ms in "
+                  f"{sum(calls.values()) / 10:.1f} kernels a step; idle "
+                  f"{1 - busy / wall:.1%}; largest others (ms/step): "
+                  + "; ".join(f"{v:.4f} {k[:40]}" for v, k in top))
+        out["K2" if part else "K1"] = {
+            "launches": launches, "plain_ms": plain_ms,
+            "probed_ms": probed_ms, "span": span, "split": split}
+        del dg, eng, timer, plain, probed
+    return out
+
+
+def _host_graph_of(dg):
+    """The deduplicated edges of a flat device graph, fetched to the
+    host and built into a host Graph (original ids)."""
+    import numpy as np
+
+    from pagerank_tpu_torch import build_graph
+    from pagerank_tpu_torch.ops import LANES
+
+    src = dg.src.cpu().numpy()
+    rb = dg.row_block.cpu().numpy().astype(np.int64)
+    perm = dg.perm.cpu().numpy().astype(np.int64)
+    live = src != dg.n_padded
+    lane = np.broadcast_to(np.arange(LANES), src.shape)
+    dst_rel = (rb[:, None] * LANES + lane)[live]
+    return build_graph(perm[src[live]], perm[dst_rel], n=dg.n)
+
+
+def full_obs_phase(tmp):
+    """14(b): one flat rmat:OBS_SCALE run through cli.run with
+    --run-report, --trace, --metrics-textfile, --metrics-port,
+    --device-sample-every 1, --graph-profile and --history."""
+    import urllib.request
+
+    import torch
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.obs import graph_profile, live, report
+
+    rep_p, tr_p, prom_p, hist_p = (os.path.join(tmp, x) for x in (
+        "obs_report.json", "obs_trace.json", "obs.prom", "obs_hist.jsonl"))
+    scraped = {}
+    close = live.MetricsExporter.close
+
+    def scrape_then_close(self):
+        # One HTTP scrape of the live endpoint, before it shuts down.
+        if self.port is not None and "body" not in scraped:
+            url = f"http://127.0.0.1:{self.port}/metrics"
+            with urllib.request.urlopen(url, timeout=30) as r:
+                scraped["body"] = r.read().decode()
+        close(self)
+
+    live.MetricsExporter.close = scrape_then_close
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    try:
+        s = cli.run(["--synthetic", f"rmat:{OBS_SCALE}", "--device-build",
+                     "--iters", str(ITERS), "--log-every", "0",
+                     "--run-report", rep_p, "--trace", tr_p,
+                     "--metrics-textfile", prom_p, "--metrics-port", "0",
+                     "--device-sample-every", "1", "--graph-profile",
+                     "--history", hist_p])
+    finally:
+        live.MetricsExporter.close = close
+    peak = torch.cuda.max_memory_allocated()
+    k1, k2, _ = _read_counts()
+    _check(k1 == ITERS and k2 == 0, f"14(b): K1 {k1}, K2 {k2}")
+    with open(rep_p) as f:
+        rep = json.load(f)
+    missing = [k for k in report.REPORT_KEYS if k not in rep]
+    _check(not missing, f"14(b): report lacks {missing}")
+    for key in ("environment", "config", "spans", "metrics", "iterations",
+                "summary", "robustness", "costs", "devices", "graph"):
+        _check(rep[key], f"14(b): report section {key} is empty")
+    env = rep["environment"]
+    _check(env["backend"] == "cuda" and env["power_limit"],
+           f"14(b): environment {env}")
+    with open(tr_p) as f:
+        chrome = json.load(f)
+    steps = [e for e in chrome["traceEvents"]
+             if e.get("name") == "solve/step" and e.get("ph") == "X"]
+    _check(len(steps) == ITERS, f"14(b): {len(steps)} solve/step spans")
+    body = scraped.get("body", "")
+    samples = [ln for ln in body.splitlines() if ln and ln[0] != "#"]
+    for ln in samples:
+        name, value = ln.rsplit(" ", 1)
+        float(value)  # every sample parses
+    _check(f"pagerank_solve_iteration {ITERS}" in samples,
+           f"14(b): the scrape ({len(samples)} samples) lacks the solve "
+           f"gauge")
+    dev = rep["devices"]
+    _check(dev["hbm_high_water_bytes"] is not None
+           and dev["hbm_high_water_bytes"] >= peak,
+           f"14(b): watermark {dev['hbm_high_water_bytes']} < "
+           f"max_memory_allocated {peak}")
+    # The device profile's integer stats against profile_graph over the
+    # same graph on the host.
+    t0 = time.perf_counter()
+    prof = rep["graph"]["profile"]
+    host = graph_profile.profile_graph(_host_graph_of(s["graph"]),
+                                       raw_edges=16 << OBS_SCALE).summary()
+    for key in ("n", "num_edges", "raw_edges", "duplicate_edges",
+                "self_loops", "dangling_count", "zero_in_count", "in_hist",
+                "out_hist", "top_hub_in_degrees", "partition_edges"):
+        _check(prof[key] == host[key], f"14(b): profile {key} differs "
+               f"from the host's")
+    kth = prof["top_hub_in_degrees"][-1]
+    for a, b, d in zip(prof["top_hub_ids"], host["top_hub_ids"],
+                       prof["top_hub_in_degrees"]):
+        _check(a == b or d == kth, f"14(b): hub {a} != {b} (degree {d})")
+    host_s = time.perf_counter() - t0
+    costs = rep["costs"]["step"]
+    with open(hist_p) as f:
+        rec = json.loads(f.readline())
+    print(f"14(b) full observability, rmat:{OBS_SCALE} flat: report "
+          f"sections {len(rep)} (every REPORT_KEYS), {len(steps)} "
+          f"solve/step spans, one scrape of {len(samples)} samples, "
+          f"watermark {dev['hbm_high_water_bytes'] / 1e9:.3f} GB >= "
+          f"max_memory_allocated {peak / 1e9:.3f} GB over "
+          f"{dev['samples']} samples; step "
+          f"{rep['summary']['mean_iter_seconds'] * 1e3:.4f} ms/iter mean "
+          f"(median {statistics.median(s['step_seconds']) * 1e3:.4f}); "
+          f"K1 bytes {costs['bytes_per_iter']:.0f}, achieved share of the "
+          f"byte bound {costs['roofline_fraction']:.1%}; device profile = "
+          f"the host's ({host_s:.1f} s); history leg {list(rec['legs'])}")
+    return {"launches": k1, "step_ms": statistics.median(
+        s["step_seconds"]) * 1e3, "watermark": dev["hbm_high_water_bytes"],
+        "peak": peak, "share": costs["roofline_fraction"]}
+
+
+def preflight_phase():
+    """14(c): --preflight's predicted peak against the measured
+    max_memory_allocated of device builds at rmat:22 and rmat:24, and
+    the smallest R-MAT scale it refuses exiting 3 with nothing
+    allocated."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.obs import devices as obs_devices
+
+    out = {}
+    for scale in (22, 24):
+        res = obs_devices.fit_check(scale)
+        pred = res.peak_stage.bytes
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            cli.run(["--synthetic", f"rmat:{scale}", "--device-build",
+                     "--iters", "1", "--log-every", "0", "--preflight"])
+        meas = torch.cuda.max_memory_allocated() - base
+        _check("FITS" in err.getvalue(), f"14(c) rmat:{scale}: no FITS "
+               f"table on stderr")
+        _check(meas <= pred <= FIT_BAND * meas,
+               f"14(c) rmat:{scale}: predicted {pred} B outside [measured "
+               f"{meas}, {FIT_BAND} x measured]")
+        print(f"14(c) --preflight rmat:{scale}: predicted peak {pred / 1e9:.3f}"
+              f" GB ({res.peak_stage.stage}), measured max_memory_allocated "
+              f"{meas / 1e9:.3f} GB ({pred / meas:.4f}x; band [1, "
+              f"{FIT_BAND}]); limit {res.limit_bytes / 1e9:.3f} GB "
+              f"[{res.limit_source}]")
+        out[scale] = {"predicted": pred, "measured": meas}
+    refused = next(s for s in range(20, 40)
+                   if not obs_devices.fit_check(s).fits)
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    err = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(err):
+            cli.run(["--synthetic", f"rmat:{refused}", "--device-build",
+                     "--preflight"])
+        code = 0
+    except SystemExit as e:
+        code = e.code
+    _check(code == 3, f"14(c) rmat:{refused}: exit {code}, want 3")
+    _check(torch.cuda.max_memory_allocated() == before
+           and torch.cuda.memory_allocated() == before,
+           f"14(c) rmat:{refused}: the refused run allocated on the card")
+    verdict = err.getvalue().strip().splitlines()[-1]
+    print(f"14(c) smallest refused scale rmat:{refused}: exit 3, nothing "
+          f"allocated; {verdict}")
+    out["refused"] = refused
+    return out
+
+
+def stall_phase(tmp):
+    """14(d): a step stalled by testing/faults.py (a 2 s delay at
+    iteration 3) under --stall-timeout 0.5: ``raise`` ends the run as
+    the JAX CLI does (the SIGINT drain, exit 75, the diagnostic);
+    ``warn`` logs and finishes."""
+    import contextlib
+    import io
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.engines.torch_engine import TorchEngine
+    from pagerank_tpu_torch.testing.faults import (DeviceFaultSchedule,
+                                                   install_device_faults)
+
+    build = TorchEngine.build_device
+
+    def stalled_build(self, dg):
+        build(self, dg)
+        install_device_faults(self, DeviceFaultSchedule(delay={3: (0, 2.0)}))
+        return self
+
+    TorchEngine.build_device = stalled_build
+    out = {}
+    try:
+        for action, want in (("raise", 75), ("warn", 0)):
+            err = io.StringIO()
+            _reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(["--synthetic", f"rmat:{STALL_SCALE}",
+                               "--device-build", "--iters", str(ITERS),
+                               "--log-every", "0", "--stall-timeout", "0.5",
+                               "--stall-action", action])
+            wall = time.perf_counter() - t0
+            text = err.getvalue()
+            k1 = _read_counts()[0]
+            diag = [ln for ln in text.splitlines() if "STALL WATCHDOG" in ln]
+            _check(rc == want and diag, f"14(d) {action}: exit {rc} (want "
+                   f"{want}), stall lines {diag}")
+            if action == "raise":
+                _check("interrupted by SIGINT; drained" in text and k1 < ITERS,
+                       f"14(d) raise: no drain ({k1} launches)")
+            else:
+                _check(k1 == ITERS, f"14(d) warn: K1 {k1}")
+            print(f"14(d) --stall-action {action}: exit {rc} in {wall:.2f} s, "
+                  f"K1 {k1} launches; {diag[0].strip()}")
+            out[action] = k1
+    finally:
+        TorchEngine.build_device = build
+    return out
+
+
+def profiler_phase(tmp):
+    """14(e): --profile-dir writes a torch.profiler Chrome trace that
+    names K1."""
+    from pagerank_tpu_torch import cli
+
+    pdir = os.path.join(tmp, "profile")
+    _reset_counts()
+    cli.run(["--synthetic", f"rmat:{STALL_SCALE}", "--device-build",
+             "--iters", str(ITERS), "--log-every", "0", "--profile-dir",
+             pdir])
+    k1 = _read_counts()[0]
+    with open(os.path.join(pdir, "trace.json")) as f:
+        doc = json.load(f)
+    names = [e.get("name", "") for e in doc["traceEvents"]]
+    # CUPTI may drop a launch or two at the start of a trace (phase 4's
+    # profiler split skips one warm-up step for that): the trace must
+    # name K1, not hold every launch.
+    hits = sum("ell_contrib_kernel" in nm for nm in names)
+    _check(hits >= 1 and k1 == ITERS,
+           f"14(e): {hits} ell_contrib_kernel events, K1 {k1}")
+    print(f"14(e) --profile-dir: trace.json of {len(names)} events, "
+          f"{hits} name ell_contrib_kernel; K1 {k1} launches")
+    return k1
+
+
+def daemon_obs_phase(tmp):
+    """14(f): the daemon as a process on the card with --metrics-port
+    (OpenMetrics, scraped once) and --run-report (written on the
+    SIGTERM drain, with the serving section)."""
+    import signal
+    import urllib.request
+
+    rep_p = os.path.join(tmp, "serve_report.json")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pagerank_tpu_torch.serve", "--scale",
+         str(DAEMON_SCALE), "--iters", str(PPR_ITERS), "--port", "0",
+         "--metrics-port", "0", "--metrics-format", "openmetrics",
+         "--run-report", rep_p],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT})
+    try:
+        line = proc.stdout.readline()
+        _check("serving PPR on" in line, f"14(f): daemon said {line!r}: "
+               f"{proc.stderr.read()[-2000:] if proc.poll() is not None else ''}")
+        port = int(line.split("127.0.0.1:")[1].split("/")[0])
+        mport = int(line.split("metrics :")[1].split(")")[0])
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/ppr?source=5", timeout=60) as r:
+            ans = json.loads(r.read())
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{mport}/metrics", timeout=60) as r:
+            body = r.read().decode()
+        samples = [ln for ln in body.splitlines() if ln and ln[0] != "#"]
+        for ln in samples:
+            float(ln.split(" # ")[0].rsplit(" ", 1)[1])
+        _check(body.endswith("# EOF\n") and any(
+            "pagerank_serve_" in ln for ln in samples),
+            f"14(f): the scrape has no serve samples")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(rep_p) as f:
+        rep = json.load(f)
+    _check(rc == 75 and rep["serving"]["enabled"]
+           and rep["environment"]["backend"] == "cuda",
+           f"14(f): exit {rc}, serving {rep['serving']}")
+    print(f"14(f) daemon rmat:{DAEMON_SCALE}: one query answered "
+          f"({len(ans.get('ids', ans.get('topk_ids', [])))} ids), one "
+          f"OpenMetrics scrape of {len(samples)} samples, SIGTERM -> exit "
+          f"{rc} with the run report (serving: {rep['serving'].get('settled')}"
+          f" settled)")
+    return rc
+
+
+def observability_phase(tmp):
+    """Phase 14: probes, the full observability run, the preflight, the
+    stall watchdog, the profiler and the daemon's exporter."""
+    t0 = time.perf_counter()
+    rep = {"probes": probes_phase(), "full": full_obs_phase(tmp),
+           "preflight": preflight_phase(), "stall": stall_phase(tmp),
+           "profiler_launches": profiler_phase(tmp),
+           "daemon_rc": daemon_obs_phase(tmp)}
+    print(f"observability phase took {time.perf_counter() - t0:.1f} s")
+    return rep
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -3224,6 +3686,19 @@ def main(argv=None) -> int:
             "job_resumed_from": robust["job_resumed_from"],
             "sdc": robust["sdc"]["flat"]}
         k2["robustness"] = {"sdc": robust["sdc"]["partitioned"]}
+        seen = observability_phase(tmp)
+        k1["observability"] = {
+            "probed_run_launches": seen["probes"]["K1"]["launches"],
+            "plain_step_ms": seen["probes"]["K1"]["plain_ms"],
+            "probed_step_ms": seen["probes"]["K1"]["probed_ms"],
+            "full_run_launches": seen["full"]["launches"],
+            "full_run_step_ms": seen["full"]["step_ms"],
+            "stall_launches": seen["stall"],
+            "profiler_launches": seen["profiler_launches"]}
+        k2["observability"] = {
+            "probed_run_launches": seen["probes"]["K2"]["launches"],
+            "plain_step_ms": seen["probes"]["K2"]["plain_ms"],
+            "probed_step_ms": seen["probes"]["K2"]["probed_ms"]}
         k1["coo"] = {"coo_ms_per_iter": coo["ms_per_iter"],
                      "flat_ms_per_iter": coo["flat_ms_per_iter"]}
         k1w = {"name": "ell_contrib_spmm", "route": "cuda",

@@ -9,7 +9,7 @@ discipline, cost sanity) before the card runs it, and
 (registers, shared and local memory, f64 instructions) from the built
 libraries. The CLI is ``python -m pagerank_tpu_torch.analysis --select
 PTK``. The AST lint (PTL), the concurrency pass (PTR) and the contracts
-(PTC/PTH) wait for slice 8.
+(PTC/PTH) wait for slice 8b.
 """
 
 from pagerank_tpu_torch.analysis.findings import (  # noqa: F401

@@ -32,7 +32,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--select", default=None,
         help="comma-separated rule or family prefixes; only the PTK "
-        "family is ported (PTL, PTR, PTC and PTH come with slice 8)",
+        "family is ported (PTL, PTR, PTC and PTH come with slice 8b)",
     )
     p.add_argument(
         "--kernel-fixture", nargs="?", const="all", default=None,
@@ -78,7 +78,7 @@ def main(argv=None) -> int:
     if later or unknown:
         names = ", ".join(f"{f} ({_LATER[f]})" for f in later)
         print(f"analysis: only the PTK family is ported; "
-              + (f"{names} come with slice 8" if later else "")
+              + (f"{names} come with slice 8b" if later else "")
               + ("; " if later and unknown else "")
               + (f"unknown families {', '.join(unknown)}" if unknown
                  else ""), file=sys.stderr)

@@ -24,8 +24,15 @@ wired as :1705-1860: the async writer by default), the resumable job
 SDC-checked step (``--sdc-check-every``, ``--sdc-seed``,
 ``--sdc-redo-deadline``, :274-302, with the quarantine hook of :1557).
 Every input and sink path may be a URI of a registered scheme
-(``utils/fsio``; ``s3://`` through ``utils/s3``). The elastic runner's
-and the observability plane's flags exit 2 naming their ROADMAP slice.
+(``utils/fsio``; ``s3://`` through ``utils/s3``). The observability
+plane (:305-436): ``--trace``, ``--run-report`` (also on the failure
+and drain paths), ``--profile-dir``, ``--history``, ``--probe-every``,
+``--probe-topk``, ``--stop-tol``, ``--metrics-textfile``,
+``--metrics-port``, ``--device-sample-every``, ``--preflight``,
+``--graph-profile``, ``--stall-timeout`` and ``--stall-action
+warn|raise``, wired as :893-1093, :1165, :1538-1545, :1863-1956. The
+elastic runner's flags (``--max-rescues``, ``--stall-action rescue``)
+exit 2 naming ROADMAP slice 6.
 The solve runs on ``--device`` (default cuda) through the torch
 engines; ``--device cpu``, or ``--engine cpu`` (the f64 oracle), runs it
 on a host without a card.
@@ -195,20 +202,6 @@ def build_parser() -> argparse.ArgumentParser:
     ft.add_argument("--max-rescues", type=int, default=None,
                     help="elastic-rescue budget (not ported yet: ROADMAP "
                     "slice 6)")
-    ft.add_argument("--stall-timeout", type=float, default=None,
-                    help="stall watchdog (not ported yet: ROADMAP slice 6 "
-                    "and 8)")
-    ft.add_argument("--stall-action", default=None,
-                    help="what the stall watchdog does (not ported yet: "
-                    "ROADMAP slice 6)")
-    ob = p.add_argument_group("observability (not ported yet: ROADMAP "
-                              "slice 8)")
-    ob.add_argument("--probe-every", type=int, default=0,
-                    help="convergence probes (ROADMAP slice 8)")
-    ob.add_argument("--run-report", default=None,
-                    help="the run report (ROADMAP slice 8)")
-    ob.add_argument("--trace", default=None,
-                    help="the span trace (ROADMAP slice 8)")
     ft.add_argument("--max-rollbacks", type=int, default=3,
                     help="snapshot rollbacks the self-healing solve loop "
                     "may perform on an unhealthy step (NaN/Inf, mass "
@@ -220,6 +213,96 @@ def build_parser() -> argparse.ArgumentParser:
                     "checks only)")
     ft.add_argument("--no-health-checks", action="store_true",
                     help="disable the per-step solver health check")
+    ob = p.add_argument_group("observability")
+    ob.add_argument(
+        "--trace", default=None, metavar="PATH",
+        help="record a span trace of the whole run and export it here: "
+        "Chrome trace-event JSON (open in Perfetto / chrome://tracing), "
+        "or span-per-line JSONL when PATH ends in .jsonl")
+    ob.add_argument(
+        "--run-report", default=None, metavar="PATH",
+        help="write the run flight-recorder JSON here: environment "
+        "fingerprint (torch/CUDA versions, the card's name and power "
+        "limit, git), resolved config, span summary, metrics-registry "
+        "snapshot, per-iteration history, robustness summary, the "
+        "kernel's cost model, the device memory watermark (written on "
+        "the failure path too). Implies tracing")
+    ob.add_argument(
+        "--profile-dir", default=None,
+        help="write a torch.profiler Chrome trace (trace.json) of the "
+        "solve here (stopped on every exit path, recorded as a "
+        "'profile' span when tracing)")
+    ob.add_argument(
+        "--history", default=None, metavar="LEDGER",
+        help="perf-history ledger (obs/history.py): arm the history.* "
+        "baseline-delta gauges from the ledger's median for this run's "
+        "leg (named from the engine's layout) and card, and append this "
+        "run's normalized record after the solve. A missing ledger "
+        "just means no baseline yet; the append creates it")
+    ob.add_argument(
+        "--probe-every", type=int, default=0, metavar="K",
+        help="compute convergence probes every K iterations — L1 "
+        "residual, rank mass, top-k churn, top-k mass and the rank-mass "
+        "ledger — on the card in the step's own tail, fetched with the "
+        "step's scalars in one transfer. Records land in the "
+        "per-iteration history, probe.* gauges and the trace. 0 "
+        "(default) disables: the unprobed code path")
+    ob.add_argument(
+        "--probe-topk", type=int, default=64, metavar="N",
+        help="top-k set size the probe's churn telemetry tracks")
+    ob.add_argument(
+        "--stop-tol", type=float, default=None,
+        help="early-exit when the PROBED L1 residual reaches this "
+        "(checked at probe points only — needs --probe-every; --tol "
+        "checks every iteration instead)")
+    ob.add_argument(
+        "--metrics-textfile", default=None, metavar="PATH",
+        help="live Prometheus text-format export of the metrics "
+        "registry, atomically rewritten every iteration")
+    ob.add_argument(
+        "--metrics-port", type=int, default=None, metavar="PORT",
+        help="serve the same registry snapshot over HTTP GET /metrics "
+        "on 127.0.0.1:PORT (0 = ephemeral)")
+    ob.add_argument(
+        "--device-sample-every", type=int, default=0, metavar="K",
+        help="sample the card's memory (torch.cuda.memory_allocated, "
+        "max_memory_allocated, mem_get_info) every K completed steps: "
+        "device.<id>.* gauges, counter tracks in the --trace Chrome "
+        "export, the high-water mark in the run report. 0 (default) "
+        "disarms: the solve loop makes zero sampler calls, and reports "
+        "still carry a one-shot sample")
+    ob.add_argument(
+        "--preflight", action="store_true",
+        help="OOM-preflight fit check (obs/devices.fit_check): an "
+        "analytic per-stage model of the device build and the placed "
+        "engine at this run's geometry against the card's memory "
+        "(mem_get_info, or the Hopper table); exits 3 with the table "
+        "when it does not fit. Synthetic specs check before any graph "
+        "work; file inputs after the parse, before the build")
+    ob.add_argument(
+        "--graph-profile", action="store_true",
+        help="arm the data-plane profiler (obs/graph_profile.py): device "
+        "builds compute the structural profile — log2 degree "
+        "histograms, dedup/self-loop counts, top hubs, partition skew — "
+        "in one pass of reductions over the sorted edges; host builds "
+        "profile in numpy. Publishes graph.* gauges, the run report's "
+        "`graph` section and, under --job-dir, a checksummed profile "
+        "artifact keyed by graph fingerprint. Off: zero profile "
+        "computations")
+    ob.add_argument(
+        "--stall-timeout", type=float, default=None, metavar="SECONDS",
+        help="arm the stall watchdog: if no solve step completes within "
+        "SECONDS, log a loud diagnostic (last completed iteration and "
+        "the card's view)")
+    ob.add_argument(
+        "--stall-action", choices=["warn", "raise", "rescue"],
+        default="warn",
+        help="what the watchdog does on a stall: 'warn' logs and keeps "
+        "waiting; 'raise' also interrupts the run — the CLI's SIGINT "
+        "drain then ends it at the next step boundary (exit 75). A main "
+        "thread blocked in a CUDA synchronization sees the interrupt "
+        "only when that call returns. 'rescue' (the elastic runner) is "
+        "not ported yet: ROADMAP slice 6")
     p.add_argument("--log-every", type=int, default=1,
                    help="0 silences per-iter logs")
     p.add_argument("--jsonl", default=None,
@@ -585,6 +668,11 @@ def _device_build(args, cfg, info, t0, edges, n, dangling_mask=None,
         job.begin("build")
     t1 = time.perf_counter()
     info["input_seconds"] = t1 - t0
+    preflight = getattr(args, "_preflight", None)
+    if preflight is not None:
+        # --preflight of a file input: after the parse, before the
+        # edges reach the card.
+        preflight(n, len(edges[0]))
     stripe = info["partition_span"] = (plan_partition_span(
         cfg, n, len(edges[0]), args.partition_span)
         if args.partition_span else 0)
@@ -715,20 +803,20 @@ def _check_args(args) -> None:
     their slice; the SDC and job flags keep the JAX CLI's refusals."""
     later = [flag for flag, on in (
         ("--max-rescues", args.max_rescues is not None),
-        ("--stall-timeout", args.stall_timeout is not None),
-        ("--stall-action", args.stall_action is not None),
+        ("--stall-action rescue", args.stall_action == "rescue"),
     ) if on]
     if later:
         _usage(f"{', '.join(later)}: the elastic runner and the device "
                f"health monitor are not ported yet (ROADMAP slice 6)")
-    later = [flag for flag, on in (
-        ("--probe-every", bool(args.probe_every)),
-        ("--run-report", args.run_report is not None),
-        ("--trace", args.trace is not None),
-    ) if on]
-    if later:
-        _usage(f"{', '.join(later)}: probes, the run report and the "
-               f"tracer are not ported yet (ROADMAP slice 8)")
+    if args.probe_every < 0:
+        _usage("--probe-every must be >= 0")
+    if args.device_sample_every < 0:
+        _usage("--device-sample-every must be >= 0")
+    if args.stall_timeout is not None and args.stall_timeout <= 0:
+        _usage("--stall-timeout must be positive")
+    if args.preflight and args.engine != "torch":
+        _usage("--preflight sizes against the card's memory; it requires "
+               "--engine torch")
     if args.resume and not args.snapshot_dir and not args.job_dir:
         raise SystemExit("--resume needs --snapshot-dir")
     if args.device_build and args.engine != "torch":
@@ -934,6 +1022,220 @@ def _robustness_line(args, engine, guard, dead_letter) -> None:
     _log("robustness: " + ", ".join(parts))
 
 
+def _publish_graph_profile(args, graph, engine, job) -> None:
+    """--graph-profile (``pagerank_tpu/cli.py:893-930``): make sure a
+    profile exists and is published — a device build computed it in the
+    build, a resumed job restores the checksummed artifact keyed by
+    graph fingerprint, a host build profiles in numpy at the layout the
+    engine packed — and persist the job artifact. Telemetry: never
+    fails the run. (The load prediction over a mesh is slice 6.)"""
+    from pagerank_tpu_torch.obs import graph_profile
+
+    try:
+        prof = graph_profile.get_profile()
+        restored = False
+        if prof is None and job is not None:
+            prof = job.load_profile(graph.fingerprint())
+            if prof is not None:
+                graph_profile.publish(prof)
+                restored = True
+        if prof is None and hasattr(graph, "in_degree"):
+            lay = engine.layout_info() if hasattr(engine, "layout_info") \
+                else {}
+            group, span = graph_profile.layout_profile_geometry(lay)
+            prof = graph_profile.profile_graph(graph, group=group,
+                                               partition_span=span)
+            graph_profile.publish(prof)
+        if prof is not None and job is not None and not restored:
+            job.save_profile(prof)
+    except Exception as e:  # telemetry must not fail the solve
+        _log(f"pagerank_tpu_torch: graph profile publish failed ({e!r})")
+
+
+def _robustness_summary(args, engine, guard) -> dict:
+    """The run's robustness counters as one dict
+    (``pagerank_tpu/cli.py:947-969``): the stderr line and the run
+    report read it."""
+    from pagerank_tpu_torch import obs
+
+    counters = obs.get_registry().snapshot()["counters"]
+    return {
+        "rollbacks": (getattr(engine, "health", {}) or {}).get(
+            "rollbacks", 0) or 0,
+        "rescues": 0,
+        "devices_lost": 0,
+        "write_retries": guard.retries,
+        "dropped_writes": len(guard.dropped),
+        "s3_request_retries": _s3_retry_total(
+            (args.snapshot_dir, args.dump_text_dir, args.out, args.jsonl)),
+        "sdc_flips_detected": int(counters.get("sdc.flips_detected", 0)),
+        "sdc_transient_flips": int(counters.get("sdc.transient_flips", 0)),
+        "sdc_quarantined_devices": int(
+            counters.get("sdc.quarantined_devices", 0)),
+    }
+
+
+def _env_class(device):
+    """(backend, card name) of the run's device: the environment class a
+    perf-history baseline is taken within."""
+    if device is not None and device.type == "cuda":
+        import torch
+
+        return ("cuda", torch.cuda.get_device_name(device))
+    return ("cpu", "cpu")
+
+
+def _arm_history_baseline(ledger_path, layout, graph, device) -> None:
+    """--history, the live half (``pagerank_tpu/cli.py:963-1000``): the
+    ledger's robust baseline (median of the trailing window) of
+    edges/s/chip for THIS run's leg within THIS card's class, armed as
+    the ``history.*`` gauges. Advisory: an unreadable or empty ledger
+    means no baseline."""
+    from pagerank_tpu_torch.obs import history as history_mod
+    from pagerank_tpu_torch.obs import live as obs_live
+
+    try:
+        records = history_mod.read_ledger(ledger_path)
+    except ValueError as e:
+        _log(f"pagerank_tpu_torch: perf ledger unreadable ({e}); no "
+             "baseline armed")
+        return
+    leg = history_mod.leg_name_for_layout(layout)
+    pts = history_mod.series(records, leg, "edges_per_sec_per_chip",
+                             klass=_env_class(device))
+    vals = [v for _, v in pts][-history_mod.DEFAULT_DETECTION["window"]:]
+    if not vals:
+        _log(f"pagerank_tpu_torch: perf ledger {ledger_path} has no "
+             f"'{leg}' records for this card; no baseline armed")
+        return
+    med, _mad = history_mod.median_mad(vals)
+    obs_live.arm_history_baseline(obs_live.HistoryBaseline(
+        leg=leg, baseline_eps=med, num_edges=int(graph.num_edges),
+        num_chips=1, n_baseline=len(vals)))
+
+
+def _append_history_record(args, report) -> None:
+    """--history, the durable half (``pagerank_tpu/cli.py:1003-1035``):
+    this run's run report normalized to a RunRecord and appended to the
+    ledger (content-hash deduped). Never fails the run."""
+    from pagerank_tpu_torch.obs import history as history_mod
+
+    try:
+        rec = history_mod.normalize_result(report, source="cli")
+        added = history_mod.append_record(args.history, rec)
+    except (OSError, ValueError) as e:
+        _log(f"pagerank_tpu_torch: perf-history append failed: {e!r}")
+        return
+    _log(("appended run record to" if added else "run record already in")
+         + f" perf ledger {args.history}")
+
+
+def _build_report(args, ctx, error=None, interrupted=None) -> dict:
+    """The run report of whatever run state ``ctx`` holds
+    (``pagerank_tpu/cli.py:1038-1093``): every section present, the
+    failure and interrupt markers set."""
+    from pagerank_tpu_torch import obs
+    from pagerank_tpu_torch import sdc as sdc_mod
+
+    graph, engine = ctx.get("graph"), ctx.get("engine")
+    metrics, probes = ctx.get("metrics"), ctx.get("probes")
+    guard = ctx.get("guard")
+    job = ctx.get("job")
+    extra = {
+        "graph": ({"n": int(graph.n), "num_edges": int(graph.num_edges),
+                   **obs.graph_profile.report_section()}
+                  if graph is not None else None),
+        "engine": args.engine,
+        "fused": False,
+        "failed": error is not None,
+        "interrupted": interrupted is not None,
+        "probes": probes.history if probes is not None else [],
+        "sdc": sdc_mod.report_section(),
+        "layout": (engine.layout_info() if hasattr(engine, "layout_info")
+                   else ctx.get("layout")),
+    }
+    if error is not None:
+        extra["error"] = repr(error)
+    if interrupted is not None:
+        extra["interrupt_signal"] = getattr(interrupted, "signum", None)
+    return obs.build_run_report(
+        config=ctx.get("cfg"), tracer=ctx.get("tracer"),
+        registry=obs.get_registry(),
+        history=metrics.history if metrics is not None else [],
+        summary=metrics.summary() if metrics is not None else {},
+        robustness=(_robustness_summary(args, engine, guard)
+                    if guard is not None else {}),
+        job=job.report_section() if job is not None else None,
+        extra=extra,
+    )
+
+
+def _export_observability(args, ctx, error=None, interrupted=None):
+    """Write the --trace export and the --run-report artifact; on the
+    failure and drain paths too (best-effort there: never masks the
+    primary error). Returns the report when one was built."""
+    from pagerank_tpu_torch import obs
+
+    tracer = ctx.get("tracer")
+    if tracer is None or not tracer.enabled:
+        return None
+    try:
+        if args.trace:
+            tracer.export(args.trace)
+            _log(f"wrote trace to {args.trace}")
+        if not args.run_report:
+            return None
+        report = _build_report(args, ctx, error, interrupted)
+        obs.write_run_report(args.run_report, report)
+        _log(f"wrote run report to {args.run_report}")
+        return report
+    except Exception as e2:
+        if error is None and interrupted is None:
+            raise
+        _log(f"pagerank_tpu_torch: observability export failed: {e2!r}")
+        return None
+
+
+def _synthetic_geometry(spec: str):
+    """(n, raw num_edges, scale-or-None) of a --synthetic spec, or None
+    when it is malformed: the grammar and defaults of :func:`_synthetic`
+    (rmat scale 20, 16 edges a vertex)."""
+    kind, _, rest = spec.partition(":")
+    try:
+        if kind == "rmat":
+            scale = int(rest or 20)
+            return 1 << scale, 16 << scale, scale
+        if kind == "uniform":
+            n_s, _, e_s = rest.partition(":")
+            n = int(n_s)
+            return n, int(e_s or 16 * n), None
+    except ValueError:
+        return None
+    return None
+
+
+def _run_preflight(args, cfg, n: int, num_edges: int, scale,
+                   device_build: bool) -> None:
+    """--preflight (``pagerank_tpu/cli.py:1152-1178``): the fit check at
+    THIS run's geometry (its planned span and stream dtype); exits 3
+    with the per-stage table when the card cannot hold it."""
+    from pagerank_tpu_torch.obs import devices as obs_devices
+
+    span = (plan_partition_span(cfg, n, num_edges, args.partition_span)
+            if args.partition_span else 0)
+    res = obs_devices.fit_check(
+        scale if device_build else None, n=n, num_edges=num_edges,
+        dtype=args.dtype, accum_dtype=args.accum_dtype or args.dtype,
+        device_build=device_build,
+        generated=bool(args.synthetic) and device_build,
+        partition_span=span,
+        stream_dtype=args.stream_dtype if span else "",
+    )
+    _log(obs_devices.render_fit(res))
+    if not res.fits:
+        raise SystemExit(int(ExitCode.PREFLIGHT_UNFIT))
+
+
 def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     """Load, build, solve and write outputs; returns the summary:
     ``ranks`` (host, original id order), ``graph``, ``ids`` (the IdMap
@@ -961,8 +1263,9 @@ def run(argv: Optional[List[str]] = None) -> Dict[str, object]:
     ``engine.layout_info()["build_seconds"]``), the layout that ran
     (``form``, ``partition_span``, ``partitions``, ``num_rows``),
     ``sdc`` (the SDC section, empty when off), ``dropped`` (writes
-    dropped under ``--on-write-failure warn_and_drop``) and ``job``
-    (the job manifest, else None). With ``--ppr-sources`` it returns,
+    dropped under ``--on-write-failure warn_and_drop``), ``job``
+    (the job manifest, else None) and ``report`` (the run report dict,
+    else None). With ``--ppr-sources`` it returns,
     after the load, ``graph``, ``ids``, the load's timings and what
     :func:`run_ppr` returns. No signal handler is installed here (see
     :func:`main`)."""
@@ -975,7 +1278,32 @@ def _run(args, drain) -> Dict[str, object]:
     :class:`~pagerank_tpu_torch.jobs.GracefulDrain`, installed by
     :func:`main`): a drain request surfaces as
     :class:`~pagerank_tpu_torch.jobs.DrainInterrupt` after the writer
-    was flushed and a final snapshot written."""
+    was flushed, a final snapshot and the interrupted-marked run report
+    written. Whatever way it ends, the tracer, the watchdog, the
+    sampler, the history baseline and the graph profiler are disarmed,
+    and a failing run still writes its trace and failure-marked
+    report (``pagerank_tpu/cli.py:1339-1357``)."""
+    from pagerank_tpu_torch import obs
+
+    ctx = {"args": args}
+    try:
+        return _run_body(args, drain, ctx)
+    except jobs.DrainInterrupt as e:
+        _export_observability(args, ctx, interrupted=e)
+        raise
+    except BaseException as e:
+        _export_observability(args, ctx, error=e)
+        raise
+    finally:
+        obs.disable_tracing()
+        obs.disarm_watchdog()
+        obs.disarm_sampler()
+        obs.disarm_history_baseline()
+        obs.graph_profile.disarm()
+
+
+def _run_body(args, drain, ctx) -> Dict[str, object]:
+    from pagerank_tpu_torch import obs
     from pagerank_tpu_torch import sdc as sdc_mod
     from pagerank_tpu_torch.engine import make_engine
     from pagerank_tpu_torch.engines.torch_engine import (
@@ -993,6 +1321,8 @@ def _run(args, drain) -> Dict[str, object]:
             num_iters=args.iters, damping=args.damping,
             semantics=args.semantics, dtype=args.dtype,
             accum_dtype=args.accum_dtype or args.dtype, tol=args.tol,
+            probe_every=args.probe_every, probe_topk=args.probe_topk,
+            stop_tol=args.stop_tol,
             sdc_check_every=args.sdc_check_every, sdc_seed=args.sdc_seed,
             robustness=RobustnessConfig(
                 health_checks=not args.no_health_checks,
@@ -1005,22 +1335,54 @@ def _run(args, drain) -> Dict[str, object]:
         raise SystemExit(str(e))
     if args.engine == "torch":
         resolve_device(args.device)  # raises without a card, before work
+    # Observability state is per run, never inherited from an earlier
+    # in-process run (``pagerank_tpu/cli.py:1533-1545``).
+    obs.disable_tracing()
+    obs.get_registry().reset()
+    obs.costs.reset()
+    obs.graph_profile.reset()
     sdc_mod.reset()
+    if args.graph_profile:
+        # Armed BEFORE the load, so a device build profiles in its own
+        # pass; disarmed in _run's finally.
+        obs.graph_profile.arm()
+    tracer = (obs.enable_tracing() if (args.trace or args.run_report)
+              else obs.get_tracer())
+    ctx["tracer"], ctx["cfg"] = tracer, cfg
     job = jobs.JobSupervisor(args.job_dir) if args.job_dir else None
+    ctx["job"] = job
     if job is not None and args.sdc_check_every:
         # Convictions persist AT conviction time: a sticky chip lands
         # in job.json before the quarantine error raises.
         sdc_mod.set_quarantine_hook(job.quarantine_devices)
+    if args.preflight and args.synthetic:
+        # The spec alone gives the geometry: the check runs before any
+        # graph work.
+        geo = _synthetic_geometry(args.synthetic)
+        if geo is None:
+            raise SystemExit(f"unknown synthetic spec {args.synthetic!r}")
+        _run_preflight(args, cfg, *geo, device_build=args.device_build)
+    if args.preflight and not args.synthetic:
+        args._preflight = lambda n, e: _run_preflight(
+            args, cfg, n, e, None, device_build=True)
 
     try:
-        if job is not None:
-            graph, ids, info = _job_load_graph(args, cfg, job, drain)
-        else:
-            graph, ids, info = load_graph(args, cfg)
+        with tracer.span("load"):
+            if job is not None:
+                graph, ids, info = _job_load_graph(args, cfg, job, drain)
+            else:
+                graph, ids, info = load_graph(args, cfg)
     except ValueError as e:
         # e.g. "empty graph: no vertices": a clean CLI error
         raise SystemExit(str(e))
+    finally:
+        args._preflight = None
+    ctx["graph"] = graph
     drain.check("ingest")
+    if args.preflight and not args.synthetic and not args.device_build:
+        # A host build: the engine's placement is the device allocation.
+        _run_preflight(args, cfg, graph.n, graph.num_edges, None,
+                       device_build=False)
     threads = (f", {info['ingest_threads']} threads"
                if info["ingest_threads"] else "")
     sort_route = "device" if args.device_build else graph.sort_route
@@ -1040,6 +1402,7 @@ def _run(args, drain) -> Dict[str, object]:
                 **run_ppr(args, graph, ids)}
     if args.engine == "torch":
         cfg = resolve_layout(cfg, args, graph, info.get("partition_span"))
+    ctx["cfg"] = cfg
 
     # The solve stage of a job: a validated final-ranks artifact of a
     # completed prior solve satisfies it outright (no engine is built).
@@ -1054,12 +1417,13 @@ def _run(args, drain) -> Dict[str, object]:
             "solve",
             expect={"fingerprint": solve_fp, "solve_config": solve_hash})
     guard = SinkGuard()
+    ctx["guard"] = guard
     dead_letter = None
     step_s: List[float] = []
     save_s: List[float] = []
     dump_s: List[float] = []
     fetch_s: List[float] = []
-    writer = dumper = engine = None
+    writer = dumper = engine = probes = exporter = watchdog = None
     resumed, build_s, solve_s = 0, 0.0, None
     lay = {"form": None, "partition_span": 0}
     if solve_hit is not None:
@@ -1068,38 +1432,46 @@ def _run(args, drain) -> Dict[str, object]:
         _log("solve stage satisfied by durable artifact "
              f"({solve_hit[1].get('iterations')} iteration(s) recorded)")
         iterations = solve_hit[1].get("iterations")
+        if args.graph_profile:
+            _publish_graph_profile(args, graph, None, job)
     else:
         if job is not None:
             job.begin("solve")
         t0 = time.perf_counter()
-        if args.engine == "cpu":
-            engine = make_engine("cpu", cfg).build(graph)
-            lay = {"form": "cpu_f64", "partition_span": 0}
-            _log(f"engine: the f64 oracle on the host (build "
-                 f"{time.perf_counter() - t0:.3f} s)")
-        else:
-            from pagerank_tpu_torch.parallel.mesh import device_id
-
-            quarantined = (set(job.quarantined_devices()) if job is not None
-                           else set())
-            if device_id(resolve_device(args.device)) in quarantined:
-                # One device: a chip a prior run of this job convicted
-                # of sticky corruption leaves nothing to build on.
-                raise SystemExit(
-                    f"device {args.device} was quarantined for silent "
-                    f"data corruption by a prior run of this job "
-                    f"({job.manifest_path}); no device is left")
-            engine = TorchEngine(cfg, device=args.device)
-            if args.device_build:
-                engine.build_device(graph)
+        with tracer.span("engine/build"):
+            if args.engine == "cpu":
+                engine = make_engine("cpu", cfg).build(graph)
+                lay = {"form": "cpu_f64", "partition_span": 0}
+                _log(f"engine: the f64 oracle on the host (build "
+                     f"{time.perf_counter() - t0:.3f} s)")
             else:
-                engine.build(graph)
-            lay = engine.layout_info()
-            _log_layout(lay, time.perf_counter() - t0)
+                from pagerank_tpu_torch.parallel.mesh import device_id
+
+                quarantined = (set(job.quarantined_devices())
+                               if job is not None else set())
+                if device_id(resolve_device(args.device)) in quarantined:
+                    # One device: a chip a prior run of this job
+                    # convicted of sticky corruption leaves nothing to
+                    # build on.
+                    raise SystemExit(
+                        f"device {args.device} was quarantined for silent "
+                        f"data corruption by a prior run of this job "
+                        f"({job.manifest_path}); no device is left")
+                engine = TorchEngine(cfg, device=args.device)
+                ctx["engine"] = engine
+                if args.device_build:
+                    engine.build_device(graph)
+                else:
+                    engine.build(graph)
+                lay = engine.layout_info()
+                _log_layout(lay, time.perf_counter() - t0)
+        ctx["engine"], ctx["layout"] = engine, lay
         build_s = time.perf_counter() - t0
         # A signal during the engine build surfaces here, not after a
         # whole first iteration.
         drain.check("solve")
+        if args.graph_profile:
+            _publish_graph_profile(args, graph, engine, job)
 
         snap = None
         if args.snapshot_dir:
@@ -1122,6 +1494,10 @@ def _run(args, drain) -> Dict[str, object]:
                     _log(f"resumed from iteration {resumed}")
         metrics = MetricsLogger(graph.num_edges, 1, log_every=args.log_every,
                                 jsonl_path=args.jsonl)
+        ctx["metrics"] = metrics
+        if args.history:
+            dev = getattr(engine, "device", None)
+            _arm_history_baseline(args.history, lay, graph, dev)
         if args.dump_text_dir:
             dumper = TextDumper(args.dump_text_dir,
                                 names=ids.names if ids is not None else None)
@@ -1146,6 +1522,7 @@ def _run(args, drain) -> Dict[str, object]:
         guard = SinkGuard(retry_policy=cfg.robustness.write_retry_policy(),
                           on_failure=args.on_write_failure,
                           dead_letter_path=dead_letter)
+        ctx["guard"] = guard
         # Async offload: the loop submits the engine's payload (a copy
         # to pinned host memory on a side stream) and keeps stepping; a
         # worker thread decodes it and feeds the sinks. --sync-io keeps
@@ -1156,11 +1533,39 @@ def _run(args, drain) -> Dict[str, object]:
             writer = AsyncRankWriter(
                 lambda p: (p[0], engine.decode_ranks(p[1])), [write_sinks],
                 guard=guard)
+
+        # Convergence probes: --probe-every 0 leaves this None and the
+        # solve loop makes zero probe calls.
+        if args.probe_every:
+            probes = obs.ConvergenceProbes(
+                args.probe_every, topk=args.probe_topk,
+                stop_tol=args.stop_tol)
+        ctx["probes"] = probes
+        # Built (and argument-checked) before the exporter spawns its
+        # HTTP thread; armed right before the solve.
+        if args.stall_timeout:
+            watchdog = obs.StallWatchdog(args.stall_timeout,
+                                         action=args.stall_action)
+        if args.device_sample_every:
+            # The run's own card (a foreign process's memory on a
+            # shared host is not this run's watermark).
+            dev = getattr(engine, "device", None)
+            obs.arm_sampler(obs.DeviceSampler(
+                every=args.device_sample_every,
+                devices=[dev] if dev is not None else None))
+        if args.metrics_textfile or args.metrics_port is not None:
+            exporter = obs.MetricsExporter(textfile=args.metrics_textfile,
+                                           port=args.metrics_port)
+            if exporter.port is not None:
+                _log(f"serving metrics on http://127.0.0.1:{exporter.port}"
+                     f"/metrics")
         t_last = [time.perf_counter()]
 
         def on_iteration(i, step_info):
             step_s.append(time.perf_counter() - t_last[0])
             metrics.record(i, step_info, step_s[-1])
+            if exporter is not None:
+                exporter.write_textfile()
             want_snap = bool(snap and args.snapshot_every
                              and (i + 1) % args.snapshot_every == 0)
             if want_snap or dumper is not None:
@@ -1187,25 +1592,32 @@ def _run(args, drain) -> Dict[str, object]:
         if snap is not None and writer is not None:
             # Rollback scans drain the writer's queue first.
             roll_snap = WriterSyncedSnapshotter(snap, writer)
+        if watchdog is not None:
+            obs.arm_watchdog(watchdog)
         interrupted = None
         t_solve = time.perf_counter()
         try:
-            ranks = engine.run(on_iteration=on_iteration,
-                               snapshotter=roll_snap)
+            with obs.profiler_session(args.profile_dir), \
+                    tracer.span("solve", iters=cfg.num_iters):
+                ranks = engine.run(on_iteration=on_iteration,
+                                   snapshotter=roll_snap, probes=probes)
         except jobs.DrainInterrupt as di:
             interrupted = di
         finally:
             propagating = sys.exc_info()[0] is not None
+            obs.disarm_watchdog()
             metrics.close()
-            if writer is not None:
-                try:
+            try:
+                if exporter is not None:
+                    exporter.close()
+                if writer is not None:
                     # A drain bounds the flush by its deadline: a
                     # hanging sink is abandoned (warned and counted).
                     writer.close(timeout=drain.remaining()
                                  if drain.requested else None)
-                except Exception:
-                    if not propagating:
-                        raise
+            except Exception:
+                if not propagating:
+                    raise
         solve_s = time.perf_counter() - t_solve
         if interrupted is not None:
             # Final snapshot of the drained state (the last completed
@@ -1239,6 +1651,12 @@ def _run(args, drain) -> Dict[str, object]:
             _log(f"solve: {len(step_s)} iteration(s), median {ms:.3f} "
                  f"ms/iter, {graph.num_edges / (ms / 1e3):.4g} edges/s, "
                  f"wall {solve_s:.3f} s to the last write{sinks}")
+            # The kernel's cost model, with the measured step attached:
+            # the report's costs section (achieved share of the bound).
+            for form, rep in (getattr(engine, "cost_reports", dict)()
+                              ).items():
+                obs.costs.record_report(rep)
+                obs.costs.attach_measurement(form, ms / 1e3)
         if job is not None:
             # Durable solve artifact: a later restart skips straight to
             # the output stage.
@@ -1255,13 +1673,20 @@ def _run(args, drain) -> Dict[str, object]:
         job.begin("output")
     if args.out:
         t0 = time.perf_counter()
-        n_out = write_ranks(args.out, ranks,
-                            ids.names if ids is not None else None, args.top)
+        with tracer.span("output"):
+            n_out = write_ranks(args.out, ranks,
+                                ids.names if ids is not None else None,
+                                args.top)
         out_s = time.perf_counter() - t0
         _log(f"wrote {n_out:,} ranks to {args.out}")
     if job is not None:
         job.complete("output", out=args.out)
         job.finish()
+    report = _export_observability(args, ctx)
+    if args.history:
+        _append_history_record(args, report if report is not None
+                               else _build_report(args, ctx))
+    if job is not None:
         skipped = [s for s, r in job.manifest["stages"].items()
                    if r.get("skipped")]
         _log(f"job complete in {args.job_dir} (resume "
@@ -1298,6 +1723,7 @@ def _run(args, drain) -> Dict[str, object]:
         "sdc": sdc_mod.report_section(),
         "dropped": list(guard.dropped),
         "job": dict(job.manifest) if job is not None else None,
+        "report": report,
     }
 
 

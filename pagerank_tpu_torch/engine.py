@@ -6,8 +6,13 @@ guard's checked step (``:261-287``, ``:368-373``), and the engine hooks
 the guard reads (``sdc_supported``, ``retain_state``, ``restore_state``,
 ``ledger_values``, ``:93-110``, ``:132``). The loop plays the role of the
 reference's ``for (iter = 0; iter < 10; iter++)`` block
-(Sparky.java:187-238): step, hook, snapshot, repeat. Probes, the stall
-watchdog and the tracer come with ROADMAP slice 8.
+(Sparky.java:187-238): step, hook, snapshot, repeat. The observability
+hooks of the JAX loop (``:112-198``, ``:199-300``) come with it: the
+convergence probes (``probe_values``, ``step_probed``,
+``_ledger_entry``, ``run(probes=)``), the tracer's ``solve/step`` span,
+the stall watchdog's heartbeat and the device sampler's ``on_step``.
+Each is read once a run; when off, the loop pays one ``is None`` (or
+``False``) check an iteration and makes zero calls.
 """
 
 from __future__ import annotations
@@ -19,6 +24,10 @@ from typing import Callable, Dict, Optional
 import numpy as np
 
 from pagerank_tpu_torch.graph import Graph
+from pagerank_tpu_torch.obs import devices as obs_devices
+from pagerank_tpu_torch.obs import live as obs_live
+from pagerank_tpu_torch.obs import metrics as obs_metrics
+from pagerank_tpu_torch.obs import trace as obs_trace
 from pagerank_tpu_torch.utils.config import PageRankConfig
 
 
@@ -120,11 +129,75 @@ class PageRankEngine(abc.ABC):
         just taken: 0.0 for every synchronous engine."""
         return 0.0
 
+    # -- convergence probes (obs/probes.py) ---------------------------------
+
+    def probe_values(self, k: int, prev_ids):
+        """(rank_mass, entered_count, topk_ids_engine_space,
+        topk_ids_original_space, topk_mass) of the CURRENT state — the
+        standalone probe. ``prev_ids`` is the previous probe's
+        engine-space top-k (None on the first probe); ``entered_count``
+        is how many current top-k ids are NOT in it; ``topk_mass`` is
+        the rank mass the top-k hold. Base impl: host numpy over
+        ranks() (the CPU oracle's own probe — what the device path is
+        held against). Ties break by lowest id, as ``lax.top_k`` does in
+        the JAX engine."""
+        r = np.asarray(self.ranks(), dtype=np.float64)
+        k = min(int(k), r.shape[0])
+        ids = np.argsort(-r, kind="stable")[:k].astype(np.int64)
+        entered = (
+            k if prev_ids is None
+            else int(k - np.isin(ids, np.asarray(prev_ids)).sum())
+        )
+        return float(r.sum()), entered, ids, ids, float(r[ids].sum())
+
+    def _ledger_entry(self, info: Dict[str, float]):
+        """Assemble one mass-ledger entry from a probed step's info
+        (requires the ``ledger_*`` sums; obs/graph_profile.py owns the
+        decomposition and the leak naming)."""
+        from pagerank_tpu_torch.obs import graph_profile
+
+        return graph_profile.mass_ledger_entry(
+            damping=self.config.damping,
+            semantics=self.config.semantics,
+            n=int(self.graph.n),
+            eps=self._ledger_eps(),
+            mass_prev=info["ledger_mass_prev"],
+            mass=info["rank_mass"],
+            dangling_mass=info["dangling_mass"],
+            contrib_total=info["ledger_contrib_total"],
+            retained_total=info["ledger_retained_total"],
+            flow_slack=self._stale_slack(),
+        )
+
+    def step_probed(self, probes):
+        """One iteration WITH the convergence probe: returns
+        ``(info, (ids_engine, ids_original))`` where ``info`` carries
+        ``rank_mass``, ``topk_churn``, ``topk_mass`` and — when the
+        engine measures the ledger sums — the ``mass_ledger``
+        decomposition next to the step scalars. Base impl: plain step()
+        + the host probe; TorchEngine overrides it with the probe tail
+        on the device and one transfer. Never called when probing is
+        off (the zero-probe-call contract)."""
+        info = self.step()
+        prev = probes.prev_ids
+        mass, entered, ids_engine, ids_original, topk_mass = \
+            self.probe_values(probes.topk, prev)
+        info["rank_mass"] = mass
+        info["topk_churn"] = 0 if prev is None else entered
+        info["topk_mass"] = topk_mass
+        led = self.ledger_values()
+        if led is not None:
+            (info["ledger_mass_prev"], info["ledger_contrib_total"],
+             info["ledger_retained_total"]) = led
+            info["mass_ledger"] = self._ledger_entry(info)
+        return info, (ids_engine, ids_original)
+
     def run(
         self,
         num_iters: Optional[int] = None,
         on_iteration: Optional[Callable[[int, Dict[str, float]], None]] = None,
         snapshotter=None,
+        probes=None,
     ) -> np.ndarray:
         """Drive the solve up to ``num_iters`` (default config.num_iters).
 
@@ -135,7 +208,16 @@ class PageRankEngine(abc.ABC):
         valid snapshot of the same graph at or below the bad iteration
         and recomputes, up to ``max_rollbacks`` times; the bad step's
         ``on_iteration`` never fires. Exhausting the budget, or having
-        nothing to roll back to, raises :class:`SolverHealthError`."""
+        nothing to roll back to, raises :class:`SolverHealthError`.
+
+        ``probes`` (obs/probes.ConvergenceProbes): at its cadence the
+        step runs as :meth:`step_probed` and the record is committed
+        after the health check accepts the step; its ``stop_tol``
+        early-exits at probe points. None/off takes the unprobed path.
+        The tracer (a ``solve/step`` span a step when enabled), an armed
+        stall watchdog (a heartbeat a completed step) and an armed
+        device sampler (``on_step``) are read once a run; off, each
+        costs one check an iteration and no call."""
         if self.graph is None:
             raise RuntimeError("call build(graph) before run()")
         total = self.config.num_iters if num_iters is None else num_iters
@@ -143,6 +225,12 @@ class PageRankEngine(abc.ABC):
         rb = self.config.robustness
         self.health = {"rollbacks": 0, "first_bad_iteration": None}
         last_mass: Optional[float] = None
+        tracer = obs_trace.get_tracer()
+        trace_steps = tracer.enabled
+        watchdog = obs_live.get_watchdog()
+        sampler = obs_devices.get_sampler()
+        probing = probes is not None and probes.enabled
+        probe_ids = None
         # SDC guard (sdc.py): built ONCE per run, None when
         # sdc_check_every is 0 — the loop body then adds one `is not
         # None` check per iteration and the solve is bit-identical to
@@ -153,13 +241,30 @@ class PageRankEngine(abc.ABC):
 
             sdc_guard = sdc_mod.attach_guard(self)
         while self.iteration < total:
-            if sdc_guard is not None and sdc_guard.wants(self.iteration):
-                # Checked step: detect -> bounded redo ->
-                # transient/sticky; a sticky conviction raises
-                # DeviceQuarantinedError.
+            probe_now = probing and probes.wants(self.iteration)
+            sdc_now = (sdc_guard is not None
+                       and sdc_guard.wants(self.iteration))
+            if trace_steps:
+                with tracer.span("solve/step", iteration=self.iteration):
+                    if sdc_now:
+                        # Checked step: detect -> bounded redo ->
+                        # transient/sticky; a sticky conviction raises
+                        # DeviceQuarantinedError.
+                        info = sdc_guard.checked_step()
+                    elif probe_now:
+                        info, probe_ids = self.step_probed(probes)
+                    else:
+                        info = self.step()
+            elif sdc_now:
                 info = sdc_guard.checked_step()
+            elif probe_now:
+                info, probe_ids = self.step_probed(probes)
             else:
                 info = self.step()
+            if watchdog is not None:
+                watchdog.heartbeat(self.iteration)
+            if sampler is not None:
+                sampler.on_step(self.iteration)
             i = self.iteration
             reason = None
             if rb.health_checks:
@@ -176,9 +281,28 @@ class PageRankEngine(abc.ABC):
                             f"rank mass drifted {last_mass!r} -> {mass!r} "
                             f"(> mass_tol={rb.mass_tol:g} per step)"
                         )
+                        # On probed steps the drift names the ledger's
+                        # leaking term (link / teleport / dangling).
+                        led = info.get("mass_ledger")
+                        if led and led.get("leak"):
+                            self.health["mass_leak"] = led["leak"]
+                            reason += (
+                                f"; mass ledger names the "
+                                f"{led['leak']} term (residual "
+                                f"{led['residual']:.3e}, unaccounted "
+                                f"{led['unaccounted']!r})"
+                            )
                     else:
                         last_mass = mass
             if reason is not None:
+                obs_metrics.counter(
+                    "engine.health_check_failures",
+                    "solver steps declared unhealthy (NaN/Inf, mass "
+                    "drift)",
+                ).inc()
+                if trace_steps:
+                    tracer.add_event("solve/unhealthy_step",
+                                     iteration=i, reason=reason)
                 if self.health["first_bad_iteration"] is None:
                     self.health["first_bad_iteration"] = i
                 first_bad = self.health["first_bad_iteration"]
@@ -212,11 +336,28 @@ class PageRankEngine(abc.ABC):
                     # onto the rejected state.
                     sdc_guard.note_rollback()
                 self.health["rollbacks"] += 1
+                obs_metrics.counter(
+                    "engine.rollbacks",
+                    "snapshot rollbacks performed by the self-healing "
+                    "solve loop",
+                ).inc()
                 last_mass = None  # re-baseline the drift check
                 continue
             self.iteration = i + 1
             if on_iteration is not None:
                 on_iteration(i, info)
+            if probe_now:
+                # Committed only after the health check accepted the
+                # step and after on_iteration saw the probe-augmented
+                # info. An SDC-checked step took this iteration, so the
+                # probe tail never ran: probe the state standalone.
+                if sdc_now:
+                    rec = probes.probe_boundary(
+                        self, i, l1_delta=info.get("l1_delta"))
+                else:
+                    rec = probes.commit(i, info, *probe_ids)
+                if probes.should_stop(rec):
+                    break
             if tol is not None and float(info["l1_delta"]) <= tol:
                 break
         return self.ranks()

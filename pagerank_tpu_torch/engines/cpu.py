@@ -1,8 +1,8 @@
 """ReferenceCpuEngine — float64 numpy/scipy oracle with exact reference
 semantics.
 
-Copy of ``pagerank_tpu/engines/cpu.py`` (without the mass-ledger sums,
-which come with the observability slice). It computes, in vectorized
+Copy of ``pagerank_tpu/engines/cpu.py``, the mass-ledger sums
+(``ledger_values``) included. It computes, in vectorized
 form, what ``Sparky.java:187-238`` computes in local mode:
 
   contribs  = Aᵀ_norm r          # join+flatMap+reduceByKey, Sparky.java:192-229
@@ -51,6 +51,15 @@ class ReferenceCpuEngine(PageRankEngine):
         r = self._r
         contrib = self._at @ r
         m = float(self._dangling @ r)
+        # Rank-mass-ledger sums, measured off the step's own
+        # intermediates: three O(n) reductions the oracle can afford
+        # unconditionally; the probed step reads them via
+        # ledger_values().
+        self._last_ledger = (
+            float(r.sum()),
+            float(contrib.sum()),
+            float((self._zero_in * r).sum()),
+        )
         n = self.graph.n
         if cfg.semantics == "reference":
             s = contrib + self._zero_in * r
@@ -60,6 +69,9 @@ class ReferenceCpuEngine(PageRankEngine):
         delta = float(np.abs(r_new - r).sum())
         self._r = r_new
         return {"dangling_mass": m, "l1_delta": delta}
+
+    def ledger_values(self):
+        return getattr(self, "_last_ledger", None)
 
     def ranks(self) -> np.ndarray:
         return np.asarray(self._r)

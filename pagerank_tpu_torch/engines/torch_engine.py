@@ -30,7 +30,16 @@ and ``_finalize`` with its ``update_tail`` (:3331-3426),
 ``step()`` (so a checked run is bit-identical to a plain one), then a
 check tail of torch reductions in the accumulation dtype (w·r in and
 out, the masses, the source mass over out-degree > 0, the contribution
-and retained totals), fetched to the host in one transfer.
+and retained totals), fetched to the host in one transfer; and the
+probed step (:3633-3662, the ledger sums :3764-3810: ``step_probed``,
+``probe_values``, ``ledger_values``): ``step()``'s launch and update,
+then the probe tail (rank mass, the top-k of the valid lanes with
+``lax.top_k``'s lowest-index tie rule, the entered count, the top-k
+mass) and the ledger sums ``step_sdc`` shares, with every scalar and
+the k ids fetched in one transfer. Every build resets the per-graph
+state (``_finalize``'s caches, :3420): the payload stream, the device
+``perm``, the pinned pool, the SDC vector, the ledger sums and the
+step's cost model.
 
 Every device, the CPU included, runs the same host pack as the JAX
 engine's pallas forms: lane group 1, inert slots pointing at a zero
@@ -155,13 +164,21 @@ class TorchEngine(PageRankEngine):
         self._layout: Dict[str, object] = {}
         self._perm: Optional[np.ndarray] = None
         self._launch: Optional[ell_spmv.Launcher] = None
-        # The async writer's side stream, the relabel on the device and
-        # the free pinned buffers (device_ranks), made at the first
-        # payload.
+        self._reset_graph_state()
+
+    def _reset_graph_state(self) -> None:
+        """Drop everything made for the previous graph (every build
+        calls this): the async writer's side stream, the relabel on the
+        device and the free pinned buffers (device_ranks, made at the
+        first payload), the SDC projection vector (made at the first
+        checked step), the last step's ledger sums and the step's cost
+        model."""
         self._copy_stream = None
         self._perm_dev: Optional[torch.Tensor] = None
         self._pinned = collections.deque()
         self._sdc_w_vec: Optional[torch.Tensor] = None
+        self._last_ledger = None
+        self._step_cost = None
 
     def _check_span(self, psz: int, n_padded: int) -> int:
         """The partition count of span ``psz``; raises past
@@ -325,6 +342,8 @@ class TorchEngine(PageRankEngine):
         mass_mask = (graph.dangling_mask if cfg.semantics == "reference"
                      else graph.out_degree == 0)
         t1 = time.perf_counter()
+        self._reset_graph_state()
+        self._launch = None
         self._perm = np.arange(n, dtype=np.int32)
         self._n_state = n
         self._arrays = {
@@ -359,6 +378,7 @@ class TorchEngine(PageRankEngine):
         tensors or numpy arrays; ``t2`` is when placement began."""
         cfg, dev = self.config, self.device
         n = self.graph.n
+        self._reset_graph_state()
 
         def put(a):
             return (a if isinstance(a, torch.Tensor)
@@ -396,6 +416,7 @@ class TorchEngine(PageRankEngine):
                     accum_dtype=self._accum, plan=self._plan)
             launch_info = {"head": self._launch.head,
                            "grid": self._launch.grid}
+        self._step_cost = self._kernel_cost(plan, layout)
         # r0 over the TRUE n (1/n in textbook mode), zero in padding.
         self._r = torch.zeros(n_state, dtype=self._dtype, device=dev)
         self._r[:n] = pr_model.initial_rank(n, cfg.semantics, self._dtype,
@@ -484,6 +505,44 @@ class TorchEngine(PageRankEngine):
             "stripe_span": num_blocks * LANES, "pair": False,
         }
 
+    def _kernel_cost(self, plan, layout) -> Dict[str, float]:
+        """What the form's kernel moves and computes a step (K1's or
+        K2's analytic model, ``analysis/kernels.py`` ``k1_cost`` /
+        ``k2_cost``, on this build's host plan): the same count whichever
+        implementation runs the kernel."""
+        from pagerank_tpu_torch.analysis import kernels
+
+        rows = int(layout["num_rows"])
+        num_segs = len(plan.seg_row_start) - 1
+        if self.config.partition_span:
+            word_bytes = LANES * (3 if layout["words24"] else 4)
+            table_item = 2 if self.config.stream_dtype else \
+                self._z_dtype.itemsize
+            return kernels.k2_cost(
+                rows, word_bytes, self._parts * self._window, table_item,
+                self._num_pairs, num_segs, plan.num_blocks,
+                len(plan.block_pairs), len(plan.empty_blocks))
+        return kernels.k1_cost(rows, self._n_state, self._num_blocks,
+                               num_segs, len(plan.empty_groups),
+                               self._z_dtype.itemsize)
+
+    def cost_reports(self) -> Dict[str, object]:
+        """``{"step": CostReport}`` of the form's kernel (the run
+        report's ``costs`` section, ``obs/costs.py``), or ``{}`` for the
+        coo form, which runs no hand kernel."""
+        from pagerank_tpu_torch.obs import costs
+
+        if self._step_cost is None:
+            return {}
+        kind = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else None)
+        return {"step": costs.CostReport(
+            form="step", flops=self._step_cost["flops"],
+            bytes_accessed=self._step_cost["bytes"],
+            num_edges=int(self.graph.num_edges), device_kind=kind,
+            model=("k2_cost" if self.config.partition_span
+                   else "k1_cost"))}
+
     def contrib_inputs(self):
         """The form's kernel inputs at the current state, z freshly
         prescaled: ``(z_ext, src, row_block, num_blocks, plan)`` for K1
@@ -546,7 +605,105 @@ class TorchEngine(PageRankEngine):
     def step(self) -> Dict[str, float]:
         r_new, delta, m = self._update(self._contrib(), self._r)
         self._r = r_new
+        self._last_ledger = None
         return {"l1_delta": float(delta), "dangling_mass": float(m)}
+
+    def _ledger_sums(self, contrib: torch.Tensor, r: torch.Tensor):
+        """The rank-mass ledger's sums of a step (``jax_engine.py:103``)
+        as device scalars in the accumulation dtype: the contribution
+        total, the retained (zero in-degree) mass and the previous
+        mass. The one spelling ``step_probed`` and ``step_sdc`` share."""
+        acc = self._accum
+        ra = r.to(acc)
+        zero = torch.zeros((), dtype=acc, device=r.device)
+        return [torch.sum(contrib.to(acc)),
+                torch.sum(torch.where(self._zero_in, ra, zero)),
+                torch.sum(ra)]
+
+    def ledger_values(self):
+        """``(mass_prev, contrib_total, retained_total)`` of the step
+        just taken when it was probed or checked, else None."""
+        return self._last_ledger
+
+    # -- convergence probes (obs/probes.py) ---------------------------------
+
+    def _resolve_probe_k(self, k: int) -> int:
+        return max(1, min(int(k), self.graph.n))
+
+    def _probe_tail(self, r: torch.Tensor, k: int, prev_ids):
+        """The probe over a padded relabeled rank vector, on its device
+        (``jax_engine.py:3633-3662``): the rank mass in the accumulation
+        dtype, the top-k ids of the valid lanes (padding at -inf; ties
+        by the lowest index, ``ops/spmv.topk_lowest_index``), how many
+        of them are not in ``prev_ids``, and the top-k mass."""
+        acc = self._accum
+        mass = torch.sum(r.to(acc))
+        rv = torch.where(self._valid, r, torch.full((), float("-inf"),
+                                                    dtype=r.dtype,
+                                                    device=r.device))
+        vals, ids = spmv.topk_lowest_index(rv, k)
+        prev = (torch.full((k,), -1, dtype=ids.dtype, device=ids.device)
+                if prev_ids is None else prev_ids)
+        entered = torch.sum((ids[:, None] != prev[None, :]).all(dim=1))
+        topk_mass = torch.sum(torch.where(
+            torch.isfinite(vals), vals, torch.zeros((), dtype=vals.dtype,
+                                                    device=vals.device)
+        ).to(acc))
+        return mass, ids, entered, topk_mass
+
+    def _fetch(self, scalars, ids: torch.Tensor) -> np.ndarray:
+        """Scalars and the k ids to the host in ONE transfer (f64: the
+        ids are exact below 2^53)."""
+        f64 = torch.float64
+        return torch.cat([torch.stack([v.to(f64) for v in scalars]),
+                          ids.to(f64)]).cpu().numpy()
+
+    def _original_ids(self, ids_host: np.ndarray) -> np.ndarray:
+        return np.asarray(self._perm)[ids_host.astype(np.int64)]
+
+    def probe_values(self, k: int, prev_ids):
+        """The probe of the CURRENT state (``PageRankEngine.
+        probe_values`` contract): one transfer."""
+        k = self._resolve_probe_k(k)
+        mass, ids, entered, topk_mass = self._probe_tail(self._r, k,
+                                                         prev_ids)
+        host = self._fetch([mass, entered, topk_mass], ids)
+        ids_h = host[3:].astype(np.int64)
+        return (float(host[0]), int(host[1]), ids,
+                self._original_ids(ids_h), float(host[2]))
+
+    def step_probed(self, probes):
+        """One iteration with the probe: ``step()``'s contribution
+        launch (K1 or K2) and update, so the ranks are the plain step's
+        bits, then the probe tail and the ledger sums, and
+        every scalar and the k ids reach the host in ONE transfer (the
+        plain step pays two). Returns ``(info, (ids_engine,
+        ids_original))``; ``info`` carries ``rank_mass``,
+        ``topk_churn``, ``topk_mass`` and the ``mass_ledger`` entry."""
+        k = self._resolve_probe_k(probes.topk)
+        prev = probes.prev_ids
+        r = self._r
+        contrib = self._contrib()
+        r_new, delta, m = self._update(contrib, r)
+        led = self._ledger_sums(contrib, r)
+        del contrib
+        mass, ids, entered, topk_mass = self._probe_tail(r_new, k, prev)
+        host = self._fetch([delta, m, mass, entered, topk_mass, *led], ids)
+        self._r = r_new
+        info = {
+            "l1_delta": float(host[0]),
+            "dangling_mass": float(host[1]),
+            "rank_mass": float(host[2]),
+            "topk_churn": 0 if prev is None else int(host[3]),
+            "topk_mass": float(host[4]),
+        }
+        ct, rt, pv = (float(v) for v in host[5:8])
+        self._last_ledger = (pv, ct, rt)
+        info["ledger_contrib_total"] = ct
+        info["ledger_retained_total"] = rt
+        info["ledger_mass_prev"] = pv
+        info["mass_ledger"] = self._ledger_entry(info)
+        return info, (ids, self._original_ids(host[8:].astype(np.int64)))
 
     # -- silent-data-corruption checks (sdc.py) -----------------------------
 
@@ -621,17 +778,14 @@ class TorchEngine(PageRankEngine):
         mass of the output) come to the host in one transfer. Never
         called when SDC checking is off."""
         r = self._r
-        acc = self._accum
         contrib = self._contrib()
         r_new, delta, m = self._update(contrib, r)
-        zero = torch.zeros((), dtype=acc, device=r.device)
         ins = self._sdc_sums(r)
         outs = self._sdc_sums(r_new)[:2]
-        vals = [delta, m, torch.sum(contrib.to(acc)),
-                torch.sum(torch.where(self._zero_in, r.to(acc), zero)),
-                torch.sum(r.to(acc)), *ins, *outs]
+        vals = [delta, m, *self._ledger_sums(contrib, r), *ins, *outs]
         host = torch.stack(vals).cpu().numpy()
         self._r = r_new
+        self._last_ledger = (float(host[4]), float(host[2]), float(host[3]))
         chk = {
             "sharded": False,
             "fp_in": host[5:6], "mass_in": host[6:7],

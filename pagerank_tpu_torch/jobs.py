@@ -39,10 +39,10 @@ this module and ``cli.py``.
 
 Copy of ``pagerank_tpu/jobs.py`` (the stage machine, its artifacts and
 hashes, ``RestoredIds``, ``graph_to_arrays``/``graph_from_arrays``,
-``JobSupervisor`` and the drain), the same artifact zip layout and
-digest, so an artifact saved by either package loads in the other. The
-graph-profile artifact (``save_profile``/``load_profile``) waits for
-the graph profile (ROADMAP slice 8).
+``JobSupervisor`` and the drain, and the graph-profile artifact
+``save_profile``/``load_profile``, :650-675), the same artifact zip
+layout and digest, so an artifact saved by either package loads in the
+other.
 """
 
 from __future__ import annotations
@@ -654,6 +654,61 @@ class JobSupervisor:
             return
         self.manifest["quarantined_devices"] = new
         self._write_manifest()
+
+    def save_profile(self, profile) -> None:
+        """Persist the data-plane graph profile
+        (obs/graph_profile.GraphProfile) as a checksummed artifact next
+        to the stage artifacts, keyed by graph fingerprint — a resumed
+        build-skipping run republishes it instead of losing the data
+        plane (the post-sort packed planes can't re-derive the raw
+        dedup stats)."""
+        arrays, meta = profile.to_arrays()
+        save_artifact(
+            fsio.join(self.directory, "profile.npz"), arrays, meta)
+
+    def load_profile(self, fingerprint: Optional[str]):
+        """Validated graph-profile artifact matching ``fingerprint``,
+        or None (absent / corrupt / fingerprint-mismatched — the same
+        never-trust discipline as the stage artifacts)."""
+        from pagerank_tpu_torch.obs.graph_profile import GraphProfile
+
+        path = fsio.join(self.directory, "profile.npz")
+        try:
+            arrays, meta = load_artifact(path)
+        except FileNotFoundError:
+            return None
+        except ArtifactCorruptError as e:
+            obs_metrics.counter(
+                "job.artifacts_rejected",
+                "stage artifacts rejected at resume (corrupt or "
+                "key-mismatched) and recomputed",
+            ).inc()
+            warnings.warn(
+                f"job graph-profile artifact rejected ({e})",
+                RuntimeWarning,
+            )
+            return None
+        if fingerprint is not None and \
+                meta.get("fingerprint") != fingerprint:
+            obs_metrics.counter(
+                "job.artifacts_rejected",
+                "stage artifacts rejected at resume (corrupt or "
+                "key-mismatched) and recomputed",
+            ).inc()
+            warnings.warn(
+                f"job graph-profile artifact is for a different graph "
+                f"({meta.get('fingerprint')!r} != {fingerprint!r}); "
+                "ignored", RuntimeWarning,
+            )
+            return None
+        try:
+            return GraphProfile.from_arrays(arrays, meta)
+        except (KeyError, ValueError) as e:
+            warnings.warn(
+                f"job graph-profile artifact undecodable ({e!r})",
+                RuntimeWarning,
+            )
+            return None
 
     def save_names(self, names, key: str) -> None:
         """Persist an ingest id->name table (crawl inputs) next to the

@@ -36,8 +36,14 @@ What differs from the JAX module, and why:
   kernels read plain source ids, so ``group`` must be 1;
 - the TPU's ``fast_cap`` striping is not planned: K1 reads one stripe,
   and only the partition-centric form stripes (by its span);
-- no ``graph_profile``, metrics gauges or tracer spans (slice 8), no
-  ``compile_cache.stage_call`` (no XLA executables to cache).
+- no ``compile_cache.stage_call`` (no XLA executables to cache).
+
+The data-plane profile (``obs/graph_profile.py``) runs only when armed
+(CLI ``--graph-profile``): one pass of reductions over the sorted key
+between the sort and the slot stages (:783-913), which reads the sort's
+products and never writes them, and one transfer at the end of the
+build; a disarmed build makes zero profile computations. The build
+publishes the ``build.num_edges`` and ``build.slot_rows`` gauges.
 
 Every tensor of a build lives on one device: cuda unless the caller
 asks for another (the tests ask for the CPU). Host syncs: one for the
@@ -57,6 +63,8 @@ import numpy as np
 import torch
 
 from pagerank_tpu_torch.engines.torch_engine import TorchEngine, resolve_device
+from pagerank_tpu_torch.obs import graph_profile
+from pagerank_tpu_torch.obs import metrics as obs_metrics
 from pagerank_tpu_torch.ops import LANES
 
 _I32_MAX = np.iinfo(np.int32).max
@@ -590,6 +598,14 @@ def build_ell_device(
     del inv_perm
     _fence(timings, "sort_s", t0, dev)
 
+    # Data-plane profile: reductions over the sorted key BEFORE the slot
+    # stage consumes it; read-only and armed-only.
+    prof_stats = None
+    if graph_profile.armed():
+        prof_stats = graph_profile.device_stats(
+            sb_dst, new_src, perm, n=n, n_padded=n_padded,
+            stripe_size=stripe_arg, num_blocks=num_blocks)
+
     # Stage 3 (slots): coordinates, dedup flags, unique out-degrees.
     t0 = time.perf_counter()
     (word, w, row_idx, pos, sb_rows, row_offset, out_rel,
@@ -605,6 +621,13 @@ def build_ell_device(
     stripe_bounds, num_edges = host[:-1], int(host[-1])
     rows_total = stripe_bounds[-1]
     _fence(timings, "slots_s", t0, dev)
+    obs_metrics.gauge(
+        "build.num_edges", "unique edges of the latest device build"
+    ).set(num_edges)
+    obs_metrics.gauge(
+        "build.slot_rows", "packed 128-lane slot rows of the latest "
+        "device build"
+    ).set(rows_total)
 
     if dangling_mask is None:
         mass_mask = out_degree == 0
@@ -628,7 +651,7 @@ def build_ell_device(
                    else [None] * n_stripes)
         row_block = [row_block[lo:hi] for lo, hi in cuts]
     _fence(timings, "scatter_s", t0, dev)
-    return DeviceEllGraph(
+    dg = DeviceEllGraph(
         n=n, n_padded=n_padded, num_blocks=num_blocks,
         src=src_slots, weight=w_slots, row_block=row_block,
         perm=perm, dangling_mask=mass_mask, zero_in_mask=zero_in,
@@ -636,6 +659,17 @@ def build_ell_device(
         stripe_size=stripe_size, presentinel=not with_weights,
         timings=timings,
     )
+    if prof_stats is not None:
+        # The build's own per-(stripe, block) rows and, for a crawl's
+        # explicit mask, its dangling count; one transfer.
+        profile = graph_profile.finish_device_profile(
+            prof_stats, stripe_size=stripe_size, group=1, n=n,
+            n_padded=n_padded, block_rows=sb_rows,
+            dangling_count_override=(mass_mask.sum()
+                                     if dangling_mask is not None else None),
+            fingerprint=dg.fingerprint())
+        graph_profile.publish(profile)
+    return dg
 
 
 def joined(parts):

@@ -9,7 +9,9 @@ and :func:`fold_rows`),
 ``:178-198``
 (``unpack_words24`` / ``pack_words24``) and ``:425-434``
 (``scatter_block_sums``). The word and expansion helpers take numpy
-arrays and torch tensors alike.
+arrays and torch tensors alike. :func:`topk_lowest_index` is
+``lax.top_k``'s order in torch ops, for the probes and the graph
+profile.
 """
 
 from __future__ import annotations
@@ -116,3 +118,26 @@ def scatter_block_sums(total, part, ids, is_prefix):
     else:
         total[ids] += part
     return total
+
+
+def topk_lowest_index(values: torch.Tensor, k: int):
+    """(top values, their indices) of a 1-D tensor, descending, ties
+    broken by the lowest index — ``lax.top_k``'s order, exactly, on any
+    device and with no host sync (``torch.topk``'s order among equal
+    values is not specified on CUDA, and rank and degree vectors are
+    full of exact ties). The k-th value comes from ``torch.topk``; the
+    set is every lane above it plus the lowest-index lanes equal to it
+    (a running count of the equal lanes), gathered by a second
+    ``torch.topk`` over that 0/1 mask (exactly k ones) and put in order
+    by a stable descending sort of the k values over ascending ids."""
+    k = int(k)
+    kth = torch.topk(values, k, sorted=False).values.min()
+    gt = values > kth
+    eq = values == kth
+    need = k - gt.sum()
+    sel = gt | (eq & (torch.cumsum(eq, 0, dtype=torch.int64) <= need))
+    ids = torch.topk(sel.to(torch.int32), k, sorted=False).indices
+    ids = torch.sort(ids).values
+    order = torch.sort(values[ids], descending=True, stable=True).indices
+    ids = ids[order]
+    return values[ids], ids

@@ -10,6 +10,7 @@ with more than one GPU (ROADMAP slice 6).
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence
@@ -130,3 +131,78 @@ def surviving_devices(dead_ids, devices: Optional[Sequence] = None):
             f"{sorted(device_id(d) for d in devs)} reported dead"
         )
     return out
+
+
+@dataclasses.dataclass
+class DeviceStats:
+    """One device's identity and live memory sample: the watchdog line,
+    the ``device.<id>.*`` exporter gauges, the Chrome-trace memory
+    counter tracks and the run report's watermark all render from this
+    one record. Memory fields are None-tolerant: a CPU device reports
+    nothing, and a diagnostic must never fail gathering its own
+    evidence."""
+
+    id: int
+    platform: str
+    kind: str
+    process_index: int
+    bytes_in_use: Optional[int] = None
+    bytes_limit: Optional[int] = None
+    #: The allocator's own peak (``torch.cuda.max_memory_allocated``);
+    #: the sampler keeps a cross-sample watermark on top.
+    peak_bytes_in_use: Optional[int] = None
+
+    def to_json(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _stats_of(dev: torch.device) -> DeviceStats:
+    if dev.type != "cuda":
+        return DeviceStats(id=device_id(dev), platform=dev.type,
+                           kind=dev.type, process_index=0)
+    idx = device_id(dev)
+    out = DeviceStats(id=idx, platform="gpu", kind=dev.type,
+                      process_index=0)
+    try:
+        out.kind = torch.cuda.get_device_name(idx)
+    except Exception:
+        pass
+    for field, read in (
+            ("bytes_in_use", lambda: torch.cuda.memory_allocated(idx)),
+            ("peak_bytes_in_use", lambda: torch.cuda.max_memory_allocated(idx)),
+            ("bytes_limit", lambda: torch.cuda.mem_get_info(idx)[1])):
+        try:
+            setattr(out, field, int(read()))
+        except Exception:
+            pass
+    return out
+
+
+def device_stats(devices: Optional[Sequence] = None) -> List[DeviceStats]:
+    """Typed per-device samples (id, kind, memory in use, the card's
+    memory, the allocator's peak) for ``devices`` (default: every
+    visible CUDA device, else the CPU). Never raises; every memory
+    field degrades to None on its own."""
+    if devices is None:
+        devs = visible_devices() or [torch.device("cpu")]
+    else:
+        devs = [torch.device(d) for d in devices]
+    return [_stats_of(d) for d in devs]
+
+
+def _render_device_line(s: DeviceStats) -> str:
+    """One watchdog line from one :class:`DeviceStats`: the memory
+    clause appears only when ``bytes_in_use`` is known, the limit only
+    when truthy (``pagerank_tpu/parallel/mesh.py:218-229``)."""
+    line = f"{s.platform}:{s.id} ({s.kind}, proc {s.process_index})"
+    if s.bytes_in_use is not None:
+        line += f" hbm {s.bytes_in_use / 1e9:.2f}GB"
+        if s.bytes_limit:
+            line += f"/{s.bytes_limit / 1e9:.2f}GB"
+    return line
+
+
+def device_view(devices: Optional[Sequence] = None) -> Sequence[str]:
+    """One human line per device — id, kind, process and (on a card)
+    memory in use — the per-device evidence the stall watchdog prints."""
+    return [_render_device_line(s) for s in device_stats(devices)]

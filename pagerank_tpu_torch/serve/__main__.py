@@ -10,9 +10,12 @@ the serving shapes (the kernel built, K1w bound at ``--max-batch``) on
 loopback HTTP until SIGTERM enters the drain (admission closes with
 typed rejections, in-flight batches finish, exit 75). ``--serve-smoke
 N`` instead runs N seeded queries in-process against the started daemon
-and exits — the self-test mode. ``--metrics-port``/``--metrics-format``
-(the live exporter) and ``--run-report`` (the run report) are ROADMAP
-slice 8 and ``--num-devices`` > 1 slice 6: each exits 2 naming it.
+and exits — the self-test mode. ``--metrics-port`` serves the metrics
+registry (the daemon's ``serve.*`` counters and latency histogram with
+its trace-id exemplars) at ``GET /metrics`` in ``--metrics-format``
+(prometheus or openmetrics), and ``--run-report`` writes the run report
+with the serving flight-recorder section on the SIGTERM drain.
+``--num-devices`` > 1 is ROADMAP slice 6 and exits 2 naming it.
 """
 
 from __future__ import annotations
@@ -70,8 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--port", type=int, default=8080,
                    help="query ingress HTTP port (0 = ephemeral)")
     s.add_argument("--metrics-port", type=int, default=None,
-                   help="serve /metrics on this port too (not ported "
-                   "yet: ROADMAP slice 8)")
+                   help="serve /metrics on this port too (0 = ephemeral)")
     s.add_argument("--drain-deadline", type=float, default=5.0,
                    help="SIGTERM drain budget, seconds (default 5)")
     s.add_argument("--serve-smoke", type=int, default=None, metavar="N",
@@ -79,10 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "JSON summary, exit (no HTTP)")
     o = p.add_argument_group("query plane (observability)")
     o.add_argument("--metrics-format", choices=("prometheus", "openmetrics"),
-                   default=None,
+                   default="prometheus",
                    help="/metrics text format; openmetrics carries "
-                   "trace-id exemplars on latency buckets (not ported "
-                   "yet: ROADMAP slice 8)")
+                   "trace-id exemplars on latency buckets")
     o.add_argument("--slow-query-ms", type=float, default=None,
                    help="log queries slower than this as strict JSONL "
                    "phase breakdowns (arms the query plane; requires "
@@ -98,8 +99,7 @@ def build_parser() -> argparse.ArgumentParser:
                    "bounded but export only the tail of the run")
     o.add_argument("--run-report", default=None, metavar="PATH",
                    help="write the run report (with the serving flight "
-                   "recorder section) here on SIGTERM drain (not ported "
-                   "yet: ROADMAP slice 8)")
+                   "recorder section) here on SIGTERM drain")
     return p
 
 
@@ -171,6 +171,16 @@ def _run_smoke(server, args) -> int:
     return int(ExitCode.OK) if unsettled == 0 else int(ExitCode.FAILURE)
 
 
+def _write_run_report(path: str) -> None:
+    """Dump the run report (the serving flight-recorder section
+    included: ``build_run_report`` picks up the armed query plane)."""
+    from pagerank_tpu_torch.obs.report import build_run_report
+
+    with open(path, "w") as f:
+        json.dump(build_run_report(), f, sort_keys=True)
+        f.write("\n")
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -180,13 +190,6 @@ def main(argv=None) -> int:
         parser.error(
             "--slow-query-ms and --slow-query-log must be given together"
         )
-    later = [flag for flag, on in (
-        ("--metrics-port", args.metrics_port is not None),
-        ("--metrics-format", args.metrics_format is not None),
-        ("--run-report", args.run_report is not None)) if on]
-    if later:
-        parser.error(f"{', '.join(later)}: the live exporter and the run "
-                     f"report are not ported yet (ROADMAP slice 8)")
     try:
         server = _build_server(args)
     except (ValueError, RuntimeError) as e:
@@ -195,7 +198,8 @@ def main(argv=None) -> int:
 
     # Query plane: armed only on request — the disarmed
     # daemon keeps its zero-tracer-call hot path (the booby-trap pin).
-    plane_armed = args.slow_query_ms is not None or args.query_trace
+    plane_armed = (args.slow_query_ms is not None or args.query_trace
+                   or args.run_report)
     tracer = None
     if plane_armed:
         from pagerank_tpu_torch.serving import qtrace
@@ -223,6 +227,12 @@ def main(argv=None) -> int:
                 return _run_smoke(server, args)
             from pagerank_tpu_torch.serving.http import QueryIngress
 
+            exporter = None
+            if args.metrics_port is not None:
+                from pagerank_tpu_torch.obs.live import MetricsExporter
+
+                exporter = MetricsExporter(port=args.metrics_port,
+                                           format=args.metrics_format)
             with QueryIngress(server, port=args.port) as ingress:
                 print(
                     f"serving PPR on http://127.0.0.1:{ingress.port}/ppr "
@@ -230,15 +240,25 @@ def main(argv=None) -> int:
                     f"{server.device_count} device(s), "
                     f"batch {args.max_batch}, "
                     f"deadline {args.deadline_ms:g}ms, warm-up "
-                    f"{server.warmup_seconds:.3f}s) — SIGTERM drains",
+                    f"{server.warmup_seconds:.3f}s"
+                    + (f", metrics :{exporter.port}" if exporter else "")
+                    + ") — SIGTERM drains",
                     flush=True,
                 )
-                while True:
-                    drain.check("serve-loop")
-                    time.sleep(0.5)
+                try:
+                    while True:
+                        drain.check("serve-loop")
+                        time.sleep(0.5)
+                finally:
+                    if exporter is not None:
+                        exporter.close()
         except jobs.DrainInterrupt:
             flushed = server.drain(deadline_s=drain.remaining())
             spent = drain.finish()
+            if args.run_report:
+                # The drain just pushed a flight-recorder snapshot;
+                # persist it before the process exits.
+                _write_run_report(args.run_report)
             print(
                 f"drained: admission closed, {flushed} queued "
                 f"query(ies) typed-rejected, {spent:.2f}s spent "

@@ -27,8 +27,8 @@ query (docs/ROBUSTNESS.md "Serving"):
                      instead of hanging the queue.
 
 Telemetry: ``serve.*`` counters/gauges and the ``serve.latency_ms``
-histogram in the metrics registry (``obs/metrics.py``; the exporter is
-ROADMAP slice 8).
+histogram in the metrics registry (``obs/metrics.py``), exported by
+``obs/live.py`` at the daemon's ``--metrics-port``.
 
 The **query plane** (:mod:`pagerank_tpu_torch.serving.qtrace`) is
 the serving-side observability sibling: one cross-thread trace per

@@ -796,8 +796,8 @@ def install_device_faults(engine, schedule: DeviceFaultSchedule,
         return apply(rest, orig_step())
 
     engine.step = step
-    # The probed step (ROADMAP slice 8) is shimmed where an engine has
-    # one.
+    # The probed step is a second dispatch surface of the same
+    # iteration, shimmed the same way.
     orig_probed = getattr(engine, "_prefault_step_probed",
                           getattr(engine, "step_probed", None))
     if orig_probed is not None:

@@ -2,8 +2,9 @@
 
 Port of ``pagerank_tpu/utils/config.py:132-212`` (``PageRankConfig``),
 its kernel and partition-centric validation rules (``:404-410``,
-``:445-480``, same messages), its SDC fields (``sdc_check_every``,
-``sdc_seed``, ``:339-390``) and the ``RobustnessConfig`` fields of the
+``:445-480``, same messages), its probe and SDC fields
+(``probe_every``, ``probe_topk``, ``stop_tol``, ``sdc_check_every``,
+``sdc_seed``, ``:325-402``) and the ``RobustnessConfig`` fields of the
 solve loop, the sinks and the SDC redo (``:22-125``: health checks,
 rollbacks, ``write_attempts``, ``on_write_failure``,
 ``write_retry_policy()``, ``sdc_redo_deadline_s``, ``sdc_max_redos``;
@@ -158,6 +159,17 @@ class PageRankConfig:
     # check computations.
     sdc_check_every: int = 0
 
+    # In-loop convergence probes (obs/probes.py): every probe_every
+    # iterations the step also computes the rank mass and the
+    # top-probe_topk churn on the device, fetched with the step's own
+    # scalars. 0 disables: the unprobed code path (zero probe calls).
+    # stop_tol early-exits when the PROBED residual reaches it (checked
+    # at probe points only — unlike `tol`, which checks every
+    # iteration); None keeps the reference's fixed iteration count.
+    probe_every: int = 0
+    probe_topk: int = 64
+    stop_tol: Optional[float] = None
+
     # Seed of the Rademacher random-projection vector the SDC
     # fingerprints contract against (sdc.fingerprint_vector).
     sdc_seed: int = 0
@@ -176,11 +188,32 @@ class PageRankConfig:
             raise ValueError(
                 f"tol must be a finite positive float, got {self.tol}"
             )
+        if self.probe_every < 0:
+            raise ValueError(
+                f"probe_every must be >= 0 (0 disables), got "
+                f"{self.probe_every}"
+            )
+        if self.probe_topk < 1:
+            raise ValueError(
+                f"probe_topk must be >= 1, got {self.probe_topk}"
+            )
         if self.sdc_check_every < 0:
             raise ValueError(
                 f"sdc_check_every must be >= 0 (0 disables), got "
                 f"{self.sdc_check_every}"
             )
+        if self.stop_tol is not None:
+            if not (0.0 < self.stop_tol < float("inf")):
+                raise ValueError(
+                    f"stop_tol must be a finite positive float, got "
+                    f"{self.stop_tol}"
+                )
+            if self.probe_every == 0:
+                raise ValueError(
+                    "stop_tol is checked at probe points only; set "
+                    "probe_every > 0 (or use tol for an every-"
+                    "iteration check)"
+                )
         # The kernel and partition rules come first, in the JAX
         # package's order, so the same invalid config raises the same
         # message in both.

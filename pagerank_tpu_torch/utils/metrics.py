@@ -2,7 +2,7 @@
 observability is one println per iteration, Sparky.java:188).
 
 Copy of ``pagerank_tpu/utils/metrics.py`` (``oracle_l1``,
-``MetricsLogger``) without the live-exporter gauge hook.
+``MetricsLogger`` with the live exporter's gauge hook, :104).
 
 Logs iter, L1 delta, dangling mass, wall-clock, iters/sec and
 edges/sec/chip — the BASELINE.json metrics — to stderr and optionally a
@@ -17,6 +17,7 @@ import sys
 import time
 from typing import Dict, Optional, TextIO
 
+from pagerank_tpu_torch.obs import live as obs_live
 from pagerank_tpu_torch.utils import fsio
 
 
@@ -93,6 +94,10 @@ class MetricsLogger:
         if "topk_churn" in info:
             rec["topk_churn"] = int(info["topk_churn"])
         self.history.append(rec)
+        # Mirror the headline scalars into registry gauges and the
+        # step-seconds histogram: the live exporter's (obs/live.py)
+        # per-iteration feed; plain in-GIL arithmetic, no I/O.
+        obs_live.update_solve_gauges(iteration, rec, dt)
         if self._jsonl:
             # allow_nan=False: any non-finite float reaching the dump
             # is a bug in the sanitizing above — fail loudly rather

@@ -615,3 +615,78 @@ def test_a_flip_on_the_card_is_detected_and_redone(cuda, partition_span):
     assert (rep["flips_detected"], rep["transient"], rep["redos"]) == (1, 1, 1)
     np.testing.assert_array_equal(got, want)
     assert counter.launches - before == 8 + 1
+
+
+# -- the run's own observability (port slice 8a) -------------------------------
+
+@pytest.mark.parametrize("partition_span", [0, 1024])
+def test_probed_step_on_the_card_matches_the_cpu_probe(cuda, partition_span):
+    """K1 or K2 inside the probed step on the card: the ranks bit-equal
+    to the unprobed run on the card, and each probe's ids (engine and
+    original space) and churn equal to the CPU run's, its scalars within
+    1e-5; K1/K2 launched once a step."""
+    from pagerank_tpu_torch.obs.probes import ConvergenceProbes
+
+    src, dst = synth.rmat_edges(12, seed=6)
+    g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
+    cfg = PageRankConfig(num_iters=6, partition_span=partition_span)
+    plain = TorchEngine(cfg, device=cuda).build(g).run()
+    counter = ell_spmv_partitioned if partition_span else ell_spmv
+    before = counter.launches
+    runs = {}
+    for dev in (cuda, "cpu"):
+        probes = ConvergenceProbes(1, topk=32)
+        eng = TorchEngine(cfg, device=dev).build(g)
+        recs = []
+        for i in range(6):
+            info, (ids_e, ids_o) = eng.step_probed(probes)
+            probes.commit(i, info, ids_e, ids_o)
+            eng.iteration += 1
+            recs.append((info, ids_e.cpu().numpy(), ids_o))
+        runs[str(dev)] = (eng.ranks(), recs)
+    assert counter.launches - before == 6
+    np.testing.assert_array_equal(runs["cuda"][0], plain)
+    for (a, ae, ao), (b, be, bo) in zip(runs["cuda"][1], runs["cpu"][1]):
+        np.testing.assert_array_equal(ae, be)
+        np.testing.assert_array_equal(ao, bo)
+        assert a["topk_churn"] == b["topk_churn"]
+        for key in ("rank_mass", "topk_mass", "l1_delta"):
+            assert a[key] == pytest.approx(b[key], rel=1e-5), key
+        assert a["mass_ledger"]["ok"]
+
+
+@pytest.mark.parametrize("stripe", [0, 1024])
+def test_profile_pass_on_the_card_equals_the_cpu_pass(cuda, stripe):
+    """The armed profile pass of build_ell_device on the card: every
+    integer stat equal to the CPU build's on the same raw edges."""
+    from pagerank_tpu_torch.obs import graph_profile as gp
+    from pagerank_tpu_torch.ops import device_build as db
+
+    src, dst = synth.rmat_edges(12, seed=4)
+    profs = {}
+    gp.arm()
+    try:
+        for d in (cuda, "cpu"):
+            gp.reset()
+            db.build_ell_device(src, dst, 1 << 12, stripe_size=stripe,
+                                with_weights=False, device=d)
+            profs[str(d)] = gp.get_profile()
+    finally:
+        gp.disarm()
+        gp.reset()
+    a, b = profs["cuda"], profs["cpu"]
+    assert a.summary() == b.summary()
+    np.testing.assert_array_equal(a.block_edges, b.block_edges)
+    np.testing.assert_array_equal(a.block_rows, b.block_rows)
+
+
+def test_same_n_rebuild_on_the_card_decodes_the_new_graph(cuda):
+    """A second build of one engine on a different graph of the same n:
+    the async payload scatters through the new perm."""
+    eng = TorchEngine(PageRankConfig(num_iters=3), device=cuda)
+    for seed in (1, 2):
+        src, dst = synth.rmat_edges(11, seed=seed)
+        eng.build(pagerank_tpu_torch.build_graph(src, dst, n=1 << 11))
+        eng.run()
+        np.testing.assert_array_equal(eng.decode_ranks(eng.device_ranks()),
+                                      eng.ranks())

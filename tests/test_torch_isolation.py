@@ -76,7 +76,12 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.testing.schedules, "
         "pagerank_tpu_torch.obs.graph_profile, "
         "pagerank_tpu_torch.utils.retry, pagerank_tpu_torch.utils.s3, "
-        "pagerank_tpu_torch.utils.fsio, pagerank_tpu_torch.utils.snapshot\n"
+        "pagerank_tpu_torch.utils.fsio, pagerank_tpu_torch.utils.snapshot, "
+        "pagerank_tpu_torch.obs, pagerank_tpu_torch.obs.probes, "
+        "pagerank_tpu_torch.obs.live, pagerank_tpu_torch.obs.devices, "
+        "pagerank_tpu_torch.obs.report, pagerank_tpu_torch.obs.history, "
+        "pagerank_tpu_torch.obs.profiler, pagerank_tpu_torch.serve.__main__, "
+        "pagerank_tpu_torch.parallel.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

@@ -514,11 +514,23 @@ def test_cli_write_failure_fails_the_run_by_default(edges, tmp_path,
     ("--probe-every", "2", "slice 8"), ("--run-report", "r.json", "slice 8"),
     ("--trace", "t.json", "slice 8")])
 def test_cli_later_slice_flags_exit_2_naming_their_slice(edges, capsys, flag,
-                                                         value, slice_):
-    with pytest.raises(SystemExit) as e:
-        cli.run(["--input", edges, "--device", "cpu", flag, value])
-    assert e.value.code == 2
-    assert slice_ in capsys.readouterr().err
+                                                         value, slice_,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """--max-rescues (the elastic runner) still exits 2 naming slice 6;
+    the observability flags (--stall-timeout, --probe-every, --run-report,
+    --trace) are ported now and run."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--input", edges, "--device", "cpu", "--log-every", "0", flag,
+            value]
+    if flag == "--max-rescues":
+        with pytest.raises(SystemExit) as e:
+            cli.run(argv)
+        assert e.value.code == 2
+        assert slice_ in capsys.readouterr().err
+        return
+    assert cli.run(argv)["iterations"] == 10
+    assert "slice" not in capsys.readouterr().err
 
 
 def test_cli_rejects_bad_sink_settings(edges):
