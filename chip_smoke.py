@@ -237,7 +237,32 @@ What it does, in order:
      --profile-dir writes a trace naming ``ell_contrib_kernel``; (f)
      the daemon as a process with --metrics-port (OpenMetrics, scraped
      once) and --run-report (written on the SIGTERM drain, exit 75);
- 15. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+ 15. sharded execution (run after phase 14, on phases 3 and 5's graph
+     and ranks): (a)
+     the engine API in a gloo group of SHARD_WORLD ranks spawned on the
+     one card (``parallel/distributed.spawn_group``; gloo takes CUDA
+     tensors for all_reduce, all_gather_into_tensor and
+     reduce_scatter_tensor, where NCCL refuses two ranks of one
+     device), at rmat:SCALE from phase 3's edges, 10 iterations: the
+     edge-sharded flat form (K1), the edge-sharded partitioned form at
+     phase 5's span in f32 and bf16 windows (K2), the vertex-sharded
+     form (K1) unchecked and with ``sdc_check_every=1``, and f32 ranks
+     over f64 sums edge-sharded and vertex-sharded. Rank by rank: the
+     first
+     step's kernel output on its own rows torch.equal to the kernel's
+     plain plan-order version on the CPU; 10 launches of K1 or K2; the
+     ms/iter, the collectives' CUDA-event time a step and the bare
+     launch (the ranks in turns). The final ranks within the
+     single-rank runs' gates (normalised L1 <= 1e-4; bf16 5e-3), the
+     f64-sum pair bit-equal, the checked run bit-equal to the unchecked
+     one with 10 clean checks; a snapshot at iteration 4
+     at world 2 resumed at world 2 (bit-equal to the uninterrupted run)
+     and on a one-device engine (within the gate); (b) the CLI under
+     NCCL on phase 3's edges: ``--num-devices 1 --vertex-sharded`` (a
+     group of one) bit-equal to phase 3's ranks, and ``--num-devices 2`` on a
+     one-card host refused with the JAX ``make_mesh`` error before any
+     allocation;
+ 16. prints one JSON line with every kernel's numbers (K1, K2, K1w on
      the PPR path with its tile sweep, P1 and P2 at K1's slots, P3 at n
      = 2^15 f32, F1-F6), then last ``{"ok": true, "device": {...}}``.
 
@@ -3604,6 +3629,405 @@ def observability_phase(tmp):
     return rep
 
 
+# Phase 15: sharded execution. The card has one GPU, and NCCL refuses
+# two ranks of one device, so the ranks share cuda:0 under gloo (which
+# stages each collective through host memory: its times say nothing of
+# NCCL across cards); NCCL runs at world 1 through the CLI.
+SHARD_WORLD = 2
+
+
+def _shard_forms(span):
+    """(name, config fields, kernel) of each phase-15(a) run."""
+    return [
+        ("edge_flat", {}, "K1"),
+        ("edge_part_f32", {"partition_span": span}, "K2"),
+        ("edge_part_bf16", {"partition_span": span,
+                            "stream_dtype": "bfloat16"}, "K2"),
+        ("vertex_sharded", {"vertex_sharded": True}, "K1"),
+        ("vertex_sharded_checked", {"vertex_sharded": True,
+                                    "sdc_check_every": 1}, "K1"),
+        ("edge_flat_f64sums", {"accum_dtype": "float64"}, "K1"),
+        ("vertex_sharded_f64sums", {"accum_dtype": "float64",
+                                    "vertex_sharded": True}, "K1"),
+    ]
+
+
+def phase15_rank(payload) -> int:
+    """One rank of phase 15(a) (spawned; joined to the gloo group): every
+    form of ``_shard_forms`` on cuda:0 over this rank's rows; rank 0
+    writes the final ranks, every rank its numbers as JSON."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine
+    from pagerank_tpu_torch import sdc as sdc_mod
+    from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.ops import ell as ell_lib
+    from pagerank_tpu_torch.ops import ell_spmv
+    from pagerank_tpu_torch.ops import ell_spmv_partitioned as k2
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.parallel import mesh as mesh_lib
+    from pagerank_tpu_torch.utils.snapshot import Snapshotter, resume_engine
+
+    import torch.distributed as dist
+
+    torch.set_num_threads(4)
+    rank, world = distributed.process_info()
+    dev = torch.device("cuda", 0)
+    out = payload["out"]
+    with np.load(payload["edges"]) as f:
+        graph = build_graph(f["src"], f["dst"], n=int(f["n"]))
+    # The collectives the forms call, timed by CUDA events around each
+    # call (the engine calls them through the module, so the wrappers
+    # see every one).
+    spans = []
+
+    def timed(fn):
+        def call(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            r = fn(*a, **kw)
+            e.record()
+            spans.append((s, e))
+            return r
+        return call
+
+    for name in ("psum", "all_gather", "psum_scatter"):
+        setattr(mesh_lib, name, timed(getattr(mesh_lib, name)))
+    # One host pack of rmat:22 per packer and span for the whole phase
+    # (~15 s each): the engine packs through the module, and the forms
+    # that pack alike (flat and vertex-sharded; two window dtypes of one
+    # span) get the same pack of this one graph.
+    packs = {}
+
+    def reused(fn):
+        def call(g, **kw):
+            assert g is graph
+            key = (fn.__name__, tuple(sorted(kw.items())))
+            if key not in packs:
+                packs[key] = fn(g, **kw)
+            return packs[key]
+        return call
+
+    for name in ("ell_pack", "ell_pack_striped"):
+        setattr(ell_lib, name, reused(getattr(ell_lib, name)))
+    rep = {}
+    for name, kw, kernel in _shard_forms(payload["span"]):
+        cfg = PageRankConfig(num_iters=ITERS, num_devices=world, **kw)
+        eng = TorchEngine(cfg, device=dev)
+        t0 = time.perf_counter()
+        eng.build(graph)
+        build_s = time.perf_counter() - t0
+        lay = eng.layout_info()
+        # The first step's kernel on this rank's rows against its plain
+        # version on the CPU, from the same inputs (r0 prescaled).
+        inputs = eng.contrib_inputs()
+        got = eng._launch().clone().cpu()
+        if kernel == "K1":
+            z, src, _, _, plan = inputs
+            want = ell_spmv.ell_contrib_plan_reference(
+                z.cpu(), src.cpu(), accum_dtype=eng._accum,
+                plan=ell_spmv.plan_to(plan, "cpu"))
+        else:
+            zw, slots, _, pp, _, plan = inputs
+            want = k2.ell_contrib_partitioned_plan_reference(
+                zw.cpu(), slots.cpu(), pp.cpu(),
+                plan=ell_spmv.plan_to(plan, "cpu"))
+        err = float((got.double() - want.double()).abs().max())
+        equal = bool(torch.equal(got, want))
+        del inputs, got, want
+        sdc_mod.reset()
+        step_s, t_last, marks = [], [0.0], [0]
+
+        def on_iteration(i, info):
+            now = time.perf_counter()
+            step_s.append(now - t_last[0])
+            t_last[0] = now
+            marks.append(len(spans))
+
+        ell_spmv.launches = k2.launches = 0
+        spans.clear()
+        torch.cuda.synchronize()
+        t_last[0] = time.perf_counter()
+        ranks = eng.run(on_iteration=on_iteration)
+        torch.cuda.synchronize()
+        launches = ell_spmv.launches if kernel == "K1" else k2.launches
+        other = k2.launches if kernel == "K1" else ell_spmv.launches
+        # A step's collectives, median over the steps (the first carries
+        # the group's warm-up); both ranks share the card, so an event
+        # pair also spans whatever the other rank ran between them.
+        coll_ms = statistics.median(
+            sum(s.elapsed_time(e) for s, e in spans[a:b])
+            for a, b in zip(marks, marks[1:]))
+        ncoll = marks[-1] / ITERS
+        # The bare launch on this rank's rows, the ranks in turns (they
+        # share the card).
+        bare = None
+        for turn in range(world):
+            dist.barrier()
+            if turn == rank:
+                bare = _median_ms(eng._launch, 20)
+            dist.barrier()
+        r = {"kernel": kernel, "kernel_equal": equal, "kernel_err": err,
+             "launches": launches, "other_launches": other,
+             "ms_per_iter": statistics.median(step_s) * 1e3,
+             "collective_ms_per_step": coll_ms,
+             "collectives_per_step": ncoll, "bare_launch_ms": bare,
+             "build_s": build_s, "rows": lay["num_rows"],
+             "slot_rows": lay["slot_rows"], "form": lay["form"],
+             "kernel_name": lay["kernel"], "backend": lay.get("backend"),
+             "local": int(eng._r.shape[0])}
+        if cfg.sdc_check_every:
+            r["sdc"] = sdc_mod.report_section()
+        if name == "vertex_sharded":
+            # A snapshot at iteration 4 (rank 0 writes it), resumed here
+            # at world 2: the resumed run must equal the uninterrupted
+            # one bit for bit.
+            snap_dir = os.path.join(out, "snap")
+            eng.set_ranks(np.ones(graph.n, np.float32), iteration=0)
+            at4 = eng.run(4)
+            if rank == 0:
+                Snapshotter(snap_dir, graph.fingerprint(), cfg.semantics,
+                            mesh_meta=eng.snapshot_meta()).save(4, at4)
+            dist.barrier()
+            r["resumed_from"] = resume_engine(eng, Snapshotter(
+                snap_dir, graph.fingerprint(), cfg.semantics))
+            r["resume_bit_equal"] = bool(np.array_equal(eng.run(), ranks))
+        if rank == 0:
+            np.save(os.path.join(out, f"{name}.npy"), ranks)
+        rep[name] = r
+        del eng
+        torch.cuda.empty_cache()
+    if rank == 0:
+        # The world-2 snapshot resumed at world 1: the one-device flat
+        # engine (num_devices=1 builds it inside the group).
+        one = TorchEngine(PageRankConfig(num_iters=ITERS, num_devices=1),
+                          device=dev).build(graph)
+        rep["resume_world1_from"] = resume_engine(one, Snapshotter(
+            os.path.join(out, "snap"), graph.fingerprint(), "reference"))
+        rep["resume_world1_mesh"] = one.mesh is not None
+        np.save(os.path.join(out, "resume_world1.npy"), one.run())
+        del one
+    dist.barrier()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def sharded_inputs(tmp, graph, span, refs, flat_ms):
+    """What phase 15 needs from phases 3, 5 and 12(d), kept on disk until
+    it runs (after phase 14): the main path's deduplicated edges, the
+    span, the one-device runs' ranks (flat, part_f32, part_bf16) and the
+    one-device flat step's ms on the same graph (12(d))."""
+    import numpy as np
+
+    d = os.path.join(tmp, "sharded")
+    os.makedirs(d, exist_ok=True)
+    np.savez(os.path.join(d, "edges.npz"), src=graph.src, dst=graph.dst,
+             n=graph.n)
+    np.savez(os.path.join(d, "refs.npz"), span=span, flat_ms=flat_ms,
+             **refs)
+
+
+def sharded_phase(tmp):
+    """Phase 15 (see the module docstring), from ``sharded_inputs``'s
+    files. Returns the phase's numbers for the kernels line."""
+    import numpy as np
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    card = card_identity()
+    d = os.path.join(tmp, "sharded")
+    with np.load(os.path.join(d, "refs.npz")) as f:
+        refs = {k: f[k] for k in f.files}
+    span = int(refs.pop("span"))
+    flat_ms = float(refs.pop("flat_ms"))
+    with np.load(os.path.join(d, "edges.npz")) as f:
+        n = int(f["n"])
+    codes = distributed.spawn_group(
+        "chip_smoke:phase15_rank", SHARD_WORLD,
+        {"edges": os.path.join(d, "edges.npz"), "out": d, "span": span},
+        d, backend="gloo", timeout_s=300.0, deadline_s=900.0)
+    _check(codes == [0] * SHARD_WORLD, f"phase 15 rank exit codes {codes}")
+    ranks_of = [json.load(open(os.path.join(d, f"rank{r}.json")))
+                for r in range(SHARD_WORLD)]
+
+    def l1(a, b):
+        return float(np.abs(a - b).sum() / np.abs(b).sum())
+
+    print(f"phase 15(a) on {card} (gloo, {SHARD_WORLD} ranks sharing "
+          f"cuda:0; gloo stages collectives through host memory, so these "
+          f"times are not NCCL's across cards):")
+    ref_of = {"edge_flat": ("flat", 1e-4), "edge_part_f32": ("part_f32", 1e-4),
+              "edge_part_bf16": ("part_bf16", 5e-3),
+              "vertex_sharded": ("flat", 1e-4),
+              "vertex_sharded_checked": ("flat", 1e-4),
+              "edge_flat_f64sums": ("flat", 1e-4),
+              "vertex_sharded_f64sums": ("flat", 1e-4)}
+    got = {}
+    for name, _, kernel in _shard_forms(span):
+        final = np.load(os.path.join(d, f"{name}.npy"))
+        ref, gate = ref_of[name]
+        dist_l1 = l1(final, refs[ref])
+        _check(final.shape == (n,) and np.isfinite(final).all(),
+               f"{name}: ranks not finite of shape (n,)")
+        _check(dist_l1 <= gate, f"{name}: normalised L1 {dist_l1} vs the "
+               f"one-device {ref} run > {gate}")
+        for r, rep in enumerate(ranks_of):
+            x = rep[name]
+            _check(x["kernel_equal"], f"{name} rank {r}: {kernel} != its "
+                   f"plain version on its rows (max err {x['kernel_err']})")
+            _check(x["launches"] == ITERS and x["other_launches"] == 0,
+                   f"{name} rank {r}: {kernel} launched {x['launches']} "
+                   f"times (the other kernel {x['other_launches']}) in "
+                   f"{ITERS} steps")
+            print(f"  {name} rank {r}: {x['form']} {x['kernel_name']}, "
+                  f"{x['rows']} of {x['slot_rows']} slot rows, state "
+                  f"{x['local']}; first-step {kernel} torch.equal to its "
+                  f"plain version; {x['launches']} launches; "
+                  f"{x['ms_per_iter']:.3f} ms/iter, collectives "
+                  f"{x['collective_ms_per_step']:.3f} ms a step "
+                  f"({x['collectives_per_step']:g} calls), bare {kernel} "
+                  f"{x['bare_launch_ms']:.4f} ms; build {x['build_s']:.1f} "
+                  f"s")
+        print(f"  {name}: final ranks vs the one-device {ref} run "
+              f"normalised L1 {dist_l1:.3e} (gate {gate:g})")
+        got[name] = {"l1_vs_one_device": dist_l1, "ranks": [
+            {k: x[name][k] for k in ("launches", "ms_per_iter",
+                                     "collective_ms_per_step",
+                                     "bare_launch_ms", "rows", "kernel_err")}
+            for x in ranks_of]}
+    pair = [np.load(os.path.join(d, f"{n}.npy")) for n in (
+        "edge_flat_f64sums", "vertex_sharded_f64sums")]
+    _check(np.array_equal(*pair), "f32 ranks over f64 sums: the "
+           "vertex-sharded run != the edge-sharded run")
+    f32 = [np.load(os.path.join(d, f"{n}.npy")) for n in (
+        "edge_flat", "vertex_sharded", "vertex_sharded_checked")]
+    _check(np.array_equal(f32[2], f32[1]),
+           "the checked vertex-sharded run != the unchecked one")
+    print(f"  bitwise: f32 ranks over f64 sums vertex-sharded == "
+          f"edge-sharded; the checked vertex-sharded run == the unchecked "
+          f"one; f32 over f32 sums vertex-sharded vs edge-sharded "
+          f"normalised L1 {l1(f32[1], f32[0]):.3e} (the dangling mass and "
+          f"delta regroup in f32), bit-equal {np.array_equal(f32[0], f32[1])}")
+    for r, rep in enumerate(ranks_of):
+        sec = rep["vertex_sharded_checked"]["sdc"]
+        _check(sec["checks"] == ITERS and sec["flips_detected"] == 0,
+               f"checked run rank {r}: {sec}")
+        vs = rep["vertex_sharded"]
+        _check(vs["resumed_from"] == 4 and vs["resume_bit_equal"],
+               f"rank {r}: world-2 resume from iteration "
+               f"{vs['resumed_from']} bit-equal {vs['resume_bit_equal']}")
+    # The world-2 snapshot resumed at world 1 (rank 0's one-device engine).
+    _check(ranks_of[0]["resume_world1_from"] == 4
+           and not ranks_of[0]["resume_world1_mesh"],
+           "world-1 resume: no snapshot, or not a one-device engine")
+    resume_l1 = l1(np.load(os.path.join(d, "resume_world1.npy")), f32[1])
+    _check(resume_l1 <= 1e-4, f"world-1 resume of the world-2 snapshot: "
+           f"normalised L1 {resume_l1} vs the uninterrupted run")
+    print(f"  snapshot at iteration 4 (world 2): resumed at world 2 "
+          f"bit-equal, at world 1 (one device) normalised L1 "
+          f"{resume_l1:.3e}; {ITERS} checks, no breach on the checked run")
+    # (b) the CLI under NCCL, its steps and collectives timed: the host
+    # wall of each step (it ends on the host's read of delta) and of each
+    # collective call, and the collectives' device time by CUDA events.
+    import torch
+
+    from pagerank_tpu_torch import TorchEngine
+    from pagerank_tpu_torch.parallel import mesh as mesh_lib
+
+    calls, step_ms = [], []
+
+    def timed(name, fn):
+        def call(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            t = time.perf_counter()
+            s.record()
+            r = fn(*a, **kw)
+            e.record()
+            calls.append((name, len(step_ms), time.perf_counter() - t, s, e))
+            return r
+        return call
+
+    def timed_step(self):
+        t = time.perf_counter()
+        info = step(self)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return info
+
+    names = ("psum", "all_gather", "psum_scatter")
+    originals = {k: getattr(mesh_lib, k) for k in names}
+    step = TorchEngine.step
+    out = os.path.join(d, "cli.tsv")
+    _reset_counts()
+    t1 = time.perf_counter()
+    try:
+        for k in names:
+            setattr(mesh_lib, k, timed(k, originals[k]))
+        TorchEngine.step = timed_step
+        rc = cli.main(["--input", os.path.join(d, "edges.npz"),
+                       "--iters", str(ITERS), "--dtype", "float32",
+                       "--num-devices", "1", "--vertex-sharded", "--out",
+                       out, "--log-every", "0"])
+    finally:
+        TorchEngine.step = step
+        for k in names:
+            setattr(mesh_lib, k, originals[k])
+    cli_s = time.perf_counter() - t1
+    k1, k2n, _ = _read_counts()
+    torch.cuda.synchronize()
+    # Per step (calls made inside step i carry index i), medians over the
+    # steps after the first.
+    split = {}
+    for i in range(1, len(step_ms)):
+        mine = [c for c in calls if c[1] == i]
+        for k in names + ("all",):
+            sel = [c for c in mine if k in ("all", c[0])]
+            row = split.setdefault(k, {"n": [], "host": [], "dev": []})
+            row["n"].append(len(sel))
+            row["host"].append(sum(c[2] for c in sel) * 1e3)
+            row["dev"].append(sum(c[3].elapsed_time(c[4]) for c in sel))
+    med = {k: {m: statistics.median(v) for m, v in row.items()}
+           for k, row in split.items()}
+    step_med = statistics.median(step_ms[1:])
+    print(f"phase 15(b) step split on {card}, CLI --num-devices 1 "
+          f"--vertex-sharded under NCCL (a group of one): step "
+          f"{step_med:.4f} ms (host wall, median of steps 2-{ITERS}) "
+          f"against the one-device flat step {flat_ms:.4f} ms on the same "
+          f"graph (phase 12(d), engine.run); collectives a step: "
+          + "; ".join(f"{k} {med[k]['n']:g} calls, host {med[k]['host']:.4f}"
+                      f" ms, device {med[k]['dev']:.4f} ms"
+                      for k in names + ("all",)))
+    _check(len(step_ms) == ITERS and med["all"]["n"] == 4,
+           f"phase 15(b): {len(step_ms)} steps, {med['all']['n']} "
+           f"collectives a step (want {ITERS} and 4)")
+    _check(rc == 0 and k1 == ITERS and k2n == 0,
+           f"CLI --num-devices 1 --vertex-sharded: rc {rc}, K1 {k1}, K2 {k2n}")
+    cli_ranks = np.array([float(ln.split("\t")[1]) for ln in open(out)],
+                         np.float32)
+    _check(np.array_equal(cli_ranks, refs["flat"]),
+           "CLI --num-devices 1 --vertex-sharded (NCCL) != the one-device "
+           "main path's ranks")
+    before = torch.cuda.memory_allocated(0)
+    try:
+        cli.main(["--synthetic", "rmat:10", "--num-devices", "2"])
+        refused = None
+    except SystemExit as e:
+        refused = str(e.code)
+    _check(refused is not None and "requested 2 devices, only 1 visible"
+           in refused and torch.cuda.memory_allocated(0) == before,
+           f"--num-devices 2 on one card: {refused!r}")
+    print(f"phase 15(b): CLI --num-devices 1 --vertex-sharded under NCCL "
+          f"(a group of one) bit-equal to phase 3's ranks, K1 {k1} "
+          f"launches, {cli_s:.1f} s; --num-devices 2 refused: {refused}")
+    print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
+    return got
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -3651,9 +4075,14 @@ def main(argv=None) -> int:
                 "arrays": dict(eng32._arrays), "perm": eng32._perm}
         coo = coo_phase(graph, oracle, flat_eng,
                         part_report["f32"]["ms_per_iter"])
+        sharded_inputs(tmp, graph, part["span"], {
+            "flat": flat["ranks"], "part_f32": part["ranks"],
+            "part_bf16": part_report["bfloat16"]["ranks"]},
+            coo["flat_ms_per_iter"])
         del graph, oracle, flat_eng
         k2 = k2_checks(eng32, eng16)
         k2["launches"] = part_report["f32"]["launches"]
+
         k2_slots = {}
         for eng, label in ((eng32, "K2"), (eng16, "K2 (bf16 windows)")):
             step_ms[label] = step_breakdown(
@@ -3699,6 +4128,14 @@ def main(argv=None) -> int:
             "probed_run_launches": seen["probes"]["K2"]["launches"],
             "plain_step_ms": seen["probes"]["K2"]["plain_ms"],
             "probed_step_ms": seen["probes"]["K2"]["probed_ms"]}
+        # Phase 15 last on the card: the NCCL group of one it brings up
+        # in this process is not let near a later profiler split.
+        sharded = sharded_phase(tmp)
+        k1["sharded"] = {n: sharded[n] for n in (
+            "edge_flat", "vertex_sharded", "vertex_sharded_checked",
+            "edge_flat_f64sums", "vertex_sharded_f64sums")}
+        k2["sharded"] = {n: sharded[n] for n in (
+            "edge_part_f32", "edge_part_bf16")}
         k1["coo"] = {"coo_ms_per_iter": coo["ms_per_iter"],
                      "flat_ms_per_iter": coo["flat_ms_per_iter"]}
         k1w = {"name": "ell_contrib_spmm", "route": "cuda",

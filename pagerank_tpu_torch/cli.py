@@ -151,6 +151,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the torch engine's solve runs (default cuda; "
                    "cpu only when asked)")
+    md = p.add_argument_group("more than one device")
+    md.add_argument(
+        "--num-devices", type=int, default=None,
+        help="ranks of the mesh: one process a device (rank i on cuda:i "
+        "under nccl, or on the CPU under gloo with --device cpu). Under "
+        "torchrun it must equal WORLD_SIZE; otherwise N > 1 starts the N "
+        "ranks itself and 1 runs one rank in a group of one. Rank 0 "
+        "writes every output")
+    md.add_argument(
+        "--vertex-sharded", action="store_true",
+        help="partition the per-vertex state (rank vector, masks, "
+        "1/out-degree) over the mesh instead of replicating it — the "
+        "reference's hash-partitioned ranks RDD (Sparky.java:165-170); "
+        "per-device state memory scales as 1/num_devices (ell kernel)")
+    for flag, kw in (("--vs-bounded", dict(action="store_true")),
+                     ("--halo-exchange", dict(action="store_true")),
+                     ("--halo-head", dict(type=int, default=None)),
+                     ("--halo-async", dict(action="store_true")),
+                     ("--halo-async-min-gain", dict(type=float,
+                                                    default=None)),
+                     ("--stale-max-lag", dict(type=int, default=None))):
+        md.add_argument(flag, help="not ported yet: ROADMAP slice 6b",
+                        **kw)
     ft = p.add_argument_group("fault tolerance")
     ft.add_argument(
         "--write-retries", type=int, default=3,
@@ -201,7 +224,7 @@ def build_parser() -> argparse.ArgumentParser:
         "re-execution before the episode escalates")
     ft.add_argument("--max-rescues", type=int, default=None,
                     help="elastic-rescue budget (not ported yet: ROADMAP "
-                    "slice 6)")
+                    "slice 6b)")
     ft.add_argument("--max-rollbacks", type=int, default=3,
                     help="snapshot rollbacks the self-healing solve loop "
                     "may perform on an unhealthy step (NaN/Inf, mass "
@@ -302,7 +325,7 @@ def build_parser() -> argparse.ArgumentParser:
         "drain then ends it at the next step boundary (exit 75). A main "
         "thread blocked in a CUDA synchronization sees the interrupt "
         "only when that call returns. 'rescue' (the elastic runner) is "
-        "not ported yet: ROADMAP slice 6")
+        "not ported yet: ROADMAP slice 6b")
     p.add_argument("--log-every", type=int, default=1,
                    help="0 silences per-iter logs")
     p.add_argument("--jsonl", default=None,
@@ -762,7 +785,11 @@ def _load_crawl(args, cfg, fmt, mem_cap, info, t0):
 
 
 def _log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    """A line on stderr; over a mesh only rank 0 logs."""
+    from pagerank_tpu_torch.parallel import distributed
+
+    if distributed.process_info()[0] == 0:
+        print(msg, file=sys.stderr, flush=True)
 
 
 def resolve_layout(cfg, args, graph, part=None):
@@ -807,7 +834,41 @@ def _check_args(args) -> None:
     ) if on]
     if later:
         _usage(f"{', '.join(later)}: the elastic runner and the device "
-               f"health monitor are not ported yet (ROADMAP slice 6)")
+               f"health monitor are not ported yet (ROADMAP slice 6b)")
+    later = [flag for flag, on in (
+        ("--vs-bounded", args.vs_bounded),
+        ("--halo-exchange", args.halo_exchange),
+        ("--halo-head", args.halo_head is not None),
+        ("--halo-async", args.halo_async),
+        ("--halo-async-min-gain", args.halo_async_min_gain is not None),
+        ("--stale-max-lag", args.stale_max_lag is not None),
+    ) if on]
+    if later:
+        _usage(f"{', '.join(later)}: the bounded and halo-exchange "
+               f"vertex-sharded forms are not ported yet (ROADMAP slice "
+               f"6b)")
+    world = _world(args)
+    if world < 1:
+        _usage("--num-devices must be >= 1")
+    if world > 1 or args.vertex_sharded:
+        if args.engine != "torch":
+            _usage("--num-devices/--vertex-sharded run the torch engine "
+                   "(the cpu oracle is one host process)")
+        # Run this slice does not cover over a mesh yet: each exits 2
+        # naming the slice that brings it.
+        mesh_later = [flag for flag, on in (
+            ("--device-build", args.device_build),
+            ("--ppr-sources", bool(args.ppr_sources)),
+            ("--job-dir", bool(args.job_dir)),
+            ("--probe-every", world > 1 and args.probe_every > 0),
+        ) if on]
+        if mesh_later:
+            _usage(f"{', '.join(mesh_later)} over a device mesh is not "
+                   f"ported yet (ROADMAP slice 6b)")
+        if (world > 1 and not args.sync_io
+                and (args.snapshot_dir or args.dump_text_dir)):
+            _usage("the async rank writer over more than one device is not "
+                   "ported yet (ROADMAP slice 6b): pass --sync-io")
     if args.probe_every < 0:
         _usage("--probe-every must be >= 0")
     if args.device_sample_every < 0:
@@ -1028,8 +1089,10 @@ def _publish_graph_profile(args, graph, engine, job) -> None:
     build, a resumed job restores the checksummed artifact keyed by
     graph fingerprint, a host build profiles in numpy at the layout the
     engine packed — and persist the job artifact. Telemetry: never
-    fails the run. (The load prediction over a mesh is slice 6.)"""
+    fails the run. Then the skew-driven load prediction for this run's
+    mesh (``parallel/comms``) is attached and published."""
     from pagerank_tpu_torch.obs import graph_profile
+    from pagerank_tpu_torch.parallel import comms
 
     try:
         prof = graph_profile.get_profile()
@@ -1046,7 +1109,14 @@ def _publish_graph_profile(args, graph, engine, job) -> None:
             prof = graph_profile.profile_graph(graph, group=group,
                                                partition_span=span)
             graph_profile.publish(prof)
-        if prof is not None and job is not None and not restored:
+        if prof is None:
+            return  # device graph restored without its artifact
+        mesh = getattr(engine, "mesh", None)
+        pred = comms.predict_from_profile(
+            prof, mesh.world if mesh is not None else 1)
+        comms.publish_prediction(pred)
+        prof.prediction = pred
+        if job is not None and not restored:
             job.save_profile(prof)
     except Exception as e:  # telemetry must not fail the solve
         _log(f"pagerank_tpu_torch: graph profile publish failed ({e!r})")
@@ -1196,6 +1266,15 @@ def _export_observability(args, ctx, error=None, interrupted=None):
         return None
 
 
+def _world(args) -> int:
+    """The mesh size of this run: ``--num-devices``, else torchrun's
+    ``WORLD_SIZE``, else 1."""
+    if args.num_devices is not None:
+        return int(args.num_devices)
+    env = os.environ.get("WORLD_SIZE")
+    return int(env) if env else 1
+
+
 def _synthetic_geometry(spec: str):
     """(n, raw num_edges, scale-or-None) of a --synthetic spec, or None
     when it is malformed: the grammar and defaults of :func:`_synthetic`
@@ -1230,6 +1309,7 @@ def _run_preflight(args, cfg, n: int, num_edges: int, scale,
         generated=bool(args.synthetic) and device_build,
         partition_span=span,
         stream_dtype=args.stream_dtype if span else "",
+        ndev=_world(args), vertex_sharded=bool(args.vertex_sharded),
     )
     _log(obs_devices.render_fit(res))
     if not res.fits:
@@ -1302,6 +1382,26 @@ def _run(args, drain) -> Dict[str, object]:
         obs.graph_profile.disarm()
 
 
+def _drain_check(drain, engine):
+    """The solve's drain check: ``drain.check`` on one rank, and over a
+    mesh of more than one rank ``drain.check_agreed`` through a psum of
+    the request flag, so that every rank stops after the same step."""
+    mesh = getattr(engine, "mesh", None)
+    if mesh is None or mesh.world == 1:
+        return drain.check
+    import torch
+
+    from pagerank_tpu_torch.parallel import mesh as mesh_lib
+
+    flag = torch.zeros((), dtype=torch.int32, device=engine.device)
+
+    def reduce(x: int) -> int:
+        flag.fill_(x)
+        return int(mesh_lib.psum(mesh, flag))
+
+    return lambda where: drain.check_agreed(reduce, where)
+
+
 def _run_body(args, drain, ctx) -> Dict[str, object]:
     from pagerank_tpu_torch import obs
     from pagerank_tpu_torch import sdc as sdc_mod
@@ -1315,10 +1415,25 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         AsyncRankWriter, SinkGuard, Snapshotter, TextDumper,
         WriterSyncedSnapshotter, resume_engine)
 
+    from pagerank_tpu_torch.parallel import distributed
+
     _check_args(args)
+    rank, world = distributed.process_info()
+    owner = rank == 0
+    if not owner:
+        # Rank 0 owns every output: the ranks file, the text dumps and
+        # snapshots, --jsonl, the report, trace, history, metrics and
+        # logs. The other ranks compute and read (a resume or rollback
+        # reads rank 0's snapshots).
+        for name in ("out", "jsonl", "run_report", "trace", "history",
+                     "metrics_textfile", "metrics_port", "profile_dir"):
+            setattr(args, name, None)
+        args.log_every = 0
     try:
         cfg = PageRankConfig(
             num_iters=args.iters, damping=args.damping,
+            num_devices=args.num_devices,
+            vertex_sharded=args.vertex_sharded,
             semantics=args.semantics, dtype=args.dtype,
             accum_dtype=args.accum_dtype or args.dtype, tol=args.tol,
             probe_every=args.probe_every, probe_topk=args.probe_topk,
@@ -1467,9 +1582,10 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                 _log_layout(lay, time.perf_counter() - t0)
         ctx["engine"], ctx["layout"] = engine, lay
         build_s = time.perf_counter() - t0
+        drain_check = _drain_check(drain, engine)
         # A signal during the engine build surfaces here, not after a
         # whole first iteration.
-        drain.check("solve")
+        drain_check("solve")
         if args.graph_profile:
             _publish_graph_profile(args, graph, engine, job)
 
@@ -1492,7 +1608,8 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                     resumed = 0
                 if resumed:
                     _log(f"resumed from iteration {resumed}")
-        metrics = MetricsLogger(graph.num_edges, 1, log_every=args.log_every,
+        metrics = MetricsLogger(graph.num_edges, world,
+                                log_every=args.log_every,
                                 jsonl_path=args.jsonl)
         ctx["metrics"] = metrics
         if args.history:
@@ -1504,7 +1621,10 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
 
         def write_sinks(i, payload):
             # THE single sink path: async and --sync-io runs write the
-            # same bytes.
+            # same bytes. Over a mesh every rank fetched the ranks (a
+            # collective on the vertex-sharded form); rank 0 writes.
+            if not owner:
+                return
             want_snap, ranks = payload
             if want_snap:
                 t = time.perf_counter()
@@ -1585,7 +1705,7 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             # pending drain request surfaces here.
             if job is not None:
                 job.tick("solve", i)
-            drain.check("solve")
+            drain_check("solve")
             t_last[0] = time.perf_counter()
 
         roll_snap = snap
@@ -1623,10 +1743,13 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             # Final snapshot of the drained state (the last completed
             # step), then the manifest, then the interrupt.
             if snap is not None:
+                def final_save():
+                    ranks_now = engine.ranks()  # every rank: a collective
+                    if owner:
+                        snap.save(engine.iteration, ranks_now)
+
                 try:
-                    guard(engine.iteration,
-                          lambda: snap.save(engine.iteration,
-                                            engine.ranks()))
+                    guard(engine.iteration, final_save)
                 except Exception as e:
                     _log(f"pagerank_tpu_torch: final drain snapshot "
                          f"failed: {e!r}")
@@ -1763,8 +1886,82 @@ def main(argv: Optional[List[str]] = None) -> int:
     :func:`run` only (``pagerank_tpu/cli.py:1380-1400``). A first signal
     drains at the next safe point (the in-flight step finishes, the
     writer flushes within ``--drain-deadline``, a final snapshot is
-    written) and exits 75; a second hard-exits 128 + signum."""
+    written) and exits 75; a second hard-exits 128 + signum.
+
+    The mesh (``--num-devices``): under torchrun (``WORLD_SIZE`` set)
+    this process joins the group from torchrun's variables and runs as
+    its rank. Otherwise ``--num-devices N`` > 1 starts N ranks itself
+    (:func:`parallel.distributed.spawn_group`: rank i on cuda:i under
+    nccl, or on the CPU under gloo with ``--device cpu``), after the
+    argument checks and the visible-device check, and exits 0 only if
+    every rank did; ``--num-devices 1`` runs this process as the one
+    rank of a group of one. The backend follows ``--device``."""
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.parallel import mesh as mesh_lib
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    if distributed.group_up():
+        return _main_in_process(args)
+    backend = distributed.default_backend(args.device)
+    if os.environ.get("WORLD_SIZE"):
+        world = int(os.environ["WORLD_SIZE"])
+        if args.num_devices is not None and args.num_devices != world:
+            _usage(f"--num-devices {args.num_devices} != torchrun's "
+                   f"WORLD_SIZE {world}")
+        distributed.maybe_initialize_distributed(backend)
+        try:
+            return _main_in_process(args)
+        finally:
+            distributed.shutdown()
+    if args.num_devices is None or args.engine != "torch":
+        return _main_in_process(args)
+    _check_args(args)
+    from pagerank_tpu_torch.engines.torch_engine import resolve_device
+
+    try:
+        mesh_lib.check_visible(args.num_devices,
+                               resolve_device(args.device).type)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="pagerank-mesh-") as tmp:
+        if args.num_devices == 1:
+            distributed.maybe_initialize_distributed(
+                backend, init_method=f"file://{tmp}/rendezvous",
+                world_size=1, rank=0)
+            try:
+                return _main_in_process(args)
+            finally:
+                distributed.shutdown()
+        codes = distributed.spawn_group(
+            "pagerank_tpu_torch.cli:_rank_main", args.num_devices, argv, tmp,
+            backend=backend)
+    if all(c == 0 for c in codes):
+        return 0
+    _log(f"pagerank_tpu_torch: rank exit codes {codes}")
+    if all(c in (0, int(ExitCode.INTERRUPTED)) for c in codes):
+        return int(ExitCode.INTERRUPTED)
+    return next((c for c in codes if c and c > 0), 1)
+
+
+def _rank_main(argv: List[str]) -> int:
+    """One spawned rank of ``main``'s mesh: the run in this process's
+    group, its own drain handlers installed. CPU ranks share the host's
+    cores: each takes its share of them as torch threads."""
+    args = build_parser().parse_args(argv)
+    if args.device == "cpu":
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // max(1, args.num_devices)))
+    return _main_in_process(args)
+
+
+def _main_in_process(args) -> int:
+    """:func:`main` on parsed ``args`` in this process (its group, if
+    any, already joined)."""
     drain = jobs.GracefulDrain(deadline_s=args.drain_deadline)
     with drain:
         try:

@@ -56,6 +56,29 @@ than the rank dtype. Per step:
     then          m = Σ_dangling r, r' = apply_update(contrib, r, ...),
                   delta = Σ |r' - r|                    (accum_dtype)
 
+More than one device (``config.num_devices`` > 1 or ``vertex_sharded``;
+a ``parallel/mesh.Mesh`` over a ``torch.distributed`` group, one process
+a rank, every rank running this same code on its own rows):
+
+    edge-sharded (replicated; jax_engine.py:1146-1161, :1289-1305,
+    :1855-1873): the slot rows padded to a multiple of world x
+    CHUNK_ROWS with inert rows and split in contiguous shares; each rank
+    runs K1 (flat) or K2 (partitioned) over its share with the full z,
+    then ``psum`` merges the [num_blocks·128] sums; the update runs on
+    every rank, the same on each.
+    vertex-sharded (jax_engine.py:2075-2357): the state padded to
+    n_vs = ⌈n_state / (128·world)⌉·128·world (padding inert: valid 0,
+    inv 0) and held in contiguous vertex blocks; per step
+                  z_l = r_l·inv_l, z = all_gather(z_l),
+                  K1 over this rank's rows,
+                  contrib_l = psum_scatter(sums),
+                  the update on the block, m and delta as psum'd partials.
+
+The sharded forms keep the single-device forms' ledger and SDC cores
+(``step_sdc``; the per-rank check values gathered to every rank, so that
+each reaches the same verdict), and ``ranks``/``set_ranks`` cross world
+sizes through the canonical host-order vector.
+
 On ``cuda`` the kernels are the hand-written ones, bound once at build
 (``ell_spmv.bind``: inputs, plan and workspace checked once, so a step
 pays one ctypes call); on ``cpu`` the wrappers run their plain
@@ -81,10 +104,16 @@ from pagerank_tpu_torch.ops import LANES
 from pagerank_tpu_torch.ops import ell as ell_lib
 from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
 from pagerank_tpu_torch.ops import spmv
+from pagerank_tpu_torch.parallel import distributed
+from pagerank_tpu_torch.parallel import mesh as mesh_lib
 from pagerank_tpu_torch.utils.config import torch_dtype
 
 #: Zero lanes appended to z: the sentinel index n_state reads one.
 Z_PAD = 8
+#: Slot rows of the JAX pallas forms' chunk: the sharded forms pad the
+#: table to a multiple of world x CHUNK_ROWS rows (jax_engine.py:1146),
+#: so each rank's share is the one the JAX engine gives that device.
+CHUNK_ROWS = 256
 
 
 def resolve_device(device=None) -> torch.device:
@@ -152,9 +181,29 @@ class TorchEngine(PageRankEngine):
         343-351`` at lane group 1)."""
         return span < (1 << 24)
 
-    def __init__(self, config=None, device=None):
+    def __init__(self, config=None, device=None, mesh=None):
         super().__init__(config)
-        self.device = resolve_device(device)
+        cfg = self.config
+        dev = resolve_device(device)
+        # A mesh for the vertex-sharded form at any size, and for more
+        # than one device: num_devices, else the group's world size (an
+        # explicit num_devices=1 builds the one-device form in a group).
+        ndev = (cfg.num_devices if cfg.num_devices is not None
+                else distributed.process_info()[1])
+        if mesh is None and (cfg.vertex_sharded or ndev > 1):
+            mesh = mesh_lib.make_mesh(cfg.num_devices, cfg.mesh_axis,
+                                      device=dev)
+        if mesh is not None:
+            if mesh.device.type != dev.type:
+                raise ValueError(f"the mesh is on {mesh.device}, the engine "
+                                 f"on {dev}")
+            dev = mesh.device
+        #: The mesh of a sharded engine (parallel/mesh.Mesh), None for
+        #: the single-device forms.
+        self.mesh = mesh
+        self._world = mesh.world if mesh is not None else 1
+        self._vs = bool(cfg.vertex_sharded)
+        self.device = dev
         self._dtype = torch_dtype(self.config.dtype)
         self._accum = torch_dtype(self.config.accum_dtype)
         # z rides in accum when that is wider than the rank dtype, so
@@ -164,6 +213,7 @@ class TorchEngine(PageRankEngine):
         self._layout: Dict[str, object] = {}
         self._perm: Optional[np.ndarray] = None
         self._launch: Optional[ell_spmv.Launcher] = None
+        self._device_edges: Optional[np.ndarray] = None
         self._reset_graph_state()
 
     def _reset_graph_state(self) -> None:
@@ -179,6 +229,9 @@ class TorchEngine(PageRankEngine):
         self._sdc_w_vec: Optional[torch.Tensor] = None
         self._last_ledger = None
         self._step_cost = None
+        self._comms_model = None
+        self._comms_counter = None
+        self._comms_bytes_per_iter = 0
 
     def _check_span(self, psz: int, n_padded: int) -> int:
         """The partition count of span ``psz``; raises past
@@ -201,6 +254,10 @@ class TorchEngine(PageRankEngine):
         n = graph.n
         t0 = time.perf_counter()
         if cfg.kernel == "coo":
+            if self._world > 1:
+                raise NotImplementedError(
+                    "the coo form over more than one device is not ported "
+                    "yet: ROADMAP slice 6b")
             return self._build_coo(graph, t0)
         if cfg.partition_span:
             n_padded = -(-n // LANES) * LANES
@@ -233,9 +290,12 @@ class TorchEngine(PageRankEngine):
             arrays, plan, layout = self._plan_partitioned(
                 src, pack.row_block, pack.num_blocks, psz, pack.padding_ratio)
         else:
+            src, rb = self._shard_rows(ell_lib.sentinel_slots(pack),
+                                       pack.row_block, pack.n_padded,
+                                       pack.num_blocks - 1)
             arrays, plan, layout = self._plan_flat(
-                ell_lib.sentinel_slots(pack), pack.row_block, pack.num_blocks,
-                pack.padding_ratio)
+                src, rb, pack.num_blocks, pack.padding_ratio)
+            del src, rb
         t2 = time.perf_counter()
         return self._place(pack.n_padded, pack.num_blocks, planes, arrays,
                            plan, {**layout, "build": "host"},
@@ -258,6 +318,10 @@ class TorchEngine(PageRankEngine):
         if not isinstance(dg, DeviceEllGraph):
             raise TypeError(f"build_device needs a DeviceEllGraph, got "
                             f"{type(dg).__name__}")
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "build_device over a mesh (more than one device, or "
+                "vertex_sharded) is not ported yet: ROADMAP slice 6b")
         cfg, dev = self.config, self.device
         if cfg.kernel == "coo":
             raise ValueError("build_device supports the ell/pallas kernels "
@@ -370,6 +434,76 @@ class TorchEngine(PageRankEngine):
         }
         return self
 
+    def _shard_rows(self, src, row_ids, sentinel, fill_id):
+        """This rank's slot rows of the whole table (host arrays) and
+        each rank's count of real (non-sentinel) slots, kept for
+        :meth:`device_edges`. One device takes the table as it is. Over
+        a mesh the rows are padded with inert rows (every slot
+        ``sentinel``, group id ``fill_id``: the last group's, so the ids
+        stay ascending) to a multiple of world x CHUNK_ROWS, and the
+        rank takes its contiguous share (``mesh.edge_sharding``;
+        ``jax_engine.py:1146-1161``). Segment plans cut a share's rows
+        from its first row, so a share may start inside a block."""
+        rows = int(src.shape[0])
+        if self._world == 1 or rows == 0:
+            self._device_edges = None
+            return src, row_ids
+        w = self._world
+        mult = w * CHUNK_ROWS
+        pad = -(-rows // mult) * mult - rows
+        src = np.concatenate([src, np.full((pad, LANES), sentinel,
+                                           src.dtype)])
+        row_ids = np.concatenate([row_ids, np.full(pad, fill_id,
+                                                   row_ids.dtype)])
+        per = src.shape[0] // w
+        self._device_edges = np.array(
+            [np.count_nonzero(src[r * per:(r + 1) * per] != sentinel)
+             for r in range(w)], np.int64)
+        sl = mesh_lib.edge_sharding(self.mesh, src.shape[0])
+        return (np.ascontiguousarray(src[sl]),
+                np.ascontiguousarray(row_ids[sl]))
+
+    def device_edges(self):
+        """Each rank's real slots (deduplicated edges) in its share of
+        the slot rows (``parallel/comms.measured_device_edges``), or
+        None for one device and the coo form."""
+        return (None if self._device_edges is None
+                else self._device_edges.copy())
+
+    def _place_vs_state(self, n_state, planes):
+        """The vertex-sharded state geometry (``jax_engine.py:2075-2108,
+        2176-2263``): ``n_vs`` = n_state padded to a multiple of
+        128·world, this rank's block of ``n_vs / world`` vertices and
+        the dense comms model; returns this rank's block of each
+        per-vertex plane, the padding inert (valid 0, inv 0)."""
+        from pagerank_tpu_torch.parallel import comms
+
+        unit = LANES * self._world
+        self._n_vs = -(-n_state // unit) * unit
+        self._blk = self._n_vs // self._world
+        sl = mesh_lib.vertex_sharding(self.mesh, self._n_vs)
+        self._vs_slice = sl
+        self._comms_model = comms.model_dense(
+            self._world, self._blk, self._z_dtype.itemsize,
+            self._z_dtype.itemsize)
+        self._comms_bytes_per_iter = int(self._comms_model["bytes_per_iter"])
+        self._comms_counter = comms.register(self._comms_model)
+        padv = self._n_vs - n_state
+
+        def block(a):
+            a = np.asarray(a)
+            return np.ascontiguousarray(
+                np.concatenate([a, np.zeros(padv, a.dtype)])[sl])
+
+        return {k: block(v) for k, v in planes.items()}
+
+    def comms_model(self):
+        """The per-iteration exchange byte model of this build (the
+        vertex-sharded form's dense all_gather + reduce-scatter,
+        ``parallel/comms.model_dense``), or None for a form with no
+        per-vertex exchange."""
+        return dict(self._comms_model) if self._comms_model else None
+
     def _place(self, n_state, num_blocks, planes, arrays, plan, layout,
                build_seconds, t2) -> "TorchEngine":
         """The shared tail of both builds: per-vertex planes, slot arrays
@@ -386,22 +520,48 @@ class TorchEngine(PageRankEngine):
 
         self._n_state = n_state
         self._num_blocks = num_blocks
+        if self._vs:
+            planes = self._place_vs_state(n_state, planes)
         self._dangling = put(planes["dangling"])
         self._zero_in = put(planes["zero_in"])
         self._valid = put(planes["valid"])
         self._inv_out = put(planes["inv_out"]).to(self._z_dtype)
         self._arrays = {k: put(v) for k, v in arrays.items()}
         self._plan = ell_spmv.plan_to(plan, dev)
+        out = None
         if cfg.partition_span:
             table = torch.bfloat16 if cfg.stream_dtype else self._z_dtype
             self._z_buf = torch.zeros((self._parts, self._window),
                                       dtype=table, device=dev)
+        elif self._vs:
+            # The gathered z: n_vs entries (the padding's are 0·0), then
+            # the zero lanes; K1 reads its first n_state + Z_PAD, so its
+            # sentinel n_state reads a zero. K1 writes its sums into the
+            # first n_state entries of ``flat``, whose tail stays zero
+            # for the merge over n_vs.
+            z = self._z_dtype
+            self._z_local = torch.empty(self._blk, dtype=z, device=dev)
+            self._z_buf = torch.zeros(self._n_vs + Z_PAD, dtype=z,
+                                      device=dev)
+            self._flat = torch.zeros(self._n_vs, dtype=z, device=dev)
+            self._contrib_l = torch.empty(self._blk, dtype=z, device=dev)
+            out = self._flat[:n_state]
         else:
             self._z_buf = torch.zeros(n_state + Z_PAD, dtype=self._z_dtype,
                                       device=dev)
+        self._z_ext = (self._z_buf[: n_state + Z_PAD] if self._vs
+                       else self._z_buf)
         kernel = ("ell_contrib_partitioned" if cfg.partition_span
                   else "ell_contrib")
         launch_info = {}
+        if dev.type == "cuda" and self._world > 1:
+            # Rank 0 builds the kernel (nvcc) while the others wait, then
+            # each loads the one library.
+            from pagerank_tpu_torch.kernels import build
+
+            if self.mesh.rank == 0:
+                build.load(kernel)
+            self.mesh.barrier()
         if dev.type == "cuda":
             # Bind the kernel now (building it if need be), so nvcc and
             # the input checks never land in a timed step.
@@ -412,21 +572,35 @@ class TorchEngine(PageRankEngine):
                     plan=self._plan)
             else:
                 self._launch = ell_spmv.bind(
-                    self._z_buf, a["src"], num_blocks,
-                    accum_dtype=self._accum, plan=self._plan)
+                    self._z_ext, a["src"], num_blocks,
+                    accum_dtype=self._accum, plan=self._plan, out=out)
             launch_info = {"head": self._launch.head,
                            "grid": self._launch.grid}
         self._step_cost = self._kernel_cost(plan, layout)
         # r0 over the TRUE n (1/n in textbook mode), zero in padding.
-        self._r = torch.zeros(n_state, dtype=self._dtype, device=dev)
-        self._r[:n] = pr_model.initial_rank(n, cfg.semantics, self._dtype,
-                                            dev)
+        if self._vs:
+            r0 = 1.0 if cfg.semantics == "reference" else 1.0 / n
+            self._r = torch.full((self._blk,), r0, dtype=self._dtype,
+                                 device=dev) * self._valid.to(self._dtype)
+        else:
+            self._r = torch.zeros(n_state, dtype=self._dtype, device=dev)
+            self._r[:n] = pr_model.initial_rank(n, cfg.semantics,
+                                                self._dtype, dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
         self.iteration = 0
+        mesh_info = {}
+        if self.mesh is not None:
+            mesh_info = {"world": self._world, "rank": self.mesh.rank,
+                         "backend": self.mesh.backend,
+                         "vertex_sharded": self._vs}
+            if self._vs:
+                mesh_info.update(n_vs=self._n_vs,
+                                 comms=dict(self._comms_model))
         self._layout = {
             **layout,
+            **mesh_info,
             "kernel": (f"{kernel}:cuda" if dev.type == "cuda"
                        else f"{kernel}:reference"),
             "kernel_requested": cfg.kernel,
@@ -454,8 +628,10 @@ class TorchEngine(PageRankEngine):
             row_block.cpu().numpy() if isinstance(row_block, torch.Tensor)
             else row_block, num_blocks)
         return {"src": src, "row_block": row_block}, plan, {
-            "form": "flat_ell", "partition_span": 0,
-            "num_rows": int(src.shape[0]), "padding_ratio": padding_ratio,
+            "form": "vertex_sharded" if self._vs else "flat_ell",
+            "partition_span": 0, "num_rows": int(src.shape[0]),
+            "slot_rows": int(src.shape[0]) * self._world,
+            "padding_ratio": padding_ratio,
         }
 
     def _plan_partitioned(self, src, row_blocks, num_blocks, psz,
@@ -479,10 +655,11 @@ class TorchEngine(PageRankEngine):
             counts.append(pc)
             pair_off += pc
         words24 = self.partition_words24(psz)
+        row_pair = np.concatenate(ranks)
+        src, row_pair = self._shard_rows(src, row_pair, psz, pair_off - 1)
         rows = int(src.shape[0])
         if words24:
             src = spmv.pack_words24(src)
-        row_pair = np.concatenate(ranks)
         self._parts = K
         self._psz = psz
         # One zero row of 128 lanes after each window: the sentinel psz
@@ -500,7 +677,8 @@ class TorchEngine(PageRankEngine):
             "partition_span": psz, "partitions": K,
             "window_rows": self._window // LANES, "words24": words24,
             "stream_dtype": self.config.stream_dtype or None,
-            "pairs": pair_off, "slot_rows": rows, "num_rows": rows,
+            "pairs": pair_off, "slot_rows": rows * self._world,
+            "num_rows": rows,
             "padding_ratio": padding_ratio, "n_stripes": 1,
             "stripe_span": num_blocks * LANES, "pair": False,
         }
@@ -551,6 +729,13 @@ class TorchEngine(PageRankEngine):
         kernel, for callers that check it at the main path's shapes."""
         r = self._r.to(self._z_dtype)
         a = self._arrays
+        if self._vs:
+            # z_l = r_l·inv_l, then the tiled all_gather of every block.
+            torch.mul(r, self._inv_out, out=self._z_local)
+            mesh_lib.all_gather(self.mesh, self._z_buf[: self._n_vs],
+                                self._z_local)
+            return (self._z_ext, a["src"], a["row_block"], self._num_blocks,
+                    self._plan)
         if not self.config.partition_span:
             torch.mul(r, self._inv_out, out=self._z_buf[: self._n_state])
             return (self._z_buf, a["src"], a["row_block"], self._num_blocks,
@@ -579,14 +764,31 @@ class TorchEngine(PageRankEngine):
                 self._r, a["src"], a["lengths"], a["w"], self._accum)
         inputs = self.contrib_inputs()
         if self._launch is not None:
-            return self._launch()[: self._n_state]
-        if not self.config.partition_span:
+            out = self._launch()
+        elif not self.config.partition_span:
             z_ext, src, rb, nb, plan = inputs
-            return ell_spmv.ell_contrib(
-                z_ext, src, rb, nb, accum_dtype=self._accum, plan=plan,
-            )[: self._n_state]
-        return ell_spmv_partitioned.ell_contrib_partitioned(
-            *inputs[:5], plan=inputs[5])[: self._n_state]
+            out = ell_spmv.ell_contrib(z_ext, src, rb, nb,
+                                       accum_dtype=self._accum, plan=plan)
+        else:
+            out = ell_spmv_partitioned.ell_contrib_partitioned(
+                *inputs[:5], plan=inputs[5])
+        if self._vs:
+            # The merge: each rank keeps its block of the summed
+            # contribution (the tail past n_state stays zero).
+            if self._launch is None:
+                self._flat[: self._n_state] = out
+            self._note_comms()
+            return mesh_lib.psum_scatter(self.mesh, self._contrib_l,
+                                         self._flat)
+        if self._world > 1:
+            mesh_lib.psum(self.mesh, out)
+        return out[: self._n_state]
+
+    def _note_comms(self) -> None:
+        """Accumulate ``comms.bytes_exchanged`` for one step's exchange
+        (the vertex-sharded form's model; ``jax_engine.py:3471``)."""
+        if self._comms_counter is not None:
+            self._comms_counter.inc(self._comms_bytes_per_iter)
 
     def _update(self, contrib: torch.Tensor, r: torch.Tensor):
         """The update tail of a step over ``contrib``: ``(r', delta,
@@ -594,12 +796,17 @@ class TorchEngine(PageRankEngine):
         ``step_sdc``, so a checked step computes the same bits."""
         acc = self._accum
         m = spmv.dangling_mass(r, self._dangling, acc)
+        if self._vs:
+            # The block's partial, merged (``_make_vs_tail``).
+            mesh_lib.psum(self.mesh, m)
         r_new = pr_model.apply_update(
             contrib, r.to(acc), self._zero_in.to(acc), m, self.graph.n,
             self.config.damping, self.config.semantics,
         )
         r_new = (r_new * self._valid.to(acc)).to(r.dtype)
         delta = torch.sum(torch.abs(r_new.to(acc) - r.to(acc)))
+        if self._vs:
+            mesh_lib.psum(self.mesh, delta)
         return r_new, delta, m
 
     def step(self) -> Dict[str, float]:
@@ -680,6 +887,10 @@ class TorchEngine(PageRankEngine):
         plain step pays two). Returns ``(info, (ids_engine,
         ids_original))``; ``info`` carries ``rank_mass``,
         ``topk_churn``, ``topk_mass`` and the ``mass_ledger`` entry."""
+        if self._world > 1:
+            raise NotImplementedError(
+                "convergence probes over more than one device are not "
+                "ported yet: ROADMAP slice 6b")
         k = self._resolve_probe_k(probes.topk)
         prev = probes.prev_ids
         r = self._r
@@ -708,15 +919,32 @@ class TorchEngine(PageRankEngine):
     # -- silent-data-corruption checks (sdc.py) -----------------------------
 
     def device_ids(self):
-        from pagerank_tpu_torch.parallel.mesh import device_id
-
-        return [device_id(self.device)]
+        """The devices holding the rank vector, in mesh order: the card's
+        index on one device, the ranks 0..world-1 over a mesh (what an
+        SDC suspect position names)."""
+        if self.mesh is not None:
+            return list(range(self._world))
+        return [mesh_lib.device_id(self.device)]
 
     def sdc_supported(self) -> bool:
-        """Every form measures the invariants, as every single-device
-        form of the JAX engine does: the flat and partitioned forms with
-        the source mass, the coo form (no prescale) without it."""
+        """Every form measures the invariants, as every form of the JAX
+        engine with a ledger core does (``jax_engine.py:3828``): the
+        flat and partitioned forms with the source mass, on one device
+        or edge-sharded, the vertex-sharded form, and the coo form (no
+        prescale) without it."""
         return self.graph is not None
+
+    def _gather_values(self, vals) -> np.ndarray:
+        """Scalars of this rank to the host as [world, len(vals)]: every
+        rank gets every rank's row (one ``all_gather``), so that each
+        reaches the same verdict. One device: [1, len(vals)]."""
+        v = torch.stack(vals)
+        if self.mesh is None:
+            return v.cpu().numpy()[None, :]
+        out = torch.empty(self._world * v.shape[0], dtype=v.dtype,
+                          device=v.device)
+        return mesh_lib.all_gather(self.mesh, out, v).reshape(
+            self._world, -1).cpu().numpy()
 
     def retain_state(self, iteration: Optional[int] = None):
         """Device-side double buffer for the SDC redo: ``(iteration,
@@ -742,10 +970,14 @@ class TorchEngine(PageRankEngine):
         if self._sdc_w_vec is None:
             from pagerank_tpu_torch import sdc as sdc_mod
 
-            w = sdc_mod.fingerprint_vector(self.config.sdc_seed,
-                                           self._n_state)
-            self._sdc_w_vec = torch.from_numpy(w).to(self._accum).to(
-                self.device)
+            if self._vs:  # this rank's block of the vector over n_vs
+                w = sdc_mod.fingerprint_vector(self.config.sdc_seed,
+                                               self._n_vs)[self._vs_slice]
+            else:
+                w = sdc_mod.fingerprint_vector(self.config.sdc_seed,
+                                               self._n_state)
+            self._sdc_w_vec = torch.from_numpy(
+                np.ascontiguousarray(w)).to(self._accum).to(self.device)
         return self._sdc_w_vec
 
     def _has_src(self) -> bool:
@@ -765,10 +997,11 @@ class TorchEngine(PageRankEngine):
 
     def sdc_state_values(self):
         """The standalone boundary-state check over the current state:
-        ``fp``, ``mass``, ``src`` as one-device arrays (one transfer)."""
-        host = torch.stack(self._sdc_sums(self._r)).cpu().numpy()
-        return {"fp": host[0:1], "mass": host[1:2],
-                "src": host[2:3] if self._has_src() else None}
+        ``fp``, ``mass``, ``src`` as per-device arrays (one transfer;
+        over a mesh each rank's values, gathered)."""
+        host = self._gather_values(self._sdc_sums(self._r))
+        return {"fp": host[:, 0], "mass": host[:, 1],
+                "src": host[:, 2] if self._has_src() else None}
 
     def step_sdc(self):
         """One SDC-checked iteration: ``(info, check record)``. The
@@ -783,21 +1016,31 @@ class TorchEngine(PageRankEngine):
         ins = self._sdc_sums(r)
         outs = self._sdc_sums(r_new)[:2]
         vals = [delta, m, *self._ledger_sums(contrib, r), *ins, *outs]
-        host = torch.stack(vals).cpu().numpy()
+        # [world, 10]: each rank's row. delta and m are whole-run values
+        # on every rank; the ledger sums are per-rank partials on the
+        # vertex-sharded form (``_ledger_partials``) and whole values on
+        # a replicated one (one copy kept, as ``_ledger_sums``); the
+        # check values are per-device either way (``_sdc_specs``).
+        host = self._gather_values(vals)
         self._r = r_new
-        self._last_ledger = (float(host[4]), float(host[2]), float(host[3]))
+        led = host[:, 2:5] if self._vs else host[:1, 2:5]
+        sums = led.sum(axis=0)
+        self._last_ledger = (float(sums[2]), float(sums[0]), float(sums[1]))
+        mass_out = host[:, -1]
         chk = {
-            "sharded": False,
-            "fp_in": host[5:6], "mass_in": host[6:7],
-            "src_in": host[7:8] if self._has_src() else None,
-            "fp_out": host[-2:-1], "mass_out": host[-1:],
-            "contrib": host[2:3], "retained": host[3:4],
-            "mass_prev": host[4:5],
-            "dangling_mass": float(host[1]),
+            "sharded": self._vs,
+            "fp_in": host[:, 5], "mass_in": host[:, 6],
+            "src_in": host[:, 7] if self._has_src() else None,
+            "fp_out": host[:, -2], "mass_out": mass_out,
+            "contrib": led[:, 0], "retained": led[:, 1],
+            "mass_prev": led[:, 2],
+            "dangling_mass": float(host[0, 1]),
             "stale_slack": 0.0,
         }
-        info = {"l1_delta": float(host[0]), "dangling_mass": float(host[1]),
-                "rank_mass": float(host[-1])}
+        info = {"l1_delta": float(host[0, 0]),
+                "dangling_mass": float(host[0, 1]),
+                "rank_mass": float(mass_out.astype(float).sum() if self._vs
+                                   else np.median(mass_out))}
         return info, chk
 
     # -- the async writer's payload -----------------------------------------
@@ -817,8 +1060,9 @@ class TorchEngine(PageRankEngine):
         them): a fresh pinned allocation a payload slowed the steps
         beside it (``cudaHostAlloc`` on the main thread). On the CPU:
         the tensor itself (a step rebinds the rank vector, it never
-        writes it in place)."""
-        r = self._r
+        writes it in place). Vertex-sharded: every rank's block gathered
+        first (a collective: every rank calls it)."""
+        r = self._full_r()
         if r.device.type != "cuda":
             return r
         n = self.graph.n
@@ -841,12 +1085,28 @@ class TorchEngine(PageRankEngine):
         r.record_stream(side)
         return _PinnedRanks(host, done, self._pinned)
 
+    def _full_r(self) -> torch.Tensor:
+        """The whole padded relabeled rank vector: the rank's own on one
+        device and edge-sharded, every block gathered (``all_gather``,
+        on every rank) vertex-sharded."""
+        if not self._vs:
+            return self._r
+        full = torch.empty(self._n_vs, dtype=self._r.dtype,
+                           device=self._r.device)
+        return mesh_lib.all_gather(self.mesh, full, self._r)
+
     def rank_mass(self) -> float:
-        """sum(ranks) by one device reduction; padding lanes are zero."""
-        return float(torch.sum(self._r.to(self._accum)))
+        """sum(ranks) by one device reduction; padding lanes are zero
+        (vertex-sharded: the blocks' partials, psum'd)."""
+        mass = torch.sum(self._r.to(self._accum))
+        if self._vs:
+            mesh_lib.psum(self.mesh, mass)
+        return float(mass)
 
     def ranks(self) -> np.ndarray:
-        return self.decode_ranks(self._r)
+        """The whole vector in original id order, on every rank (over a
+        vertex-sharded mesh a collective: every rank calls it)."""
+        return self.decode_ranks(self._full_r())
 
     def decode_ranks(self, padded) -> np.ndarray:
         """A padded relabeled rank vector (a tensor, or a
@@ -865,8 +1125,10 @@ class TorchEngine(PageRankEngine):
         if r.shape != (self.graph.n,):
             raise ValueError(f"rank shape {r.shape} != ({self.graph.n},)")
         dt = np.float32 if self._dtype == torch.float32 else np.float64
-        rr = np.zeros(self._n_state, dtype=dt)
+        rr = np.zeros(self._n_vs if self._vs else self._n_state, dtype=dt)
         rr[: self.graph.n] = np.asarray(r, dtype=dt)[self._perm]
+        if self._vs:  # this rank's block of the canonical vector
+            rr = np.ascontiguousarray(rr[self._vs_slice])
         self._r = torch.from_numpy(rr).to(self.device)
         self.iteration = iteration
 
@@ -875,11 +1137,22 @@ class TorchEngine(PageRankEngine):
         return dict(self._layout)
 
     def snapshot_meta(self) -> Dict[str, object]:
+        """Provenance recorded beside every snapshot (``jax_engine.py:
+        4625-4650``): the mesh size, its devices' kinds, the form and
+        its geometry. Snapshots hold the canonical host-order vector, so
+        one taken at one world size resumes at another."""
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
-        return {"engine": self.name, "num_devices": 1, "device": name,
+        return {"engine": self.name, "num_devices": self._world,
+                "device": name, "device_kinds": [name],
+                "device_ids": self.device_ids(),
+                "vertex_sharded": self._vs,
+                "n_state": int(self._n_vs if self._vs else self._n_state),
                 "form": self._layout.get("form"),
-                "partition_span": self._layout.get("partition_span", 0)}
+                "partition_span": self._layout.get("partition_span", 0),
+                "layout": {k: self._layout.get(k)
+                           for k in ("form", "partition_span", "n_stripes",
+                                     "stripe_span", "group")}}
 
 
 class _PinnedRanks:

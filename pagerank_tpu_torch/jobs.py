@@ -406,6 +406,24 @@ class GracefulDrain:
             self._note_request()
             raise DrainInterrupt(self.signum or 0, where)
 
+    def check_agreed(self, reduce, where: str = "") -> None:
+        """:meth:`check` for one rank of a process group, where every
+        rank calls it at the same safe point: ``reduce`` sums an int
+        over the ranks, and all of them raise if any had a request when
+        it got there. The flag is read once, so a signal that lands
+        after it was read counts at the next safe point on every rank
+        alike. Ranks must stop after the same step: a drain's final
+        snapshot is itself a collective, and ranks a step apart would
+        pair its gather with the other step's. A request from another
+        rank does not count as this rank's first signal (so the signal
+        that reaches it later does not hard-exit the drain)."""
+        if not reduce(int(self.requested)):
+            return
+        if self._t_request is None:
+            self._t_request = self._clock()
+        self._note_request()
+        raise DrainInterrupt(self.signum or 0, where)
+
     def remaining(self) -> Optional[float]:
         """Seconds left of the drain deadline (None before a request,
         never below a small positive floor so bounded flushes still

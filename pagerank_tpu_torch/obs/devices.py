@@ -21,7 +21,7 @@ Port of ``pagerank_tpu/obs/devices.py`` at one device:
     (``obs/costs.py``). Nothing allocates.
 
 ``attribute_exchange`` (the sharded step's comms split) comes with more
-than one GPU (ROADMAP slice 6).
+than one GPU (ROADMAP slice 6b).
 """
 
 from __future__ import annotations
@@ -394,33 +394,50 @@ def _build_stage_reports(n: int, num_edges: int, generated: bool,
 
 def _solve_stage_report(n: int, num_edges: int, dtype: str,
                         accum_dtype: str, stripe: int,
-                        stream_dtype: str) -> FitStage:
-    """Analytic residency of the placed engine and its step: the slot
-    plane (int32, or the 3-byte words of the partitioned form) and the
-    row ids, the per-vertex planes (three bool masks and 1/out-degree
-    in z's dtype), the z buffer (flat: n_padded + 8 of z's dtype;
-    partitioned: K windows of span + 128), the rank vector, the graph's
-    own per-vertex tensors (perm, masks, out-degree: 10 B a vertex) and
-    the step's temporaries (the contribution, the update's casts and
-    the new rank vector: 6 vectors of the accumulation dtype)."""
+                        stream_dtype: str, ndev: int = 1,
+                        vertex_sharded: bool = False) -> FitStage:
+    """Analytic residency of the placed engine and its step, on one
+    rank of ``ndev``: its share of the slot plane (int32, or the 3-byte
+    words of the partitioned form) and of the row ids (rows padded to
+    a multiple of ndev x 256 and split evenly), the per-vertex planes
+    (three bool masks and 1/out-degree in z's dtype), the z buffer
+    (flat: n_padded + 8 of z's dtype; partitioned: K windows of span +
+    128), the rank vector, the graph's own per-vertex tensors (perm,
+    masks, out-degree: 10 B a vertex) and the step's temporaries (the
+    contribution, the update's casts and the new rank vector: 6 vectors
+    of the accumulation dtype). Vertex-sharded, the planes, the rank
+    vector and the update's temporaries are the rank's block of n_vs /
+    ndev vertices; z is gathered whole (n_vs + 8) beside the local z,
+    and the merge buffer holds n_vs sums."""
     item = {"float32": 4, "float64": 8}
     dt, acc = item[dtype], item[accum_dtype]
     z_item = max(dt, acc)
+    ndev = max(1, int(ndev))
     n_padded = -(-n // 128) * 128
+
+    def share(rows):  # the rank's rows (jax_engine.py:1146-1161)
+        if ndev == 1:
+            return rows
+        return -(-rows // (ndev * 256)) * 256
     if stripe:
         sz = min(stripe, n_padded)
         parts = -(-n_padded // sz)
-        rows = estimate_slot_rows(num_edges, n_padded, parts)
+        rows = share(estimate_slot_rows(num_edges, n_padded, parts))
         words = rows * (128 * 3 if sz < (1 << 24) else 128 * 4)
         z = parts * (sz + 128) * (2 if stream_dtype else z_item)
     else:
-        rows = estimate_slot_rows(num_edges, n_padded, 1)
+        rows = share(estimate_slot_rows(num_edges, n_padded, 1))
         words = rows * 128 * 4
         z = (n_padded + 8) * z_item
     tables = words + rows * 4
-    planes = n_padded * (3 + z_item)
-    state = n_padded * dt + 10 * n
-    temps = 6 * n_padded * acc
+    local = n_padded
+    if vertex_sharded:
+        n_vs = -(-n_padded // (128 * ndev)) * 128 * ndev
+        local = n_vs // ndev
+        z = (n_vs + 8) * z_item + local * z_item + n_vs * z_item
+    planes = local * (3 + z_item)
+    state = local * dt + 10 * n
+    temps = 6 * local * acc
     total = tables + planes + z + state + temps
     return FitStage(
         stage="solve/step", bytes=int(total), source="model",
@@ -434,6 +451,7 @@ def fit_check(scale: Optional[int] = None, *, n: Optional[int] = None,
               dtype: str = "float32", accum_dtype: Optional[str] = None,
               device_build: bool = True, generated: Optional[bool] = None,
               partition_span: int = 0, stream_dtype: str = "",
+              ndev: int = 1, vertex_sharded: bool = False,
               limit_bytes: Optional[int] = None,
               device_kind: Optional[str] = None,
               headroom: float = DEFAULT_FIT_HEADROOM) -> FitResult:
@@ -444,6 +462,9 @@ def fit_check(scale: Optional[int] = None, *, n: Optional[int] = None,
     False models the solve alone (a host-built graph); ``generated``
     (default: whether ``scale`` was given) picks the generator stage
     over the upload. ``partition_span`` is the resolved span (0 = flat).
+    ``ndev`` and ``vertex_sharded`` size each rank's share of the solve
+    (``pagerank_tpu/cli.py:1160-1175``); the build stages are one
+    device's.
 
     Nothing allocates: every stage is an analytic model, and the limit
     comes from live ``mem_get_info`` or the Hopper table
@@ -465,7 +486,8 @@ def fit_check(scale: Optional[int] = None, *, n: Optional[int] = None,
         stages += _build_stage_reports(n, num_edges, generated,
                                        partition_span)
     stages.append(_solve_stage_report(n, num_edges, dtype, accum_dtype,
-                                      partition_span, stream_dtype))
+                                      partition_span, stream_dtype, ndev,
+                                      vertex_sharded))
     effective = limit * headroom
     fits = bool(stages) and not any(
         s.source == "error" for s in stages
@@ -474,8 +496,9 @@ def fit_check(scale: Optional[int] = None, *, n: Optional[int] = None,
     )
     res = FitResult(
         fits=fits, limit_bytes=limit, limit_source=limit_source,
-        headroom=headroom, n=n, num_edges=num_edges, ndev=1,
-        dtype=dtype, accum_dtype=accum_dtype, vertex_sharded=False,
+        headroom=headroom, n=n, num_edges=num_edges, ndev=int(ndev),
+        dtype=dtype, accum_dtype=accum_dtype,
+        vertex_sharded=bool(vertex_sharded),
         stages=stages, scale=scale,
     )
     obs_log.info(

@@ -1,4 +1,7 @@
-"""Device plumbing of the port: the serving subset of
-``pagerank_tpu/parallel/mesh.py`` and the error types of
-``pagerank_tpu/parallel/elastic.py`` (more than one GPU is ROADMAP
-slice 6)."""
+"""Device plumbing of the port: the mesh over a ``torch.distributed``
+group and its collectives, deadline-bounded dispatch and liveness
+(``mesh.py``), process-group bring-up (``distributed.py``), static edge
+partitioning (``partition.py``), the dense comms model and the load
+prediction (``comms.py``), and the error types of
+``pagerank_tpu/parallel/elastic.py`` (the elastic runner is ROADMAP
+slice 6b)."""

@@ -1,11 +1,22 @@
-"""Deadline-bounded dispatch and device liveness — the serving subset
-of ``pagerank_tpu/parallel/mesh.py`` (:58-156).
+"""Device meshes, their collectives, deadline-bounded dispatch and
+device liveness — a port of ``pagerank_tpu/parallel/mesh.py``.
+
+The framework's single parallel axis is the *edge dimension* (SURVEY.md
+§2 P1/P5): a 1-D mesh whose devices each own a contiguous block of the
+slot rows. In JAX a mesh is a set of devices driven by one program; here
+it is a ``torch.distributed`` process group, one process a GPU, each
+running the same engine code on its own rows (:class:`Mesh`,
+:func:`make_mesh`, ``:23-55``). The three sharding helpers become row
+and vertex ranges (:func:`edge_sharding`, :func:`replicated`,
+:func:`vertex_sharding`), and the collectives the sharded forms use
+carry the names of the ``jax.lax`` ops they replace (:func:`psum`,
+:func:`all_gather`, :func:`psum_scatter`), so that a form reads like
+its JAX counterpart.
 
 ``DeadlineExpired`` and ``run_with_deadline`` are copies (pure
 threading); ``probe_liveness`` and ``surviving_devices`` take torch
 devices, keyed by :func:`device_id`, and the liveness echo is a tiny
-torch op on each device. Meshes, shardings and device statistics come
-with more than one GPU (ROADMAP slice 6).
+torch op on each device.
 """
 
 from __future__ import annotations
@@ -16,6 +27,162 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
+
+from pagerank_tpu_torch.parallel import distributed
+
+
+@dataclasses.dataclass
+class Mesh:
+    """A 1-D mesh: this process's place in it and its device.
+
+    ``group`` is the ``torch.distributed`` process group (None for a
+    world of one without a group: every collective is then the
+    identity), ``rank`` and ``world`` this process's rank and the group
+    size, ``device`` the device this rank computes on, ``axis_name``
+    the mesh axis (``config.mesh_axis``) and ``backend`` the group's
+    backend (None without a group)."""
+
+    group: Optional[object]
+    rank: int
+    world: int
+    device: torch.device
+    axis_name: str = "data"
+    backend: Optional[str] = None
+
+    @property
+    def size(self) -> int:
+        return self.world
+
+    def barrier(self) -> None:
+        if self.group is not None:
+            import torch.distributed as dist
+
+            dist.barrier(group=self.group)
+
+
+def make_mesh(num_devices: Optional[int] = None, axis_name: str = "data",
+              device=None) -> Mesh:
+    """The 1-D mesh of this process's group (``pagerank_tpu/parallel/
+    mesh.py:23-36``): ``num_devices`` ranks (default: the group's
+    world size, 1 without a group), this rank on ``device``.
+
+    ``device`` defaults to cuda; a cuda device without an index becomes
+    ``cuda:LOCAL_RANK`` (``torch.cuda.set_device``), one card a rank.
+    Asking for more cards than are visible raises the JAX error
+    (``requested N devices, only M visible``) before anything is
+    allocated. An indexed device is taken as given, so that several
+    ranks may share one card under a backend that allows it (gloo).
+    ``num_devices`` must equal the group's world size."""
+    dev = torch.device("cuda" if device is None else device)
+    rank, world = distributed.process_info()
+    want = world if num_devices is None else int(num_devices)
+    check_visible(want, dev)
+    if dev.type == "cuda" and dev.index is None:
+        local = distributed._env_int("LOCAL_RANK")
+        dev = torch.device("cuda", rank if local is None else local)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if want != world:
+        raise ValueError(
+            f"num_devices {want} needs a process group of {want} ranks, "
+            f"this process is in one of {world}: launch it with torchrun "
+            f"--nproc-per-node {want}, or through the CLI's --num-devices")
+    group = backend = None
+    if distributed.group_up():
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+        backend = str(dist.get_backend(group))
+    return Mesh(group=group, rank=rank, world=world, device=dev,
+                axis_name=axis_name, backend=backend)
+
+
+def check_visible(num_devices: int, device) -> None:
+    """Raise the JAX error (``mesh.py:31-35``) when a mesh of
+    ``num_devices`` cards, one a rank, asks for more than are visible.
+    A CPU mesh (gloo) and an indexed device (ranks sharing one card)
+    ask for none."""
+    dev = torch.device(device)
+    if num_devices < 1:
+        raise ValueError(f"num_devices must be >= 1, got {num_devices}")
+    if dev.type == "cuda" and dev.index is None:
+        visible = torch.cuda.device_count()
+        if num_devices > visible:
+            raise ValueError(
+                f"requested {num_devices} devices, only {visible} visible")
+
+
+def edge_sharding(mesh: Mesh, rows: int) -> slice:
+    """This rank's slot rows of ``rows`` (a multiple of the world size):
+    the contiguous ``rows / world`` starting at ``rank * rows / world``
+    — the ``P(axis, None)`` row sharding of the JAX engine."""
+    if rows % mesh.world:
+        raise ValueError(f"{rows} rows do not split over {mesh.world} ranks")
+    per = rows // mesh.world
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def replicated(mesh: Mesh, n: int) -> slice:
+    """The whole of a replicated vector (rank vectors, masks, scalars):
+    every rank holds all ``n`` entries — the analogue of Spark's
+    broadcast variables (Sparky.java:135,162)."""
+    return slice(0, n)
+
+
+def vertex_sharding(mesh: Mesh, n_vs: int) -> slice:
+    """This rank's contiguous vertex block of a PARTITIONED per-vertex
+    vector of ``n_vs`` entries (a multiple of the world size;
+    ``config.vertex_sharded``) — the analogue of the reference's
+    hash-partitioned ``ranks`` RDD (Sparky.java:165-170)."""
+    if n_vs % mesh.world:
+        raise ValueError(f"{n_vs} vertices do not split over {mesh.world} "
+                         f"ranks")
+    blk = n_vs // mesh.world
+    return slice(mesh.rank * blk, (mesh.rank + 1) * blk)
+
+
+def psum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """``lax.psum``: ``x`` summed over the ranks, in place
+    (``all_reduce``); returns ``x``."""
+    if mesh.group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(x if x.dim() else x.view(1), group=mesh.group)
+    return x
+
+
+def all_gather(mesh: Mesh, out: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """``lax.all_gather(tiled=True)``: every rank's ``x`` laid end to
+    end in rank order into ``out`` (``world * len(x)`` entries,
+    ``all_gather_into_tensor``); returns ``out``."""
+    if mesh.group is None:
+        out.copy_(x)
+        return out
+    import torch.distributed as dist
+
+    # ``all_gather_single`` is the newer torch's name of the same call.
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    gather(out, x, group=mesh.group)
+    return out
+
+
+def psum_scatter(mesh: Mesh, out: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """``lax.psum_scatter(tiled=True)``: ``x`` summed over the ranks,
+    this rank keeping its ``len(x) / world`` block in ``out``
+    (``reduce_scatter_tensor``); returns ``out``."""
+    if mesh.group is None:
+        out.copy_(x)
+        return out
+    import torch.distributed as dist
+
+    # ``reduce_scatter_single`` is the newer torch's name of the same call.
+    scatter = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    scatter(out, x, group=mesh.group)
+    return out
 
 
 def device_id(dev) -> int:

@@ -1,0 +1,113 @@
+"""A rank's side of the sharded-engine checks: the cases a spawned
+process group runs (``parallel/distributed.spawn_group`` with target
+``pagerank_tpu_torch.testing.sharded:run_cases``), each rank writing
+what it holds to ``.npz`` files for the caller to compare.
+
+The ranks import torch and the port only; the caller holds their
+results against the JAX engine (or anything else) in its own process.
+
+``payload``: ``{"edges": path of an .npz with src, dst, n; "out": a
+directory; "device": the engines' device; "cases": [case, ...]}``, a
+case ``{"name": str, "config": PageRankConfig fields, "iters": int}``
+plus, optionally, ``"save_dir"`` (rank 0 snapshots the state after 4
+steps there) or ``"resume_dir"`` (every rank resumes from the newest
+snapshot there before running on). Per case and rank it writes
+``<name>.r<rank>.npz`` with ``ranks`` (the whole vector, original
+order, after ``iters``), ``first`` (after one step from r0), ``at4``
+(after 4), ``resumed`` (the iteration resumed from), ``local`` (the
+rank's own state length), ``roundtrip`` (``set_ranks`` of a seeded
+vector, read back), ``layout`` (``layout_info`` as JSON) and, when the
+case checks, ``sdc`` (the SDC section as JSON).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+
+import numpy as np
+
+
+def run_cases(payload) -> int:
+    import torch
+
+    from pagerank_tpu_torch import sdc as sdc_mod
+    from pagerank_tpu_torch.engines.torch_engine import TorchEngine
+    from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.utils.config import PageRankConfig
+    from pagerank_tpu_torch.utils.snapshot import Snapshotter, resume_engine
+
+    # Several ranks share the host's cores: one thread each.
+    torch.set_num_threads(1)
+    rank, world = distributed.process_info()
+    with np.load(payload["edges"]) as f:
+        graph = build_graph(f["src"], f["dst"], n=int(f["n"]))
+    for case in payload["cases"]:
+        cfg = PageRankConfig(**case["config"], num_devices=world)
+        sdc_mod.reset()
+        eng = TorchEngine(cfg, device=payload["device"]).build(graph)
+        first = eng.run(1)
+        at4 = eng.run(4)
+        resumed = 0
+        if case.get("save_dir") and rank == 0:
+            Snapshotter(case["save_dir"], graph.fingerprint(), cfg.semantics,
+                        mesh_meta=eng.snapshot_meta()).save(4, at4)
+        if case.get("resume_dir"):
+            resumed = resume_engine(eng, Snapshotter(
+                case["resume_dir"], graph.fingerprint(), cfg.semantics))
+        ranks = eng.run(case["iters"])
+        seeded = np.random.default_rng(7).random(graph.n).astype(
+            ranks.dtype)
+        eng.set_ranks(seeded, iteration=0)
+        out = {"ranks": ranks, "first": first, "at4": at4,
+               "resumed": np.int64(resumed),
+               "local": np.int64(eng._r.shape[0]),
+               "roundtrip": eng.ranks(),
+               "layout": np.array(json.dumps(eng.layout_info(),
+                                             default=str))}
+        if cfg.sdc_check_every:
+            out["sdc"] = np.array(json.dumps(sdc_mod.report_section(),
+                                             default=str))
+        np.savez(os.path.join(payload["out"], f"{case['name']}.r{rank}.npz"),
+                 **out)
+    return 0
+
+
+def fail_on_rank_1(payload) -> int:
+    """Rank 1 raises before the collective rank 0 waits in: the case the
+    group's timeout must end (a hung collective never outlives it)."""
+    from pagerank_tpu_torch.parallel import distributed
+
+    rank, _ = distributed.process_info()
+    if rank == 1:
+        raise RuntimeError("rank 1 fails before the collective")
+    import torch.distributed as dist
+
+    dist.barrier()
+    return 0
+
+
+def drain_one_rank(payload) -> int:
+    """The CLI's rank of a spawned mesh (``payload["argv"]``), with
+    SIGTERM sent to rank ``payload["rank"]`` alone from inside its
+    ``payload["at"]``-th step: a drain that one rank is asked for and
+    every rank must stop for after the same step."""
+    import signal
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.engines.torch_engine import TorchEngine
+    from pagerank_tpu_torch.parallel import distributed
+
+    rank, _ = distributed.process_info()
+    step, calls = TorchEngine.step, [0]
+
+    def step_then_signal(self):
+        info = step(self)
+        calls[0] += 1
+        if rank == payload["rank"] and calls[0] == payload["at"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return info
+
+    TorchEngine.step = step_then_signal
+    return cli._rank_main(payload["argv"])

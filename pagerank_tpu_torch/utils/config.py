@@ -146,10 +146,18 @@ class PageRankConfig:
     # "" streams them in the rank dtype. Needs partition_span.
     stream_dtype: str = ""
 
-    # Fields of later slices (ROADMAP queue 1): accepted at their
-    # defaults only.
+    # Devices (parallel/mesh.py): the ranks of the process group the
+    # solve runs over (None: the group's world size, 1 without a group)
+    # and the mesh axis name. vertex_sharded shards the rank vector, the
+    # masks and 1/out-degree over the mesh in contiguous vertex blocks
+    # (the reference's hash-partitioned ranks RDD, Sparky.java:165-170)
+    # instead of keeping them whole on every device: a per-iteration
+    # all_gather of z and a reduce-scatter of the contribution, for
+    # 1/num_devices of the per-vertex memory per device. Requires the
+    # ell kernel; the bounded and halo forms are ROADMAP slice 6b.
     vertex_sharded: bool = False
     num_devices: Optional[int] = None
+    mesh_axis: str = "data"
 
     # Silent-data-corruption defense (sdc.py): every K-th step runs
     # the SDC-checked step (the same contribution launch and update as
@@ -257,11 +265,6 @@ class PageRankConfig:
                 "partition_span/stream_dtype support 32-bit "
                 "accumulation only (the pair/native wide paths keep "
                 "the default layout)"
-            )
-        if self.vertex_sharded or (self.num_devices or 1) > 1:
-            raise ValueError(
-                "vertex_sharded/num_devices > 1 (more than one GPU) are "
-                "not ported yet: ROADMAP slice 6"
             )
         if torch_dtype(self.accum_dtype).itemsize < torch_dtype(
                 self.dtype).itemsize:

@@ -710,7 +710,7 @@ def resume_engine(engine, snap: Snapshotter, _found=None) -> int:
     engine_mesh = getattr(engine, "mesh", None)
     if saved_mesh is not None and engine_mesh is not None:
         saved_nd = saved_mesh.get("num_devices")
-        now_nd = int(engine_mesh.devices.size)
+        now_nd = int(engine_mesh.size)
         if saved_nd is not None and int(saved_nd) != now_nd:
             obs_metrics.counter(
                 "snapshot.mesh_reshards",

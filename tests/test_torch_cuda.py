@@ -690,3 +690,39 @@ def test_same_n_rebuild_on_the_card_decodes_the_new_graph(cuda):
         eng.run()
         np.testing.assert_array_equal(eng.decode_ranks(eng.device_ranks()),
                                       eng.ranks())
+
+
+@pytest.mark.parametrize("partition_span", [0, 256])
+def test_sharded_forms_in_an_nccl_group_of_one(cuda, tmp_path,
+                                               partition_span):
+    """The sharded forms on the card under the real backend, at the one
+    rank one card allows: the vertex-sharded form (all_gather, K1,
+    reduce-scatter and the scalar psums through NCCL) bit-equal to the
+    one-device engine, and the edge-sharded partitioned form's mesh
+    check, with the checked step sharded. More ranks on one card run
+    under gloo in ``chip_smoke.py`` phase 15."""
+    from pagerank_tpu_torch import sdc as sdc_mod
+    from pagerank_tpu_torch.parallel import distributed
+
+    src, dst = synth.rmat_edges(12, seed=4)
+    g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
+    cfg = PageRankConfig(num_iters=6, partition_span=partition_span)
+    one = TorchEngine(cfg, device="cuda").build(g).run()
+    distributed.maybe_initialize_distributed(
+        "nccl", init_method=f"file://{tmp_path}/rendezvous", world_size=1,
+        rank=0)
+    try:
+        kw = (dict(num_devices=1) if partition_span
+              else dict(num_devices=1, vertex_sharded=True))
+        eng = TorchEngine(cfg.replace(sdc_check_every=1, **kw),
+                          device="cuda").build(g)
+        sdc_mod.reset()
+        got = eng.run()
+        np.testing.assert_array_equal(got, one)
+        assert sdc_mod.report_section()["checks"] == 6
+        if not partition_span:
+            lay = eng.layout_info()
+            assert (lay["backend"], lay["world"]) == ("nccl", 1)
+            assert lay["kernel"] == "ell_contrib:cuda"
+    finally:
+        distributed.shutdown()

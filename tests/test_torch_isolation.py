@@ -81,7 +81,11 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.obs.live, pagerank_tpu_torch.obs.devices, "
         "pagerank_tpu_torch.obs.report, pagerank_tpu_torch.obs.history, "
         "pagerank_tpu_torch.obs.profiler, pagerank_tpu_torch.serve.__main__, "
-        "pagerank_tpu_torch.parallel.mesh\n"
+        "pagerank_tpu_torch.parallel.mesh, "
+        "pagerank_tpu_torch.parallel.distributed, "
+        "pagerank_tpu_torch.parallel.partition, "
+        "pagerank_tpu_torch.parallel.comms, "
+        "pagerank_tpu_torch.testing.sharded\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

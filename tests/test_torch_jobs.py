@@ -323,3 +323,36 @@ def test_drain_replay_equals_the_jax_scheduler(seed):
     assert log == replay(jax_schedules, jax_jobs)
     labels = [label for _, actor, label in log if actor == "main"]
     assert labels[-1] == "<done>" and labels[-2] in ("drained", "step-4")
+
+
+def test_an_agreed_drain_check_stops_every_rank_on_any_request():
+    """``GracefulDrain.check_agreed``: the ranks' request flags are summed
+    (here by a stand-in for the psum); a request on any rank raises on
+    every rank at that safe point, a rank asked by another keeps its own
+    first signal (a later signal does not hard-exit it), and with no
+    request nothing is raised."""
+    exits = []
+
+    def drain():
+        return jobs.GracefulDrain(install=lambda s, h: None,
+                                  hard_exit=exits.append)
+
+    ranks = [drain(), drain()]
+
+    def check_all():
+        flags = [int(d.requested) for d in ranks]
+        raised = []
+        for d in ranks:
+            try:
+                d.check_agreed(lambda x: sum(flags), "solve")
+                raised.append(False)
+            except jobs.DrainInterrupt as e:
+                raised.append(e.signum)
+        return raised
+
+    assert check_all() == [False, False]
+    ranks[0]._handler(int(signal.SIGTERM), None)
+    assert check_all() == [int(signal.SIGTERM), 0]
+    assert not ranks[1].requested and ranks[1].remaining() is not None
+    ranks[1]._handler(int(signal.SIGTERM), None)
+    assert exits == [] and ranks[1].requested
