@@ -1154,6 +1154,35 @@ def _synth_k1(label, scale=None, *, n_pad=None, rows=None, **kw):
                    **kw)
 
 
+def _synth_k1_rank(label, scale, world, *, bounded, **kw):
+    """K1 at one rank's geometry of a vertex-sharded form at ``world``
+    ranks. vs_halo (and the dense form): the last rank's share of the
+    whole table's rows — a share that starts inside a block — over every
+    block, z the rank's image of n_pad entries. vs_bounded: the rank's
+    own rows renumbered to its nbd = n_pad / 128 / world local blocks,
+    then inert rows up to a multiple of 256 writing one trash block
+    (local block nbd), z the whole gathered vector."""
+    from pagerank_tpu_torch.ops.ell import segment_plan
+
+    n_pad = 1 << scale
+    rows = EDGE_FACTOR * n_pad // LANES
+    nb = n_pad // LANES
+    if bounded:
+        nbd = nb // world
+        real = rows // world - 100
+        rb = np.concatenate([_synth_ranks(real, nbd),
+                             np.full(_ceil(real, 256) * 256 - real, nbd,
+                                     np.int32)])
+        nb = nbd + 1
+    else:
+        rb = _synth_ranks(rows + 100, nb)[-(rows // world):]
+    plan = segment_plan(rb, nb)
+    return k1_case(label, seg_row_start=plan.seg_row_start,
+                   block_seg_start=plan.block_seg_start,
+                   seg_block=plan.seg_block, row_block=rb, n_state=n_pad,
+                   **kw)
+
+
 def _synth_k1w(label, scale=None, *, n_pad=None, rows=None, **kw):
     from pagerank_tpu_torch.ops.ell import segment_plan
 
@@ -1221,8 +1250,10 @@ def _synth_k2(label, scale, table_dtype="float32", words=None, **kw):
 
 def shipped_cases(csrc_dir=None) -> List[KernelCase]:
     """Every kernel of the port's paths at the geometries it runs:
-    K1 (f32/f32) at a toy geometry, at the bench scales and at the PPR
-    path's scale (one launch a column, the yardstick), K1's
+    K1 (f32/f32) at a toy geometry, at the bench scales, at the PPR
+    path's scale (one launch a column, the yardstick) and at a rank's
+    geometry of the vertex-sharded forms (vs_halo's share, vs_bounded's
+    local blocks and trash block), K1's
     f32/f64 and f64/f64 entries under their own configs; K1w at the PPR
     path's scale (64, 8 and 1 columns) and its f32/f64 and f64/f64
     entries at a toy geometry; K2 at scale 18
@@ -1238,6 +1269,13 @@ def shipped_cases(csrc_dir=None) -> List[KernelCase]:
     # this geometry (R-MAT 20, the PPR acceptance runs' size).
     cases.append(_synth_k1(f"ell_contrib@ppr-scale{PPR_SCALE}", PPR_SCALE,
                            **kw))
+    # The vertex-sharded forms at two ranks: a rank's share of the rows
+    # (the dense form and vs_halo, K1 over the halo image), and
+    # vs_bounded's own rows over its local blocks and the trash block.
+    cases.append(_synth_k1_rank("ell_contrib@vs-halo-share-scale22-world2",
+                                22, 2, bounded=False, **kw))
+    cases.append(_synth_k1_rank("ell_contrib@vs-bounded-scale22-world2", 22,
+                                2, bounded=True, **kw))
     k1_dtypes = {"f32-f32": {}, "f32-f64": {"accum_dtype": "float64"},
                  "f64-f64": {"z_dtype": "float64", "accum_dtype": "float64"}}
     for tag, dt in k1_dtypes.items():

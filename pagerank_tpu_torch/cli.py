@@ -30,9 +30,14 @@ and drain paths), ``--profile-dir``, ``--history``, ``--probe-every``,
 ``--probe-topk``, ``--stop-tol``, ``--metrics-textfile``,
 ``--metrics-port``, ``--device-sample-every``, ``--preflight``,
 ``--graph-profile``, ``--stall-timeout`` and ``--stall-action
-warn|raise``, wired as :893-1093, :1165, :1538-1545, :1863-1956. The
-elastic runner's flags (``--max-rescues``, ``--stall-action rescue``)
-exit 2 naming ROADMAP slice 6.
+warn|raise``, wired as :893-1093, :1165, :1538-1545, :1863-1956. More
+than one device: ``--num-devices``, ``--vertex-sharded`` and the
+vertex-sharded forms' flags (``--halo-exchange``, ``--halo-head``,
+``--halo-async``, ``--stale-max-lag``, ``--halo-async-min-gain``,
+``--vs-bounded``, :91-146, with the JAX config's refusals). The elastic
+runner's flags (``--max-rescues``, ``--stall-action rescue``), and
+``--probe-every``, ``--device-build``, ``--job-dir``, ``--ppr-sources``
+and the async writer over a mesh, exit 2 naming ROADMAP slice 6c.
 The solve runs on ``--device`` (default cuda) through the torch
 engines; ``--device cpu``, or ``--engine cpu`` (the f64 oracle), runs it
 on a host without a card.
@@ -165,15 +170,49 @@ def build_parser() -> argparse.ArgumentParser:
         "1/out-degree) over the mesh instead of replicating it — the "
         "reference's hash-partitioned ranks RDD (Sparky.java:165-170); "
         "per-device state memory scales as 1/num_devices (ell kernel)")
-    for flag, kw in (("--vs-bounded", dict(action="store_true")),
-                     ("--halo-exchange", dict(action="store_true")),
-                     ("--halo-head", dict(type=int, default=None)),
-                     ("--halo-async", dict(action="store_true")),
-                     ("--halo-async-min-gain", dict(type=float,
-                                                    default=None)),
-                     ("--stale-max-lag", dict(type=int, default=None))):
-        md.add_argument(flag, help="not ported yet: ROADMAP slice 6b",
-                        **kw)
+    md.add_argument(
+        "--halo-exchange", action="store_true",
+        help="with --vertex-sharded: sparse boundary exchange — replace "
+        "the dense all_gather + reduce-scatter with build-time halo "
+        "tables (head-replication psum + static point-to-point rounds), "
+        "so per-iteration exchanged bytes scale with the boundary "
+        "instead of n; comms.* counters report the model")
+    md.add_argument(
+        "--halo-head", type=int, default=-1,
+        help="head-replication K for --halo-exchange: -1 auto (the "
+        "in-degree prefix whose replication MINIMIZES the modeled "
+        "exchange bytes over the build-time read sets — may resolve to "
+        "0 on mild graphs), 0 off, >0 explicit (rounded up to a multiple "
+        "of 128)")
+    md.add_argument(
+        "--halo-async", action="store_true",
+        help="with --halo-exchange: asynchronous stale-boundary iteration "
+        "— double-buffer the boundary so iteration k's K1 overlaps the "
+        "exchange of iteration k's boundary outputs (remote reads lag "
+        "one iteration); downgrades to the synchronous exchange when the "
+        "predicted overlap gain (comms.predicted_overlap_gain) is below "
+        "--halo-async-min-gain, the mesh is one device or the plan has no "
+        "boundary (the layout records the downgrade)")
+    md.add_argument(
+        "--stale-max-lag", type=int, default=1, choices=(0, 1),
+        help="staleness bound for --halo-async: 1 (default) runs the "
+        "double-buffered overlap with boundary reads one iteration "
+        "stale; 0 is the exact synchronous path (bit-identical to the "
+        "plain sparse exchange, no extra buffers)")
+    md.add_argument(
+        "--halo-async-min-gain", type=float, default=0.02,
+        help="auto-gate threshold for --halo-async: the predicted overlap "
+        "gain (exchange fraction x overlappable byte share) below which "
+        "the build downgrades to the synchronous exchange; 0 pins the "
+        "gate open (useful on toy graphs where the modeled exchange "
+        "fraction is negligible)")
+    md.add_argument(
+        "--vs-bounded", action="store_true",
+        help="with --vertex-sharded: owner-computes — dst blocks dealt "
+        "over the ranks' ranges, each rank holding only the slot rows of "
+        "its own range, so the contribution merge disappears; results "
+        "agree with the other forms to accumulation-dtype rounding "
+        "(host-built graphs only)")
     ft = p.add_argument_group("fault tolerance")
     ft.add_argument(
         "--write-retries", type=int, default=3,
@@ -224,7 +263,7 @@ def build_parser() -> argparse.ArgumentParser:
         "re-execution before the episode escalates")
     ft.add_argument("--max-rescues", type=int, default=None,
                     help="elastic-rescue budget (not ported yet: ROADMAP "
-                    "slice 6b)")
+                    "slice 6c)")
     ft.add_argument("--max-rollbacks", type=int, default=3,
                     help="snapshot rollbacks the self-healing solve loop "
                     "may perform on an unhealthy step (NaN/Inf, mass "
@@ -325,7 +364,7 @@ def build_parser() -> argparse.ArgumentParser:
         "drain then ends it at the next step boundary (exit 75). A main "
         "thread blocked in a CUDA synchronization sees the interrupt "
         "only when that call returns. 'rescue' (the elastic runner) is "
-        "not ported yet: ROADMAP slice 6b")
+        "not ported yet: ROADMAP slice 6c")
     p.add_argument("--log-every", type=int, default=1,
                    help="0 silences per-iter logs")
     p.add_argument("--jsonl", default=None,
@@ -439,6 +478,7 @@ def reject_ppr_incompatible_flags(args) -> None:
             ("--jsonl", args.jsonl is not None),
             ("--partition-span", bool(args.partition_span)),
             ("--stream-dtype", bool(args.stream_dtype)),
+            ("--vs-bounded", args.vs_bounded),
         )
         if flag
     ]
@@ -834,19 +874,7 @@ def _check_args(args) -> None:
     ) if on]
     if later:
         _usage(f"{', '.join(later)}: the elastic runner and the device "
-               f"health monitor are not ported yet (ROADMAP slice 6b)")
-    later = [flag for flag, on in (
-        ("--vs-bounded", args.vs_bounded),
-        ("--halo-exchange", args.halo_exchange),
-        ("--halo-head", args.halo_head is not None),
-        ("--halo-async", args.halo_async),
-        ("--halo-async-min-gain", args.halo_async_min_gain is not None),
-        ("--stale-max-lag", args.stale_max_lag is not None),
-    ) if on]
-    if later:
-        _usage(f"{', '.join(later)}: the bounded and halo-exchange "
-               f"vertex-sharded forms are not ported yet (ROADMAP slice "
-               f"6b)")
+               f"health monitor are not ported yet (ROADMAP slice 6c)")
     world = _world(args)
     if world < 1:
         _usage("--num-devices must be >= 1")
@@ -864,11 +892,11 @@ def _check_args(args) -> None:
         ) if on]
         if mesh_later:
             _usage(f"{', '.join(mesh_later)} over a device mesh is not "
-                   f"ported yet (ROADMAP slice 6b)")
+                   f"ported yet (ROADMAP slice 6c)")
         if (world > 1 and not args.sync_io
                 and (args.snapshot_dir or args.dump_text_dir)):
             _usage("the async rank writer over more than one device is not "
-                   "ported yet (ROADMAP slice 6b): pass --sync-io")
+                   "ported yet (ROADMAP slice 6c): pass --sync-io")
     if args.probe_every < 0:
         _usage("--probe-every must be >= 0")
     if args.device_sample_every < 0:
@@ -1434,6 +1462,10 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             num_iters=args.iters, damping=args.damping,
             num_devices=args.num_devices,
             vertex_sharded=args.vertex_sharded,
+            vs_bounded=args.vs_bounded, halo_exchange=args.halo_exchange,
+            halo_head=args.halo_head, halo_async=args.halo_async,
+            stale_max_lag=args.stale_max_lag,
+            halo_async_min_gain=args.halo_async_min_gain,
             semantics=args.semantics, dtype=args.dtype,
             accum_dtype=args.accum_dtype or args.dtype, tol=args.tol,
             probe_every=args.probe_every, probe_topk=args.probe_topk,

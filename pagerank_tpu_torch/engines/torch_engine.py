@@ -73,11 +73,44 @@ a rank, every rank running this same code on its own rows):
                   K1 over this rank's rows,
                   contrib_l = psum_scatter(sums),
                   the update on the block, m and delta as psum'd partials.
+    vs_halo (``halo_exchange``; jax_engine.py:2358-2637): the same rows
+    and state, the exchange cut to the build-time halo plan
+    (``parallel/partition.build_halo_plan`` over the whole padded
+    table); per step
+                  z_l = r_l·inv_l,
+                  image[0:K] = psum(this rank's masked share of the head),
+                  image[recv ids] = ppermute(z_l[send idx]) a read round,
+                  image[own block] = z_l (written last),
+                  K1 over this rank's rows (it reads only the positions
+                  the plan filled, so its sums are the dense form's bits),
+                  contrib_l = own block of the sums + the write windows
+                  other ranks ppermute here, one a write round,
+                  then the dense form's update.
+    vs_halo_async (``halo_async``; jax_engine.py:2639-2860): vs_halo
+    with a two-slot boundary buffer: step k starts shipping its head and
+    read rounds into one slot (asynchronous collectives), builds the
+    image from the other (step k-1's boundary) with its own block fresh,
+    runs K1 and the synchronous write merge, then waits on the ship and
+    swaps the slots. The buffer is primed from the ranks at build and
+    at every state replacement, so the step after one is vs_halo's.
+    vs_bounded (``vs_bounded``; jax_engine.py:2952-3330): the pack's dst
+    blocks dealt over the ranks' ranges (``ops/ell.deal_block_order``);
+    each rank holds only the rows of its own range, renumbered to local
+    blocks, padded with inert rows writing one trash block; per step
+                  z = all_gather(z_l), K1 into this rank's [nbd + 1, 128]
+                  sums, contrib_l = their first nbd blocks (no merge),
+                  then the dense form's update.
+    The JAX form builds each stripe's z plane as a psum of the ranks'
+    disjoint zero-extended slices (jax_engine.py:3143); each element has
+    one nonzero contributor, so the all_gather of z gives the same bits
+    at half the bytes, and vs_bounded gathers z as the dense form does.
 
 The sharded forms keep the single-device forms' ledger and SDC cores
 (``step_sdc``; the per-rank check values gathered to every rank, so that
 each reaches the same verdict), and ``ranks``/``set_ranks`` cross world
-sizes through the canonical host-order vector.
+sizes through the canonical host-order vector. The dense form and
+vs_halo (both forms) time their exchange apart from the step
+(``time_exchange_split``, read by ``obs/devices.attribute_exchange``).
 
 On ``cuda`` the kernels are the hand-written ones, bound once at build
 (``ell_spmv.bind``: inputs, plan and workspace checked once, so a step
@@ -91,6 +124,7 @@ from __future__ import annotations
 
 import collections
 import time
+from types import SimpleNamespace
 from typing import Dict, Optional
 
 import numpy as np
@@ -232,6 +266,18 @@ class TorchEngine(PageRankEngine):
         self._comms_model = None
         self._comms_counter = None
         self._comms_bytes_per_iter = 0
+        # The vertex-sharded form of this build (None off the mesh
+        # forms), the async form's boundary slots (None on every other
+        # form), the previous step's L1 delta (the async form's
+        # staleness slack; 0 after a build or a state replacement) and
+        # the zero contribution of the exchange timing (made at first
+        # use).
+        self._vs_form = None
+        self._vs_layout: Dict[str, object] = {}
+        self._halo_plan = None
+        self._carry = None
+        self._last_step_delta = 0.0
+        self._exchange_zero = None
 
     def _check_span(self, psz: int, n_padded: int) -> int:
         """The partition count of span ``psz``; raises past
@@ -257,13 +303,17 @@ class TorchEngine(PageRankEngine):
             if self._world > 1:
                 raise NotImplementedError(
                     "the coo form over more than one device is not ported "
-                    "yet: ROADMAP slice 6b")
+                    "yet: ROADMAP slice 6c")
             return self._build_coo(graph, t0)
         if cfg.partition_span:
             n_padded = -(-n // LANES) * LANES
             psz = min(cfg.partition_span, max(LANES, n_padded))
             self._check_span(psz, n_padded)
             pack = ell_lib.ell_pack_striped(graph, stripe_size=psz)
+        elif self._vs and cfg.vs_bounded:
+            # Dst blocks dealt over the ranks' ranges (jax_engine.py:
+            # 601-630); at one rank there is nothing to deal.
+            pack = ell_lib.ell_pack(graph, block_deal=self._world)
         else:
             pack = ell_lib.ell_pack(graph)
         t1 = time.perf_counter()
@@ -282,6 +332,8 @@ class TorchEngine(PageRankEngine):
                   "valid": relabel(np.ones(n, bool)),
                   "inv_out": relabel(graph_mod.inv_out_degree(
                       graph.out_degree))}
+        halo = None
+        num_blocks = pack.num_blocks
         if cfg.partition_span:
             srcs = [np.where(pack.weight[p] != 0, pack.src[p], np.int32(psz))
                     for p in range(pack.n_stripes)]
@@ -290,16 +342,26 @@ class TorchEngine(PageRankEngine):
             arrays, plan, layout = self._plan_partitioned(
                 src, pack.row_block, pack.num_blocks, psz, pack.padding_ratio)
         else:
-            src, rb = self._shard_rows(ell_lib.sentinel_slots(pack),
-                                       pack.row_block, pack.n_padded,
-                                       pack.num_blocks - 1)
+            src = ell_lib.sentinel_slots(pack)
+            if self._vs and cfg.vs_bounded:
+                src, rb, num_blocks = self._bounded_rows(
+                    src, pack.row_block, pack.n_padded)
+            elif self._vs and cfg.halo_exchange:
+                src, rb = self._pad_rows(src, pack.row_block, pack.n_padded,
+                                         pack.num_blocks - 1)
+                halo = self._plan_halo(src, rb, pack)
+                src, rb = self._take_share(src, rb)
+            else:
+                src, rb = self._shard_rows(src, pack.row_block, pack.n_padded,
+                                           pack.num_blocks - 1)
             arrays, plan, layout = self._plan_flat(
-                src, rb, pack.num_blocks, pack.padding_ratio)
+                src, rb, num_blocks, pack.padding_ratio)
             del src, rb
         t2 = time.perf_counter()
-        return self._place(pack.n_padded, pack.num_blocks, planes, arrays,
+        return self._place(pack.n_padded, num_blocks, planes, arrays,
                            plan, {**layout, "build": "host"},
-                           {"pack": t1 - t0, "plan": t2 - t1}, t2)
+                           {"pack": t1 - t0, "plan": t2 - t1}, t2,
+                           halo=halo)
 
     def build_device(self, dg) -> "TorchEngine":
         """Build from a :class:`~pagerank_tpu_torch.ops.device_build.
@@ -318,10 +380,16 @@ class TorchEngine(PageRankEngine):
         if not isinstance(dg, DeviceEllGraph):
             raise TypeError(f"build_device needs a DeviceEllGraph, got "
                             f"{type(dg).__name__}")
+        if self.config.vs_bounded:
+            raise ValueError(
+                "vs_bounded requires a host-built graph (build(), not "
+                "build_device: the device build does not deal dst "
+                "blocks across device ranges)"
+            )
         if self.mesh is not None:
             raise NotImplementedError(
                 "build_device over a mesh (more than one device, or "
-                "vertex_sharded) is not ported yet: ROADMAP slice 6b")
+                "vertex_sharded) is not ported yet: ROADMAP slice 6c")
         cfg, dev = self.config, self.device
         if cfg.kernel == "coo":
             raise ValueError("build_device supports the ell/pallas kernels "
@@ -435,18 +503,23 @@ class TorchEngine(PageRankEngine):
         return self
 
     def _shard_rows(self, src, row_ids, sentinel, fill_id):
-        """This rank's slot rows of the whole table (host arrays) and
-        each rank's count of real (non-sentinel) slots, kept for
-        :meth:`device_edges`. One device takes the table as it is. Over
-        a mesh the rows are padded with inert rows (every slot
-        ``sentinel``, group id ``fill_id``: the last group's, so the ids
-        stay ascending) to a multiple of world x CHUNK_ROWS, and the
-        rank takes its contiguous share (``mesh.edge_sharding``;
-        ``jax_engine.py:1146-1161``). Segment plans cut a share's rows
-        from its first row, so a share may start inside a block."""
+        """This rank's slot rows of the whole table (host arrays):
+        :meth:`_pad_rows`, then :meth:`_take_share`. Segment plans cut a
+        share's rows from its first row, so a share may start inside a
+        block."""
+        return self._take_share(*self._pad_rows(src, row_ids, sentinel,
+                                                fill_id))
+
+    def _pad_rows(self, src, row_ids, sentinel, fill_id):
+        """The whole table as the ranks share it, and each rank's count
+        of real (non-sentinel) slots, kept for :meth:`device_edges`. One
+        device takes the table as it is. Over a mesh the rows are padded
+        with inert rows (every slot ``sentinel``, group id ``fill_id``:
+        the last group's, so the ids stay ascending) to a multiple of
+        world x CHUNK_ROWS (``jax_engine.py:1146-1161``)."""
         rows = int(src.shape[0])
+        self._device_edges = None
         if self._world == 1 or rows == 0:
-            self._device_edges = None
             return src, row_ids
         w = self._world
         mult = w * CHUNK_ROWS
@@ -459,9 +532,74 @@ class TorchEngine(PageRankEngine):
         self._device_edges = np.array(
             [np.count_nonzero(src[r * per:(r + 1) * per] != sentinel)
              for r in range(w)], np.int64)
+        return src, row_ids
+
+    def _take_share(self, src, row_ids):
+        """This rank's contiguous share of a padded table
+        (``mesh.edge_sharding``); one device's is the whole table."""
+        if self._world == 1 or src.shape[0] == 0:
+            return src, row_ids
         sl = mesh_lib.edge_sharding(self.mesh, src.shape[0])
         return (np.ascontiguousarray(src[sl]),
                 np.ascontiguousarray(row_ids[sl]))
+
+    def _vs_geometry(self, n_state):
+        """(n_vs, blk): the vertex-sharded state length, n_state padded
+        to a multiple of 128·world, and a rank's block of it."""
+        unit = LANES * self._world
+        n_vs = -(-n_state // unit) * unit
+        return n_vs, n_vs // self._world
+
+    def _plan_halo(self, src, row_ids, pack):
+        """The halo plan of the whole padded table (``jax_engine.py:
+        2429-2443``): the port's flat pack is one stripe at lane group 1
+        with the sentinel ``n_padded`` in its inert slots, so the
+        plan's slot decode reads its words as they are. The padding
+        rows' group ids go to ``build_halo_plan`` as the last real row's block
+        (the JAX pack's dense rank ``pcount - 1``, ``jax_engine.py:
+        1156``): a padding row sums to zero, so a rank's write band is
+        the hull of its real rows'. Every rank builds the same plan."""
+        from pagerank_tpu_torch.parallel.partition import build_halo_plan
+
+        n_vs, _ = self._vs_geometry(pack.n_padded)
+        real = pack.num_rows
+        rb = np.array(row_ids, copy=True)
+        if real:
+            rb[real:] = rb[real - 1]
+        ranks, ids, _, _ = ell_lib.dense_block_ranks(rb, pack.num_blocks)
+        item = self._z_dtype.itemsize
+        return build_halo_plan(
+            [src], [ranks], [ids], ndev=self._world, n_vs=n_vs,
+            sz=pack.n_padded, group=1, head_k=self.config.halo_head,
+            z_item=item, accum_item=self._accum.itemsize, rs_merge=True)
+
+    def _bounded_rows(self, src, row_ids, n_padded):
+        """This rank's rows of the dealt table (``jax_engine.py:
+        3027-3101``): the rows whose dst block lies in its range of
+        ``nbd`` blocks (one contiguous run: ids ascend), renumbered to
+        local blocks, then padded with inert rows (every slot the
+        sentinel ``n_padded``) to the most any rank holds, rounded up to
+        CHUNK_ROWS, as the JAX form pads every device to one row count.
+        The padding rows write local block ``nbd``, a trash block past
+        the range, so a real block's sums keep their rows. Returns
+        ``(src, row_block, nbd + 1)``; each rank's real slots are kept
+        for :meth:`device_edges`."""
+        _, blk = self._vs_geometry(n_padded)
+        nbd = blk // LANES
+        me = self.mesh.rank
+        cuts = np.searchsorted(row_ids, np.arange(self._world + 1) * nbd)
+        counts = np.diff(cuts)
+        rows_pad = -(-int(counts.max()) // CHUNK_ROWS) * CHUNK_ROWS
+        self._device_edges = None if self._world == 1 else np.array(
+            [np.count_nonzero(src[cuts[d]:cuts[d + 1]] != n_padded)
+             for d in range(self._world)], np.int64)
+        lo, hi = int(cuts[me]), int(cuts[me + 1])
+        pad = rows_pad - (hi - lo)
+        src = np.concatenate([src[lo:hi], np.full((pad, LANES), n_padded,
+                                                  src.dtype)])
+        rb = np.concatenate([row_ids[lo:hi] - np.int32(me * nbd),
+                             np.full(pad, nbd, np.int32)]).astype(np.int32)
+        return src, rb, nbd + 1
 
     def device_edges(self):
         """Each rank's real slots (deduplicated edges) in its share of
@@ -473,21 +611,12 @@ class TorchEngine(PageRankEngine):
     def _place_vs_state(self, n_state, planes):
         """The vertex-sharded state geometry (``jax_engine.py:2075-2108,
         2176-2263``): ``n_vs`` = n_state padded to a multiple of
-        128·world, this rank's block of ``n_vs / world`` vertices and
-        the dense comms model; returns this rank's block of each
-        per-vertex plane, the padding inert (valid 0, inv 0)."""
-        from pagerank_tpu_torch.parallel import comms
-
-        unit = LANES * self._world
-        self._n_vs = -(-n_state // unit) * unit
-        self._blk = self._n_vs // self._world
+        128·world and this rank's block of ``n_vs / world`` vertices;
+        returns this rank's block of each per-vertex plane, the padding
+        inert (valid 0, inv 0)."""
+        self._n_vs, self._blk = self._vs_geometry(n_state)
         sl = mesh_lib.vertex_sharding(self.mesh, self._n_vs)
         self._vs_slice = sl
-        self._comms_model = comms.model_dense(
-            self._world, self._blk, self._z_dtype.itemsize,
-            self._z_dtype.itemsize)
-        self._comms_bytes_per_iter = int(self._comms_model["bytes_per_iter"])
-        self._comms_counter = comms.register(self._comms_model)
         padv = self._n_vs - n_state
 
         def block(a):
@@ -497,22 +626,267 @@ class TorchEngine(PageRankEngine):
 
         return {k: block(v) for k, v in planes.items()}
 
+    def _set_comms_model(self, model) -> None:
+        """Adopt a per-iteration comms model (``jax_engine.py:3453``):
+        publish its gauges and keep the per-step counter feed."""
+        from pagerank_tpu_torch.parallel import comms
+
+        self._comms_model = model
+        self._comms_bytes_per_iter = int(model.get("bytes_per_iter") or 0)
+        self._comms_counter = comms.register(model)
+
     def comms_model(self):
-        """The per-iteration exchange byte model of this build (the
-        vertex-sharded form's dense all_gather + reduce-scatter,
-        ``parallel/comms.model_dense``), or None for a form with no
-        per-vertex exchange."""
+        """The per-iteration exchange byte model of this build: the
+        dense form's all_gather + reduce-scatter
+        (``parallel/comms.model_dense``), vs_halo's plan
+        (``model_sparse``), vs_halo_async's (``model_async``); None for
+        a form with no modelled exchange (one device, edge-sharded, and
+        vs_bounded, as in the JAX engine)."""
         return dict(self._comms_model) if self._comms_model else None
 
+    def _setup_halo(self, plan) -> int:
+        """The vs_halo forms at this rank (``jax_engine.py:2445-2501,
+        2686-2697``): the async gate, the comms model, this rank's rows
+        of the plan's tables on the device, the head's clipped index and
+        mask, each round's receive buffer and, for vs_halo_async, the
+        two boundary slots of width K + the read widths. A round holds
+        its message tag (1.. over the read rounds, then the write
+        rounds), its (source, target) pairs, its width and whether this
+        rank receives; a read round this rank's send indices into z_le
+        (``send``), the global ids its payload lands on (``land``) and
+        its offset in a boundary slot; a write round the flat start of
+        this rank's window (``start``) and where a received window lands
+        in its block (``land``). Returns the widest write window (the
+        trash band past a block)."""
+
+        from pagerank_tpu_torch.parallel import comms
+
+        cfg, dev, me = self.config, self.device, self.mesh.rank
+        blk, z = self._blk, self._z_dtype
+        use_async = cfg.halo_async and self._halo_async_gate(plan)
+        self._vs_form = "vs_halo_async" if use_async else "vs_halo"
+        self._set_comms_model(comms.model_async(plan) if use_async
+                              else comms.model_sparse(plan))
+        self._halo_plan = plan
+        K = self._halo_k = plan.head_k
+        # This rank's share of the head [0, K): the JAX form's clipped
+        # gather and mask (jnp.clip(pos, 0, blk), jax_engine.py:2704);
+        # the clip keeps every index in [0, blk] — a negative index
+        # would wrap in torch.
+        pos = np.arange(K, dtype=np.int64) - me * blk
+        self._head_idx = torch.from_numpy(np.clip(pos, 0, blk)).to(dev)
+        self._head_mask = torch.from_numpy((pos >= 0) & (pos < blk)).to(dev)
+
+        def put(a):
+            return torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+
+        self._halo_reads, off = [], K
+        for i, (rnd, si, gi) in enumerate(zip(plan.read_rounds, plan.send_idx,
+                                              plan.recv_ids)):
+            self._halo_reads.append(SimpleNamespace(
+                tag=1 + i, perm=rnd.perm, width=rnd.width,
+                receives=any(t == me for _, t in rnd.perm),
+                send=put(si[me]), land=put(gi[me]), offset=off,
+                recv=torch.zeros(rnd.width, dtype=z, device=dev)))
+            off += rnd.width
+        nr = len(plan.read_rounds)
+        self._halo_writes = [
+            SimpleNamespace(
+                tag=1 + nr + j, perm=rnd.perm, width=rnd.width,
+                receives=any(t == me for _, t in rnd.perm),
+                start=int(ws[me]), land=int(wr[me]),
+                recv=torch.zeros(rnd.width, dtype=z, device=dev))
+            for j, (rnd, ws, wr) in enumerate(zip(
+                plan.write_rounds, plan.wsend_start, plan.wrecv_start))]
+        wmax = max((r.width for r in plan.write_rounds), default=0)
+        self._wbuf = torch.zeros(blk + wmax, dtype=z, device=dev)
+        self._vs_layout = {"halo": plan.summary(), **self._vs_layout}
+        if use_async:
+            self._carry = [torch.zeros(off, dtype=z, device=dev)
+                           for _ in range(2)]
+            self._vs_layout.update(halo_async=f"on:lag{cfg.stale_max_lag}",
+                                   halo_buffer_width=off)
+        if me == 0:
+            from pagerank_tpu_torch.obs import log as obs_log
+
+            obs_log.info(
+                f"sparse boundary exchange ({self._vs_form}): head K={K}, "
+                f"{nr} read + {len(plan.write_rounds)} write round(s), "
+                f"model {plan.sparse_bytes_per_iter():,} vs dense "
+                f"{plan.dense_bytes_per_iter():,} B/rank/iter")
+        return wmax
+
+    def _halo_async_gate(self, plan) -> bool:
+        """The async form's gate (``jax_engine.py:2445-2480``): refused
+        (recorded as ``layout_info()["halo_async"]`` = ``off:<reason>``)
+        at ``stale_max_lag`` 0 (exactness: the synchronous form, an info
+        line), on one device, on a plan with no boundary, and under a
+        predicted overlap gain below ``halo_async_min_gain``. Every rank
+        takes rank 0's predicted gain, so that all decide alike (the
+        gain reads this process's ``comms.exchange_fraction`` gauge)."""
+        from pagerank_tpu_torch.obs import log as obs_log
+        from pagerank_tpu_torch.parallel import comms
+
+        cfg, me = self.config, self.mesh.rank
+        gain = comms.predict_overlap_gain(plan)
+        if self.mesh.collective:
+            g = torch.tensor([gain if me == 0 else 0.0],
+                             dtype=torch.float64, device=self.device)
+            gain = float(mesh_lib.psum(self.mesh, g)[0])
+        comms.publish_overlap_gain(gain)
+        note = None
+        if cfg.stale_max_lag == 0:
+            note = "stale_max_lag=0"
+            if me == 0:
+                obs_log.info("halo_async with stale_max_lag=0: running the "
+                             "synchronous sparse exchange (exact, "
+                             "unbuffered)")
+        elif self._world < 2:
+            note = "single_device"
+        elif not plan.overlappable_bytes_per_iter():
+            note = "no_boundary"
+        elif gain < cfg.halo_async_min_gain:
+            note = f"gain {gain:.4f} < {cfg.halo_async_min_gain:g}"
+        if note and note != "stale_max_lag=0" and me == 0:
+            obs_log.warn(f"halo_async downgraded to the synchronous sparse "
+                         f"exchange ({note})")
+        if note:
+            self._vs_layout = {"halo_async": f"off:{note}"}
+        return note is None
+
+    def _head_share(self, z_le, out) -> None:
+        """This rank's masked share of the head [0, K) into ``out``."""
+        torch.where(self._head_mask, z_le[self._head_idx],
+                    torch.zeros((), dtype=z_le.dtype, device=z_le.device),
+                    out=out)
+
+    def _halo_image(self, z_le) -> None:
+        """vs_halo's z image in ``z_buf`` (``jax_engine.py:2504-2538``):
+        the head psum'd into [0, K), each read round's payload at its
+        global ids, then this rank's own block, written last. A position
+        the plan never fills keeps its zero, and every filled one is
+        rewritten each step, so the image is built in place."""
+        z, K = self._z_buf, self._halo_k
+        if K:
+            self._head_share(z_le, z[:K])
+            mesh_lib.psum(self.mesh, z[:K])
+        for rnd in self._halo_reads:
+            recv = mesh_lib.ppermute(self.mesh, rnd.recv, z_le[rnd.send],
+                                     rnd.perm, tag=rnd.tag)
+            if rnd.receives:
+                z[rnd.land] = recv
+        z[self._vs_slice].copy_(self._z_local)
+
+    def _ship_boundary(self, z_le, slot):
+        """vs_halo_async's ship (``jax_engine.py:2694-2714``): the head
+        psum and each read round into ``slot`` ([K | round 1 | ...]),
+        started asynchronously; returns their pending handles."""
+        K = self._halo_k
+        pending = []
+        if K:
+            self._head_share(z_le, slot[:K])
+            pending.append(mesh_lib.psum(self.mesh, slot[:K], async_op=True))
+        for rnd in self._halo_reads:
+            pending.append(mesh_lib.ppermute(
+                self.mesh, slot[rnd.offset:rnd.offset + rnd.width],
+                z_le[rnd.send], rnd.perm, tag=rnd.tag, async_op=True))
+        return pending
+
+    def _stale_image(self, slot) -> None:
+        """vs_halo_async's z image from a boundary slot (``jax_engine.py:
+        2716-2741``): the slot's head and landings, then this rank's own
+        block, fresh, written last."""
+        z, K = self._z_buf, self._halo_k
+        if K:
+            z[:K] = slot[:K]
+        for rnd in self._halo_reads:
+            if rnd.receives:
+                z[rnd.land] = slot[rnd.offset:rnd.offset + rnd.width]
+        z[self._vs_slice].copy_(self._z_local)
+
+    def _halo_merge(self, flat) -> torch.Tensor:
+        """vs_halo's merge (``jax_engine.py:2540-2563``): this rank's own
+        block of the sums plus the windows other ranks send it, one a
+        write round. A window reaching past the owner's block lands in
+        the trash band [blk, blk + wmax) of the buffer; the next owner
+        gets those sums in its own round, so each arrives once."""
+        me, blk = self.mesh.rank, self._blk
+        own = flat[me * blk:(me + 1) * blk]
+        if not self._halo_writes:
+            return self._contrib_l.copy_(own)
+        buf = self._wbuf
+        buf.zero_()
+        for rnd in self._halo_writes:
+            recv = mesh_lib.ppermute(self.mesh, rnd.recv,
+                                     flat[rnd.start:rnd.start + rnd.width],
+                                     rnd.perm, tag=rnd.tag)
+            if rnd.receives:
+                buf[rnd.land:rnd.land + rnd.width] += recv
+        return torch.add(own, buf[:blk], out=self._contrib_l)
+
+    def _prime_carry(self) -> None:
+        """(Re)fill the async form's current boundary slot from the
+        current ranks (``jax_engine.py:4546``): at build and after every
+        state replacement, so the next step reads a lag-0 boundary and
+        is vs_halo's step. A no-op on every other form."""
+        self._last_step_delta = 0.0
+        if self._carry is None:
+            return
+        self._prescale()
+        for p in self._ship_boundary(self._z_le, self._carry[0]):
+            p.wait()
+
+    def _prescale(self) -> None:
+        """z_l = r_l·inv_l into this rank's block (vertex-sharded)."""
+        torch.mul(self._r.to(self._z_dtype), self._inv_out,
+                  out=self._z_local)
+
+    def _vs_gather(self, ship=None) -> None:
+        """K1's z for this step in ``z_buf``: the all_gather (dense,
+        vs_bounded), vs_halo's image, or vs_halo_async's stale image
+        (its ship into the other slot started first when ``ship`` is a
+        list to hold its handles)."""
+        self._prescale()
+        if self._vs_form == "vs_halo":
+            self._halo_image(self._z_le)
+        elif self._vs_form == "vs_halo_async":
+            if ship is not None:
+                ship.extend(self._ship_boundary(self._z_le, self._carry[1]))
+            self._stale_image(self._carry[0])
+        else:
+            mesh_lib.all_gather(self.mesh, self._z_buf[: self._n_vs],
+                                self._z_local)
+
+    def _vs_inputs(self):
+        """K1's inputs on a vertex-sharded form, z in place in z_buf."""
+        a = self._arrays
+        return (self._z_ext, a["src"], a["row_block"], self._num_blocks,
+                self._plan)
+
+    def _vs_merge(self, flat) -> torch.Tensor:
+        """This rank's block of the summed contribution: the dense
+        reduce-scatter, the halo windows, or vs_bounded's own sums (no
+        merge: its rows write only its own range)."""
+        if self._vs_form == "vs_bounded":
+            return self._contrib_l
+        if self._vs_form == "vertex_sharded":
+            return mesh_lib.psum_scatter(self.mesh, self._contrib_l,
+                                         flat[: self._n_vs])
+        return self._halo_merge(flat)
+
     def _place(self, n_state, num_blocks, planes, arrays, plan, layout,
-               build_seconds, t2) -> "TorchEngine":
+               build_seconds, t2, halo=None) -> "TorchEngine":
         """The shared tail of both builds: per-vertex planes, slot arrays
         and plan on the device, the z buffer, the kernel bound (cuda),
         r0, and the layout record. ``planes`` and ``arrays`` hold torch
-        tensors or numpy arrays; ``t2`` is when placement began."""
+        tensors or numpy arrays; ``t2`` is when placement began;
+        ``halo`` the halo plan of a vs_halo build."""
         cfg, dev = self.config, self.device
         n = self.graph.n
         self._reset_graph_state()
+        if self._vs:
+            self._vs_form = ("vs_bounded" if cfg.vs_bounded else "vs_halo"
+                             if halo is not None else "vertex_sharded")
 
         def put(a):
             return (a if isinstance(a, torch.Tensor)
@@ -534,18 +908,40 @@ class TorchEngine(PageRankEngine):
             self._z_buf = torch.zeros((self._parts, self._window),
                                       dtype=table, device=dev)
         elif self._vs:
-            # The gathered z: n_vs entries (the padding's are 0·0), then
-            # the zero lanes; K1 reads its first n_state + Z_PAD, so its
-            # sentinel n_state reads a zero. K1 writes its sums into the
-            # first n_state entries of ``flat``, whose tail stays zero
-            # for the merge over n_vs.
+            # The gathered z (or the halo forms' z image): n_vs entries
+            # (the padding's are 0·0), then the zero lanes; K1 reads its
+            # first n_state + Z_PAD, so its sentinel n_state reads a
+            # zero. The halo image's trash slot n_vs lies in the zero
+            # lanes and only ever receives zeros (the send pads read
+            # z_le[blk], the zero after z_l). K1 writes its sums into
+            # the first n_state entries of ``flat``, whose tail stays
+            # zero for the merge over n_vs and the write windows' reach
+            # past it; vs_bounded's K1 writes all of its (nbd + 1)
+            # local blocks.
             z = self._z_dtype
-            self._z_local = torch.empty(self._blk, dtype=z, device=dev)
+            wmax = self._setup_halo(halo) if halo is not None else 0
+            self._z_le = torch.zeros(self._blk + 1, dtype=z, device=dev)
+            self._z_local = self._z_le[: self._blk]
             self._z_buf = torch.zeros(self._n_vs + Z_PAD, dtype=z,
                                       device=dev)
-            self._flat = torch.zeros(self._n_vs, dtype=z, device=dev)
-            self._contrib_l = torch.empty(self._blk, dtype=z, device=dev)
-            out = self._flat[:n_state]
+            if self._vs_form == "vs_bounded":
+                self._vs_layout = {"local_blocks": num_blocks - 1,
+                                   "trash_blocks": 1}
+                self._flat = torch.zeros(num_blocks * LANES, dtype=z,
+                                         device=dev)
+                self._contrib_l = self._flat[: self._blk]
+                out = self._flat
+            else:
+                self._flat = torch.zeros(self._n_vs + wmax, dtype=z,
+                                         device=dev)
+                self._contrib_l = torch.empty(self._blk, dtype=z,
+                                              device=dev)
+                out = self._flat[:n_state]
+            if self._vs_form == "vertex_sharded":
+                from pagerank_tpu_torch.parallel import comms
+
+                self._set_comms_model(comms.model_dense(
+                    self._world, self._blk, z.itemsize, z.itemsize))
         else:
             self._z_buf = torch.zeros(n_state + Z_PAD, dtype=self._z_dtype,
                                       device=dev)
@@ -586,6 +982,7 @@ class TorchEngine(PageRankEngine):
             self._r = torch.zeros(n_state, dtype=self._dtype, device=dev)
             self._r[:n] = pr_model.initial_rank(n, cfg.semantics,
                                                 self._dtype, dev)
+        self._prime_carry()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
@@ -596,8 +993,8 @@ class TorchEngine(PageRankEngine):
                          "backend": self.mesh.backend,
                          "vertex_sharded": self._vs}
             if self._vs:
-                mesh_info.update(n_vs=self._n_vs,
-                                 comms=dict(self._comms_model))
+                mesh_info.update(n_vs=self._n_vs, comms=self.comms_model(),
+                                 form=self._vs_form, **self._vs_layout)
         self._layout = {
             **layout,
             **mesh_info,
@@ -727,15 +1124,13 @@ class TorchEngine(PageRankEngine):
         (flat form), ``(z_windows, src, row_pair, pair_part, num_pairs,
         plan)`` for K2 (partitioned form). What the step feeds the
         kernel, for callers that check it at the main path's shapes."""
+        if self._vs:
+            # z_l = r_l·inv_l, then the form's exchange into z_buf (the
+            # async form's image from its current slot, with no ship).
+            self._vs_gather()
+            return self._vs_inputs()
         r = self._r.to(self._z_dtype)
         a = self._arrays
-        if self._vs:
-            # z_l = r_l·inv_l, then the tiled all_gather of every block.
-            torch.mul(r, self._inv_out, out=self._z_local)
-            mesh_lib.all_gather(self.mesh, self._z_buf[: self._n_vs],
-                                self._z_local)
-            return (self._z_ext, a["src"], a["row_block"], self._num_blocks,
-                    self._plan)
         if not self.config.partition_span:
             torch.mul(r, self._inv_out, out=self._z_buf[: self._n_state])
             return (self._z_buf, a["src"], a["row_block"], self._num_blocks,
@@ -762,7 +1157,12 @@ class TorchEngine(PageRankEngine):
             a = self._arrays
             return spmv.edge_contrib_segment_sum(
                 self._r, a["src"], a["lengths"], a["w"], self._accum)
-        inputs = self.contrib_inputs()
+        ship = [] if self._carry is not None else None
+        if self._vs:
+            self._vs_gather(ship)
+            inputs = self._vs_inputs()
+        else:
+            inputs = self.contrib_inputs()
         if self._launch is not None:
             out = self._launch()
         elif not self.config.partition_span:
@@ -774,15 +1174,96 @@ class TorchEngine(PageRankEngine):
                 *inputs[:5], plan=inputs[5])
         if self._vs:
             # The merge: each rank keeps its block of the summed
-            # contribution (the tail past n_state stays zero).
+            # contribution (the tail past K1's sums stays zero).
             if self._launch is None:
-                self._flat[: self._n_state] = out
+                self._flat[: out.shape[0]] = out
             self._note_comms()
-            return mesh_lib.psum_scatter(self.mesh, self._contrib_l,
-                                         self._flat)
+            contrib = self._vs_merge(self._flat)
+            if ship is not None:
+                # The async form: this step's boundary is in, and it is
+                # the next step's stale slot.
+                for p in ship:
+                    p.wait()
+                self._carry.reverse()
+            return contrib
         if self._world > 1:
             mesh_lib.psum(self.mesh, out)
         return out[: self._n_state]
+
+    # -- comms-vs-compute attribution (obs/devices.attribute_exchange) ------
+
+    def has_exchange_program(self) -> bool:
+        """Whether this build can time its exchange apart from the step
+        (``jax_engine.py:3519``): the dense vertex-sharded form and both
+        vs_halo forms; vs_bounded, whose only exchange is the z gather,
+        and every replicated form cannot."""
+        return self._vs_form in ("vertex_sharded", "vs_halo",
+                                 "vs_halo_async")
+
+    def _exchange_step(self) -> torch.Tensor:
+        """One step's exchange with the contribution replaced by zeros
+        (``jax_engine.py:3481-3539``): the prescale, the same z exchange
+        (all_gather; head psum and read rounds; the async form's ship,
+        waited, and stale image, its slots left as they were) and the
+        same merge collectives (reduce-scatter; write windows) over a
+        zero contribution. Every rank must call it. Returns the first
+        element of the merged block, to fence on."""
+        if not self.has_exchange_program():
+            raise RuntimeError(
+                "this layout has no exchange-only program (a replicated "
+                "form or vs_bounded)")
+        if self._exchange_zero is None:
+            self._exchange_zero = torch.zeros_like(self._flat)
+        ship = [] if self._carry is not None else None
+        self._vs_gather(ship)
+        out = self._vs_merge(self._exchange_zero)
+        for p in ship or ():
+            p.wait()
+        return out[:1]
+
+    def fence(self) -> None:
+        """Wait until the device has run everything queued so far."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def time_exchange_split(self, iters: int = 10, warmup: int = 2):
+        """``(exchange_s, step_s)`` a step (``jax_engine.py:3541-3586``):
+        ``iters`` exchange-only dispatches, then ``iters`` steps, each
+        behind ``warmup`` of its own and closed by a device fence. The
+        steps advance the solve, so the rank vector, the async carry,
+        the staleness slack and the iteration count are restored
+        afterwards; the ``comms.bytes_exchanged`` counter counts the
+        timing steps (they moved those bytes). Every rank of the mesh
+        must call it."""
+        if iters < 1:
+            raise ValueError(f"iters must be >= 1, got {iters}")
+        r0, it0 = self._r.clone(), self.iteration
+        c0 = [c.clone() for c in self._carry] if self._carry else None
+        d0 = self._last_step_delta
+        try:
+            for _ in range(max(0, warmup)):
+                self._exchange_step()
+            self.fence()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                self._exchange_step()
+            self.fence()
+            exchange_s = (time.perf_counter() - t0) / iters
+            for _ in range(max(0, warmup)):
+                self.step()
+            self.fence()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                self.step()
+            self.fence()
+            step_s = (time.perf_counter() - t0) / iters
+        finally:
+            self._r = r0
+            if c0 is not None:
+                self._carry = c0
+            self._last_step_delta = d0
+            self.iteration = it0
+        return exchange_s, step_s
 
     def _note_comms(self) -> None:
         """Accumulate ``comms.bytes_exchanged`` for one step's exchange
@@ -813,7 +1294,15 @@ class TorchEngine(PageRankEngine):
         r_new, delta, m = self._update(self._contrib(), self._r)
         self._r = r_new
         self._last_ledger = None
-        return {"l1_delta": float(delta), "dangling_mass": float(m)}
+        self._last_step_delta = float(delta)
+        return {"l1_delta": self._last_step_delta, "dangling_mass": float(m)}
+
+    def _stale_slack(self) -> float:
+        """The previous step's L1 delta while the async form runs
+        (``jax_engine.py:3621-3629``: the staleness bound the SDC and
+        ledger checks allow its flows); 0 on every synchronous form and
+        right after a prime, when the next step is lag-0 exact."""
+        return self._last_step_delta if self._carry is not None else 0.0
 
     def _ledger_sums(self, contrib: torch.Tensor, r: torch.Tensor):
         """The rank-mass ledger's sums of a step (``jax_engine.py:103``)
@@ -890,7 +1379,7 @@ class TorchEngine(PageRankEngine):
         if self._world > 1:
             raise NotImplementedError(
                 "convergence probes over more than one device are not "
-                "ported yet: ROADMAP slice 6b")
+                "ported yet: ROADMAP slice 6c")
         k = self._resolve_probe_k(probes.topk)
         prev = probes.prev_ids
         r = self._r
@@ -901,6 +1390,7 @@ class TorchEngine(PageRankEngine):
         mass, ids, entered, topk_mass = self._probe_tail(r_new, k, prev)
         host = self._fetch([delta, m, mass, entered, topk_mass, *led], ids)
         self._r = r_new
+        self._last_step_delta = float(host[0])
         info = {
             "l1_delta": float(host[0]),
             "dangling_mass": float(host[1]),
@@ -947,16 +1437,30 @@ class TorchEngine(PageRankEngine):
             self._world, -1).cpu().numpy()
 
     def retain_state(self, iteration: Optional[int] = None):
-        """Device-side double buffer for the SDC redo: ``(iteration,
-        rank copy)``, the copy on the engine's device."""
+        """Device-side double buffer for the SDC redo (``jax_engine.py:
+        3837-3852``): ``(iteration, rank copy, carry copies, last
+        delta)``, the copies on the engine's device. The async form's
+        current boundary slot and its staleness slack ride in the token,
+        so a redo replays the same stale bits under the same
+        tolerance."""
         it = self.iteration if iteration is None else int(iteration)
-        return (it, self._r.clone())
+        carry = (() if self._carry is None
+                 else (self._carry[0].clone(),))
+        return (it, self._r.clone(), carry, float(self._last_step_delta))
 
     def restore_state(self, token) -> None:
         """Rewind to a :meth:`retain_state` token (the token stays
-        reusable: a second redo restores the same bits)."""
-        it, r = token[0], token[1]
+        reusable: a second redo restores the same bits). A token with no
+        carry (a synchronous form's, or a two-field one) re-primes the
+        async form's slot from the restored ranks: lag-0, exact."""
+        it, r, *rest = token
         self._r = r.clone()
+        carry = rest[0] if rest else ()
+        if carry and self._carry is not None:
+            self._carry[0].copy_(carry[0])
+            self._last_step_delta = float(rest[1]) if len(rest) > 1 else 0.0
+        else:
+            self._prime_carry()
         self.iteration = int(it)
 
     def _ledger_eps(self) -> float:
@@ -1035,8 +1539,9 @@ class TorchEngine(PageRankEngine):
             "contrib": led[:, 0], "retained": led[:, 1],
             "mass_prev": led[:, 2],
             "dangling_mass": float(host[0, 1]),
-            "stale_slack": 0.0,
+            "stale_slack": self._stale_slack(),
         }
+        self._last_step_delta = float(host[0, 0])
         info = {"l1_delta": float(host[0, 0]),
                 "dangling_mass": float(host[0, 1]),
                 "rank_mass": float(mass_out.astype(float).sum() if self._vs
@@ -1130,6 +1635,9 @@ class TorchEngine(PageRankEngine):
         if self._vs:  # this rank's block of the canonical vector
             rr = np.ascontiguousarray(rr[self._vs_slice])
         self._r = torch.from_numpy(rr).to(self.device)
+        # Replaced state: the async form's boundary slot is re-primed
+        # from the new ranks (snapshot resume and warm starts land here).
+        self._prime_carry()
         self.iteration = iteration
 
     def layout_info(self) -> Dict[str, object]:

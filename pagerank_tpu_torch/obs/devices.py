@@ -20,8 +20,10 @@ Port of ``pagerank_tpu/obs/devices.py`` at one device:
     card's memory from live ``mem_get_info`` or the Hopper table
     (``obs/costs.py``). Nothing allocates.
 
-``attribute_exchange`` (the sharded step's comms split) comes with more
-than one GPU (ROADMAP slice 6b).
+  - :func:`attribute_exchange` (:258-320, copied): the vertex-sharded
+    step's wall split between its exchange and its compute, from the
+    engine's exchange-only dispatch (``TorchEngine.time_exchange_split``,
+    fenced by ``torch.cuda.synchronize``) and its comms byte model.
 """
 
 from __future__ import annotations
@@ -204,6 +206,72 @@ def report_section(sample_now: bool = True) -> Optional[dict]:
         return s.watermark()
     except Exception as e:  # a broken device must not block the report
         return {"error": repr(e)}
+
+
+# -- comms-vs-compute attribution -------------------------------------------
+
+
+def attribute_exchange(engine, iters: int = 10, warmup: int = 2,
+                       ) -> Optional[dict]:
+    """Wall attribution of the vertex-sharded step: time the engine's
+    EXCHANGE-ONLY dispatch (the same all_gather / head-psum + ppermute
+    rounds and the same merge collectives, the contribution replaced by
+    zeros — ``TorchEngine._exchange_step``) against the full step, both
+    closed by a device fence, and combine with the static comms byte
+    model (parallel/comms.py):
+
+      - ``exchange_s`` / ``compute_s`` / ``step_s`` (per iteration);
+      - ``exchange_fraction`` = exchange / step — the is-it-wire-bound
+        verdict, published as the ``comms.exchange_fraction`` gauge;
+      - ``achieved_bytes_per_sec`` = modeled wire bytes per iteration
+        over the measured exchange seconds — what the interconnect
+        actually delivered, published as
+        ``comms.achieved_bytes_per_sec``. Under gloo (ranks on the CPU,
+        or sharing one card) the exchange goes through host memory:
+        the number says where it was measured, not what NCCL across
+        cards would deliver.
+
+    Returns None when the engine has no exchange-only program
+    (replicated forms, vs_bounded). Out-of-band by construction: nothing
+    here touches the solve loop, and the engine restores its state after
+    the timing steps. Over a mesh every rank must call it."""
+    has = getattr(engine, "has_exchange_program", None)
+    if has is None or not has():
+        return None
+    exchange_s, step_s = engine.time_exchange_split(
+        iters=iters, warmup=warmup
+    )
+    model = engine.comms_model() or {}
+    model_bytes = model.get("bytes_per_iter") or 0
+    # Clamped like compute_s: the two walls are measured independently
+    # and at dispatch-overhead-dominated toy geometries timing noise
+    # can push the raw ratio past 1 — a fraction is a fraction.
+    fraction = (min(1.0, exchange_s / step_s)) if step_s > 0 else None
+    achieved = (model_bytes / exchange_s
+                if exchange_s > 0 and model_bytes else None)
+    out = {
+        "iters": int(iters),
+        "exchange_s": exchange_s,
+        "step_s": step_s,
+        "compute_s": max(0.0, step_s - exchange_s),
+        "exchange_fraction": fraction,
+        "model_bytes_per_iter": int(model_bytes) if model_bytes else None,
+        "achieved_bytes_per_sec": achieved,
+        "mode": model.get("mode"),
+    }
+    if fraction is not None:
+        obs_metrics.gauge(
+            "comms.exchange_fraction",
+            "measured exchange wall over the full step wall "
+            "(vertex-sharded attribution)",
+        ).set(fraction)
+    if achieved is not None:
+        obs_metrics.gauge(
+            "comms.achieved_bytes_per_sec",
+            "modeled exchange bytes over the measured exchange "
+            "seconds — delivered interconnect bandwidth",
+        ).set(achieved)
+    return out
 
 
 # -- OOM-preflight fit check -------------------------------------------------

@@ -1,10 +1,14 @@
 """Blocked-ELL edge packing, and the segment plan the CUDA kernels read.
 
-Port of ``pagerank_tpu/ops/ell.py:65-153, 238-397`` at lane group 1
-with no block deal (grouped lanes are an XLA-path packing; the deal
-belongs to the multi-GPU forms): ``ell_pack`` and ``ell_pack_striped``
+Port of ``pagerank_tpu/ops/ell.py:65-397`` at lane group 1 (grouped
+lanes are an XLA-path packing): ``ell_pack`` and ``ell_pack_striped``
 here give the same arrays, bit for bit, as the JAX package's
-``ell_pack(graph)`` and ``ell_pack_striped(graph, stripe_size=s)``.
+``ell_pack(graph, block_deal=d)`` and ``ell_pack_striped(graph,
+stripe_size=s, block_deal=d)``. The block deal (``deal_block_order``,
+``block_row_weights``, :155-235) is the owner-computes vertex-sharded
+form's (``config.vs_bounded``): it moves whole dst blocks in the
+relabel so that each rank's contiguous dst range holds a near-equal
+share of the slot rows.
 
 Layout:
   - vertices are RELABELED by descending in-degree (stable), so the 128
@@ -87,12 +91,14 @@ class EllPack:
         return self.num_rows * LANES / max(1, self.num_real_edges)
 
 
-def ell_pack(graph: Graph) -> EllPack:
+def ell_pack(graph: Graph, block_deal: int = 0) -> EllPack:
     """Pack a dst-sorted COO graph into blocked-ELL form (lane group 1,
     one stripe over the whole padded vertex range, so stripe-local
-    source ids equal relabeled ids)."""
+    source ids equal relabeled ids); ``block_deal`` as
+    :func:`ell_pack_striped`."""
     n_padded = -(-graph.n // LANES) * LANES
-    sp = ell_pack_striped(graph, stripe_size=max(LANES, n_padded))
+    sp = ell_pack_striped(graph, stripe_size=max(LANES, n_padded),
+                          block_deal=block_deal)
     return EllPack(
         n=sp.n, n_padded=sp.n_padded, num_blocks=sp.num_blocks,
         src=sp.src[0], weight=sp.weight[0], row_block=sp.row_block[0],
@@ -131,14 +137,84 @@ class StripedEllPack:
         return self.num_rows * LANES / max(1, self.num_real_edges)
 
 
-def ell_pack_striped(graph: Graph, stripe_size: int) -> StripedEllPack:
+def deal_block_order(n: int, n_padded: int, ndev: int,
+                     weights=None) -> np.ndarray:
+    """Block-level deal permutation of the owner-computes vertex-sharded
+    form (copy of ``pagerank_tpu/ops/ell.py:155-219``): dst blocks —
+    128-vertex groups of the in-degree-descending relabel, so block
+    index is depth rank — are dealt across ``ndev`` contiguous ranges of
+    ``ceil(num_blocks/ndev)`` block slots each by capacity-constrained
+    LPT (each block, in depth order, goes to the least-loaded range with
+    slots left; ties by range id). FILLED slots stay contiguous from 0:
+    the partial block (n % 128 vertices), if any, lands globally last,
+    so the dealt vertex order is still a permutation of [0, n).
+
+    ``weights``: per-filled-block load ([n_padded/128]; the packer passes
+    exact row counts, :func:`block_row_weights`). None = equal weights.
+
+    Returns ``new_of_old`` (int64 [n_padded/128]): old block id -> new
+    block id; new block b lands on range b // ceil(nb/ndev)."""
+    import heapq
+
+    nb_fill = n_padded // LANES
+    nb_full = n // LANES
+    partial = nb_fill != nb_full
+    nbd = -(-nb_fill // ndev)
+    devs = np.arange(ndev)
+    cap = np.clip(nb_fill - devs * nbd, 0, nbd)
+    quota = cap.copy()
+    if partial:
+        quota[(nb_fill - 1) // nbd] -= 1  # reserve the LAST filled slot
+    if weights is None:
+        w = np.ones(nb_fill)
+    else:
+        w = np.asarray(weights, dtype=np.float64)
+        if w.shape != (nb_fill,):
+            raise ValueError(
+                f"weights must have shape ({nb_fill},), got {w.shape}"
+            )
+    heap = [(0.0, int(d)) for d in devs]
+    counts = np.zeros(ndev, np.int64)
+    new_of_old = np.empty(nb_fill, np.int64)
+    for j in range(nb_full):
+        while True:
+            load, d = heapq.heappop(heap)
+            if counts[d] < quota[d]:
+                break
+        new_of_old[j] = d * nbd + counts[d]
+        counts[d] += 1
+        heapq.heappush(heap, (load + w[j], d))
+    if partial:
+        new_of_old[nb_full] = nb_fill - 1
+    return new_of_old
+
+
+def block_row_weights(in_degree_sorted: np.ndarray, n_padded: int,
+                      group: int = 1) -> np.ndarray:
+    """Slot rows per dst block from the in-degree vector in relabeled
+    (descending) order — rows = max over lane groups of
+    ceil(group_edges / group), at least 1 — the LPT deal's weight (copy
+    of ``pagerank_tpu/ops/ell.py:222-235``)."""
+    nb = n_padded // LANES
+    pad = n_padded - len(in_degree_sorted)
+    d = np.concatenate([
+        in_degree_sorted.astype(np.int64), np.zeros(pad, np.int64)
+    ])
+    ge = d.reshape(nb, LANES // group, group).sum(axis=2)
+    return np.maximum(1, -(-ge.max(axis=1) // group))
+
+
+def ell_pack_striped(graph: Graph, stripe_size: int,
+                     block_deal: int = 0) -> StripedEllPack:
     """Pack a graph into source-striped blocked-ELL form at lane group 1.
 
     ``stripe_size`` must be a positive multiple of 128. Slots are in
     (stripe, relabeled dst, relabeled src) order — the JAX packer's
     ``lexsort``, done here as one stable argsort of a composite int64
     key when the key fits (the same order: a stable sort over the same
-    total order, ties kept in input order)."""
+    total order, ties kept in input order). ``block_deal`` > 1 composes
+    :func:`deal_block_order` over that many ranges into the relabel
+    (whole blocks move; each block's lanes, and so the padding, stay)."""
     if stripe_size <= 0 or stripe_size % LANES:
         raise ValueError(f"stripe_size must be a positive multiple of {LANES}")
     n = graph.n
@@ -147,6 +223,15 @@ def ell_pack_striped(graph: Graph, stripe_size: int) -> StripedEllPack:
     n_stripes = -(-n_padded // stripe_size)
 
     order = np.argsort(-graph.in_degree.astype(np.int64), kind="stable")
+    if block_deal > 1 and n:
+        new_of_old = deal_block_order(
+            n, n_padded, block_deal,
+            weights=block_row_weights(graph.in_degree[order], n_padded))
+        ids = np.arange(n, dtype=np.int64)
+        new_pos = new_of_old[ids // LANES] * LANES + (ids % LANES)
+        dealt = np.empty(n, order.dtype)
+        dealt[new_pos] = order
+        order = dealt
     perm = order.astype(np.int32)
     inv_perm = np.empty(n, dtype=np.int32)
     inv_perm[perm] = np.arange(n, dtype=np.int32)

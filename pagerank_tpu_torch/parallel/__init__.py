@@ -1,7 +1,8 @@
 """Device plumbing of the port: the mesh over a ``torch.distributed``
 group and its collectives, deadline-bounded dispatch and liveness
 (``mesh.py``), process-group bring-up (``distributed.py``), static edge
-partitioning (``partition.py``), the dense comms model and the load
-prediction (``comms.py``), and the error types of
+partitioning and the halo plan of the sparse boundary exchange
+(``partition.py``), the dense, sparse and asynchronous comms models and
+the load and head-K prediction (``comms.py``), and the error types of
 ``pagerank_tpu/parallel/elastic.py`` (the elastic runner is ROADMAP
-slice 6b)."""
+slice 6c)."""

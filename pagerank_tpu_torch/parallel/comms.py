@@ -1,16 +1,15 @@
 """Per-iteration communication accounting for the sharded solve.
 
-Port of the dense half of ``pagerank_tpu/parallel/comms.py``: the dense
-byte model (``dense_exchange_bytes``, ``model_dense``, :40-68), its
-publication (``register``, :137), the skew-driven load prediction from
-a graph profile (``predict_device_load``, :181-217;
-``predict_from_profile`` and ``publish_prediction``, :296-335) and its
-measured counterpart (``measured_device_edges``, :336). The sparse and
-asynchronous exchange models, the overlap gain and the halo head-K
-prediction (``model_sparse``, ``model_async``, ``predict_overlap_gain``,
-``publish_overlap_gain``, ``predict_halo_head_k``) come with the halo
-forms (ROADMAP slice 6b); until then a prediction's
-``predicted_halo_head_k`` is None.
+Port of ``pagerank_tpu/parallel/comms.py``: the dense byte model
+(``dense_exchange_bytes``, ``model_dense``, :40-68), the sparse and
+asynchronous halo models (``model_sparse``, ``model_async``, :69-99),
+the async gate's overlap gain (``predict_overlap_gain``,
+``publish_overlap_gain``, :102-134), their publication (``register``,
+:137), the skew-driven load and halo head-K prediction from a graph
+profile (``predict_device_load``, :181-217; ``_expected_remote_readers``
+and ``predict_halo_head_k``, :224-293; ``predict_from_profile`` and
+``publish_prediction``, :296-335) and the measured load
+(``measured_device_edges``, :336).
 
 A static byte model per exchange mode, derived once at build from the
 engine's resolved layout, plus the live instruments every solve
@@ -21,16 +20,21 @@ publishes through the metrics registry:
   - ``comms.bytes_per_iter``    gauge, the per-iteration rate;
   - ``comms.dense_bytes_per_iter`` gauge, what the DENSE exchange
                                  (all_gather + full-width merge) would
-                                 move — the standing comparator.
+                                 move — the standing comparator;
+  - ``comms.halo_fraction``     gauge, tail boundary entries over the
+                                 dense all_gather's remote entries
+                                 (sparse mode only);
+  - ``comms.head_k``            gauge, replicated head size (sparse).
 
 Byte convention: bytes SENT per rank per iteration under the standard
 ring lowering — all_gather/reduce_scatter of an n-element vector cost
-``(ndev-1) * n/ndev`` sends per rank, an all-reduce twice that.
+``(ndev-1) * n/ndev`` sends per rank, an all-reduce twice that, a
+ppermute exactly its payload.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -66,6 +70,74 @@ def model_dense(ndev: int, blk: int, z_item: int, accum_item: int,
         "halo_fraction": None,
         "head_k": None,
     }
+
+
+def model_sparse(plan) -> dict:
+    """Comms model record for a halo-exchange step, from its build-time
+    :class:`pagerank_tpu_torch.parallel.partition.HaloPlan`."""
+    return {
+        "mode": "sparse",
+        "bytes_per_iter": plan.sparse_bytes_per_iter(),
+        "dense_bytes_per_iter": plan.dense_bytes_per_iter(),
+        "sparse_bytes_per_iter": plan.sparse_bytes_per_iter(),
+        "halo_fraction": plan.halo_fraction,
+        "head_k": plan.head_k,
+    }
+
+
+def model_async(plan) -> dict:
+    """Comms model record for the ASYNCHRONOUS stale-boundary step
+    (config.halo_async). Same wire bytes as the synchronous
+    sparse exchange — overlap reorders the collectives, it never adds
+    or removes one — plus the
+    overlap split the gate and the bench attribution read."""
+    m = model_sparse(plan)
+    m["mode"] = "sparse_async"
+    m["overlappable_bytes_per_iter"] = plan.overlappable_bytes_per_iter()
+    return m
+
+
+#: Standing exchange-fraction assumption when no measurement exists
+#: yet (a fresh build gates BEFORE its first attribution run): the JAX
+#: package's value, kept so that both gates decide alike; a measured
+#: ``comms.exchange_fraction`` (obs/devices.attribute_exchange) takes
+#: its place once one exists.
+DEFAULT_EXCHANGE_FRACTION = 0.3
+
+
+def predict_overlap_gain(plan, exchange_fraction: Optional[float] = None
+                         ) -> float:
+    """Predicted fractional step-wall saving of the stale-boundary
+    overlap: ``exchange_fraction x overlappable_share``,
+    where overlappable_share is the head + read-round portion of the
+    sparse exchange bytes (the write-band merge cannot be hidden —
+    parallel/partition.HaloPlan.overlappable_bytes_per_iter). The
+    exchange fraction comes from the caller (the engine passes the
+    live ``comms.exchange_fraction`` gauge when a prior attribution
+    measured one) or falls back to :data:`DEFAULT_EXCHANGE_FRACTION`.
+    Zero on single-device meshes and boundary-free plans — the
+    auto-gate's refusal signal."""
+    sparse = plan.sparse_bytes_per_iter()
+    if not sparse:
+        return 0.0
+    share = plan.overlappable_bytes_per_iter() / sparse
+    ef = exchange_fraction
+    if ef is None:
+        gauges = obs_metrics.get_registry().snapshot()["gauges"]
+        ef = gauges.get("comms.exchange_fraction")
+    if ef is None:
+        ef = DEFAULT_EXCHANGE_FRACTION
+    return float(max(0.0, min(1.0, ef)) * share)
+
+
+def publish_overlap_gain(gain: float) -> None:
+    """Publish the predicted payoff next to the measured exchange
+    fraction so `obs report` shows the gate's evidence."""
+    obs_metrics.gauge(
+        "comms.predicted_overlap_gain",
+        "predicted fractional step-wall saving of the stale-boundary "
+        "overlap (exchange fraction x overlappable byte share)",
+    ).set(float(gain))
 
 
 def register(model: dict) -> Optional[obs_metrics.Counter]:
@@ -151,13 +223,83 @@ def predict_device_load(profile, ndev: int) -> Optional[dict]:
     }
 
 
+def _expected_remote_readers(d: np.ndarray, ndev: int) -> np.ndarray:
+    """Expected distinct NON-OWNER devices whose rows gather a vertex
+    of unique in-degree ``d``, under uniform edge-to-row placement:
+    distinct devices among d draws = ndev*(1-(1-1/ndev)^d), of which
+    (ndev-1)/ndev are remote on average."""
+    hit = 1.0 - np.power(1.0 - 1.0 / ndev, np.asarray(d, np.float64))
+    return (ndev - 1) * hit
+
+
+def predict_halo_head_k(profile, ndev: int) -> int:
+    """Predicted head-replication K for the sparse boundary exchange,
+    from the profile's log2 in-degree histogram alone — the same cost
+    argmin as parallel/partition.auto_head_k (replicating the first K
+    relabeled vertices costs ``2*(ndev-1)*K/ndev`` all-reduce elements
+    against the tail pair entries it removes), with the exact pair
+    sets replaced by the expected remote-reader count per degree bin
+    (bin k's vertices carry the bin's geometric-midpoint degree; the
+    relabel is in-degree descending, so a prefix IS the high-degree
+    head). A prediction, not the plan: `obs report` diffs it against
+    the measured ``comms.head_k``."""
+    if ndev <= 1:
+        return 0
+    # Descending (degree, count) sequence from the histogram.
+    seq: List[tuple] = []
+    hist = list(getattr(profile, "in_hist", []) or [])
+    for k in range(len(hist) - 1, 0, -1):
+        c = int(hist[k])
+        if not c:
+            continue
+        d = 1.0 if k == 1 else 1.5 * (1 << (k - 1))
+        seq.append((d, c))
+    if not seq:
+        return 0
+    n_vs = -(-profile.n_padded // (128 * ndev)) * (128 * ndev)
+    cap = min((n_vs // 256) * 128, 1 << 20)
+    cands = [0]
+    k = 128
+    while k <= cap:
+        cands.append(k)
+        k *= 2
+    degs = np.asarray([d for d, _ in seq])
+    cnts = np.asarray([c for _, c in seq], np.int64)
+    readers = _expected_remote_readers(degs, ndev)
+    # Per-CHIP tail cost of one tail vertex with r expected remote
+    # readers: the real plan pays one padded round per ring offset
+    # (sum over offsets of the MAX pair width). A fully-shared vertex
+    # (r = ndev-1) sits in every pair, so it costs each chip one slot
+    # in every round: ndev-1. A scattered vertex (r small) hits r of
+    # the ndev pairs per offset on average: ~r/ndev ~ r^2/(ndev-1)
+    # per chip. r^2/(ndev-1) interpolates both ends exactly.
+    per_vertex = readers * readers / (ndev - 1)
+    cum = np.concatenate([[0], np.cumsum(cnts)])
+    total_tail = float((per_vertex * cnts).sum())
+    best_k, best_cost = 0, None
+    for K in cands:
+        # Tail cost beyond rank K: whole bins past K plus the partial
+        # bin K lands in.
+        i = int(np.searchsorted(cum, K, side="right")) - 1
+        if i >= len(cnts):
+            tail = 0.0
+        else:
+            head = float((per_vertex[:i] * cnts[:i]).sum())
+            head += per_vertex[i] * (K - cum[i])
+            tail = total_tail - head
+        # The head all-reduce costs 2*(ndev-1)*K/ndev sends per chip
+        # (the HaloPlan ring convention).
+        cost = 2.0 * (ndev - 1) * K / ndev + tail
+        if best_cost is None or cost < best_cost:
+            best_k, best_cost = K, cost
+    return int(best_k)
+
+
 def predict_from_profile(profile, ndev: int) -> Optional[dict]:
     """The data-plane prediction block: per-device load and straggler
     skew for a target mesh size, from the profile alone (no build, no
     devices). Embedded in run reports next to the measured values;
-    published as ``graph.*`` gauges by :func:`publish_prediction`. The
-    halo head-K prediction comes with the halo forms (slice 6b): None
-    here."""
+    published as ``graph.*`` gauges by :func:`publish_prediction`."""
     if profile is None or not ndev:
         return None
     load = predict_device_load(profile, ndev)
@@ -167,7 +309,7 @@ def predict_from_profile(profile, ndev: int) -> Optional[dict]:
                                      if load else None),
         "predicted_device_edges": (load["device_edges"]
                                    if load else None),
-        "predicted_halo_head_k": None,
+        "predicted_halo_head_k": predict_halo_head_k(profile, ndev),
     }
 
 

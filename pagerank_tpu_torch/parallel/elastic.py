@@ -4,7 +4,7 @@
 ``looks_like_device_loss``), whose loss markers also know CUDA's
 strings of a lost or failing card. The serving daemon's rescue path
 reads them; the elastic runner and the health monitor come with ROADMAP
-slice 6b.
+slice 6c.
 """
 
 from __future__ import annotations

@@ -10,8 +10,11 @@ running the same engine code on its own rows (:class:`Mesh`,
 and vertex ranges (:func:`edge_sharding`, :func:`replicated`,
 :func:`vertex_sharding`), and the collectives the sharded forms use
 carry the names of the ``jax.lax`` ops they replace (:func:`psum`,
-:func:`all_gather`, :func:`psum_scatter`), so that a form reads like
-its JAX counterpart.
+:func:`all_gather`, :func:`psum_scatter`, :func:`ppermute`), so that a
+form reads like its JAX counterpart. Over a mesh of one rank every
+collective is the identity and calls nothing, as ``shard_map`` over one
+device lowers its collectives away: a group of one pays no
+``torch.distributed`` call a step.
 
 ``DeadlineExpired`` and ``run_with_deadline`` are copies (pure
 threading); ``probe_liveness`` and ``surviving_devices`` take torch
@@ -40,7 +43,14 @@ class Mesh:
     identity), ``rank`` and ``world`` this process's rank and the group
     size, ``device`` the device this rank computes on, ``axis_name``
     the mesh axis (``config.mesh_axis``) and ``backend`` the group's
-    backend (None without a group)."""
+    backend (None without a group).
+
+    ``stage_p2p``: whether :func:`ppermute` moves its payloads through
+    pinned host buffers. Set at creation from the backend and the
+    device, never on a failure: gloo's send and recv hand a tensor's
+    pointer to its TCP transport, which reads and writes host memory,
+    so under gloo a CUDA payload is copied to the host, sent, received
+    there and copied back; NCCL sends device memory as it is."""
 
     group: Optional[object]
     rank: int
@@ -48,10 +58,33 @@ class Mesh:
     device: torch.device
     axis_name: str = "data"
     backend: Optional[str] = None
+    stage_p2p: bool = False
+    #: Pinned host buffers of the staged point-to-point rounds, kept by
+    #: (tag, role, numel, dtype) so a step allocates none.
+    _staging: Dict[tuple, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     @property
     def size(self) -> int:
         return self.world
+
+    @property
+    def collective(self) -> bool:
+        """Whether a collective really calls ``torch.distributed``: a
+        group of more than one rank. Without a group (one process
+        building one rank's share), or in a group of one, every
+        collective is the identity."""
+        return self.group is not None and self.world > 1
+
+    def staging(self, tag: int, role: str, like: torch.Tensor
+                ) -> torch.Tensor:
+        """The pinned host buffer of a staged round (made once)."""
+        key = (tag, role, like.numel(), like.dtype)
+        buf = self._staging.get(key)
+        if buf is None:
+            buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+            self._staging[key] = buf
+        return buf
 
     def barrier(self) -> None:
         if self.group is not None:
@@ -94,7 +127,8 @@ def make_mesh(num_devices: Optional[int] = None, axis_name: str = "data",
         group = dist.group.WORLD
         backend = str(dist.get_backend(group))
     return Mesh(group=group, rank=rank, world=world, device=dev,
-                axis_name=axis_name, backend=backend)
+                axis_name=axis_name, backend=backend,
+                stage_p2p=backend == "gloo" and dev.type == "cuda")
 
 
 def check_visible(num_devices: int, device) -> None:
@@ -141,13 +175,39 @@ def vertex_sharding(mesh: Mesh, n_vs: int) -> slice:
     return slice(mesh.rank * blk, (mesh.rank + 1) * blk)
 
 
-def psum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+class Pending:
+    """An asynchronous collective's handle: :meth:`wait` blocks until
+    its result is in place (the works done, a staged payload copied to
+    the device). A collective that called nothing is done at once."""
+
+    def __init__(self, works=(), then=None):
+        self._works = list(works)
+        self._then = then
+
+    def wait(self) -> None:
+        for w in self._works:
+            w.wait()
+        self._works = []
+        if self._then is not None:
+            then, self._then = self._then, None
+            then()
+
+
+DONE = Pending()
+
+
+def psum(mesh: Mesh, x: torch.Tensor, async_op: bool = False):
     """``lax.psum``: ``x`` summed over the ranks, in place
-    (``all_reduce``); returns ``x``."""
-    if mesh.group is not None:
+    (``all_reduce``); returns ``x``, or with ``async_op`` a
+    :class:`Pending` to wait on before reading it."""
+    work = None
+    if mesh.collective:
         import torch.distributed as dist
 
-        dist.all_reduce(x if x.dim() else x.view(1), group=mesh.group)
+        work = dist.all_reduce(x if x.dim() else x.view(1),
+                               group=mesh.group, async_op=async_op)
+    if async_op:
+        return Pending([work] if work is not None else ())
     return x
 
 
@@ -156,7 +216,7 @@ def all_gather(mesh: Mesh, out: torch.Tensor,
     """``lax.all_gather(tiled=True)``: every rank's ``x`` laid end to
     end in rank order into ``out`` (``world * len(x)`` entries,
     ``all_gather_into_tensor``); returns ``out``."""
-    if mesh.group is None:
+    if not mesh.collective:
         out.copy_(x)
         return out
     import torch.distributed as dist
@@ -173,7 +233,7 @@ def psum_scatter(mesh: Mesh, out: torch.Tensor,
     """``lax.psum_scatter(tiled=True)``: ``x`` summed over the ranks,
     this rank keeping its ``len(x) / world`` block in ``out``
     (``reduce_scatter_tensor``); returns ``out``."""
-    if mesh.group is None:
+    if not mesh.collective:
         out.copy_(x)
         return out
     import torch.distributed as dist
@@ -182,6 +242,54 @@ def psum_scatter(mesh: Mesh, out: torch.Tensor,
     scatter = getattr(dist, "reduce_scatter_single", None) or \
         dist.reduce_scatter_tensor
     scatter(out, x, group=mesh.group)
+    return out
+
+
+def ppermute(mesh: Mesh, out: torch.Tensor, x: torch.Tensor, perm,
+             tag: int = 0, async_op: bool = False):
+    """``lax.ppermute``, one round: ``perm`` holds (source, target) rank
+    pairs, at most one target a source and one source a target; this
+    rank sends ``x`` to its target and receives its source's payload
+    into ``out`` (the same shape), and ``out`` is zeroed where no one
+    sends to this rank. One ``dist.batch_isend_irecv`` of this rank's
+    send and receive; ``tag`` tells a round's messages from another's
+    under gloo, where rounds of one pair of ranks may be in flight
+    together. Under gloo on a card the payload goes through pinned
+    host buffers (:attr:`Mesh.stage_p2p`). Returns ``out``, or with
+    ``async_op`` a :class:`Pending` whose ``wait`` leaves the received
+    payload in ``out``."""
+    me = mesh.rank
+    to = [t for s, t in perm if s == me]
+    frm = [s for s, t in perm if t == me]
+    if not mesh.collective:
+        # A rank alone receives only what it sends itself; a share built
+        # without a group (one process) receives nothing from the others.
+        if (me, me) in tuple(perm):
+            out.copy_(x)
+        else:
+            out.zero_()
+        return DONE if async_op else out
+    if not frm:
+        out.zero_()
+    import torch.distributed as dist
+
+    then = None
+    send, recv = x, out
+    if mesh.stage_p2p:
+        if to:
+            send = mesh.staging(tag, "send", x)
+            send.copy_(x)
+        if frm:
+            recv = mesh.staging(tag, "recv", out)
+
+            def then():
+                out.copy_(recv)
+    ops = [dist.P2POp(dist.isend, send, t, mesh.group, tag) for t in to]
+    ops += [dist.P2POp(dist.irecv, recv, s, mesh.group, tag) for s in frm]
+    pending = Pending(dist.batch_isend_irecv(ops) if ops else (), then)
+    if async_op:
+        return pending
+    pending.wait()
     return out
 
 

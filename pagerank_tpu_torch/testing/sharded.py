@@ -9,15 +9,24 @@ results against the JAX engine (or anything else) in its own process.
 ``payload``: ``{"edges": path of an .npz with src, dst, n; "out": a
 directory; "device": the engines' device; "cases": [case, ...]}``, a
 case ``{"name": str, "config": PageRankConfig fields, "iters": int}``
-plus, optionally, ``"save_dir"`` (rank 0 snapshots the state after 4
-steps there) or ``"resume_dir"`` (every rank resumes from the newest
-snapshot there before running on). Per case and rank it writes
-``<name>.r<rank>.npz`` with ``ranks`` (the whole vector, original
-order, after ``iters``), ``first`` (after one step from r0), ``at4``
-(after 4), ``resumed`` (the iteration resumed from), ``local`` (the
-rank's own state length), ``roundtrip`` (``set_ranks`` of a seeded
-vector, read back), ``layout`` (``layout_info`` as JSON) and, when the
-case checks, ``sdc`` (the SDC section as JSON).
+plus, optionally, ``"edges"`` (another graph's .npz for this case),
+``"save_dir"`` (rank 0 snapshots the state after 4 steps there),
+``"resume_dir"`` (every rank resumes from the newest snapshot there
+before running on), ``"retain"`` (after 4 steps, ``retain_state``, 3
+steps, ``restore_state`` and the same 3 steps again) and
+``"attribute"`` (``obs/devices.attribute_exchange`` after the run).
+Per case and rank it writes ``<name>.r<rank>.npz`` with ``ranks`` (the
+whole vector, original order, after ``iters``), ``first`` (after one
+step from r0), ``at4`` (after 4), ``resumed`` (the iteration resumed
+from), ``local`` (the rank's own state length), ``steps`` (the steps
+taken up to ``ranks``), ``bytes`` (``comms.bytes_exchanged`` then) and
+``bpi`` (the comms model's bytes a step, 0 without one),
+``roundtrip`` (``set_ranks`` of a seeded vector, read back),
+``stepped`` (one step from that vector), ``layout`` (``layout_info``
+as JSON) and, when the case asks, ``retain_a``/``retain_b`` (the 3
+steps before and after the restore), ``attribution`` (JSON) with
+``attributed`` (the ranks read after it), and ``sdc`` (the SDC section
+as JSON) when the case checks.
 """
 
 from __future__ import annotations
@@ -34,6 +43,8 @@ def run_cases(payload) -> int:
     from pagerank_tpu_torch import sdc as sdc_mod
     from pagerank_tpu_torch.engines.torch_engine import TorchEngine
     from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.obs import devices as obs_devices
+    from pagerank_tpu_torch.obs import metrics as obs_metrics
     from pagerank_tpu_torch.parallel import distributed
     from pagerank_tpu_torch.utils.config import PageRankConfig
     from pagerank_tpu_torch.utils.snapshot import Snapshotter, resume_engine
@@ -41,14 +52,33 @@ def run_cases(payload) -> int:
     # Several ranks share the host's cores: one thread each.
     torch.set_num_threads(1)
     rank, world = distributed.process_info()
-    with np.load(payload["edges"]) as f:
-        graph = build_graph(f["src"], f["dst"], n=int(f["n"]))
+    graphs = {}
+
+    def load(path):
+        if path not in graphs:
+            with np.load(path) as f:
+                graphs[path] = build_graph(f["src"], f["dst"], n=int(f["n"]))
+        return graphs[path]
+
     for case in payload["cases"]:
+        graph = load(case.get("edges", payload["edges"]))
         cfg = PageRankConfig(**case["config"], num_devices=world)
         sdc_mod.reset()
+        obs_metrics.get_registry().reset()
         eng = TorchEngine(cfg, device=payload["device"]).build(graph)
-        first = eng.run(1)
-        at4 = eng.run(4)
+        steps = [0]
+
+        def tick(i, info):
+            steps[0] += 1
+
+        first = eng.run(1, on_iteration=tick)
+        at4 = eng.run(4, on_iteration=tick)
+        extra = {}
+        if case.get("retain"):
+            token = eng.retain_state()
+            extra["retain_a"] = eng.run(7, on_iteration=tick)
+            eng.restore_state(token)
+            extra["retain_b"] = eng.run(7, on_iteration=tick)
         resumed = 0
         if case.get("save_dir") and rank == 0:
             Snapshotter(case["save_dir"], graph.fingerprint(), cfg.semantics,
@@ -56,14 +86,25 @@ def run_cases(payload) -> int:
         if case.get("resume_dir"):
             resumed = resume_engine(eng, Snapshotter(
                 case["resume_dir"], graph.fingerprint(), cfg.semantics))
-        ranks = eng.run(case["iters"])
+        ranks = eng.run(case["iters"], on_iteration=tick)
+        counters = obs_metrics.get_registry().snapshot()["counters"]
+        model = eng.comms_model() or {}
+        if case.get("attribute"):
+            extra["attribution"] = np.array(json.dumps(
+                obs_devices.attribute_exchange(eng, iters=2, warmup=1)))
+            extra["attributed"] = eng.ranks()
         seeded = np.random.default_rng(7).random(graph.n).astype(
             ranks.dtype)
         eng.set_ranks(seeded, iteration=0)
+        roundtrip = eng.ranks()
+        eng.step()
         out = {"ranks": ranks, "first": first, "at4": at4,
                "resumed": np.int64(resumed),
                "local": np.int64(eng._r.shape[0]),
-               "roundtrip": eng.ranks(),
+               "steps": np.int64(steps[0]),
+               "bytes": np.int64(counters.get("comms.bytes_exchanged", 0)),
+               "bpi": np.int64(model.get("bytes_per_iter") or 0),
+               "roundtrip": roundtrip, "stepped": eng.ranks(), **extra,
                "layout": np.array(json.dumps(eng.layout_info(),
                                              default=str))}
         if cfg.sdc_check_every:

@@ -8,10 +8,10 @@ its kernel and partition-centric validation rules (``:404-410``,
 solve loop, the sinks and the SDC redo (``:22-125``: health checks,
 rollbacks, ``write_attempts``, ``on_write_failure``,
 ``write_retry_policy()``, ``sdc_redo_deadline_s``, ``sdc_max_redos``;
-same defaults and messages). The
-fields of layouts and modes that later slices of the port bring are
-kept so a caller can name them, and ``validate`` refuses them with the
-ROADMAP slice that ports them.
+same defaults and messages), and the vertex-sharded forms' fields
+(``vs_bounded``, ``halo_exchange``, ``halo_head``, ``halo_async``,
+``stale_max_lag``, ``halo_async_min_gain``, ``:232-313``, their rules
+``:411-441``, same defaults and messages).
 """
 
 from __future__ import annotations
@@ -154,10 +154,56 @@ class PageRankConfig:
     # instead of keeping them whole on every device: a per-iteration
     # all_gather of z and a reduce-scatter of the contribution, for
     # 1/num_devices of the per-vertex memory per device. Requires the
-    # ell kernel; the bounded and halo forms are ROADMAP slice 6b.
+    # ell kernel.
     vertex_sharded: bool = False
     num_devices: Optional[int] = None
     mesh_axis: str = "data"
+
+    # Sparse boundary exchange (parallel/partition.build_halo_plan):
+    # replace the vertex-sharded step's dense exchange (all_gather of
+    # the whole z + a full-width reduce-scatter) with a build-time halo
+    # plan — the top-K high in-degree head replicated by one small
+    # psum, the tail boundary moved point to point over static ppermute
+    # rounds, and the merge returning only each writer's band windows —
+    # so the bytes a step scale with the boundary instead of n. K1 reads
+    # the same z bits as on the dense path; only the merge regroups.
+    # Requires vertex_sharded; not with vs_bounded.
+    halo_exchange: bool = False
+
+    # Head-replication K for halo_exchange: -1 = auto (the relabeled
+    # in-degree prefix whose replication minimizes the modeled exchange
+    # bytes over the exact build-time pair sets —
+    # parallel/partition.auto_head_k; may resolve to 0), 0 = none,
+    # > 0 = explicit (rounded up to a multiple of 128).
+    halo_head: int = -1
+
+    # Asynchronous stale-boundary iteration: a two-slot boundary buffer,
+    # so iteration k's K1 runs over iteration k-1's boundary while
+    # iteration k's ships (remote reads lag one iteration; each rank's
+    # own block is always fresh). Requires halo_exchange; refused at
+    # build (layout_info records halo_async="off:<reason>") on one
+    # device, a plan with no boundary, or a predicted overlap gain
+    # below halo_async_min_gain (parallel/comms.predict_overlap_gain).
+    halo_async: bool = False
+
+    # The most a boundary read may lag under halo_async: 1 = the
+    # double-buffered form; 0 = exactness — the build runs the
+    # synchronous vs_halo step (no extra buffer, the same bits).
+    stale_max_lag: int = 1
+
+    # The predicted overlap gain (exchange fraction x overlappable byte
+    # share) below which the halo_async gate refuses the async form.
+    halo_async_min_gain: float = 0.02
+
+    # Owner-computes vertex sharding: dst blocks dealt across the ranks'
+    # contiguous ranges by capacity-constrained LPT
+    # (ops/ell.deal_block_order), each rank holding only the slot rows
+    # of its own dst range, so K1's sums land where they are owned and
+    # the contribution merge disappears — the reference's reduceByKey
+    # (Sparky.java:229). Agrees with the other forms to accumulation
+    # rounding (bit-equal on one device). Requires vertex_sharded and a
+    # host-built graph.
+    vs_bounded: bool = False
 
     # Silent-data-corruption defense (sdc.py): every K-th step runs
     # the SDC-checked step (the same contribution launch and update as
@@ -231,6 +277,38 @@ class PageRankConfig:
             raise ValueError(
                 f"vertex_sharded requires the ell kernel, got "
                 f"{self.kernel!r}"
+            )
+        if self.vs_bounded and not self.vertex_sharded:
+            raise ValueError("vs_bounded requires vertex_sharded")
+        if self.halo_exchange:
+            if not self.vertex_sharded:
+                raise ValueError("halo_exchange requires vertex_sharded")
+            if self.vs_bounded:
+                raise ValueError(
+                    "halo_exchange targets the plain vertex-sharded "
+                    "exchange; vs_bounded has its own owner-computes "
+                    "exchange"
+                )
+        if self.halo_async and not self.halo_exchange:
+            raise ValueError(
+                "halo_async overlaps the sparse boundary exchange; "
+                "set halo_exchange (the dense all_gather step has no "
+                "boundary buffer to double)"
+            )
+        if self.stale_max_lag not in (0, 1):
+            raise ValueError(
+                f"stale_max_lag must be 0 (exact sync) or 1 (double-"
+                f"buffered overlap), got {self.stale_max_lag}"
+            )
+        if self.halo_async_min_gain < 0:
+            raise ValueError(
+                f"halo_async_min_gain must be >= 0, got "
+                f"{self.halo_async_min_gain}"
+            )
+        if self.halo_head < -1:
+            raise ValueError(
+                f"halo_head must be -1 (auto), 0 (off), or positive, "
+                f"got {self.halo_head}"
             )
         if self.stream_dtype not in ("", "bfloat16"):
             raise ValueError(

@@ -114,8 +114,10 @@ def test_shipped_registry_is_clean_on_the_host_rules(shipped):
 
 def test_shipped_registry_holds_every_kernel_at_every_scale(shipped):
     labels = [c.label for c in shipped]
-    assert len(labels) == len(set(labels)) == 28
+    assert len(labels) == len(set(labels)) == 30
     assert f"ell_contrib@ppr-scale{K.PPR_SCALE}" in labels
+    assert {"ell_contrib@vs-halo-share-scale22-world2",
+            "ell_contrib@vs-bounded-scale22-world2"} <= set(labels)
     for k in (64, 8, 1):
         assert f"ell_contrib_spmm@ppr-scale{K.PPR_SCALE}-k{k}" in labels
     for s in K.BENCH_SCALES:

@@ -696,8 +696,8 @@ def test_same_n_rebuild_on_the_card_decodes_the_new_graph(cuda):
 def test_sharded_forms_in_an_nccl_group_of_one(cuda, tmp_path,
                                                partition_span):
     """The sharded forms on the card under the real backend, at the one
-    rank one card allows: the vertex-sharded form (all_gather, K1,
-    reduce-scatter and the scalar psums through NCCL) bit-equal to the
+    rank one card allows: the vertex-sharded form (K1 between the mesh's
+    collectives, each the identity in a group of one) bit-equal to the
     one-device engine, and the edge-sharded partitioned form's mesh
     check, with the checked step sharded. More ranks on one card run
     under gloo in ``chip_smoke.py`` phase 15."""

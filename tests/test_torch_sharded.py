@@ -1,7 +1,8 @@
 """The port's sharded forms over gloo process groups of world 1, 2 and 4
 on the CPU, against ``JaxTpuEngine(num_devices=N)`` on the 8 fake CPU
 devices of ``tests/conftest.py``, and against the port's own
-single-device engine.
+single-device engine: edge-sharded, vertex-sharded (dense), vs_halo,
+vs_halo_async and vs_bounded.
 
 Each world size runs ONE spawned group (``parallel/distributed.
 spawn_group``; start method spawn, a file rendezvous, a 120 s deadline)
@@ -19,7 +20,15 @@ step from the all-ones r0 bit-equal at world 2
 whatever its order. f32 results are held by the mass-normalised L1 gate
 (1e-5; bf16 windows 1e-3, as ``tests/test_torch_partitioned.py``).
 What holds bitwise at world 4 is asserted as measured: the first step,
-and f32 ranks summed in f64 over whole runs.
+and f32 ranks summed in f64 over whole runs. vs_halo's f32 ranks equal
+the dense form's bit for bit (the JAX pin, ``tests/test_halo.py:199``):
+K1 reads the same z bits. The async form runs on a second scale-10
+graph (edge factor 32, 577 slot rows) whose rows the JAX engine at lane
+group 1 (the port's packing) shares over its devices as the port does
+over its ranks at every world here (its chunk rule and the port's
+256-row unit agree for 512-1024 rows): both build the same halo plan,
+stale the same boundary reads, and a lag-1 run agrees with JAX's to f32
+rounding (the f32 gate, 1e-5).
 """
 
 import contextlib
@@ -57,7 +66,31 @@ CASES = {
     "part32sdc": dict(partition_span=256, sdc_check_every=1),
     "vs64resume": dict(F64, vertex_sharded=True),
     "vs64tb": dict(F64, vertex_sharded=True, semantics="textbook"),
+    "vs32": dict(vertex_sharded=True),
+    "halo32": dict(vertex_sharded=True, halo_exchange=True),
+    "halo32head": dict(vertex_sharded=True, halo_exchange=True,
+                       halo_head=256),
+    "halo32w": dict(dtype="float32", accum_dtype="float64",
+                    vertex_sharded=True, halo_exchange=True),
+    "halo64": dict(F64, vertex_sharded=True, halo_exchange=True),
+    "halo32b": dict(vertex_sharded=True, halo_exchange=True),
+    "async32": dict(vertex_sharded=True, halo_exchange=True, halo_async=True,
+                    halo_async_min_gain=0.0),
+    "async32sdc": dict(vertex_sharded=True, halo_exchange=True,
+                       halo_async=True, halo_async_min_gain=0.0,
+                       sdc_check_every=1),
+    "lag0": dict(vertex_sharded=True, halo_exchange=True, halo_async=True,
+                 stale_max_lag=0),
+    "bounded64": dict(F64, vertex_sharded=True, vs_bounded=True),
+    "bounded64resume": dict(F64, vertex_sharded=True, vs_bounded=True),
+    "bounded64sdc": dict(F64, vertex_sharded=True, vs_bounded=True,
+                         sdc_check_every=1),
 }
+#: The cases on the second graph (module docstring); ``retain`` and
+#: ``attribute`` name the cases that run those checks.
+GRAPH_B = ("halo32b", "async32", "async32sdc", "lag0")
+RETAIN = ("async32",)
+ATTRIBUTE = ("flat64", "vs64", "halo32", "async32", "bounded64")
 WORLDS = [1, 2, 4]
 
 
@@ -73,6 +106,18 @@ def edges():
 @pytest.fixture(scope="module")
 def graphs(edges):
     src, dst = edges
+    n = 1 << SCALE
+    return (pagerank_tpu.build_graph(src, dst, n=n),
+            pagerank_tpu_torch.build_graph(src, dst, n=n))
+
+
+def _edges_b():
+    return rmat_edges(SCALE, edge_factor=32, seed=1)
+
+
+@pytest.fixture(scope="module")
+def graphs_b():
+    src, dst = _edges_b()
     n = 1 << SCALE
     return (pagerank_tpu.build_graph(src, dst, n=n),
             pagerank_tpu_torch.build_graph(src, dst, n=n))
@@ -129,11 +174,22 @@ def _run_group(tmp_path_factory, edges, resume_dir, world):
             d.mkdir(exist_ok=True)
             src, dst = edges
             np.savez(d / "edges.npz", src=src, dst=dst, n=1 << SCALE)
+            np.savez(d / "edges_b.npz", **dict(zip(("src", "dst"),
+                                                   _edges_b())),
+                     n=1 << SCALE)
             cases = [dict(name=k, config=v, iters=ITERS)
                      for k, v in CASES.items()]
             by_name = {c["name"]: c for c in cases}
             by_name["flat64"]["save_dir"] = str(d / "snap")
             by_name["vs64resume"]["resume_dir"] = str(resume_dir)
+            by_name["bounded64"]["save_dir"] = str(d / "snap_bounded")
+            by_name["bounded64resume"]["resume_dir"] = str(resume_dir)
+            for name in GRAPH_B:
+                by_name[name]["edges"] = str(d / "edges_b.npz")
+            for name in RETAIN:
+                by_name[name]["retain"] = True
+            for name in ATTRIBUTE:
+                by_name[name]["attribute"] = True
             codes = distributed.spawn_group(
                 "pagerank_tpu_torch.testing.sharded:run_cases", world,
                 dict(edges=str(d / "edges.npz"), out=str(d), device="cpu",
@@ -155,7 +211,7 @@ _JAX = {}
 
 
 def _jax(gj, world, **kw):
-    key = (world, tuple(sorted(kw.items())))
+    key = (id(gj), world, tuple(sorted(kw.items())))
     if key not in _JAX:
         cfg = pagerank_tpu.PageRankConfig(num_iters=ITERS, num_devices=world,
                                           **kw)
@@ -266,7 +322,8 @@ def test_step_sdc_runs_sharded(group):
     unchecked run, one check an iteration, no breach."""
     _, res = group
     for checked, plain in (("flat64sdc", "flat64"), ("vs64sdc", "vs64"),
-                           ("part32sdc", "part32")):
+                           ("part32sdc", "part32"),
+                           ("bounded64sdc", "bounded64")):
         np.testing.assert_array_equal(res[checked][0]["ranks"],
                                       res[plain][0]["ranks"])
         sec = json.loads(str(res[checked][0]["sdc"]))
@@ -300,6 +357,180 @@ def test_snapshots_resume_across_world_sizes(group, graphs, resume_dir):
     np.testing.assert_allclose(eng.run(), uninterrupted, rtol=0, atol=1e-12)
 
 
+# -- vs_halo, vs_halo_async, vs_bounded ---------------------------------------
+
+
+def test_halo_f32_ranks_equal_the_dense_forms(group):
+    """K1 reads the same z bits through the halo image as through the
+    dense all_gather, with or without a replicated head, f32 or f64
+    sums (``tests/test_halo.py:199``)."""
+    _, res = group
+    for halo, dense in (("halo32", "vs32"), ("halo32head", "vs32"),
+                        ("halo32w", "vs32w")):
+        np.testing.assert_array_equal(res[halo][0]["ranks"],
+                                      res[dense][0]["ranks"])
+        np.testing.assert_array_equal(res[halo][0]["first"],
+                                      res[dense][0]["first"])
+
+
+def test_halo_f64_matches_jax_and_the_dense_form(group, graphs):
+    world, res = group
+    got = res["halo64"][0]["ranks"]
+    np.testing.assert_allclose(
+        got, _jax(graphs[0], world, vertex_sharded=True, halo_exchange=True,
+                  **F64), rtol=0, atol=1e-12)
+    # Only the merge regroups (test_halo.py: nulp=8).
+    np.testing.assert_array_almost_equal_nulp(got, res["vs64"][0]["ranks"],
+                                              nulp=8)
+
+
+def test_halo_layout_and_comms(group):
+    """``layout_info`` names the form and carries the plan's summary;
+    ``comms.bytes_exchanged`` is the steps times the model's bytes a
+    step, on every form with a model."""
+    world, res = group
+    for name in ("halo32", "halo32head", "halo64", "async32", "lag0"):
+        for r in range(world):
+            lay = json.loads(str(res[name][r]["layout"]))
+            want = ("vs_halo_async" if name == "async32" and world > 1
+                    else "vs_halo")
+            assert lay["form"] == want, (name, lay["form"])
+            assert lay["halo"]["head_k"] == (256 if name == "halo32head"
+                                             else lay["halo"]["head_k"])
+            assert lay["comms"]["mode"] == ("sparse_async"
+                                            if want == "vs_halo_async"
+                                            else "sparse")
+    for name in CASES:
+        for r in range(world):
+            x = res[name][r]
+            assert int(x["bytes"]) == int(x["steps"]) * int(x["bpi"]), name
+    halo = json.loads(str(res["halo32"][0]["layout"]))["halo"]
+    if world == 1:
+        assert halo["read_rounds"] == halo["write_rounds"] == 0
+        assert int(res["halo32"][0]["bpi"]) == 0
+    else:
+        assert 0 < int(res["halo32"][0]["bpi"]) == \
+            halo["sparse_bytes_per_iter"] < halo["dense_bytes_per_iter"]
+
+
+def test_async_lag1_matches_jax(group, graphs_b):
+    """Lag 1 against JAX's lag-1 run on the same graph and world: both
+    stale the same reads (module docstring), so they agree to f32
+    rounding. At world 1 the gate refuses (single_device): both run the
+    synchronous form."""
+    world, res = group
+    lay = json.loads(str(res["async32"][0]["layout"]))
+    if world == 1:
+        assert lay["halo_async"] == "off:single_device"
+    else:
+        assert lay["halo_async"] == "on:lag1"
+        assert lay["halo_buffer_width"] == lay["halo"]["head_k"] + \
+            lay["halo"]["read_width_total"]
+        # The JAX engine's rows a device on this graph (module docstring).
+        assert lay["num_rows"] == {2: 512, 4: 256}[world]
+    jax_r = _jax(graphs_b[0], world, vertex_sharded=True,
+                 halo_exchange=True, halo_async=True,
+                 halo_async_min_gain=0.0, lane_group=1)
+    assert _l1(res["async32"][0]["ranks"], jax_r) < 1e-5
+
+
+def test_async_first_steps_are_lag0_exact(group):
+    """The slot is primed at build and at ``set_ranks``: the first step
+    after either is the synchronous step, bit for bit
+    (``tests/test_halo_async.py:66-104, :191``); ``stale_max_lag=0``
+    runs vs_halo itself."""
+    _, res = group
+    for key in ("first", "stepped"):
+        np.testing.assert_array_equal(res["async32"][0][key],
+                                      res["halo32b"][0][key])
+    np.testing.assert_array_equal(res["lag0"][0]["ranks"],
+                                  res["halo32b"][0]["ranks"])
+    lay = json.loads(str(res["lag0"][0]["layout"]))
+    assert (lay["form"], lay["halo_async"]) == ("vs_halo",
+                                                "off:stale_max_lag=0")
+    assert "halo_buffer_width" not in lay
+
+
+def test_async_retain_restore_and_checked_run(group):
+    """``retain_state``/``restore_state`` carry the boundary slot and
+    the slack, so a restored run repeats its steps bit for bit and ends
+    where an uninterrupted one does (``tests/test_halo_async.py:155``);
+    the checked async run equals the unchecked one, no breach
+    (``:214``)."""
+    world, res = group
+    for r in range(world):
+        x = res["async32"][r]
+        np.testing.assert_array_equal(x["retain_a"], x["retain_b"])
+    np.testing.assert_array_equal(res["async32"][0]["ranks"],
+                                  res["async32sdc"][0]["ranks"])
+    sec = json.loads(str(res["async32sdc"][0]["sdc"]))
+    assert sec["checks"] == ITERS and sec["flips_detected"] == 0
+
+
+def test_bounded_matches_jax_and_holds_its_own_rows(group, graphs):
+    """vs_bounded against JAX's at the same world (f64; bit-equal to the
+    one-device run at world 1), each rank's rows all of its own dst
+    range, renumbered to nbd local blocks and a trash block
+    (``tests/test_vertex_sharded.py:224``)."""
+    world, res = group
+    got = res["bounded64"][0]["ranks"]
+    np.testing.assert_allclose(
+        got, _jax(graphs[0], world, vertex_sharded=True, vs_bounded=True,
+                  **F64), rtol=0, atol=1e-12)
+    if world == 1:
+        np.testing.assert_array_equal(got, _single(graphs[1], F64).run())
+    n_vs = -(-(1 << SCALE) // (128 * world)) * 128 * world
+    rows = set()
+    for r in range(world):
+        lay = json.loads(str(res["bounded64"][r]["layout"]))
+        assert lay["form"] == "vs_bounded" and lay["comms"] is None
+        assert lay["local_blocks"] == n_vs // world // 128
+        assert lay["trash_blocks"] == 1 and lay["num_rows"] % 256 == 0
+        assert int(res["bounded64"][r]["local"]) == n_vs // world
+        rows.add(lay["num_rows"])
+    assert len(rows) == 1  # every rank padded to one row count
+
+
+def test_bounded_snapshots_resume_across_world_sizes(group, graphs):
+    """The one-device snapshot resumes into vs_bounded, and vs_bounded's
+    (rank 0's) resumes on one device, each within f64 rounding of the
+    uninterrupted run."""
+    from pagerank_tpu_torch.utils.snapshot import resume_engine
+
+    _, res = group
+    uninterrupted = res["bounded64"][0]["ranks"]
+    assert int(res["bounded64resume"][0]["resumed"]) == 4
+    np.testing.assert_allclose(res["bounded64resume"][0]["ranks"],
+                               uninterrupted, rtol=0, atol=1e-12)
+    eng = _single(graphs[1], F64)
+    snap = Snapshotter(str(res["dir"] / "snap_bounded"),
+                       graphs[1].fingerprint(), "reference")
+    assert resume_engine(eng, snap) == 4
+    np.testing.assert_allclose(eng.run(), uninterrupted, rtol=0, atol=1e-12)
+
+
+def test_attribution_splits_the_exchanging_forms_only(group):
+    """``attribute_exchange`` is None for a form with no exchange
+    program (the flat form, vs_bounded) and a split for the
+    dense form and both vs_halo forms; the ranks are the same after
+    it."""
+    world, res = group
+    for name in ATTRIBUTE:
+        for r in range(world):
+            x = res[name][r]
+            att = json.loads(str(x["attribution"]))
+            np.testing.assert_array_equal(x["attributed"], x["ranks"])
+            if name in ("flat64", "bounded64"):
+                assert att is None, name
+                continue
+            assert att["iters"] == 2 and att["step_s"] > 0
+            assert 0 <= att["exchange_fraction"] <= 1
+            assert att["compute_s"] == max(0.0, att["step_s"]
+                                           - att["exchange_s"])
+            assert att["mode"] == json.loads(str(x["layout"]))["comms"][
+                "mode"]
+
+
 # -- the CLI over a mesh ------------------------------------------------------
 
 
@@ -323,10 +554,7 @@ def test_cli_two_ranks_vertex_sharded_matches_one_device(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--vs-bounded"], ["--halo-exchange"], ["--halo-head", "128"],
-    ["--halo-async"], ["--halo-async-min-gain", "0.1"],
-    ["--stale-max-lag", "0"], ["--max-rescues", "2"],
-    ["--stall-action", "rescue"],
+    ["--max-rescues", "2"], ["--stall-action", "rescue"],
     ["--num-devices", "2", "--probe-every", "2"],
     ["--num-devices", "2", "--device-build"],
     ["--vertex-sharded", "--ppr-sources", "0"],
@@ -334,11 +562,98 @@ def test_cli_two_ranks_vertex_sharded_matches_one_device(tmp_path, capfd):
 ], ids=lambda a: a[-1] if a[-1].startswith("-") else a[-2])
 def test_cli_slice_6b_flags_exit_2_naming_it(argv, capsys, tmp_path,
                                              monkeypatch):
+    """What slice 6b left refused exits 2 naming slice 6c: the elastic
+    flags, and --probe-every, --device-build, --ppr-sources and
+    --job-dir over a mesh."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit) as e:
         cli.main(["--synthetic", "rmat:6", "--device", "cpu", *argv])
     assert e.value.code == 2
-    assert "slice 6b" in capsys.readouterr().err
+    assert "slice 6c" in capsys.readouterr().err
+
+
+_HALO_FLAGS = {
+    "--vs-bounded": ["--vertex-sharded", "--vs-bounded"],
+    "--halo-exchange": ["--vertex-sharded", "--halo-exchange"],
+    "--halo-head": ["--vertex-sharded", "--halo-exchange", "--halo-head",
+                    "128"],
+    "--halo-async": ["--vertex-sharded", "--halo-exchange", "--halo-async",
+                     "--halo-async-min-gain", "0"],
+    "--halo-async-min-gain": ["--vertex-sharded", "--halo-exchange",
+                              "--halo-async", "--halo-async-min-gain",
+                              "0.5"],
+    "--stale-max-lag": ["--vertex-sharded", "--halo-exchange",
+                        "--halo-async", "--stale-max-lag", "0"],
+}
+
+
+def _cli_ranks(tmp_path, name, argv):
+    out = tmp_path / f"{name}.tsv"
+    assert cli.main(["--synthetic", "rmat:9", "--device", "cpu", "--iters",
+                     "6", "--log-every", "0", *argv, "--out", str(out)]) == 0
+    return np.array([float(line.split("\t")[1]) for line in open(out)])
+
+
+@pytest.fixture(scope="module")
+def cli_one(tmp_path_factory):
+    """The one-device CLI's ranks (no mesh) of the runs below."""
+    return _cli_ranks(tmp_path_factory.mktemp("cli_one"), "one", [])
+
+
+@pytest.mark.parametrize("flag", list(_HALO_FLAGS))
+def test_cli_halo_and_bounded_flags_run_at_world_1(flag, tmp_path, capfd,
+                                                   cli_one):
+    """Each flag of the vertex-sharded forms runs (exit 0) in a group of
+    one; the form is the layout line's, and the ranks are the one-device
+    run's (at world 1 every form's sums are the flat form's, bit for
+    bit)."""
+    one = cli_one
+    got = _cli_ranks(tmp_path, "got", ["--num-devices", "1",
+                                       *_HALO_FLAGS[flag]])
+    np.testing.assert_array_equal(got, one)
+    form = "vs_bounded" if flag == "--vs-bounded" else "vs_halo"
+    assert f"engine: {form} on cpu" in capfd.readouterr().err
+
+
+@pytest.mark.parametrize("form", ["vs_halo_async", "vs_bounded"])
+def test_cli_halo_and_bounded_forms_run_at_world_2(form, tmp_path, capfd,
+                                                   cli_one):
+    """Two spawned ranks: every halo flag at once (the async form, gate
+    open), and --vs-bounded; within the f32 gate of the one-device CLI,
+    rank 0's layout line naming the form."""
+    argv = (["--vertex-sharded", "--halo-exchange", "--halo-head", "128",
+             "--halo-async", "--halo-async-min-gain", "0",
+             "--stale-max-lag", "1"] if form == "vs_halo_async"
+            else ["--vertex-sharded", "--vs-bounded"])
+    one = cli_one
+    got = _cli_ranks(tmp_path, "got", ["--num-devices", "2", *argv])
+    # The async run reads a one-step-stale boundary: the gate is the
+    # staleness, not rounding.
+    assert _l1(got, one) < (0.1 if form == "vs_halo_async" else 1e-5)
+    assert f"engine: {form} on cpu" in capfd.readouterr().err
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--halo-exchange"], "halo_exchange requires vertex_sharded"),
+    (["--vs-bounded"], "vs_bounded requires vertex_sharded"),
+    (["--vertex-sharded", "--vs-bounded", "--halo-exchange"],
+     "halo_exchange targets the plain vertex-sharded exchange"),
+    (["--vertex-sharded", "--halo-async"],
+     "halo_async overlaps the sparse boundary exchange"),
+    (["--vertex-sharded", "--halo-exchange", "--halo-head", "-2"],
+     "halo_head must be -1 (auto), 0 (off), or positive"),
+    (["--vertex-sharded", "--halo-exchange", "--halo-async",
+      "--halo-async-min-gain", "-1"], "halo_async_min_gain must be >= 0"),
+], ids=["halo-no-vs", "bounded-no-vs", "bounded-and-halo", "async-no-halo",
+        "head", "min-gain"])
+def test_cli_halo_flags_keep_the_jax_refusals(argv, message, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--synthetic", "rmat:6", "--device", "cpu", *argv])
+    assert message in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        cli.main(["--synthetic", "rmat:6", "--device", "cpu",
+                  "--stale-max-lag", "2"])
+    assert e.value.code == 2
 
 
 def test_cli_mesh_needs_the_sync_writer(capsys, tmp_path):
