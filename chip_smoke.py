@@ -276,7 +276,32 @@ What it does, in order:
      and with ``--vs-bounded`` bit-equal too, and ``--num-devices 2`` on
      a one-card host refused with the JAX ``make_mesh`` error before any
      allocation;
- 16. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+ 16. the elastic solve (run after phase 15, on its edges and phases 3
+     and 5's ranks): (a) three gloo ranks sharing cuda:0, spawned
+     rescue-armed (``spawn_group(..., rescue=True)``: the script hosts
+     the group's store), each running ``ElasticRunner`` over the
+     vertex-sharded form (K1) and then the edge-sharded partitioned
+     form at phase 5's span (K2), f32/f32, 10 iterations, a snapshot
+     every iteration written by the current rank 0; the fault shim
+     kills member 1 at iteration ELASTIC_KILL. The world goes 3 -> 2
+     (members [0, 2]), member 1 leaves, each survivor's K1/K2 is
+     torch.equal to its plain version on its NEW rows after the run, its
+     launches count the steps before and after the rescue (10; the
+     victim's ELASTIC_KILL), the ranks are within 1e-6 normalised L1 of
+     phases 3 and 5's one-device ranks, the later snapshots name the
+     degraded mesh, and the rescue's wall is printed by part (roll call,
+     regroup, rebuild, warm start); (b) the CLI over three gloo ranks on
+     the host (``--device cpu``: under ``--device cuda`` the CLI picks
+     NCCL, which cannot put three ranks on one card) at rmat:16 f64,
+     rank 1 SIGKILLed at its fifth step boundary by a seeded
+     ``ProcessKillPlan``: exit 0, one rescue in the run report, the
+     ranks within 1e-12 of the one-device run; (c) the CLI under NCCL
+     in a group of one, ``--num-devices 1 --vertex-sharded
+     --stall-action rescue`` on phase 3's edges: K1 10 launches, ranks
+     bit-equal to phase 3's; then a loss of its only device injected in
+     a subprocess ends in ElasticExhaustedError, a non-zero exit, no
+     hang;
+ 17. prints one JSON line with every kernel's numbers (K1, K2, K1w on
      the PPR path with its tile sweep, P1 and P2 at K1's slots, P3 at n
      = 2^15 f32, F1-F6), then last ``{"ok": true, "device": {...}}``.
 
@@ -4233,6 +4258,322 @@ def sharded_phase(tmp):
     return got
 
 
+ELASTIC_WORLD = 3
+#: The iteration at whose start the fault shim kills member 1.
+ELASTIC_KILL = 5
+ELASTIC_CLI_SCALE = 16
+
+
+def _elastic_forms(span):
+    """(name, config fields, kernel, phase-15 reference) of each phase
+    16(a) run."""
+    return [("vertex_sharded", {"vertex_sharded": True}, "K1", "flat"),
+            ("edge_part_f32", {"partition_span": span}, "K2", "part_f32")]
+
+
+def phase16_rank(payload) -> int:
+    """One process of phase 16(a) (spawned rescue-armed, joined to the
+    gloo group through the script's store): each form of
+    ``_elastic_forms`` on cuda:0 under ``ElasticRunner``, member 1
+    killed by the fault shim at ELASTIC_KILL. Each form re-forms the
+    whole group first (its own generation). The final rank 0 writes the
+    ranks; every process its numbers as JSON."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine
+    from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.ops import ell_spmv
+    from pagerank_tpu_torch.ops import ell_spmv_partitioned as k2
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.parallel.elastic import (ElasticRunner,
+                                                     RankLeftError,
+                                                     snapshot_meta_after)
+    from pagerank_tpu_torch.testing.faults import (DeviceFaultSchedule,
+                                                   install_device_faults)
+    from pagerank_tpu_torch.utils.snapshot import Snapshotter
+
+    torch.set_num_threads(2)
+    world = distributed.process_info()[1]
+    me = distributed.member()
+    dev = torch.device("cuda", 0)
+    out = payload["out"]
+    with np.load(payload["edges"]) as f:
+        graph = build_graph(f["src"], f["dst"], n=int(f["n"]))
+    rep = {}
+    for k, (name, kw, kernel, _) in enumerate(_elastic_forms(
+            payload["span"])):
+        distributed.reform(10 * (k + 1), range(world))
+        cfg = PageRankConfig(num_iters=ITERS, **kw)
+        sched = DeviceFaultSchedule(seed=5, kill={ELASTIC_KILL: 1})
+        snap = Snapshotter(os.path.join(out, name), graph.fingerprint(),
+                           cfg.semantics)
+        builds, box = [], {}
+
+        def build(members):
+            t = time.perf_counter()
+            e = TorchEngine(cfg.replace(num_devices=len(members)),
+                            device=dev).build(graph)
+            builds.append({"world": len(members),
+                           "rows": e.layout_info()["num_rows"],
+                           "s": time.perf_counter() - t})
+            return e
+
+        def rebound(e2):
+            install_device_faults(e2, sched)
+            snap.mesh_meta = snapshot_meta_after(e2, box["runner"])
+
+        eng = build(range(world))
+        install_device_faults(eng, sched)
+        runner = ElasticRunner(eng, build, snapshotter=snap, max_rescues=1,
+                               on_rebuild=rebound, liveness_timeout_s=60.0)
+        box["runner"] = runner
+        snap.mesh_meta = snapshot_meta_after(eng, runner)
+        del eng
+        walls, t_last = {}, [0.0]
+
+        def on_iteration(i, info):
+            walls[i] = time.perf_counter() - t_last[0]
+            e = runner.engine
+            r = e.ranks()  # every rank: a collective (vertex-sharded)
+            if e.mesh.rank == 0:
+                snap.save(i + 1, r)
+            t_last[0] = time.perf_counter()
+
+        ell_spmv.launches = k2.launches = 0
+        torch.cuda.synchronize()
+        t_last[0] = time.perf_counter()
+        status, ranks = "ok", None
+        try:
+            ranks = runner.run(on_iteration=on_iteration)
+        except RankLeftError:
+            status = "left"
+        torch.cuda.synchronize()
+        launches = ell_spmv.launches if kernel == "K1" else k2.launches
+        other = k2.launches if kernel == "K1" else ell_spmv.launches
+        final = runner.engine
+        r = {"status": status, "launches": launches,
+             "other_launches": other, "builds": builds,
+             "rescue_walls": runner.rescue_walls,
+             "lost": list(runner.lost_device_ids),
+             "members": [int(m) for m in final.device_ids()],
+             "ms_world3": statistics.median(
+                 [w * 1e3 for i, w in walls.items() if i < ELASTIC_KILL]),
+             "ms_world2": statistics.median(
+                 [w * 1e3 for i, w in walls.items() if i > ELASTIC_KILL]
+                 or [float("nan")])}
+        if status == "ok":
+            # The survivor's kernel on its NEW rows against its plain
+            # version on the CPU, from the same inputs (after the run:
+            # its launches were read above).
+            lay = final.layout_info()
+            inputs = final.contrib_inputs()
+            got = final._launch().clone().cpu()
+            if kernel == "K1":
+                z, src, _, _, plan = inputs
+                want = ell_spmv.ell_contrib_plan_reference(
+                    z.cpu(), src.cpu(), accum_dtype=final._accum,
+                    plan=ell_spmv.plan_to(plan, "cpu"))
+            else:
+                zw, slots, _, pp, _, plan = inputs
+                want = k2.ell_contrib_partitioned_plan_reference(
+                    zw.cpu(), slots.cpu(), pp.cpu(),
+                    plan=ell_spmv.plan_to(plan, "cpu"))
+            r["kernel_equal"] = bool(torch.equal(got, want))
+            r["kernel_err"] = float((got.double() - want.double())
+                                    .abs().max())
+            r["rows"], r["form"] = lay["num_rows"], lay["form"]
+            r["iteration"] = int(final.iteration)
+            del inputs, got, want
+            if final.mesh.rank == 0:
+                np.save(os.path.join(out, f"{name}.npy"), ranks)
+                r["snap_meta"] = snap.load(snap.iterations()[-1])[1]["mesh"]
+                r["snap_iterations"] = snap.iterations()
+        rep[name] = r
+        del runner, final
+        torch.cuda.empty_cache()
+    with open(os.path.join(out, f"member{me}.json"), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def elastic_phase(tmp):
+    """Phase 16 (see the module docstring), on phase 15's files. Returns
+    the numbers for the kernels line."""
+    import numpy as np
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.testing.faults import ProcessKillPlan
+
+    t0 = time.perf_counter()
+    card = card_identity()
+    d = os.path.join(tmp, "sharded")
+    with np.load(os.path.join(d, "refs.npz")) as f:
+        refs = {k: f[k] for k in f.files}
+    span = int(refs.pop("span"))
+    edges = os.path.join(d, "edges.npz")
+    d16 = os.path.join(tmp, "elastic")
+    os.makedirs(d16, exist_ok=True)
+
+    def l1(a, b):
+        return float(np.abs(a - b).sum() / np.abs(b).sum())
+
+    # (a) three gloo ranks on the card; member 1 killed by the shim.
+    ta = time.perf_counter()
+    codes = distributed.spawn_group(
+        "chip_smoke:phase16_rank", ELASTIC_WORLD,
+        {"edges": edges, "out": d16, "span": span}, d16, backend="gloo",
+        timeout_s=300.0, deadline_s=600.0, rescue=True)
+    _check(list(codes) == [0] * ELASTIC_WORLD,
+           f"phase 16(a) process exit codes {list(codes)}")
+    reps = [json.load(open(os.path.join(d16, f"member{m}.json")))
+            for m in range(ELASTIC_WORLD)]
+    print(f"phase 16(a) on {card} ({ELASTIC_WORLD} gloo ranks sharing "
+          f"cuda:0, rescue armed; member 1 killed by the fault shim at "
+          f"iteration {ELASTIC_KILL} of {ITERS}; "
+          f"{time.perf_counter() - ta:.1f} s):")
+    got = {}
+    for name, _, kernel, ref in _elastic_forms(span):
+        final = np.load(os.path.join(d16, f"{name}.npy"))
+        dist_l1 = l1(final, refs[ref])
+        _check(final.shape == refs[ref].shape and np.isfinite(final).all(),
+               f"{name}: ranks not finite of shape (n,)")
+        _check(dist_l1 <= 1e-6, f"{name}: the rescued run vs the one-device "
+               f"{ref} run normalised L1 {dist_l1} > 1e-6")
+        victim = reps[1][name]
+        _check(victim["status"] == "left"
+               and victim["launches"] == ELASTIC_KILL,
+               f"{name} member 1: {victim['status']}, {kernel} launched "
+               f"{victim['launches']} times")
+        for m in (0, 2):
+            x = reps[m][name]
+            _check(x["status"] == "ok" and x["members"] == [0, 2]
+                   and x["lost"] == [1] and len(x["rescue_walls"]) == 1
+                   and x["iteration"] == ITERS,
+                   f"{name} member {m}: {x['status']}, members "
+                   f"{x['members']}, lost {x['lost']}")
+            _check(x["kernel_equal"], f"{name} member {m}: {kernel} on its "
+                   f"new rows != its plain version (max err "
+                   f"{x['kernel_err']})")
+            _check(x["launches"] == ITERS and x["other_launches"] == 0,
+                   f"{name} member {m}: {kernel} launched {x['launches']} "
+                   f"times (the other kernel {x['other_launches']}) over "
+                   f"{ELASTIC_KILL} steps at world 3 and "
+                   f"{ITERS - ELASTIC_KILL} at world 2")
+            w = x["rescue_walls"][0]
+            _check(w["resumed_iteration"] == ELASTIC_KILL
+                   and w["world_before"] == 3 and w["world_after"] == 2,
+                   f"{name} member {m}: rescue {w}")
+            b0, b1 = x["builds"]
+            print(f"  {name} member {m}: {kernel} on its new rows "
+                  f"torch.equal to its plain version; {x['launches']} "
+                  f"launches ({ELASTIC_KILL} at world 3, "
+                  f"{ITERS - ELASTIC_KILL} at world 2); rows a rank "
+                  f"{b0['rows']} -> {x['rows']}; ms/iter {x['ms_world3']:.3f}"
+                  f" at world 3, {x['ms_world2']:.3f} at world 2; rescue "
+                  f"wall: roll call {w['roll_call']:.4f} s, regroup "
+                  f"{w['regroup']:.4f} s, rebuild {w['rebuild']:.3f} s "
+                  f"(first build {b0['s']:.3f} s), warm start "
+                  f"{w['warm_start']:.3f} s")
+        meta = reps[0][name]["snap_meta"]
+        _check(meta["num_devices"] == 2 and meta["device_ids"] == [0, 2]
+               and reps[0][name]["snap_iterations"] == list(
+                   range(1, ITERS + 1)),
+               f"{name}: newest snapshot's mesh {meta}")
+        print(f"  {name}: final ranks vs the one-device {ref} run normalised "
+              f"L1 {dist_l1:.3e} (gate 1e-6); snapshots 1-{ITERS}, the "
+              f"newest naming {meta['num_devices']} devices "
+              f"{meta['device_ids']}")
+        got[name] = {"l1_vs_one_device": dist_l1, "members": {
+            m: {k: reps[m][name][k] for k in (
+                "status", "launches", "ms_world3", "ms_world2",
+                "rescue_walls")} for m in range(ELASTIC_WORLD)}}
+    # (b) the CLI over three host ranks, rank 1 SIGKILLed.
+    tb = time.perf_counter()
+    dc = os.path.join(tmp, "elastic_cli")
+    os.makedirs(dc, exist_ok=True)
+    base = ["--synthetic", f"rmat:{ELASTIC_CLI_SCALE}", "--device", "cpu",
+            "--iters", "12", "--dtype", "float64", "--log-every", "0"]
+
+    def tsv(path):
+        return np.array([float(ln.split("\t")[1]) for ln in open(path)])
+
+    one, three = os.path.join(dc, "one.tsv"), os.path.join(dc, "three.tsv")
+    _check(cli.main(base + ["--out", one]) == 0, "16(b): one-device run")
+    plan = ProcessKillPlan("solve", iteration=4, signum=9, rank=1)
+    os.environ.update(plan.to_env())
+    try:
+        rc = cli.main(base + [
+            "--num-devices", "3", "--vertex-sharded", "--stall-action",
+            "rescue", "--stall-timeout", "120", "--sync-io",
+            "--snapshot-dir", os.path.join(dc, "snap"), "--out", three,
+            "--run-report", os.path.join(dc, "report.json")])
+    finally:
+        os.environ.pop(ProcessKillPlan.ENV, None)
+    report = json.load(open(os.path.join(dc, "report.json")))
+    rob = report["robustness"]
+    diff = float(np.abs(tsv(three) - tsv(one)).max())
+    _check(rc == 0 and rob["rescues"] == 1 and rob["devices_lost"] == 1
+           and diff <= 1e-12, f"16(b): rc {rc}, robustness {rob}, max "
+           f"|diff| {diff}")
+    print(f"phase 16(b): CLI --device cpu --num-devices 3 --vertex-sharded "
+          f"--stall-action rescue at rmat:{ELASTIC_CLI_SCALE} f64, rank 1 "
+          f"SIGKILLed at its fifth step boundary: exit 0, "
+          f"{rob['rescues']} rescue, {rob['devices_lost']} rank lost, ranks "
+          f"vs the one-device run max |diff| {diff:.3e} (gate 1e-12); "
+          f"{time.perf_counter() - tb:.1f} s")
+    # (c) NCCL, a group of one: clean, then its only device lost.
+    tc = time.perf_counter()
+    out = os.path.join(dc, "nccl1.tsv")
+    _reset_counts()
+    rc = cli.main(["--input", edges, "--iters", str(ITERS), "--dtype",
+                   "float32", "--num-devices", "1", "--vertex-sharded",
+                   "--stall-action", "rescue", "--out", out,
+                   "--log-every", "0"])
+    k1, k2n, _ = _read_counts()
+    ranks = np.array([float(ln.split("\t")[1]) for ln in open(out)],
+                     np.float32)
+    _check(rc == 0 and k1 == ITERS and k2n == 0
+           and np.array_equal(ranks, refs["flat"]),
+           f"16(c): rc {rc}, K1 {k1}, K2 {k2n}, bit-equal to phase 3 "
+           f"{np.array_equal(ranks, refs['flat'])}")
+    code = (
+        "import sys\n"
+        "from pagerank_tpu_torch import cli\n"
+        "from pagerank_tpu_torch.engines.torch_engine import TorchEngine\n"
+        "from pagerank_tpu_torch.parallel.elastic import DeviceLostError\n"
+        "step = TorchEngine.step\n"
+        "def lost(self):\n"
+        "    if self.iteration == 3:\n"
+        "        raise DeviceLostError('injected loss of the only device', "
+        "[0])\n"
+        "    return step(self)\n"
+        "TorchEngine.step = lost\n"
+        f"sys.exit(cli.main(['--synthetic', 'rmat:{ELASTIC_CLI_SCALE}', "
+        "'--iters', '10', '--num-devices', '1', '--vertex-sharded', "
+        "'--stall-action', 'rescue', '--log-every', '0']))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t1 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    lost_s = time.perf_counter() - t1
+    _check(p.returncode != 0 and "ElasticExhaustedError" in p.stderr
+           and "no surviving devices" in p.stderr,
+           f"16(c): the lost device: exit {p.returncode}, stderr "
+           f"{p.stderr[-600:]}")
+    print(f"phase 16(c) on {card}: CLI --num-devices 1 --vertex-sharded "
+          f"--stall-action rescue under NCCL (a group of one) bit-equal to "
+          f"phase 3's ranks, K1 {k1} launches, "
+          f"{time.perf_counter() - tc - lost_s:.1f} s; its only device lost "
+          f"at iteration 3 (injected): exit {p.returncode}, "
+          f"ElasticExhaustedError (\"no surviving devices\"), "
+          f"{lost_s:.1f} s with the subprocess's start")
+    got["nccl_group_of_one_launches"] = k1
+    print(f"phase 16 took {time.perf_counter() - t0:.1f} s")
+    return got
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -4336,6 +4677,11 @@ def main(argv=None) -> int:
         # Phase 15 last on the card: the NCCL group of one it brings up
         # in this process is not let near a later profiler split.
         sharded = sharded_phase(tmp)
+        elastic = elastic_phase(tmp)
+        k1["elastic"] = {"vertex_sharded": elastic["vertex_sharded"],
+                         "nccl_group_of_one_launches":
+                             elastic["nccl_group_of_one_launches"]}
+        k2["elastic"] = {"edge_part_f32": elastic["edge_part_f32"]}
         k1["sharded"] = {n: sharded[n] for n in (
             "edge_flat", "vertex_sharded", "vertex_sharded_checked",
             "edge_flat_f64sums", "vertex_sharded_f64sums", "vs_halo",

@@ -30,14 +30,21 @@ and drain paths), ``--profile-dir``, ``--history``, ``--probe-every``,
 ``--probe-topk``, ``--stop-tol``, ``--metrics-textfile``,
 ``--metrics-port``, ``--device-sample-every``, ``--preflight``,
 ``--graph-profile``, ``--stall-timeout`` and ``--stall-action
-warn|raise``, wired as :893-1093, :1165, :1538-1545, :1863-1956. More
-than one device: ``--num-devices``, ``--vertex-sharded`` and the
+warn|raise|rescue``, wired as :893-1093, :1165, :1538-1545, :1863-1956.
+More than one device: ``--num-devices``, ``--vertex-sharded`` and the
 vertex-sharded forms' flags (``--halo-exchange``, ``--halo-head``,
 ``--halo-async``, ``--stale-max-lag``, ``--halo-async-min-gain``,
 ``--vs-bounded``, :91-146, with the JAX config's refusals). The elastic
-runner's flags (``--max-rescues``, ``--stall-action rescue``), and
+solve (``--stall-action rescue``, ``--max-rescues``, wired as
+:2088-2145 with the validation of :1464-1490 and the summary of
+:936-945, :2228-2242): the ``parallel/elastic.ElasticRunner`` drives the
+solve; over ``--num-devices N`` the launcher hosts the group's store and
+the survivors of a lost rank regroup and finish (``main`` returns their
+code and reports the lost ranks). Under torchrun (``WORLD_SIZE`` set)
+``--stall-action rescue`` exits 2: its agent tears the whole worker
+group down when a worker exits, so no survivor would be left.
 ``--probe-every``, ``--device-build``, ``--job-dir``, ``--ppr-sources``
-and the async writer over a mesh, exit 2 naming ROADMAP slice 6c.
+and the async writer over a mesh exit 2 naming ROADMAP slice 6d.
 The solve runs on ``--device`` (default cuda) through the torch
 engines; ``--device cpu``, or ``--engine cpu`` (the f64 oracle), runs it
 on a host without a card.
@@ -261,9 +268,11 @@ def build_parser() -> argparse.ArgumentParser:
         "--sdc-redo-deadline", type=float, default=30.0, metavar="SECONDS",
         help="wall-clock budget for one SDC breach's bounded "
         "re-execution before the episode escalates")
-    ft.add_argument("--max-rescues", type=int, default=None,
-                    help="elastic-rescue budget (not ported yet: ROADMAP "
-                    "slice 6c)")
+    ft.add_argument(
+        "--max-rescues", type=int, default=None,
+        help="elastic-rescue budget under --stall-action rescue: group "
+        "teardown + regroup + re-shard + warm-start recoveries after "
+        "device losses before failing (default: --max-rollbacks)")
     ft.add_argument("--max-rollbacks", type=int, default=3,
                     help="snapshot rollbacks the self-healing solve loop "
                     "may perform on an unhealthy step (NaN/Inf, mass "
@@ -363,8 +372,13 @@ def build_parser() -> argparse.ArgumentParser:
         "waiting; 'raise' also interrupts the run — the CLI's SIGINT "
         "drain then ends it at the next step boundary (exit 75). A main "
         "thread blocked in a CUDA synchronization sees the interrupt "
-        "only when that call returns. 'rescue' (the elastic runner) is "
-        "not ported yet: ROADMAP slice 6c")
+        "only when that call returns. 'rescue' runs the solve under the "
+        "elastic runner: a lost device (an injected loss, a backend error "
+        "of a dead peer, or a stall whose classification finds one) "
+        "makes the surviving ranks agree on the dead, regroup, re-shard "
+        "and warm-start from the newest snapshot; with more than one rank "
+        "the group's collective timeout is bounded by --stall-timeout. "
+        "Refused under torchrun")
     p.add_argument("--log-every", type=int, default=1,
                    help="0 silences per-iter logs")
     p.add_argument("--jsonl", default=None,
@@ -866,15 +880,26 @@ def _usage(msg: str):
 
 def _check_args(args) -> None:
     """Pure-args validation before any work (``pagerank_tpu/cli.py:
-    1435-1535`` at one device): the flags of later slices exit 2 naming
-    their slice; the SDC and job flags keep the JAX CLI's refusals."""
-    later = [flag for flag, on in (
-        ("--max-rescues", args.max_rescues is not None),
-        ("--stall-action rescue", args.stall_action == "rescue"),
-    ) if on]
-    if later:
-        _usage(f"{', '.join(later)}: the elastic runner and the device "
-               f"health monitor are not ported yet (ROADMAP slice 6c)")
+    1435-1535``): the flags of later slices exit 2 naming their slice;
+    the rescue, SDC and job flags keep the JAX CLI's refusals."""
+    if args.stall_action == "rescue":
+        # Rescue rebuilds the engine over the survivors, which needs a
+        # host graph to re-shard (a device-built graph is not kept).
+        bad = [flag for flag, on in (
+            ("--device-build", args.device_build),
+            ("--ppr-sources", bool(args.ppr_sources)),
+        ) if on]
+        if bad:
+            _usage(f"--stall-action rescue re-shards the graph onto a "
+                   f"rebuilt mesh (stepwise loop, host-built graph); "
+                   f"incompatible with {', '.join(bad)}")
+        if args.engine != "torch":
+            _usage("--stall-action rescue requires --engine torch")
+        if _torchrun():
+            _usage("--stall-action rescue under torchrun: its agent tears "
+                   "the whole worker group down when one worker exits, so "
+                   "no survivor would be left to rescue onto; launch the "
+                   "ranks with --num-devices N instead")
     world = _world(args)
     if world < 1:
         _usage("--num-devices must be >= 1")
@@ -892,11 +917,11 @@ def _check_args(args) -> None:
         ) if on]
         if mesh_later:
             _usage(f"{', '.join(mesh_later)} over a device mesh is not "
-                   f"ported yet (ROADMAP slice 6c)")
+                   f"ported yet (ROADMAP slice 6d)")
         if (world > 1 and not args.sync_io
                 and (args.snapshot_dir or args.dump_text_dir)):
             _usage("the async rank writer over more than one device is not "
-                   "ported yet (ROADMAP slice 6c): pass --sync-io")
+                   "ported yet (ROADMAP slice 6d): pass --sync-io")
     if args.probe_every < 0:
         _usage("--probe-every must be >= 0")
     if args.device_sample_every < 0:
@@ -1083,20 +1108,23 @@ def _s3_retry_total(paths) -> int:
 
 def _robustness_line(args, engine, guard, dead_letter) -> None:
     """The robustness summary on stderr (``pagerank_tpu/cli.py:
-    2195-2225``), printed only when something is worth reporting:
-    rollbacks, write retries, SDC breaches, S3 request retries and
-    dropped writes."""
+    2195-2242``), printed only when something is worth reporting:
+    rollbacks, elastic rescues, write retries, SDC breaches, S3 request
+    retries and dropped writes."""
     from pagerank_tpu_torch import sdc as sdc_mod
 
-    rollbacks = (getattr(engine, "health", {}) or {}).get("rollbacks", 0)
+    rb = _robustness_summary(args, engine, guard)
+    rollbacks, rescues = rb["rollbacks"], rb["rescues"]
     sdc = sdc_mod.report_section()
     detected = int(sdc.get("flips_detected", 0)) if sdc else 0
-    io_retries = _s3_retry_total(
-        (args.snapshot_dir, args.dump_text_dir, args.out, args.jsonl))
-    if not (rollbacks or guard.retries or guard.dropped or io_retries
-            or detected):
+    io_retries = rb["s3_request_retries"]
+    if not (rollbacks or rescues or guard.retries or guard.dropped
+            or io_retries or detected):
         return
     parts = [f"{rollbacks} rollback(s)", f"{guard.retries} write retr(y/ies)"]
+    if rescues:
+        parts.append(f"{rescues} elastic rescue(s) ({rb['devices_lost']} "
+                     f"device(s) lost)")
     if detected:
         parts.append(f"{detected} SDC breach(es) ({sdc['transient']} "
                      f"transient, {len(sdc['quarantined_devices'])} "
@@ -1160,8 +1188,8 @@ def _robustness_summary(args, engine, guard) -> dict:
     return {
         "rollbacks": (getattr(engine, "health", {}) or {}).get(
             "rollbacks", 0) or 0,
-        "rescues": 0,
-        "devices_lost": 0,
+        "rescues": int(counters.get("elastic.rescues", 0)),
+        "devices_lost": int(counters.get("elastic.devices_lost", 0)),
         "write_retries": guard.retries,
         "dropped_writes": len(guard.dropped),
         "s3_request_retries": _s3_retry_total(
@@ -1292,6 +1320,16 @@ def _export_observability(args, ctx, error=None, interrupted=None):
             raise
         _log(f"pagerank_tpu_torch: observability export failed: {e2!r}")
         return None
+
+
+def _torchrun() -> bool:
+    """Whether this process was started by torchrun (``WORLD_SIZE`` set)
+    and not by ``main``'s own launcher (whose ranks reach its store)."""
+    from pagerank_tpu_torch.parallel import distributed
+
+    return (bool(os.environ.get("WORLD_SIZE"))
+            and distributed.launcher_store() is None
+            and not os.environ.get(distributed.STORE_ENV))
 
 
 def _world(args) -> int:
@@ -1430,6 +1468,48 @@ def _drain_check(drain, engine):
     return lambda where: drain.check_agreed(reduce, where)
 
 
+def _elastic_runner(args, cfg, graph, ref, drain, snap, roll_snap, job,
+                    ctx):
+    """The elastic runner of ``--stall-action rescue``
+    (``pagerank_tpu/cli.py:2088-2145``): a factory building a fresh
+    engine over the survivors from the host graph, ``on_rebuild``
+    re-binding the engine holder, its drain check, the run context and
+    the snapshot ``mesh_meta`` (with the quarantined members),
+    ``exclude_device_ids`` from the job's persisted quarantine, and a
+    DeviceHealthMonitor at the configured straggler factor. At one device
+    without a group it wraps the plain run, as in JAX."""
+    from pagerank_tpu_torch.engines.torch_engine import TorchEngine
+    from pagerank_tpu_torch.parallel.elastic import (DeviceHealthMonitor,
+                                                     ElasticRunner,
+                                                     snapshot_meta_after)
+
+    def factory(members):
+        return TorchEngine(cfg.replace(num_devices=len(members)),
+                           device=args.device).build(graph)
+
+    box = {}
+
+    def rebound(engine):
+        ref["engine"] = engine
+        ref["drain"] = _drain_check(drain, engine)
+        ctx["engine"] = engine
+        ctx["layout"] = engine.layout_info()
+        if snap is not None:
+            snap.mesh_meta = snapshot_meta_after(engine, box.get("runner"))
+
+    # Conviction persistence rides the sdc quarantine hook (set at job
+    # creation): it fires AT conviction time, before the rescue starts.
+    quarantined = job.quarantined_devices() if job is not None else ()
+    runner = ElasticRunner(
+        ref["engine"], factory, snapshotter=roll_snap,
+        max_rescues=cfg.robustness.rescue_budget(),
+        monitor=DeviceHealthMonitor(
+            straggler_factor=cfg.robustness.straggler_factor),
+        on_rebuild=rebound, exclude_device_ids=sorted(quarantined))
+    box["runner"] = runner
+    return runner
+
+
 def _run_body(args, drain, ctx) -> Dict[str, object]:
     from pagerank_tpu_torch import obs
     from pagerank_tpu_torch import sdc as sdc_mod
@@ -1448,11 +1528,19 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
     _check_args(args)
     rank, world = distributed.process_info()
     owner = rank == 0
+    rescue = args.stall_action == "rescue"
+    # The outputs written once the solve has ended: under rescue over a
+    # group a rank that is not rank 0 now may be after a rescue (rank 0
+    # of the new group owns every output), so it keeps them aside.
+    deferred = {}
     if not owner:
         # Rank 0 owns every output: the ranks file, the text dumps and
         # snapshots, --jsonl, the report, trace, history, metrics and
         # logs. The other ranks compute and read (a resume or rollback
         # reads rank 0's snapshots).
+        if rescue:
+            deferred = {name: getattr(args, name) for name in
+                        ("out", "run_report", "trace", "history")}
         for name in ("out", "jsonl", "run_report", "trace", "history",
                      "metrics_textfile", "metrics_port", "profile_dir"):
             setattr(args, name, None)
@@ -1476,7 +1564,8 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                 mass_tol=args.mass_tol, max_rollbacks=args.max_rollbacks,
                 write_attempts=args.write_retries,
                 on_write_failure=args.on_write_failure,
-                sdc_redo_deadline_s=args.sdc_redo_deadline),
+                sdc_redo_deadline_s=args.sdc_redo_deadline,
+                max_rescues=args.max_rescues),
         ).validate()
     except ValueError as e:
         raise SystemExit(str(e))
@@ -1493,7 +1582,9 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         # Armed BEFORE the load, so a device build profiles in its own
         # pass; disarmed in _run's finally.
         obs.graph_profile.arm()
-    tracer = (obs.enable_tracing() if (args.trace or args.run_report)
+    tracer = (obs.enable_tracing()
+              if (args.trace or args.run_report or deferred.get("trace")
+                  or deferred.get("run_report"))
               else obs.get_tracer())
     ctx["tracer"], ctx["cfg"] = tracer, cfg
     job = jobs.JobSupervisor(args.job_dir) if args.job_dir else None
@@ -1614,10 +1705,18 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                 _log_layout(lay, time.perf_counter() - t0)
         ctx["engine"], ctx["layout"] = engine, lay
         build_s = time.perf_counter() - t0
-        drain_check = _drain_check(drain, engine)
+        # A rescue REPLACES the engine mid-run (regroup + rebuild over
+        # the survivors), so every closure below reaches the engine, its
+        # drain check and its ownership through this holder.
+        ref = {"engine": engine, "drain": _drain_check(drain, engine)}
+
+        def owns() -> bool:
+            mesh = getattr(ref["engine"], "mesh", None)
+            return mesh is None or mesh.rank == 0
+
         # A signal during the engine build surfaces here, not after a
         # whole first iteration.
-        drain_check("solve")
+        ref["drain"]("solve")
         if args.graph_profile:
             _publish_graph_profile(args, graph, engine, job)
 
@@ -1655,7 +1754,7 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             # THE single sink path: async and --sync-io runs write the
             # same bytes. Over a mesh every rank fetched the ranks (a
             # collective on the vertex-sharded form); rank 0 writes.
-            if not owner:
+            if not owns():
                 return
             want_snap, ranks = payload
             if want_snap:
@@ -1683,8 +1782,8 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         can_write = dumper is not None or (snap and args.snapshot_every)
         if can_write and args.engine == "torch" and not args.sync_io:
             writer = AsyncRankWriter(
-                lambda p: (p[0], engine.decode_ranks(p[1])), [write_sinks],
-                guard=guard)
+                lambda p: (p[0], ref["engine"].decode_ranks(p[1])),
+                [write_sinks], guard=guard)
 
         # Convergence probes: --probe-every 0 leaves this None and the
         # solve loop makes zero probe calls.
@@ -1696,8 +1795,11 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         # Built (and argument-checked) before the exporter spawns its
         # HTTP thread; armed right before the solve.
         if args.stall_timeout:
-            watchdog = obs.StallWatchdog(args.stall_timeout,
-                                         action=args.stall_action)
+            # Classification echoes the SOLVE's own device (tracking
+            # the rebuilt engine after a rescue), not every visible card.
+            watchdog = obs.StallWatchdog(
+                args.stall_timeout, action=args.stall_action,
+                device_source=lambda: [ref["engine"].device])
         if args.device_sample_every:
             # The run's own card (a foreign process's memory on a
             # shared host is not this run's watermark).
@@ -1711,6 +1813,14 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             if exporter.port is not None:
                 _log(f"serving metrics on http://127.0.0.1:{exporter.port}"
                      f"/metrics")
+        # A seeded process-kill plan (testing/faults.ProcessKillPlan, its
+        # environment variable) reaches a mesh run's ranks at their step
+        # boundaries; a job's stage machine checks it itself.
+        chaos = None
+        if job is None and world > 1:
+            from pagerank_tpu_torch.testing.faults import ProcessKillPlan
+
+            chaos = ProcessKillPlan.from_env()
         t_last = [time.perf_counter()]
 
         def on_iteration(i, step_info):
@@ -1722,12 +1832,13 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                              and (i + 1) % args.snapshot_every == 0)
             if want_snap or dumper is not None:
                 if writer is not None:
-                    writer.submit(i, (want_snap, engine.device_ranks()))
+                    writer.submit(i, (want_snap,
+                                      ref["engine"].device_ranks()))
                 else:
                     def fetch_and_write():
                         # one device->host fetch for both sinks
                         t = time.perf_counter()
-                        ranks = engine.ranks()
+                        ranks = ref["engine"].ranks()
                         fetch_s.append(time.perf_counter() - t)
                         write_sinks(i, (want_snap, ranks))
 
@@ -1737,13 +1848,20 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             # pending drain request surfaces here.
             if job is not None:
                 job.tick("solve", i)
-            drain_check("solve")
+            elif chaos is not None:
+                chaos.check("solve", i)
+            ref["drain"]("solve")
             t_last[0] = time.perf_counter()
 
         roll_snap = snap
         if snap is not None and writer is not None:
             # Rollback scans drain the writer's queue first.
             roll_snap = WriterSyncedSnapshotter(snap, writer)
+        runner = None
+        if rescue:
+            runner = _elastic_runner(args, cfg, graph, ref, drain, snap,
+                                     roll_snap, job, ctx)
+        ctx["runner"] = runner
         if watchdog is not None:
             obs.arm_watchdog(watchdog)
         interrupted = None
@@ -1751,8 +1869,12 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         try:
             with obs.profiler_session(args.profile_dir), \
                     tracer.span("solve", iters=cfg.num_iters):
-                ranks = engine.run(on_iteration=on_iteration,
-                                   snapshotter=roll_snap, probes=probes)
+                if runner is not None:
+                    ranks = runner.run(on_iteration=on_iteration,
+                                       probes=probes)
+                else:
+                    ranks = engine.run(on_iteration=on_iteration,
+                                       snapshotter=roll_snap, probes=probes)
         except jobs.DrainInterrupt as di:
             interrupted = di
         finally:
@@ -1771,13 +1893,18 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                 if not propagating:
                     raise
         solve_s = time.perf_counter() - t_solve
+        engine = ref["engine"]
+        if deferred and owns():
+            # Rank 0 of the group a rescue formed: its outputs now.
+            for name, value in deferred.items():
+                setattr(args, name, value)
         if interrupted is not None:
             # Final snapshot of the drained state (the last completed
             # step), then the manifest, then the interrupt.
             if snap is not None:
                 def final_save():
                     ranks_now = engine.ranks()  # every rank: a collective
-                    if owner:
+                    if owns():
                         snap.save(engine.iteration, ranks_now)
 
                 try:
@@ -1878,8 +2005,22 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         "sdc": sdc_mod.report_section(),
         "dropped": list(guard.dropped),
         "job": dict(job.manifest) if job is not None else None,
+        "elastic": _elastic_summary(ctx.get("runner")),
         "report": report,
     }
+
+
+def _elastic_summary(runner):
+    """What the elastic runner did (None when it did not drive the
+    solve): rescues, restarts, lost and quarantined members, the final
+    mesh's members and each rescue's wall by part."""
+    if runner is None:
+        return None
+    return {"rescues": runner.rescues, "restarts": runner.restarts,
+            "lost": list(runner.lost_device_ids),
+            "quarantined": list(runner.quarantined_device_ids),
+            "members": [int(d) for d in runner.engine.device_ids()],
+            "walls": list(runner.rescue_walls)}
 
 
 def _log_layout(lay, build_s):
@@ -1927,7 +2068,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     nccl, or on the CPU under gloo with ``--device cpu``), after the
     argument checks and the visible-device check, and exits 0 only if
     every rank did; ``--num-devices 1`` runs this process as the one
-    rank of a group of one. The backend follows ``--device``."""
+    rank of a group of one. The backend follows ``--device``.
+
+    With ``--stall-action rescue`` the launcher hosts the group's store
+    (``spawn_group(..., rescue=True)``), the group's collective timeout
+    is bounded by ``--stall-timeout``, and a rank the group's roll call
+    declared lost does not fail the run: the exit code is the
+    survivors', and the lost ranks are reported with their codes."""
     from pagerank_tpu_torch.parallel import distributed
     from pagerank_tpu_torch.parallel import mesh as mesh_lib
 
@@ -1941,6 +2088,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         if args.num_devices is not None and args.num_devices != world:
             _usage(f"--num-devices {args.num_devices} != torchrun's "
                    f"WORLD_SIZE {world}")
+        _check_args(args)  # before joining: e.g. rescue is refused here
         distributed.maybe_initialize_distributed(backend)
         try:
             return _main_in_process(args)
@@ -1967,15 +2115,29 @@ def main(argv: Optional[List[str]] = None) -> int:
                 return _main_in_process(args)
             finally:
                 distributed.shutdown()
+        rescue = args.stall_action == "rescue"
+        timeout_s = distributed.DEFAULT_TIMEOUT_S
+        if rescue and args.stall_timeout:
+            # A wedged peer must not hold the survivors in a collective
+            # past the stall deadline (the watchdog's interrupt reaches
+            # a thread blocked there only when the call returns).
+            timeout_s = min(timeout_s, float(args.stall_timeout))
         codes = distributed.spawn_group(
             "pagerank_tpu_torch.cli:_rank_main", args.num_devices, argv, tmp,
-            backend=backend)
-    if all(c == 0 for c in codes):
+            backend=backend, timeout_s=timeout_s, rescue=rescue)
+    lost = set(codes.lost)
+    if lost:
+        _log(f"pagerank_tpu_torch: lost rank(s) {sorted(lost)} (exit codes "
+             f"{ {r: codes[r] for r in sorted(lost)} }); the survivors "
+             f"finished the solve")
+    survivors = [c for r, c in enumerate(codes) if r not in lost]
+    if survivors and all(c == 0 for c in survivors):
         return 0
-    _log(f"pagerank_tpu_torch: rank exit codes {codes}")
-    if all(c in (0, int(ExitCode.INTERRUPTED)) for c in codes):
+    _log(f"pagerank_tpu_torch: rank exit codes {list(codes)}")
+    if survivors and all(c in (0, int(ExitCode.INTERRUPTED))
+                         for c in survivors):
         return int(ExitCode.INTERRUPTED)
-    return next((c for c in codes if c and c > 0), 1)
+    return next((c for c in survivors if c and c > 0), 1)
 
 
 def _rank_main(argv: List[str]) -> int:
@@ -1993,11 +2155,18 @@ def _rank_main(argv: List[str]) -> int:
 
 def _main_in_process(args) -> int:
     """:func:`main` on parsed ``args`` in this process (its group, if
-    any, already joined)."""
+    any, already joined). A rank the group's roll call declared lost
+    leaves with exit 1 (the launcher reports it; the survivors decide
+    the run's code)."""
+    from pagerank_tpu_torch.parallel.elastic import RankLeftError
+
     drain = jobs.GracefulDrain(deadline_s=args.drain_deadline)
     with drain:
         try:
             _run(args, drain)
+        except RankLeftError as e:
+            _log(f"pagerank_tpu_torch: {e}")
+            return int(ExitCode.FAILURE)
         except jobs.DrainInterrupt as e:
             spent = drain.finish()
             try:

@@ -130,7 +130,7 @@ class PprTorchEngine:
         if (self.config.num_devices or 1) > 1 or self.config.vertex_sharded:
             raise ValueError(
                 "PPR over more than one device (num_devices > 1, "
-                "vertex_sharded) is not ported yet: ROADMAP slice 6c")
+                "vertex_sharded) is not ported yet: ROADMAP slice 6d")
         if dangling_to not in (ppr_model.DANGLING_TO_SOURCE,
                                ppr_model.DANGLING_TO_UNIFORM):
             raise ValueError(f"unknown dangling_to: {dangling_to!r}")

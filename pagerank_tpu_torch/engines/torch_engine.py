@@ -303,7 +303,7 @@ class TorchEngine(PageRankEngine):
             if self._world > 1:
                 raise NotImplementedError(
                     "the coo form over more than one device is not ported "
-                    "yet: ROADMAP slice 6c")
+                    "yet: ROADMAP slice 6d")
             return self._build_coo(graph, t0)
         if cfg.partition_span:
             n_padded = -(-n // LANES) * LANES
@@ -389,7 +389,7 @@ class TorchEngine(PageRankEngine):
         if self.mesh is not None:
             raise NotImplementedError(
                 "build_device over a mesh (more than one device, or "
-                "vertex_sharded) is not ported yet: ROADMAP slice 6c")
+                "vertex_sharded) is not ported yet: ROADMAP slice 6d")
         cfg, dev = self.config, self.device
         if cfg.kernel == "coo":
             raise ValueError("build_device supports the ell/pallas kernels "
@@ -1379,7 +1379,7 @@ class TorchEngine(PageRankEngine):
         if self._world > 1:
             raise NotImplementedError(
                 "convergence probes over more than one device are not "
-                "ported yet: ROADMAP slice 6c")
+                "ported yet: ROADMAP slice 6d")
         k = self._resolve_probe_k(probes.topk)
         prev = probes.prev_ids
         r = self._r
@@ -1410,10 +1410,12 @@ class TorchEngine(PageRankEngine):
 
     def device_ids(self):
         """The devices holding the rank vector, in mesh order: the card's
-        index on one device, the ranks 0..world-1 over a mesh (what an
-        SDC suspect position names)."""
+        index on one device, the members' original ids over a mesh (what
+        an SDC suspect position, a fault schedule and a rescue's dead set
+        name: after a rescue, ``[0, 2]`` is the group that lost member
+        1)."""
         if self.mesh is not None:
-            return list(range(self._world))
+            return list(self.mesh.members)
         return [mesh_lib.device_id(self.device)]
 
     def sdc_supported(self) -> bool:

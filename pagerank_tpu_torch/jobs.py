@@ -60,6 +60,7 @@ from typing import Dict, Iterable, List, Optional, Tuple
 import numpy as np
 
 from pagerank_tpu_torch.exitcodes import hard_exit_code
+from pagerank_tpu_torch.obs import live as obs_live
 from pagerank_tpu_torch.obs import log as obs_log
 from pagerank_tpu_torch.obs import metrics as obs_metrics
 from pagerank_tpu_torch.obs import trace as obs_trace
@@ -369,7 +370,16 @@ class GracefulDrain:
         lands while the main thread holds that lock. Telemetry is
         deferred to :meth:`_note_request` at the next safe point;
         ``hard_exit`` (``os._exit``) is the sanctioned exception — the
-        operator asked twice."""
+        operator asked twice — and so is the KeyboardInterrupt of a
+        SIGINT that the armed stall watchdog sent with a rescue request
+        pending (what Python's own SIGINT handler would raise)."""
+        if signum == signal.SIGINT:
+            wd = obs_live.get_watchdog()
+            if wd is not None and wd.rescue_requested:
+                # Not an operator's signal: the stall watchdog's rescue
+                # fire (``interrupt_main``). The elastic runner takes it
+                # as the KeyboardInterrupt of its handshake.
+                raise KeyboardInterrupt
         if self.requested:
             # Second signal: the operator means NOW.
             self._hard_exit(hard_exit_code(signum))

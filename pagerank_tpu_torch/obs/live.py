@@ -1,9 +1,13 @@
 """Live monitoring: Prometheus text exporter + stall watchdog.
 
-Copy of ``pagerank_tpu/obs/live.py`` with the watchdog's ``warn`` and
-``raise`` actions; its ``rescue`` action (the hang-vs-device-lost
-classification the elastic runner consumes) comes with ROADMAP slice
-6. The watchdog's device view reads the port's ``parallel/mesh.py``.
+Copy of ``pagerank_tpu/obs/live.py`` with the watchdog's ``warn``,
+``raise`` and ``rescue`` actions (``:389-523``: ``rescue_requested``,
+``consume_rescue``, ``_classify`` over the solve mesh's devices from
+``device_source``; the elastic runner of ``parallel/elastic.py``
+consumes the request). The watchdog's device view and liveness echo
+read the port's ``parallel/mesh.py``. Over a process group a rank can
+echo only its own card: its classification says so, and the runner's
+roll call classifies the group's members.
 
 A long solve that hangs dies silently: nothing in the span/report
 machinery fires until the run ENDS. This module is the live window
@@ -41,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Sequence
 
 from pagerank_tpu_torch.obs import log as obs_log
 from pagerank_tpu_torch.obs import metrics as obs_metrics
@@ -397,17 +401,30 @@ class StallWatchdog:
     moment it returns). The episode re-arms on the next heartbeat, so
     a run that stalls twice logs twice.
 
+    ``action='rescue'`` (parallel/elastic.py): the fire additionally
+    classifies the stall — a deadline-bounded liveness echo on each
+    solve-mesh device (``device_source``; mesh.probe_liveness)
+    discriminates *hang* (every device answers) from *device-lost* —
+    sets :attr:`rescue_requested`, and interrupts the main thread
+    exactly like 'raise'. The elastic runner catches the interrupt,
+    calls :meth:`consume_rescue`, and performs the rescue; a plain run
+    (no runner) sees an ordinary KeyboardInterrupt. Under the CLI the
+    interrupt is a SIGINT, which its drain handler turns back into a
+    KeyboardInterrupt while a rescue request is pending (jobs.py).
+
     ``clock``/``sleep`` are injectable: tests drive :meth:`check` in
     virtual time with no thread (utils/retry.py discipline).
     """
 
-    ACTIONS = ("warn", "raise")
+    ACTIONS = ("warn", "raise", "rescue")
 
     def __init__(self, timeout_s: float, action: str = "warn",
                  poll_s: Optional[float] = None,
                  clock: Callable[[], float] = time.monotonic,
                  sleep: Callable[[float], None] = time.sleep,
-                 interrupt: Optional[Callable[[], None]] = None):
+                 interrupt: Optional[Callable[[], None]] = None,
+                 liveness_timeout_s: float = 2.0,
+                 device_source: Optional[Callable[[], Sequence]] = None):
         if timeout_s <= 0:
             raise ValueError(f"stall timeout must be > 0, got {timeout_s}")
         if action not in self.ACTIONS:
@@ -423,10 +440,19 @@ class StallWatchdog:
         self._interrupt = interrupt if interrupt is not None else (
             self._default_interrupt
         )
+        self.liveness_timeout_s = float(liveness_timeout_s)
+        #: Where classification gets its device list: a callable
+        #: returning the SOLVE MESH's devices (the CLI wires the current
+        #: engine's device — after a rescue it tracks the rebuilt one).
+        #: None falls back to every visible device, which can blame a
+        #: card the solve never uses.
+        self.device_source = device_source
         self._last = self.clock()
         self.last_iteration: Optional[int] = None
         self.stalls = 0
         self._fired = False  # one diagnostic per stall episode
+        self.rescue_requested = False
+        self.last_classification: Optional[str] = None
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -442,6 +468,39 @@ class StallWatchdog:
         if iteration is not None:
             self.last_iteration = iteration
         self._fired = False  # new progress re-arms the episode
+
+    def consume_rescue(self) -> bool:
+        """Whether the latest fire requested a rescue; reading it
+        clears the flag (the elastic runner's one-shot handshake — a
+        later unrelated KeyboardInterrupt must not rescue)."""
+        req = self.rescue_requested
+        self.rescue_requested = False
+        return req
+
+    def _classify(self) -> str:
+        """Hang vs device-lost, best-effort: a deadline-bounded liveness
+        echo per SOLVE-MESH device (``device_source``;
+        parallel/mesh.probe_liveness). Never raises — classification is
+        diagnostic input, and a probe that cannot run still leaves the
+        stall loud."""
+        try:
+            from pagerank_tpu_torch.parallel import distributed
+            from pagerank_tpu_torch.parallel import mesh as mesh_lib
+
+            devs = (self.device_source()
+                    if self.device_source is not None else None)
+            alive = mesh_lib.probe_liveness(
+                devs, timeout_s=self.liveness_timeout_s
+            )
+            dead = sorted(d for d, ok in alive.items() if not ok)
+            group = ("" if distributed.process_info()[1] == 1 else
+                     " on this rank; the runner's roll call classifies "
+                     "the group's members")
+            if dead:
+                return f"DEVICE-LOST (no liveness echo from {dead}){group}"
+            return f"hang (all devices answer liveness probes){group}"
+        except Exception as e:
+            return f"unclassified (liveness probe failed: {type(e).__name__})"
 
     def stalled_for(self) -> float:
         return self.clock() - self._last
@@ -472,12 +531,19 @@ class StallWatchdog:
         ).inc()
         it = ("none completed" if self.last_iteration is None
               else f"last completed iteration {self.last_iteration}")
+        classified = ""
+        if self.action == "rescue":
+            self.last_classification = self._classify()
+            classified = f"; classification: {self.last_classification}"
         obs_log.warn(
             f"STALL WATCHDOG: no solve progress for {stalled:.1f}s "
             f"(timeout {self.timeout_s:g}s); {it}; devices: "
-            f"{self._device_view()}"
+            f"{self._device_view()}{classified}"
         )
-        if self.action == "raise":
+        if self.action == "rescue":
+            self.rescue_requested = True
+            self._interrupt()
+        elif self.action == "raise":
             self._interrupt()
         return True
 

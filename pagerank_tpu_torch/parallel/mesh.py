@@ -20,6 +20,15 @@ device lowers its collectives away: a group of one pays no
 threading); ``probe_liveness`` and ``surviving_devices`` take torch
 devices, keyed by :func:`device_id`, and the liveness echo is a tiny
 torch op on each device.
+
+A mesh over a group names its ranks by their MEMBER ids
+(:attr:`Mesh.members`): the ranks of the group's first generation,
+kept across the regroups of an elastic rescue
+(``parallel/distributed.regroup``), so that a lost, excluded or
+quarantined member keeps one name for the whole run.
+:func:`surviving_members` is ``surviving_devices`` over those ids (a
+CUDA index cannot name a rank: gloo ranks that share one card all sit
+on ``cuda:0``).
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -59,14 +68,29 @@ class Mesh:
     axis_name: str = "data"
     backend: Optional[str] = None
     stage_p2p: bool = False
+    #: The original ids of the group's members in rank order (module
+    #: docstring); ``range(world)`` by default.
+    members: Tuple[int, ...] = ()
     #: Pinned host buffers of the staged point-to-point rounds, kept by
     #: (tag, role, numel, dtype) so a step allocates none.
     _staging: Dict[tuple, torch.Tensor] = dataclasses.field(
         default_factory=dict, repr=False)
 
+    def __post_init__(self):
+        self.members = tuple(int(m) for m in self.members) or tuple(
+            range(self.world))
+        if len(self.members) != self.world:
+            raise ValueError(f"{len(self.members)} member ids for a mesh of "
+                             f"{self.world} ranks")
+
     @property
     def size(self) -> int:
         return self.world
+
+    @property
+    def member(self) -> int:
+        """This rank's member id."""
+        return self.members[self.rank]
 
     @property
     def collective(self) -> bool:
@@ -128,7 +152,8 @@ def make_mesh(num_devices: Optional[int] = None, axis_name: str = "data",
         backend = str(dist.get_backend(group))
     return Mesh(group=group, rank=rank, world=world, device=dev,
                 axis_name=axis_name, backend=backend,
-                stage_p2p=backend == "gloo" and dev.type == "cuda")
+                stage_p2p=backend == "gloo" and dev.type == "cuda",
+                members=distributed.members() if group is not None else ())
 
 
 def check_visible(num_devices: int, device) -> None:
@@ -405,6 +430,18 @@ def surviving_devices(dead_ids, devices: Optional[Sequence] = None):
             f"no surviving devices: all of "
             f"{sorted(device_id(d) for d in devs)} reported dead"
         )
+    return out
+
+
+def surviving_members(dead_ids, members: Sequence[int]) -> List[int]:
+    """``members`` minus ``dead_ids`` — the member ids a rescue regroups
+    over. Raises when nothing survives, as :func:`surviving_devices`
+    does."""
+    dead = set(int(d) for d in dead_ids)
+    out = [int(m) for m in members if int(m) not in dead]
+    if not out:
+        raise RuntimeError(
+            f"no surviving members: all of {sorted(members)} reported dead")
     return out
 
 

@@ -15,7 +15,7 @@ registry (the daemon's ``serve.*`` counters and latency histogram with
 its trace-id exemplars) at ``GET /metrics`` in ``--metrics-format``
 (prometheus or openmetrics), and ``--run-report`` writes the run report
 with the serving flight-recorder section on the SIGTERM drain.
-``--num-devices`` > 1 is ROADMAP slice 6c and exits 2 naming it.
+``--num-devices`` > 1 is ROADMAP slice 6d and exits 2 naming it.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--damping", type=float, default=0.85)
     g.add_argument("--num-devices", type=int, default=None,
                    help="devices to serve on (more than one is not "
-                   "ported yet: ROADMAP slice 6c)")
+                   "ported yet: ROADMAP slice 6d)")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the engine runs (default cuda; cpu only "
                    "when asked)")
@@ -119,7 +119,7 @@ def _build_server(args):
     ).validate()
     if (args.num_devices or 1) > 1:
         raise ValueError("--num-devices > 1: serving over more than one "
-                         "device is not ported yet: ROADMAP slice 6c")
+                         "device is not ported yet: ROADMAP slice 6d")
     serve_config = ServeConfig(
         max_batch=args.max_batch,
         queue_depth=args.queue_depth,

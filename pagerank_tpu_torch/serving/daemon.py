@@ -121,7 +121,7 @@ class PprServer:
     ``engine_factory(devices)`` must return a built engine over
     exactly ``devices``; the default builds :class:`PprTorchEngine`
     with ``num_devices=len(devices)`` — more than one is ROADMAP slice
-    6c — and the rescue path calls it again with the survivor list.
+    6d — and the rescue path calls it again with the survivor list.
     ``liveness_probe(devices, timeout_s)`` defaults to
     ``mesh.probe_liveness``; tests inject their own so a CPU run sees
     the dead set a real device would report.

@@ -30,8 +30,15 @@ smokes in scripts/acceptance.py gate on it).
 
 Copy of ``pagerank_tpu/testing/faults.py``: the host logic as it is;
 ``mutate_rank_shard`` and ``flip_rank_bit`` rewritten on the engine's
-torch rank tensor, and the device ids read from its device (one
-device: its CUDA index, 0 on the CPU). The subprocess harness runs
+torch rank tensor, and the device ids read from the engine
+(``engine.device_ids()``: over a mesh its members' ORIGINAL ids, the
+ranks of the group's first generation; one device: its CUDA index, 0 on
+the CPU). Over a process group every rank installs the shim with the
+same seeded schedule, so every rank sees the same kill at the same
+iteration (the victim's runner finds itself in the roll call's verdict
+and leaves; the survivors rescue), and a flip lands only on its
+member's own shard. :class:`ProcessKillPlan` may name a ``rank``: only
+that rank of a group delivers the signal. The subprocess harness runs
 ``python -m pagerank_tpu_torch.cli`` by default.
 """
 
@@ -335,9 +342,13 @@ class ProcessKillPlan:
 
     def __init__(self, stage: str, iteration: Optional[int] = None,
                  signum: int = 15, seed: int = 0,
-                 log_path: Optional[str] = None):
+                 log_path: Optional[str] = None,
+                 rank: Optional[int] = None):
         self.stage = stage
         self.iteration = iteration
+        #: Only this rank of a process group (its ``RANK``) delivers the
+        #: signal; None: every process the plan reaches.
+        self.rank = rank
         self.signum = int(signum)
         self.seed = int(seed)
         self.fired = False
@@ -358,11 +369,13 @@ class ProcessKillPlan:
         if signum is None:
             raise ValueError(f"{cls.ENV}: unknown signal {sig_name!r}")
         it = fields.get("iter")
+        rank = fields.get("rank")
         return cls(
             stage=fields.get("stage", "solve"),
             iteration=int(it) if it is not None else None,
             signum=int(signum), seed=int(fields.get("seed", 0)),
             log_path=env.get(cls.LOG_ENV),
+            rank=int(rank) if rank is not None else None,
         )
 
     def to_env(self) -> Dict[str, str]:
@@ -372,6 +385,8 @@ class ProcessKillPlan:
         spec = f"stage={self.stage},signal={sig},seed={self.seed}"
         if self.iteration is not None:
             spec += f",iter={self.iteration}"
+        if self.rank is not None:
+            spec += f",rank={self.rank}"
         return {self.ENV: spec}
 
     def check(self, stage: str, iteration: Optional[int] = None) -> None:
@@ -381,6 +396,9 @@ class ProcessKillPlan:
         if self.fired or stage != self.stage:
             return
         if self.iteration is not None and iteration != self.iteration:
+            return
+        if (self.rank is not None
+                and os.environ.get("RANK", "0") != str(self.rank)):
             return
         self.fired = True
         entry = (stage, signal.Signals(self.signum).name,
@@ -461,33 +479,45 @@ def _flip_bit_index(dtype, kind: str) -> int:
 
 
 def _engine_device_ids(engine):
-    """The device ids of the engine's rank buffer: a one-device engine's
-    CUDA index (0 on the CPU)."""
+    """The device ids of the engine's rank buffer: its mesh's member ids
+    (``engine.device_ids()``), or a one-device engine's CUDA index (0
+    on the CPU)."""
     from pagerank_tpu_torch.parallel.mesh import device_id
 
+    if getattr(engine, "mesh", None) is not None:
+        return [int(d) for d in engine.device_ids()]
     dev = getattr(engine, "device", None)
     return [0 if dev is None else device_id(dev)]
 
 
 def mutate_rank_shard(engine, device_id: int, mutator):
-    """Rewrite the engine's rank tensor on ``device_id`` through
+    """Rewrite ``device_id``'s buffer of the engine's rank vector through
     ``mutator(tensor, lo)``, which changes the tensor in place on its
     device — the silent-data-corruption injection primitive. The
     mutated tensor is a copy that then becomes the engine's rank
     vector, so a buffer already handed to a sink (the async writer's
     payload) keeps the bits it was handed, as on a chip whose buffer
-    went bad after it was read. One device holds the whole vector, so
-    the shard's global start is 0; returns it (localization ground
-    truth for tests)."""
-    if int(device_id) not in _engine_device_ids(engine):
+    went bad after it was read. Over a mesh only the rank whose member
+    is ``device_id`` changes its buffer (a replicated form's copy, or a
+    vertex-sharded form's block, whose global start is ``lo``); every
+    other rank leaves its own alone. Returns the targeted shard's
+    global start (localization ground truth for tests)."""
+    ids = _engine_device_ids(engine)
+    if int(device_id) not in ids:
         raise ValueError(
             f"device {device_id} holds no shard of the rank vector "
-            f"(engine devices: {_engine_device_ids(engine)})"
+            f"(engine devices: {ids})"
         )
+    mesh = getattr(engine, "mesh", None)
+    lo = 0
+    if mesh is not None and getattr(engine, "_vs", False):
+        lo = ids.index(int(device_id)) * int(engine._blk)
+    if mesh is not None and mesh.member != int(device_id):
+        return lo
     r = engine._r.clone()
-    mutator(r, 0)
+    mutator(r, lo)
     engine._r = r
-    return 0
+    return lo
 
 
 def flip_element(frac: float, n_valid: int, size: int) -> int:
@@ -527,6 +557,8 @@ def flip_rank_bit(engine, device_id: int, kind: str, frac: float):
         out["bit"] = bit
 
     lo = mutate_rank_shard(engine, device_id, mutator)
+    if not out:  # another rank's member: nothing flipped here
+        return None
     return lo + out["element"], out["bit"]
 
 
@@ -695,13 +727,14 @@ class DeviceFaultSchedule:
 
     def liveness_probe(self, devices, timeout_s: float = 0.0
                        ) -> Dict[int, bool]:
-        """Injectable stand-in for mesh.probe_liveness on the fake CPU
-        mesh (where every fake device shares one live process): a
-        device is alive iff the schedule has not killed it."""
+        """Injectable stand-in for the liveness probe on a fake mesh
+        (where every member shares one live process): a device or
+        member id is alive iff the schedule has not killed it."""
         from pagerank_tpu_torch.parallel.mesh import device_id
 
-        return {device_id(d): device_id(d) not in self.dead
-                for d in devices}
+        ids = [int(d) if isinstance(d, int) else device_id(d)
+               for d in devices]
+        return {d: d not in self.dead for d in ids}
 
 
 def install_device_faults(engine, schedule: DeviceFaultSchedule,

@@ -31,9 +31,11 @@ Virtual time rides the same discipline: :class:`VirtualClock` is an
 injectable ``clock`` (the utils/retry.py idiom) the actors advance
 explicitly, so timeout logic replays without wall-clock sleeps.
 
-Copy of ``pagerank_tpu/testing/schedules.py`` without
-``rotation_actors`` (the halo-async engine's protocol: ROADMAP slice
-6).
+Copy of ``pagerank_tpu/testing/schedules.py``, ``rotation_actors``
+(``:184-270``) included: the boundary double-buffer rotation of the
+async halo form (``engines/torch_engine.py``: ``_stale_image``, the
+slot swap, ``_prime_carry`` on ``set_ranks``/``restore_state``) across a
+rescue's or a redo's state replacement.
 """
 
 from __future__ import annotations
@@ -183,3 +185,92 @@ def replay(seed: int,
     build(sched)
     sched.run(max_steps=max_steps)
     return sched
+
+
+def rotation_actors(sched: InterleavingScheduler, *, steps: int = 6,
+                    lag_cap: int = 1, prime_on_restore: bool = True,
+                    rescue_after: Optional[int] = None,
+                    reader_polls: int = 8) -> dict:
+    """Spawn the boundary double-buffer ROTATION-PROTOCOL
+    actors and return their shared state for invariant assertions.
+
+    Models the host-side state the async halo engine rotates per step
+    (engines/torch_engine.py): ``r`` is the version of the adopted rank
+    plane, ``buf`` the rank version whose boundary the stale buffer
+    holds. The protocol under test:
+
+    - **adopt order**: the step assigns the rank plane FIRST
+      and the carry (buffer) second, so a concurrent reader (watchdog
+      telemetry, a signal-context probe) can never observe a buffer
+      NEWER than the ranks (``buf <= r`` always). Mid-adoption a reader
+      may transiently see lag ``2`` — benign, because nothing CONSUMES
+      the buffer between the two assignments; only the solve loop
+      consumes, and only at a step boundary.
+    - **consumed-lag bound**: every step's boundary read lags the rank
+      plane by at most ``lag_cap`` (= config.stale_max_lag).
+    - **prime on state replacement**: a rescue/restore that replaces
+      the rank plane must re-prime the buffer from the NEW ranks
+      (engines' ``_prime_carry``), or the next step consumes a boundary
+      of unbounded staleness. ``prime_on_restore=False`` is the
+      booby-trapped protocol — tests assert it RECORDS a violation
+      under the same seeds the honest protocol survives.
+
+    The rescue rides the watchdog's ``rescue_requested`` handshake
+    (the PTR001-allowlisted flag idiom): the watchdog actor only SETS
+    the flag; the solve actor notices it at its own step boundary and
+    performs the restore itself — mutation stays on one logical
+    context, exactly the discipline the PTR pass certifies.
+
+    Violations are RECORDED into ``state["violations"]`` rather than
+    raised, so a test can assert the honest protocol yields none while
+    the booby trap yields some, over the same seed set."""
+    state: Dict[str, object] = {
+        "r": 0, "buf": 0, "restores": 0,
+        "violations": [], "observed": [],
+    }
+
+    def solver() -> Task:
+        for _ in range(steps):
+            if state.pop("rescue_requested", False):
+                # Replacement ranks adopted (restore_state/set_ranks):
+                # a version far from the buffer's, so a missing prime
+                # is unmistakably a staleness violation.
+                state["r"] = int(state["r"]) + 100
+                yield "restore-r"
+                if prime_on_restore:
+                    state["buf"] = state["r"]
+                    yield "restore-prime"
+                state["restores"] = int(state["restores"]) + 1
+            lag = int(state["r"]) - int(state["buf"])
+            if not (0 <= lag <= lag_cap):
+                state["violations"].append(
+                    ("solver", "consumed-lag", lag)
+                )
+            yield f"consume:lag{lag}"
+            cur = int(state["r"])
+            state["r"] = cur + 1        # rank plane adopted FIRST...
+            yield "adopt-r"
+            state["buf"] = cur          # ...then the boundary carry
+            yield "adopt-buf"
+
+    def watchdog() -> Task:
+        if rescue_after is None:
+            return
+        for _ in range(rescue_after):
+            yield "tick"
+        state["rescue_requested"] = True
+        yield "request-rescue"
+
+    def reader() -> Task:
+        for _ in range(reader_polls):
+            r, b = int(state["r"]), int(state["buf"])
+            state["observed"].append((r, b))
+            if b > r:
+                state["violations"].append(("reader", "buf-ahead", r, b))
+            yield "poll"
+
+    sched.spawn("solver", solver())
+    if rescue_after is not None:
+        sched.spawn("watchdog", watchdog())
+    sched.spawn("reader", reader())
+    return state

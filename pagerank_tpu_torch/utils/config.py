@@ -7,8 +7,10 @@ its kernel and partition-centric validation rules (``:404-410``,
 ``sdc_seed``, ``:325-402``) and the ``RobustnessConfig`` fields of the
 solve loop, the sinks and the SDC redo (``:22-125``: health checks,
 rollbacks, ``write_attempts``, ``on_write_failure``,
-``write_retry_policy()``, ``sdc_redo_deadline_s``, ``sdc_max_redos``;
-same defaults and messages), and the vertex-sharded forms' fields
+``write_retry_policy()``, ``sdc_redo_deadline_s``, ``sdc_max_redos``,
+and the elastic runner's ``max_rescues``, ``straggler_factor`` and
+``rescue_budget()``, ``:58-64``, ``:86-93``, ``:125-129``; same defaults
+and messages), and the vertex-sharded forms' fields
 (``vs_bounded``, ``halo_exchange``, ``halo_head``, ``halo_async``,
 ``stale_max_lag``, ``halo_async_min_gain``, ``:232-313``, their rules
 ``:411-441``, same defaults and messages).
@@ -65,6 +67,20 @@ class RobustnessConfig:
     write_attempts: int = 3
     on_write_failure: str = "fail"
 
+    #: Elastic-rescue budget (parallel/elastic.py): group teardown +
+    #: regroup + re-shard + warm-start recoveries the run may perform
+    #: after device losses before raising ElasticExhaustedError. None
+    #: (default) spends the SAME budget class as rollbacks
+    #: (max_rollbacks) — one knob bounds total recovery work unless
+    #: the operator splits them.
+    max_rescues: Optional[int] = None
+
+    #: Straggler-detection threshold (DeviceHealthMonitor): a step
+    #: slower than this factor times the step-time EWMA — but
+    #: COMPLETED — is flagged as slow-step telemetry (elastic.slow_steps
+    #: counter, straggler_skew gauge). Never triggers a rescue.
+    straggler_factor: float = 4.0
+
     #: Wall-clock budget for one SDC breach's bounded re-execution
     #: window (sdc.py): past it the episode escalates (quarantine when
     #: an attribution stands, SdcExhaustedError otherwise).
@@ -79,6 +95,15 @@ class RobustnessConfig:
         if self.max_rollbacks < 0:
             raise ValueError(
                 f"max_rollbacks must be >= 0, got {self.max_rollbacks}"
+            )
+        if self.max_rescues is not None and self.max_rescues < 0:
+            raise ValueError(
+                f"max_rescues must be >= 0 (None = max_rollbacks), got "
+                f"{self.max_rescues}"
+            )
+        if self.straggler_factor <= 1.0:
+            raise ValueError(
+                f"straggler_factor must be > 1, got {self.straggler_factor}"
             )
         if self.write_attempts < 1:
             raise ValueError(
@@ -107,6 +132,12 @@ class RobustnessConfig:
         if self.write_attempts <= 1:
             return None
         return RetryPolicy(max_attempts=self.write_attempts)
+
+    def rescue_budget(self) -> int:
+        """The resolved elastic-rescue budget (max_rescues, defaulting
+        to the rollback budget — ONE recovery-work bound by default)."""
+        return (self.max_rescues if self.max_rescues is not None
+                else self.max_rollbacks)
 
 
 @dataclass

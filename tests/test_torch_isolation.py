@@ -85,7 +85,10 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.parallel.distributed, "
         "pagerank_tpu_torch.parallel.partition, "
         "pagerank_tpu_torch.parallel.comms, "
-        "pagerank_tpu_torch.testing.sharded\n"
+        "pagerank_tpu_torch.parallel.elastic, "
+        "pagerank_tpu_torch.testing.sharded, "
+        "pagerank_tpu_torch.testing.elastic, "
+        "pagerank_tpu_torch.utils.config\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

@@ -273,15 +273,6 @@ def test_cli_stall_ends_the_run_as_the_jax_cli(tmp_path, capsys,
         assert len(rep["iterations"]) == 4
 
 
-@pytest.mark.parametrize("argv", [["--stall-action", "rescue"],
-                                  ["--max-rescues", "2"]])
-def test_cli_rescue_flags_exit_2_naming_slice_6(capsys, argv):
-    with pytest.raises(SystemExit) as e:
-        cli.run(["--synthetic", "rmat:6", "--device", "cpu", *argv])
-    assert e.value.code == 2
-    assert "slice 6" in capsys.readouterr().err
-
-
 def test_cli_failure_writes_a_failure_marked_report(tmp_path, monkeypatch):
     def bad_step(self):
         raise RuntimeError("device fell over")

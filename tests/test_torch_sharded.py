@@ -554,7 +554,6 @@ def test_cli_two_ranks_vertex_sharded_matches_one_device(tmp_path, capfd):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--max-rescues", "2"], ["--stall-action", "rescue"],
     ["--num-devices", "2", "--probe-every", "2"],
     ["--num-devices", "2", "--device-build"],
     ["--vertex-sharded", "--ppr-sources", "0"],
@@ -562,14 +561,14 @@ def test_cli_two_ranks_vertex_sharded_matches_one_device(tmp_path, capfd):
 ], ids=lambda a: a[-1] if a[-1].startswith("-") else a[-2])
 def test_cli_slice_6b_flags_exit_2_naming_it(argv, capsys, tmp_path,
                                              monkeypatch):
-    """What slice 6b left refused exits 2 naming slice 6c: the elastic
-    flags, and --probe-every, --device-build, --ppr-sources and
-    --job-dir over a mesh."""
+    """What the elastic slice (6c) left refused exits 2 naming slice 6d:
+    --probe-every, --device-build, --ppr-sources and --job-dir over a
+    mesh. The elastic flags run now (tests/test_torch_elastic.py)."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit) as e:
         cli.main(["--synthetic", "rmat:6", "--device", "cpu", *argv])
     assert e.value.code == 2
-    assert "slice 6c" in capsys.readouterr().err
+    assert "slice 6d" in capsys.readouterr().err
 
 
 _HALO_FLAGS = {
