@@ -301,9 +301,30 @@ What it does, in order:
      bit-equal to phase 3's; then a loss of its only device injected in
      a subprocess ends in ElasticExhaustedError, a non-zero exit, no
      hang;
- 17. prints one JSON line with every kernel's numbers (K1, K2, K1w on
-     the PPR path with its tile sweep, P1 and P2 at K1's slots, P3 at n
-     = 2^15 f32, F1-F6), then last ``{"ok": true, "device": {...}}``.
+ 17. PPR and its daemon over a process group (run after phase 16, on
+     phase 12's rmat:20 edges, its first PPR_CHUNK sources and their
+     one-device top-k, kept on disk by ``ppr_group_inputs``): (a)
+     ``PprTorchEngine`` at world 2, two gloo ranks sharing cuda:0 and
+     spawned rescue-armed, one PPR_CHUNK-column chunk of PPR_ITERS
+     iterations in f32/f32: each rank's K1w launches are counted (one an
+     iteration, over its share of the rows) and its launch on its share
+     is torch.equal to its plain version on the CPU (sums and folded
+     mass); the top-k is within PPR_GROUP_RTOL of phase 12's with equal
+     ids where phase 12's scores are not tied; the psum's CUDA-event
+     time an iteration and its share of the chunk iteration are
+     printed; (b) the CLI under NCCL in a group of one, ``--ppr-sources
+     <those sources> --num-devices 1`` on the same edges: K1w one launch
+     an iteration, no ``torch.distributed`` call in the solve, the rows
+     bit-equal to phase 12's; (c) the daemon over (a)'s two ranks: a
+     few batches answered within the tolerance of phase 12's answers,
+     then member 1 SIGKILLs itself on receiving a batch (a seeded
+     ``ProcessKillPlan``), the survivor regroups to world 1 and re-runs
+     it (``answered_degraded``); the rescue's wall by part (roll call,
+     regroup, rebuild, re-run) is printed;
+ 18. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+     the PPR path with its tile sweep and its record over a group, P1
+     and P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
+     ``{"ok": true, "device": {...}}``.
 
 Every byte bound comes from the registry's cost models
 (``pagerank_tpu_torch/analysis/kernels.py``: ``k1_cost``, ``k2_cost``,
@@ -4574,6 +4595,363 @@ def elastic_phase(tmp):
     return got
 
 
+PPR_GROUP_WORLD = 2
+#: Top-k scores over a group against phase 12's one-device run: f32
+#: sums in another order (a block split between two shares, the psum
+#: of two partials) over PPR_ITERS iterations (tests/test_torch_ppr.py::
+#: test_topk_ordering_f32's rtol), with an absolute floor for the
+#: smallest scores of a top-k.
+PPR_GROUP_RTOL = 1e-5
+PPR_GROUP_ATOL = 1e-7
+#: The daemon of 17(c): batches of SERVE_GROUP_BATCH sources, member 1
+#: SIGKILLed on receiving dispatch SERVE_GROUP_KILL (the warm-up is 0).
+SERVE_GROUP_BATCH = 8
+SERVE_GROUP_BATCHES = 4
+SERVE_GROUP_KILL = 3
+
+
+def ppr_group_inputs(tmp, s):
+    """What phase 17 needs from phase 12(a), kept on disk until it runs:
+    the rmat:20 graph's edges, the first PPR_CHUNK sources and their
+    one-device top-k ids and scores."""
+    import numpy as np
+
+    d = os.path.join(tmp, "ppr_group")
+    os.makedirs(d, exist_ok=True)
+    graph, res = s["graph"], s["ppr"]
+    np.savez(os.path.join(d, "edges.npz"), src=graph.src, dst=graph.dst,
+             n=graph.n)
+    np.savez(os.path.join(d, "ref.npz"), sources=res.sources[:PPR_CHUNK],
+             ids=res.topk_ids[:PPR_CHUNK], scores=res.topk_scores[:PPR_CHUNK])
+
+
+def _held_topk(label, ids, scores, ref_ids, ref_scores):
+    """Hold a top-k to phase 12's: scores within PPR_GROUP_RTOL /
+    PPR_GROUP_ATOL, ids equal wherever phase 12's score is more than
+    PPR_TIE_EPS from its neighbours'; returns the largest score error."""
+    import numpy as np
+
+    err = np.abs(scores.astype(np.float64) - ref_scores)
+    _check(ids.shape == ref_ids.shape and np.isfinite(scores).all()
+           and (err <= PPR_GROUP_ATOL + PPR_GROUP_RTOL
+                * np.abs(ref_scores)).all(),
+           f"{label}: top-k scores off phase 12's by up to {err.max():.3e}")
+    gap = np.diff(ref_scores.astype(np.float64), axis=1)
+    tied = np.zeros(ref_scores.shape, bool)
+    tied[:, 1:] |= np.abs(gap) <= PPR_TIE_EPS
+    tied[:, :-1] |= np.abs(gap) <= PPR_TIE_EPS
+    bad = int(((ids != ref_ids) & ~tied).sum())
+    _check(bad == 0, f"{label}: {bad} untied top-k ids differ from phase "
+           f"12's")
+    return float(err.max())
+
+
+def phase17_rank(payload) -> int:
+    """One rank of phase 17(a) and (c) (spawned rescue-armed; joined to
+    the gloo group, on cuda:0): the engine over the group (every rank
+    writes its numbers as JSON), then the daemon (rank 0 writes its
+    numbers; member 1 dies on the kill plan)."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig
+    from pagerank_tpu_torch.engines.ppr import PprTorchEngine
+    from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.analysis import kernels
+    from pagerank_tpu_torch.ops import ell as ell_lib
+    from pagerank_tpu_torch.ops import ell_spmm
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.parallel import mesh as mesh_lib
+    from pagerank_tpu_torch.parallel.elastic import (ElasticExhaustedError,
+                                                     RankLeftError)
+    from pagerank_tpu_torch.serving.daemon import PprServer, ServeConfig
+    from pagerank_tpu_torch.testing.faults import ProcessKillPlan
+    from pagerank_tpu_torch.testing.schedules import VirtualClock
+
+    torch.set_num_threads(4)
+    rank, world = distributed.process_info()
+    dev = torch.device("cuda", 0)
+    d = payload["dir"]
+    rep = {"rank": rank}
+    t0 = time.perf_counter()
+    with np.load(os.path.join(d, "edges.npz")) as f:
+        graph = build_graph(f["src"], f["dst"], n=int(f["n"]))
+    with np.load(os.path.join(d, "ref.npz")) as f:
+        sources = f["sources"]
+    rep["graph_s"] = time.perf_counter() - t0
+    cfg = PageRankConfig(num_iters=PPR_ITERS, dtype="float32",
+                         accum_dtype="float32", num_devices=world)
+    # (a) the engine over the group.
+    t0 = time.perf_counter()
+    eng = PprTorchEngine(cfg, device=dev).build(graph)
+    eng.bind(PPR_CHUNK)
+    rep["build_s"] = time.perf_counter() - t0
+    psum, events = mesh_lib.psum, []
+
+    def timed_psum(mesh, x, async_op=False):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = psum(mesh, x, async_op)
+        b.record()
+        events.append((a, b))
+        return out
+
+    mesh_lib.psum = timed_psum
+    torch.cuda.synchronize()
+    ell_spmm.launches = 0
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    res = eng.run(sources, topk=PPR_TOPK, chunk=PPR_CHUNK)
+    b.record()
+    b.synchronize()
+    rep["launches"] = ell_spmm.launches
+    mesh_lib.psum = psum
+    rep["chunk_ms"] = a.elapsed_time(b)
+    rep["psum_ms"] = [x.elapsed_time(y) for x, y in events]
+    lay = eng.layout_info()
+    rep.update(num_rows=lay["num_rows"], slot_rows=lay["slot_rows"],
+               world=lay["world"], backend=lay["backend"])
+    # The last launch's inputs (the final iteration's prescaled chunk)
+    # held against the plain version on this rank's share.
+    launcher, z2 = eng._launcher, eng._z2
+    src, rb, nb = eng._src, eng._row_block, eng._num_blocks
+    launcher(PPR_CHUNK)
+    got = eng._sums[: nb * 128, :PPR_CHUNK].cpu()
+    got_mass = launcher.mass[:PPR_CHUNK].cpu()
+    plan_cpu = ell_lib.segment_plan(rb.cpu().numpy(), nb)
+    kw = {"accum_dtype": torch.float32, "plan": plan_cpu, "k": PPR_CHUNK,
+          "kt": 8}
+    want = ell_spmm.ell_contrib_spmm_rows_reference(z2.cpu(), src.cpu(),
+                                                    **kw)
+    want_mass = ell_spmm.mass_reference(z2.cpu(), src.cpu(), **kw)
+    rep["equal"] = bool(torch.equal(got, want)
+                        and torch.equal(got_mass, want_mass))
+    rep["max_abs_err"] = float((got.double() - want.double()).abs().max())
+    rep["k1w_ms"] = _median_ms(lambda: launcher(PPR_CHUNK), 20)
+    plan = eng._plan
+    cost = kernels.k1_cost(int(src.shape[0]), eng._n_state, nb,
+                           plan_cpu.num_segments,
+                           int(plan.empty_groups.numel()),
+                           z2.element_size(), columns=PPR_CHUNK)
+    rep["bound_ms"], rep["bound_by"] = _bound_ms(cost)
+    rep["plain_ms"] = _median_ms(
+        lambda: ell_spmm.ell_contrib_spmm_rows_reference(
+            z2, src, accum_dtype=torch.float32, plan=plan, k=PPR_CHUNK),
+        5, warmup=1)
+    if rank == 0:
+        np.savez(os.path.join(d, "engine.npz"), ids=res.topk_ids,
+                 scores=res.topk_scores)
+    with open(os.path.join(d, f"engine{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    del eng, launcher, z2, src, rb, res, got, want
+    torch.cuda.empty_cache()
+    # (c) the daemon over the group; member 1 dies on dispatch
+    # SERVE_GROUP_KILL.
+    os.environ.update(ProcessKillPlan("serve", iteration=SERVE_GROUP_KILL,
+                                      signum=9, rank=1).to_env())
+    srv = PprServer(
+        graph, config=cfg,
+        serve_config=ServeConfig(
+            max_batch=SERVE_GROUP_BATCH, topk=PPR_TOPK, cache_capacity=0,
+            queue_depth=64, deadline_ms=600_000.0, dispatch_timeout_s=600.0,
+            probe_timeout_s=60.0),
+        devices=[dev], clock=VirtualClock())
+    if rank != 0:
+        # Member 1 dies in here (the kill plan): it writes nothing more.
+        try:
+            srv.follow()
+        except (RankLeftError, ElasticExhaustedError):
+            return 1
+        return 0
+    rep = {}
+    t0 = time.perf_counter()
+    srv.start(dispatcher=False)
+    rep["serve_start_s"] = time.perf_counter() - t0
+    handles, worlds, walls = [], [], []
+    for i in range(SERVE_GROUP_BATCHES):
+        batch = sources[i * SERVE_GROUP_BATCH: (i + 1) * SERVE_GROUP_BATCH]
+        handles += [srv.submit(int(x)) for x in batch]
+        t0 = time.perf_counter()
+        srv.pump()
+        walls.append(time.perf_counter() - t0)
+        worlds.append(srv.device_count)
+    srv.drain()
+    n = len(handles)
+    rep["outcomes"] = [q.outcome for q in handles]
+    rep["worlds"] = worlds
+    rep["device_ids"] = srv.device_ids()
+    rep["rescues"] = srv.rescues_done
+    rep["walls"] = srv.rescue_walls
+    # The daemon's own batch walls are on its virtual clock: the host's.
+    rep["batch_walls_ms"] = [1e3 * w for w in walls]
+    ids = np.full((n, PPR_TOPK), -1, np.int64)
+    scores = np.zeros((n, PPR_TOPK), np.float32)
+    for i, q in enumerate(handles):
+        if (q.outcome or "").startswith("answered"):
+            ids[i], scores[i] = q.result(timeout=0)
+    np.savez(os.path.join(d, "serve.npz"), ids=ids, scores=scores)
+    with open(os.path.join(d, "serve.json"), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def ppr_group_phase(tmp):
+    """Phase 17 (see the module docstring), from ``ppr_group_inputs``'s
+    files. Returns K1w's record over a group for the kernels line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.engines.ppr import PprTorchEngine
+    from pagerank_tpu_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    card = card_identity()
+    d = os.path.join(tmp, "ppr_group")
+    with np.load(os.path.join(d, "ref.npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    w = PPR_GROUP_WORLD
+    codes = distributed.spawn_group(
+        "chip_smoke:phase17_rank", w, {"dir": d}, d, backend="gloo",
+        timeout_s=300.0, deadline_s=900.0, rescue=True)
+    _check(list(codes) == [0, -9] and list(codes.lost) == [1],
+           f"phase 17 process exit codes {list(codes)}, lost "
+           f"{list(codes.lost)}")
+    reps = [json.load(open(os.path.join(d, f"engine{r}.json")))
+            for r in range(w)]
+    # (a)
+    for r in reps:
+        _check(r["launches"] == PPR_ITERS and r["equal"],
+               f"17(a) rank {r['rank']}: K1w launched {r['launches']} times "
+               f"(want {PPR_ITERS}), equal to its plain version on its "
+               f"share: {r['equal']}")
+        _check(len(r["psum_ms"]) == PPR_ITERS and r["world"] == w
+               and r["backend"] == "gloo",
+               f"17(a) rank {r['rank']}: {len(r['psum_ms'])} psums, world "
+               f"{r['world']}, backend {r['backend']}")
+    _check(sum(r["num_rows"] for r in reps) == reps[0]["slot_rows"],
+           "17(a): the shares do not cover the padded table")
+    with np.load(os.path.join(d, "engine.npz")) as f:
+        err_a = _held_topk("17(a) world 2", f["ids"], f["scores"],
+                           ref["ids"], ref["scores"])
+    psum_ms = [statistics.median(r["psum_ms"]) for r in reps]
+    iter_ms = [r["chunk_ms"] / PPR_ITERS for r in reps]
+    for r, p_ms, i_ms in zip(reps, psum_ms, iter_ms):
+        print(f"phase 17(a) on {card}, rank {r['rank']} of {w} (gloo, "
+              f"cuda:0 shared): {r['num_rows']} of {r['slot_rows']} slot "
+              f"rows; K1w {r['launches']} launches in the chunk, its launch "
+              f"on the share torch.equal to the plain version (sums and "
+              f"folded mass), {r['k1w_ms']:.4f} ms (CUDA events, median of "
+              f"20; {r['bound_by']} bound {r['bound_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms); the chunk {r['chunk_ms']:.1f} ms "
+              f"= {i_ms:.2f} ms an iteration, of which the psum "
+              f"{p_ms:.2f} ms (median of {PPR_ITERS}, "
+              f"{p_ms / i_ms:.1%}); graph {r['graph_s']:.1f} s, engine "
+              f"build + bind {r['build_s']:.1f} s")
+    print(f"phase 17(a): world-2 top-{PPR_TOPK} of {PPR_CHUNK} sources "
+          f"within {PPR_GROUP_RTOL:g} (rtol) / {PPR_GROUP_ATOL:g} of phase "
+          f"12's one-device run (max abs {err_a:.3e}), untied ids equal")
+    # (c)
+    r0 = json.load(open(os.path.join(d, "serve.json")))
+    nq = SERVE_GROUP_BATCH * SERVE_GROUP_BATCHES
+    killed = SERVE_GROUP_KILL - 1  # the batch that was in flight
+    want_out = (["answered"] * (SERVE_GROUP_BATCH * killed)
+                + ["answered_degraded"] * (nq - SERVE_GROUP_BATCH * killed))
+    _check(r0["outcomes"] == want_out and r0["device_ids"] == [0]
+           and r0["rescues"] == 1 and len(r0["walls"]) == 1,
+           f"17(c): outcomes {r0['outcomes']}, device ids "
+           f"{r0['device_ids']}, rescues {r0['rescues']}")
+    with np.load(os.path.join(d, "serve.npz")) as f:
+        err_c = _held_topk("17(c) the daemon", f["ids"], f["scores"],
+                           ref["ids"][:nq], ref["scores"][:nq])
+    walls = r0["walls"][0]
+    bw = r0["batch_walls_ms"]
+    print(f"phase 17(c) on {card}: the daemon over {w} gloo ranks "
+          f"(start {r0['serve_start_s']:.1f} s with the warm-up batch), "
+          f"{SERVE_GROUP_BATCHES} batches of {SERVE_GROUP_BATCH}; member 1 "
+          f"SIGKILLed on batch {killed} (dispatch {SERVE_GROUP_KILL}): "
+          f"worlds by batch {r0['worlds']}, outcomes "
+          f"{want_out.count('answered')} answered + "
+          f"{want_out.count('answered_degraded')} answered_degraded, "
+          f"answers within the tolerance of phase 12's (max abs "
+          f"{err_c:.3e}); the rescue: roll call {walls['roll_call']:.3f} s, "
+          f"regroup {walls['regroup']:.3f} s, rebuild "
+          f"{walls['rebuild']:.3f} s, re-run {walls['rerun']:.3f} s; batch "
+          f"walls (host clock; batch {killed} holds the rescue) "
+          + ", ".join(f"{x:.1f}" for x in bw) + " ms")
+    # (b) the CLI in a group of one under NCCL.
+    out = os.path.join(d, "cli.tsv")
+    calls, in_solve = [], [False]
+    names = [k for k in ("all_reduce", "broadcast", "all_gather_into_tensor",
+                         "reduce_scatter_tensor", "barrier",
+                         "batch_isend_irecv") if hasattr(dist, k)]
+    originals = {k: getattr(dist, k) for k in names}
+
+    def counted(k, fn):
+        def call(*a, **kw):
+            calls.append((k, in_solve[0]))
+            return fn(*a, **kw)
+        return call
+
+    run = PprTorchEngine.run
+
+    def noted_run(self, *a, **kw):
+        in_solve[0] = True
+        try:
+            return run(self, *a, **kw)
+        finally:
+            in_solve[0] = False
+
+    _reset_counts()
+    t1 = time.perf_counter()
+    try:
+        for k in names:
+            setattr(dist, k, counted(k, originals[k]))
+        PprTorchEngine.run = noted_run
+        rc = cli.main(["--input", os.path.join(d, "edges.npz"),
+                       "--ppr-sources", ",".join(map(str, ref["sources"])),
+                       "--ppr-topk", str(PPR_TOPK), "--ppr-chunk",
+                       str(PPR_CHUNK), "--iters", str(PPR_ITERS), "--dtype",
+                       "float32", "--num-devices", "1", "--out", out])
+    finally:
+        PprTorchEngine.run = run
+        for k in names:
+            setattr(dist, k, originals[k])
+    cli_s = time.perf_counter() - t1
+    _, _, counts = _read_counts()
+    rows = [ln.rstrip("\n").split("\t") for ln in open(out)]
+    ids = np.array([int(x[1]) for x in rows]).reshape(PPR_CHUNK, PPR_TOPK)
+    scores = np.array([float(x[2]) for x in rows],
+                      np.float32).reshape(PPR_CHUNK, PPR_TOPK)
+    _check(rc == 0 and counts["K1w"] == PPR_ITERS
+           and not [c for c in calls if c[1]],
+           f"17(b): rc {rc}, K1w {counts['K1w']} launches, "
+           f"torch.distributed calls in the solve "
+           f"{[c for c in calls if c[1]][:4]}")
+    _check(np.array_equal(ids, ref["ids"])
+           and np.array_equal(scores, ref["scores"]),
+           "17(b): the CLI's --num-devices 1 rows differ from phase 12's")
+    print(f"phase 17(b) on {card}: CLI --ppr-sources ({PPR_CHUNK} sources) "
+          f"--num-devices 1 under NCCL (a group of one): K1w "
+          f"{counts['K1w']} launches, no torch.distributed call in the "
+          f"solve ({len(calls)} in the whole run), the rows bit-equal to "
+          f"phase 12's, {cli_s:.1f} s")
+    torch.cuda.synchronize()
+    print(f"phase 17 took {time.perf_counter() - t0:.1f} s")
+    return {"world": w, "launches_per_rank": [r["launches"] for r in reps],
+            "max_abs_err": max(r["max_abs_err"] for r in reps),
+            "rank_ms": [r["k1w_ms"] for r in reps],
+            "rank_bound_ms": [r["bound_ms"] for r in reps],
+            "rank_plain_ms": [r["plain_ms"] for r in reps],
+            "psum_ms": psum_ms, "chunk_iter_ms": iter_ms,
+            "topk_max_abs_vs_one_device": err_a,
+            "serve_rescue_s": walls, "serve_batch_walls_ms": bw,
+            "nccl_group_of_one_launches": counts["K1w"]}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -4652,6 +5030,7 @@ def main(argv=None) -> int:
         ppr_report.update(ppr_kernel_phase(ppr, host))
         del host
         serving = serve_phase(ppr)
+        ppr_group_inputs(tmp, ppr)
         del ppr
         print(f"PPR and serving phase took {time.perf_counter() - t_ppr:.1f} "
               f"s")
@@ -4678,6 +5057,7 @@ def main(argv=None) -> int:
         # in this process is not let near a later profiler split.
         sharded = sharded_phase(tmp)
         elastic = elastic_phase(tmp)
+        ppr_group = ppr_group_phase(tmp)
         k1["elastic"] = {"vertex_sharded": elastic["vertex_sharded"],
                          "nccl_group_of_one_launches":
                              elastic["nccl_group_of_one_launches"]}
@@ -4708,6 +5088,7 @@ def main(argv=None) -> int:
                "serve_batch_wall_ms": serving["batch_wall_ms"],
                "lone_k1w_ms": serving["lone_k1w_ms"],
                "lone_step": serving["lone_step"],
+               "group": ppr_group,
                "shapes": f"z2 float32[{1 << PPR_SCALE}+8, {PPR_CHUNK}] "
                          f"(rmat:{PPR_SCALE}), {PPR_SOURCES} sources x "
                          f"{PPR_ITERS} iterations"}

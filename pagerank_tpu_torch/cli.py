@@ -43,8 +43,10 @@ the survivors of a lost rank regroup and finish (``main`` returns their
 code and reports the lost ranks). Under torchrun (``WORLD_SIZE`` set)
 ``--stall-action rescue`` exits 2: its agent tears the whole worker
 group down when a worker exits, so no survivor would be left.
-``--probe-every``, ``--device-build``, ``--job-dir``, ``--ppr-sources``
-and the async writer over a mesh exit 2 naming ROADMAP slice 6d.
+``--ppr-sources`` with ``--num-devices N`` runs the PPR engine's rows
+sharded over the group (rank 0 alone prints and writes ``--out``).
+``--probe-every``, ``--device-build``, ``--job-dir`` and the async
+writer over a mesh exit 2 naming ROADMAP slice 6d.
 The solve runs on ``--device`` (default cuda) through the torch
 engines; ``--device cpu``, or ``--engine cpu`` (the f64 oracle), runs it
 on a host without a card.
@@ -492,6 +494,7 @@ def reject_ppr_incompatible_flags(args) -> None:
             ("--jsonl", args.jsonl is not None),
             ("--partition-span", bool(args.partition_span)),
             ("--stream-dtype", bool(args.stream_dtype)),
+            ("--vertex-sharded", args.vertex_sharded),
             ("--vs-bounded", args.vs_bounded),
         )
         if flag
@@ -512,7 +515,11 @@ def run_ppr(args, graph, ids) -> Dict[str, object]:
     repr(score)`` rows (keys are urls where the input has an id map) to
     ``--out`` or stdout, as the JAX CLI does; returns ``ppr`` (the
     PprResult), ``engine`` (None for the oracle), ``sources`` and
-    ``ppr_seconds`` (engine build and solve, as the stderr line)."""
+    ``ppr_seconds`` (engine build and solve, as the stderr line).
+
+    Over ``--num-devices N`` every rank runs the engine over its share
+    of the rows on the same sources (``parse_ppr_sources`` derives them
+    from the seed and the graph), and rank 0 alone prints and writes."""
     from pagerank_tpu_torch.utils.config import PageRankConfig
 
     try:
@@ -521,6 +528,7 @@ def run_ppr(args, graph, ids) -> Dict[str, object]:
             damping=args.damping,
             dtype=args.dtype,
             accum_dtype=args.accum_dtype or args.dtype,
+            num_devices=args.num_devices,
         ).validate()
     except ValueError as e:
         raise SystemExit(str(e))
@@ -547,15 +555,16 @@ def run_ppr(args, graph, ids) -> Dict[str, object]:
         res = eng.run(sources, topk=args.ppr_topk, chunk=args.ppr_chunk)
     dt = time.perf_counter() - t0
     topk = int(res.topk_ids.shape[1])
-    print(
-        f"ppr: {len(sources)} sources x {args.iters} iters, top-{topk} "
-        f"in {dt:.2f}s ({graph.num_edges * len(sources) * args.iters / dt:.3g} "
-        f"edge·vectors/s)",
-        file=sys.stderr,
-    )
+    _log(f"ppr: {len(sources)} sources x {args.iters} iters, top-{topk} "
+         f"in {dt:.2f}s ({graph.num_edges * len(sources) * args.iters / dt:.3g} "
+         f"edge·vectors/s)")
+    out = {"ppr": res, "engine": eng, "sources": sources, "ppr_seconds": dt}
+    mesh = getattr(eng, "mesh", None)
+    if mesh is not None and mesh.rank != 0:
+        return out
     names = ids.names if ids is not None else None
-    out = args.out
-    f = fsio.fopen(out, "w") if out else sys.stdout
+    path = args.out
+    f = fsio.fopen(path, "w") if path else sys.stdout
     try:
         for si, s in enumerate(res.sources):
             skey = names[s] if names else s
@@ -563,13 +572,11 @@ def run_ppr(args, graph, ids) -> Dict[str, object]:
                 vkey = names[v] if names else v
                 f.write(f"{skey}\t{vkey}\t{float(r)!r}\n")
     finally:
-        if out:
+        if path:
             f.close()
-    if out:
-        print(f"wrote {len(res.sources)}x{topk} ppr rows to {out}",
-              file=sys.stderr)
-    return {"ppr": res, "engine": eng, "sources": sources,
-            "ppr_seconds": dt}
+    if path:
+        _log(f"wrote {len(res.sources)}x{topk} ppr rows to {path}")
+    return out
 
 
 def _synthetic(spec: str, device=None):
@@ -911,7 +918,6 @@ def _check_args(args) -> None:
         # naming the slice that brings it.
         mesh_later = [flag for flag, on in (
             ("--device-build", args.device_build),
-            ("--ppr-sources", bool(args.ppr_sources)),
             ("--job-dir", bool(args.job_dir)),
             ("--probe-every", world > 1 and args.probe_every > 0),
         ) if on]

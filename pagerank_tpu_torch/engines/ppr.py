@@ -33,6 +33,21 @@ The top-k runs on the device — a stable descending sort along the
 vertex axis, so that ties go to the lower relabeled index as
 ``jax.lax.top_k`` breaks them — and only [batch, k] comes back to the
 host, mapped back through the relabel.
+
+Over a mesh (``num_devices`` > 1: a ``torch.distributed`` group, one
+process a device, ``parallel/mesh.py``) the slot rows are sharded and
+everything else is replicated, as in the JAX engine (``:122-124``,
+``:197-216``): the whole table (the dangling block, then the flat pack)
+is padded with inert rows to a multiple of world x ``CHUNK_ROWS`` and
+each rank keeps its contiguous share, with a segment plan of its own.
+Each rank's K1w launch sums its share's rows of every block (a block
+none of its rows reach comes out zero, as does the dangling mass of a
+share without a dangling row), and ONE ``all_reduce`` an iteration
+(``mesh.psum``) adds the ranks' contribution rows and folded dangling
+masses, laid out in one buffer — the JAX engine's single psum. z2, the
+update and the top-k run on every rank, so ``run`` returns the same
+result on each. A mesh of one rank pads nothing and calls no
+collective: its bits are the one-device engine's.
 """
 
 from __future__ import annotations
@@ -47,12 +62,15 @@ import numpy as np
 import torch
 
 from pagerank_tpu_torch import graph as graph_lib
-from pagerank_tpu_torch.engines.torch_engine import resolve_device
+from pagerank_tpu_torch.engines.torch_engine import (CHUNK_ROWS,
+                                                     resolve_device)
 from pagerank_tpu_torch.graph import Graph
 from pagerank_tpu_torch.models import ppr as ppr_model
 from pagerank_tpu_torch.ops import LANES
 from pagerank_tpu_torch.ops import ell as ell_lib
 from pagerank_tpu_torch.ops import ell_spmm, ell_spmv, spmv
+from pagerank_tpu_torch.parallel import distributed
+from pagerank_tpu_torch.parallel import mesh as mesh_lib
 from pagerank_tpu_torch.utils.config import PageRankConfig, torch_dtype
 
 
@@ -111,7 +129,8 @@ def ppr_cpu_topk(
 
 
 class PprTorchEngine:
-    """Chunked batched PPR on one device, one K1w launch an iteration.
+    """Chunked batched PPR, one K1w launch an iteration on each device
+    (module docstring: one device, or a mesh of ranks).
 
     ``build(graph)`` packs and places the graph; ``run(sources, ...)``
     solves chunk by chunk. :meth:`bind` sizes the chunk buffers and, on
@@ -125,17 +144,36 @@ class PprTorchEngine:
 
     def __init__(self, config: Optional[PageRankConfig] = None,
                  dangling_to: str = ppr_model.DANGLING_TO_SOURCE,
-                 device=None):
+                 device=None, mesh: Optional[mesh_lib.Mesh] = None):
         self.config = (config or PageRankConfig()).validate()
-        if (self.config.num_devices or 1) > 1 or self.config.vertex_sharded:
+        cfg = self.config
+        if cfg.vertex_sharded:
             raise ValueError(
-                "PPR over more than one device (num_devices > 1, "
-                "vertex_sharded) is not ported yet: ROADMAP slice 6d")
+                "PPR has no vertex-sharded form: its [n, k] state is "
+                "replicated and its slot rows sharded (the JAX CLI refuses "
+                "--vertex-sharded with --ppr-sources)")
         if dangling_to not in (ppr_model.DANGLING_TO_SOURCE,
                                ppr_model.DANGLING_TO_UNIFORM):
             raise ValueError(f"unknown dangling_to: {dangling_to!r}")
         self.dangling_to = dangling_to
-        self.device = resolve_device(device)
+        dev = resolve_device(device)
+        # The mesh as TorchEngine takes it: num_devices, else the group's
+        # world size; an explicit num_devices=1 is the one-device form.
+        ndev = (cfg.num_devices if cfg.num_devices is not None
+                else distributed.process_info()[1])
+        if mesh is None and ndev > 1:
+            mesh = mesh_lib.make_mesh(cfg.num_devices, cfg.mesh_axis,
+                                      device=dev)
+        if mesh is not None:
+            if mesh.device.type != dev.type:
+                raise ValueError(f"the mesh is on {mesh.device}, the engine "
+                                 f"on {dev}")
+            dev = mesh.device
+        #: The mesh the slot rows are sharded over (parallel/mesh.Mesh),
+        #: None on one device.
+        self.mesh = mesh
+        self._world = mesh.world if mesh is not None else 1
+        self.device = dev
         self.graph: Optional[Graph] = None
         self._dtype = torch_dtype(self.config.dtype)
         self._accum = torch_dtype(self.config.accum_dtype)
@@ -175,10 +213,13 @@ class PprTorchEngine:
         num_blocks = pack.num_blocks + 1
         row_block_np = np.concatenate([
             np.zeros(len(d_slots) // LANES, np.int32), pack.row_block + 1])
+        src_np = np.concatenate([d_slots.reshape(-1, LANES),
+                                 ell_lib.sentinel_slots(pack)])
+        slot_rows = int(src_np.shape[0])
+        src_np, row_block_np = self._share(src_np, row_block_np, n_state,
+                                           num_blocks)
         plan = ell_lib.segment_plan(row_block_np, num_blocks)
-        src = torch.from_numpy(np.concatenate([
-            d_slots.reshape(-1, LANES),
-            ell_lib.sentinel_slots(pack)])).to(dev)
+        src = torch.from_numpy(src_np).to(dev)
         row_block = torch.from_numpy(row_block_np).to(dev)
         inv_np = np.float64 if self._z_dtype == torch.float64 else np.float32
         inv = graph_lib.inv_out_degree(graph.out_degree, dtype=inv_np)
@@ -200,7 +241,14 @@ class PprTorchEngine:
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         t3 = time.perf_counter()
+        mesh_info = {}
+        if self.mesh is not None:
+            mesh_info = {"world": self._world, "rank": self.mesh.rank,
+                         "backend": self.mesh.backend,
+                         "slot_rows": -(-slot_rows // self._unit()) *
+                         self._unit()}
         self._layout = {
+            **mesh_info,
             "form": "ppr_flat_ell",
             "kernel": ("ell_contrib_spmm:cuda" if dev.type == "cuda"
                        else "ell_contrib:reference"),
@@ -218,6 +266,30 @@ class PprTorchEngine:
         }
         return self
 
+    def _unit(self) -> int:
+        """The rows a sharded table is padded to a multiple of."""
+        return self._world * CHUNK_ROWS if self._world > 1 else 1
+
+    def _share(self, src, row_block, sentinel, num_blocks):
+        """This rank's contiguous share of the whole slot table (host
+        arrays): padded with inert rows (every slot the sentinel, the
+        last block's id, so the ids stay ascending) to a multiple of
+        world x ``CHUNK_ROWS`` and split as ``mesh.edge_sharding`` splits
+        rows (``TorchEngine._pad_rows`` and ``_take_share``;
+        ``pagerank_tpu/engines/ppr.py:147-154``). One device, or a mesh
+        of one, keeps the table as it is."""
+        if self._world == 1:
+            return src, row_block
+        unit = self._unit()
+        pad = -(-len(src) // unit) * unit - len(src)
+        src = np.concatenate([src, np.full((pad, LANES), sentinel,
+                                           src.dtype)])
+        row_block = np.concatenate([row_block, np.full(
+            pad, num_blocks - 1, row_block.dtype)])
+        sl = mesh_lib.edge_sharding(self.mesh, len(src))
+        return (np.ascontiguousarray(src[sl]),
+                np.ascontiguousarray(row_block[sl]))
+
     def bind(self, width: int) -> "PprTorchEngine":
         """Size the chunk buffers for ``width`` columns and, on cuda,
         bind K1w once over them. Rebinding at a width no larger than the
@@ -233,10 +305,17 @@ class PprTorchEngine:
         self._z2 = ell_spmm.z2_buffer(self._n_state, width, self._z_dtype,
                                       dev)
         if dev.type == "cuda":
+            # K1w's sums and its folded lanes in one buffer: rows
+            # [128, rows_out] are the real blocks' sums, row rows_out the
+            # dangling mass, so one reduction over a mesh covers both.
+            rows_out = self._num_blocks * LANES
+            self._sums = torch.zeros((rows_out + LANES, self._z2.shape[1]),
+                                     dtype=self._z_dtype, device=dev)
             with torch.cuda.device(dev):
                 self._launcher = ell_spmm.bind_spmm(
                     self._z2, self._src, self._num_blocks,
-                    accum_dtype=self._accum, plan=self._plan, width=width)
+                    accum_dtype=self._accum, plan=self._plan, width=width,
+                    out=self._sums[:rows_out], fold=self._sums[rows_out:])
                 torch.cuda.synchronize(dev)
             self._layout.update(kt=self._launcher.kt,
                                 grid=self._launcher.grid)
@@ -252,16 +331,25 @@ class PprTorchEngine:
         (``ops/spmv.py:fold_rows``' order), so a column's mass is the
         same bits alone or in any batch. On cuda one K1w launch, which
         folds the lanes itself; on the CPU its plain version and
-        ``fold_rows`` (z2 is in the sum's dtype: the same bits)."""
+        ``fold_rows`` (z2 is in the sum's dtype: the same bits).
+
+        Over a mesh both are this rank's share's, and one ``mesh.psum``
+        of the sums' rows and the mass (one buffer) adds the ranks'."""
+        rows_out = self._num_blocks * LANES
         if self._launcher is not None:
-            out = self._launcher(kc)
-            mass = self._launcher.mass[:kc]
+            self._launcher(kc)
+            sums = self._sums
         else:
             out = ell_spmm.ell_contrib_spmm_rows(
                 self._z2, self._src, self._row_block, self._num_blocks,
                 accum_dtype=self._accum, plan=self._plan, k=kc)
             mass = spmv.fold_rows(out[:LANES, :kc].to(self._accum))
-        return out[LANES: LANES + self._n_state, :kc], mass
+            if self._world == 1:
+                return out[LANES: LANES + self._n_state, :kc], mass
+            sums = torch.cat([out, mass[None].to(out.dtype)])
+        if self._world > 1:
+            mesh_lib.psum(self.mesh, sums[LANES: rows_out + 1])
+        return sums[LANES: LANES + self._n_state, :kc], sums[rows_out, :kc]
 
     def _step(self, r: torch.Tensor, p_acc: torch.Tensor) -> torch.Tensor:
         kc, acc = r.shape[1], self._accum

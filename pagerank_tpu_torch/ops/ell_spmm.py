@@ -270,7 +270,8 @@ def _check(z2, src_slots, num_blocks, accum_dtype, plan):
 def bind_spmm(z2, src_slots, num_blocks, *, accum_dtype, plan,
               width: Optional[int] = None, kt: Optional[int] = None,
               work: Optional[Workspace] = None,
-              out: Optional[torch.Tensor] = None) -> SpmmLauncher:
+              out: Optional[torch.Tensor] = None,
+              fold: Optional[torch.Tensor] = None) -> SpmmLauncher:
     """Check K1w's inputs on the card once and return its launcher,
     bound at ``width`` columns (default z2's) and tiles of at most
     ``kt`` (default :func:`default_tile`; the tile sweep sets others).
@@ -278,7 +279,11 @@ def bind_spmm(z2, src_slots, num_blocks, *, accum_dtype, plan,
     ``z2``, ``src_slots`` and the plan are read by address at every
     call: refill them in place, never reallocate them. ``work``: default
     a fresh workspace. ``out``: the contiguous [num_blocks * 128, kp]
-    buffer the launches write; default a fresh one."""
+    buffer the launches write; default a fresh one. ``fold``: the
+    contiguous [128, kp] buffer (the sum's dtype) that block 0's lanes
+    are folded in, row 0 ending as ``mass``; default a fresh one (a
+    sharded PPR engine lays it right after ``out``, so that one
+    reduction covers both)."""
     dev = z2.device
     if dev.type != "cuda":
         raise ValueError(f"bind_spmm launches on cuda, not {dev}")
@@ -312,7 +317,12 @@ def bind_spmm(z2, src_slots, num_blocks, *, accum_dtype, plan,
         raise ValueError(f"out must be a contiguous [{num_blocks * LANES}, "
                          f"{kp}] {z2.dtype} tensor on {dev}")
     # Block 0's lanes, folded in place: row 0 ends as the mass.
-    fold = torch.empty((LANES, kp), dtype=accum_dtype, device=dev)
+    if fold is None:
+        fold = torch.empty((LANES, kp), dtype=accum_dtype, device=dev)
+    elif (fold.shape != (LANES, kp) or fold.dtype != accum_dtype
+          or fold.device != dev or not fold.is_contiguous()):
+        raise ValueError(f"fold must be a contiguous [{LANES}, {kp}] "
+                         f"{accum_dtype} tensor on {dev}")
     num_empty = plan.empty_groups.shape[0]
     items = plan.num_items + num_empty
     args = (z2.data_ptr(), src_slots.data_ptr(),

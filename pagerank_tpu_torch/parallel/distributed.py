@@ -236,6 +236,13 @@ def member() -> int:
     return process_info()[0]
 
 
+def collective_timeout_s() -> float:
+    """How long a collective of this process's group waits for a missing
+    rank (the launcher's groups record theirs; any other group was
+    formed with the default)."""
+    return float(_STATE["timeout_s"])
+
+
 def connect_store(address: str, timeout_s: float = DEFAULT_TIMEOUT_S):
     """A client of the launcher's ``TCPStore`` at ``host:port``."""
     import torch.distributed as dist

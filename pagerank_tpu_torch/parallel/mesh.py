@@ -10,7 +10,8 @@ running the same engine code on its own rows (:class:`Mesh`,
 and vertex ranges (:func:`edge_sharding`, :func:`replicated`,
 :func:`vertex_sharding`), and the collectives the sharded forms use
 carry the names of the ``jax.lax`` ops they replace (:func:`psum`,
-:func:`all_gather`, :func:`psum_scatter`, :func:`ppermute`), so that a
+:func:`all_gather`, :func:`psum_scatter`, :func:`ppermute`; and
+:func:`broadcast`, which a replicated input needs here), so that a
 form reads like its JAX counterpart. Over a mesh of one rank every
 collective is the identity and calls nothing, as ``shard_map`` over one
 device lowers its collectives away: a group of one pays no
@@ -233,6 +234,27 @@ def psum(mesh: Mesh, x: torch.Tensor, async_op: bool = False):
                                group=mesh.group, async_op=async_op)
     if async_op:
         return Pending([work] if work is not None else ())
+    return x
+
+
+def broadcast(mesh: Mesh, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+    """Rank ``src``'s ``x`` on every rank, in place (``dist.broadcast``;
+    the ``lax`` counterpart is a replicated input); returns ``x``. The
+    identity without a group or at world 1. Under gloo on a card the
+    payload goes through a pinned host buffer, as :func:`ppermute`'s
+    does (:attr:`Mesh.stage_p2p`)."""
+    if not mesh.collective:
+        return x
+    import torch.distributed as dist
+
+    buf = x
+    if mesh.stage_p2p:
+        buf = mesh.staging(-1, "broadcast", x)
+        if mesh.rank == src:
+            buf.copy_(x)
+    dist.broadcast(buf, src=src, group=mesh.group)
+    if buf is not x:
+        x.copy_(buf)
     return x
 
 

@@ -15,13 +15,25 @@ registry (the daemon's ``serve.*`` counters and latency histogram with
 its trace-id exemplars) at ``GET /metrics`` in ``--metrics-format``
 (prometheus or openmetrics), and ``--run-report`` writes the run report
 with the serving flight-recorder section on the SIGTERM drain.
-``--num-devices`` > 1 is ROADMAP slice 6d and exits 2 naming it.
+
+``--num-devices N`` serves over a process group of N ranks, one device
+a rank (``pagerank_tpu/serve/__main__.py:49-50,104``): outside torchrun
+this process starts them itself (``parallel/distributed.spawn_group``
+with the rescue store: nccl on cuda:i, or gloo on the CPU with
+``--device cpu``) and waits for them; under torchrun it joins its
+group. Rank 0 is the daemon — it alone binds ``--port`` and
+``--metrics-port``, prints, writes the report, and its exit code and
+drain are the run's; a SIGTERM to the launcher is passed on to it. The
+other ranks follow its dispatches (``PprServer.follow``), and a member
+that dies is rescued onto the survivors.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import sys
 import time
 
@@ -53,8 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PPR power iterations per query (default 10)")
     g.add_argument("--damping", type=float, default=0.85)
     g.add_argument("--num-devices", type=int, default=None,
-                   help="devices to serve on (more than one is not "
-                   "ported yet: ROADMAP slice 6d)")
+                   help="ranks to serve over, one device each: N > 1 "
+                   "starts N processes (under torchrun: its group)")
     g.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the engine runs (default cuda; cpu only "
                    "when asked)")
@@ -108,6 +120,9 @@ def _build_server(args):
     from pagerank_tpu_torch.serving import PprServer, ServeConfig
 
     device = resolve_device(args.device)  # raises without a card
+    if args.num_devices is not None and args.num_devices < 1:
+        raise ValueError(f"--num-devices must be >= 1, got "
+                         f"{args.num_devices}")
 
     src, dst = synth.rmat_edges(
         args.scale, edge_factor=args.edge_factor, seed=args.seed
@@ -117,9 +132,6 @@ def _build_server(args):
         num_iters=args.iters, damping=args.damping,
         num_devices=args.num_devices,
     ).validate()
-    if (args.num_devices or 1) > 1:
-        raise ValueError("--num-devices > 1: serving over more than one "
-                         "device is not ported yet: ROADMAP slice 6d")
     serve_config = ServeConfig(
         max_batch=args.max_batch,
         queue_depth=args.queue_depth,
@@ -186,6 +198,7 @@ def _write_run_report(path: str) -> None:
 
 def main(argv=None) -> int:
     parser = build_parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     if (args.slow_query_ms is None) != (args.slow_query_log is None):
         # Half a pair is a silent no-op (counting without writing, or a
@@ -193,11 +206,100 @@ def main(argv=None) -> int:
         parser.error(
             "--slow-query-ms and --slow-query-log must be given together"
         )
+    from pagerank_tpu_torch.parallel import distributed
+
+    if (args.num_devices or 1) > 1 and not distributed.group_up():
+        if os.environ.get("WORLD_SIZE"):
+            distributed.maybe_initialize_distributed(
+                distributed.default_backend(args.device))
+            try:
+                return _serve(args)
+            finally:
+                distributed.shutdown()
+        return _launch(args, argv)
+    return _serve(args)
+
+
+def _launch(args, argv) -> int:
+    """``--num-devices N`` outside torchrun: N spawned ranks of one
+    rescue-armed group; returns rank 0's exit code. A SIGTERM or SIGINT
+    to this process is passed on to rank 0, which drains the daemon and
+    stops the followers."""
+    import multiprocessing
+    import tempfile
+
+    from pagerank_tpu_torch.engines.torch_engine import resolve_device
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.parallel import mesh as mesh_lib
+
+    try:
+        mesh_lib.check_visible(args.num_devices,
+                               resolve_device(args.device).type)
+    except (ValueError, RuntimeError) as e:
+        print(f"error: {e}", file=sys.stderr)
+        return int(ExitCode.USAGE)
+
+    def forward(signum, frame):
+        for p in multiprocessing.active_children():
+            if p.name == "pagerank-rank-0":
+                os.kill(p.pid, signum)
+
+    old = {s: signal.signal(s, forward)
+           for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        with tempfile.TemporaryDirectory(prefix="pagerank-serve-") as tmp:
+            codes = distributed.spawn_group(
+                "pagerank_tpu_torch.serve.__main__:_rank_main",
+                args.num_devices, argv, tmp,
+                backend=distributed.default_backend(args.device),
+                rescue=True)
+    finally:
+        for s, h in old.items():
+            signal.signal(s, h)
+    if codes.lost:
+        print(f"serve: lost rank(s) {list(codes.lost)} (exit codes "
+              f"{ {r: codes[r] for r in codes.lost} })", file=sys.stderr)
+    return int(codes[0]) if codes[0] is not None else int(ExitCode.FAILURE)
+
+
+def _rank_main(argv) -> int:
+    """One spawned rank of :func:`_launch`. CPU ranks share the host's
+    cores: each takes its share of them as torch threads."""
+    args = build_parser().parse_args(argv)
+    if args.device == "cpu":
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                                  // max(1, args.num_devices)))
+    return _serve(args)
+
+
+def _follow(server) -> int:
+    """A rank other than 0: follow rank 0's dispatches until its stop
+    word. A rank the roll call declared lost, or one that lost rank 0,
+    ends with exit 1."""
+    from pagerank_tpu_torch.parallel.elastic import (ElasticExhaustedError,
+                                                     RankLeftError)
+
+    try:
+        server.follow()
+    except (RankLeftError, ElasticExhaustedError) as e:
+        print(f"serve: {e}", file=sys.stderr)
+        return int(ExitCode.FAILURE)
+    return int(ExitCode.OK)
+
+
+def _serve(args) -> int:
+    """The daemon in this process: alone, or as its rank of a group."""
+    from pagerank_tpu_torch.parallel import distributed
+
     try:
         server = _build_server(args)
     except (ValueError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return int(ExitCode.USAGE)
+    if distributed.process_info()[0] != 0:
+        return _follow(server)
 
     # Query plane: armed only on request — the disarmed
     # daemon keeps its zero-tracer-call hot path (the booby-trap pin).

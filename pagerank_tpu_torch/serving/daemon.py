@@ -27,13 +27,41 @@ Failure modes map to typed, bounded, observable outcomes:
   and never silently dropped; subsequent answers are marked
   ``degraded``. On one card nothing survives a loss:
   ``surviving_devices`` raises and the error leaves the dispatch (the
-  JAX daemon's terminal path);
+  JAX daemon's terminal path). Over a process group the roll call
+  takes the probe's place (below);
 - **SIGTERM**: the drain — :meth:`drain` closes admission
   (typed ``Draining`` rejections), in-flight batches finish inside the
   drain deadline, the rest are typed-rejected, exit 75 at the CLI;
 - **stuck dispatch**: bounded by ``mesh.run_with_deadline`` — the
   batch fails typed (``QueryDeadlineExceeded``) instead of hanging the
   queue.
+
+Over a process group (``pagerank_tpu/serving/daemon.py:207-233,
+412-441`` over the port's groups): a server built inside a joined group
+with the default engine factory runs its engine over the whole group
+(``PprTorchEngine`` sharded by rows, ``num_devices`` = the world).
+Rank 0 owns everything a client sees — admission, the cache, the
+dispatcher or :meth:`pump`, and whatever the caller puts in front (the
+HTTP ingress, the exporter, the query trace, the run report). Every
+other rank calls :meth:`follow`: it receives each dispatch (the live
+sources padded to ``max_batch``, their count, iterations, k and a
+sequence number) by ``mesh.broadcast`` and runs the same
+``engine.run``, so every collective of the solve meets its peers, and
+it leaves on the stop word :meth:`drain` broadcasts. While no batch
+runs, rank 0 broadcasts an idle word every quarter of the group's
+collective timeout, so a follower's wait never reaches it. A
+dispatch whose collective fails because a member is gone (gloo's
+"Connection closed/reset by peer", the group's timeout) is classified
+by ``elastic.looks_like_device_loss``; every survivor tears the group
+down, takes the launcher store's roll call (``distributed.roll_call``,
+bounded by ``probe_timeout_s``, the liveness bound; so the ranks must
+come from ``spawn_group(..., rescue=True)``),
+regroups over the survivors, rebuilds its engine there, and rank 0
+re-runs the in-flight batch (``answered_degraded``). ``device_ids()``
+names the surviving member ids; each rescue's wall by part (roll call,
+regroup, rebuild, re-run) is kept in ``rescue_walls``. Losing rank 0 is
+terminal, as losing the JAX daemon's host process is: the followers
+raise ``ElasticExhaustedError``.
 
 Concurrency (PTR rules): the admission queue's Condition is the
 cross-thread meeting point; server-side mutable state (engine,
@@ -50,7 +78,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -60,10 +88,13 @@ from pagerank_tpu_torch.engines.ppr import PprTorchEngine
 from pagerank_tpu_torch.engines.torch_engine import resolve_device
 from pagerank_tpu_torch.graph import Graph
 from pagerank_tpu_torch.models import ppr as ppr_model
+from pagerank_tpu_torch.obs import log as obs_log
 from pagerank_tpu_torch.obs import metrics as obs_metrics
+from pagerank_tpu_torch.parallel import distributed
 from pagerank_tpu_torch.parallel import mesh as mesh_lib
 from pagerank_tpu_torch.parallel.elastic import (DeviceLostError,
                                            ElasticExhaustedError,
+                                           RankLeftError,
                                            looks_like_device_loss)
 from pagerank_tpu_torch.serving import qtrace
 from pagerank_tpu_torch.serving.admission import AdmissionQueue, BatchWallModel
@@ -120,16 +151,29 @@ class PprServer:
     (``["cpu"]`` runs the plain versions on the host).
     ``engine_factory(devices)`` must return a built engine over
     exactly ``devices``; the default builds :class:`PprTorchEngine`
-    with ``num_devices=len(devices)`` — more than one is ROADMAP slice
-    6d — and the rescue path calls it again with the survivor list.
+    with ``num_devices=len(devices)``, and the rescue path calls it
+    again with the survivor list.
     ``liveness_probe(devices, timeout_s)`` defaults to
     ``mesh.probe_liveness``; tests inject their own so a CPU run sees
     the dead set a real device would report.
+
+    Inside a joined process group with the default factory the server
+    runs over the group (module docstring): ``devices`` is then this
+    rank's device alone (default cuda, one card a rank), rank 0 calls
+    :meth:`start` and every other rank :meth:`follow`, and every rank
+    must be given the same graph, configs and ``max_batch``. The
+    rescues' parts and the keepalive run on the host's monotonic clock
+    (the injected ``clock`` may be virtual).
     """
 
     #: Batch walls kept in ``batch_walls`` (bounded for a long-lived
     #: daemon).
     BATCH_WALLS = 4096
+    #: The first entry of a dispatch header rank 0 broadcasts over a
+    #: group, then the live count, iterations, k and the sequence
+    #: number; the sources follow, padded to ``max_batch``.
+    STOP, RUN, IDLE = 0, 1, 2
+    HEADER = 5
 
     def __init__(
         self,
@@ -147,6 +191,13 @@ class PprServer:
         self.serve_config = (serve_config or ServeConfig()).validate()
         self.dangling_to = dangling_to
         self._clock = clock
+        # Over a process group: the default factory inside a joined
+        # group (the member ids of the current group, this rank's mesh
+        # for the dispatch broadcasts).
+        self._grouped = engine_factory is None and distributed.group_up()
+        self._members: List[int] = (list(distributed.members())
+                                    if self._grouped else [])
+        self._mesh: Optional[mesh_lib.Mesh] = None
         self._engine_factory = engine_factory or self._default_factory
         self._liveness_probe = liveness_probe or mesh_lib.probe_liveness
 
@@ -178,6 +229,17 @@ class PprServer:
         #: Dispatch wall of each answered batch, oldest first (the
         #: first ``BATCH_WALLS`` batches).
         self.batch_walls: List[float] = []
+        #: Each rescue over a group by part, seconds: roll_call,
+        #: regroup, rebuild and (rank 0) rerun.
+        self.rescue_walls: List[Dict[str, float]] = []
+        # The dispatch broadcast and its run go together: an abandoned
+        # dispatch finishes its collectives before the next one starts.
+        self._dispatch_lock = threading.Lock()
+        self._seq = 0
+        self._last_word = 0.0
+        self._group_open = self._grouped
+        self._keepalive: Optional[threading.Thread] = None
+        self._keepalive_stop = threading.Event()
         self._graph_fp = graph.fingerprint()
         self._params_key = (
             self._iters(), self.config.damping,
@@ -230,12 +292,26 @@ class PprServer:
     # -- lifecycle ----------------------------------------------------------
 
     def _default_factory(self, devices: Sequence) -> PprTorchEngine:
+        """An engine over ``devices``; over a group, ``devices`` are the
+        current group's member ids and the engine runs on this rank's
+        device over the whole group."""
         cfg = self.config.replace(num_devices=len(devices))
-        eng = PprTorchEngine(
-            cfg, dangling_to=self.dangling_to, device=devices[0]
-        )
+        device = self._mesh.device if self._grouped else devices[0]
+        eng = PprTorchEngine(cfg, dangling_to=self.dangling_to,
+                             device=device)
         eng.build(self.graph)
         return eng
+
+    def _join_group(self) -> None:
+        """This rank's mesh over the current group (the broadcasts'),
+        on ``devices[0]`` (default cuda: ``make_mesh`` picks the card
+        of a rank)."""
+        dev = self._devices[0] if self._devices else None
+        mesh = mesh_lib.make_mesh(device=dev)
+        with self._state_lock:
+            self._mesh = mesh
+            self._devices = [mesh.device]
+            self._members = list(mesh.members)
 
     def start(self, dispatcher: bool = True) -> "PprServer":
         """Build the engine, warm it at the serving shapes (the kernel
@@ -246,9 +322,16 @@ class PprServer:
         with self._state_lock:
             if self._started:
                 raise RuntimeError("PprServer.start() called twice")
+        if self._grouped:
+            if distributed.process_info()[0] != 0:
+                raise RuntimeError("over a process group only rank 0 "
+                                   "serves: the other ranks call follow()")
+            self._join_group()
+        with self._state_lock:
             if not self._devices:
                 self._devices = [resolve_device(None)]
-            devices = list(self._devices)
+            devices = (list(self._members) if self._grouped
+                       else list(self._devices))
         engine = self._engine_factory(devices)
         with self._state_lock:
             self._engine = engine
@@ -258,6 +341,11 @@ class PprServer:
         # iters/topk) so no query ever pays the build or the bind.
         self._execute(np.zeros(self.serve_config.max_batch, np.int64))
         self.warmup_seconds = self._clock() - t0
+        if self._grouped:
+            self._keepalive = threading.Thread(
+                target=self._keepalive_loop, name="pagerank-serve-keepalive",
+                daemon=True)
+            self._keepalive.start()
         if dispatcher:
             self._dispatcher = threading.Thread(
                 target=self._dispatch_loop,
@@ -284,7 +372,7 @@ class PprServer:
     @property
     def device_count(self) -> int:
         with self._state_lock:
-            return len(self._devices)
+            return len(self._members if self._grouped else self._devices)
 
     @property
     def rescues_done(self) -> int:
@@ -292,7 +380,11 @@ class PprServer:
             return self._rescues_done
 
     def device_ids(self) -> List[int]:
+        """The device ids the engine runs over; over a group, the
+        member ids (``Mesh.members``)."""
         with self._state_lock:
+            if self._grouped:
+                return list(self._members)
             return [mesh_lib.device_id(d) for d in self._devices]
 
     # -- submit side --------------------------------------------------------
@@ -425,13 +517,173 @@ class PprServer:
         ``max_batch``. The fault harness wraps THIS seam — it
         survives an engine rebuild because the rescue path swaps
         ``_engine`` underneath it."""
-        with self._state_lock:
-            engine = self._engine
-        res = engine.run(
-            sources, num_iters=self._iters(),
-            topk=self.serve_config.topk, chunk=self.serve_config.max_batch,
-        )
+        with self._dispatch_lock:
+            with self._state_lock:
+                engine = self._engine
+            if self._grouped:
+                self._announce(self.RUN, sources)
+            res = engine.run(
+                sources, num_iters=self._iters(),
+                topk=self.serve_config.topk,
+                chunk=self.serve_config.max_batch,
+            )
         return res.topk_ids, res.topk_scores
+
+    # -- over a process group -------------------------------------------------
+
+    def _header(self) -> "torch.Tensor":
+        return torch.zeros(self.HEADER + self.serve_config.max_batch,
+                           dtype=torch.int64, device=self._mesh.device)
+
+    def _announce(self, word: int, sources=()) -> None:
+        """Rank 0: broadcast one dispatch header (the caller holds the
+        dispatch lock)."""
+        hdr = torch.zeros(self.HEADER + self.serve_config.max_batch,
+                          dtype=torch.int64)
+        hdr[:self.HEADER] = torch.tensor(
+            [word, len(sources), self._iters(), self.serve_config.topk,
+             self._seq])
+        hdr[self.HEADER: self.HEADER + len(sources)] = torch.as_tensor(
+            np.asarray(sources, np.int64))
+        if word == self.RUN:
+            self._seq += 1
+        mesh_lib.broadcast(self._mesh, hdr.to(self._mesh.device))
+        self._last_word = time.perf_counter()
+
+    def _keepalive_loop(self) -> None:
+        """Rank 0: the idle word, whenever no word went out for a
+        quarter of the group's collective timeout. A failed broadcast is
+        left to the next dispatch, which classifies it."""
+        every = distributed.collective_timeout_s() / 4
+        while not self._keepalive_stop.wait(every / 4):
+            with self._dispatch_lock:
+                if (not self._group_open or self.fatal is not None
+                        or time.perf_counter() - self._last_word < every):
+                    continue
+                try:
+                    self._announce(self.IDLE)
+                except Exception as e:  # noqa: BLE001 - see docstring
+                    obs_log.warn(f"serve: keepalive broadcast failed ({e})")
+
+    def _stop_followers(self) -> None:
+        """Rank 0: end the keepalive, then send the followers the stop
+        word (once; not over a group already torn down)."""
+        self._keepalive_stop.set()
+        if self._keepalive is not None:
+            self._keepalive.join()
+            self._keepalive = None
+        with self._dispatch_lock:
+            if not self._group_open or self._mesh is None:
+                return
+            self._group_open = False
+            try:
+                self._announce(self.STOP)
+            except Exception as e:  # noqa: BLE001 - the drain goes on
+                obs_log.warn(f"serve: the followers' stop word failed ({e})")
+
+    def follow(self) -> None:
+        """A rank other than 0 of a group: build the engine over the
+        group, then run every dispatch rank 0 broadcasts until its stop
+        word. A loss rescues as rank 0 does (:meth:`_group_rescue`).
+        Raises ``RankLeftError`` when the roll call names this rank,
+        and ``ElasticExhaustedError`` when rank 0 is gone. A seeded
+        ``ProcessKillPlan`` in the environment (stage ``serve``,
+        iteration = the dispatch's sequence number; the warm-up is 0)
+        kills this process after it received that dispatch."""
+        from pagerank_tpu_torch.testing.faults import ProcessKillPlan
+
+        if not self._grouped or distributed.process_info()[0] == 0:
+            raise RuntimeError("follow() runs on a rank other than 0 of a "
+                               "process group")
+        kill = ProcessKillPlan.from_env()
+        self._join_group()
+        engine = self._engine_factory(list(self._members))
+        with self._state_lock:
+            self._engine = engine
+            self._started = True
+        chunk = self.serve_config.max_batch
+        while True:
+            try:
+                hdr = mesh_lib.broadcast(self._mesh, self._header()).cpu()
+                word, live, iters, topk, seq = hdr[:self.HEADER].tolist()
+                if word == self.STOP:
+                    return
+                if word == self.IDLE:
+                    continue
+                if kill is not None:
+                    kill.check("serve", seq)
+                sources = hdr[self.HEADER: self.HEADER + live].numpy()
+                with self._state_lock:
+                    engine = self._engine
+                engine.run(sources, num_iters=iters, topk=topk, chunk=chunk)
+            except Exception as e:  # noqa: BLE001 - classified below
+                if not (isinstance(e, DeviceLostError)
+                        or looks_like_device_loss(e)):
+                    raise
+                self._group_rescue(e)
+
+    def _echo_own(self) -> bool:
+        """Whether this rank's own device answers a 4-byte echo within
+        the liveness deadline."""
+        try:
+            return bool(mesh_lib.run_with_deadline(
+                lambda: mesh_lib._echo(self._mesh.device),
+                self.serve_config.probe_timeout_s))
+        except Exception:  # noqa: BLE001 - a silent device is a dead one
+            return False
+
+    def _group_rescue(self, exc: BaseException) -> List[int]:
+        """Every survivor's part of a rescue over a group: tear the
+        group down, take the roll call, regroup over the survivors and
+        rebuild the engine there; returns the dead member ids. Raises
+        ``exc`` when the roll call finds no one dead, ``RankLeftError``
+        when it names this rank and ``ElasticExhaustedError`` when it
+        names member 0 (the serving rank) or the ranks have no
+        launcher store to take it in."""
+        carried = (exc.device_ids if isinstance(exc, DeviceLostError)
+                   else ())
+        t = time.perf_counter()
+        with self._state_lock:
+            members = list(self._members)
+            rescues = self._rescues_done
+        self._group_open = False
+        distributed.abandon_group()
+        if distributed.launcher_store() is None:
+            raise ElasticExhaustedError(
+                f"a loss over a process group without the launcher's store "
+                f"is terminal (start the ranks with spawn_group(..., "
+                f"rescue=True)): {exc}", tuple(carried), rescues) from exc
+        dead = distributed.roll_call(
+            carried, alive=self._echo_own(),
+            timeout_s=self.serve_config.probe_timeout_s)
+        walls = {"roll_call": time.perf_counter() - t}
+        if not dead:
+            raise exc
+        if members[0] in dead:
+            raise ElasticExhaustedError(
+                f"serving terminal: member {members[0]}, the serving rank, "
+                f"was lost ({exc})", tuple(dead), rescues) from exc
+        survivors = mesh_lib.surviving_members(dead, members)
+        if distributed.member() not in survivors:
+            raise RankLeftError(
+                f"member {distributed.member()} was declared lost by the "
+                f"group's roll call; the survivors {survivors} serve on",
+                device_ids=[distributed.member()])
+        obs_log.warn(f"SERVE RESCUE: member(s) {dead} lost ({exc}); "
+                     f"regrouping over {survivors}")
+        t = time.perf_counter()
+        distributed.regroup(survivors)
+        walls["regroup"] = time.perf_counter() - t
+        t = time.perf_counter()
+        self._join_group()
+        engine = self._engine_factory(list(self._members))
+        walls["rebuild"] = time.perf_counter() - t
+        with self._state_lock:
+            self._engine = engine
+            self._degraded = True
+        self._group_open = True
+        self.rescue_walls.append(walls)
+        return list(dead)
 
     def _rescue(self, exc: BaseException) -> None:
         """Chip loss / quarantine mid-serve: classify the casualty,
@@ -441,10 +693,25 @@ class PprServer:
             devices = list(self._devices)
             rescues = self._rescues_done
         if rescues >= self.serve_config.max_rescues:
+            if self._grouped:
+                # The followers see the group go, find member 0 missing
+                # from the roll call, and end.
+                self._group_open = False
+                distributed.abandon_group()
             raise ElasticExhaustedError(
                 f"serving rescue budget spent ({rescues} rescues): {exc}",
                 tuple(getattr(exc, "device_ids", ())), rescues,
             )
+        if self._grouped:
+            with self._dispatch_lock:
+                dead = self._group_rescue(exc)
+            with self._state_lock:
+                self._rescues_done += 1
+                width = len(self._members)
+            self._c_rescues.inc()
+            self._c_devices_lost.inc(len(dead))
+            self._g_devices.set(width)
+            return
         dead = set(getattr(exc, "device_ids", ()) or ())
         alive = self._liveness_probe(
             devices, timeout_s=self.serve_config.probe_timeout_s
@@ -511,7 +778,7 @@ class PprServer:
         rerun = False
         attempts = 0
         while True:
-            t0 = self._clock()
+            t0, t_host = self._clock(), time.perf_counter()
             attempts += 1
             try:
                 ids, scores = mesh_lib.run_with_deadline(
@@ -566,6 +833,9 @@ class PprServer:
                 if plane is not None:
                     plane.flight_dump("rescue")
         wall = self._clock() - t0
+        if rerun and self.rescue_walls:
+            self.rescue_walls[-1].setdefault("rerun",
+                                             time.perf_counter() - t_host)
         self.wall_model.observe(wall)
         if len(self.batch_walls) < self.BATCH_WALLS:
             self.batch_walls.append(wall)
@@ -643,6 +913,8 @@ class PprServer:
             # promptly; join for real (PTR005).
             self._dispatcher.join()
             self._dispatcher = None
+        if self._grouped:
+            self._stop_followers()
         if plane is not None:
             plane.flight_dump("drain")
         return flushed

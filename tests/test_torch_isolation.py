@@ -88,6 +88,8 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.parallel.elastic, "
         "pagerank_tpu_torch.testing.sharded, "
         "pagerank_tpu_torch.testing.elastic, "
+        "pagerank_tpu_torch.testing.load, "
+        "pagerank_tpu_torch.testing.ppr_group, "
         "pagerank_tpu_torch.utils.config\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"

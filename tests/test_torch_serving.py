@@ -370,8 +370,11 @@ def test_rescue_budget_spent_rejects_typed(graph):
 
 
 def test_server_with_two_devices_by_default_factory_names_slice_6(graph):
+    """Two devices by the default factory build the engine over a mesh
+    of two ranks (slice 6d, ported): outside a process group that is
+    ``make_mesh``'s error."""
     srv = make_server(graph, VirtualClock(), devices=[CPU, CPU], start=False)
-    with pytest.raises(ValueError, match="slice 6"):
+    with pytest.raises(ValueError, match="needs a process group of 2 ranks"):
         srv.start(dispatcher=False)
 
 
@@ -449,13 +452,22 @@ def test_serve_cli_refuses_the_later_slices(capsys, tmp_path, monkeypatch,
     assert slice_no not in capsys.readouterr().err
 
 
-def test_serve_cli_more_devices_or_no_card_exit_2(capsys, monkeypatch):
-    assert serve.main(["--serve-smoke", "1", "--scale", "5", "--device",
-                       "cpu", "--num-devices", "2"]) == 2
-    assert "slice 6" in capsys.readouterr().err
+def test_serve_cli_more_devices_or_no_card_exit_2(capfd, monkeypatch):
+    """``--num-devices 2 --device cpu`` serves over two spawned gloo
+    ranks (slice 6d, ported): the smoke exits 0 and rank 0's JSON says
+    two devices. Without a card and without ``--device cpu`` the daemon
+    still exits 2."""
+    assert serve.main(["--serve-smoke", "4", "--scale", "6",
+                       "--edge-factor", "4", "--iters", "3", "--topk", "8",
+                       "--max-batch", "4", "--device", "cpu",
+                       "--num-devices", "2"]) == 0
+    out = capfd.readouterr().out
+    doc = json.loads(out.strip().splitlines()[-1])
+    assert doc["devices"] == 2 and doc["unsettled"] == 0
+    assert doc["queries"] == 4
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert serve.main(["--serve-smoke", "1", "--scale", "5"]) == 2
-    assert "--device cpu" in capsys.readouterr().err
+    assert "--device cpu" in capfd.readouterr().err
 
 
 def test_serve_parser_is_the_jax_parser_plus_device():

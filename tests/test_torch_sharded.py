@@ -562,11 +562,25 @@ def test_cli_two_ranks_vertex_sharded_matches_one_device(tmp_path, capfd):
 def test_cli_slice_6b_flags_exit_2_naming_it(argv, capsys, tmp_path,
                                              monkeypatch):
     """What the elastic slice (6c) left refused exits 2 naming slice 6d:
-    --probe-every, --device-build, --ppr-sources and --job-dir over a
-    mesh. The elastic flags run now (tests/test_torch_elastic.py)."""
+    --probe-every, --device-build and --job-dir over a mesh. The elastic
+    flags run now (tests/test_torch_elastic.py), and so does
+    --ppr-sources over a mesh (tests/test_torch_ppr_sharded.py):
+    with --vertex-sharded it is refused with the JAX CLI's
+    ``reject_ppr_incompatible_flags`` message."""
     monkeypatch.chdir(tmp_path)
     with pytest.raises(SystemExit) as e:
         cli.main(["--synthetic", "rmat:6", "--device", "cpu", *argv])
+    if "--ppr-sources" in argv:
+        from pagerank_tpu import cli as jax_cli
+
+        with pytest.raises(SystemExit) as want:
+            jax_cli.reject_ppr_incompatible_flags(
+                jax_cli.build_parser().parse_args(["--synthetic", "rmat:6",
+                                                   *argv]))
+        assert e.value.code == want.value.code
+        assert "ppr mode does not support: --vertex-sharded" in str(
+            e.value.code)
+        return
     assert e.value.code == 2
     assert "slice 6d" in capsys.readouterr().err
 
