@@ -321,7 +321,25 @@ What it does, in order:
      ``ProcessKillPlan``), the survivor regroups to world 1 and re-runs
      it (``answered_degraded``); the rescue's wall by part (roll call,
      regroup, rebuild, re-run) is printed;
- 18. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+ 18. the fused run (run after phase 14 and before phase 15, so that
+     its profiler splits come before any NCCL group; the graph built on
+     the card at rmat:SCALE): (a) the flat f32/f32 engine:
+     ``run_fused()`` of 10 iterations (K1 10 launches, counted from 0
+     just before) torch.equal to a stepwise ``run()``'s ranks with equal
+     traces, ``run_fast()`` the same ranks; (b) the same through K2 at
+     --partition-span -1, f32 and bf16 windows; (c) the flat form with
+     f32 ranks over f64 sums; (d) ``run_fused_tol`` at rmat:18, f64:
+     the stop iteration the host-checked run's, its final delta <= tol,
+     its ranks bit-equal; (e) the CLI ``--fused --device-build`` with
+     ``--snapshot-dir --snapshot-every 2`` through the async writer:
+     snapshot files byte-equal to the stepwise CLI run's, ``"fused":
+     true`` in its report, and the same run under NCCL in a group of
+     one (``--num-devices 1``) with bit-equal ranks; (f) ms/iter of
+     ``run()``, ``run_fast()`` and ``run_fused()`` flat, K2 and bf16
+     (host wall of 2k minus k iterations over k, each call ending in its
+     fetch of the ranks) with the device's busy time an iteration and
+     idle share from torch.profiler (the same difference);
+ 19. prints one JSON line with every kernel's numbers (K1, K2, K1w on
      the PPR path with its tile sweep and its record over a group, P1
      and P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
      ``{"ok": true, "device": {...}}``.
@@ -3693,6 +3711,261 @@ def observability_phase(tmp):
     return rep
 
 
+# Phase 18: the fused run. (d) runs textbook semantics: under the
+# reference semantics a raw device-built R-MAT graph's ranks grow every
+# step (zero-in retention and dangling mass), so no tol is reached; in
+# textbook semantics the f64 delta falls about tenfold every two steps,
+# so each of FUSED_TOLS stops it in the twenties of FUSED_TOL_BUDGET: at
+# 24 for 1e-10 on the card (a chunk edge, no masked step) and before it
+# for 1e-9 (masked steps). (f) times calls of FUSED_K and 2 x FUSED_K
+# iterations, FUSED_REPEATS times each in turns.
+FUSED_TOL_SCALE = 18
+FUSED_TOLS = (1e-9, 1e-10)
+FUSED_TOL_BUDGET = 100
+FUSED_K = 40
+FUSED_REPEATS = 5
+
+
+def _fused_forms(scale):
+    """The configurations of 18(a)-(c): {label: (config, kernel)}, the
+    K2 forms at the span --partition-span -1 resolves at rmat:scale."""
+    from pagerank_tpu_torch import PageRankConfig
+    from pagerank_tpu_torch.ops.device_build import plan_partition_span
+
+    cfg = PageRankConfig(num_iters=ITERS)
+    span = plan_partition_span(cfg, 1 << scale, 16 << scale, -1)
+    part = cfg.replace(partition_span=span)
+    return {"flat": (cfg, "K1"),
+            "K2": (part, "K2"),
+            "K2 (bf16 windows)": (part.replace(stream_dtype="bfloat16"),
+                                  "K2"),
+            "flat, f64 sums": (cfg.replace(accum_dtype="float64"), "K1")}
+
+
+def _fused_against_stepwise(label, eng, kernel):
+    """18(a)-(c) on one engine: a stepwise ``run()`` of ITERS from r0
+    with its traces, then ``run_fused()`` from r0 with every launch
+    count set to 0 just before and read just after, then ``run_fast()``
+    from r0; the engine is left at r0. Returns run_fused's launches of
+    ``kernel``."""
+    import numpy as np
+
+    r0 = eng.ranks()
+    infos = []
+    want = eng.run(on_iteration=lambda i, info: infos.append(
+        (info["l1_delta"], info["dangling_mass"])))
+    eng.set_ranks(r0, 0)
+    _reset_counts()
+    got = eng.run_fused()
+    k1, k2, others = _read_counts()
+    mine, theirs = (k2, k1) if kernel == "K2" else (k1, k2)
+    _check(mine == ITERS and theirs == 0 and not any(others.values()),
+           f"18 {label}: run_fused of {ITERS} made K1 {k1}, K2 {k2}, "
+           f"others {others}")
+    _check(np.array_equal(got, want),
+           f"18 {label}: run_fused's ranks differ from run()'s")
+    tr = eng.last_run_metrics
+    traces = np.stack([tr["l1_delta"].cpu().numpy(),
+                       tr["dangling_mass"].cpu().numpy()], 1)
+    _check(tr["l1_delta"].device.type == "cuda"
+           and np.array_equal(traces.astype(np.float64), np.array(infos)),
+           f"18 {label}: run_fused's traces differ from run()'s")
+    eng.set_ranks(r0, 0)
+    _check(np.array_equal(eng.run_fast(), want),
+           f"18 {label}: run_fast's ranks differ from run()'s")
+    eng.set_ranks(r0, 0)
+    print(f"18 {label}: run_fused() of {ITERS} torch.equal to run(), "
+          f"traces equal, {kernel} {mine} launches; run_fast() equal")
+    return mine
+
+
+def _fused_timing(label, eng, kernel, symbol):
+    """18(f): ms/iter of ``run()``, ``run_fast()`` and ``run_fused()`` on
+    ``eng``. Each call starts from the state the engine holds now,
+    restored on the card (the reference semantics' ranks grow without
+    bound on a raw R-MAT graph: f32 overflows after some 370 steps), and
+    ends in a device sync in place of its fetch of the ranks, so that a
+    call's host wall is its steps. ms/iter: the wall of a call of 2 x
+    FUSED_K iterations less one of FUSED_K, over FUSED_K, the median of
+    FUSED_REPEATS, the modes in turns, each call's launches of ``kernel``
+    counted (one a step). Busy: the device time of a call of 2 x FUSED_K
+    iterations under torch.profiler over its iterations (such a call
+    holds its steps' work and nothing else; the profiler's count of the
+    kernel is printed: it has dropped an event at rmat:22); idle 1 -
+    busy / ms."""
+    import torch
+
+    start = eng._save_solve_state()
+    modes = {"run": eng.run, "run_fast": eng.run_fast,
+             "run_fused": eng.run_fused}
+    k = FUSED_K
+    walls = {(m, n): [] for m in modes for n in (k, 2 * k)}
+
+    def from_start(run, n):
+        eng._restore_solve_state(start)
+        run(n)
+
+    eng.ranks = lambda: torch.cuda.synchronize(eng.device)
+    try:
+        for run in modes.values():
+            from_start(run, 2)
+        for _ in range(FUSED_REPEATS):
+            for m, run in modes.items():
+                for n in (k, 2 * k):
+                    eng._restore_solve_state(start)
+                    torch.cuda.synchronize()
+                    _reset_counts()
+                    t = time.perf_counter()
+                    run(n)
+                    walls[m, n].append((time.perf_counter() - t) * 1e3)
+                    k1, k2, _ = _read_counts()
+                    _check((k2 if kernel == "K2" else k1) == n,
+                           f"18(f) {label} {m}: K1 {k1}, K2 {k2} in {n} "
+                           f"iterations")
+        prof = {m: _profile_steps(
+                    lambda run=run: from_start(run, 2 * k), 1)
+                for m, run in modes.items()}
+    finally:
+        del eng.ranks
+        eng._restore_solve_state(start)
+    out = {}
+    for m in modes:
+        ms = (statistics.median(walls[m, 2 * k])
+              - statistics.median(walls[m, k])) / k
+        busy = sum(prof[m][1].values()) / (2 * k)
+        seen = sum(c for name, c in prof[m][2].items()
+                   if _named(name, symbol))
+        out[m] = {"ms_per_iter": ms, "busy_ms": busy,
+                  "idle": 1 - busy / ms}
+        print(f"18(f) {label} {m}: {ms:.4f} ms/iter (host wall, "
+              f"{2 * k} less {k} iterations, median of {FUSED_REPEATS}); "
+              f"device busy {busy:.4f} ms/iter, idle "
+              f"{out[m]['idle']:.1%}; {kernel} one launch a step (the "
+              f"profiler saw {seen} {symbol} in {2 * k} iterations)")
+    return out
+
+
+def fused_phase(scale, tmp):
+    """Phase 18: the fused run forms on the card (module docstring);
+    returns {"K1": ..., "K2": ...} for the kernels line."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine, cli
+
+    t0 = time.perf_counter()
+    got = {"K1": {}, "K2": {}}
+    dgs = {}
+    for label, (cfg, kernel) in _fused_forms(scale).items():
+        span = cfg.partition_span
+        if span not in dgs:
+            dgs[span] = _obs_graph(scale, span)
+        eng = TorchEngine(cfg).build_device(dgs[span])
+        got[kernel][label] = {
+            "run_fused_launches": _fused_against_stepwise(label, eng,
+                                                          kernel)}
+        if "f64" not in label:
+            got[kernel][label].update(_fused_timing(
+                label, eng, kernel, "ell_contrib_part_kernel"
+                if kernel == "K2" else "ell_contrib_kernel"))
+        del eng
+    del dgs
+    torch.cuda.empty_cache()
+    print(f"18(a)-(c), (f) took {time.perf_counter() - t0:.1f} s")
+
+    # (d) the tol form against the host-checked run.
+    dg = _obs_graph(FUSED_TOL_SCALE, 0)
+    chunk = TorchEngine.FUSED_TOL_CHUNK
+    for tol in FUSED_TOLS:
+        cfg = PageRankConfig(num_iters=FUSED_TOL_BUDGET, dtype="float64",
+                             accum_dtype="float64", semantics="textbook",
+                             tol=tol)
+        host = TorchEngine(cfg).build_device(dg)
+        want = host.run()
+        fused = TorchEngine(cfg).build_device(dg)
+        _reset_counts()
+        r = fused.run_fused_tol()
+        k1, _, _ = _read_counts()
+        stop = fused.iteration
+        final = float(fused.last_run_metrics["l1_delta"][0])
+        queued = min(FUSED_TOL_BUDGET, -(-stop // chunk) * chunk)
+        _check(0 < stop == host.iteration < FUSED_TOL_BUDGET
+               and final <= tol and np.array_equal(r, want)
+               and k1 == queued,
+               f"18(d) tol {tol:g}: stop {stop} vs the host's "
+               f"{host.iteration}, final delta {final}, K1 {k1} (want "
+               f"{queued}), ranks equal {np.array_equal(r, want)}")
+        print(f"18(d) run_fused_tol rmat:{FUSED_TOL_SCALE} f64 textbook, "
+              f"tol {tol:g}: stops at iteration {stop} as the host-checked "
+              f"run(), final delta {final:.6g}, ranks torch.equal; K1 {k1} "
+              f"launches ({stop} live + {k1 - stop} masked, chunks of "
+              f"{chunk})")
+        got["K1"][f"tol {tol:g}"] = {"stop": stop, "launches": k1}
+        del host, fused
+    del dg
+
+    # (e) the CLI: fused against stepwise, then in an NCCL group of one.
+    t_cli = time.perf_counter()
+    d = os.path.join(tmp, "fused_cli")
+    base = ["--synthetic", f"rmat:{scale}", "--device-build", "--iters",
+            str(ITERS), "--snapshot-every", "2", "--log-every", "0"]
+    runs = {}
+    for label, extra in (("fused", ["--fused"]), ("stepwise", [])):
+        sd = os.path.join(d, label)
+        _reset_counts()
+        s = cli.run(base + extra + ["--snapshot-dir", sd, "--run-report",
+                                    os.path.join(d, f"{label}.json")])
+        k1, k2, others = _read_counts()
+        want_k1 = ITERS + (1 if extra else 0)  # + prepare_fused's step
+        _check(k1 == want_k1 and k2 == 0 and not any(others.values())
+               and s["writer"] == "async"
+               and s["report"]["fused"] is bool(extra),
+               f"18(e) CLI {label}: K1 {k1}, K2 {k2}, writer {s['writer']}, "
+               f"report fused {s['report']['fused']}")
+        runs[label] = (s, _tree_digest(sd))
+    files = runs["stepwise"][1]
+    _check(len(files) == ITERS // 2 and runs["fused"][1] == files
+           and np.array_equal(runs["fused"][0]["ranks"],
+                              runs["stepwise"][0]["ranks"]),
+           "18(e): the fused CLI's snapshots differ from the stepwise one's")
+    fused_ms = runs["fused"][0]["report"]["summary"]["mean_iter_seconds"]
+    step_ms = statistics.median(runs["stepwise"][0]["step_seconds"])
+    walls = {k: v[0]["solve_seconds"] for k, v in runs.items()}
+    sinks = "; ".join(
+        f"{k} save median "
+        f"{statistics.median(v[0]['snapshot_seconds']) * 1e3:.3f} ms, "
+        f"queue wait {sum(v[0]['queue_wait_seconds']) * 1e3:.3f} ms"
+        for k, v in runs.items())
+    sd = os.path.join(d, "nccl")
+    _reset_counts()
+    rc = cli.main(base + ["--fused", "--num-devices", "1", "--snapshot-dir",
+                          sd])
+    k1, _, _ = _read_counts()
+    last = np.load(os.path.join(sd, f"ranks_iter{ITERS}.npz"))["ranks"]
+    _check(rc == 0 and k1 == ITERS + 1
+           and np.array_equal(last, runs["fused"][0]["ranks"]),
+           f"18(e) CLI --fused --num-devices 1: rc {rc}, K1 {k1}, ranks "
+           f"equal {np.array_equal(last, runs['fused'][0]['ranks'])}")
+    print(f"18(e) CLI --fused --device-build rmat:{scale}, --snapshot-every "
+          f"2 through the async writer: {len(files)} snapshot files "
+          f"byte-equal to the stepwise run's, report fused true, K1 "
+          f"{ITERS} + 1 (prepare_fused) launches; solve wall to the last "
+          f"write {walls['fused']:.4f} s fused ({fused_ms * 1e3:.4f} ms/iter "
+          f"averaged: the fused wall holds the final fetch of the ranks) "
+          f"against {walls['stepwise']:.4f} s stepwise (median step "
+          f"{step_ms * 1e3:.4f} ms; {sinks}); under NCCL in a group of one "
+          f"the same ranks bit for bit; {time.perf_counter() - t_cli:.1f} s")
+    got["K1"]["cli_launches"] = ITERS + 1
+    got["K1"]["cli_solve_s"] = walls
+    got["K1"]["cli_ms_per_iter"] = fused_ms * 1e3
+    got["K1"]["cli_stepwise_ms"] = step_ms * 1e3
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"phase 18 took {time.perf_counter() - t0:.1f} s")
+    return got
+
+
 # Phase 15: sharded execution. The card has one GPU, and NCCL refuses
 # two ranks of one device, so the ranks share cuda:0 under gloo (which
 # stages each collective through host memory: its times say nothing of
@@ -5053,8 +5326,11 @@ def main(argv=None) -> int:
             "probed_run_launches": seen["probes"]["K2"]["launches"],
             "plain_step_ms": seen["probes"]["K2"]["plain_ms"],
             "probed_step_ms": seen["probes"]["K2"]["probed_ms"]}
-        # Phase 15 last on the card: the NCCL group of one it brings up
-        # in this process is not let near a later profiler split.
+        fused = fused_phase(args.scale, tmp)
+        k1["fused"], k2["fused"] = fused["K1"], fused["K2"]
+        # Phase 15 after every profiler split: the NCCL group of one it
+        # brings up in this process is not let near one (phase 18(e)'s
+        # comes after 18(f)).
         sharded = sharded_phase(tmp)
         elastic = elastic_phase(tmp)
         ppr_group = ppr_group_phase(tmp)

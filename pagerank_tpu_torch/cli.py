@@ -46,7 +46,11 @@ group down when a worker exits, so no survivor would be left.
 ``--ppr-sources`` with ``--num-devices N`` runs the PPR engine's rows
 sharded over the group (rank 0 alone prints and writes ``--out``).
 ``--probe-every``, ``--device-build``, ``--job-dir`` and the async
-writer over a mesh exit 2 naming ROADMAP slice 6d.
+writer over a mesh exit 2 naming ROADMAP slice 6d. The fused run
+(``--fused``, :175-182, with the refusals of :1444-1505 and the solve
+block of :1957-2074, :2202): ``TorchEngine.run_fused``,
+``run_fused_chunked`` between the snapshot and probe points, or
+``run_fused_tol`` under ``--tol``, on one device or over a mesh.
 The solve runs on ``--device`` (default cuda) through the torch
 engines; ``--device cpu``, or ``--engine cpu`` (the f64 oracle), runs it
 on a host without a card.
@@ -135,6 +139,19 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--tol", type=float, default=None,
                    help="L1 early-stop (default: none)")
+    p.add_argument(
+        "--fused", action="store_true",
+        help="run the iteration loop as fused device runs "
+        "(TorchEngine.run_fused: the steps queued on the device with no "
+        "host sync between them; per-iteration metrics come from "
+        "on-device traces and wall-clock is averaged). With "
+        "--snapshot-dir, one fused run per --snapshot-every iterations "
+        "with snapshots at the boundaries (run_fused_chunked). With "
+        "--tol the early stop runs on device (run_fused_tol: masked "
+        "chunks; only the final delta/mass exist) or at chunk "
+        "boundaries when snapshotting. torch engine only; incompatible "
+        "with --dump-text-dir, which needs host control every iteration",
+    )
     p.add_argument("--engine", choices=["torch", "cpu"], default="torch",
                    help="torch: the ELL engine on --device (default); cpu: "
                    "the f64 numpy/scipy oracle on the host")
@@ -888,11 +905,24 @@ def _usage(msg: str):
 def _check_args(args) -> None:
     """Pure-args validation before any work (``pagerank_tpu/cli.py:
     1435-1535``): the flags of later slices exit 2 naming their slice;
-    the rescue, SDC and job flags keep the JAX CLI's refusals."""
-    if args.stall_action == "rescue":
-        # Rescue rebuilds the engine over the survivors, which needs a
-        # host graph to re-shard (a device-built graph is not kept).
+    the fused, rescue, SDC and job flags keep the JAX CLI's refusals."""
+    if args.fused:
+        # --tol is fused-compatible: its early stop runs on the device.
         bad = [flag for flag, on in (
+            ("--dump-text-dir", args.dump_text_dir is not None),
+            ("--ppr-sources", bool(args.ppr_sources)),
+        ) if on]
+        if bad:
+            _usage(f"--fused runs the loop in fused device dispatches; "
+                   f"{', '.join(bad)} need host control every iteration")
+        if args.engine != "torch":
+            _usage("--fused requires --engine torch")
+    if args.stall_action == "rescue":
+        # Rescue rebuilds the engine over the survivors, which needs the
+        # stepwise loop and a host graph to re-shard (a device-built
+        # graph is not kept).
+        bad = [flag for flag, on in (
+            ("--fused", args.fused),
             ("--device-build", args.device_build),
             ("--ppr-sources", bool(args.ppr_sources)),
         ) if on]
@@ -939,6 +969,9 @@ def _check_args(args) -> None:
                "--engine torch")
     if args.resume and not args.snapshot_dir and not args.job_dir:
         raise SystemExit("--resume needs --snapshot-dir")
+    if args.snapshot_every < 0:
+        raise SystemExit(f"snapshot_every must be >= 0 (0 disables), got "
+                         f"{args.snapshot_every}")
     if args.device_build and args.engine != "torch":
         raise SystemExit("--device-build requires --engine torch")
     if args.device_build and args.ppr_sources:
@@ -949,6 +982,10 @@ def _check_args(args) -> None:
     if args.sdc_check_every:
         if args.sdc_check_every < 0:
             _usage("--sdc-check-every must be >= 0")
+        if args.fused:
+            _usage("--sdc-check-every drives the stepwise loop (bounded "
+                   "re-execution needs host control between steps); "
+                   "incompatible with --fused")
         if args.engine != "torch":
             _usage("--sdc-check-every requires --engine torch (the ABFT "
                    "invariants are device measurements)")
@@ -1278,7 +1315,7 @@ def _build_report(args, ctx, error=None, interrupted=None) -> dict:
                    **obs.graph_profile.report_section()}
                   if graph is not None else None),
         "engine": args.engine,
-        "fused": False,
+        "fused": bool(args.fused),
         "failed": error is not None,
         "interrupted": interrupted is not None,
         "probes": probes.history if probes is not None else [],
@@ -1294,7 +1331,8 @@ def _build_report(args, ctx, error=None, interrupted=None) -> dict:
         config=ctx.get("cfg"), tracer=ctx.get("tracer"),
         registry=obs.get_registry(),
         history=metrics.history if metrics is not None else [],
-        summary=metrics.summary() if metrics is not None else {},
+        summary=(metrics.summary(**ctx.get("fused_summary", {}))
+                 if metrics is not None else {}),
         robustness=(_robustness_summary(args, engine, guard)
                     if guard is not None else {}),
         job=job.report_section() if job is not None else None,
@@ -1878,6 +1916,10 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                 if runner is not None:
                     ranks = runner.run(on_iteration=on_iteration,
                                        probes=probes)
+                elif args.fused:
+                    ranks, ctx["fused_summary"] = _fused_solve(
+                        args, engine, snap, writer, guard, write_sinks,
+                        probes, exporter, ref["drain"], metrics, tracer)
                 else:
                     ranks = engine.run(on_iteration=on_iteration,
                                        snapshotter=roll_snap, probes=probes)
@@ -1923,6 +1965,7 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                               signal=interrupted.signum)
             raise interrupted
         iterations = engine.iteration
+        step_seconds = None  # the step the cost model's share is of
         if step_s:
             ms = statistics.median(step_s) * 1e3
             sinks = ""
@@ -1939,12 +1982,23 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             _log(f"solve: {len(step_s)} iteration(s), median {ms:.3f} "
                  f"ms/iter, {graph.num_edges / (ms / 1e3):.4g} edges/s, "
                  f"wall {solve_s:.3f} s to the last write{sinks}")
+            step_seconds = ms / 1e3
+        summ = metrics.summary(**ctx["fused_summary"]) if args.fused else {}
+        if summ:
+            # The JAX CLI's line: the true iteration count and the
+            # averaged wall of the fused run.
+            eps = summ["edges_per_sec_per_chip"]
+            _log(f"done: {summ['iters']} iters, "
+                 f"{summ['mean_iter_seconds'] * 1e3:.2f} ms/iter"
+                 + (f", {eps:.4g} edges/s/chip" if eps is not None else ""))
+            step_seconds = summ["mean_iter_seconds"]
+        if step_seconds is not None:
             # The kernel's cost model, with the measured step attached:
             # the report's costs section (achieved share of the bound).
             for form, rep in (getattr(engine, "cost_reports", dict)()
                               ).items():
                 obs.costs.record_report(rep)
-                obs.costs.attach_measurement(form, ms / 1e3)
+                obs.costs.attach_measurement(form, step_seconds)
         if job is not None:
             # Durable solve artifact: a later restart skips straight to
             # the output stage.
@@ -2014,6 +2068,81 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         "elastic": _elastic_summary(ctx.get("runner")),
         "report": report,
     }
+
+
+def _fused_solve(args, engine, snap, writer, guard, write_sinks, probes,
+                 exporter, drain_check, metrics, tracer):
+    """The solve as fused device runs (``pagerank_tpu/cli.py:1957-2074``):
+    chunks between the host-visible points (the gcd of the snapshot and
+    probe cadences) through ``run_fused_chunked``, else one
+    ``run_fused_tol`` (``--tol``) or ``run_fused``, with
+    ``prepare_fused`` outside the timed window. At a chunk boundary: the
+    drain check, the probe and ``--stop-tol`` at probe points, the
+    exporter's textfile, and a snapshot on the stepwise loop's absolute
+    cadence through the async writer or the guarded sync path (so both
+    modes write the same files). One record an executed iteration with
+    the run's averaged wall (the tol form has its final iteration's
+    only). Returns ``(ranks, the metrics summary's iters and
+    total_seconds)``."""
+    import math
+
+    first = engine.iteration
+    snap_every = (args.snapshot_every
+                  if (snap is not None and args.snapshot_every) else 0)
+    cadences = [c for c in (snap_every, args.probe_every) if c]
+    chunk_every = math.gcd(*cadences) if cadences else 0
+    if chunk_every and chunk_every < min(cadences):
+        # Neither cadence divides the other: the gcd can be far below
+        # both (1 when coprime: a host sync every step).
+        _log(f"--snapshot-every {snap_every} and --probe-every "
+             f"{args.probe_every} share no cadence; fused chunks drop to "
+             f"gcd={chunk_every} iterations — align one to a multiple of "
+             f"the other to keep dispatches fused")
+    engine.prepare_fused(tol=args.tol, every=chunk_every or None)
+    t_run = time.perf_counter()
+    if chunk_every:
+        def on_chunk(done_iters, ranks_thunk, traces):
+            drain_check("solve")
+            # --stop-tol fires at probe points only: a snapshot-only
+            # boundary never ends the solve.
+            stop = False
+            if probes is not None and done_iters % args.probe_every == 0:
+                rec = probes.probe_boundary(
+                    engine, done_iters - 1, l1_delta=float(traces[0][-1]))
+                stop = probes.should_stop(rec)
+            if exporter is not None:
+                exporter.write_textfile()
+            # No snapshot at an off-cadence final remainder; the rank
+            # copy is made only when the thunk is called.
+            if not snap_every or done_iters % snap_every != 0:
+                return stop
+            if writer is not None:
+                writer.submit(done_iters - 1, (True, ranks_thunk()))
+            else:
+                guard(done_iters - 1, lambda: write_sinks(
+                    done_iters - 1,
+                    (True, engine.decode_ranks(ranks_thunk()))))
+            return stop
+
+        ranks = engine.run_fused_chunked(every=chunk_every,
+                                         on_chunk=on_chunk, tol=args.tol)
+    elif args.tol is not None:
+        ranks = engine.run_fused_tol(args.tol)
+    else:
+        ranks = engine.run_fused()
+    total = time.perf_counter() - t_run
+    traces = engine.last_run_metrics
+    deltas = traces["l1_delta"].cpu().numpy()
+    masses = traces["dangling_mass"].cpu().numpy()
+    done = engine.iteration - first
+    if tracer.enabled:
+        tracer.add_span("solve/fused", t_run, total, iters=done)
+    for i in range(len(deltas) if done else 0):
+        it = first + (i if len(deltas) == done else done - 1)
+        metrics.record(it, {"l1_delta": deltas[i],
+                            "dangling_mass": masses[i]},
+                       total / max(1, done), timing="averaged")
+    return ranks, {"iters": done, "total_seconds": total}
 
 
 def _elastic_summary(runner):

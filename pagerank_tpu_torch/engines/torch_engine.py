@@ -118,6 +118,19 @@ pays one ctypes call); on ``cpu`` the wrappers run their plain
 versions. There is no fallback between the two: a CUDA engine launches
 the kernel or raises. The kernels, z and the windows stay in device
 memory (the TPU forms' VMEM limits have no counterpart here).
+
+The fused run forms (``jax_engine.py:4204-4447``: ``run_fast``,
+``run_fused``, ``run_fused_chunked``, ``run_fused_tol``,
+``prepare_fused``) queue steps with no host sync between them: each is
+``_device_step()``, the step's launch and update with its ``l1_delta``
+and dangling mass left on the device (``step()`` is that plus the two
+fetches). Where JAX runs one ``lax.scan`` or ``lax.while_loop``
+dispatch, the port queues the same steps on the stream: the host syncs
+only at a chunk boundary that reads a value, and at the end. The tol
+form masks the steps after its stop (each keeps the state the stop
+left) and reads its stop flag once a chunk of ``FUSED_TOL_CHUNK`` steps.
+No CUDA graph is captured: these forms port the semantics; capture is
+speed work.
 """
 
 from __future__ import annotations
@@ -134,6 +147,7 @@ from pagerank_tpu_torch import graph as graph_mod
 from pagerank_tpu_torch.engine import PageRankEngine, register_engine
 from pagerank_tpu_torch.graph import Graph
 from pagerank_tpu_torch.models import pagerank as pr_model
+from pagerank_tpu_torch.obs import live as obs_live
 from pagerank_tpu_torch.ops import LANES
 from pagerank_tpu_torch.ops import ell as ell_lib
 from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
@@ -182,6 +196,10 @@ class TorchEngine(PageRankEngine):
     # Hard cap on the partition count: an undersized explicit span
     # would multiply the per-partition expansion steps.
     MAX_PARTITIONS = 256
+    # Steps ``run_fused_tol`` queues between two reads of its stop flag:
+    # a run wastes at most FUSED_TOL_CHUNK - 1 masked steps past its stop
+    # and pays one host sync a chunk.
+    FUSED_TOL_CHUNK = 8
 
     @classmethod
     def partition_span(cls, n_padded: int, num_edges, z_item: int = 4) -> int:
@@ -278,6 +296,11 @@ class TorchEngine(PageRankEngine):
         self._carry = None
         self._last_step_delta = 0.0
         self._exchange_zero = None
+        # Per-step traces of the latest fused run, on the device; empty
+        # until one runs (kept across no-op repeat calls).
+        empty = torch.zeros(0, dtype=self._accum, device=self.device)
+        self.last_run_metrics = {"l1_delta": empty,
+                                 "dangling_mass": empty.clone()}
 
     def _check_span(self, psz: int, n_padded: int) -> int:
         """The partition count of span ``psz``; raises past
@@ -1177,7 +1200,6 @@ class TorchEngine(PageRankEngine):
             # contribution (the tail past K1's sums stays zero).
             if self._launch is None:
                 self._flat[: out.shape[0]] = out
-            self._note_comms()
             contrib = self._vs_merge(self._flat)
             if ship is not None:
                 # The async form: this step's boundary is in, and it is
@@ -1237,9 +1259,7 @@ class TorchEngine(PageRankEngine):
         must call it."""
         if iters < 1:
             raise ValueError(f"iters must be >= 1, got {iters}")
-        r0, it0 = self._r.clone(), self.iteration
-        c0 = [c.clone() for c in self._carry] if self._carry else None
-        d0 = self._last_step_delta
+        saved = self._save_solve_state()
         try:
             for _ in range(max(0, warmup)):
                 self._exchange_step()
@@ -1258,18 +1278,28 @@ class TorchEngine(PageRankEngine):
             self.fence()
             step_s = (time.perf_counter() - t0) / iters
         finally:
-            self._r = r0
-            if c0 is not None:
-                self._carry = c0
-            self._last_step_delta = d0
-            self.iteration = it0
+            self._restore_solve_state(saved)
         return exchange_s, step_s
 
-    def _note_comms(self) -> None:
-        """Accumulate ``comms.bytes_exchanged`` for one step's exchange
-        (the vertex-sharded form's model; ``jax_engine.py:3471``)."""
-        if self._comms_counter is not None:
-            self._comms_counter.inc(self._comms_bytes_per_iter)
+    def _save_solve_state(self):
+        """What a step changes, kept aside: the rank vector (a step
+        rebinds it, never writes it in place), copies of the async
+        form's boundary slots, the staleness slack and the iteration."""
+        carry = [c.clone() for c in self._carry] if self._carry else None
+        return self._r, carry, self._last_step_delta, self.iteration
+
+    def _restore_solve_state(self, saved) -> None:
+        self._r, carry, self._last_step_delta, self.iteration = saved
+        if carry is not None:
+            self._carry = carry
+
+    def _note_comms(self, iters: int = 1) -> None:
+        """Accumulate ``comms.bytes_exchanged`` for ``iters`` steps'
+        exchange (the vertex-sharded form's model; ``jax_engine.py:
+        3471``). Each caller of a step notes its own, so that a fused
+        run counts its executed steps and nothing it throws away."""
+        if self._comms_counter is not None and iters > 0:
+            self._comms_counter.inc(self._comms_bytes_per_iter * iters)
 
     def _update(self, contrib: torch.Tensor, r: torch.Tensor):
         """The update tail of a step over ``contrib``: ``(r', delta,
@@ -1290,19 +1320,193 @@ class TorchEngine(PageRankEngine):
             mesh_lib.psum(self.mesh, delta)
         return r_new, delta, m
 
-    def step(self) -> Dict[str, float]:
+    def _device_step(self):
+        """One iteration with no host sync (``jax_engine.py:3590``):
+        the form's contribution launch (K1 or K2 on cuda) and the
+        update, ``(delta, m)`` left on the device as scalars in the
+        accumulation dtype. The comms counter is the caller's to feed."""
         r_new, delta, m = self._update(self._contrib(), self._r)
         self._r = r_new
         self._last_ledger = None
+        self._last_step_delta = delta
+        return delta, m
+
+    def step(self) -> Dict[str, float]:
+        delta, m = self._device_step()
+        self._note_comms()
         self._last_step_delta = float(delta)
         return {"l1_delta": self._last_step_delta, "dangling_mass": float(m)}
+
+    # -- the fused run forms (jax_engine.py:4204-4447) ----------------------
+
+    def _total_iters(self, num_iters: Optional[int]) -> int:
+        """The run's last iteration: ``num_iters`` or the config's."""
+        if self.graph is None:
+            raise RuntimeError("call build(graph) before a run")
+        return self.config.num_iters if num_iters is None else num_iters
+
+    def _queue_steps(self, k: int):
+        """``k`` steps queued back to back; their traces stacked on the
+        device, ``([k] deltas, [k] masses)``."""
+        ds, ms = [], []
+        for _ in range(k):
+            d, m = self._device_step()
+            ds.append(d)
+            ms.append(m)
+        return torch.stack(ds), torch.stack(ms)
+
+    def run_fast(self, num_iters: Optional[int] = None) -> np.ndarray:
+        """The benchmark loop (``jax_engine.py:4204-4214``): the
+        remaining steps queued with no host sync, one fence at the end,
+        then the ranks."""
+        total = self._total_iters(num_iters)
+        k = max(0, total - self.iteration)
+        for _ in range(k):
+            self._device_step()
+        self.iteration += k
+        self._note_comms(k)
+        self.fence()
+        return self.ranks()
+
+    def run_fused(self, num_iters: Optional[int] = None) -> np.ndarray:
+        """All remaining iterations queued as one run
+        (``jax_engine.py:4216-4257``): where JAX dispatches one
+        ``lax.scan``, the same steps go onto the stream with no host
+        sync between them. The per-step ``(l1_delta, dangling_mass)``
+        stay on the device, stacked in :attr:`last_run_metrics` (``[k]``
+        each). A run already complete is a no-op that keeps the previous
+        traces; one resumed mid-way queues only the remainder."""
+        total = self._total_iters(num_iters)
+        k = total - self.iteration
+        if k <= 0:
+            return self.ranks()
+        deltas, masses = self._queue_steps(k)
+        self.iteration = total
+        self._note_comms(k)
+        self.last_run_metrics = {"l1_delta": deltas, "dangling_mass": masses}
+        return self.ranks()
+
+    def run_fused_chunked(self, num_iters: Optional[int] = None,
+                          every: int = 1, on_chunk=None,
+                          tol: Optional[float] = None) -> np.ndarray:
+        """Fused chunks between snapshot points (``jax_engine.py:
+        4308-4397``): each chunk's steps queued with no host sync, the
+        chunks aligned to ABSOLUTE multiples of ``every`` (a resumed run
+        lands on the stepwise loop's cadence; the last chunk may be a
+        short remainder ending off-cadence at the total; ``every`` 0
+        runs one chunk). At each boundary an armed stall watchdog gets
+        its heartbeat and ``on_chunk(iterations_done, ranks_thunk,
+        (deltas, masses))`` fires: ``ranks_thunk`` is
+        :meth:`device_ranks`, whose copy is made only when it is called
+        (on a card it is queued on a side stream after the chunk's last
+        step). A truthy return stops the run; so does ``tol`` against the
+        chunk's last delta (one fetch a boundary). Every executed step's
+        trace is kept in :attr:`last_run_metrics`."""
+        total = self._total_iters(num_iters)
+        if every is not None and every < 0:
+            raise ValueError(f"every must be >= 0, got {every}")
+        every = int(every) if every else max(1, total - self.iteration)
+        watchdog = obs_live.get_watchdog()
+        ds, ms = [], []
+        while self.iteration < total:
+            k = min(every - self.iteration % every, total - self.iteration)
+            deltas, masses = self._queue_steps(k)
+            self.iteration += k
+            self._note_comms(k)
+            ds.append(deltas)
+            ms.append(masses)
+            if watchdog is not None:
+                watchdog.heartbeat(self.iteration - 1)
+            stop = None
+            if on_chunk is not None:
+                stop = on_chunk(self.iteration, self.device_ranks,
+                                (deltas, masses))
+            if stop:
+                break
+            if tol is not None and float(deltas[-1]) <= tol:
+                break
+        if ds:
+            self.last_run_metrics = {"l1_delta": torch.cat(ds),
+                                     "dangling_mass": torch.cat(ms)}
+        return self.ranks()
+
+    def run_fused_tol(self, tol: Optional[float] = None,
+                      num_iters: Optional[int] = None) -> np.ndarray:
+        """The convergence-driven fused run (``jax_engine.py:4259-4306``):
+        steps until ``l1_delta <= tol`` or the budget is spent, stopping
+        at the iteration the host-checked stepwise run stops at. JAX's
+        ``lax.while_loop`` becomes masked chunks: each step folds
+        ``live &= delta > tol`` into a device flag, and a step after the
+        stop keeps the state the stop left (the ranks, the async form's
+        boundary slot, the traces) while a device count advances with
+        the live steps; the host reads the flag once a chunk of
+        ``FUSED_TOL_CHUNK`` steps (at most that less one masked steps
+        run past the stop). :attr:`last_run_metrics` holds the final
+        iteration's trace only, as ``[1]`` tensors."""
+        tol = self.config.tol if tol is None else tol
+        if tol is None:
+            raise ValueError("run_fused_tol needs a tol (arg or config)")
+        total = self._total_iters(num_iters)
+        k = total - self.iteration
+        if k <= 0:
+            return self.ranks()
+        dev, acc = self.device, self._accum
+        live = torch.ones((), dtype=torch.bool, device=dev)
+        done = torch.zeros((), dtype=torch.int64, device=dev)
+        delta = torch.full((), float("inf"), dtype=acc, device=dev)
+        mass = torch.zeros((), dtype=acc, device=dev)
+        while k > 0:
+            for _ in range(min(self.FUSED_TOL_CHUNK, k)):
+                r = self._r
+                d, m = self._device_step()
+                self._r = torch.where(live, self._r, r)
+                if self._carry is not None:
+                    # The step shipped into the other slot and swapped
+                    # them: a masked step takes back the slot it read.
+                    self._carry[0].copy_(torch.where(live, self._carry[0],
+                                                     self._carry[1]))
+                delta = torch.where(live, d, delta)
+                mass = torch.where(live, m, mass)
+                done += live
+                live &= d > tol
+                k -= 1
+            if not bool(live):
+                break
+        n = int(done)
+        self.iteration += n
+        self._note_comms(n)
+        self._last_step_delta = delta
+        self.last_run_metrics = {"l1_delta": delta.reshape(1),
+                                 "dangling_mass": mass.reshape(1)}
+        return self.ranks()
+
+    def prepare_fused(self, num_iters: Optional[int] = None,
+                      tol: Optional[float] = None,
+                      every: Optional[int] = None) -> int:
+        """Keep the one-time costs out of a fused run's timed window
+        (``jax_engine.py:4399-4447``, its ``_ms_stripe`` branch): the
+        kernel was built (nvcc at first use, ``kernels/build.py``) and
+        its launch bound at build; this runs one throwaway step on a
+        copy of the state, so the first launch and the allocator's first
+        buffers of each step land here, then restores the state. Every
+        fused form runs the same step, so ``tol`` and ``every`` change
+        nothing here. Returns the remaining iteration count."""
+        total = self._total_iters(num_iters)
+        k = total - self.iteration
+        if k > 0:
+            saved = self._save_solve_state()
+            self._device_step()
+            self.fence()
+            self._restore_solve_state(saved)
+        return max(0, k)
 
     def _stale_slack(self) -> float:
         """The previous step's L1 delta while the async form runs
         (``jax_engine.py:3621-3629``: the staleness bound the SDC and
         ledger checks allow its flows); 0 on every synchronous form and
         right after a prime, when the next step is lag-0 exact."""
-        return self._last_step_delta if self._carry is not None else 0.0
+        return (float(self._last_step_delta) if self._carry is not None
+                else 0.0)
 
     def _ledger_sums(self, contrib: torch.Tensor, r: torch.Tensor):
         """The rank-mass ledger's sums of a step (``jax_engine.py:103``)
@@ -1384,6 +1588,7 @@ class TorchEngine(PageRankEngine):
         prev = probes.prev_ids
         r = self._r
         contrib = self._contrib()
+        self._note_comms()
         r_new, delta, m = self._update(contrib, r)
         led = self._ledger_sums(contrib, r)
         del contrib
@@ -1518,6 +1723,7 @@ class TorchEngine(PageRankEngine):
         called when SDC checking is off."""
         r = self._r
         contrib = self._contrib()
+        self._note_comms()
         r_new, delta, m = self._update(contrib, r)
         ins = self._sdc_sums(r)
         outs = self._sdc_sums(r_new)[:2]

@@ -13,15 +13,20 @@ plus, optionally, ``"edges"`` (another graph's .npz for this case),
 ``"save_dir"`` (rank 0 snapshots the state after 4 steps there),
 ``"resume_dir"`` (every rank resumes from the newest snapshot there
 before running on), ``"retain"`` (after 4 steps, ``retain_state``, 3
-steps, ``restore_state`` and the same 3 steps again) and
-``"attribute"`` (``obs/devices.attribute_exchange`` after the run).
+steps, ``restore_state`` and the same 3 steps again),
+``"attribute"`` (``obs/devices.attribute_exchange`` after the run) and
+``"fused"`` (each run to 1, 4 and ``iters`` steps made by
+``run_fused``, ``run_fused_chunked(every=2)`` or ``run_fused_tol`` at
+the config's tol, else 1e-30: "run_fused", "chunked" or "tol") and
+``"after"`` (two more stepwise iterations after ``ranks``).
 Per case and rank it writes ``<name>.r<rank>.npz`` with ``ranks`` (the
 whole vector, original order, after ``iters``), ``first`` (after one
 step from r0), ``at4`` (after 4), ``resumed`` (the iteration resumed
 from), ``local`` (the rank's own state length), ``steps`` (the steps
 taken up to ``ranks``), ``bytes`` (``comms.bytes_exchanged`` then) and
 ``bpi`` (the comms model's bytes a step, 0 without one),
-``roundtrip`` (``set_ranks`` of a seeded vector, read back),
+``roundtrip`` (``set_ranks`` of a seeded vector, read back), ``after``
+when the case asks,
 ``stepped`` (one step from that vector), ``layout`` (``layout_info``
 as JSON) and, when the case asks, ``retain_a``/``retain_b`` (the 3
 steps before and after the restore), ``attribution`` (JSON) with
@@ -71,8 +76,24 @@ def run_cases(payload) -> int:
         def tick(i, info):
             steps[0] += 1
 
-        first = eng.run(1, on_iteration=tick)
-        at4 = eng.run(4, on_iteration=tick)
+        fused = case.get("fused")
+
+        def advance(k):
+            if not fused:
+                return eng.run(k, on_iteration=tick)
+            before = eng.iteration
+            if fused == "run_fused":
+                r = eng.run_fused(k)
+            elif fused == "chunked":
+                r = eng.run_fused_chunked(k, every=2)
+            else:
+                r = eng.run_fused_tol(
+                    tol=1e-30 if cfg.tol is None else cfg.tol, num_iters=k)
+            steps[0] += eng.iteration - before
+            return r
+
+        first = advance(1)
+        at4 = advance(4)
         extra = {}
         if case.get("retain"):
             token = eng.retain_state()
@@ -86,8 +107,10 @@ def run_cases(payload) -> int:
         if case.get("resume_dir"):
             resumed = resume_engine(eng, Snapshotter(
                 case["resume_dir"], graph.fingerprint(), cfg.semantics))
-        ranks = eng.run(case["iters"], on_iteration=tick)
+        ranks = advance(case["iters"])
         counters = obs_metrics.get_registry().snapshot()["counters"]
+        if case.get("after"):
+            extra["after"] = eng.run(eng.iteration + 2)
         model = eng.comms_model() or {}
         if case.get("attribute"):
             extra["attribution"] = np.array(json.dumps(

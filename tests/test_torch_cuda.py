@@ -726,3 +726,34 @@ def test_sharded_forms_in_an_nccl_group_of_one(cuda, tmp_path,
             assert lay["kernel"] == "ell_contrib:cuda"
     finally:
         distributed.shutdown()
+
+
+@pytest.mark.parametrize("partition_span,stream", [(0, ""), (256, ""),
+                                                   (256, "bfloat16")])
+def test_fused_forms_on_the_card_equal_the_stepwise_run(cuda, partition_span,
+                                                        stream):
+    """Every fused form queues the bound kernel once a step on the card:
+    run_fused's 6 steps are 6 launches, its ranks and traces the stepwise
+    run's bits; run_fast, run_fused_chunked and run_fused_tol (at a tol
+    that never stops it) give the same ranks."""
+    src, dst = synth.rmat_edges(12, seed=4)
+    g = pagerank_tpu_torch.build_graph(src, dst, n=1 << 12)
+    cfg = PageRankConfig(num_iters=6, partition_span=partition_span,
+                         stream_dtype=stream)
+    mod = ell_spmv_partitioned if partition_span else ell_spmv
+    infos = []
+    want = TorchEngine(cfg).build(g).run(
+        on_iteration=lambda i, info: infos.append(info["l1_delta"]))
+    eng = TorchEngine(cfg).build(g)
+    assert eng.prepare_fused() == 6
+    before = mod.launches
+    got = eng.run_fused()
+    assert mod.launches == before + 6
+    np.testing.assert_array_equal(got, want)
+    traces = eng.last_run_metrics["l1_delta"]
+    assert traces.device.type == "cuda"
+    np.testing.assert_array_equal(traces.cpu().numpy(), np.array(infos))
+    for run in (lambda e: e.run_fast(),
+                lambda e: e.run_fused_chunked(every=4),
+                lambda e: e.run_fused_tol(tol=-1.0)):
+        np.testing.assert_array_equal(run(TorchEngine(cfg).build(g)), want)

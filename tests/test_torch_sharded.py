@@ -86,9 +86,25 @@ CASES = {
     "bounded64sdc": dict(F64, vertex_sharded=True, vs_bounded=True,
                          sdc_check_every=1),
 }
+#: A tol the async form reaches before its last step of ITERS in textbook
+#: semantics on the second graph at every world: at step 4 on one rank
+#: (deltas 0.955, 0.248, 0.052, 0.011), 6 at world 2 (lag 1: ..., 0.034,
+#: 0.009), 7 at world 4 (..., 0.033, 0.015). Its fused tol run masks the
+#: steps after the stop.
+CASES["async32tol"] = dict(CASES["async32"], semantics="textbook",
+                           tol=2e-2)
+#: The fused cases: each form's stepwise case run by each fused form
+#: (``testing/sharded.py``), {name: (stepwise case, fused form)}.
+FUSED = {f"{base}_{form}": (base, form)
+         for base in ("flat64", "vs64", "async32")
+         for form in ("run_fused", "chunked", "tol")}
+FUSED["async32tol_tol"] = ("async32tol", "tol")
+CASES.update({name: CASES[base] for name, (base, _) in FUSED.items()})
 #: The cases on the second graph (module docstring); ``retain`` and
 #: ``attribute`` name the cases that run those checks.
-GRAPH_B = ("halo32b", "async32", "async32sdc", "lag0")
+GRAPH_B = ("halo32b", "async32", "async32sdc", "lag0", "async32tol",
+           *(n for n, (base, _) in FUSED.items()
+             if base.startswith("async32")))
 RETAIN = ("async32",)
 ATTRIBUTE = ("flat64", "vs64", "halo32", "async32", "bounded64")
 WORLDS = [1, 2, 4]
@@ -190,6 +206,10 @@ def _run_group(tmp_path_factory, edges, resume_dir, world):
                 by_name[name]["retain"] = True
             for name in ATTRIBUTE:
                 by_name[name]["attribute"] = True
+            for name, (_, form) in FUSED.items():
+                by_name[name]["fused"] = form
+            for name in ("async32tol", "async32tol_tol"):
+                by_name[name]["after"] = True
             codes = distributed.spawn_group(
                 "pagerank_tpu_torch.testing.sharded:run_cases", world,
                 dict(edges=str(d / "edges.npz"), out=str(d), device="cpu",
@@ -328,6 +348,32 @@ def test_step_sdc_runs_sharded(group):
                                       res[plain][0]["ranks"])
         sec = json.loads(str(res[checked][0]["sdc"]))
         assert sec["checks"] == ITERS and sec["flips_detected"] == 0
+
+
+@pytest.mark.parametrize("name", sorted(FUSED))
+def test_fused_forms_are_bit_equal_to_the_stepwise_run(group, name):
+    """Each fused form queues the step's collectives in line on every
+    rank: after 1, 4 and ITERS steps every rank holds the stepwise
+    case's bits (``tests/test_vertex_sharded.py:118``), and each counts
+    the steps it ran. The tol form that stops before ITERS (the async
+    form) stops at the stepwise run's step, and the step after it, which
+    reads the boundary slot its masked steps kept, is the stepwise run's
+    too."""
+    world, res = group
+    base, _ = FUSED[name]
+    keys = ("first", "at4", "ranks", *(("after",) if "after" in res[base][0]
+                                       else ()))
+    for r in range(world):
+        for key in keys:
+            np.testing.assert_array_equal(res[name][r][key],
+                                          res[base][0][key])
+        assert json.loads(str(res[name][r]["layout"]))["form"] == \
+            json.loads(str(res[base][r]["layout"]))["form"]
+        steps = int(res[name][r]["steps"])
+        if base == "async32tol":
+            assert steps == int(res[base][r]["steps"]) < ITERS
+        else:
+            assert steps == ITERS
 
 
 def test_set_ranks_round_trips(group):
