@@ -243,7 +243,8 @@ What it does, in order:
      one card (``parallel/distributed.spawn_group``; gloo takes CUDA
      tensors for all_reduce, all_gather_into_tensor and
      reduce_scatter_tensor, where NCCL refuses two ranks of one
-     device), at rmat:SCALE from phase 3's edges, 10 iterations: the
+     device), at rmat:SHARD_SCALE (20; rmat:SCALE's phase 3 edges until
+     the cut that made room for phase 19), 10 iterations: the
      edge-sharded flat form (K1), the edge-sharded partitioned form at
      phase 5's span in f32 and bf16 windows (K2), the vertex-sharded
      form (K1) unchecked and with ``sdc_check_every=1``, and f32 ranks
@@ -252,8 +253,10 @@ What it does, in order:
      step's kernel output on its own rows torch.equal to the kernel's
      plain plan-order version on the CPU; 10 launches of K1 or K2; the
      ms/iter, the collectives' CUDA-event time a step and the bare
-     launch (the ranks in turns). The final ranks within the
-     single-rank runs' gates (normalised L1 <= 1e-4; bf16 5e-3), the
+     launch (the ranks in turns). The final ranks within the gates
+     of one-device runs on cuda on the same graph (flat, and the
+     partitioned form at its span in f32 and bf16 windows; normalised
+     L1 <= 1e-4; bf16 5e-3), the
      f64-sum pair bit-equal, the checked run bit-equal to the unchecked
      one with 10 clean checks; a snapshot at iteration 4
      at world 2 resumed at world 2 (bit-equal to the uninterrupted run)
@@ -276,19 +279,21 @@ What it does, in order:
      and with ``--vs-bounded`` bit-equal too, and ``--num-devices 2`` on
      a one-card host refused with the JAX ``make_mesh`` error before any
      allocation;
- 16. the elastic solve (run after phase 15, on its edges and phases 3
-     and 5's ranks): (a) three gloo ranks sharing cuda:0, spawned
+ 16. the elastic solve (run after phase 15): (a) on phase 15(a)'s
+     rmat:SHARD_SCALE graph and its one-device references (rmat:SCALE
+     until the cut that made room for phase 19), three gloo ranks
+     sharing cuda:0, spawned
      rescue-armed (``spawn_group(..., rescue=True)``: the script hosts
      the group's store), each running ``ElasticRunner`` over the
      vertex-sharded form (K1) and then the edge-sharded partitioned
-     form at phase 5's span (K2), f32/f32, 10 iterations, a snapshot
+     form at that graph's span (K2), f32/f32, 10 iterations, a snapshot
      every iteration written by the current rank 0; the fault shim
      kills member 1 at iteration ELASTIC_KILL. The world goes 3 -> 2
      (members [0, 2]), member 1 leaves, each survivor's K1/K2 is
      torch.equal to its plain version on its NEW rows after the run, its
      launches count the steps before and after the rescue (10; the
      victim's ELASTIC_KILL), the ranks are within 1e-6 normalised L1 of
-     phases 3 and 5's one-device ranks, the later snapshots name the
+     one-device ranks of (a)'s graph, the later snapshots name the
      degraded mesh, and the rescue's wall is printed by part (roll call,
      regroup, rebuild, warm start); (b) the CLI over three gloo ranks on
      the host (``--device cpu``: under ``--device cuda`` the CLI picks
@@ -339,7 +344,32 @@ What it does, in order:
      (host wall of 2k minus k iterations over k, each call ending in its
      fetch of the ranks) with the device's busy time an iteration and
      idle share from torch.profiler (the same difference);
- 19. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+ 19. probes, the device build, the coo form, the resumable job and the
+     async writer over a process group (run after phase 17, on an
+     rmat:MESH5_SCALE (18) graph of its own): (a)-(c) two gloo ranks
+     sharing cuda:0 run the edge-sharded flat form (K1), the
+     edge-sharded partitioned form at the resolver's span in f32
+     windows (K2) and the vertex-sharded form (K1), each plain and with
+     ``ConvergenceProbes`` every 2 steps, top 64: each rank's
+     first-step K1/K2 torch.equal to its plain version on the CPU, 10
+     launches a rank, the probed ranks bit-equal to the plain ones, the
+     probe history the same on every rank and held to the one-device
+     probed run of the form (rank mass within 1e-6 relative, top-k ids
+     equal wherever a value is not within 1e-6 of a neighbour's, the
+     churn equal where no such tie touches the k-th place); the
+     edge-sharded flat and vertex-sharded forms built by
+     ``build_device`` from a graph each rank built on the card: each
+     rank's slot planes torch.equal to its share of the host pack, the
+     ranks bit-equal to the host-built run; the coo form over the
+     group within normalised L1 1e-5 of the one-device coo run, its
+     ms/iter beside one device's; (d) the CLI under NCCL in a group of
+     one, ``--synthetic rmat:18 --device-build --num-devices 1
+     --vertex-sharded --job-dir --probe-every 2 --snapshot-every 2``
+     with the async writer and again with ``--sync-io`` (exit 0, K1
+     10 launches each, the snapshots byte-equal), then the async job
+     rerun: every stage skipped, K1 0, the ranks equal; the phase
+     prints its seconds;
+ 20. prints one JSON line with every kernel's numbers (K1, K2, K1w on
      the PPR path with its tile sweep and its record over a group, P1
      and P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
      ``{"ok": true, "device": {...}}``.
@@ -3971,6 +4001,35 @@ def fused_phase(scale, tmp):
 # stages each collective through host memory: its times say nothing of
 # NCCL across cards); NCCL runs at world 1 through the CLI.
 SHARD_WORLD = 2
+#: The R-MAT scale of phase 15(a) and (c), cut from the main path's 22
+#: to make room for phase 19 (15(b) keeps the main path's graph).
+SHARD_SCALE = 20
+
+
+def _shard_refs(d):
+    """Phase 15(a)'s graph (rmat:SHARD_SCALE, its deduplicated edges
+    written to ``edges_a.npz`` in ``d``), its span from the CLI's
+    resolver at -1 and the one-device runs on cuda that its forms are
+    held to: the flat form and the partitioned form in f32 and bf16
+    windows. Returns (n, span, {flat, part_f32, part_bf16: ranks})."""
+    import numpy as np
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine, cli
+    from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.utils.synth import rmat_edges
+
+    graph = build_graph(*rmat_edges(SHARD_SCALE), n=1 << SHARD_SCALE)
+    np.savez(os.path.join(d, "edges_a.npz"), src=graph.src, dst=graph.dst,
+             n=graph.n)
+    span = cli.plan_partition_span(PageRankConfig(), graph.n,
+                                   graph.num_edges, -1)
+    refs = {}
+    for key, kw in (("flat", {}), ("part_f32", {"partition_span": span}),
+                    ("part_bf16", {"partition_span": span,
+                                   "stream_dtype": "bfloat16"})):
+        refs[key] = TorchEngine(PageRankConfig(num_iters=ITERS, **kw),
+                                device="cuda").build(graph).run()
+    return graph.n, span, refs
 
 
 def _shard_forms(span):
@@ -4297,11 +4356,14 @@ def sharded_phase(tmp):
         refs = {k: f[k] for k in f.files}
     span = int(refs.pop("span"))
     flat_ms = float(refs.pop("flat_ms"))
-    with np.load(os.path.join(d, "edges.npz")) as f:
-        n = int(f["n"])
+    refs_main = refs
+    # (a) and (c) on their own rmat:SHARD_SCALE graph and references,
+    # which phase 16(a) reads too.
+    n, span, refs = _shard_refs(d)
+    np.savez(os.path.join(d, "refs_a.npz"), span=span, **refs)
     codes = distributed.spawn_group(
         "chip_smoke:phase15_rank", SHARD_WORLD,
-        {"edges": os.path.join(d, "edges.npz"), "out": d, "span": span},
+        {"edges": os.path.join(d, "edges_a.npz"), "out": d, "span": span},
         d, backend="gloo", timeout_s=300.0, deadline_s=900.0)
     _check(codes == [0] * SHARD_WORLD, f"phase 15 rank exit codes {codes}")
     ranks_of = [json.load(open(os.path.join(d, f"rank{r}.json")))
@@ -4312,7 +4374,8 @@ def sharded_phase(tmp):
 
     print(f"phase 15(a) on {card} (gloo, {SHARD_WORLD} ranks sharing "
           f"cuda:0; gloo stages collectives through host memory, so these "
-          f"times are not NCCL's across cards):")
+          f"times are not NCCL's across cards; rmat:{SHARD_SCALE}, span "
+          f"{span}):")
     ref_of = {"edge_part_f32": ("part_f32", 1e-4),
               "edge_part_bf16": ("part_bf16", 5e-3),
               # Lag 1 reads a one-step-stale boundary: it is held to its
@@ -4513,7 +4576,7 @@ def sharded_phase(tmp):
         _check(len(step_ms) == ITERS and not in_steps,
                f"CLI {label}: {len(step_ms)} steps, torch.distributed "
                f"calls in them: {in_steps[:4]}")
-        _check(np.array_equal(ranks, refs["flat"]),
+        _check(np.array_equal(ranks, refs_main["flat"]),
                f"CLI --num-devices 1 --vertex-sharded {' '.join(extra)} "
                f"(NCCL) != the one-device main path's ranks")
         return statistics.median(step_ms[1:]), cli_s, k1, len(calls)
@@ -4703,9 +4766,13 @@ def elastic_phase(tmp):
     t0 = time.perf_counter()
     card = card_identity()
     d = os.path.join(tmp, "sharded")
+    # (a) on phase 15(a)'s rmat:SHARD_SCALE graph and references; (c) on
+    # phase 3's edges and ranks.
+    with np.load(os.path.join(d, "refs_a.npz")) as f:
+        refs_a = {k: f[k] for k in f.files}
+    span = int(refs_a.pop("span"))
     with np.load(os.path.join(d, "refs.npz")) as f:
         refs = {k: f[k] for k in f.files}
-    span = int(refs.pop("span"))
     edges = os.path.join(d, "edges.npz")
     d16 = os.path.join(tmp, "elastic")
     os.makedirs(d16, exist_ok=True)
@@ -4717,21 +4784,23 @@ def elastic_phase(tmp):
     ta = time.perf_counter()
     codes = distributed.spawn_group(
         "chip_smoke:phase16_rank", ELASTIC_WORLD,
-        {"edges": edges, "out": d16, "span": span}, d16, backend="gloo",
-        timeout_s=300.0, deadline_s=600.0, rescue=True)
+        {"edges": os.path.join(d, "edges_a.npz"), "out": d16, "span": span},
+        d16, backend="gloo", timeout_s=300.0, deadline_s=600.0,
+        rescue=True)
     _check(list(codes) == [0] * ELASTIC_WORLD,
            f"phase 16(a) process exit codes {list(codes)}")
     reps = [json.load(open(os.path.join(d16, f"member{m}.json")))
             for m in range(ELASTIC_WORLD)]
     print(f"phase 16(a) on {card} ({ELASTIC_WORLD} gloo ranks sharing "
           f"cuda:0, rescue armed; member 1 killed by the fault shim at "
-          f"iteration {ELASTIC_KILL} of {ITERS}; "
+          f"iteration {ELASTIC_KILL} of {ITERS}; rmat:{SHARD_SCALE}; "
           f"{time.perf_counter() - ta:.1f} s):")
     got = {}
     for name, _, kernel, ref in _elastic_forms(span):
         final = np.load(os.path.join(d16, f"{name}.npy"))
-        dist_l1 = l1(final, refs[ref])
-        _check(final.shape == refs[ref].shape and np.isfinite(final).all(),
+        dist_l1 = l1(final, refs_a[ref])
+        _check(final.shape == refs_a[ref].shape
+               and np.isfinite(final).all(),
                f"{name}: ranks not finite of shape (n,)")
         _check(dist_l1 <= 1e-6, f"{name}: the rescued run vs the one-device "
                f"{ref} run normalised L1 {dist_l1} > 1e-6")
@@ -5225,6 +5294,350 @@ def ppr_group_phase(tmp):
             "nccl_group_of_one_launches": counts["K1w"]}
 
 
+MESH5_SCALE = 18
+MESH5_WORLD = 2
+MESH5_TOPK = 64
+MESH5_EVERY = 2
+#: Probe values within this relative distance of a neighbour's are a
+#: tie: their ids may swap between a run over a group and one device
+#: (f32 sums regroup across the ranks).
+MESH5_TIE_RTOL = 1e-6
+
+
+def _mesh5_forms(span):
+    """(name, config fields, kernel, kind) of each phase-19 run over the
+    group: "plain", "probed" (ConvergenceProbes every MESH5_EVERY steps,
+    top MESH5_TOPK), "device" (``build_device`` of a graph each rank
+    built on the card) or "coo" (no hand kernel)."""
+    return [
+        ("edge_flat", {}, "K1", "plain"),
+        ("edge_flat_probed", {}, "K1", "probed"),
+        ("edge_part_f32", {"partition_span": span}, "K2", "plain"),
+        ("edge_part_f32_probed", {"partition_span": span}, "K2", "probed"),
+        ("vertex_sharded", {"vertex_sharded": True}, "K1", "plain"),
+        ("vertex_sharded_probed", {"vertex_sharded": True}, "K1",
+         "probed"),
+        ("edge_flat_device", {}, "K1", "device"),
+        ("vertex_sharded_device", {"vertex_sharded": True}, "K1", "device"),
+        ("coo", {"kernel": "coo"}, None, "coo"),
+    ]
+
+
+def phase19_rank(payload) -> int:
+    """One rank of phase 19(a)-(c) (spawned; joined to the gloo group):
+    every form of ``_mesh5_forms`` over this rank's share on the
+    payload's device; rank 0 writes the final ranks, every rank its
+    numbers (and probe history) as JSON."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine
+    from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.ops import device_build as db
+    from pagerank_tpu_torch.ops import ell_spmv
+    from pagerank_tpu_torch.ops import ell_spmv_partitioned as k2
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.testing.sharded import recorded_probes
+
+    torch.set_num_threads(4)
+    rank, world = distributed.process_info()
+    dev = torch.device(payload["device"])
+    out = payload["out"]
+    with np.load(payload["edges"]) as f:
+        graph = build_graph(f["src"], f["dst"], n=int(f["n"]))
+    rep, planes = {}, {}
+    for name, kw, kernel, kind in _mesh5_forms(payload["span"]):
+        cfg = PageRankConfig(num_iters=ITERS, num_devices=world, **kw)
+        eng = TorchEngine(cfg, device=dev)
+        t0 = time.perf_counter()
+        if kind == "device":
+            # Every rank builds the whole graph on its own card from the
+            # same deduplicated edges: the host pack's planes.
+            eng.build_device(db.build_ell_device(
+                torch.from_numpy(graph.src), torch.from_numpy(graph.dst),
+                graph.n, with_weights=False, device=dev))
+        else:
+            eng.build(graph)
+        r = {"build_s": time.perf_counter() - t0,
+             "form": eng.layout_info()["form"],
+             "build": eng.layout_info()["build"],
+             "rows": eng.layout_info()["num_rows"]}
+        if kernel is not None:
+            a = eng._arrays
+            rows = a.get("row_block", a.get("row_pair"))
+            if kind == "plain":
+                planes[name] = (a["src"].clone(), rows.clone())
+            elif kind == "device":
+                host_src, host_rows = planes[name.removesuffix("_device")]
+                r["planes_equal"] = bool(torch.equal(a["src"], host_src)
+                                         and torch.equal(rows, host_rows))
+            if dev.type == "cuda":
+                # The first step's kernel on this rank's rows against
+                # its plain version on the CPU (r0 prescaled).
+                inputs = eng.contrib_inputs()
+                got = eng._launch().clone().cpu()
+                if kernel == "K1":
+                    z, src, _, _, plan = inputs
+                    want = ell_spmv.ell_contrib_plan_reference(
+                        z.cpu(), src.cpu(), accum_dtype=eng._accum,
+                        plan=ell_spmv.plan_to(plan, "cpu"))
+                else:
+                    zw, slots, _, pp, _, plan = inputs
+                    want = k2.ell_contrib_partitioned_plan_reference(
+                        zw.cpu(), slots.cpu(), pp.cpu(),
+                        plan=ell_spmv.plan_to(plan, "cpu"))
+                r["kernel_equal"] = bool(torch.equal(got, want))
+                r["kernel_err"] = float((got.double() - want.double())
+                                        .abs().max())
+                del inputs, got, want
+        probes = (recorded_probes(MESH5_EVERY, MESH5_TOPK)
+                  if kind == "probed" else None)
+        step_s, t_last = [], [0.0]
+
+        def on_iteration(i, info):
+            now = time.perf_counter()
+            step_s.append(now - t_last[0])
+            t_last[0] = now
+
+        ell_spmv.launches = k2.launches = 0
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t_last[0] = time.perf_counter()
+        ranks = eng.run(on_iteration=on_iteration, probes=probes)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        r.update(launches={"K1": ell_spmv.launches, "K2": k2.launches},
+                 ms_per_iter=statistics.median(step_s) * 1e3,
+                 ms_per_iter_1_2=statistics.median(step_s[1:]) * 1e3)
+        if probes is not None:
+            r["probes"] = probes.records
+        if rank == 0:
+            np.save(os.path.join(out, f"{name}.npy"), ranks)
+        rep[name] = r
+        del eng
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def _held_probes(label, got, want, ranks_at):
+    """Hold a probe history over the group to the one-device run's: the
+    same probe iterations, rank mass within 1e-6 relative, top-k ids
+    equal wherever the one-device value is not within MESH5_TIE_RTOL of
+    a neighbour's (``ranks_at[iteration]``: its ranks at each probe),
+    the churn equal where no tie touches the k-th place (in this probe
+    or the one before). Returns (largest mass error, tied places)."""
+    import numpy as np
+
+    _check([g["iteration"] for g in got] == [w["iteration"] for w in want],
+           f"{label}: probe iterations {[g['iteration'] for g in got]}")
+    worst, tied_places, edge_tied = 0.0, 0, False
+    for g, w in zip(got, want):
+        err = abs(g["rank_mass"] - w["rank_mass"]) / abs(w["rank_mass"])
+        worst = max(worst, err)
+        _check(err <= 1e-6, f"{label} probe {g['iteration']}: rank mass "
+               f"{g['rank_mass']} vs one device {w['rank_mass']}")
+        r = ranks_at[w["iteration"]]
+        vals = np.sort(r)[::-1][: MESH5_TOPK + 1].astype(np.float64)
+        near = np.abs(np.diff(vals)) <= MESH5_TIE_RTOL * np.abs(vals[1:])
+        tied = np.zeros(MESH5_TOPK + 1, bool)
+        tied[1:] |= near
+        tied[:-1] |= near
+        gi, wi = np.array(g["ids"]), np.array(w["ids"])
+        bad = int(((gi != wi) & ~tied[:MESH5_TOPK]).sum())
+        _check(bad == 0, f"{label} probe {g['iteration']}: {bad} untied "
+               f"top-k ids differ from the one-device run's")
+        tied_places += int(tied[:MESH5_TOPK].sum())
+        boundary = bool(tied[MESH5_TOPK - 1])
+        if not (boundary or edge_tied):
+            _check(g["topk_churn"] == w["topk_churn"],
+                   f"{label} probe {g['iteration']}: churn "
+                   f"{g['topk_churn']} vs {w['topk_churn']}")
+        edge_tied = boundary
+    return worst, tied_places
+
+
+def mesh_job_phase(tmp, dev="cuda"):
+    """Phase 19 (see the module docstring). Returns the numbers for the
+    kernels line: K1's and K2's launches a rank and ms/iter over the
+    group, the coo form's ms/iter and (d)'s."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig, TorchEngine, cli
+    from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.testing.sharded import recorded_probes
+    from pagerank_tpu_torch.utils.synth import rmat_edges
+
+    t0 = time.perf_counter()
+    card = card_identity() if dev == "cuda" else "cpu"
+    d = os.path.join(tmp, "mesh5")
+    os.makedirs(d, exist_ok=True)
+    graph = build_graph(*rmat_edges(MESH5_SCALE), n=1 << MESH5_SCALE)
+    np.savez(os.path.join(d, "edges.npz"), src=graph.src, dst=graph.dst,
+             n=graph.n)
+    span = cli.plan_partition_span(PageRankConfig(), graph.n,
+                                   graph.num_edges, -1)
+    _check(span > 0, f"the auto rule turned the partitioned form off at "
+           f"rmat:{MESH5_SCALE}")
+    # The one-device runs the group is held to: flat and partitioned
+    # probed (their ranks kept at each probe), coo.
+    one = {}
+    for name, kw in (("flat", {}), ("part", {"partition_span": span}),
+                     ("coo", {"kernel": "coo"})):
+        eng = TorchEngine(PageRankConfig(num_iters=ITERS, **kw),
+                          device=dev).build(graph)
+        at = {}
+        probes = (recorded_probes(MESH5_EVERY, MESH5_TOPK, lambda i:
+                                  at.__setitem__(i, eng.ranks()))
+                  if name != "coo" else None)
+        step_s, t_last = [], [time.perf_counter()]
+
+        def on_iteration(i, info):
+            now = time.perf_counter()
+            step_s.append(now - t_last[0])
+            t_last[0] = now
+
+        one[name] = {"ranks": eng.run(on_iteration=on_iteration,
+                                      probes=probes),
+                     "probes": probes.records if probes else None,
+                     "at": at,
+                     "ms_per_iter": statistics.median(step_s) * 1e3}
+        del eng
+    codes = distributed.spawn_group(
+        "chip_smoke:phase19_rank", MESH5_WORLD,
+        {"edges": os.path.join(d, "edges.npz"), "out": d, "span": span,
+         "device": f"{dev}:0" if dev == "cuda" else dev},
+        d, backend="gloo", timeout_s=300.0, deadline_s=600.0)
+    _check(codes == [0] * MESH5_WORLD, f"phase 19 rank exit codes {codes}")
+    reps = [json.load(open(os.path.join(d, f"rank{r}.json")))
+            for r in range(MESH5_WORLD)]
+
+    def ranks(name):
+        return np.load(os.path.join(d, f"{name}.npy"))
+
+    def l1(a, b):
+        return float(np.abs(a - b).sum() / np.abs(b).sum())
+
+    print(f"phase 19 on {card} (gloo, {MESH5_WORLD} ranks sharing "
+          f"{dev}:0; rmat:{MESH5_SCALE}, {graph.num_edges:,} edges, span "
+          f"{span}):")
+    got = {}
+    for name, _, kernel, kind in _mesh5_forms(span):
+        for r, rep in enumerate(reps):
+            x = rep[name]
+            want = ({"K1": 0, "K2": 0} if kernel is None else
+                    {"K1": ITERS if kernel == "K1" else 0,
+                     "K2": ITERS if kernel == "K2" else 0})
+            # (A CPU rehearsal runs the plain versions: nothing counts.)
+            _check(x["launches"] == want or dev != "cuda",
+                   f"{name} rank {r}: launches "
+                   f"{x['launches']}, want {want} in {ITERS} steps")
+            _check(x.get("kernel_equal", True), f"{name} rank {r}: "
+                   f"{kernel} != its plain version on its rows (max err "
+                   f"{x.get('kernel_err')})")
+            _check(x.get("planes_equal", True), f"{name} rank {r}: the "
+                   f"device-built slot planes != its share of the host "
+                   f"pack")
+        final = ranks(name)
+        _check(final.shape == (graph.n,) and np.isfinite(final).all(),
+               f"{name}: ranks not finite of shape (n,)")
+        base = name.removesuffix("_probed").removesuffix("_device")
+        x0 = reps[0][name]
+        rows = ", ".join(str(x[name]["rows"]) for x in reps)
+        ms = ", ".join(f"{x[name]['ms_per_iter']:.3f}" for x in reps)
+        line = (f"  {name}: {x0['form']} ({x0['build']} build), {rows} slot "
+                f"rows a rank; {kernel or 'no hand kernel'} "
+                f"{x0['launches'][kernel] if kernel else 0} launches a "
+                f"rank; ms/iter {ms} by rank")
+        if kind in ("probed", "device"):
+            _check(np.array_equal(final, ranks(base)),
+                   f"{name}: ranks != the {base} run's")
+            line += f"; ranks bit-equal to {base}"
+        if kind == "device":
+            line += "; slot planes torch.equal to the host pack's share"
+        if kind == "probed":
+            hist = [x[name]["probes"] for x in reps]
+            _check(all(h == hist[0] for h in hist),
+                   f"{name}: the ranks' probe histories differ")
+            ref = one["part" if "part" in name else "flat"]
+            worst, tied = _held_probes(name, hist[0], ref["probes"],
+                                       ref["at"])
+            line += (f"; {len(hist[0])} probes, every rank the same, rank "
+                     f"mass within {worst:.2e} of one device, top-{MESH5_TOPK}"
+                     f" ids equal ({tied} tied places exempt), churn "
+                     f"{[p['topk_churn'] for p in hist[0]]}")
+        if kind == "coo":
+            dist_l1 = l1(final, one["coo"]["ranks"])
+            _check(dist_l1 <= 1e-5, f"coo over the group vs one device: "
+                   f"normalised L1 {dist_l1}")
+            line += (f"; vs the one-device coo run normalised L1 "
+                     f"{dist_l1:.3e} (one device "
+                     f"{one['coo']['ms_per_iter']:.3f} ms/iter)")
+        print(line)
+        got[name] = {"launches": [x[name]["launches"] for x in reps],
+                     "ms_per_iter": [x[name]["ms_per_iter"] for x in reps]}
+    # (d) the CLI under the group backend of --device, a group of one.
+    argv = ["--synthetic", f"rmat:{MESH5_SCALE}", "--device-build",
+            "--num-devices", "1", "--vertex-sharded", "--probe-every", "2",
+            "--snapshot-every", "2", "--iters", str(ITERS), "--log-every",
+            "0", "--device", dev]
+    runs = {}
+    for label, extra in (("async", []), ("sync", ["--sync-io"]),
+                         ("rerun", [])):
+        job = os.path.join(d, "job_" + ("sync" if label == "sync"
+                                        else "async"))
+        out = os.path.join(d, f"cli_{label}.tsv")
+        _reset_counts()
+        t1 = time.perf_counter()
+        rc = cli.main(argv + extra + ["--job-dir", job, "--out", out])
+        k1, k2n, _ = _read_counts()
+        runs[label] = {"rc": rc, "K1": k1, "K2": k2n, "job": job,
+                       "s": time.perf_counter() - t1,
+                       "ranks": np.array([float(ln.split("\t")[1])
+                                          for ln in open(out)])}
+        want = 0 if label == "rerun" or dev != "cuda" else ITERS
+        _check(rc == 0 and k1 == want and k2n == 0,
+               f"phase 19(d) {label}: rc {rc}, K1 {k1}, K2 {k2n} (want K1 "
+               f"{want})")
+    a, b = (os.path.join(runs[k]["job"], "snapshots") for k in
+            ("async", "sync"))
+    (sa,), (sb,) = os.listdir(a), os.listdir(b)
+    files = sorted(os.listdir(os.path.join(a, sa)))
+    _check(sa == sb and files == sorted(os.listdir(os.path.join(b, sb)))
+           and len(files) == ITERS // 2,
+           f"phase 19(d): snapshot dirs {sa}/{sb}, files {files}")
+    for name in files:
+        with open(os.path.join(a, sa, name), "rb") as fa, \
+                open(os.path.join(b, sb, name), "rb") as fb:
+            _check(fa.read() == fb.read(),
+                   f"phase 19(d): async snapshot {name} != --sync-io's")
+    manifest = json.load(open(os.path.join(runs["rerun"]["job"],
+                                           "job.json")))
+    skipped = [s for s, rec in manifest["stages"].items()
+               if rec.get("skipped")]
+    _check(skipped == ["ingest", "build", "solve"]
+           and np.array_equal(runs["rerun"]["ranks"], runs["async"]["ranks"])
+           and np.array_equal(runs["sync"]["ranks"], runs["async"]["ranks"]),
+           f"phase 19(d): the rerun skipped {skipped}; ranks equal "
+           f"{np.array_equal(runs['rerun']['ranks'], runs['async']['ranks'])}")
+    print(f"phase 19(d) on {card}: CLI --num-devices 1 --vertex-sharded "
+          f"--device-build --job-dir --probe-every 2 (a group of one): the "
+          f"async run {runs['async']['s']:.1f} s and the --sync-io run "
+          f"{runs['sync']['s']:.1f} s exit 0 with K1 {ITERS} launches, "
+          f"{len(files)} snapshots byte-equal; the rerun "
+          f"({runs['rerun']['s']:.1f} s) skips {', '.join(skipped)}, K1 0, "
+          f"ranks equal")
+    got["cli_s"] = {k: v["s"] for k, v in runs.items()}
+    secs = time.perf_counter() - t0
+    got["seconds"] = secs
+    print(f"phase 19 took {secs:.1f} s")
+    return got
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -5334,6 +5747,15 @@ def main(argv=None) -> int:
         sharded = sharded_phase(tmp)
         elastic = elastic_phase(tmp)
         ppr_group = ppr_group_phase(tmp)
+        mesh5 = mesh_job_phase(tmp)
+        k1["mesh"] = {n: mesh5[n] for n in (
+            "edge_flat", "edge_flat_probed", "vertex_sharded",
+            "vertex_sharded_probed", "edge_flat_device",
+            "vertex_sharded_device")}
+        k1["mesh"].update(coo=mesh5["coo"], cli_s=mesh5["cli_s"],
+                          phase_s=mesh5["seconds"])
+        k2["mesh"] = {n: mesh5[n] for n in (
+            "edge_part_f32", "edge_part_f32_probed")}
         k1["elastic"] = {"vertex_sharded": elastic["vertex_sharded"],
                          "nccl_group_of_one_launches":
                              elastic["nccl_group_of_one_launches"]}

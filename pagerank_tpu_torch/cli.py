@@ -45,8 +45,12 @@ code and reports the lost ranks). Under torchrun (``WORLD_SIZE`` set)
 group down when a worker exits, so no survivor would be left.
 ``--ppr-sources`` with ``--num-devices N`` runs the PPR engine's rows
 sharded over the group (rank 0 alone prints and writes ``--out``).
-``--probe-every``, ``--device-build``, ``--job-dir`` and the async
-writer over a mesh exit 2 naming ROADMAP slice 6d. The fused run
+Over a group of more than one rank rank 0 owns every output and the
+job directory: it decides each job stage's hit or miss and the others
+follow (:func:`_job_hit`), only rank 0 submits to the async writer
+(the others join the vertex-sharded form's gather of the ranks), and
+the drain is agreed by every rank at the stage boundaries of ingest
+and build as after every step (:func:`_stage_drain`). The fused run
 (``--fused``, :175-182, with the refusals of :1444-1505 and the solve
 block of :1957-2074, :2202): ``TorchEngine.run_fused``,
 ``run_fused_chunked`` between the snapshot and probe points, or
@@ -904,8 +908,8 @@ def _usage(msg: str):
 
 def _check_args(args) -> None:
     """Pure-args validation before any work (``pagerank_tpu/cli.py:
-    1435-1535``): the flags of later slices exit 2 naming their slice;
-    the fused, rescue, SDC and job flags keep the JAX CLI's refusals."""
+    1435-1535``): the fused, rescue, SDC and job flags keep the JAX
+    CLI's refusals."""
     if args.fused:
         # --tol is fused-compatible: its early stop runs on the device.
         bad = [flag for flag, on in (
@@ -940,24 +944,9 @@ def _check_args(args) -> None:
     world = _world(args)
     if world < 1:
         _usage("--num-devices must be >= 1")
-    if world > 1 or args.vertex_sharded:
-        if args.engine != "torch":
-            _usage("--num-devices/--vertex-sharded run the torch engine "
-                   "(the cpu oracle is one host process)")
-        # Run this slice does not cover over a mesh yet: each exits 2
-        # naming the slice that brings it.
-        mesh_later = [flag for flag, on in (
-            ("--device-build", args.device_build),
-            ("--job-dir", bool(args.job_dir)),
-            ("--probe-every", world > 1 and args.probe_every > 0),
-        ) if on]
-        if mesh_later:
-            _usage(f"{', '.join(mesh_later)} over a device mesh is not "
-                   f"ported yet (ROADMAP slice 6d)")
-        if (world > 1 and not args.sync_io
-                and (args.snapshot_dir or args.dump_text_dir)):
-            _usage("the async rank writer over more than one device is not "
-                   "ported yet (ROADMAP slice 6d): pass --sync-io")
+    if (world > 1 or args.vertex_sharded) and args.engine != "torch":
+        _usage("--num-devices/--vertex-sharded run the torch engine "
+               "(the cpu oracle is one host process)")
     if args.probe_every < 0:
         _usage("--probe-every must be >= 0")
     if args.device_sample_every < 0:
@@ -1039,6 +1028,69 @@ def _restored_info(t0) -> Dict[str, object]:
             "input_seconds": time.perf_counter() - t0, "graph_seconds": 0.0}
 
 
+def _stage_drain(drain):
+    """The drain check at the stage boundaries of ingest and build, and
+    after a job's solve: ``drain.check`` on one rank; over a group of
+    more than one rank ``drain.check_agreed`` through a sum of the
+    request flag over the default group (there is no engine or mesh
+    yet), so that a signal to any one rank stops every rank at the same
+    boundary. Every rank reaches these boundaries in the same order."""
+    from pagerank_tpu_torch.parallel import distributed
+
+    if distributed.process_info()[1] == 1:
+        return drain.check
+    return lambda where: drain.check_agreed(distributed.group_sum, where)
+
+
+def _open_job(directory):
+    """The run's job supervisor. Over a group rank 0's owns the
+    directory and every other rank's is a follower
+    (``JobSupervisor(write=False)``), made after a barrier that follows
+    rank 0's manifest write, so that it reads this run's manifest."""
+    from pagerank_tpu_torch.parallel import distributed
+
+    rank, world = distributed.process_info()
+    if world == 1:
+        return jobs.JobSupervisor(directory)
+    job = jobs.JobSupervisor(directory) if rank == 0 else None
+    distributed.group_barrier()
+    return job or jobs.JobSupervisor(directory, write=False)
+
+
+def _job_hit(job, stage, expect, restore):
+    """A job stage's artifact as ``restore(arrays, meta)`` gives it, or
+    None to recompute the stage. Rank 0 validates the artifact and
+    decides; over a group every rank follows its decision (one
+    broadcast), and the others read the artifact only after it, so a
+    rank never skips a stage another runs. A restore that raises
+    ``ValueError`` or ``ArtifactCorruptError`` on rank 0 rejects the
+    artifact; on another rank, after rank 0 accepted it, it raises."""
+    import warnings
+
+    from pagerank_tpu_torch.parallel import distributed
+
+    got = None
+    lead = distributed.process_info()[0] == 0
+    if lead:
+        hit = job.load_stage_artifact(stage, expect=expect)
+        if hit is not None:
+            try:
+                got = restore(*hit)
+            except (ValueError, jobs.ArtifactCorruptError) as e:
+                warnings.warn(f"job {stage} artifact rejected ({e}); "
+                              "recomputing", RuntimeWarning)
+    if not distributed.rank0_decides(got is not None):
+        return None
+    if not lead:
+        hit = job.load_stage_artifact(stage, expect=expect)
+        if hit is None:
+            raise RuntimeError(
+                f"job {stage} artifact in {job.directory} was accepted by "
+                f"rank 0 and does not load here")
+        got = restore(*hit)
+    return got
+
+
 def _job_load_graph(args, cfg, job, drain):
     """The ingest and build stages of a resumable job
     (``pagerank_tpu/cli.py:1234-1335``): restore the graph from a
@@ -1047,65 +1099,60 @@ def _job_load_graph(args, cfg, job, drain):
     (the engine packs at its own build); a device build's is the packed
     planes (``checkpoint_arrays``), with the raw edges of a file input
     saved as the ingest artifact before the build. Corrupt or
-    mismatched artifacts are recomputed, never trusted."""
-    import warnings
-
+    mismatched artifacts are recomputed, never trusted. Over a group
+    rank 0 decides every hit (:func:`_job_hit`) and alone writes, and
+    the drain checks are agreed (:func:`_stage_drain`)."""
+    check = _stage_drain(drain)
     key = _job_graph_key(args)
     t0 = time.perf_counter()
     if not args.device_build:
-        hit = job.load_stage_artifact("ingest", expect={"key": key})
+        hit = _job_hit(job, "ingest", {"key": key}, lambda arrays, meta: (
+            jobs.graph_from_arrays(arrays, meta), arrays, meta))
         if hit is not None:
-            arrays, meta = hit
-            try:
-                graph = jobs.graph_from_arrays(arrays, meta)
-            except jobs.ArtifactCorruptError as e:
-                warnings.warn(f"job ingest artifact rejected ({e}); "
-                              "recomputing", RuntimeWarning)
-            else:
-                job.skip("ingest", fingerprint=meta.get("fingerprint"))
-                job.skip("build", note="host layout packs at engine build")
-                names = jobs.decode_names(arrays)
-                return (graph, jobs.RestoredIds(names) if names else None,
-                        _restored_info(t0))
+            graph, arrays, meta = hit
+            job.skip("ingest", fingerprint=meta.get("fingerprint"))
+            job.skip("build", note="host layout packs at engine build")
+            names = jobs.decode_names(arrays)
+            return (graph, jobs.RestoredIds(names) if names else None,
+                    _restored_info(t0))
         job.begin("ingest")
         graph, ids, info = load_graph(args, cfg)
-        arrays, meta = jobs.graph_to_arrays(graph)
-        meta["key"] = key
-        job.save_stage_artifact("ingest", arrays, meta)
-        job.complete("ingest", fingerprint=meta["fingerprint"])
+        if job.write:
+            arrays, meta = jobs.graph_to_arrays(graph)
+            meta["key"] = key
+            job.save_stage_artifact("ingest", arrays, meta)
+            fp = meta["fingerprint"]
+        else:
+            fp = graph.fingerprint()
+        job.complete("ingest", fingerprint=fp)
         job.begin("build")
         job.complete("build", note="host layout packs at engine build")
         # Drain AFTER the artifact commit: the resume skips this work.
-        drain.check("ingest")
+        check("ingest")
         return graph, ids, info
 
     from pagerank_tpu_torch.ops import device_build as db
 
-    hit = job.load_stage_artifact("build", expect={"key": key})
+    hit = _job_hit(job, "build", {"key": key}, lambda arrays, meta: (
+        db.restore_device_graph(arrays, meta, device=_device(args)), meta))
     if hit is not None:
-        arrays, meta = hit
-        try:
-            graph = db.restore_device_graph(arrays, meta,
-                                            device=_device(args))
-        except (ValueError, jobs.ArtifactCorruptError) as e:
-            warnings.warn(f"job build artifact rejected ({e}); "
-                          "recomputing", RuntimeWarning)
-        else:
-            job.skip("ingest", note="covered by build artifact")
-            job.skip("build", fingerprint=meta.get("fingerprint"))
-            info = _restored_info(t0)
-            info["partition_span"] = int(meta.get("partition_span") or 0)
-            names = job.load_names(key)
-            return graph, (jobs.RestoredIds(names) if names else None), info
+        graph, meta = hit
+        job.skip("ingest", note="covered by build artifact")
+        job.skip("build", fingerprint=meta.get("fingerprint"))
+        info = _restored_info(t0)
+        info["partition_span"] = int(meta.get("partition_span") or 0)
+        names = job.load_names(key)
+        return graph, (jobs.RestoredIds(names) if names else None), info
     graph = ids = None
     if not args.synthetic:
         # A prior run may have died DURING the build: the raw-edges
         # ingest artifact still skips the host parse.
-        ing = job.load_stage_artifact("ingest", expect={"key": key})
+        ing = _job_hit(job, "ingest", {"key": key},
+                       lambda arrays, meta: (arrays, meta))
         if ing is not None:
             arrs, imeta = ing
             job.skip("ingest")
-            drain.check("ingest")
+            check("ingest")
             names = job.load_names(key)
             ids = jobs.RestoredIds(names) if names else None
             job.begin("build")
@@ -1122,13 +1169,14 @@ def _job_load_graph(args, cfg, job, drain):
             graph, ids, info = load_graph(args, cfg)
         finally:
             args._job = None
-    arrays, meta = db.checkpoint_arrays(graph)
-    meta["key"] = key
-    if info.get("partition_span"):
-        meta["partition_span"] = int(info["partition_span"])
-    job.save_stage_artifact("build", arrays, meta)
-    job.complete("build", fingerprint=meta["fingerprint"])
-    drain.check("build")
+    if job.write:
+        arrays, meta = db.checkpoint_arrays(graph)
+        meta["key"] = key
+        if info.get("partition_span"):
+            meta["partition_span"] = int(info["partition_span"])
+        job.save_stage_artifact("build", arrays, meta)
+    job.complete("build", fingerprint=graph.fingerprint())
+    check("build")
     return graph, ids, info
 
 
@@ -1535,6 +1583,10 @@ def _elastic_runner(args, cfg, graph, ref, drain, snap, roll_snap, job,
 
     def rebound(engine):
         ref["engine"] = engine
+        mesh = getattr(engine, "mesh", None)
+        if job is not None and (mesh is None or mesh.rank == 0):
+            # Rank 0 of the group a rescue formed owns the job now.
+            job.write = True
         ref["drain"] = _drain_check(drain, engine)
         ctx["engine"] = engine
         ctx["layout"] = engine.layout_info()
@@ -1631,7 +1683,7 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                   or deferred.get("run_report"))
               else obs.get_tracer())
     ctx["tracer"], ctx["cfg"] = tracer, cfg
-    job = jobs.JobSupervisor(args.job_dir) if args.job_dir else None
+    job = _open_job(args.job_dir) if args.job_dir else None
     ctx["job"] = job
     if job is not None and args.sdc_check_every:
         # Convictions persist AT conviction time: a sticky chip lands
@@ -1660,7 +1712,7 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
     finally:
         args._preflight = None
     ctx["graph"] = graph
-    drain.check("ingest")
+    _stage_drain(drain)("ingest")
     if args.preflight and not args.synthetic and not args.device_build:
         # A host build: the engine's placement is the device allocation.
         _run_preflight(args, cfg, graph.n, graph.num_edges, None,
@@ -1695,9 +1747,10 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         # Snapshots scoped by solve config: a rerun with other solve
         # flags must not warm-start the old config's trajectory.
         args.snapshot_dir = fsio.join(args.snapshot_dir, solve_hash)
-        solve_hit = job.load_stage_artifact(
-            "solve",
-            expect={"fingerprint": solve_fp, "solve_config": solve_hash})
+        solve_hit = _job_hit(
+            job, "solve",
+            {"fingerprint": solve_fp, "solve_config": solve_hash},
+            lambda arrays, meta: (arrays, meta))
     guard = SinkGuard()
     ctx["guard"] = guard
     dead_letter = None
@@ -1731,7 +1784,18 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
 
                 quarantined = (set(job.quarantined_devices())
                                if job is not None else set())
-                if device_id(resolve_device(args.device)) in quarantined:
+                if world > 1:
+                    # Over a group the ids are its members' (what a
+                    # conviction names, ``TorchEngine.device_ids``).
+                    bad = sorted(quarantined & set(distributed.members()))
+                    if bad:
+                        raise SystemExit(
+                            f"member(s) {bad} of this group were "
+                            f"quarantined for silent data corruption by a "
+                            f"prior run of this job ({job.manifest_path}); "
+                            f"a group drops no member before its solve: "
+                            f"relaunch it over the other devices")
+                elif device_id(resolve_device(args.device)) in quarantined:
                     # One device: a chip a prior run of this job
                     # convicted of sticky corruption leaves nothing to
                     # build on.
@@ -1875,18 +1939,20 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             want_snap = bool(snap and args.snapshot_every
                              and (i + 1) % args.snapshot_every == 0)
             if want_snap or dumper is not None:
-                if writer is not None:
+                if not owns():
+                    # Rank 0 writes: this rank only joins the gather of
+                    # the vertex-sharded form, in step order.
+                    ref["engine"].join_rank_fetch()
+                elif writer is not None:
                     writer.submit(i, (want_snap,
                                       ref["engine"].device_ranks()))
                 else:
-                    def fetch_and_write():
-                        # one device->host fetch for both sinks
-                        t = time.perf_counter()
-                        ranks = ref["engine"].ranks()
-                        fetch_s.append(time.perf_counter() - t)
-                        write_sinks(i, (want_snap, ranks))
-
-                    guard(i, fetch_and_write)
+                    # One device->host fetch for both sinks, outside the
+                    # guard: a retried write never repeats a collective.
+                    t = time.perf_counter()
+                    ranks = ref["engine"].ranks()
+                    fetch_s.append(time.perf_counter() - t)
+                    guard(i, lambda: write_sinks(i, (want_snap, ranks)))
             # Preemption points, AFTER this step's sinks were queued:
             # the seeded chaos plan may deliver its signal here and a
             # pending drain request surfaces here.
@@ -1899,8 +1965,15 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
 
         roll_snap = snap
         if snap is not None and writer is not None:
-            # Rollback scans drain the writer's queue first.
-            roll_snap = WriterSyncedSnapshotter(snap, writer)
+            # Rollback scans drain the writer's queue first; over a group
+            # every rank then waits for rank 0's writes to be on disk.
+            def mesh_barrier():
+                mesh = getattr(ref["engine"], "mesh", None)
+                if mesh is not None:
+                    mesh.barrier()
+
+            roll_snap = WriterSyncedSnapshotter(snap, writer,
+                                                barrier=mesh_barrier)
         runner = None
         if rescue:
             runner = _elastic_runner(args, cfg, graph, ref, drain, snap,
@@ -1919,7 +1992,8 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                 elif args.fused:
                     ranks, ctx["fused_summary"] = _fused_solve(
                         args, engine, snap, writer, guard, write_sinks,
-                        probes, exporter, ref["drain"], metrics, tracer)
+                        probes, exporter, ref["drain"], metrics, tracer,
+                        owns())
                 else:
                     ranks = engine.run(on_iteration=on_iteration,
                                        snapshotter=roll_snap, probes=probes)
@@ -1950,13 +2024,11 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
             # Final snapshot of the drained state (the last completed
             # step), then the manifest, then the interrupt.
             if snap is not None:
-                def final_save():
+                try:
                     ranks_now = engine.ranks()  # every rank: a collective
                     if owns():
-                        snap.save(engine.iteration, ranks_now)
-
-                try:
-                    guard(engine.iteration, final_save)
+                        guard(engine.iteration, lambda: snap.save(
+                            engine.iteration, ranks_now))
                 except Exception as e:
                     _log(f"pagerank_tpu_torch: final drain snapshot "
                          f"failed: {e!r}")
@@ -2007,7 +2079,7 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
                 {"fingerprint": solve_fp, "solve_config": solve_hash,
                  "iterations": int(iterations)})
             job.complete("solve", iterations=int(iterations))
-            drain.check("solve")
+            _stage_drain(drain)("solve")
     _robustness_line(args, engine, guard, dead_letter)
 
     out_s = None
@@ -2071,7 +2143,7 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
 
 
 def _fused_solve(args, engine, snap, writer, guard, write_sinks, probes,
-                 exporter, drain_check, metrics, tracer):
+                 exporter, drain_check, metrics, tracer, owner=True):
     """The solve as fused device runs (``pagerank_tpu/cli.py:1957-2074``):
     chunks between the host-visible points (the gcd of the snapshot and
     probe cadences) through ``run_fused_chunked``, else one
@@ -2082,8 +2154,9 @@ def _fused_solve(args, engine, snap, writer, guard, write_sinks, probes,
     cadence through the async writer or the guarded sync path (so both
     modes write the same files). One record an executed iteration with
     the run's averaged wall (the tol form has its final iteration's
-    only). Returns ``(ranks, the metrics summary's iters and
-    total_seconds)``."""
+    only). ``owner`` is false on a rank of a group other than rank 0,
+    which only joins the gather of the ranks at a snapshot. Returns
+    ``(ranks, the metrics summary's iters and total_seconds)``."""
     import math
 
     first = engine.iteration
@@ -2116,12 +2189,14 @@ def _fused_solve(args, engine, snap, writer, guard, write_sinks, probes,
             # copy is made only when the thunk is called.
             if not snap_every or done_iters % snap_every != 0:
                 return stop
-            if writer is not None:
+            if not owner:
+                engine.join_rank_fetch()
+            elif writer is not None:
                 writer.submit(done_iters - 1, (True, ranks_thunk()))
             else:
+                ranks_now = engine.decode_ranks(ranks_thunk())
                 guard(done_iters - 1, lambda: write_sinks(
-                    done_iters - 1,
-                    (True, engine.decode_ranks(ranks_thunk()))))
+                    done_iters - 1, (True, ranks_now)))
             return stop
 
         ranks = engine.run_fused_chunked(every=chunk_every,

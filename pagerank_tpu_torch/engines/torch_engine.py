@@ -323,10 +323,6 @@ class TorchEngine(PageRankEngine):
         n = graph.n
         t0 = time.perf_counter()
         if cfg.kernel == "coo":
-            if self._world > 1:
-                raise NotImplementedError(
-                    "the coo form over more than one device is not ported "
-                    "yet: ROADMAP slice 6d")
             return self._build_coo(graph, t0)
         if cfg.partition_span:
             n_padded = -(-n // LANES) * LANES
@@ -372,7 +368,8 @@ class TorchEngine(PageRankEngine):
             elif self._vs and cfg.halo_exchange:
                 src, rb = self._pad_rows(src, pack.row_block, pack.n_padded,
                                          pack.num_blocks - 1)
-                halo = self._plan_halo(src, rb, pack)
+                halo = self._plan_halo(src, rb, pack.n_padded,
+                                       pack.num_rows, pack.num_blocks)
                 src, rb = self._take_share(src, rb)
             else:
                 src, rb = self._shard_rows(src, pack.row_block, pack.n_padded,
@@ -396,7 +393,16 @@ class TorchEngine(PageRankEngine):
         the partitioned form takes the stripes' one buffer whole and
         packs the 3-byte words on the device. The graph is left whole:
         its int32 plane of the partitioned form is freed once the caller
-        drops the graph."""
+        drops the graph.
+
+        Over a mesh every rank built the same graph on its own device
+        (the same seed or the same uploaded edges: deterministic
+        integer work); the ranks first agree on it (an ``all_gather``
+        of the fingerprints; a mismatch raises), then each keeps its
+        share as :meth:`build` slices a host pack: its range of the
+        padded slot rows (a copy), and on the vs_halo forms the halo
+        plan of the whole table, whose slot plane alone crosses to the
+        host for it."""
         from pagerank_tpu_torch.ops.device_build import (DeviceEllGraph,
                                                          joined)
 
@@ -409,10 +415,6 @@ class TorchEngine(PageRankEngine):
                 "build_device: the device build does not deal dst "
                 "blocks across device ranges)"
             )
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "build_device over a mesh (more than one device, or "
-                "vertex_sharded) is not ported yet: ROADMAP slice 6d")
         cfg, dev = self.config, self.device
         if cfg.kernel == "coo":
             raise ValueError("build_device supports the ell/pallas kernels "
@@ -442,6 +444,7 @@ class TorchEngine(PageRankEngine):
                 "device graph; pass stripe_size=0 to build_ell_device (or "
                 "set partition_span to run the partitioned kernel)")
         fp = dg.fingerprint()
+        self._agree_fingerprint(fp)
         self.graph = dg
         n, n_padded = dg.n, dg.n_padded
         t1 = time.perf_counter()
@@ -466,6 +469,7 @@ class TorchEngine(PageRankEngine):
         src, rbs = joined(dg.src), dg.row_block
         if not dg.presentinel:  # point the inert (weight 0) slots at it
             src = torch.where(joined(dg.weight) != 0, src, stripe)
+        halo = None
         if part:
             rbs = rbs if isinstance(rbs, (list, tuple)) else [rbs]
             cuts = np.cumsum([r.shape[0] for r in rbs])[:-1]
@@ -473,15 +477,48 @@ class TorchEngine(PageRankEngine):
                 src, np.split(joined(rbs).cpu().numpy(), cuts),
                 dg.num_blocks, part, ratio)
         else:
-            arrays, plan, layout = self._plan_flat(src, joined(rbs),
-                                                   dg.num_blocks, ratio)
+            rb = joined(rbs)
+            if self._vs and cfg.halo_exchange:
+                src, rb = self._pad_rows(src, rb, n_padded,
+                                         dg.num_blocks - 1)
+                halo = self._plan_halo(src, rb, n_padded, rows,
+                                       dg.num_blocks)
+                src, rb = self._take_share(src, rb)
+            else:
+                src, rb = self._shard_rows(src, rb, n_padded,
+                                           dg.num_blocks - 1)
+            arrays, plan, layout = self._plan_flat(src, rb, dg.num_blocks,
+                                                   ratio)
+            del rb
         del src, rbs
         t2 = time.perf_counter()
         stages = {k.removesuffix("_s"): v
                   for k, v in (dg.timings or {}).items()}
         return self._place(n_padded, dg.num_blocks, planes, arrays, plan,
                            {**layout, "build": "device", "fingerprint": fp},
-                           {**stages, "plan": t2 - t1}, t2)
+                           {**stages, "plan": t2 - t1}, t2, halo=halo)
+
+    def _agree_fingerprint(self, fp: str) -> None:
+        """Over a mesh of more than one rank: every rank's device graph
+        fingerprint, gathered (one ``all_gather``); raises unless all
+        are ``fp``, so that no rank runs on another graph than its
+        peers'."""
+        if self.mesh is None or not self.mesh.collective:
+            return
+        # The fingerprint's 48 bits, exact in f64 (a dtype every
+        # backend gathers on a card).
+        mine = torch.tensor([float(int(fp.removeprefix("dev-"), 16))],
+                            dtype=torch.float64, device=self.device)
+        every = torch.empty(self._world, dtype=torch.float64,
+                            device=self.device)
+        got = [int(g) for g in
+               mesh_lib.all_gather(self.mesh, every, mine).cpu().tolist()]
+        if len(set(got)) != 1:
+            raise ValueError(
+                f"the ranks built different device graphs (fingerprints "
+                f"{['dev-%012x' % g for g in got]} by rank): build every "
+                f"rank's graph from the same seed or the same edges on one "
+                f"device type")
 
     def _build_coo(self, graph: Graph, t0: float) -> "TorchEngine":
         """The coo form (``jax_engine.py:666-694``): the graph's
@@ -489,11 +526,22 @@ class TorchEngine(PageRankEngine):
         dtype (``partition_edges``' ``weight_dtype``), the per-dst edge
         counts that ``edge_contrib_segment_sum`` segments by, and a
         state of n with no padding (nothing relabeled: ``perm`` is the
-        identity)."""
+        identity). Over a mesh the form is edge-sharded
+        (``jax_engine.py:672-694``): ``parallel/partition.
+        partition_edges`` cuts the edges into equal contiguous chunks
+        (the tail padded with inert edges, w = 0), each rank sums its
+        chunk and one ``psum`` of the [n] sums follows."""
+        from pagerank_tpu_torch.parallel.partition import partition_edges
+
         cfg, dev = self.config, self.device
         n = graph.n
         dt = np.float32 if self._dtype == torch.float32 else np.float64
-        lengths = np.bincount(graph.dst, minlength=n).astype(np.int64)
+        src, dst, w = graph.src, graph.dst, graph.edge_weight.astype(dt)
+        if self._world > 1:
+            shards = partition_edges(graph, self._world, weight_dtype=dt)
+            sl = mesh_lib.edge_sharding(self.mesh, shards.src.shape[0])
+            src, dst, w = shards.src[sl], shards.dst[sl], shards.weight[sl]
+        lengths = np.bincount(dst, minlength=n).astype(np.int64)
         mass_mask = (graph.dangling_mask if cfg.semantics == "reference"
                      else graph.out_degree == 0)
         t1 = time.perf_counter()
@@ -502,9 +550,9 @@ class TorchEngine(PageRankEngine):
         self._perm = np.arange(n, dtype=np.int32)
         self._n_state = n
         self._arrays = {
-            "src": torch.from_numpy(graph.src.astype(np.int64)).to(dev),
+            "src": torch.from_numpy(src.astype(np.int64)).to(dev),
             "lengths": torch.from_numpy(lengths).to(dev),
-            "w": torch.from_numpy(graph.edge_weight.astype(dt)).to(dev),
+            "w": torch.from_numpy(np.ascontiguousarray(w)).to(dev),
         }
         self._dangling = torch.from_numpy(np.asarray(mass_mask, bool)).to(dev)
         self._zero_in = torch.from_numpy(
@@ -515,8 +563,15 @@ class TorchEngine(PageRankEngine):
             torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
         self.iteration = 0
+        mesh_info = {}
+        if self.mesh is not None:
+            mesh_info = {"world": self._world, "rank": self.mesh.rank,
+                         "backend": self.mesh.backend,
+                         "vertex_sharded": False,
+                         "edges_per_rank": int(src.shape[0])}
         self._layout = {
             "form": "coo", "partition_span": 0, "build": "host",
+            **mesh_info,
             "kernel": "segment_reduce", "kernel_requested": cfg.kernel,
             "device": str(dev), "num_edges": graph.num_edges,
             "num_rows": None, "dtype": cfg.dtype,
@@ -539,7 +594,9 @@ class TorchEngine(PageRankEngine):
         device takes the table as it is. Over a mesh the rows are padded
         with inert rows (every slot ``sentinel``, group id ``fill_id``:
         the last group's, so the ids stay ascending) to a multiple of
-        world x CHUNK_ROWS (``jax_engine.py:1146-1161``)."""
+        world x CHUNK_ROWS (``jax_engine.py:1146-1161``). Each array is
+        numpy or a tensor (a device build's planes), padded where it
+        lies."""
         rows = int(src.shape[0])
         self._device_edges = None
         if self._world == 1 or rows == 0:
@@ -547,24 +604,35 @@ class TorchEngine(PageRankEngine):
         w = self._world
         mult = w * CHUNK_ROWS
         pad = -(-rows // mult) * mult - rows
-        src = np.concatenate([src, np.full((pad, LANES), sentinel,
-                                           src.dtype)])
-        row_ids = np.concatenate([row_ids, np.full(pad, fill_id,
-                                                   row_ids.dtype)])
+
+        def padded(a, shape, fill):
+            if isinstance(a, torch.Tensor):
+                return torch.cat([a, a.new_full(shape, fill)])
+            return np.concatenate([a, np.full(shape, fill, a.dtype)])
+
+        src = padded(src, (pad, LANES), sentinel)
+        row_ids = padded(row_ids, (pad,), fill_id)
         per = src.shape[0] // w
         self._device_edges = np.array(
-            [np.count_nonzero(src[r * per:(r + 1) * per] != sentinel)
+            [int((src[r * per:(r + 1) * per] != sentinel).sum())
              for r in range(w)], np.int64)
         return src, row_ids
 
     def _take_share(self, src, row_ids):
         """This rank's contiguous share of a padded table
-        (``mesh.edge_sharding``); one device's is the whole table."""
+        (``mesh.edge_sharding``), a copy (a tensor's share keeps no
+        reference to the whole table); one device's is the whole
+        table."""
         if self._world == 1 or src.shape[0] == 0:
             return src, row_ids
         sl = mesh_lib.edge_sharding(self.mesh, src.shape[0])
-        return (np.ascontiguousarray(src[sl]),
-                np.ascontiguousarray(row_ids[sl]))
+
+        def share(a):
+            if isinstance(a, torch.Tensor):
+                return a[sl].clone()
+            return np.ascontiguousarray(a[sl])
+
+        return share(src), share(row_ids)
 
     def _vs_geometry(self, n_state):
         """(n_vs, blk): the vertex-sharded state length, n_state padded
@@ -573,27 +641,32 @@ class TorchEngine(PageRankEngine):
         n_vs = -(-n_state // unit) * unit
         return n_vs, n_vs // self._world
 
-    def _plan_halo(self, src, row_ids, pack):
+    def _plan_halo(self, src, row_ids, n_padded, real, num_blocks):
         """The halo plan of the whole padded table (``jax_engine.py:
-        2429-2443``): the port's flat pack is one stripe at lane group 1
-        with the sentinel ``n_padded`` in its inert slots, so the
-        plan's slot decode reads its words as they are. The padding
-        rows' group ids go to ``build_halo_plan`` as the last real row's block
-        (the JAX pack's dense rank ``pcount - 1``, ``jax_engine.py:
-        1156``): a padding row sums to zero, so a rank's write band is
-        the hull of its real rows'. Every rank builds the same plan."""
+        2429-2443``) of ``real`` slot rows before the padding: the
+        port's flat pack is one stripe at lane group 1 with the
+        sentinel ``n_padded`` in its inert slots, so the plan's slot
+        decode reads its words as they are (a device build's table is
+        read on the host for it). The padding rows' group ids go to
+        ``build_halo_plan`` as the last real row's block (the JAX
+        pack's dense rank ``pcount - 1``, ``jax_engine.py:1156``): a
+        padding row sums to zero, so a rank's write band is the hull of
+        its real rows'. Every rank builds the same plan."""
         from pagerank_tpu_torch.parallel.partition import build_halo_plan
 
-        n_vs, _ = self._vs_geometry(pack.n_padded)
-        real = pack.num_rows
-        rb = np.array(row_ids, copy=True)
+        def host(a):
+            return (a.cpu().numpy() if isinstance(a, torch.Tensor)
+                    else np.asarray(a))
+
+        n_vs, _ = self._vs_geometry(n_padded)
+        rb = np.array(host(row_ids), copy=True)
         if real:
             rb[real:] = rb[real - 1]
-        ranks, ids, _, _ = ell_lib.dense_block_ranks(rb, pack.num_blocks)
+        ranks, ids, _, _ = ell_lib.dense_block_ranks(rb, num_blocks)
         item = self._z_dtype.itemsize
         return build_halo_plan(
-            [src], [ranks], [ids], ndev=self._world, n_vs=n_vs,
-            sz=pack.n_padded, group=1, head_k=self.config.halo_head,
+            [host(src)], [ranks], [ids], ndev=self._world, n_vs=n_vs,
+            sz=n_padded, group=1, head_k=self.config.halo_head,
             z_item=item, accum_item=self._accum.itemsize, rs_merge=True)
 
     def _bounded_rows(self, src, row_ids, n_padded):
@@ -635,14 +708,16 @@ class TorchEngine(PageRankEngine):
         """The vertex-sharded state geometry (``jax_engine.py:2075-2108,
         2176-2263``): ``n_vs`` = n_state padded to a multiple of
         128·world and this rank's block of ``n_vs / world`` vertices;
-        returns this rank's block of each per-vertex plane, the padding
-        inert (valid 0, inv 0)."""
+        returns this rank's block of each per-vertex plane (numpy, or a
+        tensor where it lies), the padding inert (valid 0, inv 0)."""
         self._n_vs, self._blk = self._vs_geometry(n_state)
         sl = mesh_lib.vertex_sharding(self.mesh, self._n_vs)
         self._vs_slice = sl
         padv = self._n_vs - n_state
 
         def block(a):
+            if isinstance(a, torch.Tensor):
+                return torch.cat([a, a.new_zeros(padv)])[sl].clone()
             a = np.asarray(a)
             return np.ascontiguousarray(
                 np.concatenate([a, np.zeros(padv, a.dtype)])[sl])
@@ -1178,8 +1253,9 @@ class TorchEngine(PageRankEngine):
         coo form's fixed-order segment sum on either."""
         if self.config.kernel == "coo":
             a = self._arrays
-            return spmv.edge_contrib_segment_sum(
+            out = spmv.edge_contrib_segment_sum(
                 self._r, a["src"], a["lengths"], a["w"], self._accum)
+            return mesh_lib.psum(self.mesh, out) if self._world > 1 else out
         ship = [] if self._carry is not None else None
         if self._vs:
             self._vs_gather(ship)
@@ -1535,13 +1611,21 @@ class TorchEngine(PageRankEngine):
         (``jax_engine.py:3633-3662``): the rank mass in the accumulation
         dtype, the top-k ids of the valid lanes (padding at -inf; ties
         by the lowest index, ``ops/spmv.topk_lowest_index``), how many
-        of them are not in ``prev_ids``, and the top-k mass."""
+        of them are not in ``prev_ids``, and the top-k mass. On the
+        vertex-sharded form ``r`` is this rank's block: the mass is
+        psum'd and the top k merged (:meth:`_vs_topk`), so every rank
+        holds the whole vector's probe. Edge-sharded, ``r`` is
+        replicated and the tail is the one-device tail."""
         acc = self._accum
         mass = torch.sum(r.to(acc))
         rv = torch.where(self._valid, r, torch.full((), float("-inf"),
                                                     dtype=r.dtype,
                                                     device=r.device))
-        vals, ids = spmv.topk_lowest_index(rv, k)
+        if self._vs:
+            mesh_lib.psum(self.mesh, mass)
+            vals, ids = self._vs_topk(rv, k)
+        else:
+            vals, ids = spmv.topk_lowest_index(rv, k)
         prev = (torch.full((k,), -1, dtype=ids.dtype, device=ids.device)
                 if prev_ids is None else prev_ids)
         entered = torch.sum((ids[:, None] != prev[None, :]).all(dim=1))
@@ -1550,6 +1634,28 @@ class TorchEngine(PageRankEngine):
                                                     device=vals.device)
         ).to(acc))
         return mass, ids, entered, topk_mass
+
+    def _vs_topk(self, rv: torch.Tensor, k: int):
+        """The top ``k`` (values, global ids) of the whole vector from
+        this rank's block ``rv`` (invalid lanes at -inf): each rank's
+        own top k (lowest local index first among ties), its ids made
+        global, one ``all_gather`` of values and ids together (as f64:
+        both are exact there), then the merge by value descending and
+        id ascending — ``lax.top_k`` over the whole vector, ties to the
+        lowest index. The same on every rank."""
+        f64 = torch.float64
+        kl = min(k, self._blk)
+        vals, ids = spmv.topk_lowest_index(rv, kl)
+        gid = ids.to(torch.int64) + self.mesh.rank * self._blk
+        mine = torch.cat([vals.to(f64), gid.to(f64)])
+        every = torch.empty(self._world * 2 * kl, dtype=f64, device=rv.device)
+        every = mesh_lib.all_gather(self.mesh, every, mine).view(
+            self._world, 2, kl)
+        v, g = every[:, 0].reshape(-1), every[:, 1].reshape(-1)
+        by_id = torch.argsort(g)  # the ids are distinct
+        v, g = v[by_id], g[by_id]
+        top = torch.argsort(-v, stable=True)[:k]
+        return v[top].to(rv.dtype), g[top].to(torch.int64)
 
     def _fetch(self, scalars, ids: torch.Tensor) -> np.ndarray:
         """Scalars and the k ids to the host in ONE transfer (f64: the
@@ -1579,11 +1685,11 @@ class TorchEngine(PageRankEngine):
         every scalar and the k ids reach the host in ONE transfer (the
         plain step pays two). Returns ``(info, (ids_engine,
         ids_original))``; ``info`` carries ``rank_mass``,
-        ``topk_churn``, ``topk_mass`` and the ``mass_ledger`` entry."""
-        if self._world > 1:
-            raise NotImplementedError(
-                "convergence probes over more than one device are not "
-                "ported yet: ROADMAP slice 6d")
+        ``topk_churn``, ``topk_mass`` and the ``mass_ledger`` entry.
+        Over a mesh every rank gets the same probe: edge-sharded the
+        ranks are replicated after the psum; vertex-sharded the tail
+        merges the blocks (:meth:`_probe_tail`) and the ledger's
+        per-block partials are summed by one psum."""
         k = self._resolve_probe_k(probes.topk)
         prev = probes.prev_ids
         r = self._r
@@ -1591,6 +1697,8 @@ class TorchEngine(PageRankEngine):
         self._note_comms()
         r_new, delta, m = self._update(contrib, r)
         led = self._ledger_sums(contrib, r)
+        if self._vs:
+            led = list(mesh_lib.psum(self.mesh, torch.stack(led)))
         del contrib
         mass, ids, entered, topk_mass = self._probe_tail(r_new, k, prev)
         host = self._fetch([delta, m, mass, entered, topk_mass, *led], ids)
@@ -1797,6 +1905,14 @@ class TorchEngine(PageRankEngine):
             done.record(side)
         r.record_stream(side)
         return _PinnedRanks(host, done, self._pinned)
+
+    def join_rank_fetch(self) -> None:
+        """This rank's part in a fetch of the ranks that another rank
+        keeps (over a group rank 0 alone writes the sinks): the
+        vertex-sharded form's gather of every block, which every rank
+        joins in step order; nothing on a replicated form."""
+        if self._vs:
+            self._full_r()
 
     def _full_r(self) -> torch.Tensor:
         """The whole padded relabeled rank vector: the rank's own on one

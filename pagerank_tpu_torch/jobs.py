@@ -472,24 +472,35 @@ class JobSupervisor:
     key validation, so a torn manifest costs bookkeeping, never
     correctness. Artifacts live next to it (``ingest.npz`` /
     ``build.npz`` / ``solve.npz``) plus the ``snapshots/`` dir the
-    solve stage reuses for its iteration checkpoints."""
+    solve stage reuses for its iteration checkpoints.
 
-    def __init__(self, directory: str, clock=time.perf_counter):
+    Over a process group rank 0 owns the directory; every other rank
+    holds a ``write=False`` supervisor, made after rank 0's: it reads
+    the manifest rank 0 wrote (its resume already counted), follows the
+    same stage transitions in memory and writes nothing. A rank that
+    comes to own the outputs (rank 0 of a group an elastic rescue
+    formed) sets :attr:`write`."""
+
+    def __init__(self, directory: str, clock=time.perf_counter,
+                 write: bool = True):
         self.directory = directory
         self._clock = clock
         self._t0: Dict[str, float] = {}
         self._skipped_this_run = 0
+        #: Whether this supervisor writes the manifest and artifacts.
+        self.write = bool(write)
+        from pagerank_tpu_torch.testing.faults import ProcessKillPlan
+
+        if not self.write:
+            self.manifest = self._read_manifest() or self._fresh_manifest()
+            self.resumed = int(self.manifest.get("resumes", 0)) > 0
+            self.chaos = ProcessKillPlan.from_env()
+            return
         fsio.makedirs(directory, exist_ok=True)
         self.manifest = self._read_manifest()
         self.resumed = self.manifest is not None
         if self.manifest is None:
-            self.manifest = {
-                "schema_version": MANIFEST_SCHEMA,
-                "created_unix": time.time(),
-                "resumes": 0,
-                "status": "running",
-                "stages": {s: {"status": "pending"} for s in STAGES},
-            }
+            self.manifest = self._fresh_manifest()
         else:
             self.manifest["resumes"] = int(
                 self.manifest.get("resumes", 0)) + 1
@@ -505,11 +516,19 @@ class JobSupervisor:
         self._write_manifest()
         # Seeded process-kill chaos (testing/faults.py): active only
         # when the env plan is set — zero cost otherwise.
-        from pagerank_tpu_torch.testing.faults import ProcessKillPlan
-
         self.chaos = ProcessKillPlan.from_env()
 
     # -- manifest -----------------------------------------------------------
+
+    @staticmethod
+    def _fresh_manifest() -> Dict:
+        return {
+            "schema_version": MANIFEST_SCHEMA,
+            "created_unix": time.time(),
+            "resumes": 0,
+            "status": "running",
+            "stages": {s: {"status": "pending"} for s in STAGES},
+        }
 
     @property
     def manifest_path(self) -> str:
@@ -535,6 +554,8 @@ class JobSupervisor:
         return doc
 
     def _write_manifest(self) -> None:
+        if not self.write:
+            return
         with fsio.atomic_write(self.manifest_path, "w") as f:
             json.dump(self.manifest, f, indent=2, allow_nan=False)
             f.write("\n")
@@ -582,7 +603,8 @@ class JobSupervisor:
             "stages satisfied by validated durable artifacts this run",
         ).set(self._skipped_this_run)
         self._set(stage, "done", skipped=True, wall_s=0.0, **detail)
-        obs_log.info(f"job stage '{stage}' skipped (durable artifact)")
+        if self.write:
+            obs_log.info(f"job stage '{stage}' skipped (durable artifact)")
 
     def interrupt(self, stage: str, **detail) -> None:
         """Mark the manifest interrupted at ``stage``. A stage whose
@@ -622,6 +644,8 @@ class JobSupervisor:
     def save_stage_artifact(self, stage: str,
                             arrays: Dict[str, np.ndarray],
                             meta: Dict[str, object]) -> str:
+        if not self.write:
+            return self.artifact_path(stage)
         meta = dict(meta)
         meta["stage"] = stage
         return save_artifact(self.artifact_path(stage), arrays, meta)
@@ -690,6 +714,8 @@ class JobSupervisor:
         build-skipping run republishes it instead of losing the data
         plane (the post-sort packed planes can't re-derive the raw
         dedup stats)."""
+        if not self.write:
+            return
         arrays, meta = profile.to_arrays()
         save_artifact(
             fsio.join(self.directory, "profile.npz"), arrays, meta)
@@ -742,6 +768,8 @@ class JobSupervisor:
         """Persist an ingest id->name table (crawl inputs) next to the
         stage artifacts so a resumed job's --out/--dump-text-dir still
         writes urls, not integer ids."""
+        if not self.write:
+            return
         save_artifact(
             fsio.join(self.directory, "names.npz"),
             encode_names(names), {"key": key, "kind": "names"},

@@ -186,6 +186,52 @@ def process_info():
     return 0, 1
 
 
+def _group_int(value: int) -> torch.Tensor:
+    """``value`` as an int64 scalar where the default group's backend
+    reads it: host memory under gloo, this rank's card under NCCL."""
+    import torch.distributed as dist
+
+    dev = ("cpu" if str(dist.get_backend()) == "gloo"
+           else torch.device("cuda", torch.cuda.current_device()))
+    return torch.tensor([int(value)], dtype=torch.int64, device=dev)
+
+
+def group_sum(value: int) -> int:
+    """``value`` summed over the default group's ranks (one
+    ``all_reduce``): what every rank agrees on before there is an
+    engine or a mesh, such as a drain request during ingest and build.
+    Without a group, or in a group of one, ``value`` itself."""
+    if process_info()[1] == 1:
+        return int(value)
+    import torch.distributed as dist
+
+    x = _group_int(value)
+    dist.all_reduce(x)
+    return int(x.item())
+
+
+def rank0_decides(value: int) -> int:
+    """Rank 0's ``value`` on every rank of the default group (one
+    ``broadcast``): a decision rank 0 made, such as a resumable job's
+    stage hit, that every rank then follows. ``value`` itself without a
+    group or in a group of one."""
+    if process_info()[1] == 1:
+        return int(value)
+    import torch.distributed as dist
+
+    x = _group_int(value)
+    dist.broadcast(x, src=0)
+    return int(x.item())
+
+
+def group_barrier() -> None:
+    """Wait for every rank of the default group (nothing without one)."""
+    if process_info()[1] > 1:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
 def shutdown() -> None:
     """Leave the process group, if this process joined one."""
     import torch.distributed as dist

@@ -60,8 +60,9 @@ regroups over the survivors, rebuilds its engine there, and rank 0
 re-runs the in-flight batch (``answered_degraded``). ``device_ids()``
 names the surviving member ids; each rescue's wall by part (roll call,
 regroup, rebuild, re-run) is kept in ``rescue_walls``. Losing rank 0 is
-terminal, as losing the JAX daemon's host process is: the followers
-raise ``ElasticExhaustedError``.
+terminal: the followers raise ``ElasticExhaustedError`` naming the
+ROADMAP item that will port its survival (queue 1: the loss of the
+daemon's rank 0).
 
 Concurrency (PTR rules): the admission queue's Condition is the
 cross-thread meeting point; server-side mutable state (engine,
@@ -662,7 +663,9 @@ class PprServer:
         if members[0] in dead:
             raise ElasticExhaustedError(
                 f"serving terminal: member {members[0]}, the serving rank, "
-                f"was lost ({exc})", tuple(dead), rescues) from exc
+                f"was lost ({exc}); surviving it is not ported yet (ROADMAP "
+                f"queue 1: the loss of the daemon's rank 0)", tuple(dead),
+                rescues) from exc
         survivors = mesh_lib.surviving_members(dead, members)
         if distributed.member() not in survivors:
             raise RankLeftError(

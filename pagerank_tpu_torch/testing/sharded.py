@@ -18,7 +18,13 @@ steps, ``restore_state`` and the same 3 steps again),
 ``"fused"`` (each run to 1, 4 and ``iters`` steps made by
 ``run_fused``, ``run_fused_chunked(every=2)`` or ``run_fused_tol`` at
 the config's tol, else 1e-30: "run_fused", "chunked" or "tol") and
-``"after"`` (two more stepwise iterations after ``ranks``).
+``"after"`` (two more stepwise iterations after ``ranks``),
+``"probe"`` (``{"every": e, "topk": k}``: every run through
+``ConvergenceProbes`` of that cadence, one object across the runs),
+``"device_build"`` (the engine built by ``build_device`` from a graph
+that ``ops/device_build.build_ell_device`` made on ``device`` from the
+case graph's deduplicated edges: the host pack's planes, bit for bit;
+the stripe span is the config's partition span) and ``"planes"``.
 Per case and rank it writes ``<name>.r<rank>.npz`` with ``ranks`` (the
 whole vector, original order, after ``iters``), ``first`` (after one
 step from r0), ``at4`` (after 4), ``resumed`` (the iteration resumed
@@ -30,8 +36,11 @@ when the case asks,
 ``stepped`` (one step from that vector), ``layout`` (``layout_info``
 as JSON) and, when the case asks, ``retain_a``/``retain_b`` (the 3
 steps before and after the restore), ``attribution`` (JSON) with
-``attributed`` (the ranks read after it), and ``sdc`` (the SDC section
-as JSON) when the case checks.
+``attributed`` (the ranks read after it), ``sdc`` (the SDC section
+as JSON) when the case checks, ``probes`` (each probe's record with
+its top-k original ids, as JSON) when it probes, and ``planes_src`` /
+``planes_rows`` (the rank's slot words and row groups as the engine
+holds them) when it asks for ``planes``.
 """
 
 from __future__ import annotations
@@ -70,17 +79,24 @@ def run_cases(payload) -> int:
         cfg = PageRankConfig(**case["config"], num_devices=world)
         sdc_mod.reset()
         obs_metrics.get_registry().reset()
-        eng = TorchEngine(cfg, device=payload["device"]).build(graph)
+        eng = TorchEngine(cfg, device=payload["device"])
+        if case.get("device_build"):
+            eng.build_device(_device_graph(graph, cfg, payload["device"]))
+        else:
+            eng.build(graph)
         steps = [0]
 
         def tick(i, info):
             steps[0] += 1
 
         fused = case.get("fused")
+        probes = (recorded_probes(case["probe"]["every"],
+                                  case["probe"]["topk"])
+                  if case.get("probe") else None)
 
         def advance(k):
             if not fused:
-                return eng.run(k, on_iteration=tick)
+                return eng.run(k, on_iteration=tick, probes=probes)
             before = eng.iteration
             if fused == "run_fused":
                 r = eng.run_fused(k)
@@ -133,9 +149,74 @@ def run_cases(payload) -> int:
         if cfg.sdc_check_every:
             out["sdc"] = np.array(json.dumps(sdc_mod.report_section(),
                                              default=str))
+        if probes is not None:
+            out["probes"] = np.array(json.dumps(probes.records))
+        if case.get("planes"):
+            out["planes_src"] = eng._arrays["src"].cpu().numpy()
+            rows = eng._arrays.get("row_block", eng._arrays.get("row_pair"))
+            out["planes_rows"] = rows.cpu().numpy()
         np.savez(os.path.join(payload["out"], f"{case['name']}.r{rank}.npz"),
                  **out)
     return 0
+
+
+def _device_graph(graph, cfg, device):
+    """The case graph built on ``device`` by the device build from its
+    deduplicated edges, as the engine's build wants it (no weight
+    plane, the partition span as the stripe span)."""
+    import torch
+
+    from pagerank_tpu_torch.ops import device_build as db
+
+    return db.build_ell_device(
+        torch.from_numpy(graph.src), torch.from_numpy(graph.dst), graph.n,
+        stripe_size=int(cfg.partition_span or 0), with_weights=False,
+        device=device)
+
+
+def recorded_probes(every, topk, on_probe=None):
+    """``obs.ConvergenceProbes`` that also keeps each probe's record
+    with its top-k original ids (``records``); ``on_probe(iteration)``,
+    when given, runs after each probe."""
+    from pagerank_tpu_torch.obs.probes import ConvergenceProbes
+
+    class Recorded(ConvergenceProbes):
+        def __init__(self):
+            super().__init__(every, topk=topk)
+            self.records = []
+
+        def commit(self, iteration, info, ids_engine, ids_original):
+            rec = super().commit(iteration, info, ids_engine, ids_original)
+            self.records.append(dict(
+                {k: v for k, v in rec.items() if k != "mass_ledger"},
+                ids=[int(i) for i in ids_original]))
+            if on_probe is not None:
+                on_probe(iteration)
+            return rec
+
+    return Recorded()
+
+
+def drain_in_ingest(payload) -> int:
+    """The CLI's rank of a spawned mesh (``payload["argv"]``), with
+    SIGTERM sent to rank ``payload["rank"]`` alone while it loads its
+    input: a drain asked during ingest, which every rank must agree on
+    at the next stage boundary."""
+    import signal
+
+    from pagerank_tpu_torch import cli
+    from pagerank_tpu_torch.parallel import distributed
+
+    rank, _ = distributed.process_info()
+    load = cli.load_graph
+
+    def load_with_signal(args, cfg):
+        if rank == payload["rank"]:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return load(args, cfg)
+
+    cli.load_graph = load_with_signal
+    return cli._rank_main(payload["argv"])
 
 
 def fail_on_rank_1(payload) -> int:

@@ -650,11 +650,15 @@ class WriterSyncedSnapshotter:
     healthy snapshots still sit in the writer's queue — burning
     rollback budget on a stale restore point (or finding nothing at
     all early in a run). The CLI hands THIS to ``engine.run`` whenever
-    the async writer is active."""
+    the async writer is active. ``barrier`` (optional) runs after the
+    flush and before the scan: over a process group, where rank 0 alone
+    writes, every rank waits there until rank 0's writes are on disk."""
 
-    def __init__(self, snap: Snapshotter, writer: AsyncRankWriter):
+    def __init__(self, snap: Snapshotter, writer: AsyncRankWriter,
+                 barrier=None):
         self._snap = snap
         self._writer = writer
+        self._barrier = barrier
 
     @property
     def fingerprint(self) -> str:
@@ -666,6 +670,8 @@ class WriterSyncedSnapshotter:
 
     def load_latest_valid(self, max_iteration=None, match=False):
         self._writer.flush()
+        if self._barrier is not None:
+            self._barrier()
         return self._snap.load_latest_valid(
             max_iteration=max_iteration, match=match
         )

@@ -108,6 +108,31 @@ GRAPH_B = ("halo32b", "async32", "async32sdc", "lag0", "async32tol",
 RETAIN = ("async32",)
 ATTRIBUTE = ("flat64", "vs64", "halo32", "async32", "bounded64")
 WORLDS = [1, 2, 4]
+#: The cases of the second half of slice 6d, run by the world-2 group
+#: only and read by ``tests/test_torch_mesh_probes.py`` and
+#: ``tests/test_torch_mesh_build.py``: {name: (config, case options)}.
+#: ``vstie64probe`` runs the tie graph (:func:`_edges_tie`), whose every
+#: rank ties, with a top k wider than a rank's block.
+MESH_CASES = {
+    "coo64": (dict(F64, kernel="coo"), {}),
+    "flat64probe": (F64, dict(probe=dict(every=1, topk=16))),
+    "vs64probe": (dict(F64, vertex_sharded=True),
+                  dict(probe=dict(every=1, topk=16))),
+    "part32probe": (dict(partition_span=256),
+                    dict(probe=dict(every=2, topk=16))),
+    "vstie64probe": (dict(F64, vertex_sharded=True),
+                     dict(probe=dict(every=2, topk=600))),
+    "flat64dev": (F64, dict(device_build=True, planes=True)),
+    "vs64dev": (dict(F64, vertex_sharded=True),
+                dict(device_build=True, planes=True)),
+    "halo64dev": (dict(F64, vertex_sharded=True, halo_exchange=True),
+                  dict(device_build=True)),
+    "part32dev": (dict(partition_span=256),
+                  dict(device_build=True, planes=True)),
+}
+#: The host-built cases whose planes the world-2 group keeps, for the
+#: device-built cases to be held to.
+PLANES = ("flat64", "vs64", "part32")
 
 
 def _l1(a, b):
@@ -137,6 +162,14 @@ def graphs_b():
     n = 1 << SCALE
     return (pagerank_tpu.build_graph(src, dst, n=n),
             pagerank_tpu_torch.build_graph(src, dst, n=n))
+
+
+def _edges_tie():
+    """The tie graph: one cycle over the 2^SCALE vertices, so that every
+    vertex keeps rank 1 (reference semantics) and every top k is a tie
+    broken by id alone."""
+    src = np.arange(1 << SCALE, dtype=np.int32)
+    return src, np.roll(src, -1)
 
 
 def _shared_root(tmp_path_factory):
@@ -169,13 +202,17 @@ def _single(graph, config, iters=ITERS):
 def resume_dir(tmp_path_factory, graphs):
     """A snapshot at iteration 4 by the port's single-device engine,
     which the groups resume from (written once, under the lock)."""
+    return _resume_dir(tmp_path_factory, graphs[1])
+
+
+def _resume_dir(tmp_path_factory, graph):
     root = _shared_root(tmp_path_factory)
     d = root / "single_snap"
     with _locked(root / "single_snap.lock"):
         if not (d / "done").exists():
-            eng = _single(graphs[1], CASES["vs64resume"] | dict(
+            eng = _single(graph, CASES["vs64resume"] | dict(
                 vertex_sharded=False))
-            snap = Snapshotter(str(d), graphs[1].fingerprint(), "reference",
+            snap = Snapshotter(str(d), graph.fingerprint(), "reference",
                                mesh_meta=eng.snapshot_meta())
             snap.save(4, eng.run(4))
             (d / "done").write_text("")
@@ -193,8 +230,14 @@ def _run_group(tmp_path_factory, edges, resume_dir, world):
             np.savez(d / "edges_b.npz", **dict(zip(("src", "dst"),
                                                    _edges_b())),
                      n=1 << SCALE)
+            np.savez(d / "edges_tie.npz", **dict(zip(("src", "dst"),
+                                                     _edges_tie())),
+                     n=1 << SCALE)
             cases = [dict(name=k, config=v, iters=ITERS)
                      for k, v in CASES.items()]
+            if world == 2:
+                cases += [dict(name=k, config=v, iters=ITERS, **opts)
+                          for k, (v, opts) in MESH_CASES.items()]
             by_name = {c["name"]: c for c in cases}
             by_name["flat64"]["save_dir"] = str(d / "snap")
             by_name["vs64resume"]["resume_dir"] = str(resume_dir)
@@ -210,6 +253,10 @@ def _run_group(tmp_path_factory, edges, resume_dir, world):
                 by_name[name]["fused"] = form
             for name in ("async32tol", "async32tol_tol"):
                 by_name[name]["after"] = True
+            if world == 2:
+                by_name["vstie64probe"]["edges"] = str(d / "edges_tie.npz")
+                for name in PLANES:
+                    by_name[name]["planes"] = True
             codes = distributed.spawn_group(
                 "pagerank_tpu_torch.testing.sharded:run_cases", world,
                 dict(edges=str(d / "edges.npz"), out=str(d), device="cpu",
@@ -217,8 +264,25 @@ def _run_group(tmp_path_factory, edges, resume_dir, world):
                 str(d), backend="gloo", timeout_s=60.0, deadline_s=120.0)
             assert codes == [0] * world, f"rank exit codes {codes}"
             (d / "done").write_text("")
+    names = list(CASES) + (list(MESH_CASES) if world == 2 else [])
     return {name: [dict(np.load(d / f"{name}.r{r}.npz"))
-                   for r in range(world)] for name in CASES} | {"dir": d}
+                   for r in range(world)] for name in names} | {"dir": d}
+
+
+def world_results(tmp_path_factory, world):
+    """Every case's per-rank results of the world-``world`` group (run
+    once a session, under the lock), for the test modules that read
+    the same group."""
+    src, dst = rmat_edges(SCALE, edge_factor=8, seed=1)
+    n = 1 << SCALE
+    graph = pagerank_tpu_torch.build_graph(src, dst, n=n)
+    return _run_group(tmp_path_factory, (src, dst),
+                      _resume_dir(tmp_path_factory, graph), world)
+
+
+def _cases(res):
+    """The case names of a group's results."""
+    return [name for name in res if name != "dir"]
 
 
 @pytest.fixture(scope="module", params=WORLDS, ids=lambda w: f"world{w}")
@@ -241,7 +305,7 @@ def _jax(gj, world, **kw):
 
 def test_every_rank_holds_the_whole_vector(group):
     world, res = group
-    for name in CASES:
+    for name in _cases(res):
         for r in range(1, world):
             np.testing.assert_array_equal(res[name][r]["ranks"],
                                           res[name][0]["ranks"])
@@ -379,7 +443,7 @@ def test_fused_forms_are_bit_equal_to_the_stepwise_run(group, name):
 def test_set_ranks_round_trips(group):
     world, res = group
     want = np.random.default_rng(7).random(1 << SCALE)
-    for name in CASES:
+    for name in _cases(res):
         for r in range(world):
             got = res[name][r]["roundtrip"]
             np.testing.assert_array_equal(got, want.astype(got.dtype))
@@ -446,7 +510,7 @@ def test_halo_layout_and_comms(group):
             assert lay["comms"]["mode"] == ("sparse_async"
                                             if want == "vs_halo_async"
                                             else "sparse")
-    for name in CASES:
+    for name in _cases(res):
         for r in range(world):
             x = res[name][r]
             assert int(x["bytes"]) == int(x["steps"]) * int(x["bpi"]), name
@@ -607,16 +671,18 @@ def test_cli_two_ranks_vertex_sharded_matches_one_device(tmp_path, capfd):
 ], ids=lambda a: a[-1] if a[-1].startswith("-") else a[-2])
 def test_cli_slice_6b_flags_exit_2_naming_it(argv, capsys, tmp_path,
                                              monkeypatch):
-    """What the elastic slice (6c) left refused exits 2 naming slice 6d:
-    --probe-every, --device-build and --job-dir over a mesh. The elastic
-    flags run now (tests/test_torch_elastic.py), and so does
-    --ppr-sources over a mesh (tests/test_torch_ppr_sharded.py):
-    with --vertex-sharded it is refused with the JAX CLI's
-    ``reject_ppr_incompatible_flags`` message."""
+    """What slice 6c left refused over a mesh is ported (the second half
+    of slice 6d): --probe-every, --device-build and --job-dir pass the
+    argument checks at --num-devices 2, with nothing printed (their runs
+    are held in tests/test_torch_mesh_*.py). --ppr-sources runs over a
+    mesh (tests/test_torch_ppr_sharded.py); with --vertex-sharded it is
+    refused with the JAX CLI's ``reject_ppr_incompatible_flags``
+    message."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--synthetic", "rmat:6", "--device", "cpu", *argv])
+    full = ["--synthetic", "rmat:6", "--device", "cpu", *argv]
     if "--ppr-sources" in argv:
+        with pytest.raises(SystemExit) as e:
+            cli.main(full)
         from pagerank_tpu import cli as jax_cli
 
         with pytest.raises(SystemExit) as want:
@@ -627,8 +693,8 @@ def test_cli_slice_6b_flags_exit_2_naming_it(argv, capsys, tmp_path,
         assert "ppr mode does not support: --vertex-sharded" in str(
             e.value.code)
         return
-    assert e.value.code == 2
-    assert "slice 6d" in capsys.readouterr().err
+    cli._check_args(cli.build_parser().parse_args(full))
+    assert capsys.readouterr().err == ""
 
 
 _HALO_FLAGS = {
@@ -716,11 +782,16 @@ def test_cli_halo_flags_keep_the_jax_refusals(argv, message, capsys):
 
 
 def test_cli_mesh_needs_the_sync_writer(capsys, tmp_path):
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--synthetic", "rmat:6", "--device", "cpu",
-                  "--num-devices", "2", "--snapshot-dir", str(tmp_path)])
-    assert e.value.code == 2
-    assert "--sync-io" in capsys.readouterr().err
+    """The async rank writer runs over a mesh (the second half of slice
+    6d): --snapshot-dir at --num-devices 2 passes the argument checks
+    without --sync-io (its files are held byte-equal to --sync-io's in
+    tests/test_torch_mesh_jobs.py)."""
+    args = cli.build_parser().parse_args([
+        "--synthetic", "rmat:6", "--device", "cpu", "--num-devices", "2",
+        "--snapshot-dir", str(tmp_path)])
+    cli._check_args(args)
+    assert not args.sync_io
+    assert capsys.readouterr().err == ""
 
 
 def test_cli_num_devices_must_match_torchruns_world(monkeypatch, capsys):
