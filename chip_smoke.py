@@ -272,12 +272,14 @@ What it does, in order:
      halo fields, ``comms.bytes_exchanged`` = 10 x the model's bytes a
      step, the plan's summary, ``obs/devices.attribute_exchange`` of the
      dense form and vs_halo, and the point-to-point rounds' CUDA-event
-     time; (b) the CLI under NCCL on phase 3's edges: ``--num-devices 1
-     --vertex-sharded`` (a group of one) bit-equal to phase 3's ranks
-     with no ``torch.distributed`` call in its steps, its step beside
-     phase 12(d)'s one-device step, the same with ``--halo-exchange``
-     and with ``--vs-bounded`` bit-equal too, and ``--num-devices 2`` on
-     a one-card host refused with the JAX ``make_mesh`` error before any
+     time; (b) the CLI under NCCL on (a)'s rmat:SHARD_SCALE edges
+     (phase 3's rmat:SCALE edges until the cut that made room for phase
+     20): ``--num-devices 1 --vertex-sharded`` (a group of one)
+     bit-equal to (a)'s one-device flat ranks with no
+     ``torch.distributed`` call in its steps, its step beside that
+     one-device run's step, the same with ``--halo-exchange`` and with
+     ``--vs-bounded`` bit-equal too, and ``--num-devices 2`` on a
+     one-card host refused with the JAX ``make_mesh`` error before any
      allocation;
  16. the elastic solve (run after phase 15): (a) on phase 15(a)'s
      rmat:SHARD_SCALE graph and its one-device references (rmat:SCALE
@@ -369,7 +371,32 @@ What it does, in order:
      10 launches each, the snapshots byte-equal), then the async job
      rerun: every stage skipped, K1 0, the ranks equal; the phase
      prints its seconds;
- 20. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+ 20. the daemon's member 0, the quarantined group job and the offline
+     tools (run after phase 19): (a) the daemon over three gloo ranks
+     sharing cuda:0, spawned rescue-armed, on phase 12's rmat:20 edges
+     and its first sources (``ppr_group_inputs``), f32/f32: batch 0
+     answered over the three ranks, then the fault shim loses member
+     0's DEVICE at batch 1 (``DeviceFaultSchedule(seed=11, kill={0:
+     1})``, JAX's daemon test): member 0 stays up as the front, the
+     in-flight batch re-runs ``answered_degraded`` over members [1, 2]
+     and every answer is within PPR_GROUP_RTOL of phase 12's; member
+     0's K1w launches stop at the loss while each survivor's go on (one
+     an iteration of every batch), each survivor's launch on its new
+     share torch.equal to its plain version; the rescue's wall by part
+     is printed; (b) the CLI over three gloo ranks on the host
+     (``--device cpu``, as 16(b)) at rmat:16 f64 on a job whose manifest
+     quarantines member 1: members 0 and 2 print the JAX line
+     ``excluding quarantined device(s) [1] (job manifest); building on
+     2 device(s)`` and finish within 1e-12 of the one-device run, member
+     1 leaves with exit 1 (this part launches no kernel); (c) the offline
+     tools on the card's machine: ``obs report`` of (b)'s two run
+     reports, ``obs history ingest`` then ``gate`` over them in a temp
+     ledger, ``obs fit --scale 22`` (its predicted peak beside phase
+     14(c)'s measured ``max_memory_allocated``), ``obs graph --scale 18
+     --device-build`` on the card (the mass ledger reconciled), and
+     ``analysis --select PTL,PTR`` (exit 0); the phase prints its
+     seconds;
+ 21. prints one JSON line with every kernel's numbers (K1, K2, K1w on
      the PPR path with its tile sweep and its record over a group, P1
      and P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
      ``{"ok": true, "device": {...}}``.
@@ -4001,8 +4028,8 @@ def fused_phase(scale, tmp):
 # stages each collective through host memory: its times say nothing of
 # NCCL across cards); NCCL runs at world 1 through the CLI.
 SHARD_WORLD = 2
-#: The R-MAT scale of phase 15(a) and (c), cut from the main path's 22
-#: to make room for phase 19 (15(b) keeps the main path's graph).
+#: The R-MAT scale of phase 15, cut from the main path's 22 to make
+#: room for phase 19 ((a), (c)) and phase 20 ((b)).
 SHARD_SCALE = 20
 
 
@@ -4023,13 +4050,25 @@ def _shard_refs(d):
              n=graph.n)
     span = cli.plan_partition_span(PageRankConfig(), graph.n,
                                    graph.num_edges, -1)
-    refs = {}
+    refs, step_s = {}, []
+    t_last = [0.0]
+
+    def on_iteration(i, info):
+        now = time.perf_counter()
+        step_s.append(now - t_last[0])
+        t_last[0] = now
+
     for key, kw in (("flat", {}), ("part_f32", {"partition_span": span}),
                     ("part_bf16", {"partition_span": span,
                                    "stream_dtype": "bfloat16"})):
-        refs[key] = TorchEngine(PageRankConfig(num_iters=ITERS, **kw),
-                                device="cuda").build(graph).run()
-    return graph.n, span, refs
+        eng = TorchEngine(PageRankConfig(num_iters=ITERS, **kw),
+                          device="cuda").build(graph)
+        t_last[0] = time.perf_counter()
+        refs[key] = eng.run(on_iteration=on_iteration if key == "flat"
+                            else None)
+    # The flat run's median host wall of a step (engine.run, two host
+    # fetches a step), what 15(b)'s CLI step is set beside.
+    return graph.n, span, refs, statistics.median(step_s[1:]) * 1e3
 
 
 def _shard_forms(span):
@@ -4326,19 +4365,17 @@ def phase15_rank(payload) -> int:
     return 0
 
 
-def sharded_inputs(tmp, graph, span, refs, flat_ms):
-    """What phase 15 needs from phases 3, 5 and 12(d), kept on disk until
-    it runs (after phase 14): the main path's deduplicated edges, the
-    span, the one-device runs' ranks (flat, part_f32, part_bf16) and the
-    one-device flat step's ms on the same graph (12(d))."""
+def sharded_inputs(tmp, graph, span, refs):
+    """What phases 15 and 16 need from phases 3 and 5, kept on disk until
+    they run (after phase 14): the main path's deduplicated edges, the
+    span and the one-device runs' ranks (flat, part_f32, part_bf16)."""
     import numpy as np
 
     d = os.path.join(tmp, "sharded")
     os.makedirs(d, exist_ok=True)
     np.savez(os.path.join(d, "edges.npz"), src=graph.src, dst=graph.dst,
              n=graph.n)
-    np.savez(os.path.join(d, "refs.npz"), span=span, flat_ms=flat_ms,
-             **refs)
+    np.savez(os.path.join(d, "refs.npz"), span=span, **refs)
 
 
 def sharded_phase(tmp):
@@ -4352,14 +4389,9 @@ def sharded_phase(tmp):
     t0 = time.perf_counter()
     card = card_identity()
     d = os.path.join(tmp, "sharded")
-    with np.load(os.path.join(d, "refs.npz")) as f:
-        refs = {k: f[k] for k in f.files}
-    span = int(refs.pop("span"))
-    flat_ms = float(refs.pop("flat_ms"))
-    refs_main = refs
-    # (a) and (c) on their own rmat:SHARD_SCALE graph and references,
-    # which phase 16(a) reads too.
-    n, span, refs = _shard_refs(d)
+    # (a), (b) and (c) on their own rmat:SHARD_SCALE graph and
+    # references, which phase 16(a) reads too.
+    n, span, refs, flat_ms = _shard_refs(d)
     np.savez(os.path.join(d, "refs_a.npz"), span=span, **refs)
     codes = distributed.spawn_group(
         "chip_smoke:phase15_rank", SHARD_WORLD,
@@ -4557,7 +4589,7 @@ def sharded_phase(tmp):
             for k in names:
                 setattr(dist, k, counted(k, originals[k]))
             TorchEngine.step, TorchEngine.build = timed_step, noted_build
-            rc = cli.main(["--input", os.path.join(d, "edges.npz"),
+            rc = cli.main(["--input", os.path.join(d, "edges_a.npz"),
                            "--iters", str(ITERS), "--dtype", "float32",
                            "--num-devices", "1", "--vertex-sharded",
                            *extra, "--out", out, "--log-every", "0"])
@@ -4576,17 +4608,18 @@ def sharded_phase(tmp):
         _check(len(step_ms) == ITERS and not in_steps,
                f"CLI {label}: {len(step_ms)} steps, torch.distributed "
                f"calls in them: {in_steps[:4]}")
-        _check(np.array_equal(ranks, refs_main["flat"]),
+        _check(np.array_equal(ranks, refs["flat"]),
                f"CLI --num-devices 1 --vertex-sharded {' '.join(extra)} "
-               f"(NCCL) != the one-device main path's ranks")
+               f"(NCCL) != (a)'s one-device flat ranks")
         return statistics.median(step_ms[1:]), cli_s, k1, len(calls)
 
     step_med, cli_s, k1, n_calls = cli_run("dense", [])
     print(f"phase 15(b) on {card}, CLI --num-devices 1 --vertex-sharded "
-          f"under NCCL (a group of one; form {forms[-1]}): step "
-          f"{step_med:.4f} ms (host wall, median of steps 2-{ITERS}) "
-          f"against the one-device flat step {flat_ms:.4f} ms on the same "
-          f"graph (phase 12(d), engine.run), ratio "
+          f"under NCCL (a group of one; form {forms[-1]}; rmat:"
+          f"{SHARD_SCALE}): step {step_med:.4f} ms (host wall, median of "
+          f"steps 2-{ITERS}) against the one-device flat step "
+          f"{flat_ms:.4f} ms on the same graph ((a)'s reference, "
+          f"engine.run), ratio "
           f"{step_med / flat_ms:.3f}; torch.distributed calls in the steps: "
           f"0 ({n_calls} in the whole run)")
     for label, extra, form in (
@@ -4596,8 +4629,9 @@ def sharded_phase(tmp):
         _check(forms[-1] == form, f"CLI {extra}: form {forms[-1]}")
         print(f"phase 15(b): CLI --num-devices 1 --vertex-sharded "
               f"{' '.join(extra)} ({form}, NCCL, a group of one) bit-equal "
-              f"to phase 3's ranks, K1 {k1x} launches, step {ms:.4f} ms, no "
-              f"torch.distributed call in a step, {s_:.1f} s")
+              f"to (a)'s one-device ranks, K1 {k1x} launches, step "
+              f"{ms:.4f} ms, no torch.distributed call in a step, "
+              f"{s_:.1f} s")
     before = torch.cuda.memory_allocated(0)
     try:
         cli.main(["--synthetic", "rmat:10", "--num-devices", "2"])
@@ -4608,7 +4642,7 @@ def sharded_phase(tmp):
            in refused and torch.cuda.memory_allocated(0) == before,
            f"--num-devices 2 on one card: {refused!r}")
     print(f"phase 15(b): CLI --num-devices 1 --vertex-sharded under NCCL "
-          f"(a group of one) bit-equal to phase 3's ranks, K1 {k1} "
+          f"(a group of one) bit-equal to (a)'s one-device ranks, K1 {k1} "
           f"launches, {cli_s:.1f} s; --num-devices 2 refused: {refused}")
     got["world1_step_ms"] = step_med
     print(f"phase 15 took {time.perf_counter() - t0:.1f} s")
@@ -5638,6 +5672,355 @@ def mesh_job_phase(tmp, dev="cuda"):
     return got
 
 
+FRONT_WORLD = 3
+#: Phase 20(a): JAX's daemon test schedule, the device of member 0
+#: lost at batch 1 (tests/test_serving.py:190-203).
+FRONT_KILL = {1: 0}
+QUARANTINE_SCALE = 16
+QUARANTINE_ITERS = 20
+
+
+def phase20_rank(payload) -> int:
+    """One rank of phase 20(a) (spawned rescue-armed; joined to the gloo
+    group, on cuda:0): the daemon over the group; member 0's device is
+    lost at batch 1 and it serves on as the front. Every rank writes
+    its K1w launch count after each engine run; each survivor holds its
+    launch on its new share against the plain version."""
+    import numpy as np
+    import torch
+
+    from pagerank_tpu_torch import PageRankConfig
+    from pagerank_tpu_torch.engines.ppr import PprTorchEngine
+    from pagerank_tpu_torch.graph import build_graph
+    from pagerank_tpu_torch.ops import ell as ell_lib
+    from pagerank_tpu_torch.ops import ell_spmm
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.parallel.elastic import (ElasticExhaustedError,
+                                                     RankLeftError)
+    from pagerank_tpu_torch.serving.daemon import PprServer, ServeConfig
+    from pagerank_tpu_torch.testing.faults import DeviceFaultSchedule
+    from pagerank_tpu_torch.testing.load import install_serve_faults
+    from pagerank_tpu_torch.testing.schedules import VirtualClock
+
+    torch.set_num_threads(2)
+    rank, world = distributed.process_info()
+    me = distributed.member()
+    dev = torch.device(payload["device"])
+    d, out = payload["dir"], payload["out"]
+    with np.load(os.path.join(d, "edges.npz")) as f:
+        graph = build_graph(f["src"], f["dst"], n=int(f["n"]))
+    with np.load(os.path.join(d, "ref.npz")) as f:
+        sources = f["sources"]
+    cfg = PageRankConfig(num_iters=PPR_ITERS, dtype="float32",
+                         accum_dtype="float32", num_devices=world)
+    runs = []
+    run = PprTorchEngine.run
+
+    def counted(self, *a, **kw):
+        res = run(self, *a, **kw)
+        runs.append(ell_spmm.launches)
+        return res
+
+    PprTorchEngine.run = counted
+    srv = PprServer(
+        graph, config=cfg,
+        serve_config=ServeConfig(
+            max_batch=SERVE_GROUP_BATCH, topk=PPR_TOPK, cache_capacity=0,
+            queue_depth=64, deadline_ms=600_000.0, dispatch_timeout_s=600.0,
+            probe_timeout_s=60.0),
+        devices=[dev], clock=VirtualClock())
+    ell_spmm.launches = 0
+    rep = {"member": me}
+    if rank != 0:
+        try:
+            srv.follow()
+            rep["status"] = "stopped"
+        except (RankLeftError, ElasticExhaustedError) as e:
+            rep["status"] = f"{type(e).__name__}: {e}"
+        rep["runs"] = list(runs)
+        rep["walls"] = srv.rescue_walls
+        rep["device_ids"] = srv.device_ids()
+        eng = srv._engine
+        if eng is not None:
+            rep["num_rows"] = eng.layout_info()["num_rows"]
+        if rep["status"] == "stopped" and getattr(eng, "_launcher", None):
+            # The last launch's inputs (the final batch's last prescaled
+            # chunk) on this survivor's new share, against the plain
+            # version; read after the counts, so not counted.
+            kc = SERVE_GROUP_BATCH  # every batch of the plan is full
+            src, rb, nb = eng._src, eng._row_block, eng._num_blocks
+            eng._launcher(kc)
+            got = eng._sums[: nb * 128, :kc].cpu()
+            got_mass = eng._launcher.mass[:kc].cpu()
+            kw = {"accum_dtype": torch.float32, "k": kc, "kt": 8,
+                  "plan": ell_lib.segment_plan(rb.cpu().numpy(), nb)}
+            want = ell_spmm.ell_contrib_spmm_rows_reference(
+                eng._z2.cpu(), src.cpu(), **kw)
+            want_mass = ell_spmm.mass_reference(eng._z2.cpu(), src.cpu(),
+                                                **kw)
+            rep["equal"] = bool(torch.equal(got, want)
+                                and torch.equal(got_mass, want_mass))
+            rep["max_abs_err"] = float((got.double()
+                                        - want.double()).abs().max())
+        with open(os.path.join(out, f"member{me}.json"), "w") as f:
+            json.dump(rep, f)
+        return 0 if rep["status"] == "stopped" else 1
+    t0 = time.perf_counter()
+    srv.start(dispatcher=False)
+    rep["serve_start_s"] = time.perf_counter() - t0
+    install_serve_faults(srv, DeviceFaultSchedule(seed=11, kill=FRONT_KILL))
+    handles, worlds, walls, before = [], [], [], []
+    for i in range(SERVE_GROUP_BATCHES):
+        batch = sources[i * SERVE_GROUP_BATCH: (i + 1) * SERVE_GROUP_BATCH]
+        before.append(ell_spmm.launches)
+        handles += [srv.submit(int(x)) for x in batch]
+        t0 = time.perf_counter()
+        srv.pump()
+        walls.append(time.perf_counter() - t0)
+        worlds.append(srv.device_count)
+    srv.drain()
+    n = len(handles)
+    rep.update(outcomes=[q.outcome for q in handles], worlds=worlds,
+               device_ids=srv.device_ids(), rescues=srv.rescues_done,
+               degraded=srv.degraded, walls=srv.rescue_walls,
+               launches_before=before, launches=ell_spmm.launches,
+               runs=list(runs), batch_walls_ms=[1e3 * w for w in walls],
+               fatal=repr(srv.fatal) if srv.fatal else "")
+    ids = np.full((n, PPR_TOPK), -1, np.int64)
+    scores = np.zeros((n, PPR_TOPK), np.float32)
+    for i, q in enumerate(handles):
+        if (q.outcome or "").startswith("answered"):
+            ids[i], scores[i] = q.result(timeout=0)
+    np.savez(os.path.join(out, "serve.npz"), ids=ids, scores=scores)
+    with open(os.path.join(out, "member0.json"), "w") as f:
+        json.dump(rep, f)
+    return 0
+
+
+def front_phase(tmp, dev="cuda:0"):
+    """20(a): the daemon survives the loss of member 0's device
+    (``dev="cpu"`` rehearses it on the host: all but the launch counts
+    hold there)."""
+    import numpy as np
+
+    from pagerank_tpu_torch.parallel import distributed
+
+    card = card_identity()
+    d = os.path.join(tmp, "ppr_group")
+    out = os.path.join(tmp, "front")
+    os.makedirs(out, exist_ok=True)
+    t0 = time.perf_counter()
+    codes = distributed.spawn_group(
+        "chip_smoke:phase20_rank", FRONT_WORLD,
+        {"dir": d, "out": out, "device": dev},
+        out, backend="gloo", timeout_s=300.0, deadline_s=900.0,
+        rescue=True)
+    wall = time.perf_counter() - t0
+    _check(list(codes) == [0] * FRONT_WORLD and list(codes.lost) == [0]
+           and list(codes.hosts) == [0],
+           f"20(a) exit codes {list(codes)}, lost {list(codes.lost)}, "
+           f"hosts {list(codes.hosts)}")
+    reps = {m: json.load(open(os.path.join(out, f"member{m}.json")))
+            for m in range(FRONT_WORLD)}
+    r0 = reps[0]
+    nb, b = SERVE_GROUP_BATCHES, SERVE_GROUP_BATCH
+    want = ["answered"] * b + ["answered_degraded"] * (b * (nb - 1))
+    _check(r0["outcomes"] == want and r0["device_ids"] == [1, 2]
+           and r0["rescues"] == 1 and r0["degraded"]
+           and r0["worlds"] == [3] + [2] * (nb - 1) and not r0["fatal"],
+           f"20(a): outcomes {r0['outcomes']}, device ids "
+           f"{r0['device_ids']}, rescues {r0['rescues']}, worlds "
+           f"{r0['worlds']}, fatal {r0['fatal']!r}")
+    # Member 0: the warm-up and batch 0, then nothing.
+    _check(r0["runs"] == [PPR_ITERS, 2 * PPR_ITERS]
+           and r0["launches"] == r0["launches_before"][1] == 2 * PPR_ITERS,
+           f"20(a) member 0 launched K1w after its device was lost: runs "
+           f"{r0['runs']}, launches {r0['launches']}, before each batch "
+           f"{r0['launches_before']}")
+    for m in (1, 2):
+        r = reps[m]
+        _check(r["status"] == "stopped"
+               and r["runs"] == [PPR_ITERS * (i + 1) for i in range(nb + 1)]
+               and r["device_ids"] == [1, 2] and r["equal"],
+               f"20(a) member {m}: {r['status']}, K1w counts after each run "
+               f"{r['runs']}, device ids {r['device_ids']}, its launch on "
+               f"its new share equal to its plain version: {r.get('equal')}")
+    with np.load(os.path.join(d, "ref.npz")) as f:
+        ref_ids, ref_scores = f["ids"], f["scores"]
+    with np.load(os.path.join(out, "serve.npz")) as f:
+        err = _held_topk("20(a) the front", f["ids"], f["scores"],
+                         ref_ids[: nb * b], ref_scores[: nb * b])
+    w0, w1, w2 = r0["walls"][0], reps[1]["walls"][0], reps[2]["walls"][0]
+    bw = r0["batch_walls_ms"]
+    print(f"phase 20(a) on {card}: the daemon over {FRONT_WORLD} gloo ranks "
+          f"(cuda:0 shared; start {r0['serve_start_s']:.1f} s with the "
+          f"warm-up), {nb} batches of {b}; member 0's DEVICE lost at batch "
+          f"1 (DeviceFaultSchedule(seed=11, kill={{0: 1}})): member 0 "
+          f"serves on as the front over members {r0['device_ids']}, worlds "
+          f"by batch {r0['worlds']}, outcomes {want.count('answered')} "
+          f"answered + {want.count('answered_degraded')} "
+          f"answered_degraded, answers within the tolerance of phase 12's "
+          f"(max abs {err:.3e}); K1w launches: member 0 "
+          f"{r0['runs']} (none after the loss), member 1 "
+          f"{reps[1]['runs']}, member 2 {reps[2]['runs']}; each survivor's "
+          f"launch on its new share ({reps[1]['num_rows']} and "
+          f"{reps[2]['num_rows']} rows) torch.equal to its plain version")
+    print(f"phase 20(a) the rescue by part: member 0 roll call "
+          f"{w0['roll_call']:.3f} s, re-run through the survivors "
+          f"{w0['rerun']:.3f} s; member 1 roll call {w1['roll_call']:.3f} "
+          f"s, regroup {w1['regroup']:.3f} s, rebuild {w1['rebuild']:.3f} "
+          f"s; member 2 roll call {w2['roll_call']:.3f} s, regroup "
+          f"{w2['regroup']:.3f} s, rebuild {w2['rebuild']:.3f} s; batch "
+          f"walls {', '.join(f'{x:.1f}' for x in bw)} ms; {wall:.1f} s")
+    return {"launches": {"member0": r0["runs"], "member1": reps[1]["runs"],
+                         "member2": reps[2]["runs"]},
+            "max_abs_err": err, "walls": [w0, w1, w2],
+            "batch_walls_ms": bw, "seconds": wall}
+
+
+def _cli_subprocess(args, timeout=600):
+    """``python -m <args>`` from the checkout; returns (rc, out, err)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                       text=True, env=env, cwd=ROOT, timeout=timeout)
+    return r.returncode, r.stdout, r.stderr
+
+
+def _in_process(module, argv):
+    """``module``'s ``main(argv)`` in this process, as ``python -m
+    module`` would run it; returns (rc, out, err)."""
+    import contextlib
+    import importlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = importlib.import_module(module).main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue()
+
+
+def quarantine_phase(tmp):
+    """20(b): a group job whose manifest quarantines member 1."""
+    import numpy as np
+
+    from pagerank_tpu_torch import jobs
+
+    d = os.path.join(tmp, "quarantine")
+    os.makedirs(d, exist_ok=True)
+    jobs.JobSupervisor(os.path.join(d, "J")).quarantine_devices([1])
+    base = ["pagerank_tpu_torch.cli", "--synthetic",
+            f"rmat:{QUARANTINE_SCALE}", "--device", "cpu", "--dtype",
+            "float64", "--accum-dtype", "float64", "--iters",
+            str(QUARANTINE_ITERS), "--log-every", "0"]
+    t0 = time.perf_counter()
+    rc, _, err = _cli_subprocess(base + [
+        "--num-devices", str(FRONT_WORLD), "--job-dir",
+        os.path.join(d, "J"), "--run-report", os.path.join(d, "a.json"),
+        "--out", os.path.join(d, "group.tsv")])
+    group_s = time.perf_counter() - t0
+    line = ("excluding quarantined device(s) [1] (job manifest); building "
+            "on 2 device(s)")
+    _check(rc == 0 and line in err.splitlines()
+           and "lost rank(s) [1] (exit codes {1: 1})" in err,
+           f"20(b) the quarantined group job: rc {rc}, stderr "
+           f"{err[-1500:]}")
+    rc1, _, err1 = _in_process(base[0], base[1:] + [
+        "--run-report", os.path.join(d, "b.json"),
+        "--out", os.path.join(d, "one.tsv")])
+    _check(rc1 == 0, f"20(b) the one-device run: rc {rc1} {err1[-800:]}")
+
+    def tsv(name):
+        return np.array([float(ln.split("\t")[1])
+                         for ln in open(os.path.join(d, name))])
+
+    group, one = tsv("group.tsv"), tsv("one.tsv")
+    diff = float(np.abs(group - one).max())
+    _check(group.shape == one.shape == (1 << QUARANTINE_SCALE,)
+           and diff <= 1e-12,
+           f"20(b) ranks off the one-device run's by {diff:.3e}")
+    print(f"phase 20(b) on the card's host (three gloo ranks, --device cpu; "
+          f"no kernel launches in this part): rmat:{QUARANTINE_SCALE} f64, "
+          f"{QUARANTINE_ITERS} iterations, job manifest quarantining "
+          f"member 1: '{line}' on stderr, member 1 left with exit 1, "
+          f"members 0 and 2 within {diff:.3e} of the one-device run (max "
+          f"abs); {group_s:.1f} s")
+    return d
+
+
+def tools_phase(reports_dir, preflight, dev="cuda"):
+    """20(c): the offline tools on the card's machine, each ``main`` run
+    in this process (the same code as ``python -m``, without a
+    subprocess's torch import)."""
+    import tempfile as tf
+
+    def obs(*argv):
+        return _in_process("pagerank_tpu_torch.obs.__main__", list(argv))
+
+    with tf.TemporaryDirectory(prefix="obs_", dir=reports_dir) as t:
+        a, b = (os.path.join(reports_dir, f"{x}.json") for x in "ab")
+        rc, out, err = obs("report", a, b)
+        _check(rc == 0 and "phase wall deltas (A -> B)" in out,
+               f"20(c) obs report: rc {rc} {err[-800:]}")
+        led = os.path.join(t, "ledger.jsonl")
+        rc, out, err = obs("history", "ingest", led, a, b, "--json")
+        _check(rc == 0 and json.loads(out) == {"added": 2, "deduped": 0},
+               f"20(c) obs history ingest: rc {rc} {out} {err[-800:]}")
+        rc, out, err = obs("history", "gate", led, "--json")
+        gate = json.loads(out) if rc in (0, 1) else {}
+        _check(rc == 0 and gate.get("ok") is True,
+               f"20(c) obs history gate: rc {rc} {out[-800:]} {err[-800:]}")
+    rc, out, err = obs("fit", "--scale", "22", "--json")
+    fit = json.loads(out) if rc in (0, 1) else {}
+    meas = preflight[22]["measured"]
+    pred = fit.get("peak_bytes") or 0
+    _check(rc == 0 and fit.get("fits") is True
+           and meas <= pred <= FIT_BAND * meas,
+           f"20(c) obs fit --scale 22: rc {rc}, predicted {pred} B against "
+           f"phase 14(c)'s measured {meas} B ({err[-400:]})")
+    t0 = time.perf_counter()
+    rc, out, err = obs("graph", "--scale", "18", "--device-build",
+                       "--device", dev, "--json")
+    graph_s = time.perf_counter() - t0
+    doc = json.loads(out) if rc in (0, 1) else {}
+    led = doc.get("ledger") or {}
+    prof = doc.get("profile") or {}
+    _check(rc == 0 and led.get("ok") is True
+           and prof.get("n") == 1 << 18,
+           f"20(c) obs graph --scale 18: rc {rc} {err[-800:]}")
+    t1 = time.perf_counter()
+    rc, out, err = _in_process("pagerank_tpu_torch.analysis.__main__",
+                               ["--select", "PTL,PTR"])
+    lint_s = time.perf_counter() - t1
+    _check(rc == 0, f"20(c) analysis --select PTL,PTR: rc {rc} "
+           f"{(out + err)[-800:]}")
+    print(f"phase 20(c): obs report of (b)'s two run reports, history "
+          f"ingest (2 added) and gate (pass) in a temp ledger; obs fit "
+          f"--scale 22 predicts a peak of {pred / 1e9:.3f} GB "
+          f"({fit.get('peak_stage')}) against phase 14(c)'s measured "
+          f"max_memory_allocated {meas / 1e9:.3f} GB ({pred / meas:.4f}x; "
+          f"band [1, {FIT_BAND}]); obs graph --scale 18 --device-build on "
+          f"the card: {prof.get('num_edges')} unique edges, mass ledger "
+          f"{led.get('entries')}/{led.get('probes')} reconciled (max "
+          f"|residual| {led.get('max_abs_residual')}), {graph_s:.1f} s; "
+          f"analysis --select PTL,PTR exit 0 ({lint_s:.1f} s)")
+    return {"fit_predicted": pred, "fit_measured": meas,
+            "graph_s": graph_s}
+
+
+def member0_phase(tmp, preflight, dev="cuda"):
+    """Phase 20 (see the module docstring); ``dev="cpu"`` rehearses it on
+    the host."""
+    t0 = time.perf_counter()
+    got = front_phase(tmp, "cuda:0" if dev == "cuda" else dev)
+    got["tools"] = tools_phase(quarantine_phase(tmp), preflight, dev)
+    got["phase_s"] = time.perf_counter() - t0
+    print(f"phase 20 took {got['phase_s']:.1f} s")
+    return got
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -5687,8 +6070,7 @@ def main(argv=None) -> int:
                         part_report["f32"]["ms_per_iter"])
         sharded_inputs(tmp, graph, part["span"], {
             "flat": flat["ranks"], "part_f32": part["ranks"],
-            "part_bf16": part_report["bfloat16"]["ranks"]},
-            coo["flat_ms_per_iter"])
+            "part_bf16": part_report["bfloat16"]["ranks"]})
         del graph, oracle, flat_eng
         k2 = k2_checks(eng32, eng16)
         k2["launches"] = part_report["f32"]["launches"]
@@ -5748,6 +6130,7 @@ def main(argv=None) -> int:
         elastic = elastic_phase(tmp)
         ppr_group = ppr_group_phase(tmp)
         mesh5 = mesh_job_phase(tmp)
+        front = member0_phase(tmp, seen["preflight"])
         k1["mesh"] = {n: mesh5[n] for n in (
             "edge_flat", "edge_flat_probed", "vertex_sharded",
             "vertex_sharded_probed", "edge_flat_device",
@@ -5787,6 +6170,9 @@ def main(argv=None) -> int:
                "lone_k1w_ms": serving["lone_k1w_ms"],
                "lone_step": serving["lone_step"],
                "group": ppr_group,
+               "front": {n: front[n] for n in (
+                   "launches", "max_abs_err", "walls", "batch_walls_ms",
+                   "seconds")},
                "shapes": f"z2 float32[{1 << PPR_SCALE}+8, {PPR_CHUNK}] "
                          f"(rmat:{PPR_SCALE}), {PPR_SOURCES} sources x "
                          f"{PPR_ITERS} iterations"}

@@ -1,5 +1,10 @@
-"""``python -m pagerank_tpu_torch.analysis`` — the kernel-plane check of
-the port's CUDA launches; nonzero exit on any non-waived finding.
+"""``python -m pagerank_tpu_torch.analysis`` — the AST lint (PTL), the
+concurrency pass (PTR) and the kernel-plane check of the port's CUDA
+launches (PTK); nonzero exit on any non-waived finding.
+
+The JAX package's jaxpr and HLO contracts (PTC, PTH) have no
+counterpart: ROADMAP.md lists them as not applicable (the port traces
+no program; ``--compiled`` reads the compiler's facts instead).
 
 Exit codes: 0 clean, 1 findings, 2 usage/configuration error.
 """
@@ -11,16 +16,22 @@ import json
 import os
 import sys
 
-#: Rule families of the JAX checker that the port does not have yet.
-_LATER = {"PTL": "the AST lint", "PTR": "the concurrency pass",
-          "PTC": "the jaxpr contracts", "PTH": "the HLO contracts"}
+#: Rule families of the JAX checker that do not apply to the port.
+_NOT_APPLICABLE = {"PTC": "the jaxpr contracts", "PTH": "the HLO contracts"}
+_FAMILIES = ("PTL", "PTR", "PTK")
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m pagerank_tpu_torch.analysis",
-        description="Kernel-plane check of the port's CUDA launches "
-        "(rule catalogue: README.md, 'PyTorch/CUDA port').",
+        description="AST lint, concurrency pass and kernel-plane check "
+        "of the port (rule catalogue: README.md, 'PyTorch/CUDA port').",
+    )
+    p.add_argument(
+        "paths", nargs="*",
+        help="files/directories to lint (default: the pagerank_tpu_torch "
+        "package). Paths outside the package are treated as fixture "
+        "space: every rule applies regardless of scope",
     )
     p.add_argument("--json", action="store_true",
                    help="machine-readable output (schema version 1)")
@@ -31,8 +42,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument(
         "--select", default=None,
-        help="comma-separated rule or family prefixes; only the PTK "
-        "family is ported (PTL, PTR, PTC and PTH come with slice 8b)",
+        help="comma-separated rule or family prefixes to run (e.g. "
+        "'PTK', 'PTL005,PTR'); passes whose families are not selected "
+        "are skipped entirely. PTC and PTH (the jaxpr and HLO "
+        "contracts) do not apply to the port",
     )
     p.add_argument(
         "--kernel-fixture", nargs="?", const="all", default=None,
@@ -61,6 +74,65 @@ def _families(select):
     return {s.strip().upper()[:3] for s in select.split(",") if s.strip()}
 
 
+def _selectors(select):
+    return [s.strip().upper() for s in (select or "").split(",")
+            if s.strip()]
+
+
+def _keep(findings, select):
+    """The findings whose rule a ``--select`` entry names (a family or
+    a full rule id); all of them without ``--select``."""
+    sels = _selectors(select)
+    if not sels:
+        return findings
+    return [f for f in findings if any(f.rule.startswith(s) for s in sels)]
+
+
+def _lint_and_ptr(paths, fams):
+    """The PTL and PTR findings over the package, or over ``paths``
+    (``pagerank_tpu/analysis/__main__.py:148-197``: an in-package path
+    keeps package scoping, with PTR over the whole package filtered to
+    it; an outside directory is its own program; an outside file is a
+    standalone fixture)."""
+    from pagerank_tpu_torch.analysis import concurrency as conc_mod
+    from pagerank_tpu_torch.analysis import lint as lint_mod
+
+    run_l = fams is None or "PTL" in fams
+    run_r = fams is None or "PTR" in fams
+    findings = []
+    if not paths:
+        if run_l:
+            findings.extend(lint_mod.lint_tree())
+        if run_r:
+            findings.extend(conc_mod.analyze_package())
+        return findings
+    pkg = lint_mod.package_root()
+    rels, prefixes = [], []
+    for path in paths:
+        ap = os.path.abspath(path)
+        inside = ap == pkg or ap.startswith(pkg + os.sep)
+        rel = os.path.relpath(ap, pkg).replace(os.sep, "/")
+        if os.path.isdir(path):
+            if run_l:
+                findings.extend(lint_mod.lint_tree(path))
+            if inside:
+                prefixes.append("" if rel == "." else rel + "/")
+            elif run_r:
+                findings.extend(conc_mod.analyze_package(path))
+            continue
+        if inside:
+            rels.append(rel)
+        elif run_r:
+            findings.extend(conc_mod.analyze_file(path))
+        if run_l:
+            findings.extend(lint_mod.lint_file(path, rel if inside else None))
+    if run_r and (rels or prefixes):
+        findings.extend(
+            f for f in conc_mod.analyze_package()
+            if f.path in rels or any(f.path.startswith(p) for p in prefixes))
+    return findings
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
@@ -68,18 +140,27 @@ def main(argv=None) -> int:
     from pagerank_tpu_torch.analysis import load_allowlist, split_allowlisted
 
     if args.list_rules:
+        from pagerank_tpu_torch.analysis import concurrency as conc_mod
+        from pagerank_tpu_torch.analysis import lint as lint_mod
+
+        for rid, (_fn, scope, desc) in sorted(lint_mod.RULES.items()):
+            print(f"{rid}  [{scope:6}] {desc}")
+        for rid, (_fn, desc) in sorted(conc_mod.RULES.items()):
+            print(f"{rid}  [thread] {desc}")
         for rid, desc in sorted(kernels_mod.RULES.items()):
             print(f"{rid}  [kernel] {desc}")
         return 0
 
     fams = _families(args.select)
-    later = sorted((fams or set()) & set(_LATER))
-    unknown = sorted((fams or set()) - set(_LATER) - {"PTK"})
-    if later or unknown:
-        names = ", ".join(f"{f} ({_LATER[f]})" for f in later)
-        print(f"analysis: only the PTK family is ported; "
-              + (f"{names} come with slice 8b" if later else "")
-              + ("; " if later and unknown else "")
+    na = sorted((fams or set()) & set(_NOT_APPLICABLE))
+    unknown = sorted((fams or set()) - set(_NOT_APPLICABLE) - set(_FAMILIES))
+    if na or unknown:
+        names = ", ".join(f"{f} ({_NOT_APPLICABLE[f]})" for f in na)
+        print("analysis: "
+              + (f"{names}: not applicable to the port (ROADMAP.md's "
+                 f"not-applicable list; --compiled reads the compiler's "
+                 f"facts instead)" if na else "")
+              + ("; " if na and unknown else "")
               + (f"unknown families {', '.join(unknown)}" if unknown
                  else ""), file=sys.stderr)
         return 2
@@ -96,7 +177,10 @@ def main(argv=None) -> int:
             print(f"analysis: bad allowlist: {e}", file=sys.stderr)
             return 2
 
-    if args.kernel_fixture is None:
+    run_k = fams is None or "PTK" in fams
+    if not run_k:
+        cases = []
+    elif args.kernel_fixture is None:
         cases = kernels_mod.shipped_cases()
     else:
         cases = kernels_mod.defect_cases()
@@ -122,13 +206,16 @@ def main(argv=None) -> int:
             print(f"analysis: --compiled: {e}", file=sys.stderr)
             return 2
     findings = []
+    if fams is None or fams & {"PTL", "PTR"}:
+        findings.extend(_lint_and_ptr(args.paths, fams))
     try:
         for case in cases:
             findings.extend(kernels_mod.check_kernel_case(case, facts=facts))
     except LookupError as e:
         print(f"analysis: {e}", file=sys.stderr)
         return 2
-    active, waived = split_allowlisted(findings, waivers)
+    active, waived = split_allowlisted(_keep(findings, args.select),
+                                       waivers)
 
     if args.json:
         doc = {
@@ -151,6 +238,8 @@ def main(argv=None) -> int:
             print(f.render())
         note = ("" if facts is not None else "; compile facts not checked "
                 "(--compiled reads them from the built libraries)")
+        if not run_k:
+            note = ""
         print(f"analysis: {len(active)} finding(s), {len(waived)} waived, "
               f"{len(cases)} case(s){note}", file=sys.stderr)
     return 1 if active else 0

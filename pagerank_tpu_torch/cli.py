@@ -1560,6 +1560,50 @@ def _drain_check(drain, engine):
     return lambda where: drain.check_agreed(reduce, where)
 
 
+def _drop_quarantined(job, quarantined) -> int:
+    """A group job's members that a prior run of the job quarantined
+    leave before the build (``pagerank_tpu/cli.py:1726-1752``): rank 0
+    decides the set from its manifest (one broadcast), the launcher's
+    store records it as the generation's verdict, a quarantined
+    member's process leaves (``RankLeftError``, as a member the elastic
+    path names does) and the others regroup over the rest. Returns the
+    world the build runs on. Exits with ``mesh.surviving_devices``'
+    wording when every member is quarantined, and without the
+    launcher's store (torchrun) when there is none to regroup
+    through."""
+    from pagerank_tpu_torch.parallel import distributed
+    from pagerank_tpu_torch.parallel.elastic import RankLeftError
+
+    members = list(distributed.members())
+    mask = distributed.rank0_decides(sum(
+        1 << i for i, m in enumerate(members) if m in quarantined))
+    bad = [m for i, m in enumerate(members) if mask >> i & 1]
+    if not bad:
+        return len(members)
+    survivors = [m for m in members if m not in bad]
+    if not survivors:
+        raise SystemExit(f"no surviving devices: all of {members} "
+                         f"reported dead")
+    if distributed.launcher_store() is None:
+        raise SystemExit(
+            f"member(s) {bad} of this group were quarantined for silent "
+            f"data corruption by a prior run of this job "
+            f"({job.manifest_path}); without the launcher's store "
+            f"(torchrun) there is no store to regroup the others through: "
+            f"relaunch it over the other devices")
+    distributed.declare_dead(bad)
+    me = distributed.member()
+    if me in bad:
+        raise RankLeftError(
+            f"member {me} was quarantined for silent data corruption by a "
+            f"prior run of this job ({job.manifest_path}); the members "
+            f"{survivors} build on", device_ids=[me])
+    distributed.regroup(survivors)
+    _log(f"excluding quarantined device(s) {sorted(quarantined)} (job "
+         f"manifest); building on {len(survivors)} device(s)")
+    return len(survivors)
+
+
 def _elastic_runner(args, cfg, graph, ref, drain, snap, roll_snap, job,
                     ctx):
     """The elastic runner of ``--stall-action rescue``
@@ -1629,16 +1673,21 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
     # group a rank that is not rank 0 now may be after a rescue (rank 0
     # of the new group owns every output), so it keeps them aside.
     deferred = {}
+    # What a rank other than 0 sets aside: rank 0 of the group a job's
+    # quarantine leaves (below) takes every output back.
+    outputs = ("out", "jsonl", "run_report", "trace", "history",
+               "metrics_textfile", "metrics_port", "profile_dir",
+               "log_every")
+    nulled = {name: getattr(args, name) for name in outputs}
     if not owner:
         # Rank 0 owns every output: the ranks file, the text dumps and
         # snapshots, --jsonl, the report, trace, history, metrics and
         # logs. The other ranks compute and read (a resume or rollback
         # reads rank 0's snapshots).
         if rescue:
-            deferred = {name: getattr(args, name) for name in
+            deferred = {name: nulled[name] for name in
                         ("out", "run_report", "trace", "history")}
-        for name in ("out", "jsonl", "run_report", "trace", "history",
-                     "metrics_textfile", "metrics_port", "profile_dir"):
+        for name in outputs[:-1]:
             setattr(args, name, None)
         args.log_every = 0
     try:
@@ -1678,9 +1727,12 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
         # Armed BEFORE the load, so a device build profiles in its own
         # pass; disarmed in _run's finally.
         obs.graph_profile.arm()
+    # A rank other than 0 may come to own the outputs (after a rescue,
+    # or when a job's manifest drops member 0 before the build): it
+    # traces from the start, so a report it writes holds every span.
+    may_own = owner or rescue or (args.job_dir and world > 1)
     tracer = (obs.enable_tracing()
-              if (args.trace or args.run_report or deferred.get("trace")
-                  or deferred.get("run_report"))
+              if may_own and (nulled["trace"] or nulled["run_report"])
               else obs.get_tracer())
     ctx["tracer"], ctx["cfg"] = tracer, cfg
     job = _open_job(args.job_dir) if args.job_dir else None
@@ -1784,17 +1836,18 @@ def _run_body(args, drain, ctx) -> Dict[str, object]:
 
                 quarantined = (set(job.quarantined_devices())
                                if job is not None else set())
-                if world > 1:
-                    # Over a group the ids are its members' (what a
-                    # conviction names, ``TorchEngine.device_ids``).
-                    bad = sorted(quarantined & set(distributed.members()))
-                    if bad:
-                        raise SystemExit(
-                            f"member(s) {bad} of this group were "
-                            f"quarantined for silent data corruption by a "
-                            f"prior run of this job ({job.manifest_path}); "
-                            f"a group drops no member before its solve: "
-                            f"relaunch it over the other devices")
+                if world > 1 and job is not None:
+                    group = world
+                    world = _drop_quarantined(job, quarantined)
+                    if world != group:
+                        cfg = cfg.replace(num_devices=world).validate()
+                        ctx["cfg"] = cfg
+                        if distributed.process_info()[0] == 0 and not owner:
+                            # Rank 0 of the smaller group owns the job
+                            # and every output now.
+                            job.write = True
+                            for name, value in nulled.items():
+                                setattr(args, name, value)
                 elif device_id(resolve_device(args.device)) in quarantined:
                     # One device: a chip a prior run of this job
                     # convicted of sticky corruption leaves nothing to
@@ -2332,9 +2385,12 @@ def main(argv: Optional[List[str]] = None) -> int:
             # past the stall deadline (the watchdog's interrupt reaches
             # a thread blocked there only when the call returns).
             timeout_s = min(timeout_s, float(args.stall_timeout))
+        # A job hosts the store too: a quarantine its manifest records
+        # regroups the others through it before the build.
         codes = distributed.spawn_group(
             "pagerank_tpu_torch.cli:_rank_main", args.num_devices, argv, tmp,
-            backend=backend, timeout_s=timeout_s, rescue=rescue)
+            backend=backend, timeout_s=timeout_s,
+            rescue=rescue or bool(args.job_dir))
     lost = set(codes.lost)
     if lost:
         _log(f"pagerank_tpu_torch: lost rank(s) {sorted(lost)} (exit codes "

@@ -372,7 +372,7 @@ class PprTorchEngine:
         p = torch.zeros((self._n_state, kc), dtype=self._dtype,
                         device=self.device)
         rel = torch.from_numpy(self._inv_perm[batch].astype(np.int64))
-        p[rel.to(self.device), torch.arange(kc, device=self.device)] = 1.0
+        p[rel.to(self.device), torch.arange(kc, dtype=torch.int64, device=self.device)] = 1.0
         p_acc = p.to(self._accum)
         r = p.clone()
         for _ in range(num_iters):

@@ -457,6 +457,16 @@ def _normalize_build_only(doc: dict, rec: dict) -> None:
             rec["legs"][name] = {"build_s": b}
 
 
+def leg_name_for_report(doc: dict) -> str:
+    """The ledger leg of a run report: its engine's resolved layout
+    (:func:`leg_name_for_layout`) where the report carries one (every
+    port run does), else its config's (:func:`leg_name_for_config`)."""
+    layout = doc.get("layout")
+    if isinstance(layout, dict):
+        return leg_name_for_layout(layout)
+    return leg_name_for_config(doc.get("config") or {})
+
+
 def _normalize_run_report(doc: dict, rec: dict) -> None:
     rec["kind"] = "run_report"
     rec["env"] = _json_safe(doc.get("environment") or {})
@@ -497,10 +507,7 @@ def _normalize_run_report(doc: dict, rec: dict) -> None:
     if conc:
         leg["graph_topk_concentration"] = conc[-1]
     if leg:
-        # A port run report carries its engine's resolved layout.
-        layout = doc.get("layout")
-        rec["legs"][leg_name_for_layout(layout) if isinstance(layout, dict)
-                    else leg_name_for_config(cfg)] = leg
+        rec["legs"][leg_name_for_report(doc)] = leg
     iters = cfg.get("num_iters") if isinstance(cfg, dict) else None
     if isinstance(iters, int):
         rec["workload"]["iters"] = iters

@@ -54,7 +54,6 @@ dangling-mask check when a mask is given, as in JAX.
 from __future__ import annotations
 
 import hashlib
-import sys
 import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -64,6 +63,7 @@ import torch
 
 from pagerank_tpu_torch.engines.torch_engine import TorchEngine, resolve_device
 from pagerank_tpu_torch.obs import graph_profile
+from pagerank_tpu_torch.obs import log as obs_log
 from pagerank_tpu_torch.obs import metrics as obs_metrics
 from pagerank_tpu_torch.ops import LANES
 
@@ -304,7 +304,7 @@ def plan_partition_span(cfg, n: int, num_edges: Optional[int],
 
 
 def _log(msg: str) -> None:
-    print(msg, file=sys.stderr, flush=True)
+    obs_log.info(msg)
 
 
 def _generator(device, seed):

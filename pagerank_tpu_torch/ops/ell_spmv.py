@@ -464,7 +464,7 @@ def row_partials(v, plan):
     rs = torch.as_tensor(plan.seg_row_start, dtype=torch.long, device=dev)
     num_segs = rs.shape[0] - 1
     seg_of_row = torch.repeat_interleave(
-        torch.arange(num_segs, device=dev), rs[1:] - rs[:-1])
+        torch.arange(num_segs, dtype=torch.int64, device=dev), rs[1:] - rs[:-1])
     partial = torch.zeros((num_segs,) + tuple(v.shape[1:]), dtype=v.dtype,
                           device=dev)
     return partial.index_add_(0, seg_of_row, v)
@@ -474,7 +474,7 @@ def _runs(start, count):
     """The concatenated index ranges [start[i], start[i] + count[i])."""
     dev = start.device
     return torch.repeat_interleave(start, count) + (
-        torch.arange(int(count.sum()), device=dev)
+        torch.arange(int(count.sum()), dtype=torch.int64, device=dev)
         - torch.repeat_interleave(torch.cumsum(count, 0) - count, count))
 
 

@@ -259,7 +259,7 @@ def expand_pairs(pairs, pair_part, pair_block, num_blocks):
     total = torch.zeros((num_blocks, LANES), dtype=pairs.dtype, device=dev)
     bounds = torch.searchsorted(
         part, torch.arange(int(part.max()) + 2 if part.numel() else 1,
-                           device=dev)).tolist()
+                           dtype=torch.int64, device=dev)).tolist()
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         scatter_block_sums(total, pairs[lo:hi], blk[lo:hi], False)
     return total.reshape(-1)
@@ -274,7 +274,7 @@ def _pair_sums(z_windows, src_slots, pair_part, plan):
     rs = torch.as_tensor(plan.seg_row_start, dtype=torch.long, device=dev)
     sp = torch.as_tensor(plan.seg_block, dtype=torch.long, device=dev)
     seg_of_row = torch.repeat_interleave(
-        torch.arange(sp.shape[0], device=dev), rs[1:] - rs[:-1])
+        torch.arange(sp.shape[0], dtype=torch.int64, device=dev), rs[1:] - rs[:-1])
     v = _gathered(z_windows, src_slots, sp[seg_of_row].to(torch.int32),
                   pair_part)
     return ell_spmv.group_sums(ell_spmv.row_partials(v, plan),
@@ -307,7 +307,7 @@ def ell_contrib_partitioned_segmented_reference(z_windows, src_slots,
     rs = torch.as_tensor(plan.seg_row_start, dtype=torch.long, device=dev)
     sp = torch.as_tensor(plan.seg_block, dtype=torch.long, device=dev)
     seg_of_row = torch.repeat_interleave(
-        torch.arange(sp.shape[0], device=dev), rs[1:] - rs[:-1])
+        torch.arange(sp.shape[0], dtype=torch.int64, device=dev), rs[1:] - rs[:-1])
     v = _gathered(z_windows, src_slots, sp[seg_of_row].to(torch.int32),
                   pair_part)
     partial = ell_spmv.row_partials(v, plan)

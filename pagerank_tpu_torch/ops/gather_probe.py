@@ -175,7 +175,7 @@ def gather_group_reference(z, src, w, width=8):
     finite z. Needs n % width == 0."""
     shift = width.bit_length() - 1
     zw = z.view(-1, width)
-    lanes = torch.arange(width, device=z.device)
+    lanes = torch.arange(width, dtype=torch.int64, device=z.device)
     out = torch.empty_like(w)
     for a, b in _row_chunks(src.shape[0], width, z.itemsize):
         s = src[a:b]
@@ -194,7 +194,7 @@ def gather_rowsel_reference(z, src, w):
     out = torch.empty_like(w)
     for a, b in _row_chunks(src.shape[0], LANES, z.itemsize):
         s = src[a:b]
-        rows_g = zw[(s >> 7).long()]
+        rows_g = zw[(s >> (LANES.bit_length() - 1)).long()]
         out[a:b] = torch.take_along_dim(
             rows_g, (s & (LANES - 1)).long()[..., None], dim=-1)[..., 0] \
             * w[a:b]

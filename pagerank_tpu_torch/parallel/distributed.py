@@ -31,12 +31,15 @@ prefix per group generation (``g<k>/``):
   waiting on a dead member (gloo's destroy returns at once; the other
   ranks still blocked in a collective with this one get "Connection
   closed by peer" and join the roll call);
-- :func:`roll_call` agrees who is gone: every live rank posts itself
-  (with the ids its error carried) under ``g<k>/roll/alive/<member>``;
-  a member that has not posted within the deadline, or whose process
-  the launcher saw end (``exited/<member>``), is dead, and the first
-  rank to decide publishes the verdict with ``compare_set`` — every
-  rank adopts that one verdict;
+- :func:`roll_call` agrees who is gone: every live process posts
+  itself (with the ids its error carried, then whether its own device
+  answered) under ``g<k>/roll/alive/<member>``; a member whose device
+  did not answer in time, that has not posted within the deadline, or
+  whose process the launcher saw end (``exited/<member>``), is dead, and the
+  first rank to decide publishes the verdict with ``compare_set`` —
+  every rank adopts that one verdict. The verdict also names the dead
+  members whose process posted (``hosts``): their device is gone, their
+  process lives (the daemon's member 0 serves on from the host then);
 - :func:`regroup` forms the survivors' group, ``len(survivors)`` ranks
   numbered in the order of their original ids (``g<k+1>/pg/``);
 - the launcher reads every verdict at the end (:class:`GroupCodes`
@@ -60,7 +63,7 @@ import datetime
 import json
 import os
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -335,23 +338,42 @@ def abandon_group() -> None:
             pass
 
 
-def roll_call(carried: Sequence[int] = (), alive: bool = True,
+def roll_call(carried: Sequence[int] = (),
+              alive: Union[bool, Callable[[], bool]] = True,
               timeout_s: float = 5.0,
               clock: Callable[[], float] = time.monotonic,
               sleep: Callable[[float], None] = time.sleep,
               poll_s: float = 0.01) -> List[int]:
     """Agree, with every other live member, on which members of the
-    current generation are gone; returns the agreed dead ids (sorted).
+    current generation are gone; returns the agreed dead ids (sorted):
+    ``roll_call_verdict(...)["dead"]``."""
+    return roll_call_verdict(carried, alive, timeout_s, clock, sleep,
+                             poll_s)["dead"]
 
-    This rank posts itself when ``alive`` (its own device answered),
-    with the ``carried`` ids of its error, then waits until every
-    member has posted or ended (the launcher's ``exited/<member>``
-    record) or ``timeout_s`` passed. Dead: the members that did not
-    post, and every id a posted member carried. The first rank to
-    decide publishes its verdict (``compare_set`` on
-    ``g<k>/roll/verdict``); every rank returns THAT verdict, so all
-    survivors adopt the same one even where their waits ended apart.
-    A group of one decides alone (no store needed)."""
+
+def roll_call_verdict(carried: Sequence[int] = (),
+                      alive: Union[bool, Callable[[], bool]] = True,
+                      timeout_s: float = 5.0,
+                      clock: Callable[[], float] = time.monotonic,
+                      sleep: Callable[[float], None] = time.sleep,
+                      poll_s: float = 0.01) -> dict:
+    """The roll call's agreed verdict: ``{"dead": [...], "members":
+    [...], "hosts": [...]}``.
+
+    This process posts itself with the ``carried`` ids of its error and
+    ``alive``, whether its own device answered. ``alive`` may be the
+    echo itself (a callable): the process then posts its presence first
+    (``device`` null) and the echo's answer after, so a slow echo on a
+    hung card never makes a live process look gone. Then it waits until
+    every member has posted its device's answer or ended (the launcher's
+    ``exited/<member>`` record) or ``timeout_s`` passed. Dead: the
+    members that did not post, those whose device did not answer (or
+    had not yet), and every id a posted member carried. ``hosts``: the
+    dead members whose process posted and had not ended, so lives on
+    without its device. The first rank to decide publishes its verdict
+    (``compare_set`` on ``g<k>/roll/verdict``); every rank returns THAT
+    verdict, so all survivors adopt the same one even where their waits
+    ended apart. A group of one decides alone (no store needed)."""
     mem = members()
     me = member()
     carried = sorted(int(d) for d in carried)
@@ -361,27 +383,72 @@ def roll_call(carried: Sequence[int] = (), alive: bool = True,
             raise RuntimeError(
                 "a roll call over a group of more than one rank needs the "
                 "launcher's store (spawn_group(..., rescue=True))")
-        dead = set(carried) | (set() if alive else {me})
-        return sorted(d for d in dead if d in mem)
+        ok = alive() if callable(alive) else alive
+        dead = sorted(d for d in set(carried) | (set() if ok else {me})
+                      if d in mem)
+        return {"dead": dead, "members": list(mem),
+                "hosts": [d for d in dead if d == me]}
     pre = f"g{generation()}/roll/"
-    if alive:
-        store.set(f"{pre}alive/{me}", json.dumps(carried))
+
+    def post(device):
+        store.set(f"{pre}alive/{me}",
+                  json.dumps({"carried": carried, "device": device}))
+
+    if callable(alive):
+        post(None)
+        alive = alive()
+    post(bool(alive))
     deadline = clock() + timeout_s
     while True:
-        posted = [m for m in mem if store.check([f"{pre}alive/{m}"])]
-        ended = [m for m in mem if m not in posted
+        posts = {m: json.loads(store.get(f"{pre}alive/{m}")) for m in mem
+                 if store.check([f"{pre}alive/{m}"])}
+        answered = [m for m, p in posts.items() if p["device"] is not None]
+        ended = [m for m in mem if m not in answered
                  and store.check([f"exited/{m}"])]
-        if (len(posted) + len(ended) == len(mem) or clock() >= deadline
+        if (len(answered) + len(ended) == len(mem) or clock() >= deadline
                 or store.check([f"{pre}verdict"])):
             break
         sleep(poll_s)
-    dead = set(mem) - set(posted)
-    for m in posted:
-        dead |= set(json.loads(store.get(f"{pre}alive/{m}")))
+    dead = set(mem) - set(posts)
+    for m, p in posts.items():
+        dead |= set(p["carried"])
+        if not p["device"]:
+            dead.add(m)
     dead &= set(mem)
-    proposal = json.dumps({"dead": sorted(dead), "members": list(mem)})
-    agreed = store.compare_set(f"{pre}verdict", "", proposal)
-    return list(json.loads(agreed)["dead"])
+    proposal = json.dumps({"dead": sorted(dead), "members": list(mem),
+                           "hosts": sorted(dead & set(posts) - set(ended))})
+    return json.loads(store.compare_set(f"{pre}verdict", "", proposal))
+
+
+def declare_dead(dead: Sequence[int]) -> dict:
+    """Publish a verdict for the current generation without a roll
+    call: the members in ``dead`` leave and every other member stays (a
+    decision all ranks already share, such as a job manifest's
+    quarantine). The first verdict wins as in :func:`roll_call_verdict`;
+    returns the agreed one. Needs the launcher's store."""
+    store = _STATE["store"]
+    if store is None:
+        raise RuntimeError("declaring members dead needs the launcher's "
+                           "store (spawn_group(..., rescue=True))")
+    proposal = json.dumps({"dead": sorted(int(d) for d in dead),
+                           "members": list(members()), "hosts": []})
+    return json.loads(store.compare_set(f"g{generation()}/roll/verdict",
+                                        "", proposal))
+
+
+def store_wait(store, key: str, timeout_s: float,
+               clock: Callable[[], float] = time.monotonic,
+               sleep: Callable[[float], None] = time.sleep,
+               poll_s: float = 0.002) -> bool:
+    """Whether ``key`` is set in ``store`` within ``timeout_s``, polled
+    every ``poll_s`` (the store's own timed wait logs a warning at each
+    timeout)."""
+    deadline = clock() + timeout_s
+    while not store.check([key]):
+        if clock() >= deadline:
+            return False
+        sleep(poll_s)
+    return True
 
 
 def regroup(survivors: Sequence[int]) -> int:
@@ -421,7 +488,9 @@ def reform(gen: int, group_members: Sequence[int]) -> int:
 
 def verdicts(store) -> List[dict]:
     """Every roll call's verdict in a launcher ``store``, generation by
-    generation (the launcher reads them when its ranks have ended)."""
+    generation (the launcher reads them when its ranks have ended): its
+    ``dead`` members, the generation's ``members`` and the ``hosts``,
+    the dead whose process lived on without its device."""
     out = []
     while store.check([f"g{len(out)}/roll/verdict"]):
         out.append(json.loads(store.get(f"g{len(out)}/roll/verdict")))
@@ -431,11 +500,13 @@ def verdicts(store) -> List[dict]:
 class GroupCodes(list):
     """The exit codes of a group's ranks, in rank order, with ``lost``:
     the original ids the group's roll calls declared dead (empty
-    without rescue)."""
+    without rescue), and ``hosts``: those of them whose process lived
+    on without its device."""
 
-    def __init__(self, codes, lost=()):
+    def __init__(self, codes, lost=(), hosts=()):
         super().__init__(codes)
         self.lost = tuple(lost)
+        self.hosts = tuple(hosts)
 
 
 # -- one command, N processes ------------------------------------------------
@@ -559,7 +630,10 @@ def spawn_group(target: str, world: int, payload, rendezvous_dir: str, *,
             p.join(10.0)
         if os.path.exists(rendezvous):
             os.unlink(rendezvous)
+    hosts: set = set()
     if store is not None:
         for v in verdicts(store):
             lost.update(v["dead"])
-    return GroupCodes([p.exitcode for p in procs], sorted(lost))
+            hosts.update(v.get("hosts", ()))
+    return GroupCodes([p.exitcode for p in procs], sorted(lost),
+                      sorted(hosts))

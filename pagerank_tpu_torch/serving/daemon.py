@@ -59,25 +59,58 @@ come from ``spawn_group(..., rescue=True)``),
 regroups over the survivors, rebuilds its engine there, and rank 0
 re-runs the in-flight batch (``answered_degraded``). ``device_ids()``
 names the surviving member ids; each rescue's wall by part (roll call,
-regroup, rebuild, re-run) is kept in ``rescue_walls``. Losing rank 0 is
-terminal: the followers raise ``ElasticExhaustedError`` naming the
-ROADMAP item that will port its survival (queue 1: the loss of the
-daemon's rank 0).
+regroup, rebuild, re-run) is kept in ``rescue_walls``.
+
+Member 0 losing its DEVICE (a ``DeviceLostError`` naming member 0, or
+its own echo failing) is survived as the JAX daemon survives the loss
+of its device 0 (``pagerank_tpu/serving/daemon.py:412-441``): member
+0's process owns every client-facing part, so it keeps them and
+becomes the FRONT. It tears the group down, posts its presence in
+the roll call and then that its device is lost
+(``distributed.roll_call_verdict``: the verdict names member 0 dead
+and among the ``hosts``, the dead whose process lives). The presence
+goes up before the echo, so an echo that takes the whole deadline on a
+hung card cannot make the live process look gone; a loss that names
+member 0 needs no echo. The survivors (members 1 and up) regroup and rebuild
+``PprTorchEngine`` over themselves, so K1w runs over their shares with
+one psum an iteration among them. The front holds no engine and
+launches nothing: each dispatch header goes to the survivors through
+the launcher's store (``g<k>/serve/hdr/<i>``, ``k`` the survivors'
+generation), the lowest survivor reads it, broadcasts it to its group
+(and the idle word while none comes), and writes the top-k ids and
+scores back (``g<k>/serve/res/<i>``). The store is a host channel, so
+it needs no device of member 0's, under NCCL too. The in-flight batch
+re-runs as ``answered_degraded``; ``device_count`` is then the world
+less one. A later loss among the survivors rescues as a follower's
+loss does: the front reads their verdict from the store and re-sends
+the in-flight batch on the next generation's channel; the
+``max_rescues`` budget counts both kinds. The front's ``rescue_walls``
+entry holds its roll call and its re-run (the survivors' regroup and
+rebuild inside it). Losing member 0's PROCESS (a SIGKILL) stays
+terminal, as the death of the JAX daemon's process is: no host is left
+to answer, so the followers raise ``ElasticExhaustedError`` saying the
+serving process was lost and exit non-zero.
 
 Concurrency (PTR rules): the admission queue's Condition is the
 cross-thread meeting point; server-side mutable state (engine,
 devices, degraded flag) lives behind ``_state_lock`` and is only
 written by the dispatch context. Blocking work (device dispatch,
 ``run_with_deadline``) happens outside every lock (PTR004). The
-dispatcher thread is named and joined (PTR005); clocks are injected
-(PTR006). The engine makes its device current in whichever thread
+dispatcher thread is named and joined (PTR005); the admission clock
+is injected (PTR006), while the group's keepalive, the front's wait and
+the rescue walls read the host's real clock (waived in
+``analysis/allowlist.txt``, each with its reason). The engine makes its device current in whichever thread
 launches (the dispatcher, ``run_with_deadline``'s worker).
 """
 
 from __future__ import annotations
 
+import gc
+import io
+import json
 import threading
 import time
+import traceback
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence
 
@@ -162,9 +195,7 @@ class PprServer:
     runs over the group (module docstring): ``devices`` is then this
     rank's device alone (default cuda, one card a rank), rank 0 calls
     :meth:`start` and every other rank :meth:`follow`, and every rank
-    must be given the same graph, configs and ``max_batch``. The
-    rescues' parts and the keepalive run on the host's monotonic clock
-    (the injected ``clock`` may be virtual).
+    must be given the same graph, configs and ``max_batch``.
     """
 
     #: Batch walls kept in ``batch_walls`` (bounded for a long-lived
@@ -239,6 +270,14 @@ class PprServer:
         self._seq = 0
         self._last_word = 0.0
         self._group_open = self._grouped
+        # Member 0 once its device is lost (the front: no engine, the
+        # survivors compute), a follower whose group serves a front,
+        # and the front's channel: the survivors' generation and the
+        # index of its next header.
+        self._front = False
+        self._fronted = False
+        self._chan_gen = 0
+        self._chan_seq = 0
         self._keepalive: Optional[threading.Thread] = None
         self._keepalive_stop = threading.Event()
         self._graph_fp = graph.fingerprint()
@@ -297,7 +336,8 @@ class PprServer:
         current group's member ids and the engine runs on this rank's
         device over the whole group."""
         cfg = self.config.replace(num_devices=len(devices))
-        device = self._mesh.device if self._grouped else devices[0]
+        with self._state_lock:
+            device = self._devices[0] if self._grouped else devices[0]
         eng = PprTorchEngine(cfg, dangling_to=self.dangling_to,
                              device=device)
         eng.build(self.graph)
@@ -307,7 +347,8 @@ class PprServer:
         """This rank's mesh over the current group (the broadcasts'),
         on ``devices[0]`` (default cuda: ``make_mesh`` picks the card
         of a rank)."""
-        dev = self._devices[0] if self._devices else None
+        with self._state_lock:
+            dev = self._devices[0] if self._devices else None
         mesh = mesh_lib.make_mesh(device=dev)
         with self._state_lock:
             self._mesh = mesh
@@ -519,6 +560,8 @@ class PprServer:
         survives an engine rebuild because the rescue path swaps
         ``_engine`` underneath it."""
         with self._dispatch_lock:
+            if self._front:
+                return self._front_dispatch(sources)
             with self._state_lock:
                 engine = self._engine
             if self._grouped:
@@ -536,9 +579,10 @@ class PprServer:
         return torch.zeros(self.HEADER + self.serve_config.max_batch,
                            dtype=torch.int64, device=self._mesh.device)
 
-    def _announce(self, word: int, sources=()) -> None:
-        """Rank 0: broadcast one dispatch header (the caller holds the
-        dispatch lock)."""
+    def _words(self, word: int, sources=()) -> "torch.Tensor":
+        """One dispatch header on the host (the caller holds the
+        dispatch lock): the word, the live count, iterations, k and the
+        sequence number, then the sources padded to ``max_batch``."""
         hdr = torch.zeros(self.HEADER + self.serve_config.max_batch,
                           dtype=torch.int64)
         hdr[:self.HEADER] = torch.tensor(
@@ -548,8 +592,138 @@ class PprServer:
             np.asarray(sources, np.int64))
         if word == self.RUN:
             self._seq += 1
+        return hdr
+
+    def _announce(self, word: int, sources=()) -> None:
+        """Rank 0: broadcast one dispatch header (the caller holds the
+        dispatch lock)."""
+        hdr = self._words(word, sources)
         mesh_lib.broadcast(self._mesh, hdr.to(self._mesh.device))
         self._last_word = time.perf_counter()
+
+    # -- the front: member 0 after its device was lost --------------------------
+
+    def _chan(self) -> str:
+        return f"g{self._chan_gen}/serve/"
+
+    def _front_post(self, word: int, sources=()) -> int:
+        """The front: post one header on the survivors' channel; returns
+        its index there (the caller holds the dispatch lock)."""
+        i = self._chan_seq
+        hdr = self._words(word, sources)
+        distributed.launcher_store().set(f"{self._chan()}hdr/{i}",
+                                         hdr.numpy().tobytes())
+        self._chan_seq += 1
+        return i
+
+    def _front_dispatch(self, sources: np.ndarray):
+        """The front's dispatch: post the header, wait for the
+        survivors' answer. A verdict of their roll call, or the end of
+        every survivor's process, raises ``DeviceLostError`` naming the
+        dead (the rescue then moves to the next generation's channel);
+        past ``dispatch_timeout_s`` it raises ``TimeoutError``."""
+        store = distributed.launcher_store()
+        key = f"{self._chan()}res/{self._front_post(self.RUN, sources)}"
+        verdict = f"g{self._chan_gen}/roll/verdict"
+        with self._state_lock:
+            members = list(self._members)
+        t_end = time.perf_counter() + self.serve_config.dispatch_timeout_s
+        while not distributed.store_wait(store, key, 0.05):
+            if store.check([verdict]):
+                raise DeviceLostError(
+                    "a survivor of the front's group was lost",
+                    device_ids=json.loads(store.get(verdict))["dead"])
+            if all(store.check([f"exited/{m}"]) for m in members):
+                raise DeviceLostError(
+                    f"every member of the front's group {members} ended",
+                    device_ids=members)
+            if time.perf_counter() > t_end:
+                raise TimeoutError(
+                    f"no answer from the survivors {members} within "
+                    f"{self.serve_config.dispatch_timeout_s}s")
+        with np.load(io.BytesIO(store.get(key))) as f:
+            ids, scores = f["ids"], f["scores"]
+        store.delete_key(key)
+        return ids, scores
+
+    def _front_rescue(self, exc: BaseException) -> List[int]:
+        """The front's part of a loss among the survivors: adopt their
+        roll call's verdict (every member of the group, where all of
+        their processes ended with none) and move to the next
+        generation's channel. Raises ``ElasticExhaustedError`` when no
+        survivor is left."""
+        store = distributed.launcher_store()
+        verdict = f"g{self._chan_gen}/roll/verdict"
+        with self._state_lock:
+            members = list(self._members)
+            rescues = self._rescues_done
+        dead = (json.loads(store.get(verdict))["dead"]
+                if store.check([verdict]) else list(members))
+        survivors = [m for m in members if m not in dead]
+        if not survivors:
+            raise ElasticExhaustedError(
+                f"no surviving devices: all of {members} reported dead "
+                f"({exc})", tuple(dead), rescues) from exc
+        obs_log.warn(f"SERVE RESCUE: member(s) {dead} lost ({exc}); the "
+                     f"front serves on over {survivors}")
+        with self._state_lock:
+            self._members = survivors
+        self._chan_gen += 1
+        self._chan_seq = 0
+        # The survivors took the roll call; the front's part is the
+        # re-run, their regroup and rebuild inside it.
+        self.rescue_walls.append({})
+        return list(dead)
+
+    def _become_front(self, survivors: List[int], walls) -> None:
+        """Member 0, its device lost: free the engine and serve on from
+        the host over the survivors' next generation."""
+        with self._state_lock:
+            self._engine = None
+            self._members = list(survivors)
+            self._degraded = True
+        self._front = True
+        self._chan_gen = distributed.generation() + 1
+        self._chan_seq = 0
+        self.rescue_walls.append(walls)
+
+    def _relay(self):
+        """Rank 0 of a group serving a front: the next header from the
+        front's channel, broadcast to this group, with its index there.
+        While none comes, the idle word goes out every quarter of the
+        collective timeout; the end of the front's process is
+        terminal."""
+        store = distributed.launcher_store()
+        every = distributed.collective_timeout_s() / 4
+        key = f"{self._chan()}hdr/{self._chan_seq}"
+        while not distributed.store_wait(store, key, min(0.5, every)):
+            if store.check(["exited/0"]):
+                raise ElasticExhaustedError(
+                    "serving terminal: the serving process (member 0) was "
+                    "lost; no host is left to answer", (0,),
+                    self.rescues_done)
+            if time.perf_counter() - self._last_word >= every:
+                mesh_lib.broadcast(self._mesh,
+                                   self._words(self.IDLE).to(
+                                       self._mesh.device))
+                self._last_word = time.perf_counter()
+        hdr = torch.from_numpy(np.frombuffer(store.get(key),
+                                             np.int64).copy())
+        store.delete_key(key)
+        i = self._chan_seq
+        self._chan_seq += 1
+        mesh_lib.broadcast(self._mesh, hdr.to(self._mesh.device))
+        self._last_word = time.perf_counter()
+        return hdr, i
+
+    def _reply(self, i: int, res) -> None:
+        """Rank 0 of a group serving a front: the answer to the front's
+        header ``i``."""
+        buf = io.BytesIO()
+        np.savez(buf, ids=np.asarray(res.topk_ids),
+                 scores=np.asarray(res.topk_scores))
+        distributed.launcher_store().set(f"{self._chan()}res/{i}",
+                                         buf.getvalue())
 
     def _keepalive_loop(self) -> None:
         """Rank 0: the idle word, whenever no word went out for a
@@ -574,6 +748,14 @@ class PprServer:
             self._keepalive.join()
             self._keepalive = None
         with self._dispatch_lock:
+            if self._front:
+                if self.device_count:
+                    try:
+                        self._front_post(self.STOP)
+                    except Exception as e:  # noqa: BLE001 - drain goes on
+                        obs_log.warn(f"serve: the survivors' stop word "
+                                     f"failed ({e})")
+                return
             if not self._group_open or self._mesh is None:
                 return
             self._group_open = False
@@ -586,8 +768,11 @@ class PprServer:
         """A rank other than 0 of a group: build the engine over the
         group, then run every dispatch rank 0 broadcasts until its stop
         word. A loss rescues as rank 0 does (:meth:`_group_rescue`).
-        Raises ``RankLeftError`` when the roll call names this rank,
-        and ``ElasticExhaustedError`` when rank 0 is gone. A seeded
+        Once member 0 serves as the front, rank 0 of this group relays
+        its headers from the store (:meth:`_relay`) and writes the
+        answers back. Raises ``RankLeftError`` when the roll call names
+        this rank, and ``ElasticExhaustedError`` when member 0's process
+        is gone. A seeded
         ``ProcessKillPlan`` in the environment (stage ``serve``,
         iteration = the dispatch's sequence number; the warm-up is 0)
         kills this process after it received that dispatch."""
@@ -598,14 +783,21 @@ class PprServer:
                                "process group")
         kill = ProcessKillPlan.from_env()
         self._join_group()
-        engine = self._engine_factory(list(self._members))
+        with self._state_lock:
+            members = list(self._members)
+        engine = self._engine_factory(members)
         with self._state_lock:
             self._engine = engine
             self._started = True
         chunk = self.serve_config.max_batch
         while True:
             try:
-                hdr = mesh_lib.broadcast(self._mesh, self._header()).cpu()
+                relay = self._fronted and self._mesh.rank == 0
+                if relay:
+                    hdr, i = self._relay()
+                else:
+                    hdr = mesh_lib.broadcast(self._mesh,
+                                             self._header()).cpu()
                 word, live, iters, topk, seq = hdr[:self.HEADER].tolist()
                 if word == self.STOP:
                     return
@@ -616,31 +808,53 @@ class PprServer:
                 sources = hdr[self.HEADER: self.HEADER + live].numpy()
                 with self._state_lock:
                     engine = self._engine
-                engine.run(sources, num_iters=iters, topk=topk, chunk=chunk)
+                res = engine.run(sources, num_iters=iters, topk=topk,
+                                 chunk=chunk)
+                if relay:
+                    self._reply(i, res)
             except Exception as e:  # noqa: BLE001 - classified below
                 if not (isinstance(e, DeviceLostError)
                         or looks_like_device_loss(e)):
                     raise
+                engine = res = None  # the rescue drops the group's holders
                 self._group_rescue(e)
 
-    def _echo_own(self) -> bool:
-        """Whether this rank's own device answers a 4-byte echo within
-        the liveness deadline."""
+    def _echo_own(self, device) -> bool:
+        """Whether this rank's own ``device`` answers a 4-byte echo
+        within the liveness deadline."""
         try:
             return bool(mesh_lib.run_with_deadline(
-                lambda: mesh_lib._echo(self._mesh.device),
+                lambda: mesh_lib._echo(device),
                 self.serve_config.probe_timeout_s))
         except Exception:  # noqa: BLE001 - a silent device is a dead one
             return False
 
+    def _release(self, exc: BaseException):
+        """Drop this rank's hold on its broken group (the engine, the
+        mesh and the error's frames), then tear the group down: gloo
+        closes a group's pairs only once nothing holds it, and a peer
+        blocked in a collective with this rank then raises. Returns this
+        rank's device."""
+        device = self._mesh.device
+        with self._state_lock:
+            self._engine = None
+        self._mesh = None
+        if exc.__traceback__ is not None:
+            traceback.clear_frames(exc.__traceback__)
+        distributed.abandon_group()
+        gc.collect()
+        return device
+
     def _group_rescue(self, exc: BaseException) -> List[int]:
         """Every survivor's part of a rescue over a group: tear the
         group down, take the roll call, regroup over the survivors and
-        rebuild the engine there; returns the dead member ids. Raises
-        ``exc`` when the roll call finds no one dead, ``RankLeftError``
-        when it names this rank and ``ElasticExhaustedError`` when it
-        names member 0 (the serving rank) or the ranks have no
-        launcher store to take it in."""
+        rebuild the engine there; returns the dead member ids. Member 0
+        whose device the verdict names becomes the front instead
+        (module docstring). Raises ``exc`` when the roll call finds no
+        one dead, ``RankLeftError`` when it names this rank (a
+        follower), and ``ElasticExhaustedError`` when member 0's
+        process is gone, no device survives, or the ranks have no
+        launcher store to take the roll call in."""
         carried = (exc.device_ids if isinstance(exc, DeviceLostError)
                    else ())
         t = time.perf_counter()
@@ -648,25 +862,40 @@ class PprServer:
             members = list(self._members)
             rescues = self._rescues_done
         self._group_open = False
-        distributed.abandon_group()
+        device = self._release(exc)
         if distributed.launcher_store() is None:
             raise ElasticExhaustedError(
                 f"a loss over a process group without the launcher's store "
                 f"is terminal (start the ranks with spawn_group(..., "
                 f"rescue=True)): {exc}", tuple(carried), rescues) from exc
-        dead = distributed.roll_call(
-            carried, alive=self._echo_own(),
+        # The presence goes up before the echo (a hung card's echo may
+        # take the whole deadline); a loss that names this member needs
+        # no echo.
+        me = distributed.member()
+        verdict = distributed.roll_call_verdict(
+            carried,
+            alive=lambda: me not in carried and self._echo_own(device),
             timeout_s=self.serve_config.probe_timeout_s)
+        dead = verdict["dead"]
         walls = {"roll_call": time.perf_counter() - t}
         if not dead:
             raise exc
-        if members[0] in dead:
+        if 0 in dead and 0 not in verdict["hosts"]:
             raise ElasticExhaustedError(
-                f"serving terminal: member {members[0]}, the serving rank, "
-                f"was lost ({exc}); surviving it is not ported yet (ROADMAP "
-                f"queue 1: the loss of the daemon's rank 0)", tuple(dead),
+                f"serving terminal: the serving process (member 0) was "
+                f"lost ({exc}); no host is left to answer", tuple(dead),
                 rescues) from exc
-        survivors = mesh_lib.surviving_members(dead, members)
+        survivors = [m for m in members if m not in dead]
+        if not survivors:
+            raise ElasticExhaustedError(
+                f"no surviving devices: all of {members} reported dead "
+                f"({exc})", tuple(dead), rescues) from exc
+        if 0 in dead and distributed.member() == 0:
+            obs_log.warn(f"SERVE RESCUE: member 0's device lost ({exc}); "
+                         f"serving on from the host over {survivors}")
+            self._become_front(survivors, walls)
+            return list(dead)
+        self._fronted = self._fronted or 0 in dead
         if distributed.member() not in survivors:
             raise RankLeftError(
                 f"member {distributed.member()} was declared lost by the "
@@ -679,12 +908,17 @@ class PprServer:
         walls["regroup"] = time.perf_counter() - t
         t = time.perf_counter()
         self._join_group()
-        engine = self._engine_factory(list(self._members))
+        with self._state_lock:
+            members = list(self._members)
+        engine = self._engine_factory(members)
         walls["rebuild"] = time.perf_counter() - t
         with self._state_lock:
             self._engine = engine
             self._degraded = True
-        self._group_open = True
+        if self._fronted:
+            self._chan_gen = distributed.generation()
+            self._chan_seq = 0
+        self._group_open = not self._fronted
         self.rescue_walls.append(walls)
         return list(dead)
 
@@ -699,15 +933,17 @@ class PprServer:
             if self._grouped:
                 # The followers see the group go, find member 0 missing
                 # from the roll call, and end.
-                self._group_open = False
-                distributed.abandon_group()
+                with self._dispatch_lock:
+                    self._group_open = False
+                    distributed.abandon_group()
             raise ElasticExhaustedError(
                 f"serving rescue budget spent ({rescues} rescues): {exc}",
                 tuple(getattr(exc, "device_ids", ())), rescues,
             )
         if self._grouped:
             with self._dispatch_lock:
-                dead = self._group_rescue(exc)
+                dead = (self._front_rescue(exc) if self._front
+                        else self._group_rescue(exc))
             with self._state_lock:
                 self._rescues_done += 1
                 width = len(self._members)

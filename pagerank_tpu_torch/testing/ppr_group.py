@@ -17,14 +17,27 @@ name, as JSON) and ``layout`` (``layout_info`` as JSON).
 ``serve_plan(payload)``: ``{"edges": ..., "out": ..., "device": ...,
 "config": PageRankConfig fields, "serve": ServeConfig fields,
 "batches": [[source, ...], ...], "kill": ProcessKillPlan env spec or
-None}``. Every rank builds one ``PprServer`` over the group (a virtual
-clock on rank 0); the other ranks follow, rank 0 serves each batch in
-pump mode (``max_batch`` queries, so each closes full) and drains.
-Rank 0 writes ``serve.npz``: ``outcomes`` (one a query, in order),
-``ids`` and ``scores`` [queries, k], ``device_ids``, ``rescues``,
-``walls`` (the rescues' parts, as JSON) and ``counters`` (the
-``serve.*`` counters, as JSON); a follower writes ``follower.m<member>
-.npz`` with its ``status`` (``stopped``, ``left`` or ``terminal``).
+None, "device_kill": DeviceFaultSchedule ``kill`` plan or None,
+"echo_hang": {"batch": b, "seconds": s} or None}``.
+Every rank builds one ``PprServer`` over the group (a virtual clock on
+rank 0); the other ranks follow, rank 0 serves each batch in pump mode
+(``max_batch`` queries, so each closes full) and drains. The kill
+plan's iteration is the dispatch's sequence number (the warm-up is 0,
+batch i is i + 1) on rank 0 too; ``device_kill`` (``{batch: member}``,
+seed 11) goes through ``testing/load.install_serve_faults`` on rank 0:
+the JAX daemon test's schedule. ``echo_hang`` makes rank 0's batch
+``b`` raise a ``DeviceLostError`` that names no member, and rank 0's
+own echo answer false only after ``s`` seconds: a hung card, found by
+the echo alone. Rank 0 writes ``serve.npz``:
+``outcomes`` (one a query, in order), ``ids`` and ``scores`` [queries,
+k], ``device_ids``, ``device_count``, ``degraded``, ``rescues``,
+``fatal`` (the terminal error's repr, or empty), ``walls`` (the
+rescues' parts, as JSON), ``counters`` (the ``serve.*``
+counters, as JSON) and ``runs`` (its engine runs by batch: the calls
+of ``PprTorchEngine.run`` in this process before each batch and after
+the last); a follower writes ``follower.m<member>.npz`` with its
+``status`` (``stopped``, ``left`` or ``terminal``) and ``runs``, its
+engine runs in all. A terminal follower then exits 1.
 """
 
 from __future__ import annotations
@@ -100,6 +113,43 @@ def run_engine_cases(payload) -> int:
     return 0
 
 
+def _count_runs():
+    """Count this process's ``PprTorchEngine.run`` calls."""
+    from pagerank_tpu_torch.engines.ppr import PprTorchEngine
+
+    box = {"runs": 0}
+    run = PprTorchEngine.run
+
+    def counted(self, *a, **kw):
+        box["runs"] += 1
+        return run(self, *a, **kw)
+    PprTorchEngine.run = counted
+    return box
+
+
+def _hang_echo(srv, batch: int, seconds: float) -> None:
+    import time
+
+    from pagerank_tpu_torch.parallel.elastic import DeviceLostError
+
+    execute, state = srv._execute, {"batch": 0, "fired": False}
+
+    def shimmed(sources):
+        if state["batch"] == batch and not state["fired"]:
+            state["fired"] = True
+            raise DeviceLostError(f"injected silent loss at serve batch "
+                                  f"{batch}", device_ids=[])
+        out = execute(sources)
+        state["batch"] += 1
+        return out
+
+    def echo(device):
+        time.sleep(seconds)
+        return False
+
+    srv._execute, srv._echo_own = shimmed, echo
+
+
 def serve_plan(payload) -> int:
     import torch
 
@@ -108,7 +158,9 @@ def serve_plan(payload) -> int:
     from pagerank_tpu_torch.parallel.elastic import (ElasticExhaustedError,
                                                      RankLeftError)
     from pagerank_tpu_torch.serving.daemon import PprServer, ServeConfig
-    from pagerank_tpu_torch.testing.faults import ProcessKillPlan
+    from pagerank_tpu_torch.testing.faults import (DeviceFaultSchedule,
+                                                   ProcessKillPlan)
+    from pagerank_tpu_torch.testing.load import install_serve_faults
     from pagerank_tpu_torch.testing.schedules import VirtualClock
     from pagerank_tpu_torch.utils.config import PageRankConfig
 
@@ -118,6 +170,7 @@ def serve_plan(payload) -> int:
     if payload.get("kill"):
         os.environ[ProcessKillPlan.ENV] = payload["kill"]
     graph = _graph(payload["edges"])
+    box = _count_runs()
     obs_metrics.get_registry().reset()
     clock = VirtualClock()
     srv = PprServer(graph,
@@ -134,13 +187,24 @@ def serve_plan(payload) -> int:
         except ElasticExhaustedError:
             status = "terminal"
         np.savez(os.path.join(payload["out"], f"follower.m{me}.npz"),
-                 status=np.array(status))
-        return 0
+                 status=np.array(status), runs=np.int64(box["runs"]))
+        return 1 if status == "terminal" else 0
     srv.start(dispatcher=False)
-    handles = []
-    for batch in payload["batches"]:
+    if payload.get("device_kill"):
+        install_serve_faults(srv, DeviceFaultSchedule(
+            seed=11, kill={int(k): v
+                           for k, v in payload["device_kill"].items()}))
+    if payload.get("echo_hang"):
+        _hang_echo(srv, **payload["echo_hang"])
+    kill = ProcessKillPlan.from_env()
+    handles, runs = [], []
+    for i, batch in enumerate(payload["batches"]):
+        if kill is not None:
+            kill.check("serve", i + 1)
+        runs.append(box["runs"])
         handles += [srv.submit(int(s)) for s in batch]
         srv.pump()
+    runs.append(box["runs"])
     srv.drain()
     k = srv.serve_config.topk
     ids = np.full((len(handles), k), -1, np.int64)
@@ -154,6 +218,10 @@ def serve_plan(payload) -> int:
                                 for q in handles]),
              ids=ids, scores=scores,
              device_ids=np.array(srv.device_ids(), np.int64),
+             device_count=np.int64(srv.device_count),
+             degraded=np.bool_(srv.degraded),
+             fatal=np.array(repr(srv.fatal) if srv.fatal else ""),
+             runs=np.array(runs, np.int64),
              rescues=np.int64(srv.rescues_done),
              walls=np.array(json.dumps(srv.rescue_walls)),
              counters=np.array(json.dumps(

@@ -586,7 +586,7 @@ def test_cli_fixture_exits_1_with_exactly_its_rule(capsys, fixture):
 
 
 @pytest.mark.parametrize("argv", [["--kernel-fixture", "nope"],
-                                  ["--select", "PTL"],
+                                  ["--select", "PTH"],
                                   ["--select", "PTK,PTC"],
                                   ["--allowlist", "/nonexistent/x.txt"]])
 def test_cli_usage_errors_exit_2(capsys, argv):
@@ -594,12 +594,17 @@ def test_cli_usage_errors_exit_2(capsys, argv):
 
 
 def test_cli_names_slice_8_for_later_families(capsys):
-    analysis_main(["--select", "PTR"])
-    assert "slice 8" in capsys.readouterr().err
+    """PTL and PTR came with slice 8b; the jaxpr contracts (PTC) stay
+    out: the refusal names ROADMAP.md's not-applicable list."""
+    assert analysis_main(["--select", "PTC"]) == 2
+    err = capsys.readouterr().err
+    assert "PTC (the jaxpr contracts): not applicable to the port" in err
+    assert "ROADMAP.md's not-applicable list" in err
 
 
 def test_cli_json_keys(capsys):
-    assert analysis_main(["--json", "--allowlist", "none"]) == 0
+    assert analysis_main(["--json", "--select", "PTK",
+                          "--allowlist", "none"]) == 0
     doc = json.loads(capsys.readouterr().out)
     assert set(doc) == {"version", "ok", "compiled", "counts", "findings",
                         "waived"}
@@ -620,8 +625,10 @@ def test_cli_fixture_all_json_finding_keys(capsys):
 def test_cli_list_rules(capsys):
     assert analysis_main(["--list-rules"]) == 0
     out = capsys.readouterr().out
-    assert [ln.split()[0] for ln in out.splitlines()] == [
-        "PTK001", "PTK002", "PTK003", "PTK004", "PTK005"]
+    assert [ln.split()[0] for ln in out.splitlines()] == (
+        [f"PTL00{i}" for i in range(1, 9)]
+        + [f"PTR00{i}" for i in range(1, 7)]
+        + ["PTK001", "PTK002", "PTK003", "PTK004", "PTK005"])
 
 
 def test_cli_compiled_without_the_toolkit_exits_2(capsys, monkeypatch):

@@ -66,6 +66,10 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.analysis.kernels, "
         "pagerank_tpu_torch.analysis.resources, "
         "pagerank_tpu_torch.analysis.__main__, "
+        "pagerank_tpu_torch.analysis.lint, "
+        "pagerank_tpu_torch.analysis.concurrency, "
+        "pagerank_tpu_torch.analysis.roots, "
+        "pagerank_tpu_torch.obs.__main__, "
         "pagerank_tpu_torch.obs.costs, pagerank_tpu_torch.ingest, "
         "pagerank_tpu_torch.ingest.native, "
         "pagerank_tpu_torch.ingest.external, "
