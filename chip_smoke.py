@@ -304,8 +304,9 @@ What it does, in order:
      ``ProcessKillPlan``: exit 0, one rescue in the run report, the
      ranks within 1e-12 of the one-device run; (c) the CLI under NCCL
      in a group of one, ``--num-devices 1 --vertex-sharded
-     --stall-action rescue`` on phase 3's edges: K1 10 launches, ranks
-     bit-equal to phase 3's; then a loss of its only device injected in
+     --stall-action rescue`` on (a)'s edges (phase 3's until the cut
+     that kept the script inside its limit with phase 21): K1 10
+     launches, ranks bit-equal to (a)'s one-device flat run; then a loss of its only device injected in
      a subprocess ends in ElasticExhaustedError, a non-zero exit, no
      hang;
  17. PPR and its daemon over a process group (run after phase 16, on
@@ -396,9 +397,26 @@ What it does, in order:
      --device-build`` on the card (the mass ledger reconciled), and
      ``analysis --select PTL,PTR`` (exit 0); the phase prints its
      seconds;
- 21. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+ 21. the standing acceptance runs on the card (run after phase 20;
+     ``pagerank_tpu_torch.scripts.acceptance``, each key's runner in
+     this process at the JAX script's sizes and under its gates and the
+     card's budgets): A (rmat:20, 20 iterations) in f64/f64 against the
+     f64 oracle (raw and mass-normalised L1 <= 1e-6), the smokes F, G,
+     H, K, R, U and W, and the group smoke L (three gloo ranks on
+     cuda:0, member 2 lost at iteration 6). The counts are set to 0
+     before each key and read after: K1 launched iterations + 1 (the
+     warm step) in A through its ``ell_contrib_f64_f64`` entry, K2 the
+     steps of K (K1 0 there), K1w and the probe and fixture kernels 0
+     in every key; L's K1 launches are its ranks', each counted from 0
+     before the chaos run: 12 on each survivor (6 at world 3, 6 at
+     world 2, no step recomputed), 6 on the victim, none in this
+     process; every record passed; P's gates are phase 12's and T (A's
+     graph, textbook) is the script's, not run here; the phase prints
+     its seconds;
+ 22. prints one JSON line with every kernel's numbers (K1, K2, K1w on
      the PPR path with its tile sweep and its record over a group, P1
-     and P2 at K1's slots, P3 at n = 2^15 f32, F1-F6), then last
+     and P2 at K1's slots, P3 at n = 2^15 f32, F1-F6; K1 and K2 with
+     phase 21's ``acceptance`` record), then last
      ``{"ok": true, "device": {...}}``.
 
 Every byte bound comes from the registry's cost models
@@ -4365,22 +4383,10 @@ def phase15_rank(payload) -> int:
     return 0
 
 
-def sharded_inputs(tmp, graph, span, refs):
-    """What phases 15 and 16 need from phases 3 and 5, kept on disk until
-    they run (after phase 14): the main path's deduplicated edges, the
-    span and the one-device runs' ranks (flat, part_f32, part_bf16)."""
-    import numpy as np
-
-    d = os.path.join(tmp, "sharded")
-    os.makedirs(d, exist_ok=True)
-    np.savez(os.path.join(d, "edges.npz"), src=graph.src, dst=graph.dst,
-             n=graph.n)
-    np.savez(os.path.join(d, "refs.npz"), span=span, **refs)
-
-
 def sharded_phase(tmp):
-    """Phase 15 (see the module docstring), from ``sharded_inputs``'s
-    files. Returns the phase's numbers for the kernels line."""
+    """Phase 15 (see the module docstring), on its own rmat:SHARD_SCALE
+    graph, whose files phase 16 reads too. Returns the phase's numbers
+    for the kernels line."""
     import numpy as np
 
     from pagerank_tpu_torch import cli
@@ -4389,8 +4395,9 @@ def sharded_phase(tmp):
     t0 = time.perf_counter()
     card = card_identity()
     d = os.path.join(tmp, "sharded")
+    os.makedirs(d, exist_ok=True)
     # (a), (b) and (c) on their own rmat:SHARD_SCALE graph and
-    # references, which phase 16(a) reads too.
+    # references, which phase 16(a) and (c) read too.
     n, span, refs, flat_ms = _shard_refs(d)
     np.savez(os.path.join(d, "refs_a.npz"), span=span, **refs)
     codes = distributed.spawn_group(
@@ -4800,14 +4807,11 @@ def elastic_phase(tmp):
     t0 = time.perf_counter()
     card = card_identity()
     d = os.path.join(tmp, "sharded")
-    # (a) on phase 15(a)'s rmat:SHARD_SCALE graph and references; (c) on
-    # phase 3's edges and ranks.
+    # (a) and (c) on phase 15(a)'s rmat:SHARD_SCALE graph and references.
     with np.load(os.path.join(d, "refs_a.npz")) as f:
         refs_a = {k: f[k] for k in f.files}
     span = int(refs_a.pop("span"))
-    with np.load(os.path.join(d, "refs.npz")) as f:
-        refs = {k: f[k] for k in f.files}
-    edges = os.path.join(d, "edges.npz")
+    edges = os.path.join(d, "edges_a.npz")
     d16 = os.path.join(tmp, "elastic")
     os.makedirs(d16, exist_ok=True)
 
@@ -4932,9 +4936,9 @@ def elastic_phase(tmp):
     ranks = np.array([float(ln.split("\t")[1]) for ln in open(out)],
                      np.float32)
     _check(rc == 0 and k1 == ITERS and k2n == 0
-           and np.array_equal(ranks, refs["flat"]),
-           f"16(c): rc {rc}, K1 {k1}, K2 {k2n}, bit-equal to phase 3 "
-           f"{np.array_equal(ranks, refs['flat'])}")
+           and np.array_equal(ranks, refs_a["flat"]),
+           f"16(c): rc {rc}, K1 {k1}, K2 {k2n}, bit-equal to 15(a)'s "
+           f"one-device ranks {np.array_equal(ranks, refs_a['flat'])}")
     code = (
         "import sys\n"
         "from pagerank_tpu_torch import cli\n"
@@ -4960,8 +4964,9 @@ def elastic_phase(tmp):
            f"16(c): the lost device: exit {p.returncode}, stderr "
            f"{p.stderr[-600:]}")
     print(f"phase 16(c) on {card}: CLI --num-devices 1 --vertex-sharded "
-          f"--stall-action rescue under NCCL (a group of one) bit-equal to "
-          f"phase 3's ranks, K1 {k1} launches, "
+          f"--stall-action rescue under NCCL (a group of one) at rmat:"
+          f"{SHARD_SCALE} bit-equal to 15(a)'s one-device ranks, K1 {k1} "
+          f"launches, "
           f"{time.perf_counter() - tc - lost_s:.1f} s; its only device lost "
           f"at iteration 3 (injected): exit {p.returncode}, "
           f"ElasticExhaustedError (\"no surviving devices\"), "
@@ -6021,6 +6026,82 @@ def member0_phase(tmp, preflight, dev="cuda"):
     return got
 
 
+#: Phase 21's keys of the acceptance script, in its order. T (A's graph
+#: at 50 textbook steps, 16.5 s on the card) is left to the script's
+#: default set, to keep the whole run well inside its limit.
+ACCEPTANCE_KEYS = ("F", "A", "G", "H", "K", "R", "U", "W", "L")
+
+
+def acceptance_phase(dev="cuda"):
+    """Phase 21: the acceptance script's keys on the card, in process;
+    returns the K1 and K2 records of the kernels line."""
+    from pagerank_tpu_torch.scripts import acceptance as acc
+
+    t_phase = time.perf_counter()
+    k1, k2 = {}, {}
+    for key in ACCEPTANCE_KEYS:
+        _reset_counts()
+        t0 = time.perf_counter()
+        rec = acc.runner_of(key)(key, dev)
+        wall = time.perf_counter() - t0
+        l1, l2, other = _read_counts()
+        _check(rec["passed"], f"21 acceptance key {key} failed: "
+               f"{json.dumps(rec, default=str)[:2000]}")
+        _check(not any(other.values()),
+               f"21 key {key} launched K1w or a probe or fixture kernel: "
+               f"{other}")
+        if key == "A":
+            _check(l1 == rec["iters"] + 1 == rec["k1_launches"] and l2 == 0
+                   and rec["k1_entry"] == "ell_contrib_f64_f64",
+                   f"21 key {key}: K1 {l1} ({rec['k1_entry']}), K2 {l2} in "
+                   f"{rec['iters']} steps and the warm step")
+            k1[key] = {n: rec[n] for n in (
+                "scale", "iters", "semantics", "num_edges", "normalized_l1",
+                "mass_normalized_l1", "device_seconds",
+                "edges_per_sec_per_chip", "k1_entry")}
+            k1[key].update(launches=l1, wall_s=wall)
+            what = (f"{rec['form']} f64/f64 rmat:{rec['scale']} "
+                    f"{rec['semantics']}, {rec['iters']} steps "
+                    f"{rec['device_seconds'] * 1e3:.3f} ms "
+                    f"({rec['edges_per_sec_per_chip']:.4g} edges/s), L1 "
+                    f"{rec['normalized_l1']:.3e} / "
+                    f"{rec['mass_normalized_l1']:.3e}")
+        elif key == "K":
+            want = acc.CONFIGS["K"]["iters"]
+            _check(l2 == want and l1 == 0,
+                   f"21 key K: K2 {l2} (want {want}), K1 {l1}")
+            k2[key] = {"launches": l2, "seconds": rec["seconds"],
+                       "wall_s": wall}
+            what = f"partitioned CLI run, span {rec['partition_span']}"
+        elif key == "L":
+            # L's launches are its three ranks': each survivor's every
+            # step (none recomputed after the rescue), the victim's steps
+            # before the kill; none in this process.
+            spec = acc.CONFIGS["L"]
+            want = {str(m): spec["kill_iter"] if m == acc.LOSS_MEMBER
+                    else spec["iters"] for m in range(acc.LOSS_WORLD)}
+            got = {str(m): c for m, c in rec["k1_launches"].items()}
+            _check(got == want and l1 == 0 and l2 == 0,
+                   f"21 key L: K1 by member {got} (want {want}), in this "
+                   f"process K1 {l1}, K2 {l2}")
+            k1[key] = {"launches": got, "wall_s": wall}
+            what = f"elastic, K1 by member {got}"
+            l1 = sum(got.values())
+        else:
+            k1[key] = {"launches": l1, "wall_s": wall}
+            what = rec["kind"]
+        print(f"phase 21 [{key}] {what}: PASS; K1 {l1}, K2 {l2} launches; "
+              f"{wall:.1f} s"
+              + (f" (timed {rec['seconds']:.3f} s, budget "
+                 f"{rec['budget_s']:g} s)" if "budget_s" in rec else ""))
+    acc._GRAPHS.clear()
+    acc._ORACLES.clear()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 21 took {seconds:.1f} s")
+    k1["phase_s"] = seconds
+    return {"K1": k1, "K2": k2}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -6068,9 +6149,6 @@ def main(argv=None) -> int:
                 "arrays": dict(eng32._arrays), "perm": eng32._perm}
         coo = coo_phase(graph, oracle, flat_eng,
                         part_report["f32"]["ms_per_iter"])
-        sharded_inputs(tmp, graph, part["span"], {
-            "flat": flat["ranks"], "part_f32": part["ranks"],
-            "part_bf16": part_report["bfloat16"]["ranks"]})
         del graph, oracle, flat_eng
         k2 = k2_checks(eng32, eng16)
         k2["launches"] = part_report["f32"]["launches"]
@@ -6131,6 +6209,9 @@ def main(argv=None) -> int:
         ppr_group = ppr_group_phase(tmp)
         mesh5 = mesh_job_phase(tmp)
         front = member0_phase(tmp, seen["preflight"])
+        acceptance = acceptance_phase()
+        k1["acceptance"], k2["acceptance"] = (acceptance["K1"],
+                                              acceptance["K2"])
         k1["mesh"] = {n: mesh5[n] for n in (
             "edge_flat", "edge_flat_probed", "vertex_sharded",
             "vertex_sharded_probed", "edge_flat_device",

@@ -1,5 +1,5 @@
 """The port stands alone: no file of pagerank_tpu_torch/, and not
-chip_smoke.py, imports jax, jaxlib or pagerank_tpu; importing the
+chip_smoke.py or chip_rehearse.py, imports jax, jaxlib or pagerank_tpu; importing the
 package loads no jax; and it imports with no triton and no nvcc, since
 the kernels are built lazily, at first launch."""
 
@@ -18,7 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "pagerank_tpu")
 def _port_files():
     files = sorted((REPO / "pagerank_tpu_torch").rglob("*.py"))
     assert len(files) > 10
-    return files + [REPO / "chip_smoke.py"]
+    return files + [REPO / "chip_smoke.py", REPO / "chip_rehearse.py"]
 
 
 def _imported_roots(path):
@@ -62,6 +62,7 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.ops.device_build, "
         "pagerank_tpu_torch.ops.gather_probe, "
         "pagerank_tpu_torch.scripts.probe_gather, "
+        "pagerank_tpu_torch.scripts.acceptance, "
         "pagerank_tpu_torch.ops.defect_fixtures, "
         "pagerank_tpu_torch.analysis.kernels, "
         "pagerank_tpu_torch.analysis.resources, "
