@@ -1,20 +1,31 @@
 """Rehearse a few of chip_smoke.py's checks on one card, alone.
 
     python3 chip_rehearse.py [--rounds N]
+    python3 chip_rehearse.py --only profiler [--rounds N]
+    python3 chip_rehearse.py --only bench [--out DIR]
 
-Builds the kernels, then:
+Builds the kernels, then, by default:
 
   1. builds the flat, partitioned f32 and partitioned bf16 engines on
      chip_smoke.py's rmat:22 main-path graph and runs its phase-4/6
      ``step_breakdown`` (torch.profiler over 10 steps) ``N`` times on
-     each (default 15), counting the splits whose profiled launches fall
-     short of the steps; a short split is counted, not fatal;
+     each (default 15), counting the profiled windows whose launches fall
+     short of the steps (phase 6 profiles such a window again when the
+     kernel's wrapper counted one launch a step); a short window is
+     counted, not fatal;
   2. phase 16 on phase 15(a)'s rmat:20 graph and references;
   3. phase 21, the acceptance keys.
 
-Phases 16 and 21 fail as in chip_smoke.py. Exits 0 when they passed and
-no split was short, 1 otherwise. Needs a CUDA card and a checkout of the
-repo beside it.
+With ``--only profiler``: step 1 alone. With ``--only bench``: chip_smoke.py's phase 22 (the bench in single
+mode, the acceptance keys D, N and AA in process), then each mode of
+``python -m pagerank_tpu_torch.bench`` as a subprocess at the sizes of
+``BENCH_MODES`` (couple, single, ``--build-only``, ``--multichip`` over
+two ranks, ``--ppr-serve``), each record written to ``--out`` (default
+``build/bench_records``) and its headline printed.
+
+The phases fail as in chip_smoke.py; a bench mode fails on a non-zero
+exit. Exits 0 when they passed and no split was short, 1 otherwise.
+Needs a CUDA card and a checkout of the repo beside it.
 """
 
 import argparse
@@ -24,6 +35,79 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+
+#: (mode, arguments) of each bench run of ``--only bench``.
+BENCH_MODES = (
+    ("couple", ["--scale", "20", "--iters", "10", "--accuracy-scale",
+                "18"]),
+    ("single", ["--dtype", "float32", "--scale", "22", "--iters", "10",
+                "--accuracy-scale", "18"]),
+    ("build_only", ["--build-only", "--scale", "22"]),
+    ("multichip", ["--multichip", "--scale", "18", "--multichip-devices",
+                   "2", "--iters", "10", "--accuracy-scale", "18"]),
+    ("ppr_serve", ["--ppr-serve", "--scale", "20", "--iters", "20"]),
+)
+
+
+def _headline(mode, doc):
+    """One line of a bench record's headline numbers."""
+    if mode == "build_only":
+        return (f"f64 {doc['f64']['build_s']:.3f} s, f32 "
+                f"{doc['f32']['build_s']:.3f} s, f64 warm "
+                f"{doc['f64_warm']['build_s']:.3f} s")
+    if mode == "ppr_serve":
+        return (f"{doc['value']:.4g} queries/s, p50 {doc['p50_ms']:.3f} ms, "
+                f"p99 {doc['p99_ms']:.3f} ms, shed "
+                f"{doc['shed_fraction']:.3f}, K1w "
+                f"{doc['layout']['launches']['K1w']} in "
+                f"{doc['layout']['batches']} batches")
+    if mode == "multichip":
+        legs = ("single_chip", "dense_exchange", "sparse_exchange",
+                "sparse_async", "pallas_partitioned")
+        return ", ".join(f"{k} {doc[k]['ms_per_iter']:.3f} ms/iter"
+                         for k in legs) + (
+            f"; L1 {doc['accuracy']['normalized_l1_vs_f64_oracle']:.3e}")
+    head = (f"{doc['value']:.4g} edges/s, "
+            f"{doc['costs']['step']['seconds_per_iter'] * 1e3:.4f} ms/iter")
+    for leg in ("fast_f32", "partitioned_f32", "fast_bf16"):
+        if leg in doc:
+            head += (f"; {leg} {doc[leg]['value']:.4g} edges/s, "
+                     f"{doc[leg]['costs']['step']['seconds_per_iter'] * 1e3:.4f}"
+                     f" ms/iter")
+    acc = doc.get("accuracy")
+    if acc:
+        head += f"; L1 {acc['normalized_l1_vs_f64_oracle']:.3e}"
+    return head
+
+
+def bench_modes(out_dir):
+    """Each BENCH_MODES run as ``python -m pagerank_tpu_torch.bench``;
+    returns the modes that failed."""
+    import json
+    import subprocess
+
+    os.makedirs(out_dir, exist_ok=True)
+    failed = []
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    for mode, argv in BENCH_MODES:
+        out = os.path.join(out_dir, f"{mode}.json")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "pagerank_tpu_torch.bench",
+                            *argv, "--out", out], capture_output=True,
+                           text=True, cwd=ROOT, env=env, timeout=900)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(out_dir, f"{mode}.err"), "w") as f:
+            f.write(r.stderr)
+        if r.returncode != 0:
+            failed.append(mode)
+            print(f"bench {mode}: exit {r.returncode}: {r.stderr[-1500:]}",
+                  flush=True)
+            continue
+        with open(out) as f:
+            doc = json.load(f)
+        print(f"bench {mode} ({' '.join(argv)}): exit 0 in {wall:.1f} s: "
+              f"{_headline(mode, doc)}", flush=True)
+    return failed
 
 
 def profiler_rounds(rounds):
@@ -51,7 +135,11 @@ def profiler_rounds(rounds):
     for r in range(rounds):
         for eng, label, symbol in forms:
             try:
-                cs.step_breakdown(eng, label, symbol)
+                got = cs.step_breakdown(eng, label, symbol)
+                if got["short_windows"]:
+                    short[label].append(
+                        (r, f"{got['short_windows']} short window(s), "
+                            f"then a whole one"))
             except AssertionError as e:
                 short[label].append((r, str(e)[:200]))
     for label, got in short.items():
@@ -64,6 +152,12 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rounds", type=int, default=15,
                    help="profiled splits a kernel (default 15)")
+    p.add_argument("--only", choices=["bench", "profiler"], default=None,
+                   help="rehearse phase 22 and the bench CLI's modes, or "
+                   "only the profiled splits, instead")
+    p.add_argument("--out", default=os.path.join(ROOT, "build",
+                                                 "bench_records"),
+                   help="where --only bench writes the bench records")
     args = p.parse_args(argv)
     import numpy as np
     import torch
@@ -77,7 +171,15 @@ def main(argv=None) -> int:
     t_all = time.perf_counter()
     cs.card_identity()
     cs.build_kernels()
+    if args.only == "bench":
+        cs.bench_phase()
+        failed = bench_modes(args.out)
+        print(f"chip_rehearse took {time.perf_counter() - t_all:.1f} s")
+        return 1 if failed else 0
     short = profiler_rounds(args.rounds)
+    if args.only == "profiler":
+        print(f"chip_rehearse took {time.perf_counter() - t_all:.1f} s")
+        return 1 if any(short.values()) else 0
     torch.cuda.empty_cache()
     scratch = os.path.join(ROOT, "build")
     os.makedirs(scratch, exist_ok=True)

@@ -38,7 +38,10 @@ What it does, in order:
      twin and one torch.sparse.mm of the same matrix as a yardstick,
      beside K1's byte bound; then splits a main-path step's time by
      kernel with torch.profiler (K1 once a step, no pass-2 kernel, the
-     elementwise kernels, the device's idle share);
+     elementwise kernels, the device's idle share; K1's wrapper must
+     count one launch a profiled step, and a window where the profiler
+     shows fewer, a record it dropped, is profiled again, up to three
+     windows);
   5. the partition-centric path on the graph phase 3 built: the span
      from the CLI's resolver at -1, a TorchEngine on cuda for 10
      iterations in f32 and again with the bf16 window stream. The
@@ -413,11 +416,34 @@ What it does, in order:
      process; every record passed; P's gates are phase 12's and T (A's
      graph, textbook) is the script's, not run here; the phase prints
      its seconds;
- 22. prints one JSON line with every kernel's numbers (K1, K2, K1w on
+ 22. the port's bench CLI and the measurement campaign (run after phase
+     21; ``pagerank_tpu_torch.bench``, ``obs/campaign.py`` and the
+     acceptance keys D, N and AA, each in this process): (a)
+     ``bench.main`` in single mode, f32, rmat:BENCH_SCALE (20) built on
+     the card, 10 iterations after 2 of warm-up, ``--no-accuracy``: the
+     counts set to 0 before and read after, K1 launched warm-up +
+     iterations times (and its layout record says so), K2, K1w and the
+     probe and fixture kernels 0, the step's roofline fraction in (0,
+     1]; prints ms/iter and edges/s with the card's name and power
+     limit; (b) key D: the f64/f64 device build at rmat:18 with every
+     ``BUILD_STAGE_KEYS`` stage; (c) key N: a fresh bench subprocess
+     into a copy of the history ledger, the gate's drift and regression
+     verdicts; (d) key AA: ``obs campaign run --fake-devices 2`` on the
+     card, its multichip leg over two gloo ranks sharing cuda:0, every
+     leg done and the four verdicts ``defer``; each bench leg's
+     ``layout`` (rank 0's for the group legs) names the kernel that
+     ``acceptance.AA_LEGS`` gives it (couple f64 and fast_f32, the
+     vertex-sharded legs: K1; partitioned_f32, fast_bf16,
+     pallas_partitioned: K2; ppr_serve: K1w) and counts exactly one
+     launch of it a step, its steps those of ``AA_LEGS`` (warm-up,
+     timed and attribution steps; the daemon's, its warm-up's and
+     batches' iterations), and no launch of the other two. Every record
+     passed; the phase prints its seconds;
+ 23. prints one JSON line with every kernel's numbers (K1, K2, K1w on
      the PPR path with its tile sweep and its record over a group, P1
      and P2 at K1's slots, P3 at n = 2^15 f32, F1-F6; K1 and K2 with
-     phase 21's ``acceptance`` record), then last
-     ``{"ok": true, "device": {...}}``.
+     phase 21's ``acceptance`` record, K1, K2 and K1w with phase 22's
+     ``bench`` record), then last ``{"ok": true, "device": {...}}``.
 
 Every byte bound comes from the registry's cost models
 (``pagerank_tpu_torch/analysis/kernels.py``: ``k1_cost``, ``k2_cost``,
@@ -872,10 +898,12 @@ OLD_PASSES = ("segment_partials", "block_sums", "pair_segment_partials",
               "pair_sums")
 
 
-def _profile_steps(step, steps):
+def _profile_steps(step, steps, wrapper=None):
     """(host wall ms a step over ``steps`` unprofiled steps, then over
     as many steps under torch.profiler: {kernel: device ms a step},
-    {kernel: launches}, the host ops' names)."""
+    {kernel: launches}, the host ops' names, and the launches that a
+    kernel's ``wrapper`` module counted in the profiled steps, None
+    without one)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -893,7 +921,9 @@ def _profile_steps(step, steps):
                  schedule=schedule(wait=0, warmup=1, active=steps),
                  on_trace_ready=lambda p: traced.append(p.key_averages())
                  ) as prof:
-        for _ in range(steps + 1):
+        for i in range(steps + 1):
+            if i == 1 and wrapper is not None:
+                before = wrapper.launches
             step()
             torch.cuda.synchronize()
             prof.step()
@@ -910,13 +940,20 @@ def _profile_steps(step, steps):
             us = ev.self_cuda_time_total
         per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + us / 1e3 / steps
         calls[ev.key] = calls.get(ev.key, 0) + ev.count
-    return wall_ms, per_kernel, calls, ops
+    counted = None if wrapper is None else wrapper.launches - before
+    return wall_ms, per_kernel, calls, ops, counted
 
 
 def _named(k, p):
     """Whether kernel name ``k`` has ``p`` not preceded by a letter or
     "_"."""
     return re.search(rf"(?<![A-Za-z_]){p}", k) is not None
+
+
+#: Profiled windows a step breakdown may take: torch.profiler now and
+#: then shows fewer of a window's kernel records than the wrapper
+#: launched (PERF.md §7), so such a window is profiled again.
+PROFILE_TRIES = 3
 
 
 def step_breakdown(engine, kernel="K1", symbol="ell_contrib_kernel",
@@ -927,11 +964,34 @@ def step_breakdown(engine, kernel="K1", symbol="ell_contrib_kernel",
     ``symbol`` (launched once a step), the step's other (elementwise)
     kernels — and the device's idle share of the unprofiled wall. Fails
     if a pass-2 kernel of the first form, an ``index_add_`` or a slice
-    add of the old pair expansion runs in the step."""
-    engine.step()
-    wall_ms, per_kernel, calls, ops = _profile_steps(engine.step, steps)
+    add of the old pair expansion runs in the step, or if a window shows
+    more of the path's launches than steps. The kernel's wrapper must
+    count exactly one launch a profiled step; a window where it does but
+    the profiler shows fewer (a record the profiler dropped) is
+    profiled again, up to PROFILE_TRIES windows, and fails the check
+    when every one is short. ``short_windows`` counts the short
+    windows."""
+    from pagerank_tpu_torch.ops import ell_spmv, ell_spmv_partitioned
 
-    mine = [k for k in per_kernel if _named(k, symbol)]
+    wrapper = {"ell_contrib_kernel": ell_spmv,
+               "ell_contrib_part_kernel": ell_spmv_partitioned}[symbol]
+    engine.step()
+    short = 0
+    while True:
+        wall_ms, per_kernel, calls, ops, counted = _profile_steps(
+            engine.step, steps, wrapper)
+        _check(counted == steps,
+               f"{kernel}: the wrapper counted {counted} launches in "
+               f"{steps} profiled steps")
+        mine = [k for k in per_kernel if _named(k, symbol)]
+        seen = sum(calls[k] for k in mine)
+        if seen >= steps:
+            break
+        short += 1
+        if short == PROFILE_TRIES:
+            break
+        print(f"{kernel}: the profiled window shows {seen} launches for "
+              f"the wrapper's {counted}; profiling again")
     k_ms = sum(per_kernel[k] for k in mine)
     old = [k for k in per_kernel if any(_named(k, p) for p in OLD_PASSES)
            or "index" in k.lower()]
@@ -943,18 +1003,18 @@ def step_breakdown(engine, kernel="K1", symbol="ell_contrib_kernel",
                  reverse=True)[:6]
     print(f"{kernel} step breakdown over {steps} steps: wall {wall_ms:.4f} "
           f"ms/step; device busy {busy:.4f} ms/step = {kernel} {k_ms:.4f} "
-          f"({sum(calls[k] for k in mine)} launches) + other kernels "
+          f"({seen} launches) + other kernels "
           f"{other:.4f}; device idle {1 - busy / wall_ms:.1%} of the wall")
     for v, k in top:
         print(f"  other kernel {v:.4f} ms/step: {k[:100]}")
-    _check(k_ms > 0 and sum(calls[k] for k in mine) == steps,
-           f"the profiled steps show {sum(calls[k] for k in mine)} {kernel} "
-           f"launches for {steps} steps")
+    _check(k_ms > 0 and seen == steps,
+           f"the profiled steps show {seen} {kernel} launches for {steps} "
+           f"steps")
     _check(not old and not expand_ops,
            f"a pass-2 or expansion kernel runs in the {kernel} step: "
            f"{old} {expand_ops}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "kernel_ms": k_ms,
-            "other_ms": other}
+            "other_ms": other, "short_windows": short}
 
 
 def partitioned_path(graph, oracle, flat_rows):
@@ -2353,7 +2413,7 @@ def _k1w_step_split(label, step, steps):
     from pagerank_tpu_torch.ops import ell_spmm
 
     before = ell_spmm.launches
-    wall_ms, per_kernel, calls, _ = _profile_steps(step, steps)
+    wall_ms, per_kernel, calls, _, _ = _profile_steps(step, steps)
     _check(ell_spmm.launches - before == 2 * steps + 1,
            f"{2 * steps + 1} PPR steps launched K1w "
            f"{ell_spmm.launches - before} times")
@@ -3449,7 +3509,7 @@ def probes_phase():
         split = {}
         for name, fn in (("plain", timer.step),
                          ("probed", lambda: timer.step_probed(tp))):
-            wall, per_kernel, calls, _ = _profile_steps(fn, 10)
+            wall, per_kernel, calls, _, _ = _profile_steps(fn, 10)
             busy = sum(per_kernel.values())
             k_ms = sum(v for k, v in per_kernel.items() if _named(k, sym))
             top = sorted(((v, k) for k, v in per_kernel.items()
@@ -6102,6 +6162,129 @@ def acceptance_phase(dev="cuda"):
     return {"K1": k1, "K2": k2}
 
 
+# Phase 22: the port's bench CLI and the measurement campaign. (a) is one
+# single-mode run at rmat:BENCH_SCALE built on the card.
+BENCH_SCALE = 20
+BENCH_ITERS = 10
+BENCH_WARMUP = 2
+
+
+def bench_phase(dev="cuda"):
+    """Phase 22 (see the module docstring): returns the K1, K2 and K1w
+    records of the kernels line."""
+    import contextlib
+    import io
+
+    import torch
+
+    from pagerank_tpu_torch import bench
+    from pagerank_tpu_torch.scripts import acceptance as acc
+
+    t_phase = time.perf_counter()
+    card = card_identity() if dev == "cuda" else "cpu"
+    out = io.StringIO()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        doc = bench.main(["--dtype", "float32", "--scale", str(BENCH_SCALE),
+                          "--iters", str(BENCH_ITERS), "--warmup",
+                          str(BENCH_WARMUP), "--no-accuracy", "--device",
+                          dev])
+    wall_a = time.perf_counter() - t0
+    l1, l2, other = _read_counts()
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    lay, step = doc["layout"], doc["costs"]["step"]
+    want = BENCH_WARMUP + BENCH_ITERS
+    on_card = dev != "cpu"
+    _check(line["value"] == doc["value"] and lay["form"] == "flat_ell"
+           and lay["build"] == "device" and lay["pair"] is False,
+           f"22(a) the single-mode record: {json.dumps(lay)[:800]}")
+    _check(not on_card or (lay["launches"] == {"K1": want, "K2": 0, "K1w": 0}
+                           and l1 == want and l2 == 0
+                           and not any(other.values())),
+           f"22(a) K1 {l1} (layout {lay['launches']}), K2 {l2}, others "
+           f"{other}: want K1 {want}")
+    roof = step["roofline_fraction"]
+    _check(not on_card or (roof is not None and 0 < roof <= 1.0),
+           f"22(a) the step's roofline fraction {roof}")
+    ms = step["seconds_per_iter"] * 1e3
+    # A smoke reading: 10 steps at rmat:20 spread 2x from call to call
+    # (PERF.md §7), too few to compare versions with.
+    bench_a = {"scale": BENCH_SCALE, "iters": BENCH_ITERS,
+               "warmup": BENCH_WARMUP, "num_edges": step["num_edges"],
+               "smoke_ms_per_iter": ms, "smoke_edges_per_s": doc["value"],
+               "roofline_fraction": roof,
+               "bytes_per_edge": step["bytes_per_edge"],
+               "peak_bytes": step["peak_bytes"], "build_s": doc["build_s"],
+               "launches": l1, "wall_s": wall_a}
+    print(f"phase 22(a) on {card}: python -m pagerank_tpu_torch.bench "
+          f"--dtype float32 --scale {BENCH_SCALE} --iters {BENCH_ITERS} "
+          f"--warmup {BENCH_WARMUP} --no-accuracy: {step['num_edges']:,} "
+          f"edges built on {dev} in {doc['build_s']:.2f} s, "
+          f"{ms:.4f} ms/iter, {doc['value']:.4g} edges/s, "
+          f"{step['bytes_per_edge']:.2f} B/edge, "
+          f"{0 if roof is None else roof:.1%} of the memory rate, peak "
+          f"{(step['peak_bytes'] or 0) / 1e9:.3f} GB; K1 {l1} launches "
+          f"(warm-up {BENCH_WARMUP} + {BENCH_ITERS}); {wall_a:.1f} s")
+
+    recs = {}
+    for key, what in (("D", "22(b)"), ("N", "22(c)"), ("AA", "22(d)")):
+        _reset_counts()
+        t0 = time.perf_counter()
+        rec = acc.runner_of(key)(key, dev)
+        rec["wall_s"] = time.perf_counter() - t0
+        _check(rec["passed"], f"{what} acceptance key {key} failed: "
+               f"{json.dumps(rec, default=str)[:2000]}")
+        recs[key] = rec
+    d = recs["D"]
+    _check(set(bench.BUILD_STAGE_KEYS) <= set(d["stages"])
+           and d["scale"] == 18,
+           f"22(b) key D's stages {sorted(d['stages'])}")
+    print(f"phase 22(b) key D: f64/f64 device build at rmat:{d['scale']} "
+          f"{d['build_s']:.3f} s (budget {d['budget_s']:g} s): "
+          + ", ".join(f"{k} {d['stages'][k]:.3f}"
+                      for k in bench.BUILD_STAGE_KEYS)
+          + f"; ops lint OK; {d['wall_s']:.1f} s")
+    n = recs["N"]
+    print(f"phase 22(c) key N: fresh rmat:{n['scale']} bench subprocess "
+          f"{n['bench_seconds']:.1f} s, gate {n['gate_seconds']:.3f} s "
+          f"(budget {n['gate_budget_s']:g} s), drift warned and passed, "
+          f"the injected regression failed as program-change; "
+          f"{n['wall_s']:.1f} s")
+    aa = recs["AA"]
+    _check(set(aa["launches"]) == set(acc.AA_LEGS),
+           f"22(d) the legs' layouts name {sorted(aa['launches'])}")
+    by_kernel = {"K1": {}, "K2": {}, "K1w": {}}
+    for leg, got in aa["launches"].items():
+        kernel, steps = acc.AA_LEGS[leg]
+        want = {k: 0 for k in by_kernel}
+        if on_card:
+            want[kernel] = got["steps"]
+        _check(got["kernel"] == kernel and got["steps"] > 0
+               and (steps is None or got["steps"] == steps)
+               and got["counts"] == want,
+               f"22(d) {leg}: layout kernel {got['kernel']}, launches "
+               f"{got['counts']} in {got['steps']} steps; want {kernel} "
+               f"once in each of {steps or got['steps']} steps and no "
+               f"other kernel")
+        by_kernel[kernel][leg] = got["launches"]
+    print(f"phase 22(d) key AA over {aa['devices']} gloo ranks on {dev}: "
+          f"{aa['legs_done']}/{aa['legs_total']} legs, verdicts "
+          f"{aa['verdicts']} all defer, report re-rendered identical; "
+          f"{aa['seconds']:.1f} s (budget {aa['budget_s']:g} s); launches "
+          f"(rank 0 for the group legs) K1 {by_kernel['K1']}, K2 "
+          f"{by_kernel['K2']}, K1w {by_kernel['K1w']}")
+    if on_card:
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 22 took {seconds:.1f} s")
+    return {"K1": {"single": bench_a, "D_build_s": d["build_s"],
+                   "D_stages": d["stages"], "N_gate_s": n["gate_seconds"],
+                   "campaign": by_kernel["K1"], "phase_s": seconds},
+            "K2": {"campaign": by_kernel["K2"]},
+            "K1w": {"campaign": by_kernel["K1w"]}}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--scale", type=int, default=22,
@@ -6212,6 +6395,8 @@ def main(argv=None) -> int:
         acceptance = acceptance_phase()
         k1["acceptance"], k2["acceptance"] = (acceptance["K1"],
                                               acceptance["K2"])
+        benched = bench_phase()
+        k1["bench"], k2["bench"] = benched["K1"], benched["K2"]
         k1["mesh"] = {n: mesh5[n] for n in (
             "edge_flat", "edge_flat_probed", "vertex_sharded",
             "vertex_sharded_probed", "edge_flat_device",
@@ -6251,6 +6436,7 @@ def main(argv=None) -> int:
                "lone_k1w_ms": serving["lone_k1w_ms"],
                "lone_step": serving["lone_step"],
                "group": ppr_group,
+               "bench": benched["K1w"],
                "front": {n: front[n] for n in (
                    "launches", "max_abs_err", "walls", "batch_walls_ms",
                    "seconds")},

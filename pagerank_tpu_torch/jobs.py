@@ -241,6 +241,24 @@ def decode_names(arrays: Dict[str, np.ndarray]) -> Optional[List[str]]:
     ]
 
 
+def doc_to_arrays(doc) -> Dict[str, np.ndarray]:
+    """A JSON document as a payload-array dict (a utf-8 blob, the
+    encode_names idiom), so that a measurement record rides the same
+    checksummed artifact format as the numeric planes: the campaign's
+    per-leg artifacts (obs/campaign.py)."""
+    blob = json.dumps(doc, sort_keys=True, allow_nan=False,
+                      default=str).encode("utf-8")
+    return {"doc_blob": np.frombuffer(blob, dtype=np.uint8)}
+
+
+def doc_from_arrays(arrays: Dict[str, np.ndarray]):
+    """Inverse of :func:`doc_to_arrays`; None when the payload carries no
+    document."""
+    if "doc_blob" not in arrays:
+        return None
+    return json.loads(arrays["doc_blob"].tobytes().decode("utf-8"))
+
+
 class RestoredIds:
     """Thin stand-in for an ingest id table restored from an artifact:
     the post-ingest CLI only reads ``.names`` (text dumps / --out)."""

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -35,6 +36,11 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+#: Seconds :func:`build_all` has spent compiling in this process (0.0
+#: while every library was already built): a caller reads it before and
+#: after a call to learn what that call paid to ``nvcc``.
+build_seconds = 0.0
 
 
 def sources() -> List[str]:
@@ -86,12 +92,14 @@ def build_all(names: Optional[Iterable[str]] = None,
     (``extra_flags=("-Xptxas", "-v")`` makes that output the register
     and shared-memory report). Raises with the compiler's output on any
     failure."""
+    global build_seconds
     names = list(sources() if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in names if not library_path(n).is_file()]
     if not todo:
         return {}
     nvcc = find_nvcc()
+    t0 = time.perf_counter()
     procs = {}
     for name in todo:
         out = library_path(name)
@@ -110,6 +118,7 @@ def build_all(names: Optional[Iterable[str]] = None,
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
+    build_seconds += time.perf_counter() - t0
     if failed:
         raise RuntimeError("\n".join(failed))
     return logs

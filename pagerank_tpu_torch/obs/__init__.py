@@ -16,7 +16,9 @@ exports (``pagerank_tpu/obs/__init__.py``) except the compiler plane
     (``obs/devices.py``);
   - the graph profile and the rank-mass ledger
     (``obs/graph_profile.py``);
-  - the perf-history ledger (``obs/history.py``);
+  - the perf-history ledger (``obs/history.py``) and the measurement
+    campaign over the port's bench (``obs/campaign.py``, loaded by
+    ``obs campaign``);
   - :func:`profiler_session` over ``torch.profiler``
     (``obs/profiler.py``) and :mod:`obs.log`, the diagnostic channel.
 

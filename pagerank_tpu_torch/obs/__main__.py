@@ -55,12 +55,19 @@ exit codes.
                                   ``python -m pagerank_tpu_torch.
                                   analysis --compiled`` reads the
                                   compiler's facts instead
-  campaign                        exits 2: the measurement campaign
-                                  comes with the slice after the port's
-                                  benchmark (its legs run the bench)
+  campaign run|status|report      the measurement-campaign
+                                  orchestrator (obs/campaign.py): the
+                                  checked-in leg order as one resumable
+                                  command (checksummed per-leg
+                                  artifacts, typed verdicts, the
+                                  decision ledger); its legs run the
+                                  port's obs CLI and bench in process;
+                                  SIGTERM drains to exit 75 at a leg
+                                  boundary
 
 Exit codes: 0 ok, 1 gate violation / does not fit / mass-ledger
-violation, 2 usage/unreadable input.
+violation / incomplete campaign, 2 usage/unreadable input, 75 a
+campaign drained on a signal.
 """
 
 from __future__ import annotations
@@ -258,8 +265,10 @@ def build_parser() -> argparse.ArgumentParser:
                      "optimized HLO to DIR as <form>.<program>.hlo")
     cp = sub.add_parser(
         "campaign",
-        help="the measurement-campaign orchestrator: not ported yet "
-        "(exits 2); its legs run the port's bench, which comes first",
+        help="the measurement-campaign orchestrator (obs/campaign.py): "
+        "run/resume the checked-in campaign as one command with "
+        "checksummed per-leg artifacts, typed verdicts, and a decision "
+        "ledger",
     )
     csub = cp.add_subparsers(dest="campaign_command", required=True)
     cr = csub.add_parser(
@@ -270,8 +279,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="artifact + manifest directory (the resume "
                     "key: rerun with the same DIR to resume)")
     cr.add_argument("--fake-devices", type=int, default=0, metavar="N",
-                    help="non-binding dry run on N host devices, "
-                    "every verdict 'defer' (with the campaign)")
+                    help="non-binding dry run: the smoke-scale profile "
+                    "with the multichip leg over N gloo ranks sharing "
+                    "the one --device, and every verdict 'defer' — the "
+                    "rehearsal of the binding session")
     cr.add_argument("--profile", choices=["auto", "roadmap", "smoke"],
                     default="auto",
                     help="campaign geometry (default auto: smoke when "
@@ -290,6 +301,10 @@ def build_parser() -> argparse.ArgumentParser:
     cr.add_argument("--json", action="store_true",
                     help="emit the stable campaign report as JSON "
                     "instead of the human rendering")
+    cr.add_argument("--device", default="cuda",
+                    help="where the graph and bench legs run (default "
+                    "cuda; 'cpu' runs the kernels' plain versions on the "
+                    "host)")
     cst = csub.add_parser(
         "status", help="per-leg progress from the campaign manifest")
     cst.add_argument("--campaign-dir", required=True, metavar="DIR")
@@ -669,10 +684,87 @@ def _cmd_history(args) -> int:
 
 
 def _cmd_campaign(args) -> int:
-    print("obs campaign: not ported yet: its legs run the port's bench "
-          "script, which comes with the benchmark; the campaign follows "
-          "it in the next slice (ROADMAP.md queue 1)", file=sys.stderr)
-    return int(ExitCode.USAGE)
+    """The campaign orchestrator CLI (obs/campaign.py)."""
+    from pagerank_tpu_torch.obs import campaign as campaign_mod
+
+    if args.campaign_command == "status":
+        try:
+            _spec, manifest, _docs, _metas = \
+                campaign_mod.load_campaign(args.campaign_dir)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"obs campaign: no campaign in "
+                  f"{args.campaign_dir}: {e}", file=sys.stderr)
+            return int(ExitCode.USAGE)
+        if args.json:
+            print(json.dumps(report_mod._json_safe(manifest),
+                             indent=2, allow_nan=False))
+        else:
+            print(campaign_mod.render_status(manifest))
+        return int(ExitCode.OK)
+
+    if args.campaign_command == "report":
+        try:
+            spec, manifest, docs, metas = \
+                campaign_mod.load_campaign(args.campaign_dir)
+        except (OSError, ValueError, json.JSONDecodeError) as e:
+            print(f"obs campaign: no campaign in "
+                  f"{args.campaign_dir}: {e}", file=sys.stderr)
+            return int(ExitCode.USAGE)
+        budgets = campaign_mod._load_budgets_quiet(
+            args.budgets or campaign_mod.default_budgets_path())
+        rep = campaign_mod.build_report(spec, manifest, docs, metas,
+                                        budgets, full=args.full)
+        if args.json:
+            sys.stdout.write(report_mod.canonical_json(rep))
+        else:
+            print(campaign_mod.render_report(rep))
+        return int(ExitCode.OK if rep.get("complete")
+                   else ExitCode.FAILURE)
+
+    # run
+    from pagerank_tpu_torch import jobs
+
+    if args.fake_devices < 0:
+        print("obs campaign: --fake-devices must be >= 0",
+              file=sys.stderr)
+        return int(ExitCode.USAGE)
+    profile = args.profile
+    if profile == "auto":
+        profile = "smoke" if args.fake_devices else "roadmap"
+    device = args.device
+    ndev = args.ndev
+    if args.fake_devices:
+        # The dry run's group: N gloo ranks sharing the one device (an
+        # indexed card, never one card a rank).
+        ndev = args.fake_devices
+        if device == "cuda":
+            device = "cuda:0"
+    spec = campaign_mod.build_spec(profile=profile, ndev=ndev,
+                                   device=device)
+    runner = campaign_mod.CampaignRunner(
+        args.campaign_dir, spec, fake_devices=args.fake_devices,
+        budgets_path=args.budgets)
+    drain = jobs.GracefulDrain(deadline_s=args.drain_deadline)
+    with drain:
+        try:
+            runner.run(drain=drain,
+                       progress=lambda line: print(line,
+                                                   file=sys.stderr))
+        except jobs.DrainInterrupt as e:
+            runner.interrupt(str(e))
+            print(f"obs campaign: drained on signal ({e}); completed "
+                  "legs are durable — resume with the same command",
+                  file=sys.stderr)
+            return int(ExitCode.INTERRUPTED)
+    rep = runner.write_report()
+    if args.json:
+        sys.stdout.write(report_mod.canonical_json(rep))
+    else:
+        print(campaign_mod.render_report(rep))
+        print(f"report written to {runner.report_path}",
+              file=sys.stderr)
+    return int(ExitCode.OK if rep.get("complete")
+               else ExitCode.FAILURE)
 
 
 def main(argv=None) -> int:

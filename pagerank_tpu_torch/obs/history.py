@@ -15,7 +15,9 @@ card name) from the port's run-report fingerprint
 and CUDA's versions and the card's power limit, and a port run
 report's leg is named from the engine's resolved layout
 (:func:`leg_name_for_layout`: flat, partitioned, bf16 windows, coo)
-rather than the JAX config's legs.
+rather than the JAX config's legs, and a bench couple's headline from
+its layout too (``pair_f64`` where it ran pair sums or records no
+layout, ``f64`` for the port's f64/f64 headline).
 
 Surfaces: the CLI's ``--history PATH`` (arms the live exporter's
 ``history.*`` baseline-delta gauges from the ledger and appends the
@@ -382,13 +384,24 @@ def leg_name_for_config(cfg) -> str:
     return str(get("dtype") or "f32")
 
 
+def _couple_headline_name(layout) -> str:
+    """The couple's headline leg: ``pair_f64`` where its layout ran the
+    pair-packed f64 sums (the JAX tool's) or records no layout (the
+    r01-r05 rounds, whose headline was pair-f64), ``f64`` where it ran
+    native f64 sums (the port's ``layout.pair`` false)."""
+    if not isinstance(layout, dict) or layout.get("pair"):
+        return "pair_f64"
+    return "f64"
+
+
 def _normalize_bench_couple(doc: dict, rec: dict) -> None:
     rec["kind"] = "bench_couple"
     legs = rec["legs"]
-    legs["pair_f64"] = _rate_leg(doc)
+    head = _couple_headline_name(doc.get("layout"))
+    legs[head] = _rate_leg(doc)
     warm = _num(doc.get("build_warm_s"))
     if warm is not None:
-        legs["pair_f64"]["build_warm_s"] = warm
+        legs[head]["build_warm_s"] = warm
     for key, name in (("fast_f32", "fast_f32"),
                       ("partitioned_f32", "partitioned_f32"),
                       ("pallas_partitioned", "pallas_partitioned_f32"),
@@ -398,7 +411,7 @@ def _normalize_bench_couple(doc: dict, rec: dict) -> None:
     acc = doc.get("accuracy") or {}
     l1 = _num(acc.get("normalized_l1_vs_f64_oracle"))
     if l1 is not None:
-        legs["pair_f64"]["accuracy_l1"] = l1
+        legs[head]["accuracy_l1"] = l1
     bf = acc.get("fast_bf16") or {}
     l1b = _num(bf.get("normalized_l1_vs_f64_oracle"))
     if l1b is not None and "fast_bf16" in legs:
@@ -412,9 +425,11 @@ def _normalize_bench_single(doc: dict, rec: dict) -> None:
     acc = doc.get("accuracy") or {}
     l1 = _num(acc.get("normalized_l1_vs_f64_oracle"))
     if l1 is not None:
-        # Single mode's standing accuracy probe certifies the pair-f64
-        # config, not the measured leg (bench.run_accuracy).
-        rec["legs"].setdefault("pair_f64", {})["accuracy_l1"] = l1
+        # Single mode's standing accuracy probe certifies the
+        # accuracy-grade config, not the measured leg (bench.run_accuracy):
+        # pair-f64 in the JAX tool, f64 in the port's.
+        head = "f64" if acc.get("config") == "f64" else "pair_f64"
+        rec["legs"].setdefault(head, {})["accuracy_l1"] = l1
 
 
 def _normalize_multichip(doc: dict, rec: dict) -> None:
@@ -450,8 +465,10 @@ def _normalize_multichip(doc: dict, rec: dict) -> None:
 
 def _normalize_build_only(doc: dict, rec: dict) -> None:
     rec["kind"] = "bench_build"
+    # The JAX tool's legs, and the port's (f64/f64 in place of pair-f64).
     for key, name in (("pair", "build_pair"), ("f32", "build_f32"),
-                      ("pair_warm", "build_pair_warm")):
+                      ("pair_warm", "build_pair_warm"), ("f64", "build_f64"),
+                      ("f64_warm", "build_f64_warm")):
         b = _num((doc.get(key) or {}).get("build_s"))
         if b is not None:
             rec["legs"][name] = {"build_s": b}

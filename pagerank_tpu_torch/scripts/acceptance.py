@@ -35,8 +35,15 @@ Keys (``CONFIGS``; the default order is ``DEFAULT_KEYS``):
         8 ranks and measures the per-rank edges with the engine's own
         share functions at world 8.
 
-Refused (exit 2): D, N and AA wait for the port's benchmark (ROADMAP
-queue 1); Q (``obs hlo``) is not applicable.
+  D N AA   the bench smokes: D a scale-18 f64/f64 device build through
+        ``bench.run_build`` (the JAX script's pair-f64 build), N a fresh
+        ``python -m pagerank_tpu_torch.bench`` run into a copy of the
+        history ledger and the gate's drift/regression classification,
+        AA the campaign's dry run (``obs campaign run --fake-devices 2``)
+        with its multichip leg over two gloo ranks on the card (the JAX
+        script's 8 fake CPU devices).
+
+Refused (exit 2): Q (``obs hlo``) is not applicable.
 
 Every record keeps the JAX script's keys; ``tpu_seconds`` is
 ``device_seconds``. ``main`` adds the card (``nvidia-smi`` name and power
@@ -49,7 +56,9 @@ JSON line and returns 0 when every record passed, else 1.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import io
 import json
 import os
 import re
@@ -146,24 +155,19 @@ CONFIGS = {
               label="query-plane smoke (armed tracing under chaos: "
                     "determinism, exemplars, slow-query log, flight "
                     "recorder)"),
-    "AA": dict(kind="campaign",
+    # fake_devices: 8 fake CPU devices in the JAX script; two gloo
+    # ranks sharing the card here (the multichip leg's group).
+    "AA": dict(kind="campaign", fake_devices=2,
                label="campaign-plane smoke (dry-run campaign on 8 "
                      "fake devices: all legs, 5 non-binding "
                      "verdicts, decision ledger)"),
 }
-DEFAULT_KEYS = ["G", "H", "K", "L", "M", "X", "Y", "Z", "O", "R", "S",
-                "U", "V", "W", "F", "A", "B", "T", "P", "E", "BV", "BB",
-                "TV"]
+DEFAULT_KEYS = ["D", "G", "H", "K", "L", "M", "X", "Y", "Z", "N", "O",
+                "R", "S", "U", "V", "W", "F", "A", "B", "T", "P", "E",
+                "BV", "BB", "TV", "AA"]
 
 #: Keys the port does not run, and why (exit 2 with the message).
 REFUSED = {
-    "D": "smoke D runs bench.run_build: it waits for the port's benchmark "
-         "(ROADMAP.md queue 1, slice 8b)",
-    "N": "smoke N runs bench.py into the history ledger: it waits for the "
-         "port's benchmark (ROADMAP.md queue 1, slice 8b)",
-    "AA": "smoke AA is the campaign (obs/campaign.py), whose legs run "
-          "bench.py: it waits for the port's benchmark (ROADMAP.md queue "
-          "1, slice 8b)",
     "Q": "smoke Q is `obs hlo`: not applicable to the port, which lowers "
          "no HLO (ROADMAP.md queue 1); `python -m pagerank_tpu_torch."
          "analysis --compiled` reads the CUDA kernels' compile facts",
@@ -190,6 +194,10 @@ CONCURRENCY_SMOKE_BUDGET_S = 11.0   # [3.56 s]
 # [0.88 s after K built the PTK registry; its build is most of K's 9.98]
 KERNELS_SMOKE_BUDGET_S = 30.0
 R_SMOKE_BUDGET_S = 3.0              # [0.16 s]
+BUILD_SMOKE_BUDGET_S = 60.0         # [0.03 s, the f64/f64 rmat:18 build]
+# The gate run alone (the fresh bench subprocess is not under it).
+HISTORY_GATE_BUDGET_S = 2.0         # [0.01 s]
+CAMPAIGN_SMOKE_BUDGET_S = 240.0     # [15.1 s, two gloo ranks on the card]
 
 #: Every terminal outcome the serving daemon may hand back
 #: (serving/query.py); anything else is a silent drop.
@@ -2240,6 +2248,337 @@ def run_qtrace_smoke(key: str, device: str = "cuda", budget_s=None):
     return rec
 
 
+# -- the bench smokes (python -m pagerank_tpu_torch.bench) ------------------
+
+
+def run_build_smoke(key: str, device: str = "cuda", budget_s=None):
+    """D: a scale-18 f64/f64 device build through ``bench.run_build`` (the
+    JAX script's pair-f64 build; the card sums f64 natively): every
+    per-stage key of ``bench.BUILD_STAGE_KEYS`` present, the build under
+    the budget, and the PTL lint of the port's ``ops/`` clean."""
+    from pagerank_tpu_torch import bench
+    from pagerank_tpu_torch.analysis.__main__ import main as analysis_main
+
+    spec = CONFIGS[key]
+    budget = BUILD_SMOKE_BUDGET_S if budget_s is None else budget_s
+    ops_dir = os.path.join(REPO, "pagerank_tpu_torch", "ops")
+    lint_ok = analysis_main(["--select", "PTL", ops_dir]) == 0
+    if not lint_ok:
+        _say(f"[{key}] the PTL lint over ops/ FAILED (run `python -m "
+             f"pagerank_tpu_torch.analysis --select PTL "
+             f"pagerank_tpu_torch/ops`)")
+    b = bench.run_build(spec["scale"], dtype="float64",
+                        accum_dtype="float64", device=_device_of(device))
+    missing = [k for k in bench.BUILD_STAGE_KEYS if k not in b["stages"]]
+    passed = bool(lint_ok and not missing and b["build_s"] <= budget)
+    rec = {
+        "config": key,
+        "kind": "build",
+        "label": spec["label"],
+        "scale": spec["scale"],
+        "build_s": b["build_s"],
+        "stages": b["stages"],
+        "missing_stage_keys": missing,
+        "ops_lint_ok": lint_ok,
+        "budget_s": budget,
+        "passed": passed,
+    }
+    _say(f"[{key}] f64/f64 device build ({device}) {b['build_s']:.2f}s vs "
+         f"budget {budget:g}s (compile {b['stages'].get('compile_s', 0):.1f}"
+         f"s); stage keys "
+         f"{'complete' if not missing else 'MISSING ' + repr(missing)}; ops "
+         f"lint {'OK' if lint_ok else 'FAILED'} -> {_verdict(passed)}")
+    return rec
+
+
+def run_history_smoke(key: str, device: str = "cuda", budget_s=None):
+    """N: the perf-regression sentry end to end. A fresh scale-14
+    single-config bench (a subprocess of ``python -m
+    pagerank_tpu_torch.bench`` on ``device``) appends itself to a TEMP
+    COPY of the checked-in ``PERF_HISTORY.jsonl`` through ``--history``;
+    ``obs history gate --budgets perf_budgets.json`` must pass under the
+    budget. Then, over a baseline of three jittered clones of the fresh
+    record, an environment-only drift record (rate -20%, cost model
+    flat, torch's version patched) must gate clean with a drift warning,
+    and an injected regression (rate -50%, cost model moved, environment
+    identical) must exit 1 classified program-change."""
+    import copy
+    import subprocess
+
+    from pagerank_tpu_torch.obs import history as history_mod
+    from pagerank_tpu_torch.obs.__main__ import main as obs_main
+
+    spec = CONFIGS[key]
+    budget = HISTORY_GATE_BUDGET_S if budget_s is None else budget_s
+    scale, iters = spec["scale"], spec["iters"]
+    budgets_path = os.path.join(REPO, "perf_budgets.json")
+    work = tempfile.mkdtemp(prefix="pagerank_hist_")
+    try:
+        ledger = os.path.join(work, "PERF_HISTORY.jsonl")
+        shutil.copy(os.path.join(REPO, "PERF_HISTORY.jsonl"), ledger)
+        n_seed = len(history_mod.read_ledger(ledger))
+        env = dict(os.environ, PYTHONPATH=REPO)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pagerank_tpu_torch.bench",
+             "--scale", str(scale), "--dtype", "float32",
+             "--iters", str(iters), "--warmup", "1", "--host-build",
+             "--no-accuracy", "--history", ledger,
+             "--device", _device_of(device)],
+            capture_output=True, text=True, timeout=600, env=env, cwd=REPO,
+        )
+        t_bench = time.perf_counter() - t0
+        records = history_mod.read_ledger(ledger)
+        ingested = proc.returncode == 0 and len(records) == n_seed + 1
+        if not ingested:
+            _say(f"[{key}] bench exit {proc.returncode}: "
+                 f"{proc.stderr[-1500:]}")
+
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            rc_fresh = obs_main(["history", "gate", ledger,
+                                 "--budgets", budgets_path])
+            t_gate = time.perf_counter() - t0
+
+        fresh = records[-1]
+        budgets = history_mod.load_budgets(budgets_path)
+
+        def variant(src_rec, name, eps_factor, cost_factor=1.0,
+                    env_patch=None):
+            rec = copy.deepcopy(src_rec)
+            rec["source"] = name
+            rec.pop("content_hash", None)
+            rec.pop("ingested_unix", None)
+            leg = rec["legs"]["fast_f32"]
+            leg["edges_per_sec_per_chip"] *= eps_factor
+            if "cost_bytes_per_edge" in leg:
+                leg["cost_bytes_per_edge"] *= cost_factor
+            if env_patch:
+                rec["env"].update(env_patch)
+            rec["content_hash"] = history_mod.content_hash(rec)
+            return rec
+
+        for i in (1, 2, 3):
+            history_mod.append_record(
+                ledger, variant(fresh, f"clone{i}", 1.0 + 0.002 * i))
+
+        # Environment-only drift: must WARN and pass.
+        drift = variant(fresh, "drift", 0.80,
+                        env_patch={"torch_version": "0.0.0+smoke-drift",
+                                   "cuda_version": "0.0+smoke"})
+        history_mod.append_record(ledger, drift)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_drift = obs_main(["history", "gate", ledger,
+                                 "--budgets", budgets_path])
+        res_drift = history_mod.evaluate_gate(
+            history_mod.read_ledger(ledger), budgets)
+        drift_flag = [c for c in res_drift.changes
+                      if c.flagged and c.leg == "fast_f32"
+                      and c.metric == "edges_per_sec_per_chip"]
+        drift_ok = (rc_drift == 0 and bool(res_drift.drift_warnings)
+                    and bool(drift_flag)
+                    and drift_flag[0].classification == "env-drift")
+
+        # Injected regression: wall AND cost model moved, environment
+        # identical: must FAIL, classified program-change.
+        prog = variant(fresh, "regression", 0.50, cost_factor=2.0)
+        history_mod.append_record(ledger, prog)
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc_prog = obs_main(["history", "gate", ledger,
+                                "--budgets", budgets_path])
+        res_prog = history_mod.evaluate_gate(
+            history_mod.read_ledger(ledger), budgets)
+        prog_flag = [c for c in res_prog.changes
+                     if c.flagged and c.leg == "fast_f32"
+                     and c.metric == "edges_per_sec_per_chip"]
+        prog_ok = (rc_prog == 1 and bool(prog_flag)
+                   and prog_flag[0].classification == "program-change")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    passed = bool(ingested and rc_fresh == 0 and t_gate <= budget
+                  and drift_ok and prog_ok)
+    rec = {
+        "config": key,
+        "kind": "history",
+        "label": spec["label"],
+        "scale": scale,
+        "iters": iters,
+        "fresh_record_ingested": ingested,
+        "fresh_gate_rc": rc_fresh,
+        "bench_seconds": t_bench,
+        "gate_seconds": t_gate,
+        "gate_budget_s": budget,
+        "env_drift_warns_and_passes": drift_ok,
+        "program_change_fails": prog_ok,
+        "passed": passed,
+    }
+    _say(f"[{key}] fresh scale-{scale} bench on {device} "
+         f"{'ingested' if ingested else 'NOT INGESTED'} ({t_bench:.1f}s); "
+         f"gate {'PASS' if rc_fresh == 0 else 'FAIL'} in {t_gate:.2f}s vs "
+         f"budget {budget:g}s; env-drift record "
+         f"{'warned+passed' if drift_ok else 'MISHANDLED'}; injected "
+         f"regression "
+         f"{'failed as program-change' if prog_ok else 'MISSED'} -> "
+         f"{_verdict(passed)}")
+    return rec
+
+
+#: The kernel a bench leg's layout names, by its wrapper's launch key.
+_LAYOUT_KERNELS = {"ell_contrib": "K1", "ell_contrib_partitioned": "K2",
+                   "ell_contrib_spmm": "K1w"}
+
+#: AA's bench legs at the campaign's smoke geometry: the kernel each
+#: runs and its steps, one launch a step (warm-up 3 + 2 timed; the
+#: vertex-sharded legs, single_chip's one device too, also the
+#: attribution's 1 + 2 full steps;
+#: None: the daemon's, its warm-up's and batches' iterations, which its
+#: record counts). chip_smoke.py's phase 22(d) holds the card's counts
+#: to them.
+AA_LEGS = {
+    "bench_couple/f64": ("K1", 5), "bench_couple/fast_f32": ("K1", 5),
+    "bench_couple/partitioned_f32": ("K2", 5),
+    "bench_couple/fast_bf16": ("K2", 5),
+    "bench_multichip/single_chip": ("K1", 8),
+    "bench_multichip/dense_exchange": ("K1", 8),
+    "bench_multichip/sparse_exchange": ("K1", 8),
+    "bench_multichip/sparse_async": ("K1", 8),
+    "bench_multichip/pallas_partitioned": ("K2", 5),
+    "ppr_serve": ("K1w", None),
+}
+
+
+def campaign_launches(docs) -> dict:
+    """{"<leg>/<sub-leg>": {"kernel", "launches", "steps", "counts"}} of
+    a campaign's bench legs, read from each leg's ``layout`` record: the
+    kernel that ran, its launches in that leg (on rank 0 for the group
+    legs), the leg's steps (one launch a step: warm-up, timed, checked
+    and attribution steps; for the daemon, the warm-up's and each
+    dispatched batch's iterations) and the leg's launches of each of
+    K1, K2 and K1w."""
+    out = {}
+
+    def note(name, layout):
+        kernel = str((layout or {}).get("kernel", "")).split(":")[0]
+        k = _LAYOUT_KERNELS.get(kernel)
+        if k is None:
+            return
+        counts = {c: int(v) for c, v in
+                  ((layout or {}).get("launches") or {}).items()}
+        out[name] = {"kernel": k, "launches": counts.get(k, 0),
+                     "steps": int((layout or {}).get("steps", 0)),
+                     "counts": counts}
+
+    couple = (docs.get("bench_couple") or {}).get("output") or {}
+    if couple:
+        note("bench_couple/f64", couple.get("layout"))
+        for sub in ("fast_f32", "partitioned_f32", "fast_bf16"):
+            note(f"bench_couple/{sub}", (couple.get(sub) or {}).get("layout"))
+    mc = (docs.get("bench_multichip") or {}).get("output") or {}
+    for sub in ("single_chip", "dense_exchange", "sparse_exchange",
+                "sparse_async", "pallas_partitioned"):
+        lay = (mc.get(sub) or {}).get("layout")
+        if lay:
+            note(f"bench_multichip/{sub}", lay)
+    serve = (docs.get("ppr_serve") or {}).get("output") or {}
+    if serve.get("layout"):
+        note("ppr_serve", serve["layout"])
+    return out
+
+
+def run_campaign_smoke(key: str, device: str = "cuda", budget_s=None):
+    """AA: the whole measurement campaign, dry: ``python -m
+    pagerank_tpu_torch.obs campaign run --fake-devices N --device
+    DEVICE`` (its ``main``, in this process) at smoke scale, the
+    multichip leg over N gloo ranks sharing the device (N = 2: the JAX
+    script's 8 fake CPU devices, cut to two ranks on the one card, as L
+    and M cut theirs). Gates: exit 0 with a complete strict-JSON
+    report.json (canonical form, constants rejected), the four typed
+    verdicts present and NON-binding with decision "defer", one
+    decision-ledger entry a verdict, every leg done within its budget,
+    ``campaign report --json`` re-rendering byte-identical to the
+    durable report.json, and the run under the budget. The record also
+    carries each bench leg's kernel launches from its layout."""
+    from pagerank_tpu_torch.obs import campaign as campaign_mod
+    from pagerank_tpu_torch.obs.__main__ import main as obs_main
+
+    spec = CONFIGS[key]
+    budget = CAMPAIGN_SMOKE_BUDGET_S if budget_s is None else budget_s
+    ndev = spec["fake_devices"]
+    work = tempfile.mkdtemp(prefix="pagerank_campaign_")
+    reject = lambda c: (_ for _ in ()).throw(  # noqa: E731
+        ValueError(f"non-finite constant {c} in campaign report"))
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = obs_main(["campaign", "run", "--campaign-dir", work,
+                           "--fake-devices", str(ndev), "--json",
+                           "--device", _device_of(device)])
+        t_run = time.perf_counter() - t0
+        report_raw = b""
+        report = {}
+        report_path = os.path.join(work, "report.json")
+        if os.path.exists(report_path):
+            with open(report_path, "rb") as f:
+                report_raw = f.read()
+            report = json.loads(report_raw, parse_constant=reject)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc_report = obs_main(["campaign", "report", "--campaign-dir",
+                                  work, "--json"])
+        _spec, _manifest, docs, _metas = campaign_mod.load_campaign(work)
+        launches = campaign_launches(docs)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    expected = set(campaign_mod.VERDICTS)
+    verdicts = report.get("verdicts") or {}
+    legs = report.get("legs") or []
+    nonbinding = (report.get("binding") is False
+                  and report.get("fake_devices") == ndev
+                  and all(v.get("binding") is False
+                          and v.get("decision") == "defer"
+                          for v in verdicts.values()))
+    legs_ok = bool(legs) and all(
+        leg.get("status") == "done" and leg.get("within_budget")
+        for leg in legs)
+    ledger = report.get("decision_ledger") or []
+    rerender_ok = (rc_report == 0
+                   and out.getvalue().encode() == report_raw)
+    passed = bool(rc == 0 and report.get("complete")
+                  and set(verdicts) == expected and nonbinding
+                  and legs_ok and len(ledger) == len(expected)
+                  and rerender_ok and t_run <= budget)
+    rec = {
+        "config": key,
+        "kind": "campaign",
+        "label": spec["label"],
+        "devices": ndev,
+        "exit_code": rc,
+        "complete": bool(report.get("complete")),
+        "legs_done": sum(1 for leg in legs
+                         if leg.get("status") == "done"),
+        "legs_total": len(legs),
+        "verdicts": sorted(verdicts),
+        "all_nonbinding_defer": nonbinding,
+        "ledger_entries": len(ledger),
+        "report_rerender_identical": rerender_ok,
+        "launches": launches,
+        "seconds": t_run,
+        "budget_s": budget,
+        "passed": passed,
+    }
+    verdict_note = ("all defer/non-binding" if nonbinding
+                    else "BINDING OR NON-DEFER")
+    _say(f"[{key}] campaign dry run on {device} ({ndev} gloo ranks): exit "
+         f"{rc}, {rec['legs_done']}/{rec['legs_total']} legs done, "
+         f"{len(verdicts)}/{len(expected)} verdicts ({verdict_note}), "
+         f"ledger {len(ledger)} entries, re-render "
+         f"{'identical' if rerender_ok else 'DIVERGED'}; {t_run:.1f}s vs "
+         f"budget {budget:g}s -> {_verdict(passed)}")
+    return rec
+
+
 _RANK_SIDES = {"elastic": _rank_elastic, "sdc": _rank_sdc,
                "halo": _rank_halo, "halo_async": _rank_halo,
                "devices": _rank_devices, "serve": _rank_serve,
@@ -2253,7 +2592,9 @@ RUNNERS = {"ppr": run_ppr, "e2e": run_e2e, "faults": run_fault_smoke,
            "halo_async": run_halo_async_smoke,
            "devices": run_devices_smoke, "jobs": run_jobs_smoke,
            "graph": run_graph_smoke, "concurrency": run_concurrency_smoke,
-           "sdc": run_sdc_smoke, "kernels": run_kernels_smoke}
+           "sdc": run_sdc_smoke, "kernels": run_kernels_smoke,
+           "build": run_build_smoke, "history": run_history_smoke,
+           "campaign": run_campaign_smoke}
 
 
 def runner_of(key: str):

@@ -8,8 +8,10 @@ growth, and the port's ranks are within 1e-12 of the JAX engine's; PPR
 passes in both with equal top-k ids off ties; the literal job's dumps
 parse to the same ranks; every in-process smoke passes under a CPU
 budget with the JAX record's keys (less the ones the port drops or
-renames); smoke L runs over three gloo ranks; the refused keys and a
-host without a card exit non-zero."""
+renames); smoke L runs over three gloo ranks; the bench smokes D and N
+pass, and AA's dry run over two gloo ranks passes every gate with a
+multichip record of the JAX keys whose exchanged bytes are the JAX comms
+model's; the refused key Q and a host without a card exit non-zero."""
 
 import ast
 import importlib.util
@@ -48,6 +50,8 @@ ADDED = {
     "run_ppr": {"device_seconds", "k1w_launches", "host_stages_s"},
     "run_e2e": {"k1_launches", "gen_s", "oracle_s"},
     "run_elastic_smoke": {"k1_launches"},
+    "run_history_smoke": {"bench_seconds"},
+    "run_campaign_smoke": {"devices", "launches"},
 }
 
 
@@ -91,10 +95,12 @@ def test_configs_and_default_keys_are_the_jax_scripts(jax_acc):
         if key == "O":  # a v5e's refused scale; rmat:26 fits 80 GB
             assert spec["fit_bad_scale"] == 26 and ours["fit_bad_scale"] == 30
             ours["fit_bad_scale"] = 26
+        if key == "AA":  # 8 fake CPU devices there, 2 gloo ranks here
+            assert ours.pop("fake_devices") == 2
         assert ours == spec, key
     assert port.DEFAULT_KEYS == [k for k in jax_acc.DEFAULT_KEYS
-                                 if k not in ("D", "N", "Q", "AA")]
-    assert set(port.REFUSED) == {"D", "N", "Q", "AA"}
+                                 if k != "Q"]
+    assert set(port.REFUSED) == {"Q"}
     assert port.GATE == jax_acc.GATE
     for name in ("PPR_TIE_EPS", "PPR_OVERLAP_GATE", "PPR_SCORE_L1_GATE",
                  "ELASTIC_F32_GATE", "GRAPH_SKEW_GATE",
@@ -115,6 +121,14 @@ def test_every_runner_keeps_the_jax_record_keys(jax_acc):
 
 @pytest.mark.parametrize("key", ["D", "N", "Q", "AA"])
 def test_refused_keys_exit_2_naming_the_queue_item(key, capsys):
+    """Q alone is refused; D, N and AA, refused until the port had its
+    bench, now run in the JAX order through their own runners."""
+    if key != "Q":
+        assert key not in port.REFUSED and key in port.DEFAULT_KEYS
+        assert port.runner_of(key).__name__ == {
+            "D": "run_build_smoke", "N": "run_history_smoke",
+            "AA": "run_campaign_smoke"}[key]
+        return
     assert port.main(["--only", key, "--no-append", "--no-analysis"]) == 2
     err = capsys.readouterr().err
     assert "ROADMAP.md queue 1" in err
@@ -390,3 +404,155 @@ def test_jobs_smoke_r_replays_the_jax_scripts_job(jax_acc, monkeypatch,
     jax_dir, port_dir = dirs
     a, b = ranks(port_dir), ranks(jax_dir)
     assert np.abs(a - b).sum() / np.abs(b).sum() <= 1e-12
+
+
+# -- the bench smokes --------------------------------------------------------
+
+
+def _jax_keys(name):
+    return (_record_keys(JAX_SCRIPT)[name] - DROPPED.get(name, set())) | \
+        ADDED.get(name, set())
+
+
+def test_build_smoke_d_on_the_cpu(monkeypatch):
+    from pagerank_tpu_torch import bench
+
+    monkeypatch.setitem(port.CONFIGS, "D", dict(port.CONFIGS["D"], scale=12))
+    rec = port.run_build_smoke("D", "cpu", budget_s=CPU_BUDGET_S)
+    assert rec["passed"], rec
+    assert set(rec) == _jax_keys("run_build_smoke")
+    assert set(rec["stages"]) == set(bench.BUILD_STAGE_KEYS)
+    assert rec["missing_stage_keys"] == [] and rec["ops_lint_ok"]
+
+
+def test_history_smoke_n_on_the_cpu():
+    rec = port.run_history_smoke("N", "cpu", budget_s=CPU_BUDGET_S)
+    assert rec["passed"], rec
+    assert set(rec) == _jax_keys("run_history_smoke")
+    assert rec["fresh_record_ingested"] and rec["fresh_gate_rc"] == 0
+    assert rec["env_drift_warns_and_passes"] and rec["program_change_fails"]
+
+
+#: The JAX --multichip record's keys (tests/test_bench_contract.py:359-366).
+MULTICHIP_KEYS = {"metric", "value", "unit", "n_devices", "scale", "iters",
+                  "single_chip", "dense_exchange", "sparse_exchange",
+                  "sparse_async", "pallas_partitioned", "exchange_overlap",
+                  "staleness_sweep", "scaling_efficiency",
+                  "scaling_efficiency_dense", "exchanged_bytes",
+                  "device_view", "accuracy", "env", "edge_factor",
+                  "schema_version"}
+
+
+def test_campaign_smoke_aa_over_two_gloo_ranks(monkeypatch, tmp_path):
+    """AA's dry run: one campaign, its multichip leg one group of two
+    gloo ranks. Every AA gate passes, and the multichip document has the
+    JAX record's keys, its legs' blocks, and exchanged bytes equal to the
+    JAX comms model of the same graph over two devices."""
+    from pagerank_tpu import build_graph as jax_build_graph
+    from pagerank_tpu.ops import ell as jax_ell
+    from pagerank_tpu.parallel import comms as jax_comms
+    from pagerank_tpu.parallel import partition as jax_partition
+    from pagerank_tpu.utils.synth import rmat_edges as jax_rmat
+
+    from pagerank_tpu_torch.obs import campaign
+
+    dirs = []
+    count = itertools.count()
+
+    def mkdtemp(prefix="", **kw):
+        d = tmp_path / f"{prefix}{next(count)}"
+        d.mkdir()
+        dirs.append(d)
+        return str(d)
+
+    monkeypatch.setattr(tempfile, "mkdtemp", mkdtemp)
+    monkeypatch.setattr(shutil, "rmtree", lambda *a, **kw: None)
+    rec = port.run_campaign_smoke("AA", "cpu", budget_s=CPU_BUDGET_S)
+    assert rec["passed"], rec
+    assert set(rec) == _jax_keys("run_campaign_smoke")
+    assert rec["devices"] == 2 and rec["legs_done"] == rec["legs_total"] == 6
+    assert rec["verdicts"] == sorted(campaign.VERDICTS)
+    assert rec["all_nonbinding_defer"] and rec["report_rerender_identical"]
+    # The CPU runs the kernels' plain versions: each leg names its kernel
+    # and counts no launch.
+    assert {leg: got["kernel"] for leg, got in rec["launches"].items()} == {
+        "bench_couple/f64": "K1", "bench_couple/fast_f32": "K1",
+        "bench_couple/partitioned_f32": "K2", "bench_couple/fast_bf16": "K2",
+        "bench_multichip/single_chip": "K1",
+        "bench_multichip/dense_exchange": "K1",
+        "bench_multichip/sparse_exchange": "K1",
+        "bench_multichip/sparse_async": "K1",
+        "bench_multichip/pallas_partitioned": "K2", "ppr_serve": "K1w"}
+    assert all(got["launches"] == 0 and not any(got["counts"].values())
+               for got in rec["launches"].values())
+    # Each leg's steps, one launch a step on the card (phase 22(d)).
+    assert {leg: (got["kernel"], got["steps"])
+            for leg, got in rec["launches"].items()
+            if leg != "ppr_serve"} == {
+        leg: want for leg, want in port.AA_LEGS.items()
+        if leg != "ppr_serve"}
+
+    _spec, _m, docs, _metas = campaign.load_campaign(str(dirs[0]))
+    serve = docs["ppr_serve"]["output"]
+    assert rec["launches"]["ppr_serve"]["steps"] == \
+        serve["iters"] * (serve["layout"]["batches"] + 1) > 0
+    mc = docs["bench_multichip"]["output"]
+    assert set(mc) == MULTICHIP_KEYS
+    assert mc["n_devices"] == 2 and len(mc["device_view"]) == 2
+    assert mc["single_chip"]["n_devices"] == 1
+    for leg in ("single_chip", "dense_exchange", "sparse_exchange",
+                "sparse_async", "pallas_partitioned"):
+        got = mc[leg]
+        assert got["value"] > 0 and got["ms_per_iter"] > 0
+        assert got["lowering"] is None and "step" in got["costs"]
+        assert got["graph"]["prediction"]["ndev"] == got["n_devices"]
+    for leg in ("single_chip", "dense_exchange", "sparse_exchange",
+                "sparse_async"):
+        att = mc[leg]["attribution"]
+        assert att["exchange_s"] > 0 and att["step_s"] > 0
+    assert mc["dense_exchange"]["layout"]["form"] == "vertex_sharded"
+    assert mc["sparse_exchange"]["layout"]["form"] == "vs_halo"
+    assert mc["sparse_async"]["layout"]["form"] == "vs_halo_async"
+    pl = mc["pallas_partitioned"]
+    assert pl["layout"]["form"] == "pallas_partitioned"
+    assert pl["comms"] is None and pl["attribution"] is None
+    assert pl["bytes_exchanged"] == 0
+    cm = mc["sparse_exchange"]["comms"]
+    assert mc["sparse_exchange"]["bytes_exchanged"] == \
+        mc["iters"] * cm["bytes_per_iter"]
+    assert mc["sparse_async"]["bytes_exchanged"] == \
+        mc["iters"] * mc["sparse_async"]["comms"]["bytes_per_iter"]
+    sw = mc["staleness_sweep"]["legs"]
+    assert sw["async_lag0"]["iters_to_tol"] == sw["sync"]["iters_to_tol"]
+    assert mc["accuracy"]["normalized_l1_vs_f64_oracle"] < 1e-3
+    # The exchanged bytes are the JAX comms model's on the same graph at
+    # two devices: the JAX package's pack, halo plan and byte model over
+    # the table as the JAX pallas forms pad it for a mesh (world x 256
+    # rows, jax_engine.py:1146-1157), the padding the port's sharded
+    # forms take. (The JAX XLA form pads to a smaller power of two; at
+    # this toy size its plan splits the rows otherwise.)
+    src, dst = jax_rmat(mc["scale"], mc["edge_factor"], seed=0)
+    pack = jax_ell.ell_pack(jax_build_graph(src, dst, n=1 << mc["scale"]))
+    slots = np.where(pack.weight != 0, pack.src, np.int32(pack.n_padded))
+    real = slots.shape[0]
+    pad = -(-real // 512) * 512 - real
+    slots = np.concatenate([slots, np.full((pad, 128), pack.n_padded,
+                                           slots.dtype)])
+    rb = np.concatenate([pack.row_block,
+                         np.full(pad, pack.row_block[real - 1],
+                                 pack.row_block.dtype)])
+    ranks, ids, _, _ = jax_ell.dense_block_ranks(rb, pack.num_blocks)
+    n_vs = -(-pack.n_padded // 256) * 256
+    plan = jax_partition.build_halo_plan(
+        [slots], [ranks], [ids], ndev=2, n_vs=n_vs, sz=pack.n_padded,
+        group=1, head_k=-1, z_item=4, accum_item=4, rs_merge=True)
+    jm = jax_comms.model_sparse(plan)
+    assert mc["exchanged_bytes"] == {
+        "sparse_model_per_iter": jm["sparse_bytes_per_iter"],
+        "dense_model_per_iter": jm["dense_bytes_per_iter"],
+        "sparse_below_dense": bool(jm["sparse_bytes_per_iter"]
+                                   < jm["dense_bytes_per_iter"]),
+        "halo_fraction": jm["halo_fraction"],
+        "head_k": jm["head_k"]}
+    assert jm["dense_bytes_per_iter"] == jax_comms.model_dense(
+        2, n_vs // 2, 4, 4, True)["bytes_per_iter"]

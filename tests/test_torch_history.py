@@ -97,3 +97,36 @@ def test_port_run_report_record_and_ledger(tmp_path):
     changes = history.detect_changes(recs + [slow])
     assert any(c.leg == "partitioned_bf16" and c.direction == "regression"
                for c in changes)
+
+
+def _couple(layout, l1=2.9e-14):
+    return {"metric": "edges_per_sec_per_chip", "value": 3.0e10,
+            "unit": "edges/s/chip", "layout": layout,
+            "fast_f32": {"value": 8.0e10}, "build_warm_s": 1.5,
+            "accuracy": {"config": "f64" if layout else "pair-f64",
+                         "normalized_l1_vs_f64_oracle": l1}}
+
+
+def test_a_bench_r05_couple_record_normalizes_as_the_jax_one():
+    doc = json.loads((REPO / "BENCH_r05.json").read_text())
+    got = history.normalize_result(doc, source="BENCH_r05.json")
+    want = jax_history.normalize_result(doc, source="BENCH_r05.json")
+    assert got == want
+    # No layout (the r01-r05 rounds): the headline was pair-f64.
+    assert got["kind"] == "bench_couple"
+    assert "pair_f64" in got["legs"] and "f64" not in got["legs"]
+    assert got["legs"]["pair_f64"]["accuracy_l1"] > 0
+
+
+def test_a_port_couple_record_files_its_headline_under_f64():
+    rec = history.normalize_result(_couple({"form": "flat_ell",
+                                            "pair": False}), source="p")
+    assert set(rec["legs"]) == {"f64", "fast_f32"}
+    head = rec["legs"]["f64"]
+    assert head["edges_per_sec_per_chip"] == 3.0e10
+    assert head["build_warm_s"] == 1.5 and head["accuracy_l1"] == 2.9e-14
+    # A couple whose layout ran pair sums keeps the JAX leg name.
+    pair = _couple({"pair": True})
+    got = history.normalize_result(pair, source="j")
+    assert "pair_f64" in got["legs"] and "f64" not in got["legs"]
+    assert got == jax_history.normalize_result(pair, source="j")

@@ -1,7 +1,8 @@
 """The port stands alone: no file of pagerank_tpu_torch/, and not
-chip_smoke.py or chip_rehearse.py, imports jax, jaxlib or pagerank_tpu; importing the
-package loads no jax; and it imports with no triton and no nvcc, since
-the kernels are built lazily, at first launch."""
+chip_smoke.py or chip_rehearse.py, imports jax, jaxlib, pagerank_tpu or
+the root bench.py (the JAX tool; the port's is pagerank_tpu_torch.bench);
+importing the package loads no jax; and it imports with no triton and no
+nvcc, since the kernels are built lazily, at first launch."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "pagerank_tpu")
+FORBIDDEN = ("jax", "jaxlib", "pagerank_tpu", "bench")
 
 
 def _port_files():
@@ -95,7 +96,8 @@ def test_importing_the_port_loads_no_jax():
         "pagerank_tpu_torch.testing.elastic, "
         "pagerank_tpu_torch.testing.load, "
         "pagerank_tpu_torch.testing.ppr_group, "
-        "pagerank_tpu_torch.utils.config\n"
+        "pagerank_tpu_torch.utils.config, pagerank_tpu_torch.bench, "
+        "pagerank_tpu_torch.obs.campaign\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "print(bad)\n"

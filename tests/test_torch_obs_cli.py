@@ -13,7 +13,9 @@ which cannot read a port layout, falls back to its config's
 (``fast_f32``). ``graph`` gives the same integer profile of the same
 R-MAT edges; ``fit`` the same keys and verdict at a scale that fits
 and at one that cannot (its byte counts differ by design: JAX asks
-XLA, the port reckons). ``hlo`` and ``campaign`` exit 2.
+XLA, the port reckons). ``hlo`` exits 2; ``campaign status`` of a
+directory that holds no campaign exits 2, as JAX's does (the campaign
+itself: ``tests/test_torch_campaign.py``).
 """
 
 import contextlib
@@ -246,5 +248,8 @@ def test_graph_without_a_card_is_a_usage_error():
 def test_hlo_and_campaign_exit_2_naming_why(argv):
     rc, _, err = _run(port_main, argv)
     assert rc == 2
-    assert ("not applicable" in err) if argv[0] == "hlo" else \
-        ("bench" in err and "next slice" in err)
+    if argv[0] == "hlo":
+        assert "not applicable" in err
+    else:
+        assert "no campaign in x" in err
+        assert _run(jax_main, argv)[0] == 2
