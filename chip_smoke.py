@@ -132,11 +132,15 @@ What it does, in order:
      libraries (every shipped symbol's registers, shared bytes, local
      memory and stack frame printed); (b) F1-F6 on the card at the JAX fixtures'
      shapes, the counts set to 0 before and read after: F1 at its
-     geometry refused with no error left pending and equal to its plain
-     copy at 2^15, F2 and F5 equal, F3 equal with NaN at exactly the
+     geometry refused with no error left pending, an x off 16 bytes
+     refused, and equal to its plain copy at 2^15 and at a ragged
+     2^15 + 1, F2 and F5 equal, F3 equal with NaN at exactly the
      elements PTK003 names, F4 one of its two writers in every element,
-     F6 within 1e-5 of an f64 matmul; each timed beside its bound,
-     its plain version and ``Tensor.copy_`` / ``torch.matmul``;
+     F6 within 1e-5 of an f64 matmul; each timed as a wrapper call
+     (median of 30) and as a bare launch of its bound C entry (50
+     launches between two events, median of 7 rounds, in turns) beside
+     its bound, its plain version and ``Tensor.copy_`` /
+     ``torch.matmul``; the phase's seconds;
  12. personalized PageRank and its daemon at the size of the repo's
      PPR acceptance runs (BASELINE.md:154-160), and the coo form:
      (a) ``cli.run --synthetic rmat:20 --ppr-sources random:256
@@ -1516,18 +1520,23 @@ FIXTURE_REPLACES = {
 
 
 def fixture_phase(rules):
-    """Phase 10b: F1-F6 on the card at the JAX fixtures' shapes, the counts
+    """Phase 11b: F1-F6 on the card at the JAX fixtures' shapes, the counts
     set to 0 before and read after. F1 at its geometry must be refused
-    and leave no error pending; at 2^15 it equals its plain copy. F2 and
-    F5 equal their plain versions; F3 too, with NaN at exactly the
-    elements PTK003 names; F4 holds one of its two writers in every
-    element; F6 is within 1e-5 (normalised) of an f64 matmul. Each is
-    timed beside its bound and a library call. Returns the records."""
+    and leave no error pending, and an x off 16 bytes must raise; at
+    2^15 and at a ragged 2^15 + 1 it equals its plain copy. F2 and F5
+    equal their plain versions; F3 too, with NaN at exactly the elements
+    PTK003 names; F4 holds one of its two writers in every element; F6
+    is within 1e-5 (normalised) of an f64 matmul. Each is timed as a
+    wrapper call and as a bare launch of its bound C entry, beside its
+    bound, its plain version and a library call; the wrapper call's and
+    the library call's host time (mean host clock a call) say what of
+    a call is the host's. Returns the records."""
     import torch
 
     from pagerank_tpu_torch.analysis import kernels
     from pagerank_tpu_torch.ops import defect_fixtures as fx
 
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
 
@@ -1540,6 +1549,8 @@ def fixture_phase(rules):
               "index_gap": (rnd(16, 128),), "index_overlap": (rnd(32, 128),),
               "f64_scratch": (rnd(16, 128),),
               "cost_mismatch": (rnd(256, 128), rnd(128, 128))}
+    ragged = rnd((1 << 15) + 1)
+    skew = torch.empty((1 << 15) + 1, device="cuda")[1:]
     big = rnd(fx.OVERFLOW_N)
     _reset_counts()
     try:
@@ -1549,22 +1560,34 @@ def fixture_phase(rules):
         refused = str(e)
     torch.cuda.synchronize()
     pending = fx.last_error()
+    try:
+        fx.vmem_overflow(skew)
+        off16 = None
+    except ValueError as e:
+        off16 = str(e)
     outs = {n: getattr(fx, n)(*a) for n, a in inputs.items()}
+    ragged_out = fx.vmem_overflow(ragged)
     torch.cuda.synchronize()
     k1, k2, counts = _read_counts()
     del big
     _check(refused is not None, "F1 launched 32 MiB of shared memory")
     _check(pending == 0, f"F1's refusal left CUDA error {pending} pending")
+    _check(off16 is not None, "F1 took an x off 16 bytes")
     want = {f"fx:{n}": 1 for n in inputs}
+    want["fx:vmem_overflow"] = 2
     _check({k: v for k, v in counts.items() if k.startswith("fx:")} == want
            and k1 == k2 == 0
            and not any(v for k, v in counts.items()
                        if not k.startswith("fx:")),
            f"fixture launches {counts} (K1 {k1}, K2 {k2}), want {want}")
+    _check(torch.equal(ragged_out, ragged),
+           f"F1 at the ragged [{ragged.numel()}] differs from its plain copy")
     print(f"F1 at its geometry (x f32 [{fx.OVERFLOW_N}], "
           f"{fx.OVERFLOW_N * 4} B of shared memory; the checker says "
           f"{rules['vmem_overflow']}) refused: {refused}; no error pending "
-          f"after it")
+          f"after it; an x off 16 bytes refused: {off16}; at "
+          f"[{1 << 15}] and the ragged [{ragged.numel()}] equal to its "
+          f"plain copy")
     errs = {}
     for name, args in inputs.items():
         got = outs[name]
@@ -1604,6 +1627,9 @@ def fixture_phase(rules):
           f"their plain versions; F4 holds one writer per element (max "
           f"distance to the nearer writer {errs['index_overlap']}); F6 max "
           f"abs error {errs['cost_mismatch']:.3e} vs an f64 matmul")
+    # The bare launches: each fixture's bound C entry, 50 launches
+    # between two events, median of 7 rounds, the six in turns.
+    bare = _launch_ms({n: fx.bind(n, *a) for n, a in inputs.items()})
     records = []
     for name, args in inputs.items():
         fn = getattr(fx, name)
@@ -1623,6 +1649,10 @@ def fixture_phase(rules):
         timed = fx.launches[name] - before
         plain_ms = _median_ms(lambda: ref(*args), 30)
         library_ms = _median_ms(library, 30)
+        # What a call costs the host before the card sees its launch.
+        host_ms = _host_ms(lambda: fn(*args))
+        library_host_ms = _host_ms(library)
+        torch.cuda.synchronize()
         # Each input read once and the output written once; F6 also its
         # 2mkn FLOPs.
         cost = {"bytes": float(sum(a.numel() for a in args)
@@ -1631,20 +1661,29 @@ def fixture_phase(rules):
                           * args[1].shape[1] if name == "cost_mismatch"
                           else 0.0)}
         bound_ms, bound_by = _bound_ms(cost)
-        print(f"F {name}: {ms:.4f} ms a wrapper call, its NaN fill "
-              f"included ({timed} launches timed), plain "
-              f"{plain_ms:.4f} ms, {'torch.matmul' if name == 'cost_mismatch' else 'Tensor.copy_'} "
-              f"{library_ms:.4f} ms, {bound_by} bound {bound_ms:.6f} ms "
-              f"({int(cost['bytes'])} B, {int(cost['flops'])} FLOP)")
+        fill = ("its NaN fill included" if fx.leaves_gaps(
+            name, args[0].shape[0]) else "no NaN fill")
+        lib_name = ("torch.matmul" if name == "cost_mismatch"
+                    else "Tensor.copy_")
+        print(f"F {name}: {ms:.4f} ms a wrapper call ({fill}; {timed} "
+              f"launches timed; host {host_ms:.4f} ms), bare launch "
+              f"{bare[name]:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} "
+              f"{library_ms:.4f} ms (host {library_host_ms:.4f} ms), "
+              f"{bound_by} bound {bound_ms:.6f} ms ({int(cost['bytes'])} B, "
+              f"{int(cost['flops'])} FLOP)")
         records.append({
             "name": f"fx_{name}", "route": "cuda",
             "source": "pagerank_tpu_torch/csrc/defect_fixtures.cu",
             "replaces": FIXTURE_REPLACES[name], "checked": True,
             "launches": counts[f"fx:{name}"], "max_abs_err": errs[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
+            "ms": ms, "bare_ms": bare[name], "host_ms": host_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "library_host_ms": library_host_ms,
             "rule": rules[name],
             "shapes": ", ".join(f"{_dt(a)}{list(a.shape)}" for a in args)})
+    seconds = time.perf_counter() - t0
+    records[0]["phase_s"] = seconds
+    print(f"phase 11b (F1-F6 on the card) took {seconds:.1f} s")
     return records
 
 

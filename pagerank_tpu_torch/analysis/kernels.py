@@ -108,8 +108,9 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 
 #: Bytes of the element types the sources declare.
 _CTYPE_BYTES = {"float": 4, "double": 8, "int": 4, "int32_t": 4,
-                "int64_t": 8, "uint32_t": 4, "uint16_t": 2, "uint8_t": 1,
-                "unsigned char": 1, "char": 1, "unsigned short": 2}
+                "int64_t": 8, "uint32_t": 4, "uint64_t": 8, "uint16_t": 2,
+                "uint8_t": 1, "unsigned char": 1, "char": 1,
+                "unsigned short": 2}
 _DTYPE_BYTES = {"float32": 4, "float64": 8, "bfloat16": 2, "int32": 4,
                 "int8": 1}
 
@@ -146,7 +147,10 @@ class CuKernel:
 
     @property
     def static_smem(self) -> int:
-        return sum(d.nbytes for d in self.shared)
+        """The declarations' bytes as the compiler lays them out: in
+        whole 16-byte units (cuobjdump's SHARED on sm_90a, e.g. F1's
+        8-byte mbarrier takes 16)."""
+        return -(-sum(d.nbytes for d in self.shared) // 16) * 16
 
 
 @dataclasses.dataclass
@@ -309,10 +313,21 @@ def read_source(name: str, csrc_dir: Optional[Path] = None) -> CuSource:
             raise ValueError(f"csrc/{name}.cu: {m.group(1)} has two values")
         consts[m.group(1)] = val
     opt_in = set()
+    funcs = _functions(text)
     for m in re.finditer(r"cudaFuncSetAttribute\s*\(\s*(\w+)", text):
         call = text[m.start():text.index(";", m.start())]
-        if "cudaFuncAttributeMaxDynamicSharedMemorySize" in call:
-            opt_in.add(m.group(1))
+        if "cudaFuncAttributeMaxDynamicSharedMemorySize" not in call:
+            continue
+        opt_in.add(m.group(1))
+        # Through a helper: the kernels its callers pass in that place.
+        host = min((f for f in funcs if f[2] <= m.start() < f[3]),
+                   key=lambda f: f[3] - f[2], default=None)
+        if host is not None and m.group(1) in host[1]:
+            at = host[1].index(m.group(1))
+            for c in re.finditer(rf"\b{host[0]}\s*\(", text):
+                args = _split_args(_parened(text, c.end() - 1)[1:-1])
+                if len(args) > at:
+                    opt_in.add(args[at].strip())
     kernels = {}
     for m in re.finditer(
             r"__global__\s+void\s+(?:__launch_bounds__\s*\(([^)]*)\)\s*)?"
@@ -1344,7 +1359,7 @@ def _tile_rows(shape, tile, grid, tile_of):
 
 def _copy_case(label, source, *, x_shape, out_shape, tile, grid, out_tile,
                block, block_const, entry, symbol="fx_copy",
-               dynamic=True) -> KernelCase:
+               dynamic=True, vector_bytes=0) -> KernelCase:
     x_lo, x_hi = _tile_rows(x_shape, tile, grid, lambda i, j: (i, j))
     o_lo, o_hi = _tile_rows(out_shape, tile, grid, out_tile)
     return KernelCase(
@@ -1357,55 +1372,74 @@ def _copy_case(label, source, *, x_shape, out_shape, tile, grid, out_tile,
             grid=(grid[0], grid[1], 1), block=block, block_const=block_const,
             dynamic_smem=int(np.prod(tile)) * 4 if dynamic else 0,
             tiles={"x": tuple(tile), "out": tuple(tile)},
-            accesses=[Access("x", "read", x_lo, x_hi),
-                      Access("out", "write", o_lo, o_hi)])])
+            accesses=[Access("x", "read", x_lo, x_hi,
+                             vector_bytes=vector_bytes),
+                      Access("out", "write", o_lo, o_hi,
+                             vector_bytes=vector_bytes)])])
 
 
-def defect_cases(csrc_dir=None) -> List[KernelCase]:
-    """F1-F6 (``csrc/defect_fixtures.cu``) at the JAX fixtures' shapes,
-    labelled as the JAX package labels them."""
+def defect_case(name: str, *shapes, csrc_dir=None) -> KernelCase:
+    """The launch case of fixture ``name``'s wrapper on inputs of
+    ``shapes`` (default: the JAX fixture's, ``ops.defect_fixtures.
+    SHAPES``), labelled as the JAX package labels the fixture."""
     from pagerank_tpu_torch.ops import defect_fixtures as fx
 
     src = read_source("defect_fixtures", csrc_dir)
     lanes, tr = src.const("kLanes"), src.const("kTileRows")
-    mis = (src.const("kMisTileRows"), src.const("kMisTileCols"))
-    n = fx.OVERFLOW_N
-    cases = [
-        # PTK001: 32 MiB staged whole in one CTA's shared memory.
-        _copy_case("fixture:vmem_overflow", src, x_shape=(n,),
-                   out_shape=(n,), tile=(n,), grid=(1, 1),
-                   out_tile=lambda i, j: (i, j),
-                   block=src.const("kWholeThreads"),
-                   block_const="kWholeThreads", entry="fx_vmem_overflow"),
+    label = f"fixture:{name}"
+    x_shape = (shapes or fx.SHAPES[name])[0]
+    rows, cols = x_shape[0], x_shape[-1]
+    if name == "vmem_overflow":
+        # PTK001 at the fixture's n: 32 MiB staged whole in one CTA's
+        # shared memory, moved by 16-byte bulk copies.
+        return _copy_case(label, src, x_shape=(rows,), out_shape=(rows,),
+                          tile=(rows,), grid=(1, 1),
+                          out_tile=lambda i, j: (i, j),
+                          block=src.const("kWholeThreads"),
+                          block_const="kWholeThreads",
+                          entry="fx_vmem_overflow", symbol="fx_copy_bulk",
+                          vector_bytes=16)
+    if name == "misaligned_tile":
         # PTK002: (100, 64) tiles, one thread per tile row.
-        _copy_case("fixture:misaligned_tile", src, x_shape=(200, lanes),
-                   out_shape=(200, lanes), tile=mis,
-                   grid=(200 // mis[0], lanes // mis[1]),
-                   out_tile=lambda i, j: (i, j), block=mis[0],
-                   block_const="kMisTileRows", entry="fx_misaligned_tile"),
-        # PTK003 (gap): out tile 2i; tiles 1 and 3 never written.
-        _copy_case("fixture:index_gap", src, x_shape=(16, lanes),
-                   out_shape=(32, lanes), tile=(tr, lanes), grid=(2, 1),
-                   out_tile=lambda i, j: (2 * i, 0), block=lanes,
-                   block_const="kLanes", entry="fx_index_gap"),
-        # PTK003 (overlap): out tile i % 2; two CTAs write each tile.
-        _copy_case("fixture:index_overlap", src, x_shape=(32, lanes),
-                   out_shape=(16, lanes), tile=(tr, lanes), grid=(4, 1),
-                   out_tile=lambda i, j: (i % 2, 0), block=lanes,
-                   block_const="kLanes", entry="fx_index_overlap"),
+        mis = (src.const("kMisTileRows"), src.const("kMisTileCols"))
+        return _copy_case(label, src, x_shape=(rows, cols),
+                          out_shape=(rows, cols), tile=mis,
+                          grid=(rows // mis[0], cols // mis[1]),
+                          out_tile=lambda i, j: (i, j), block=mis[0],
+                          block_const="kMisTileRows",
+                          entry="fx_misaligned_tile")
+    if name == "index_gap":
+        # PTK003 (gap): out tile 2i; the odd out tiles never written.
+        return _copy_case(label, src, x_shape=(rows, lanes),
+                          out_shape=(2 * rows, lanes), tile=(tr, lanes),
+                          grid=(rows // tr, 1),
+                          out_tile=lambda i, j: (2 * i, 0), block=lanes,
+                          block_const="kLanes", entry="fx_index_gap")
+    if name == "index_overlap":
+        # PTK003 (overlap): out tile i % 2; two CTAs write each of tiles
+        # 0 and 1 (and tiles past 1, where x has more than 32 rows, stay
+        # unwritten).
+        return _copy_case(label, src, x_shape=(rows, lanes),
+                          out_shape=(rows // 2, lanes), tile=(tr, lanes),
+                          grid=(rows // tr, 1),
+                          out_tile=lambda i, j: (i % 2, 0), block=lanes,
+                          block_const="kLanes", entry="fx_index_overlap")
+    if name == "f64_scratch":
         # PTK004: an f64 shared scratch in an f32 case.
-        _copy_case("fixture:f64_scratch", src, x_shape=(16, lanes),
-                   out_shape=(16, lanes), tile=(tr, lanes), grid=(2, 1),
-                   out_tile=lambda i, j: (i, j), block=lanes,
-                   block_const="kLanes", entry="fx_f64_scratch",
-                   symbol="fx_scratch", dynamic=False),
-    ]
+        return _copy_case(label, src, x_shape=(rows, lanes),
+                          out_shape=(rows, lanes), tile=(tr, lanes),
+                          grid=(rows // tr, 1),
+                          out_tile=lambda i, j: (i, j), block=lanes,
+                          block_const="kLanes", entry="fx_f64_scratch",
+                          symbol="fx_scratch", dynamic=False,
+                          vector_bytes=16)
+    if name != "cost_mismatch":
+        raise KeyError(f"no defect fixture {name!r}")
     # PTK005: a correct matmul with a deliberately wrong analytic model.
-    mt, k = src.const("kMatTile"), lanes
-    m = 2 * mt
+    mt, m, k = src.const("kMatTile"), rows, cols
     x_lo, x_hi = _cta_spans(m * k, mt * k)
-    cases.append(KernelCase(
-        label="fixture:cost_mismatch", config={"x": "float32"},
+    return KernelCase(
+        label=label, config={"x": "float32"},
         operands={"x": Operand("float32", m * k),
                   "y": Operand("float32", k * lanes),
                   "out": Operand("float32", m * lanes, role="out")},
@@ -1421,8 +1455,15 @@ def defect_cases(csrc_dir=None) -> List[KernelCase]:
                        np.full(m // mt, k * lanes, np.int64)),
                 Access("out", "write", *_cta_spans(m * lanes, mt * lanes)),
             ])],
-        cost_model={"flops": 1.0, "bytes": 1.0}))
-    return cases
+        cost_model={"flops": 1.0, "bytes": 1.0})
+
+
+def defect_cases(csrc_dir=None) -> List[KernelCase]:
+    """F1-F6 (``csrc/defect_fixtures.cu``) at the JAX fixtures' shapes,
+    labelled as the JAX package labels them."""
+    from pagerank_tpu_torch.ops import defect_fixtures as fx
+
+    return [defect_case(name, csrc_dir=csrc_dir) for name in fx.SHAPES]
 
 
 # ---------------------------------------------------------------------------

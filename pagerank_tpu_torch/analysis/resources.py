@@ -184,18 +184,47 @@ def facts_from_dumps(res: str, elf: str, sass: str,
     return out
 
 
-def library_facts(path: str, tools: Dict[str, str]) -> Dict[str, SymbolFacts]:
-    """The compile facts of every kernel of one built library."""
+def _dumps(path: str, tools: Dict[str, str]) -> Tuple[str, str, str]:
+    """cuobjdump's resource usage, ELF and SASS dumps of one library."""
     def dump(flag):
         return subprocess.run([tools["cuobjdump"], flag, str(path)],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
 
-    res, elf, sass = dump("--dump-resource-usage"), dump("-elf"), \
-        dump("-sass")
+    return dump("--dump-resource-usage"), dump("-elf"), dump("-sass")
+
+
+def library_facts(path: str, tools: Dict[str, str]) -> Dict[str, SymbolFacts]:
+    """The compile facts of every kernel of one built library."""
+    res, elf, sass = _dumps(path, tools)
     mangled = [n for n in parse_resource_usage(res) if n.startswith("_Z")]
     return facts_from_dumps(res, elf, sass,
                             demangle(mangled, tools["cu++filt"]))
+
+
+def record_dumps(name: str, out_dir: str) -> List[str]:
+    """Write the whole dumps of csrc/<name>.cu's library (built where
+    missing) into ``out_dir`` as the CPU tests read them
+    (``tests/data/cuobjdump/``): ``<name>.res.txt``, the same through
+    ``cu++filt`` as ``<name>.res.demangled.txt``, ``<name>.elf.txt``
+    and ``<name>.sass.txt``. Returns the paths written."""
+    from pagerank_tpu_torch.kernels import build
+
+    tools = find_tools()
+    build.build_all([name])
+    res, elf, sass = _dumps(str(build.library_path(name)), tools)
+    demangled = subprocess.run([tools["cu++filt"]], input=res,
+                               capture_output=True, text=True, check=True,
+                               timeout=60).stdout
+    out = Path(out_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    written = []
+    for kind, text in (("res", res), ("res.demangled", demangled),
+                       ("elf", elf), ("sass", sass)):
+        path = out / f"{name}.{kind}.txt"
+        path.write_text(text)
+        written.append(str(path))
+    return written
 
 
 def built_facts(sources: List[str]) -> Dict[str, SymbolFacts]:

@@ -7,10 +7,11 @@
 // pagerank_tpu_torch/analysis/kernels.py, and whose function is the JAX
 // fixture's, so the card can show the fault the rule names:
 //
-//   F1 vmem_overflow   fx_copy, x f32 [n] staged whole in dynamic shared
-//                      memory by one CTA: at the fixture's n = 8,388,608
-//                      that is 33,554,432 bytes, past the 232,448 a block
-//                      may use (PTK001), so the launch is refused.
+//   F1 vmem_overflow   fx_copy_bulk, x f32 [n] staged whole in dynamic
+//                      shared memory by one CTA: at the fixture's n =
+//                      8,388,608 that is 33,554,432 bytes, past the
+//                      232,448 a block may use (PTK001), so the launch is
+//                      refused.
 //   F2 misaligned_tile fx_copy over (100, 64) tiles of x, out f32 [200, 128],
 //                      one thread per tile row: 100-thread blocks, not a
 //                      whole number of warps (PTK002).
@@ -21,27 +22,39 @@
 //                      i % 2 <- x tile i: two CTAs write each out tile, in
 //                      no order (PTK003).
 //   F5 f64_scratch     fx_scratch: acc = -acc on a __shared__ double
-//                      (8, 128) scratch, out = x, in an f32 case (PTK004).
+//                      (8, 128) scratch, out = x moved as float4, in an
+//                      f32 case (PTK004).
 //   F6 cost_mismatch   fx_matmul: out = x y in f32, x [256, 128], y
 //                      [128, 128], a correct kernel registered with the
 //                      analytic model {flops 1, bytes 1} (PTK005).
 //
 // Bound: device-memory bytes for the copies (each input read once, each
 // output written once); F6 does 8.4 MFLOP on 384 KiB, also below the
-// card's ridge point. The fixtures exist to be checked, not to be fast:
-// fx_copy stages its tile through dynamic shared memory as the TPU staged
-// a block through VMEM, and fx_matmul is a plain shared-memory-tiled FMA
+// card's ridge point. At the fixtures' KiB shapes a call is its launch,
+// so the design keeps the launch and the device work short: F1 stages
+// the array through shared memory as the TPU staged its block through
+// VMEM, but with Hopper's bulk asynchronous copies (one thread issues a
+// global -> shared copy that completes on an mbarrier, then a shared ->
+// global bulk group); F5 moves its (8, 128) tile as 16-byte vectors.
+// F2-F4 keep fx_copy, which moves 4-byte elements through shared memory
+// one per thread, and fx_matmul is a plain shared-memory-tiled FMA
 // product (each thread an 8 x 8 register tile), not a tensor-core kernel.
 //
 // Each entry point launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns the CUDA error of its launch. fx_copy's
-// entry points first opt in to their dynamic shared memory with
-// cudaFuncSetAttribute; when that is refused (F1 at its geometry) they
-// clear the error with cudaGetLastError, so it does not reach the next
-// launch's check, and return it without launching.
+// allocates nothing, and returns the CUDA error of its launch. F1-F4
+// first opt their kernel in to its dynamic shared memory with
+// cudaFuncSetAttribute, asked only when the request is more than the
+// current device last granted; when that is refused (F1 at its geometry)
+// they clear the error with cudaGetLastError, so it does not reach the
+// next launch's check, and return it without launching. F1 and F5 need
+// x and out 16-byte aligned (their wrappers check).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <climits>
+#include <mutex>
 
 namespace {
 
@@ -53,6 +66,8 @@ constexpr int kMisTileCols = 64;
 constexpr int kMatTile = 128;        // F6: 128 x 128 output tile per CTA
 constexpr int kMatK = 32;            // F6: depth of one shared-memory step
 constexpr int kMatThreads = 256;     // F6: 16 x 16 threads, 8 x 8 outputs each
+constexpr int kVec = 4;              // F1, F5: floats in a 16-byte vector
+constexpr int kMaxDevices = 64;
 
 // Tile (i, j) of x -> dynamic shared memory -> tile ((out_mul*i) % out_mod,
 // j) of out. Tiles are tile_rows x tile_cols of row-major arrays whose rows
@@ -77,17 +92,72 @@ fx_copy(const float* __restrict__ x, float* __restrict__ out, int64_t x_cols,
   }
 }
 
-// One (8, 128) tile per CTA, one thread per lane. The scratch is volatile
-// so the compiler keeps it, as the TPU kept its VMEM scratch.
+// F1: x -> shared memory -> out, the whole array in one CTA. Thread 0
+// moves the head (the first n - n % 4 elements, a whole number of 16-byte
+// vectors) with two bulk copies: global -> shared completing on the
+// mbarrier `staged`, armed with the head's bytes; then shared -> global as
+// a bulk group, whose reads of shared memory it waits for before the CTA
+// exits. The tail (n % 4 elements) goes through shared memory by the
+// first threads. x and out are 16-byte aligned.
+__global__ void __launch_bounds__(kWholeThreads)
+fx_copy_bulk(const float* __restrict__ x, float* __restrict__ out,
+             int64_t n) {
+  extern __shared__ __align__(16) float whole[];
+  __shared__ uint64_t staged;
+  const int64_t head = n - n % kVec;
+  const int64_t t = head + threadIdx.x;
+  if (t < n) {
+    whole[t] = x[t];
+    out[t] = whole[t];
+  }
+  if (threadIdx.x != 0 || head == 0) return;
+  const uint32_t bytes = static_cast<uint32_t>(head * sizeof(float));
+  const uint32_t bar =
+      static_cast<uint32_t>(__cvta_generic_to_shared(&staged));
+  const uint32_t smem =
+      static_cast<uint32_t>(__cvta_generic_to_shared(whole));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem), "l"(x), "r"(bytes), "r"(bar)
+      : "memory");
+  asm volatile(
+      "{\n"
+      ".reg .pred staged_p;\n"
+      "FX_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 staged_p, [%0], %1;\n"
+      "@!staged_p bra FX_WAIT;\n"
+      "}\n" ::"r"(bar), "r"(0)
+      : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(out), "r"(smem), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// F5: one (8, 128) tile per CTA, 128 threads. The scratch is volatile so
+// the compiler keeps it, as the TPU kept its VMEM scratch; each thread
+// negates its lane of it, then moves two float4 of the tile (vectors
+// lane and lane + 128 of its 256). x and out are 16-byte aligned.
 __global__ void __launch_bounds__(kLanes)
 fx_scratch(const float* __restrict__ x, float* __restrict__ out) {
   volatile __shared__ double acc[kTileRows][kLanes];
   const int lane = threadIdx.x;
+  for (int r = 0; r < kTileRows; ++r) acc[r][lane] = -acc[r][lane];
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kTileRows * kLanes;
-  for (int r = 0; r < kTileRows; ++r) {
-    acc[r][lane] = -acc[r][lane];
-    out[base + r * kLanes + lane] = x[base + r * kLanes + lane];
-  }
+  const float4* xs = reinterpret_cast<const float4*>(x + base);
+  float4* os = reinterpret_cast<float4*>(out + base);
+  const float4 a = xs[lane];
+  const float4 b = xs[lane + kLanes];
+  os[lane] = a;
+  os[lane + kLanes] = b;
 }
 
 // out[128 rows of CTA i] = x[rows] y; x [m, k_dim], y [k_dim, 128],
@@ -133,19 +203,55 @@ fx_matmul(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// The dynamic shared memory cudaFuncSetAttribute last granted one kernel
+// on each device (0: not asked yet); it only grows.
+struct Grant {
+  std::atomic<int> bytes[kMaxDevices];
+  std::mutex lock;
+};
+
+Grant copy_grant;
+Grant bulk_grant;
+
+// Opt `kernel` in to `smem_bytes` of dynamic shared memory on the current
+// device, asking only when that is more than it last granted there. A
+// refusal is cleared (cudaGetLastError) and returned.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, Grant& grant, int64_t smem_bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::atomic<int>* granted =
+      dev < kMaxDevices ? &grant.bytes[dev] : nullptr;
+  if (granted && smem_bytes <= granted->load(std::memory_order_acquire)) {
+    return cudaSuccess;
+  }
+  if (smem_bytes > INT_MAX) return cudaErrorInvalidValue;
+  std::lock_guard<std::mutex> hold(grant.lock);
+  if (granted && smem_bytes <= granted->load(std::memory_order_relaxed)) {
+    return cudaSuccess;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem_bytes));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return err;
+  }
+  if (granted) {
+    granted->store(static_cast<int>(smem_bytes), std::memory_order_release);
+  }
+  return cudaSuccess;
+}
+
 int launch_copy(const void* x, void* out, dim3 grid, int threads,
                 int64_t x_cols, int64_t out_cols, int64_t tile_rows,
                 int64_t tile_cols, int64_t out_mul, int64_t out_mod,
                 void* stream) {
   const int64_t smem_bytes =
       tile_rows * tile_cols * static_cast<int64_t>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      fx_copy, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes));
-  if (err != cudaSuccess) {
-    cudaGetLastError();
-    return static_cast<int>(err);
-  }
+  cudaError_t err = opt_in(fx_copy, copy_grant, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   fx_copy<<<grid, threads, static_cast<size_t>(smem_bytes),
             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(out), x_cols, out_cols,
@@ -155,11 +261,16 @@ int launch_copy(const void* x, void* out, dim3 grid, int threads,
 
 }  // namespace
 
-// F1: x, out f32 [n], one CTA, the whole array one tile.
+// F1: x, out f32 [n], 16-byte aligned; one CTA, the whole array one tile.
 extern "C" int fx_vmem_overflow(const void* x, void* out, int64_t n,
                                 void* stream) {
-  return launch_copy(x, out, dim3(1, 1), kWholeThreads, n, n, 1, n, 1, 1,
-                     stream);
+  const int64_t smem_bytes = n * static_cast<int64_t>(sizeof(float));
+  cudaError_t err = opt_in(fx_copy_bulk, bulk_grant, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fx_copy_bulk<<<1, kWholeThreads, static_cast<size_t>(smem_bytes),
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // F2: x, out f32 [rows, cols], rows % 100 == 0, cols % 64 == 0.
@@ -188,7 +299,7 @@ extern "C" int fx_index_overlap(const void* x, void* out, int64_t x_rows,
                      kLanes, kLanes, kLanes, kTileRows, kLanes, 1, 2, stream);
 }
 
-// F5: x, out f32 [x_rows, 128].
+// F5: x, out f32 [x_rows, 128], 16-byte aligned.
 extern "C" int fx_f64_scratch(const void* x, void* out, int64_t x_rows,
                               void* stream) {
   fx_scratch<<<static_cast<unsigned>(x_rows / kTileRows), kLanes, 0,

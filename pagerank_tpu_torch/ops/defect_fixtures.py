@@ -7,20 +7,26 @@ for ``sm_90a`` at first use (kernels/build.py) and called through
 ctypes. Each fixture computes the JAX fixture's function at a launch
 geometry that trips exactly one rule of
 :mod:`pagerank_tpu_torch.analysis.kernels` (the source note lists
-which). What bounds them on the H100: device-memory bytes; they exist
-to be checked, not to be fast.
+which). What bounds them on the H100: device-memory bytes; at the
+fixtures' KiB shapes a call is its launch, so each C entry is bound
+once (:func:`_entry`) and a call does no more on the host than its
+launch needs.
 
 The plain versions follow the JAX fixtures as interpret mode runs them:
 the tile maps are applied in grid order, so where two steps write one
 output tile the last one wins (F4), and output that no tile writes is
-NaN (F3). The CUDA wrappers fill the output with NaN before the launch,
-so an unwritten tile reads the same on the card; F4's two writers race
-there, in no order.
+NaN (F3). The CUDA wrappers fill the output with NaN before the launch
+only where the launch leaves elements unwritten (:func:`leaves_gaps`:
+PTK003's gaps), so an unwritten tile reads the same on the card; every
+other output is ``torch.empty``. F4's two writers race there, in no
+order.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes
 its plain version only for tensors on the CPU. F1 at its fixture's size
-(8,388,608 f32) must raise: its 32 MiB of shared memory is refused.
-``launches`` counts the launches of each kernel by fixture name.
+(8,388,608 f32) must raise: its 32 MiB of shared memory is refused. F1
+and F5 move 16-byte vectors and raise on an x that is not 16-byte
+aligned. ``launches`` counts the launches of each kernel by fixture
+name.
 """
 
 from __future__ import annotations
@@ -40,19 +46,57 @@ TILE = (8, LANES)
 MIS_TILE = (100, 64)
 OVERFLOW_N = 8 << 20
 
+#: The JAX fixtures' input shapes, in their order.
+SHAPES = {"vmem_overflow": [(OVERFLOW_N,)],
+          "misaligned_tile": [(200, LANES)], "index_gap": [(16, LANES)],
+          "index_overlap": [(32, LANES)], "f64_scratch": [(16, LANES)],
+          "cost_mismatch": [(2 * LANES, LANES), (LANES, LANES)]}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int64
+#: Each fixture's C entry and its arguments before the stream.
+_ENTRIES = {"vmem_overflow": ("fx_vmem_overflow", (_P, _P, _I)),
+            "misaligned_tile": ("fx_misaligned_tile", (_P, _P, _I, _I)),
+            "index_gap": ("fx_index_gap", (_P, _P, _I)),
+            "index_overlap": ("fx_index_overlap", (_P, _P, _I)),
+            "f64_scratch": ("fx_f64_scratch", (_P, _P, _I)),
+            "cost_mismatch": ("fx_cost_mismatch", (_P, _P, _P, _I, _I)),
+            "last_error": ("defect_fixtures_last_error", ()),
+            "error_string": ("defect_fixtures_error_string", (ctypes.c_int,))}
+_BOUND = {}
+
+
+def _entry(name):
+    """The C entry of ``name`` in the library, its ctypes signature set
+    once (the stream last; returns the CUDA error)."""
+    fn = _BOUND.get(name)
+    if fn is None:
+        from pagerank_tpu_torch.kernels import build
+
+        symbol, args = _ENTRIES[name]
+        fn = getattr(build.load("defect_fixtures"), symbol)
+        if name == "error_string":
+            fn.argtypes, fn.restype = list(args), ctypes.c_char_p
+        else:
+            fn.argtypes = list(args) + ([_P] if args else [])
+            fn.restype = ctypes.c_int
+        _BOUND[name] = fn
+    return fn
+
 
 def _check(name, *ts, ndim=2):
+    x = ts[0]
     for t in ts:
-        if t.dtype != torch.float32:
+        if t.dtype is not torch.float32:
             raise TypeError(f"{name}: want float32, got {t.dtype}")
         if t.dim() != ndim or not t.is_contiguous():
             raise ValueError(f"{name}: want a contiguous {ndim}-D tensor, "
                              f"got {tuple(t.shape)}")
-        if t.device != ts[0].device:
+    for t in ts[1:]:
+        if t.device != x.device:
             raise ValueError(f"{name}: tensors on {t.device} and "
-                             f"{ts[0].device}")
-    if ts[0].device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name} runs on cuda or cpu, not {ts[0].device}")
+                             f"{x.device}")
+    if not (x.is_cuda or x.is_cpu):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
 
 
 def _rows_of(name, x, tile_rows, cols=LANES):
@@ -63,29 +107,93 @@ def _rows_of(name, x, tile_rows, cols=LANES):
     return rows
 
 
-def _launch(name, entry, out, *args):
-    """Call ``entry`` of the library on ``args`` (tensors as pointers,
-    ints as int64) and the stream; raise on a CUDA error, else count the
-    launch and return ``out``."""
-    from pagerank_tpu_torch.kernels import build
+def leaves_gaps(name, rows):
+    """Whether fixture ``name``'s launch on an x of ``rows`` rows leaves
+    elements of its output unwritten (the gaps PTK003 names): F3 always
+    (its odd out tiles), F4 once x has more than its fixture's 32 rows
+    (out tiles past 1). Only those outputs are filled with NaN before
+    the launch."""
+    return name == "index_gap" or (name == "index_overlap"
+                                   and rows > 4 * TILE[0])
 
-    lib = build.load("defect_fixtures")
-    fn = getattr(lib, entry)
-    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor)
-                   else ctypes.c_int64 for a in args] + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream(out.device).cuda_stream
-    with torch.cuda.device(out.device):
-        rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
-                  for a in args), stream)
+
+def _launch_args(name, x, y=None):
+    """(out, the C entry's arguments before the stream, tensors as
+    addresses) of fixture ``name`` on inputs its wrapper took: out is
+    empty, or NaN where :func:`leaves_gaps` says the launch leaves
+    elements unwritten. Raises on an x that F1 or F5 cannot move as
+    16-byte vectors."""
+    rows = x.shape[0]
+    if name == "index_gap" or name == "index_overlap":
+        shape = ((2 * rows, LANES) if name == "index_gap"
+                 else (rows // 2, LANES))
+        out = (_nan(shape, x) if leaves_gaps(name, rows) else
+               torch.empty(shape, dtype=torch.float32, device=x.device))
+        return out, (x.data_ptr(), out.data_ptr(), rows)
+    if name == "cost_mismatch":
+        out = torch.empty((rows, LANES), dtype=torch.float32,
+                          device=x.device)
+        return out, (x.data_ptr(), y.data_ptr(), out.data_ptr(), rows,
+                     x.shape[1])
+    if name != "misaligned_tile" and x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned (its kernel "
+                         f"moves 16-byte vectors), got address "
+                         f"{x.data_ptr():#x}")
+    out = torch.empty_like(x)
+    if name == "misaligned_tile":
+        return out, (x.data_ptr(), out.data_ptr(), rows, x.shape[1])
+    return out, (x.data_ptr(), out.data_ptr(), rows)
+
+
+def _failure(name, rc):
+    msg = _entry("error_string")(rc).decode()
+    return RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
+                        f"({msg})")
+
+
+def _stream_of(index):
+    """The handle of device ``index``'s current CUDA stream, from
+    PyTorch's raw getter (``torch.cuda.current_stream`` builds a Stream
+    object a call)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def _launch(name, *inputs):
+    """Launch fixture ``name`` on ``inputs`` on the current stream of
+    their device, entering that device only when it is not the current
+    one; raise on a CUDA error, else count the launch and return out."""
+    out, args = _launch_args(name, *inputs)
+    fn = _entry(name)
+    index = out.get_device()
+    if index == torch.cuda.current_device():
+        rc = fn(*args, _stream_of(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _stream_of(index))
     if rc != 0:
-        lib.defect_fixtures_error_string.restype = ctypes.c_char_p
-        lib.defect_fixtures_error_string.argtypes = [ctypes.c_int]
-        msg = lib.defect_fixtures_error_string(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} "
-                           f"({msg})")
+        raise _failure(name, rc)
     launches[name] += 1
     return out
+
+
+def bind(name, *inputs):
+    """Fixture ``name``'s bare launch on CUDA ``inputs`` that its
+    wrapper takes: the output allocated and the bound C entry's
+    arguments and stream (the current one) fixed once; each call of the
+    returned function launches the kernel once into that output (its
+    device must be the current one), counts it and returns the output."""
+    out, args = _launch_args(name, *inputs)
+    fn = _entry(name)
+    args += (_stream_of(out.get_device()),)
+
+    def launch():
+        rc = fn(*args)
+        if rc != 0:
+            raise _failure(name, rc)
+        launches[name] += 1
+        return out
+
+    return launch
 
 
 def _nan(shape, like):
@@ -143,11 +251,9 @@ def vmem_overflow(x):
     memory. Launches only where n * 4 fits a block (n <= 58,112); at the
     fixture's n it raises with the CUDA error."""
     _check("vmem_overflow", x, ndim=1)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return vmem_overflow_reference(x)
-    out = _nan(x.shape, x)
-    return _launch("vmem_overflow", "fx_vmem_overflow", out, x, out,
-                   x.shape[0])
+    return _launch("vmem_overflow", x)
 
 
 def misaligned_tile(x):
@@ -157,46 +263,42 @@ def misaligned_tile(x):
     if rows % MIS_TILE[0] or cols % MIS_TILE[1] or rows == 0:
         raise ValueError(f"misaligned_tile: want x [k*100, m*64], got "
                          f"{tuple(x.shape)}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return misaligned_tile_reference(x)
-    out = _nan(x.shape, x)
-    return _launch("misaligned_tile", "fx_misaligned_tile", out, x, out,
-                   rows, cols)
+    return _launch("misaligned_tile", x)
 
 
 def index_gap(x):
     """F3: x [k*8, 128] -> out [2k*8, 128], x tile i into out tile 2i;
     the odd out tiles stay NaN."""
     _check("index_gap", x)
-    rows = _rows_of("index_gap", x, TILE[0])
-    if x.device.type == "cpu":
+    _rows_of("index_gap", x, TILE[0])
+    if x.is_cpu:
         return index_gap_reference(x)
-    out = _nan((2 * rows, LANES), x)
-    return _launch("index_gap", "fx_index_gap", out, x, out, rows)
+    return _launch("index_gap", x)
 
 
 def index_overlap(x):
     """F4: x [k*16, 128] -> out [k*8, 128], x tile i into out tile
-    i % 2 (the fixture: k = 2, two out tiles with two writers each). The
-    plain version keeps the last writer; on the card each element holds
-    one of its writers', in no order."""
+    i % 2 (the fixture: k = 2, two out tiles with two writers each; past
+    it the out tiles from 2 on stay NaN). The plain version keeps the
+    last writer; on the card each element holds one of its writers', in
+    no order."""
     _check("index_overlap", x)
-    rows = _rows_of("index_overlap", x, 2 * TILE[0])
-    if x.device.type == "cpu":
+    _rows_of("index_overlap", x, 2 * TILE[0])
+    if x.is_cpu:
         return index_overlap_reference(x)
-    out = _nan((rows // 2, LANES), x)
-    return _launch("index_overlap", "fx_index_overlap", out, x, out, rows)
+    return _launch("index_overlap", x)
 
 
 def f64_scratch(x):
     """F5: out = x over (8, 128) tiles, beside an f64 shared scratch
     negated in place (its values never reach out)."""
     _check("f64_scratch", x)
-    rows = _rows_of("f64_scratch", x, TILE[0])
-    if x.device.type == "cpu":
+    _rows_of("f64_scratch", x, TILE[0])
+    if x.is_cpu:
         return f64_scratch_reference(x)
-    out = _nan(x.shape, x)
-    return _launch("f64_scratch", "fx_f64_scratch", out, x, out, rows)
+    return _launch("f64_scratch", x)
 
 
 def cost_mismatch(x, y):
@@ -207,18 +309,12 @@ def cost_mismatch(x, y):
     if m % LANES or m == 0 or k % 32 or k == 0 or y.shape != (k, LANES):
         raise ValueError(f"cost_mismatch: want x [128i, 32j] and y [32j, "
                          f"128], got {tuple(x.shape)} and {tuple(y.shape)}")
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return cost_mismatch_reference(x, y)
-    out = _nan((m, LANES), x)
-    return _launch("cost_mismatch", "fx_cost_mismatch", out, x, y, out, m, k)
+    return _launch("cost_mismatch", x, y)
 
 
 def last_error() -> int:
     """``cudaGetLastError()`` on the card now (0: no error is pending);
     shows that F1's refused launch left nothing for the next launch."""
-    from pagerank_tpu_torch.kernels import build
-
-    lib = build.load("defect_fixtures")
-    lib.defect_fixtures_last_error.argtypes = []
-    lib.defect_fixtures_last_error.restype = ctypes.c_int
-    return lib.defect_fixtures_last_error()
+    return _entry("last_error")()

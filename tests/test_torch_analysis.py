@@ -347,6 +347,50 @@ def test_index_overlap_plain_version_keeps_the_last_writer():
     assert torch.equal(out[:8], x[16:24]) and torch.equal(out[8:], x[24:])
 
 
+# Each fixture at its JAX shapes, F1 at a size it launches at, and F3 and
+# F4 past their fixtures' k = 2 (F4 then leaves out tiles 2, ... unwritten).
+LAUNCH_SHAPES = [(n, s) for n, s in fx.SHAPES.items()
+                 if n != "vmem_overflow"] + [
+    ("vmem_overflow", [(1 << 15,)]), ("vmem_overflow", [((1 << 15) + 1,)]),
+    ("index_gap", [(32, LANES)]), ("index_overlap", [(48, LANES)]),
+    ("index_overlap", [(64, LANES)])]
+
+
+@pytest.mark.parametrize("name,shapes", LAUNCH_SHAPES)
+def test_nan_fill_is_exactly_where_the_launch_case_has_gaps(
+        monkeypatch, name, shapes):
+    """A CUDA wrapper fills its output with NaN before the launch only
+    where the launch case of the same shapes has write gaps (PTK003's):
+    F3 always, F4 past k = 2, no other fixture; the output's size and
+    the C entry's arity are the case's and the entry's."""
+    case = K.defect_case(name, *shapes)
+    gaps = K.write_gaps(case, "out")
+    assert fx.leaves_gaps(name, shapes[0][0]) == bool(gaps)
+    filled = []
+    nan = fx._nan
+    monkeypatch.setattr(fx, "_nan", lambda shape, like: filled.append(
+        shape) or nan(shape, like))
+    out, args = fx._launch_args(name, *(torch.zeros(s) for s in shapes))
+    assert out.numel() == case.operands["out"].numel
+    assert len(args) == len(fx._ENTRIES[name][1])
+    assert bool(filled) == bool(gaps)
+    if gaps:
+        assert bool(out.isnan().all())
+
+
+@pytest.mark.parametrize("name,shape", [("vmem_overflow", (1 << 15,)),
+                                        ("f64_scratch", (16, LANES))])
+def test_vector_fixtures_refuse_an_x_off_16_bytes(name, shape):
+    """F1's bulk copies and F5's float4 need a 16-byte aligned x: an x
+    4 bytes off raises before anything launches (no plain fallback)."""
+    n = int(np.prod(shape))
+    x = torch.zeros(n + 1)[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fx._launch_args(name, x)
+    fx._launch_args(name, torch.zeros(shape))
+
+
 @pytest.mark.parametrize("call,err", [
     (lambda: fx.index_gap(torch.zeros(12, LANES)), ValueError),
     (lambda: fx.misaligned_tile(torch.zeros(200, 100)), ValueError),
@@ -557,6 +601,15 @@ def test_source_facts():
     assert not src.kernels["probe_take"].opt_in
     fxs = K.read_source("defect_fixtures")
     assert fxs.kernels["fx_scratch"].static_smem == 8 * 128 * 8
+    # F1's kernel: the whole array in dynamic shared memory, opted in
+    # through the launch path's helper, beside its 8-byte mbarrier.
+    bulk = fxs.kernels["fx_copy_bulk"]
+    assert bulk.opt_in and bulk.launch_bounds == 1024
+    assert bulk.static_smem == 16  # the 8-byte mbarrier, in 16-byte units
+    assert [(d.dynamic, d.ctype) for d in bulk.shared] == [
+        (True, "float"), (False, "uint64_t")]
+    assert fxs.kernels["fx_copy"].opt_in
+    assert not fxs.kernels["fx_scratch"].opt_in
     assert fxs.kernels["fx_matmul"].static_smem == 2 * 128 * 32 * 4
     for name, sym in (("ell_contrib", "ell_contrib_kernel"),
                       ("ell_contrib_partitioned", "ell_contrib_part_kernel")):
@@ -669,7 +722,8 @@ def _recorded_facts(lib):
 
 def test_cuobjdump_parser_on_recorded_dumps():
     facts = _recorded_facts("defect_fixtures")
-    assert set(facts) == {"fx_copy", "fx_scratch", "fx_matmul"}
+    assert set(facts) == {"fx_copy", "fx_copy_bulk", "fx_scratch",
+                          "fx_matmul"}
     src = K.read_source("defect_fixtures")
     reserved = costs.device_spec().smem_reserved
     for sym, f in facts.items():
@@ -678,6 +732,7 @@ def test_cuobjdump_parser_on_recorded_dumps():
         assert f.regs > 0 and f.local == 0
     assert facts["fx_matmul"].regs == 128
     assert facts["fx_copy"].f64_ops == () == facts["fx_matmul"].f64_ops
+    assert facts["fx_copy_bulk"].f64_ops == ()
     k1 = _recorded_facts("ell_contrib")
     assert set(k1) == {f"ell_contrib_kernel<{a}>"
                        for a in ("float,float", "float,double",
@@ -729,8 +784,9 @@ def test_compiled_rules_on_recorded_facts(defects, k1_real):
     msgs = [f.message for f in K.check_kernel_case(wide, facts=facts)]
     assert any("f64 instructions in the SASS" in m and "DADD" in m
                for m in msgs)
-    drift = dict(facts, fx_copy=dataclasses.replace(
-        facts["fx_copy"], shared=4096, regs=200, local=16, max_threads=256))
+    drift = dict(facts, **{sym: dataclasses.replace(
+        facts[sym], shared=4096, regs=200, local=16, max_threads=256)
+        for sym in ("fx_copy", "fx_copy_bulk")})
     found = K.check_kernel_case(defects["fixture:index_gap"], facts=drift)
     assert {f.rule for f in found} == {"PTK001", "PTK002", "PTK003"}
     assert sum(f.rule == "PTK002" for f in found) == 2  # bounds, spill

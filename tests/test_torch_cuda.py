@@ -289,6 +289,33 @@ def test_defect_fixture_kernels_against_their_plain_versions(cuda, name):
         assert torch.equal(got.nan_to_num(-1.0), ref.nan_to_num(-1.0))
 
 
+@pytest.mark.parametrize("name,shape", [
+    ("vmem_overflow", (1 << 15,)), ("vmem_overflow", ((1 << 15) + 1,)),
+    ("vmem_overflow", (3,)), ("f64_scratch", (16, 128)),
+    ("f64_scratch", (64, 128))])
+def test_bulk_and_vector_fixtures_against_their_plain_versions(cuda, name,
+                                                               shape):
+    """F1 (bulk copies, a ragged tail by threads) at aligned and ragged
+    sizes and F5 (float4) equal their plain versions bit for bit, through
+    the wrapper and the bare launch of the bound entry, one launch each;
+    an x off 16 bytes raises and launches nothing."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(5)
+    x = torch.rand(shape, generator=g, device=cuda)
+    before = defect_fixtures.launches[name]
+    got = getattr(defect_fixtures, name)(x)
+    bare = defect_fixtures.bind(name, x)()
+    torch.cuda.synchronize()
+    assert defect_fixtures.launches[name] == before + 2
+    want = getattr(defect_fixtures, f"{name}_reference")(x)
+    assert torch.equal(got, want) and torch.equal(bare, want)
+    skew = torch.empty(x.numel() + 1, device=cuda)[1:].view(shape)
+    skew.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        getattr(defect_fixtures, name)(skew)
+    assert defect_fixtures.launches[name] == before + 2
+
+
 def test_vmem_overflow_is_refused_and_leaves_no_error(cuda):
     before = defect_fixtures.launches["vmem_overflow"]
     with pytest.raises(RuntimeError, match="CUDA error"):
