@@ -3,6 +3,7 @@
     python3 chip_rehearse.py [--rounds N]
     python3 chip_rehearse.py --only profiler [--rounds N]
     python3 chip_rehearse.py --only bench [--out DIR]
+    python3 chip_rehearse.py --only fixtures [--rounds N] [--root DIR]
 
 Builds the kernels, then, by default:
 
@@ -21,7 +22,14 @@ mode, the acceptance keys D, N and AA in process), then each mode of
 ``python -m pagerank_tpu_torch.bench`` as a subprocess at the sizes of
 ``BENCH_MODES`` (couple, single, ``--build-only``, ``--multichip`` over
 two ranks, ``--ppr-serve``), each record written to ``--out`` (default
-``build/bench_records``) and its headline printed.
+``build/bench_records``) and its headline printed. With ``--only
+fixtures``: builds ``defect_fixtures`` alone and runs chip_smoke.py's
+phase 11b (``fixture_phase``, F1-F6) ``N`` times (default 15), then
+prints each fixture's median and spread (least to most) over the rounds
+of each time its records hold; ``--root`` takes chip_smoke.py and the
+package from another checkout (an unpacked ``git archive`` of an
+earlier commit), so that two versions are timed by one script, each in
+its own process.
 
 The phases fail as in chip_smoke.py; a bench mode fails on a non-zero
 exit. Exits 0 when they passed and no split was short, 1 otherwise.
@@ -110,6 +118,43 @@ def bench_modes(out_dir):
     return failed
 
 
+#: The times of a phase-11b record that ``--only fixtures`` summarises.
+FIXTURE_TIMES = ("ms", "host_ms", "bare_ms", "bare_host_ms", "plain_ms",
+                 "library_ms", "library_host_ms")
+
+
+def fixture_rounds(rounds):
+    """Phase 11b ``rounds`` times on the fixtures' library alone; prints
+    each fixture's median (least-most) of each time over the rounds, or
+    "not measured" where the checkout's records lack it. Returns the
+    records of every round."""
+    import statistics
+
+    import chip_smoke as cs
+    from pagerank_tpu_torch.analysis import kernels
+    from pagerank_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build_all(["defect_fixtures"])
+    print(f"fixtures: defect_fixtures built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # The rule each fixture trips under the source model (phase 11b only
+    # prints it; chip_smoke.py reads it with compile facts).
+    rules = {c.label.split(":")[1]: kernels.check_kernel_case(c)[0].rule
+             for c in kernels.defect_cases()}
+    runs = [cs.fixture_phase(rules) for _ in range(rounds)]
+    for i, rec in enumerate(runs[0]):
+        parts = []
+        for key in FIXTURE_TIMES:
+            vals = [run[i][key] for run in runs if key in run[i]]
+            parts.append(f"{key} {statistics.median(vals):.4f} "
+                         f"({min(vals):.4f}-{max(vals):.4f})" if vals
+                         else f"{key} not measured")
+        print(f"fixtures {rec['name']} over {rounds} rounds: "
+              + ", ".join(parts), flush=True)
+    return runs
+
+
 def profiler_rounds(rounds):
     """{kernel: [(round, message) of each short split]}."""
     import chip_smoke as cs
@@ -151,13 +196,18 @@ def profiler_rounds(rounds):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rounds", type=int, default=15,
-                   help="profiled splits a kernel (default 15)")
-    p.add_argument("--only", choices=["bench", "profiler"], default=None,
-                   help="rehearse phase 22 and the bench CLI's modes, or "
-                   "only the profiled splits, instead")
+                   help="profiled splits a kernel, or phase-11b runs "
+                   "(default 15)")
+    p.add_argument("--only", choices=["bench", "fixtures", "profiler"],
+                   default=None,
+                   help="rehearse phase 22 and the bench CLI's modes, "
+                   "phase 11b, or only the profiled splits, instead")
     p.add_argument("--out", default=os.path.join(ROOT, "build",
                                                  "bench_records"),
                    help="where --only bench writes the bench records")
+    p.add_argument("--root", default=ROOT,
+                   help="the checkout whose chip_smoke.py and package "
+                   "--only fixtures runs (default: this one)")
     args = p.parse_args(argv)
     import numpy as np
     import torch
@@ -165,11 +215,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("no CUDA device is available", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
+    root = os.path.abspath(args.root if args.only == "fixtures" else ROOT)
+    sys.path.insert(0, root)
     import chip_smoke as cs
 
     t_all = time.perf_counter()
     cs.card_identity()
+    if args.only == "fixtures":
+        print(f"fixtures from {root}", flush=True)
+        fixture_rounds(args.rounds)
+        print(f"chip_rehearse took {time.perf_counter() - t_all:.1f} s")
+        return 0
     cs.build_kernels()
     if args.only == "bench":
         cs.bench_phase()

@@ -132,14 +132,15 @@ What it does, in order:
      libraries (every shipped symbol's registers, shared bytes, local
      memory and stack frame printed); (b) F1-F6 on the card at the JAX fixtures'
      shapes, the counts set to 0 before and read after: F1 at its
-     geometry refused with no error left pending, an x off 16 bytes
-     refused, and equal to its plain copy at 2^15 and at a ragged
-     2^15 + 1, F2 and F5 equal, F3 equal with NaN at exactly the
-     elements PTK003 names, F4 one of its two writers in every element,
-     F6 within 1e-5 of an f64 matmul; each timed as a wrapper call
-     (median of 30) and as a bare launch of its bound C entry (50
-     launches between two events, median of 7 rounds, in turns) beside
-     its bound, its plain version and ``Tensor.copy_`` /
+     geometry refused with no error left pending, and equal to its
+     plain copy at 2^15 and at a ragged 2^15 + 1, F2 and F5 equal, F3
+     equal with NaN at exactly the elements PTK003 names, F2 and F3 so
+     again at [300, 192] and [32, 128], an x off 16 bytes refused by
+     F1, F2 and F3, F4 one of its two writers in every element, F6
+     within 1e-5 of an f64 matmul; each timed as a wrapper call (median
+     of 30) and as a bare launch of its bound C entry (50 launches
+     between two events, median of 7 rounds, in turns; and its host
+     clock) beside its bound, its plain version and ``Tensor.copy_`` /
      ``torch.matmul``; the phase's seconds;
  12. personalized PageRank and its daemon at the size of the repo's
      PPR acceptance runs (BASELINE.md:154-160), and the coo form:
@@ -1522,15 +1523,17 @@ FIXTURE_REPLACES = {
 def fixture_phase(rules):
     """Phase 11b: F1-F6 on the card at the JAX fixtures' shapes, the counts
     set to 0 before and read after. F1 at its geometry must be refused
-    and leave no error pending, and an x off 16 bytes must raise; at
-    2^15 and at a ragged 2^15 + 1 it equals its plain copy. F2 and F5
-    equal their plain versions; F3 too, with NaN at exactly the elements
-    PTK003 names; F4 holds one of its two writers in every element; F6
-    is within 1e-5 (normalised) of an f64 matmul. Each is timed as a
+    and leave no error pending; at 2^15 and at a ragged 2^15 + 1 it
+    equals its plain copy. F2 and F5 equal their plain versions; F3 too,
+    with NaN at exactly the elements PTK003 names; F2 and F3 again at a
+    wider shape ([300, 192], [32, 128]); an x off 16 bytes must raise
+    for F1, F2 and F3. F4 holds one of its two writers in every element;
+    F6 is within 1e-5 (normalised) of an f64 matmul. Each is timed as a
     wrapper call and as a bare launch of its bound C entry, beside its
-    bound, its plain version and a library call; the wrapper call's and
-    the library call's host time (mean host clock a call) say what of
-    a call is the host's. Returns the records."""
+    bound, its plain version and a library call; the host time (mean
+    host clock a call) of the wrapper call, of the bound entry alone and
+    of the library call say what of a call is the host's. Returns the
+    records."""
     import torch
 
     from pagerank_tpu_torch.analysis import kernels
@@ -1550,7 +1553,12 @@ def fixture_phase(rules):
               "f64_scratch": (rnd(16, 128),),
               "cost_mismatch": (rnd(256, 128), rnd(128, 128))}
     ragged = rnd((1 << 15) + 1)
-    skew = torch.empty((1 << 15) + 1, device="cuda")[1:]
+    wide = {"misaligned_tile": rnd(300, 192), "index_gap": rnd(32, 128)}
+    skews = {}
+    for name in ("vmem_overflow", "misaligned_tile", "index_gap"):
+        shape = inputs[name][0].shape
+        skews[name] = torch.empty(shape.numel() + 1,
+                                  device="cuda")[1:].view(shape)
     big = rnd(fx.OVERFLOW_N)
     _reset_counts()
     try:
@@ -1560,21 +1568,25 @@ def fixture_phase(rules):
         refused = str(e)
     torch.cuda.synchronize()
     pending = fx.last_error()
-    try:
-        fx.vmem_overflow(skew)
-        off16 = None
-    except ValueError as e:
-        off16 = str(e)
+    off16 = {}
+    for name, skew in skews.items():
+        try:
+            getattr(fx, name)(skew)
+        except ValueError as e:
+            off16[name] = str(e)
     outs = {n: getattr(fx, n)(*a) for n, a in inputs.items()}
     ragged_out = fx.vmem_overflow(ragged)
+    wide_outs = {n: getattr(fx, n)(x) for n, x in wide.items()}
     torch.cuda.synchronize()
     k1, k2, counts = _read_counts()
     del big
     _check(refused is not None, "F1 launched 32 MiB of shared memory")
     _check(pending == 0, f"F1's refusal left CUDA error {pending} pending")
-    _check(off16 is not None, "F1 took an x off 16 bytes")
+    _check(set(off16) == set(skews),
+           f"took an x off 16 bytes: {sorted(set(skews) - set(off16))}")
     want = {f"fx:{n}": 1 for n in inputs}
-    want["fx:vmem_overflow"] = 2
+    for name in ("vmem_overflow", *wide):
+        want[f"fx:{name}"] = 2
     _check({k: v for k, v in counts.items() if k.startswith("fx:")} == want
            and k1 == k2 == 0
            and not any(v for k, v in counts.items()
@@ -1585,9 +1597,30 @@ def fixture_phase(rules):
     print(f"F1 at its geometry (x f32 [{fx.OVERFLOW_N}], "
           f"{fx.OVERFLOW_N * 4} B of shared memory; the checker says "
           f"{rules['vmem_overflow']}) refused: {refused}; no error pending "
-          f"after it; an x off 16 bytes refused: {off16}; at "
-          f"[{1 << 15}] and the ragged [{ragged.numel()}] equal to its "
-          f"plain copy")
+          f"after it; at [{1 << 15}] and the ragged [{ragged.numel()}] "
+          f"equal to its plain copy; an x off 16 bytes refused by F1, F2 "
+          f"and F3: {off16['index_gap']}")
+
+    def same(name, got, x):
+        """``got`` equal to the plain version on ``x`` bit for bit where
+        it is a number, NaN where it is NaN; F3's NaN at exactly the
+        gaps PTK003 names at x's shape."""
+        ref = getattr(fx, f"{name}_reference")(x)
+        _check(got.shape == ref.shape and torch.equal(
+            torch.nan_to_num(got, nan=-1.0), torch.nan_to_num(ref, nan=-1.0))
+            and torch.equal(got.isnan(), ref.isnan()),
+            f"{name} at {list(x.shape)} differs from its plain version")
+        if name == "index_gap":
+            nan = torch.zeros(got.numel(), dtype=torch.bool, device="cuda")
+            for a, b in kernels.write_gaps(
+                    kernels.defect_case(name, tuple(x.shape)), "out"):
+                nan[a:b] = True
+            _check(torch.equal(got.reshape(-1).isnan(), nan),
+                   f"F3 at {list(x.shape)}: NaN elements differ from the "
+                   f"gaps PTK003 names")
+
+    for name, x in wide.items():
+        same(name, wide_outs[name], x)
     errs = {}
     for name, args in inputs.items():
         got = outs[name]
@@ -1610,26 +1643,23 @@ def fixture_phase(rules):
             _check(errs[name] <= 1e-5 * float(exact.abs().max()),
                    f"F6: max error {errs[name]} vs the f64 matmul")
         else:
-            _check(got.shape == ref.shape and torch.equal(
-                torch.nan_to_num(got, nan=-1.0),
-                torch.nan_to_num(ref, nan=-1.0))
-                and torch.equal(got.isnan(), ref.isnan()),
-                f"{name} differs from its plain version")
+            same(name, got, args[0])
             errs[name] = 0.0
-        if name == "index_gap":
-            nan = torch.zeros(got.numel(), dtype=torch.bool, device="cuda")
-            for a, b in kernels.write_gaps(cases[name], "out"):
-                nan[a:b] = True
-            _check(torch.equal(got.reshape(-1).isnan(), nan),
-                   "F3: NaN elements differ from the gaps PTK003 names")
     print("F2, F3 (NaN at exactly the PTK003 gaps "
           f"{kernels.write_gaps(cases['index_gap'], 'out')}) and F5 equal "
-          f"their plain versions; F4 holds one writer per element (max "
+          f"their plain versions, F2 and F3 also at "
+          + " and ".join(f"{list(x.shape)}" for x in wide.values())
+          + f"; F4 holds one writer per element (max "
           f"distance to the nearer writer {errs['index_overlap']}); F6 max "
           f"abs error {errs['cost_mismatch']:.3e} vs an f64 matmul")
     # The bare launches: each fixture's bound C entry, 50 launches
-    # between two events, median of 7 rounds, the six in turns.
-    bare = _launch_ms({n: fx.bind(n, *a) for n, a in inputs.items()})
+    # between two events, median of 7 rounds, the six in turns; and the
+    # bound entry's host clock alone (the wrapper's less it: the checks,
+    # the allocation and the dispatch).
+    bound = {n: fx.bind(n, *a) for n, a in inputs.items()}
+    bare = _launch_ms(bound)
+    bare_host = {n: _host_ms(fn) for n, fn in bound.items()}
+    torch.cuda.synchronize()
     records = []
     for name, args in inputs.items():
         fn = getattr(fx, name)
@@ -1667,7 +1697,8 @@ def fixture_phase(rules):
                     else "Tensor.copy_")
         print(f"F {name}: {ms:.4f} ms a wrapper call ({fill}; {timed} "
               f"launches timed; host {host_ms:.4f} ms), bare launch "
-              f"{bare[name]:.4f} ms, plain {plain_ms:.4f} ms, {lib_name} "
+              f"{bare[name]:.4f} ms (host {bare_host[name]:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, {lib_name} "
               f"{library_ms:.4f} ms (host {library_host_ms:.4f} ms), "
               f"{bound_by} bound {bound_ms:.6f} ms ({int(cost['bytes'])} B, "
               f"{int(cost['flops'])} FLOP)")
@@ -1677,6 +1708,7 @@ def fixture_phase(rules):
             "replaces": FIXTURE_REPLACES[name], "checked": True,
             "launches": counts[f"fx:{name}"], "max_abs_err": errs[name],
             "ms": ms, "bare_ms": bare[name], "host_ms": host_ms,
+            "bare_host_ms": bare_host[name],
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library_host_ms": library_host_ms,
             "rule": rules[name],

@@ -1400,21 +1400,26 @@ def defect_case(name: str, *shapes, csrc_dir=None) -> KernelCase:
                           entry="fx_vmem_overflow", symbol="fx_copy_bulk",
                           vector_bytes=16)
     if name == "misaligned_tile":
-        # PTK002: (100, 64) tiles, one thread per tile row.
+        # PTK002: (100, 64) tiles, one thread per tile row, each row a
+        # 256-byte bulk copy in and out: 100-thread blocks.
         mis = (src.const("kMisTileRows"), src.const("kMisTileCols"))
         return _copy_case(label, src, x_shape=(rows, cols),
                           out_shape=(rows, cols), tile=mis,
                           grid=(rows // mis[0], cols // mis[1]),
                           out_tile=lambda i, j: (i, j), block=mis[0],
                           block_const="kMisTileRows",
-                          entry="fx_misaligned_tile")
+                          entry="fx_misaligned_tile", symbol="fx_copy_rows",
+                          vector_bytes=16)
     if name == "index_gap":
-        # PTK003 (gap): out tile 2i; the odd out tiles never written.
+        # PTK003 (gap): out tile 2i, each tile one 4 KiB bulk copy in and
+        # out; the odd out tiles never written (the entry's NaN fill is
+        # no launch).
         return _copy_case(label, src, x_shape=(rows, lanes),
                           out_shape=(2 * rows, lanes), tile=(tr, lanes),
                           grid=(rows // tr, 1),
                           out_tile=lambda i, j: (2 * i, 0), block=lanes,
-                          block_const="kLanes", entry="fx_index_gap")
+                          block_const="kLanes", entry="fx_index_gap",
+                          symbol="fx_copy_rows", vector_bytes=16)
     if name == "index_overlap":
         # PTK003 (overlap): out tile i % 2; two CTAs write each of tiles
         # 0 and 1 (and tiles past 1, where x has more than 32 rows, stay

@@ -12,12 +12,15 @@
 //                      8,388,608 that is 33,554,432 bytes, past the
 //                      232,448 a block may use (PTK001), so the launch is
 //                      refused.
-//   F2 misaligned_tile fx_copy over (100, 64) tiles of x, out f32 [200, 128],
-//                      one thread per tile row: 100-thread blocks, not a
-//                      whole number of warps (PTK002).
-//   F3 index_gap       fx_copy over (8, 128) tiles, x [16, 128] -> out
-//                      [32, 128], out tile 2i <- x tile i: out tiles 1 and 3
-//                      are never written (PTK003).
+//   F2 misaligned_tile fx_copy_rows over (100, 64) tiles of x, out f32
+//                      [200, 128], one thread per tile row, each row one
+//                      256-byte bulk copy in and one out: 100-thread
+//                      blocks, not a whole number of warps (PTK002).
+//   F3 index_gap       fx_copy_rows over (8, 128) tiles, x [16, 128] -> out
+//                      [32, 128], out tile 2i <- x tile i, each tile one
+//                      4 KiB bulk copy in and one out: out tiles 1 and 3
+//                      are never written (PTK003); the entry fills them
+//                      with NaN before the launch.
 //   F4 index_overlap   fx_copy, x [32, 128] -> out [16, 128], out tile
 //                      i % 2 <- x tile i: two CTAs write each out tile, in
 //                      no order (PTK003).
@@ -35,19 +38,26 @@
 // the array through shared memory as the TPU staged its block through
 // VMEM, but with Hopper's bulk asynchronous copies (one thread issues a
 // global -> shared copy that completes on an mbarrier, then a shared ->
-// global bulk group); F5 moves its (8, 128) tile as 16-byte vectors.
-// F2-F4 keep fx_copy, which moves 4-byte elements through shared memory
-// one per thread, and fx_matmul is a plain shared-memory-tiled FMA
-// product (each thread an 8 x 8 register tile), not a tensor-core kernel.
+// global bulk group); F2 and F3 move each tile the same way, so a CTA's
+// loads are all in flight at once and no thread computes an element's
+// index: F2 a copy a 256-byte tile row, each by its own thread; F3's
+// (8, 128) tile is one contiguous 4 KiB span in x and in out, so one
+// thread moves it with one copy each way, not eight. F5 moves its
+// (8, 128) tile as 16-byte vectors. F4 keeps fx_copy, which moves
+// 4-byte elements through shared memory one per thread, and fx_matmul
+// is a plain shared-memory-tiled FMA product (each thread an 8 x 8
+// register tile), not a tensor-core kernel.
 //
 // Each entry point launches on the caller's stream, does not synchronise,
-// allocates nothing, and returns the CUDA error of its launch. F1-F4
-// first opt their kernel in to its dynamic shared memory with
+// allocates nothing, and returns the CUDA error of its launch (F3 first
+// that of its NaN fill, a cudaMemset2DAsync on the same stream). F1 and
+// F4 first opt their kernel in to its dynamic shared memory with
 // cudaFuncSetAttribute, asked only when the request is more than the
 // current device last granted; when that is refused (F1 at its geometry)
 // they clear the error with cudaGetLastError, so it does not reach the
-// next launch's check, and return it without launching. F1 and F5 need
-// x and out 16-byte aligned (their wrappers check).
+// next launch's check, and return it without launching. F2 and F3 stage
+// at most 25,600 bytes, under the 48 KB a block gets without asking. F1,
+// F2, F3 and F5 need x and out 16-byte aligned (their wrappers check).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,6 +147,67 @@ fx_copy_bulk(const float* __restrict__ x, float* __restrict__ out,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
                ::"l"(out), "r"(smem), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// F2, F3: tile (i, j) of x -> dynamic shared memory -> tile ((out_mul*i) %
+// out_mod, j) of out, tiles tile_rows x tile_cols of row-major arrays whose
+// rows are x_cols and out_cols wide, by bulk copies of span_rows tile rows
+// each (span_rows divides tile_rows; a span of more than one row is
+// contiguous only where tile_cols == x_cols == out_cols). Thread 0 arms the
+// mbarrier `staged` with the tile's bytes; after the block's barrier
+// thread s copies span s global -> shared, completing on `staged`; each
+// thread with a span waits for the whole tile, then stores its span shared
+// -> global as a bulk group and waits for its reads of shared memory
+// before it exits. x and out are 16-byte aligned, and a span's bytes and
+// offsets are multiples of 16.
+__global__ void __launch_bounds__(kLanes)
+fx_copy_rows(const float* __restrict__ x, float* __restrict__ out,
+             int64_t x_cols, int64_t out_cols, int tile_rows, int tile_cols,
+             int span_rows, unsigned out_mul, unsigned out_mod) {
+  extern __shared__ __align__(16) float tile[];
+  __shared__ uint64_t staged;
+  const uint32_t bar =
+      static_cast<uint32_t>(__cvta_generic_to_shared(&staged));
+  if (threadIdx.x == 0) {
+    const uint32_t tile_bytes =
+        static_cast<uint32_t>(tile_rows * tile_cols * sizeof(float));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+                 : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(bar), "r"(tile_bytes)
+                 : "memory");
+  }
+  __syncthreads();
+  const int r = static_cast<int>(threadIdx.x) * span_rows;
+  if (r >= tile_rows) return;
+  const uint32_t bytes =
+      static_cast<uint32_t>(span_rows * tile_cols * sizeof(float));
+  const int64_t col = static_cast<int64_t>(blockIdx.y) * tile_cols;
+  const float* src =
+      x + (static_cast<int64_t>(blockIdx.x) * tile_rows + r) * x_cols + col;
+  float* dst = out + (static_cast<int64_t>((out_mul * blockIdx.x) % out_mod)
+                      * tile_rows + r) * out_cols + col;
+  const uint32_t smem =
+      static_cast<uint32_t>(__cvta_generic_to_shared(tile + r * tile_cols));
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+  asm volatile(
+      "{\n"
+      ".reg .pred staged_p;\n"
+      "FX_ROWS_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 staged_p, [%0], %1;\n"
+      "@!staged_p bra FX_ROWS_WAIT;\n"
+      "}\n" ::"r"(bar), "r"(0)
+      : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem), "r"(bytes)
                : "memory");
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
@@ -259,6 +330,19 @@ int launch_copy(const void* x, void* out, dim3 grid, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_rows(const void* x, void* out, dim3 grid, int threads,
+                int64_t x_cols, int64_t out_cols, int tile_rows,
+                int tile_cols, int span_rows, unsigned out_mul,
+                unsigned out_mod, void* stream) {
+  const size_t smem_bytes =
+      static_cast<size_t>(tile_rows) * tile_cols * sizeof(float);
+  fx_copy_rows<<<grid, threads, smem_bytes,
+                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(out), x_cols,
+      out_cols, tile_rows, tile_cols, span_rows, out_mul, out_mod);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // F1: x, out f32 [n], 16-byte aligned; one CTA, the whole array one tile.
@@ -273,22 +357,40 @@ extern "C" int fx_vmem_overflow(const void* x, void* out, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// F2: x, out f32 [rows, cols], rows % 100 == 0, cols % 64 == 0.
+// F2: x, out f32 [rows, cols], rows % 100 == 0, cols % 64 == 0, 16-byte
+// aligned; a copy a tile row.
 extern "C" int fx_misaligned_tile(const void* x, void* out, int64_t rows,
                                   int64_t cols, void* stream) {
-  return launch_copy(
+  const int64_t tiles = rows / kMisTileRows;
+  return launch_rows(
       x, out,
-      dim3(static_cast<unsigned>(rows / kMisTileRows),
+      dim3(static_cast<unsigned>(tiles),
            static_cast<unsigned>(cols / kMisTileCols)),
-      kMisTileRows, cols, cols, kMisTileRows, kMisTileCols, 1, rows, stream);
+      kMisTileRows, cols, cols, kMisTileRows, kMisTileCols, 1, 1,
+      static_cast<unsigned>(tiles), stream);
 }
 
-// F3: x f32 [x_rows, 128] -> out f32 [2 * x_rows, 128], out tile 2i.
+// F3: x f32 [x_rows, 128] -> out f32 [2 * x_rows, 128], 16-byte aligned,
+// out tile 2i, a copy a tile. First sets fill_count spans of fill_width
+// bytes, fill_pitch apart from byte fill_offset of out, to 0xFF (an f32
+// NaN): the odd out tiles, which the launch never writes (the wrapper
+// computes the geometry).
 extern "C" int fx_index_gap(const void* x, void* out, int64_t x_rows,
+                            int64_t fill_offset, int64_t fill_pitch,
+                            int64_t fill_width, int64_t fill_count,
                             void* stream) {
+  cudaError_t err = cudaMemset2DAsync(
+      static_cast<char*>(out) + fill_offset, static_cast<size_t>(fill_pitch),
+      0xFF, static_cast<size_t>(fill_width), static_cast<size_t>(fill_count),
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return static_cast<int>(err);
+  }
   const int64_t tiles = x_rows / kTileRows;
-  return launch_copy(x, out, dim3(static_cast<unsigned>(tiles), 1), kLanes,
-                     kLanes, kLanes, kTileRows, kLanes, 2, 2 * tiles, stream);
+  return launch_rows(x, out, dim3(static_cast<unsigned>(tiles), 1), kLanes,
+                     kLanes, kLanes, kTileRows, kLanes, kTileRows, 2,
+                     static_cast<unsigned>(2 * tiles), stream);
 }
 
 // F4: x f32 [x_rows, 128] -> out f32 [x_rows / 2, 128], out tile i % 2.

@@ -15,18 +15,20 @@ launch needs.
 The plain versions follow the JAX fixtures as interpret mode runs them:
 the tile maps are applied in grid order, so where two steps write one
 output tile the last one wins (F4), and output that no tile writes is
-NaN (F3). The CUDA wrappers fill the output with NaN before the launch
-only where the launch leaves elements unwritten (:func:`leaves_gaps`:
-PTK003's gaps), so an unwritten tile reads the same on the card; every
-other output is ``torch.empty``. F4's two writers race there, in no
-order.
+NaN (F3). On the card an output is NaN before the launch only where
+the launch leaves elements unwritten (:func:`leaves_gaps`: PTK003's
+gaps), so an unwritten tile reads the same there: F3's C entry sets
+its odd tiles to 0xFF bytes on the stream before its launch, at the
+geometry :func:`gap_fill` gives, and F4's wrapper fills its output
+with NaN past k = 2; every other output is ``torch.empty``. F4's two
+writers race there, in no order.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes
 its plain version only for tensors on the CPU. F1 at its fixture's size
-(8,388,608 f32) must raise: its 32 MiB of shared memory is refused. F1
-and F5 move 16-byte vectors and raise on an x that is not 16-byte
-aligned. ``launches`` counts the launches of each kernel by fixture
-name.
+(8,388,608 f32) must raise: its 32 MiB of shared memory is refused. F1,
+F2 and F3 move bulk copies and F5 16-byte vectors, so they raise on an
+x that is not 16-byte aligned. ``launches`` counts the launches of each
+kernel by fixture name.
 """
 
 from __future__ import annotations
@@ -46,6 +48,9 @@ TILE = (8, LANES)
 MIS_TILE = (100, 64)
 OVERFLOW_N = 8 << 20
 
+#: The fixtures whose kernels move 16-byte units (bulk copies, float4).
+VECTOR = ("vmem_overflow", "misaligned_tile", "index_gap", "f64_scratch")
+
 #: The JAX fixtures' input shapes, in their order.
 SHAPES = {"vmem_overflow": [(OVERFLOW_N,)],
           "misaligned_tile": [(200, LANES)], "index_gap": [(16, LANES)],
@@ -56,7 +61,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 #: Each fixture's C entry and its arguments before the stream.
 _ENTRIES = {"vmem_overflow": ("fx_vmem_overflow", (_P, _P, _I)),
             "misaligned_tile": ("fx_misaligned_tile", (_P, _P, _I, _I)),
-            "index_gap": ("fx_index_gap", (_P, _P, _I)),
+            "index_gap": ("fx_index_gap", (_P, _P, _I, _I, _I, _I, _I)),
             "index_overlap": ("fx_index_overlap", (_P, _P, _I)),
             "f64_scratch": ("fx_f64_scratch", (_P, _P, _I)),
             "cost_mismatch": ("fx_cost_mismatch", (_P, _P, _P, _I, _I)),
@@ -111,22 +116,37 @@ def leaves_gaps(name, rows):
     """Whether fixture ``name``'s launch on an x of ``rows`` rows leaves
     elements of its output unwritten (the gaps PTK003 names): F3 always
     (its odd out tiles), F4 once x has more than its fixture's 32 rows
-    (out tiles past 1). Only those outputs are filled with NaN before
-    the launch."""
+    (out tiles past 1). Only those outputs are NaN before the launch."""
     return name == "index_gap" or (name == "index_overlap"
                                    and rows > 4 * TILE[0])
+
+
+def gap_fill(rows):
+    """F3's NaN fill on an x of ``rows`` rows, as its C entry takes
+    it: (offset, pitch, width, count) in bytes of out, ``count`` spans
+    of ``width`` bytes ``pitch`` apart from ``offset``: out's odd (8,
+    128) tiles, the gaps its launch leaves."""
+    tile = TILE[0] * TILE[1] * 4
+    return tile, 2 * tile, tile, rows // TILE[0]
 
 
 def _launch_args(name, x, y=None):
     """(out, the C entry's arguments before the stream, tensors as
     addresses) of fixture ``name`` on inputs its wrapper took: out is
-    empty, or NaN where :func:`leaves_gaps` says the launch leaves
-    elements unwritten. Raises on an x that F1 or F5 cannot move as
-    16-byte vectors."""
+    empty, or NaN where F4's launch leaves elements unwritten (F3's
+    entry fills its own, :func:`gap_fill`). Raises on an x that a
+    kernel of :data:`VECTOR` cannot move in 16-byte units."""
     rows = x.shape[0]
-    if name == "index_gap" or name == "index_overlap":
-        shape = ((2 * rows, LANES) if name == "index_gap"
-                 else (rows // 2, LANES))
+    if name in VECTOR and x.data_ptr() % 16:
+        raise ValueError(f"{name}: x must be 16-byte aligned (its kernel "
+                         f"moves 16-byte units), got address "
+                         f"{x.data_ptr():#x}")
+    if name == "index_gap":
+        out = torch.empty((2 * rows, LANES), dtype=torch.float32,
+                          device=x.device)
+        return out, (x.data_ptr(), out.data_ptr(), rows, *gap_fill(rows))
+    if name == "index_overlap":
+        shape = (rows // 2, LANES)
         out = (_nan(shape, x) if leaves_gaps(name, rows) else
                torch.empty(shape, dtype=torch.float32, device=x.device))
         return out, (x.data_ptr(), out.data_ptr(), rows)
@@ -135,10 +155,6 @@ def _launch_args(name, x, y=None):
                           device=x.device)
         return out, (x.data_ptr(), y.data_ptr(), out.data_ptr(), rows,
                      x.shape[1])
-    if name != "misaligned_tile" and x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned (its kernel "
-                         f"moves 16-byte vectors), got address "
-                         f"{x.data_ptr():#x}")
     out = torch.empty_like(x)
     if name == "misaligned_tile":
         return out, (x.data_ptr(), out.data_ptr(), rows, x.shape[1])
@@ -270,7 +286,8 @@ def misaligned_tile(x):
 
 def index_gap(x):
     """F3: x [k*8, 128] -> out [2k*8, 128], x tile i into out tile 2i;
-    the odd out tiles stay NaN."""
+    the odd out tiles stay NaN (on the card its entry sets them before
+    the launch)."""
     _check("index_gap", x)
     _rows_of("index_gap", x, TILE[0])
     if x.is_cpu:

@@ -359,10 +359,12 @@ LAUNCH_SHAPES = [(n, s) for n, s in fx.SHAPES.items()
 @pytest.mark.parametrize("name,shapes", LAUNCH_SHAPES)
 def test_nan_fill_is_exactly_where_the_launch_case_has_gaps(
         monkeypatch, name, shapes):
-    """A CUDA wrapper fills its output with NaN before the launch only
-    where the launch case of the same shapes has write gaps (PTK003's):
-    F3 always, F4 past k = 2, no other fixture; the output's size and
-    the C entry's arity are the case's and the entry's."""
+    """On the card an output is NaN before the launch only where the
+    launch case of the same shapes has write gaps (PTK003's): F3 always,
+    by its C entry's fill at exactly the bytes :func:`gap_fill` passes
+    it (no ``torch.full``), F4 past k = 2 by its wrapper's fill, no
+    other fixture; the output's size and the C entry's arity are the
+    case's and the entry's."""
     case = K.defect_case(name, *shapes)
     gaps = K.write_gaps(case, "out")
     assert fx.leaves_gaps(name, shapes[0][0]) == bool(gaps)
@@ -373,16 +375,32 @@ def test_nan_fill_is_exactly_where_the_launch_case_has_gaps(
     out, args = fx._launch_args(name, *(torch.zeros(s) for s in shapes))
     assert out.numel() == case.operands["out"].numel
     assert len(args) == len(fx._ENTRIES[name][1])
+    if name == "index_gap":
+        offset, pitch, width, count = fx.gap_fill(shapes[0][0])
+        assert args[3:] == (offset, pitch, width, count) and not filled
+        want = np.zeros(out.numel(), bool)
+        for a, b in gaps:
+            want[a:b] = True
+        got = np.zeros(out.numel() * 4, bool)
+        for k in range(count):
+            got[offset + k * pitch:offset + k * pitch + width] = True
+        assert np.array_equal(got.reshape(-1, 4).all(1), want)
+        assert np.array_equal(got.reshape(-1, 4).any(1), want)
+        return
     assert bool(filled) == bool(gaps)
     if gaps:
         assert bool(out.isnan().all())
 
 
 @pytest.mark.parametrize("name,shape", [("vmem_overflow", (1 << 15,)),
+                                        ("misaligned_tile", (200, LANES)),
+                                        ("index_gap", (16, LANES)),
                                         ("f64_scratch", (16, LANES))])
 def test_vector_fixtures_refuse_an_x_off_16_bytes(name, shape):
-    """F1's bulk copies and F5's float4 need a 16-byte aligned x: an x
-    4 bytes off raises before anything launches (no plain fallback)."""
+    """F1's, F2's and F3's bulk copies and F5's float4 need a 16-byte
+    aligned x: an x 4 bytes off raises before anything launches (no
+    plain fallback)."""
+    assert name in fx.VECTOR
     n = int(np.prod(shape))
     x = torch.zeros(n + 1)[1:].view(shape)
     assert x.is_contiguous() and x.data_ptr() % 16 == 4
@@ -575,12 +593,16 @@ def test_registry_block_sizes_are_the_launch_sites_constants(shipped,
 
 
 def test_block_reaching_sees_a_launcher_argument_change(tmp_path):
+    shipped = K.read_source("defect_fixtures")
+    assert shipped.block_reaching("fx_copy_rows", "fx_misaligned_tile") == [
+        "kMisTileRows"]
     d = _edited_csrc(tmp_path, "defect_fixtures",
-                     "kMisTileRows, cols, cols, kMisTileRows",
-                     "kLanes, cols, cols, kMisTileRows")
+                     "kMisTileRows, cols, cols, kMisTileRows, kMisTileCols",
+                     "kLanes, cols, cols, kMisTileRows, kMisTileCols")
     src = K.read_source("defect_fixtures", d)
-    assert src.block_reaching("fx_copy", "fx_misaligned_tile") == ["kLanes"]
-    assert src.block_reaching("fx_copy", "fx_index_gap") == ["kLanes"]
+    assert src.block_reaching("fx_copy_rows", "fx_misaligned_tile") == [
+        "kLanes"]
+    assert src.block_reaching("fx_copy_rows", "fx_index_gap") == ["kLanes"]
 
 
 def test_registry_follows_an_edited_source(tmp_path):
@@ -609,6 +631,14 @@ def test_source_facts():
     assert [(d.dynamic, d.ctype) for d in bulk.shared] == [
         (True, "float"), (False, "uint64_t")]
     assert fxs.kernels["fx_copy"].opt_in
+    # F2's and F3's kernel: a tile in dynamic shared memory (at most
+    # 25,600 B, no opt-in) beside its 8-byte mbarrier; F2's 100 and F3's
+    # 128 threads within its bounds.
+    rows = fxs.kernels["fx_copy_rows"]
+    assert not rows.opt_in and rows.launch_bounds == 128
+    assert rows.static_smem == 16
+    assert [(d.dynamic, d.ctype) for d in rows.shared] == [
+        (True, "float"), (False, "uint64_t")]
     assert not fxs.kernels["fx_scratch"].opt_in
     assert fxs.kernels["fx_matmul"].static_smem == 2 * 128 * 32 * 4
     for name, sym in (("ell_contrib", "ell_contrib_kernel"),
@@ -722,8 +752,8 @@ def _recorded_facts(lib):
 
 def test_cuobjdump_parser_on_recorded_dumps():
     facts = _recorded_facts("defect_fixtures")
-    assert set(facts) == {"fx_copy", "fx_copy_bulk", "fx_scratch",
-                          "fx_matmul"}
+    assert set(facts) == {"fx_copy", "fx_copy_bulk", "fx_copy_rows",
+                          "fx_scratch", "fx_matmul"}
     src = K.read_source("defect_fixtures")
     reserved = costs.device_spec().smem_reserved
     for sym, f in facts.items():
@@ -733,6 +763,7 @@ def test_cuobjdump_parser_on_recorded_dumps():
     assert facts["fx_matmul"].regs == 128
     assert facts["fx_copy"].f64_ops == () == facts["fx_matmul"].f64_ops
     assert facts["fx_copy_bulk"].f64_ops == ()
+    assert facts["fx_copy_rows"].f64_ops == ()
     k1 = _recorded_facts("ell_contrib")
     assert set(k1) == {f"ell_contrib_kernel<{a}>"
                        for a in ("float,float", "float,double",
@@ -786,10 +817,15 @@ def test_compiled_rules_on_recorded_facts(defects, k1_real):
                for m in msgs)
     drift = dict(facts, **{sym: dataclasses.replace(
         facts[sym], shared=4096, regs=200, local=16, max_threads=256)
-        for sym in ("fx_copy", "fx_copy_bulk")})
-    found = K.check_kernel_case(defects["fixture:index_gap"], facts=drift)
-    assert {f.rule for f in found} == {"PTK001", "PTK002", "PTK003"}
-    assert sum(f.rule == "PTK002" for f in found) == 2  # bounds, spill
+        for sym in ("fx_copy", "fx_copy_bulk", "fx_copy_rows")})
+    for label in ("fixture:index_gap", "fixture:index_overlap"):
+        found = K.check_kernel_case(defects[label], facts=drift)
+        assert {f.rule for f in found} == {"PTK001", "PTK002", "PTK003"}
+        assert sum(f.rule == "PTK002" for f in found) == 2  # bounds, spill
+    found = K.check_kernel_case(defects["fixture:misaligned_tile"],
+                                facts=drift)  # + 100 threads
+    assert {f.rule for f in found} == {"PTK001", "PTK002"}
+    assert sum(f.rule == "PTK002" for f in found) == 3
     found = K.check_kernel_case(defects["fixture:vmem_overflow"],
                                 facts=drift)  # 200 regs x 1024 threads
     assert any(f.rule == "PTK002" and "registers" in f.message

@@ -291,14 +291,19 @@ def test_defect_fixture_kernels_against_their_plain_versions(cuda, name):
 
 @pytest.mark.parametrize("name,shape", [
     ("vmem_overflow", (1 << 15,)), ("vmem_overflow", ((1 << 15) + 1,)),
-    ("vmem_overflow", (3,)), ("f64_scratch", (16, 128)),
+    ("vmem_overflow", (3,)), ("misaligned_tile", (200, 128)),
+    ("misaligned_tile", (300, 192)), ("index_gap", (16, 128)),
+    ("index_gap", (32, 128)), ("f64_scratch", (16, 128)),
     ("f64_scratch", (64, 128))])
 def test_bulk_and_vector_fixtures_against_their_plain_versions(cuda, name,
                                                                shape):
     """F1 (bulk copies, a ragged tail by threads) at aligned and ragged
-    sizes and F5 (float4) equal their plain versions bit for bit, through
-    the wrapper and the bare launch of the bound entry, one launch each;
-    an x off 16 bytes raises and launches nothing."""
+    sizes, F2 and F3 (a bulk copy a tile row or a tile) at their
+    fixtures' shapes and a wider one, and F5 (float4) equal their plain
+    versions bit for bit, F3 with NaN at exactly its plain version's
+    (its entry's fill), through the wrapper and the bare launch of the
+    bound entry, one launch each; an x off 16 bytes raises and launches
+    nothing."""
     g = torch.Generator(device=cuda)
     g.manual_seed(5)
     x = torch.rand(shape, generator=g, device=cuda)
@@ -308,7 +313,10 @@ def test_bulk_and_vector_fixtures_against_their_plain_versions(cuda, name,
     torch.cuda.synchronize()
     assert defect_fixtures.launches[name] == before + 2
     want = getattr(defect_fixtures, f"{name}_reference")(x)
-    assert torch.equal(got, want) and torch.equal(bare, want)
+    for out in (got, bare):
+        assert out.shape == want.shape
+        assert torch.equal(out.isnan(), want.isnan())
+        assert torch.equal(out.nan_to_num(-1.0), want.nan_to_num(-1.0))
     skew = torch.empty(x.numel() + 1, device=cuda)[1:].view(shape)
     skew.copy_(x)
     with pytest.raises(ValueError, match="16-byte aligned"):
