@@ -4,6 +4,7 @@
     python3 chip_rehearse.py --only profiler [--rounds N]
     python3 chip_rehearse.py --only bench [--out DIR]
     python3 chip_rehearse.py --only fixtures [--rounds N] [--root DIR]
+    python3 chip_rehearse.py --only probe [--rounds N]
 
 Builds the kernels, then, by default:
 
@@ -29,7 +30,10 @@ prints each fixture's median and spread (least to most) over the rounds
 of each time its records hold; ``--root`` takes chip_smoke.py and the
 package from another checkout (an unpacked ``git archive`` of an
 earlier commit), so that two versions are timed by one script, each in
-its own process.
+its own process. With ``--only probe``: builds ``gather_probe`` alone
+and runs phase 7's uniform sweep (``probe_sweep``: P1-P3 beside
+``F.embedding_bag``, ``index_select`` then ``mul`` and ``index_select``
+at 2^19 rows) ``N`` times.
 
 The phases fail as in chip_smoke.py; a bench mode fails on a non-zero
 exit. Exits 0 when they passed and no split was short, 1 otherwise.
@@ -120,14 +124,18 @@ def bench_modes(out_dir):
 
 #: The times of a phase-11b record that ``--only fixtures`` summarises.
 FIXTURE_TIMES = ("ms", "host_ms", "bare_ms", "bare_host_ms", "plain_ms",
-                 "library_ms", "library_host_ms")
+                 "library_ms", "library_host_ms", "prealloc_ms",
+                 "prealloc_host_ms", "prealloc_bare_ms")
+#: F4's wrapper host time by part (its records' ``host_split``).
+HOST_SPLIT = ("check_ms", "alloc_args_ms", "entry_ms", "dispatch_ms")
 
 
 def fixture_rounds(rounds):
     """Phase 11b ``rounds`` times on the fixtures' library alone; prints
     each fixture's median (least-most) of each time over the rounds, or
-    "not measured" where the checkout's records lack it. Returns the
-    records of every round."""
+    "not measured" where the checkout's records lack it or hold None (a
+    checkout whose records have no ``prealloc_ms`` held its preallocated
+    call under ``library_ms``). Returns the records of every round."""
     import statistics
 
     import chip_smoke as cs
@@ -145,8 +153,11 @@ def fixture_rounds(rounds):
     runs = [cs.fixture_phase(rules) for _ in range(rounds)]
     for i, rec in enumerate(runs[0]):
         parts = []
-        for key in FIXTURE_TIMES:
-            vals = [run[i][key] for run in runs if key in run[i]]
+        for key in FIXTURE_TIMES + (HOST_SPLIT if "host_split" in rec
+                                    else ()):
+            vals = [run[i].get(key, run[i].get("host_split", {}).get(key))
+                    for run in runs]
+            vals = [v for v in vals if v is not None]
             parts.append(f"{key} {statistics.median(vals):.4f} "
                          f"({min(vals):.4f}-{max(vals):.4f})" if vals
                          else f"{key} not measured")
@@ -196,12 +207,14 @@ def profiler_rounds(rounds):
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--rounds", type=int, default=15,
-                   help="profiled splits a kernel, or phase-11b runs "
+                   help="profiled splits a kernel, phase-11b runs or probe sweeps "
                    "(default 15)")
-    p.add_argument("--only", choices=["bench", "fixtures", "profiler"],
+    p.add_argument("--only", choices=["bench", "fixtures", "probe",
+                                      "profiler"],
                    default=None,
                    help="rehearse phase 22 and the bench CLI's modes, "
-                   "phase 11b, or only the profiled splits, instead")
+                   "phase 11b, phase 7's uniform sweep, or only the "
+                   "profiled splits, instead")
     p.add_argument("--out", default=os.path.join(ROOT, "build",
                                                  "bench_records"),
                    help="where --only bench writes the bench records")
@@ -224,6 +237,16 @@ def main(argv=None) -> int:
     if args.only == "fixtures":
         print(f"fixtures from {root}", flush=True)
         fixture_rounds(args.rounds)
+        print(f"chip_rehearse took {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.only == "probe":
+        from pagerank_tpu_torch.kernels import build
+
+        build.build_all(["gather_probe"])
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(11)
+        for _ in range(args.rounds):
+            cs.probe_sweep(gen)
         print(f"chip_rehearse took {time.perf_counter() - t_all:.1f} s")
         return 0
     cs.build_kernels()

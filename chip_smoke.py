@@ -73,7 +73,8 @@ What it does, in order:
      kernel that applies launched warm-up + 30 times, the others 0);
      each kernel is torch.equal to its plain version and bit-identical
      on repeat; times are CUDA-event medians of 30 beside the byte
-     bound, the plain version and one torch.index_select. P3 runs
+     bound, the plain version, one F.embedding_bag (the same function),
+     index_select then mul, and index_select alone. P3 runs
      where z fits shared memory (n = 2^15 here), P2 where n % 8 == 0;
   8. resume determinism on the card, for the flat form and through the
      CLI's --partition-span -1, and for the coo form through
@@ -135,13 +136,19 @@ What it does, in order:
      geometry refused with no error left pending, and equal to its
      plain copy at 2^15 and at a ragged 2^15 + 1, F2 and F5 equal, F3
      equal with NaN at exactly the elements PTK003 names, F2 and F3 so
-     again at [300, 192] and [32, 128], an x off 16 bytes refused by
-     F1, F2 and F3, F4 one of its two writers in every element, F6
-     within 1e-5 of an f64 matmul; each timed as a wrapper call (median
-     of 30) and as a bare launch of its bound C entry (50 launches
-     between two events, median of 7 rounds, in turns; and its host
-     clock) beside its bound, its plain version and ``Tensor.copy_`` /
-     ``torch.matmul``; the phase's seconds;
+     again at [300, 192] and [32, 128], an input off 16 bytes refused
+     by every fixture of ``VECTOR``, F4 one of its two writers in every
+     element (at [64, 128] NaN at exactly the PTK003 gaps), F6 within
+     1e-5 of an f64 matmul at [256, 128] x [128, 128] and [512, 256] x
+     [256, 128], bit-identical on repeat; each timed as a wrapper call
+     (median of 30) and as a bare launch of its bound C entry (50
+     launches between two events, median of 7 rounds, in turns; and its
+     host clock) beside its bound, its plain version, the one library
+     call of its function (``x.clone()``, F3 ``F.pad``, F4
+     ``x[-16:].clone()``, F6 ``torch.matmul``; each checked against the
+     plain version) and the preallocated ``Tensor.copy_`` /
+     ``torch.matmul(out=)``; F4's wrapper host time split; the phase's
+     seconds;
  12. personalized PageRank and its daemon at the size of the repo's
      PPR acceptance runs (BASELINE.md:154-160), and the coo form:
      (a) ``cli.run --synthetic rmat:20 --ppr-sources random:256
@@ -454,7 +461,8 @@ Every byte bound comes from the registry's cost models
 (``pagerank_tpu_torch/analysis/kernels.py``: ``k1_cost``, ``k2_cost``,
 ``probe_cost``; K1w's is ``k1_cost(columns=64)``) and the card's memory
 rate from the device table
-(``pagerank_tpu_torch/obs/costs.py``); K1's and K2's cases are also
+(``pagerank_tpu_torch/obs/costs.py``; F6's operations at its TF32
+tensor-core rate, three passes); K1's and K2's cases are also
 held to PTK001-005 on the main path's own rmat:22 plans.
 
 Any failed check raises; the script then exits non-zero and prints no
@@ -513,12 +521,15 @@ def _card():
 
 
 def _bound_ms(cost):
-    """The least time for a cost model {flops, bytes} on this card: the
-    larger of bytes over the memory rate and FLOPs over the f32 rate
-    (outside the tensor cores); returns (ms, "bytes" or "operations")."""
+    """The least time for a cost model {flops, bytes[, tf32_flops]} on
+    this card: the larger of bytes over the memory rate and the
+    operations' time, ``flops`` at the f32 rate outside the tensor cores
+    plus ``tf32_flops`` at the TF32 tensor-core rate; returns (ms,
+    "bytes" or "operations")."""
     card = _card()
     t_bytes = cost["bytes"] / card.hbm_bytes_per_s * 1e3
-    t_ops = cost["flops"] / card.fp32_flops_per_s * 1e3
+    t_ops = (cost["flops"] / card.fp32_flops_per_s
+             + cost.get("tf32_flops", 0.0) / card.tf32_flops_per_s) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -955,9 +966,10 @@ def _named(k, p):
     return re.search(rf"(?<![A-Za-z_]){p}", k) is not None
 
 
-#: Profiled windows a step breakdown may take: torch.profiler now and
-#: then shows fewer of a window's kernel records than the wrapper
-#: launched (PERF.md §7), so such a window is profiled again.
+#: Profiled windows a step breakdown or a K1w split may take:
+#: torch.profiler now and then shows fewer of a window's kernel records
+#: than the wrapper launched (PERF.md §7), so such a window is profiled
+#: again.
 PROFILE_TRIES = 3
 
 
@@ -1326,10 +1338,17 @@ def _probe_point(label, z, src, w):
     """One point of the gather probe: ``run_probe`` over P1-P3 (where
     each applies) and their plain forms, with every count set to 0 just
     before and read just after; then each kernel that ran against its
-    plain version (torch.equal), twice (bit-identical, counted), and one
-    ``torch.index_select`` as the library yardstick. Returns {kernel
-    form: numbers}."""
+    plain version (torch.equal), twice (bit-identical, counted).
+    ``F.embedding_bag`` computes ``z[src] * w`` in one PyTorch call (bags
+    of one slot, weighted by w, the offsets made once): its time is the
+    records' ``library_ms``, checked against P1's plain version.
+    ``index_select`` then ``mul`` into a w-shaped output computes it in
+    two calls, and ``torch.index_select`` alone (the gather without w) is
+    timed too, each beside its share of its own byte bound (the pair's
+    and embedding_bag's is the kernels'). Returns {kernel form:
+    numbers}."""
     import torch
+    import torch.nn.functional as F
 
     from pagerank_tpu_torch.analysis.kernels import probe_cost
     from pagerank_tpu_torch.ops import gather_probe as gp
@@ -1349,8 +1368,31 @@ def _probe_point(label, z, src, w):
            f"probe {label}: launches {counts} (K1 {k1}, K2 {k2}), want "
            f"{want} and no K1 or K2")
     bound_ms = _bound_ms(probe_cost(rows, n, z.element_size()))[0]
-    library_ms = _median_ms(lambda: torch.index_select(z, 0, src.view(-1)),
-                            PROBE_ITERS)
+    slots = src.numel()
+    select_ms = _median_ms(lambda: torch.index_select(z, 0, src.view(-1)),
+                           PROBE_ITERS)
+    # index_select's own bound: src and its output once, z once.
+    select_bound_ms = _bound_ms({"bytes": float(
+        slots * (4 + z.element_size()) + n * z.element_size()),
+        "flops": 0.0})[0]
+    pair_ms = _median_ms(lambda: torch.index_select(
+        z, 0, src.view(-1)).view(w.shape).mul_(w), PROBE_ITERS)
+    offsets = torch.arange(slots, dtype=src.dtype, device=src.device)
+    zt = z.view(-1, 1)
+
+    def bag():
+        return F.embedding_bag(src.view(-1), zt, offsets, mode="sum",
+                               per_sample_weights=w.view(-1)).view(w.shape)
+
+    bag_ms = _median_ms(bag, 5, warmup=1)  # ~27 ms a call on an H100
+    # The same function: within one rounding of P1's plain version.
+    got, ref = bag().float(), gp.gather_take_reference(z, src, w).float()
+    bag_err = float((got - ref).abs().max())
+    _check(bool(((got - ref).abs() <= torch.finfo(z.dtype).eps
+                 * ref.abs()).all()),
+           f"probe {label}: embedding_bag differs from P1's plain version "
+           f"by up to {bag_err}")
+    del offsets, got, ref
     out, parts = {}, []
     for kform, plain in PROBE_PAIRS:
         if kform not in ran:
@@ -1370,7 +1412,10 @@ def _probe_point(label, z, src, w):
                f"probe {label}: {name} differs from its plain version")
         ms = times[kform]
         out[kform] = {"ms": ms, "plain_ms": times[plain],
-                      "library_ms": library_ms, "bound_ms": bound_ms,
+                      "library_ms": bag_ms, "library_err": bag_err,
+                      "index_select_ms": select_ms,
+                      "index_select_bound_ms": select_bound_ms,
+                      "index_select_mul_ms": pair_ms, "bound_ms": bound_ms,
                       "launches": counts[name],
                       "max_abs_err": float((a.float() - ref.float()).abs()
                                            .max()),
@@ -1379,7 +1424,14 @@ def _probe_point(label, z, src, w):
         parts.append(f"{kform} {ms:.4f} ms ({bound_ms / ms:.1%} of bound; "
                      f"plain {times[plain]:.4f} ms)")
     print(f"probe {label}: rows {rows} x 128, z {_dt(z)}[{n}]; byte bound "
-          f"{bound_ms:.4f} ms, index_select {library_ms:.4f} ms; "
+          f"{bound_ms:.4f} ms; same function, embedding_bag {bag_ms:.4f} "
+          f"ms ({bound_ms / bag_ms:.1%} of the bound; max diff to P1's plain "
+          f"version {bag_err}), "
+          f"index_select then mul {pair_ms:.4f} ms ({bound_ms / pair_ms:.1%}"
+          f" of the bound); the "
+          f"gather without w, index_select {select_ms:.4f} ms "
+          f"({select_bound_ms / select_ms:.1%} of its own bound "
+          f"{select_bound_ms:.4f} ms); "
           + "; ".join(parts) + "; each kernel torch.equal to its plain "
           "version, repeat bit-identical, launches counted")
     return out
@@ -1396,6 +1448,27 @@ def _k2_global_slots(eng):
     base = pp.long()[rp.long()] * zw.shape[1]
     src = (base[:, None] + unpack_words24(slots).long()).to(torch.int32)
     return zw.reshape(-1), src
+
+
+def probe_sweep(gen, log_ns=(15, 20, 22, 24)):
+    """Phase 7(b): :func:`_probe_point` on uniform src, 2^19 rows x 128
+    slots, at each n = 2^log_n in f32 and bf16, drawn from ``gen``.
+    Returns {(log_n, dtype): numbers}."""
+    import torch
+
+    rows = 1 << 19
+    w32 = torch.rand((rows, 128), generator=gen, device="cuda")
+    sweep = {}
+    for log_n in log_ns:
+        n = 1 << log_n
+        src = torch.randint(0, n, (rows, 128), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        z32 = torch.rand(n, generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            sweep[log_n, dtype] = _probe_point(
+                f"uniform n=2^{log_n}", z32.to(dtype), src, w32.to(dtype))
+        del src, z32
+    return sweep
 
 
 def gather_probe_phase(k1_slots, k2_slots, step_ms):
@@ -1426,18 +1499,7 @@ def gather_probe_phase(k1_slots, k2_slots, step_ms):
         print(f"  {label} (profiled step) {step_ms[label]:.4f} ms "
               f"against P1 {at['probe_take']['ms']:.4f} ms and P2 "
               f"{at['probe_group8']['ms']:.4f} ms on the same slots")
-    rows = 1 << 19
-    w32 = torch.rand((rows, 128), generator=gen, device="cuda")
-    sweep = {}
-    for log_n in (15, 20, 22, 24):
-        n = 1 << log_n
-        src = torch.randint(0, n, (rows, 128), generator=gen, device="cuda",
-                            dtype=torch.int32)
-        z32 = torch.rand(n, generator=gen, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
-            sweep[log_n, dtype] = _probe_point(
-                f"uniform n=2^{log_n}", z32.to(dtype), src, w32.to(dtype))
-        del src, z32
+    sweep = probe_sweep(gen)
     for dtype in (torch.float32, torch.bfloat16):
         _check("probe_rowsel_smem" in sweep[15, dtype],
                f"P3 did not run at n=2^15 {dtype}")
@@ -1520,19 +1582,76 @@ FIXTURE_REPLACES = {
 }
 
 
+def _library_calls(name, args, out):
+    """((label, call) of the one PyTorch call that computes fixture
+    ``name``'s function on ``args``, its output allocated as the
+    wrapper's is (F3: ``F.pad`` of x's tiles with a NaN tile after
+    each); (label, call) of a call into a buffer made once, a copy of
+    all of x for F3 and F4, whose functions differ from it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pagerank_tpu_torch.ops import defect_fixtures as fx
+
+    x = args[0]
+    if name == "cost_mismatch":
+        buf = torch.empty_like(out)
+        return (("torch.matmul(x, y)", lambda: torch.matmul(*args)),
+                ("torch.matmul(x, y, out=)",
+                 lambda: torch.matmul(*args, out=buf)))
+    buf = torch.empty_like(x)
+
+    def copy():
+        return buf.copy_(x)
+
+    if name == "index_gap":
+        tiles = x.view(-1, 1, *fx.TILE)
+        return (("F.pad(x tiles, a NaN tile after each)",
+                 lambda: F.pad(tiles, (0, 0, 0, 0, 0, 1),
+                               value=float("nan")).view(-1, x.shape[1])),
+                ("Tensor.copy_ of x (not F3's function)", copy))
+    if name == "index_overlap":
+        return (("x[-16:].clone()", lambda: x[-16:].clone()),
+                ("Tensor.copy_ of all of x (not F4's function)", copy))
+    return ("x.clone()", lambda: x.clone()), ("Tensor.copy_ of x", copy)
+
+
+def _one_writer(got, x):
+    """F4's race on the card: every element of out tiles 0 and 1 holds
+    one of its writers' values (x tiles t, t + 2, ...). Returns (whether
+    it does, the max distance to the nearest writer)."""
+    import torch
+
+    ok, dist = True, 0.0
+    for t in range(2):
+        o = got[t * 8:(t + 1) * 8]
+        ws = torch.stack([x[u * 8:(u + 1) * 8]
+                          for u in range(t, x.shape[0] // 8, 2)])
+        ok &= bool((ws == o).any(0).all())
+        dist = max(dist, float((ws - o).abs().min(0).values.max()))
+    return ok, dist
+
+
 def fixture_phase(rules):
     """Phase 11b: F1-F6 on the card at the JAX fixtures' shapes, the counts
     set to 0 before and read after. F1 at its geometry must be refused
     and leave no error pending; at 2^15 and at a ragged 2^15 + 1 it
     equals its plain copy. F2 and F5 equal their plain versions; F3 too,
-    with NaN at exactly the elements PTK003 names; F2 and F3 again at a
-    wider shape ([300, 192], [32, 128]); an x off 16 bytes must raise
-    for F1, F2 and F3. F4 holds one of its two writers in every element;
-    F6 is within 1e-5 (normalised) of an f64 matmul. Each is timed as a
-    wrapper call and as a bare launch of its bound C entry, beside its
-    bound, its plain version and a library call; the host time (mean
+    with NaN at exactly the elements PTK003 names; F2, F3, F4 and F6
+    again at a wider shape ([300, 192], [32, 128], [64, 128], [512,
+    256] x [256, 128]); an x (F6: or y) off 16 bytes must raise for
+    every fixture of ``VECTOR``. F4 holds one of its writers in every
+    element, at [64, 128] with NaN at exactly the PTK003 gaps; F6 is
+    within 1e-5 (normalised) of an f64 matmul at both shapes and
+    bit-identical on repeat. Each is timed as a wrapper call and as a
+    bare launch of its bound C entry, beside its bound, its plain
+    version, the one library call of the same function with its
+    allocation and the preallocated call earlier yardsticks timed (also
+    as the bare launches are, in turns with them); the host time (mean
     host clock a call) of the wrapper call, of the bound entry alone and
-    of the library call say what of a call is the host's. Returns the
+    of the library calls say what of a call is the host's, and F4's
+    wrapper host time is split into its checks, its allocation and
+    arguments, the entry and the rest (dispatch). Returns the
     records."""
     import torch
 
@@ -1553,12 +1672,16 @@ def fixture_phase(rules):
               "f64_scratch": (rnd(16, 128),),
               "cost_mismatch": (rnd(256, 128), rnd(128, 128))}
     ragged = rnd((1 << 15) + 1)
-    wide = {"misaligned_tile": rnd(300, 192), "index_gap": rnd(32, 128)}
+    wide = {"misaligned_tile": (rnd(300, 192),), "index_gap": (rnd(32, 128),),
+            "index_overlap": (rnd(64, 128),),
+            "cost_mismatch": (rnd(512, 256), rnd(256, 128))}
     skews = {}
-    for name in ("vmem_overflow", "misaligned_tile", "index_gap"):
-        shape = inputs[name][0].shape
-        skews[name] = torch.empty(shape.numel() + 1,
-                                  device="cuda")[1:].view(shape)
+    for name in fx.VECTOR:
+        for i, t in enumerate(inputs[name]):
+            skew = torch.empty(t.numel() + 1, device="cuda")[1:].view(
+                t.shape)
+            skew.copy_(t)
+            skews[name, i] = inputs[name][:i] + (skew,) + inputs[name][i + 1:]
     big = rnd(fx.OVERFLOW_N)
     _reset_counts()
     try:
@@ -1569,24 +1692,27 @@ def fixture_phase(rules):
     torch.cuda.synchronize()
     pending = fx.last_error()
     off16 = {}
-    for name, skew in skews.items():
+    for (name, i), args in skews.items():
         try:
-            getattr(fx, name)(skew)
+            getattr(fx, name)(*args)
         except ValueError as e:
-            off16[name] = str(e)
+            off16[name, i] = str(e)
     outs = {n: getattr(fx, n)(*a) for n, a in inputs.items()}
     ragged_out = fx.vmem_overflow(ragged)
-    wide_outs = {n: getattr(fx, n)(x) for n, x in wide.items()}
+    wide_outs = {n: getattr(fx, n)(*a) for n, a in wide.items()}
+    repeats = [fx.cost_mismatch(*inputs["cost_mismatch"]),
+               fx.cost_mismatch(*wide["cost_mismatch"])]
     torch.cuda.synchronize()
     k1, k2, counts = _read_counts()
     del big
     _check(refused is not None, "F1 launched 32 MiB of shared memory")
     _check(pending == 0, f"F1's refusal left CUDA error {pending} pending")
     _check(set(off16) == set(skews),
-           f"took an x off 16 bytes: {sorted(set(skews) - set(off16))}")
+           f"took an input off 16 bytes: {sorted(set(skews) - set(off16))}")
     want = {f"fx:{n}": 1 for n in inputs}
     for name in ("vmem_overflow", *wide):
         want[f"fx:{name}"] = 2
+    want["fx:cost_mismatch"] += len(repeats)
     _check({k: v for k, v in counts.items() if k.startswith("fx:")} == want
            and k1 == k2 == 0
            and not any(v for k, v in counts.items()
@@ -1598,8 +1724,19 @@ def fixture_phase(rules):
           f"{fx.OVERFLOW_N * 4} B of shared memory; the checker says "
           f"{rules['vmem_overflow']}) refused: {refused}; no error pending "
           f"after it; at [{1 << 15}] and the ragged [{ragged.numel()}] "
-          f"equal to its plain copy; an x off 16 bytes refused by F1, F2 "
-          f"and F3: {off16['index_gap']}")
+          f"equal to its plain copy; an input off 16 bytes refused by "
+          + ", ".join(sorted({n for n, _ in off16}))
+          + f": {off16['cost_mismatch', 1]}")
+
+    def gap_nan(name, got, x):
+        """``got`` NaN at exactly the gaps PTK003 names at x's shape."""
+        nan = torch.zeros(got.numel(), dtype=torch.bool, device="cuda")
+        for a, b in kernels.write_gaps(
+                kernels.defect_case(name, tuple(x.shape)), "out"):
+            nan[a:b] = True
+        _check(torch.equal(got.reshape(-1).isnan(), nan),
+               f"{name} at {list(x.shape)}: NaN elements differ from the "
+               f"gaps PTK003 names")
 
     def same(name, got, x):
         """``got`` equal to the plain version on ``x`` bit for bit where
@@ -1611,97 +1748,138 @@ def fixture_phase(rules):
             and torch.equal(got.isnan(), ref.isnan()),
             f"{name} at {list(x.shape)} differs from its plain version")
         if name == "index_gap":
-            nan = torch.zeros(got.numel(), dtype=torch.bool, device="cuda")
-            for a, b in kernels.write_gaps(
-                    kernels.defect_case(name, tuple(x.shape)), "out"):
-                nan[a:b] = True
-            _check(torch.equal(got.reshape(-1).isnan(), nan),
-                   f"F3 at {list(x.shape)}: NaN elements differ from the "
-                   f"gaps PTK003 names")
+            gap_nan(name, got, x)
 
-    for name, x in wide.items():
-        same(name, wide_outs[name], x)
+    def matmul_err(got, x, y):
+        exact = x.double() @ y.double()
+        err = float((got.double() - exact).abs().max())
+        _check(err <= 1e-5 * float(exact.abs().max()),
+               f"F6 at {list(x.shape)} x {list(y.shape)}: max error {err} "
+               f"vs the f64 matmul")
+        return err
+
     errs = {}
+    for name, args in wide.items():
+        if name == "index_overlap":
+            ok, dist = _one_writer(wide_outs[name], args[0])
+            _check(ok, f"F4 at {list(args[0].shape)}: an element holds "
+                       f"none of its writers")
+            gap_nan(name, wide_outs[name], args[0])
+            errs["index_overlap wide"] = dist
+        elif name == "cost_mismatch":
+            errs["cost_mismatch wide"] = matmul_err(wide_outs[name], *args)
+            _check(torch.equal(repeats[1], wide_outs[name]),
+                   "F6: two launches at the wide shape differ")
+        else:
+            same(name, wide_outs[name], args[0])
     for name, args in inputs.items():
         got = outs[name]
-        ref = getattr(fx, f"{name}_reference")(*args)
         if name == "index_overlap":
-            x = args[0]
-            one = torch.zeros_like(got, dtype=torch.bool)
-            err = torch.zeros_like(got)
-            for t in range(got.shape[0] // 8):
-                o = got[t * 8:(t + 1) * 8]
-                a, b = x[t * 8:(t + 1) * 8], x[(t + 2) * 8:(t + 3) * 8]
-                one[t * 8:(t + 1) * 8] = (o == a) | (o == b)
-                err[t * 8:(t + 1) * 8] = torch.minimum((o - a).abs(),
-                                                       (o - b).abs())
-            _check(bool(one.all()), "F4: an element holds neither writer")
-            errs[name] = float(err.max())
+            ok, errs[name] = _one_writer(got, args[0])
+            _check(ok, "F4: an element holds neither writer")
         elif name == "cost_mismatch":
-            exact = args[0].double() @ args[1].double()
-            errs[name] = float((got.double() - exact).abs().max())
-            _check(errs[name] <= 1e-5 * float(exact.abs().max()),
-                   f"F6: max error {errs[name]} vs the f64 matmul")
+            errs[name] = matmul_err(got, *args)
+            _check(torch.equal(repeats[0], got),
+                   "F6: two launches at the fixture's shape differ")
         else:
             same(name, got, args[0])
             errs[name] = 0.0
+    f4_gaps = kernels.write_gaps(
+        kernels.defect_case("index_overlap", tuple(wide["index_overlap"][0]
+                                                   .shape)), "out")
     print("F2, F3 (NaN at exactly the PTK003 gaps "
           f"{kernels.write_gaps(cases['index_gap'], 'out')}) and F5 equal "
           f"their plain versions, F2 and F3 also at "
-          + " and ".join(f"{list(x.shape)}" for x in wide.values())
-          + f"; F4 holds one writer per element (max "
-          f"distance to the nearer writer {errs['index_overlap']}); F6 max "
-          f"abs error {errs['cost_mismatch']:.3e} vs an f64 matmul")
+          + " and ".join(f"{list(wide[n][0].shape)}"
+                         for n in ("misaligned_tile", "index_gap"))
+          + f"; F4 holds one writer per element (max distance to the "
+          f"nearer writer {errs['index_overlap']}; at "
+          f"{list(wide['index_overlap'][0].shape)} "
+          f"{errs['index_overlap wide']}, NaN at exactly the PTK003 gaps "
+          f"{f4_gaps}); "
+          f"F6 max abs error {errs['cost_mismatch']:.3e} vs an f64 matmul, "
+          f"{errs['cost_mismatch wide']:.3e} at "
+          f"{list(wide['cost_mismatch'][0].shape)} x "
+          f"{list(wide['cost_mismatch'][1].shape)}, each bit-identical "
+          f"on repeat")
     # The bare launches: each fixture's bound C entry, 50 launches
-    # between two events, median of 7 rounds, the six in turns; and the
-    # bound entry's host clock alone (the wrapper's less it: the checks,
-    # the allocation and the dispatch).
+    # between two events, median of 7 rounds, in turns with each other
+    # and with the preallocated library calls; and the bound entry's
+    # host clock alone (the wrapper's less it: the checks, the
+    # allocation and the dispatch).
     bound = {n: fx.bind(n, *a) for n, a in inputs.items()}
-    bare = _launch_ms(bound)
+    libs = {n: _library_calls(n, a, outs[n]) for n, a in inputs.items()}
+    bare = _launch_ms({**bound, **{f"lib:{n}": pre
+                                   for n, (_, (_, pre)) in libs.items()}})
     bare_host = {n: _host_ms(fn) for n, fn in bound.items()}
+    # Each same-function library call computes its fixture's function:
+    # equal to the plain version (NaN where it is NaN), F6's within the
+    # gate of the f64 matmul.
+    for name, args in inputs.items():
+        got = libs[name][0][1]()
+        if name == "cost_mismatch":
+            matmul_err(got, *args)
+        else:
+            same(name, got, args[0])
+    print("each same-function library call equals its fixture's plain "
+          "version (F6's within 1e-5 of the f64 matmul): "
+          + ", ".join(libs[n][0][0] for n in inputs))
     torch.cuda.synchronize()
     records = []
     for name, args in inputs.items():
         fn = getattr(fx, name)
         ref = getattr(fx, f"{name}_reference")
-        if name == "cost_mismatch":
-            lib_out = torch.empty_like(outs[name])
-
-            def library():
-                torch.matmul(*args, out=lib_out)
-        else:
-            lib_out = torch.empty_like(args[0])
-
-            def library():
-                lib_out.copy_(args[0])
+        (same_name, same_fn), (pre_name, prealloc) = libs[name]
         before = fx.launches[name]
         ms = _median_ms(lambda: fn(*args), 30)
         timed = fx.launches[name] - before
         plain_ms = _median_ms(lambda: ref(*args), 30)
-        library_ms = _median_ms(library, 30)
+        library_ms = _median_ms(same_fn, 30)
+        prealloc_ms = _median_ms(prealloc, 30)
         # What a call costs the host before the card sees its launch.
         host_ms = _host_ms(lambda: fn(*args))
-        library_host_ms = _host_ms(library)
+        library_host_ms = _host_ms(same_fn)
+        prealloc_host_ms = _host_ms(prealloc)
+        split = None
+        if name == "index_overlap":
+            x = args[0]
+            check_ms = _host_ms(lambda: (
+                fx._check(name, x),
+                fx._rows_of(name, x, 2 * fx.TILE[0], least=2)))
+            alloc_ms = _host_ms(lambda: fx._launch_args(name, x))
+            split = {"check_ms": check_ms, "alloc_args_ms": alloc_ms,
+                     "entry_ms": bare_host[name],
+                     "dispatch_ms": host_ms - check_ms - alloc_ms
+                     - bare_host[name]}
         torch.cuda.synchronize()
         # Each input read once and the output written once; F6 also its
-        # 2mkn FLOPs.
+        # 2mkn FLOPs three times on the tensor cores in TF32 (3xTF32).
         cost = {"bytes": float(sum(a.numel() for a in args)
                                + outs[name].numel()) * 4,
-                "flops": (2.0 * args[0].shape[0] * args[0].shape[1]
-                          * args[1].shape[1] if name == "cost_mismatch"
-                          else 0.0)}
+                "flops": 0.0,
+                "tf32_flops": (3 * 2.0 * args[0].shape[0] * args[0].shape[1]
+                               * args[1].shape[1]
+                               if name == "cost_mismatch" else 0.0)}
         bound_ms, bound_by = _bound_ms(cost)
         fill = ("its NaN fill included" if fx.leaves_gaps(
             name, args[0].shape[0]) else "no NaN fill")
-        lib_name = ("torch.matmul" if name == "cost_mismatch"
-                    else "Tensor.copy_")
+        same_txt = (f"{same_name} {library_ms:.4f} ms (host "
+                    f"{library_host_ms:.4f} ms)")
         print(f"F {name}: {ms:.4f} ms a wrapper call ({fill}; {timed} "
               f"launches timed; host {host_ms:.4f} ms), bare launch "
               f"{bare[name]:.4f} ms (host {bare_host[name]:.4f} ms), "
-              f"plain {plain_ms:.4f} ms, {lib_name} "
-              f"{library_ms:.4f} ms (host {library_host_ms:.4f} ms), "
-              f"{bound_by} bound {bound_ms:.6f} ms ({int(cost['bytes'])} B, "
-              f"{int(cost['flops'])} FLOP)")
+              f"plain {plain_ms:.4f} ms; same function: {same_txt}; "
+              f"preallocated {pre_name} {prealloc_ms:.4f} ms (host "
+              f"{prealloc_host_ms:.4f} ms; 50 back to back "
+              f"{bare[f'lib:{name}']:.4f} ms); {bound_by} bound "
+              f"{bound_ms:.6f} ms ({int(cost['bytes'])} B, "
+              f"{int(cost['tf32_flops'])} TF32 FLOP)")
+        if split:
+            print(f"  F {name} wrapper host {host_ms:.4f} ms = checks "
+                  f"{split['check_ms']:.4f} + allocation and arguments "
+                  f"{split['alloc_args_ms']:.4f} + the bound entry "
+                  f"{split['entry_ms']:.4f} + dispatch (device, stream, "
+                  f"count) {split['dispatch_ms']:.4f}")
         records.append({
             "name": f"fx_{name}", "route": "cuda",
             "source": "pagerank_tpu_torch/csrc/defect_fixtures.cu",
@@ -1711,6 +1889,11 @@ def fixture_phase(rules):
             "bare_host_ms": bare_host[name],
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "library_host_ms": library_host_ms,
+            "library_call": same_name,
+            "prealloc_ms": prealloc_ms, "prealloc_host_ms": prealloc_host_ms,
+            "prealloc_bare_ms": bare[f"lib:{name}"],
+            "prealloc_call": pre_name,
+            **({"host_split": split} if split else {}),
             "rule": rules[name],
             "shapes": ", ".join(f"{_dt(a)}{list(a.shape)}" for a in args)})
     seconds = time.perf_counter() - t0
@@ -2480,17 +2663,26 @@ def _k1w_step_split(label, step, steps):
     idle share; prints it and returns it. The launch count is the
     wrapper's; the profiler may miss an event of a kernel launched from
     outside PyTorch, so K1w's device time a step is taken per recorded
-    launch, and the recorded count is printed."""
+    launch, and the recorded count is printed. A window in which it
+    recorded none of them is profiled again, up to PROFILE_TRIES
+    windows, the wrapper's count checked in each."""
     from pagerank_tpu_torch.ops import ell_spmm
 
-    before = ell_spmm.launches
-    wall_ms, per_kernel, calls, _, _ = _profile_steps(step, steps)
-    _check(ell_spmm.launches - before == 2 * steps + 1,
-           f"{2 * steps + 1} PPR steps launched K1w "
-           f"{ell_spmm.launches - before} times")
-    mine = [n for n in per_kernel if _named(n, "ell_contrib_spmm_kernel")]
-    seen = sum(calls[n] for n in mine)
-    _check(seen >= 1, "the profiler recorded no K1w launch")
+    for tries in range(1, PROFILE_TRIES + 1):
+        before = ell_spmm.launches
+        wall_ms, per_kernel, calls, _, _ = _profile_steps(step, steps)
+        _check(ell_spmm.launches - before == 2 * steps + 1,
+               f"{2 * steps + 1} PPR steps launched K1w "
+               f"{ell_spmm.launches - before} times")
+        mine = [n for n in per_kernel
+                if _named(n, "ell_contrib_spmm_kernel")]
+        seen = sum(calls[n] for n in mine)
+        if seen >= 1 or tries == PROFILE_TRIES:
+            break
+        print(f"{label}: the profiled window recorded none of the "
+              f"wrapper's {2 * steps + 1} K1w launches; profiling again")
+    _check(seen >= 1, f"the profiler recorded no K1w launch in {tries} "
+                      f"windows")
     k1w_dev = sum(per_kernel[n] for n in mine) * steps / seen
     busy = sum(per_kernel.values()) - sum(per_kernel[n] for n in mine) \
         + k1w_dev

@@ -1358,8 +1358,8 @@ def _tile_rows(shape, tile, grid, tile_of):
 
 
 def _copy_case(label, source, *, x_shape, out_shape, tile, grid, out_tile,
-               block, block_const, entry, symbol="fx_copy",
-               dynamic=True, vector_bytes=0) -> KernelCase:
+               block, block_const, entry, symbol, dynamic=True,
+               vector_bytes=0) -> KernelCase:
     x_lo, x_hi = _tile_rows(x_shape, tile, grid, lambda i, j: (i, j))
     o_lo, o_hi = _tile_rows(out_shape, tile, grid, out_tile)
     return KernelCase(
@@ -1421,14 +1421,16 @@ def defect_case(name: str, *shapes, csrc_dir=None) -> KernelCase:
                           block_const="kLanes", entry="fx_index_gap",
                           symbol="fx_copy_rows", vector_bytes=16)
     if name == "index_overlap":
-        # PTK003 (overlap): out tile i % 2; two CTAs write each of tiles
-        # 0 and 1 (and tiles past 1, where x has more than 32 rows, stay
-        # unwritten).
+        # PTK003 (overlap): out tile i % 2, each tile one 4 KiB bulk copy
+        # in and out; two CTAs write each of tiles 0 and 1 (and tiles
+        # past 1, where x has more than 32 rows, stay unwritten: the
+        # entry's NaN fill is no launch).
         return _copy_case(label, src, x_shape=(rows, lanes),
                           out_shape=(rows // 2, lanes), tile=(tr, lanes),
                           grid=(rows // tr, 1),
                           out_tile=lambda i, j: (i % 2, 0), block=lanes,
-                          block_const="kLanes", entry="fx_index_overlap")
+                          block_const="kLanes", entry="fx_index_overlap",
+                          symbol="fx_copy_rows", vector_bytes=16)
     if name == "f64_scratch":
         # PTK004: an f64 shared scratch in an f32 case.
         return _copy_case(label, src, x_shape=(rows, lanes),
@@ -1441,24 +1443,35 @@ def defect_case(name: str, *shapes, csrc_dir=None) -> KernelCase:
     if name != "cost_mismatch":
         raise KeyError(f"no defect fixture {name!r}")
     # PTK005: a correct matmul with a deliberately wrong analytic model.
-    mt, m, k = src.const("kMatTile"), rows, cols
-    x_lo, x_hi = _cta_spans(m * k, mt * k)
+    # CTA (i, j) reads x's rows [tm i, tm i + tm) whole (one span), y's
+    # columns [tn j, tn j + tn) of every row (k spans) by 16-byte
+    # copies, and writes out's (tm, tn) tile (i, j) as float2.
+    tm, tn, m, k = src.const("kMatTileM"), src.const("kMatTileN"), rows, cols
+    grid = (m // tm, lanes // tn)
+    ci = np.repeat(np.arange(grid[0], dtype=np.int64), grid[1])
+    cj = np.tile(np.arange(grid[1], dtype=np.int64), grid[0])
+    x_lo = ci * tm * k
+    y_lo = (np.arange(k, dtype=np.int64)[None, :] * lanes
+            + cj[:, None] * tn).ravel()
+    o_lo = ((ci[:, None] * tm + np.arange(tm)[None, :]) * lanes
+            + cj[:, None] * tn).ravel()
     return KernelCase(
         label=label, config={"x": "float32"},
         operands={"x": Operand("float32", m * k),
                   "y": Operand("float32", k * lanes),
                   "out": Operand("float32", m * lanes, role="out")},
         launches=[Launch(
-            source="defect_fixtures", symbol="fx_matmul", instance="",
-            entry="fx_cost_mismatch", grid=(m // mt, 1, 1),
+            source="defect_fixtures", symbol="fx_matmul_3xtf32",
+            instance="", entry="fx_cost_mismatch", grid=(*grid, 1),
             block=src.const("kMatThreads"), block_const="kMatThreads",
+            dynamic_smem=src.const("kMatStages")
+            * src.const("kMatStageFloats") * 4,
             flops=2.0 * m * k * lanes,
-            tiles={"x": (mt, k), "y": (k, lanes), "out": (mt, lanes)},
+            tiles={"x": (tm, k), "y": (k, tn), "out": (tm, tn)},
             accesses=[
-                Access("x", "read", x_lo, x_hi),
-                Access("y", "read", np.zeros(m // mt, np.int64),
-                       np.full(m // mt, k * lanes, np.int64)),
-                Access("out", "write", *_cta_spans(m * lanes, mt * lanes)),
+                Access("x", "read", x_lo, x_lo + tm * k, vector_bytes=16),
+                Access("y", "read", y_lo, y_lo + tn, vector_bytes=16),
+                Access("out", "write", o_lo, o_lo + tn, vector_bytes=8),
             ])],
         cost_model={"flops": 1.0, "bytes": 1.0})
 

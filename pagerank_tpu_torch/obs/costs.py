@@ -57,6 +57,8 @@ class DeviceSpec:
     hbm_bytes: int
     #: f32 FLOP/s outside the tensor cores (dense, full power limit).
     fp32_flops_per_s: float
+    #: TF32 FLOP/s on the tensor cores (dense, full power limit).
+    tf32_flops_per_s: float
 
 
 HOPPER = {
@@ -66,14 +68,14 @@ HOPPER = {
                        regs_per_thread=255, max_threads_per_block=1024,
                        sms=132, l2_bytes=50_000_000,
                        hbm_bytes_per_s=3.35e12, hbm_bytes=80 * 10**9,
-                       fp32_flops_per_s=67e12),
+                       fp32_flops_per_s=67e12, tf32_flops_per_s=495e12),
     "h200": DeviceSpec("NVIDIA H200 SXM", smem_per_block=232_448,
                        smem_default=49_152, smem_reserved=1024,
                        regs_per_sm=65_536,
                        regs_per_thread=255, max_threads_per_block=1024,
                        sms=132, l2_bytes=50_000_000,
                        hbm_bytes_per_s=4.8e12, hbm_bytes=141 * 10**9,
-                       fp32_flops_per_s=67e12),
+                       fp32_flops_per_s=67e12, tf32_flops_per_s=495e12),
 }
 
 #: The card the check sizes for when none is attached (the CPU tests,

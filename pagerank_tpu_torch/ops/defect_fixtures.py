@@ -18,17 +18,18 @@ output tile the last one wins (F4), and output that no tile writes is
 NaN (F3). On the card an output is NaN before the launch only where
 the launch leaves elements unwritten (:func:`leaves_gaps`: PTK003's
 gaps), so an unwritten tile reads the same there: F3's C entry sets
-its odd tiles to 0xFF bytes on the stream before its launch, at the
-geometry :func:`gap_fill` gives, and F4's wrapper fills its output
-with NaN past k = 2; every other output is ``torch.empty``. F4's two
-writers race there, in no order.
+its odd tiles, and F4's past k = 2 its out tiles from 2 on, to 0xFF
+bytes on the stream before its launch, at the geometry :func:`gap_fill`
+gives; every wrapper allocates its output with ``torch.empty``. F4's
+two writers race there, in no order.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes
 its plain version only for tensors on the CPU. F1 at its fixture's size
-(8,388,608 f32) must raise: its 32 MiB of shared memory is refused. F1,
-F2 and F3 move bulk copies and F5 16-byte vectors, so they raise on an
-x that is not 16-byte aligned. ``launches`` counts the launches of each
-kernel by fixture name.
+(8,388,608 f32) must raise: its 32 MiB of shared memory is refused. F1
+to F4 move bulk copies, F5 16-byte vectors and F6 16-byte cp.async
+copies of x and y, so they raise on an x (or F6's y) that is not
+16-byte aligned.
+``launches`` counts the launches of each kernel by fixture name.
 """
 
 from __future__ import annotations
@@ -48,8 +49,10 @@ TILE = (8, LANES)
 MIS_TILE = (100, 64)
 OVERFLOW_N = 8 << 20
 
-#: The fixtures whose kernels move 16-byte units (bulk copies, float4).
-VECTOR = ("vmem_overflow", "misaligned_tile", "index_gap", "f64_scratch")
+#: The fixtures whose kernels move 16-byte units (bulk copies, float4,
+#: cp.async).
+VECTOR = ("vmem_overflow", "misaligned_tile", "index_gap", "index_overlap",
+          "f64_scratch", "cost_mismatch")
 
 #: The JAX fixtures' input shapes, in their order.
 SHAPES = {"vmem_overflow": [(OVERFLOW_N,)],
@@ -62,7 +65,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 _ENTRIES = {"vmem_overflow": ("fx_vmem_overflow", (_P, _P, _I)),
             "misaligned_tile": ("fx_misaligned_tile", (_P, _P, _I, _I)),
             "index_gap": ("fx_index_gap", (_P, _P, _I, _I, _I, _I, _I)),
-            "index_overlap": ("fx_index_overlap", (_P, _P, _I)),
+            "index_overlap": ("fx_index_overlap", (_P, _P, _I, _I, _I)),
             "f64_scratch": ("fx_f64_scratch", (_P, _P, _I)),
             "cost_mismatch": ("fx_cost_mismatch", (_P, _P, _P, _I, _I)),
             "last_error": ("defect_fixtures_last_error", ()),
@@ -104,12 +107,27 @@ def _check(name, *ts, ndim=2):
         raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
 
 
-def _rows_of(name, x, tile_rows, cols=LANES):
+def _rows_of(name, x, tile_rows, cols=LANES, least=1):
     rows = x.shape[0]
-    if rows % tile_rows or rows == 0 or x.shape[1] != cols:
-        raise ValueError(f"{name}: want x [k*{tile_rows}, {cols}], got "
-                         f"{tuple(x.shape)}")
+    if rows % tile_rows or rows < least * tile_rows or x.shape[1] != cols:
+        raise ValueError(f"{name}: want x [k*{tile_rows}, {cols}] with k >= "
+                         f"{least}, got {tuple(x.shape)}")
     return rows
+
+
+def gap_fill(name, rows):
+    """The NaN fill of fixture ``name`` (F3 or F4) on an x of ``rows``
+    rows, in bytes of out: the elements its launch leaves unwritten (the
+    gaps PTK003 names), as its C entry takes them. F3: out's odd (8,
+    128) tiles, (offset, pitch, width, count) for cudaMemset2DAsync.
+    F4: its out tiles from 2 on, one span at the tail of out, (offset,
+    bytes) for cudaMemsetAsync (0 bytes at the fixture's 32 rows)."""
+    tile = TILE[0] * TILE[1] * 4
+    if name == "index_gap":
+        return tile, 2 * tile, tile, rows // TILE[0]
+    if name == "index_overlap":
+        return 2 * tile, (rows // 2) * LANES * 4 - 2 * tile
+    raise KeyError(f"fixture {name!r} has no NaN fill")
 
 
 def leaves_gaps(name, rows):
@@ -117,39 +135,30 @@ def leaves_gaps(name, rows):
     elements of its output unwritten (the gaps PTK003 names): F3 always
     (its odd out tiles), F4 once x has more than its fixture's 32 rows
     (out tiles past 1). Only those outputs are NaN before the launch."""
-    return name == "index_gap" or (name == "index_overlap"
-                                   and rows > 4 * TILE[0])
-
-
-def gap_fill(rows):
-    """F3's NaN fill on an x of ``rows`` rows, as its C entry takes
-    it: (offset, pitch, width, count) in bytes of out, ``count`` spans
-    of ``width`` bytes ``pitch`` apart from ``offset``: out's odd (8,
-    128) tiles, the gaps its launch leaves."""
-    tile = TILE[0] * TILE[1] * 4
-    return tile, 2 * tile, tile, rows // TILE[0]
+    if name == "index_overlap":
+        return gap_fill(name, rows)[1] > 0
+    return name == "index_gap"
 
 
 def _launch_args(name, x, y=None):
     """(out, the C entry's arguments before the stream, tensors as
     addresses) of fixture ``name`` on inputs its wrapper took: out is
-    empty, or NaN where F4's launch leaves elements unwritten (F3's
-    entry fills its own, :func:`gap_fill`). Raises on an x that a
-    kernel of :data:`VECTOR` cannot move in 16-byte units."""
+    ``torch.empty`` (F3's and F4's entries fill their gaps,
+    :func:`gap_fill`). Raises on an x (or F6's y) that a kernel of
+    :data:`VECTOR` cannot move in 16-byte units."""
     rows = x.shape[0]
-    if name in VECTOR and x.data_ptr() % 16:
-        raise ValueError(f"{name}: x must be 16-byte aligned (its kernel "
-                         f"moves 16-byte units), got address "
-                         f"{x.data_ptr():#x}")
-    if name == "index_gap":
-        out = torch.empty((2 * rows, LANES), dtype=torch.float32,
+    if name in VECTOR:
+        for label, t in (("x", x), ("y", y)):
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError(
+                    f"{name}: {label} must be 16-byte aligned (its kernel "
+                    f"moves 16-byte units), got address {t.data_ptr():#x}")
+    if name in ("index_gap", "index_overlap"):
+        out_rows = 2 * rows if name == "index_gap" else rows // 2
+        out = torch.empty((out_rows, LANES), dtype=torch.float32,
                           device=x.device)
-        return out, (x.data_ptr(), out.data_ptr(), rows, *gap_fill(rows))
-    if name == "index_overlap":
-        shape = (rows // 2, LANES)
-        out = (_nan(shape, x) if leaves_gaps(name, rows) else
-               torch.empty(shape, dtype=torch.float32, device=x.device))
-        return out, (x.data_ptr(), out.data_ptr(), rows)
+        return out, (x.data_ptr(), out.data_ptr(), rows,
+                     *gap_fill(name, rows))
     if name == "cost_mismatch":
         out = torch.empty((rows, LANES), dtype=torch.float32,
                           device=x.device)
@@ -296,13 +305,14 @@ def index_gap(x):
 
 
 def index_overlap(x):
-    """F4: x [k*16, 128] -> out [k*8, 128], x tile i into out tile
-    i % 2 (the fixture: k = 2, two out tiles with two writers each; past
-    it the out tiles from 2 on stay NaN). The plain version keeps the
-    last writer; on the card each element holds one of its writers', in
-    no order."""
+    """F4: x [k*16, 128] -> out [k*8, 128], k >= 2, x tile i into out
+    tile i % 2 (the fixture: k = 2, two out tiles with two writers each;
+    past it the out tiles from 2 on stay NaN, on the card by its entry's
+    fill; at k = 1 out has no tile 1). The plain version keeps the last
+    writer; on the card each element holds one of its writers', in no
+    order."""
     _check("index_overlap", x)
-    _rows_of("index_overlap", x, 2 * TILE[0])
+    _rows_of("index_overlap", x, 2 * TILE[0], least=2)
     if x.is_cpu:
         return index_overlap_reference(x)
     return _launch("index_overlap", x)
@@ -320,7 +330,9 @@ def f64_scratch(x):
 
 def cost_mismatch(x, y):
     """F6: out = x @ y in f32; x [m, k] (m % 128 == 0, k % 32 == 0),
-    y [k, 128]. The plain version is one f32 matmul."""
+    y [k, 128]; on the card 3xTF32 on the tensor cores, within 1e-5 of
+    the exact product's largest element. The plain version is one f32
+    matmul."""
     _check("cost_mismatch", x, y)
     m, k = x.shape
     if m % LANES or m == 0 or k % 32 or k == 0 or y.shape != (k, LANES):

@@ -258,13 +258,29 @@ def _jax_grid_mapping(label):
 
 @pytest.mark.parametrize("label", sorted(FIXTURE_RULES))
 def test_fixture_geometry_equals_the_jax_grid_mapping(defects, label):
+    """Each case's operands are the JAX fixture's arrays, and its grid
+    and tiles the JAX grid and blocks; F6 re-tiles for the card: its
+    grid covers the JAX output exactly with output tiles that nest in
+    the JAX block, on at least 8 CTAs, each reading x's rows and y's
+    columns of its tile at the whole depth."""
     grid, blocks, arrays = _jax_grid_mapping(label)
     (ln,) = defects[label].launches
-    assert ln.grid[:len(grid)] == grid and set(ln.grid[len(grid):]) == {1}
     names = list(defects[label].operands)  # inputs, then out
-    assert [ln.tiles[n] for n in names] == blocks
     assert [defects[label].operands[n].numel for n in names] == \
         [int(np.prod(a)) for a in arrays]
+    if label != "fixture:cost_mismatch":
+        assert ln.grid[:len(grid)] == grid and set(ln.grid[len(grid):]) \
+            == {1}
+        assert [ln.tiles[n] for n in names] == blocks
+        return
+    x, y, out = arrays
+    tm, tn = ln.tiles["out"]
+    assert ln.grid == (out[0] // tm, out[1] // tn, 1)
+    assert out[0] % tm == 0 and out[1] % tn == 0
+    assert ln.grid[0] * ln.grid[1] >= 8
+    assert ln.tiles["x"] == (tm, x[1]) and ln.tiles["y"] == (y[0], tn)
+    for n, block in zip(names, blocks):
+        assert all(b % t == 0 for t, b in zip(ln.tiles[n], block)), n
 
 
 # The JAX fixtures rebuilt with interpret=True from the JAX bodies; the
@@ -360,57 +376,120 @@ LAUNCH_SHAPES = [(n, s) for n, s in fx.SHAPES.items()
 def test_nan_fill_is_exactly_where_the_launch_case_has_gaps(
         monkeypatch, name, shapes):
     """On the card an output is NaN before the launch only where the
-    launch case of the same shapes has write gaps (PTK003's): F3 always,
-    by its C entry's fill at exactly the bytes :func:`gap_fill` passes
-    it (no ``torch.full``), F4 past k = 2 by its wrapper's fill, no
-    other fixture; the output's size and the C entry's arity are the
-    case's and the entry's."""
+    launch case of the same shapes has write gaps (PTK003's): F3 always
+    and F4 past k = 2, by their C entries' fills at exactly the bytes
+    :func:`gap_fill` gives (F3's entry takes (offset, pitch, width,
+    count), F4's (offset, bytes)), no other fixture; no wrapper fills
+    with ``torch.full``; the output's size and the C entry's arity are
+    the case's and the entry's."""
     case = K.defect_case(name, *shapes)
     gaps = K.write_gaps(case, "out")
     assert fx.leaves_gaps(name, shapes[0][0]) == bool(gaps)
     filled = []
-    nan = fx._nan
     monkeypatch.setattr(fx, "_nan", lambda shape, like: filled.append(
-        shape) or nan(shape, like))
+        shape))
     out, args = fx._launch_args(name, *(torch.zeros(s) for s in shapes))
     assert out.numel() == case.operands["out"].numel
-    assert len(args) == len(fx._ENTRIES[name][1])
-    if name == "index_gap":
-        offset, pitch, width, count = fx.gap_fill(shapes[0][0])
-        assert args[3:] == (offset, pitch, width, count) and not filled
-        want = np.zeros(out.numel(), bool)
-        for a, b in gaps:
-            want[a:b] = True
-        got = np.zeros(out.numel() * 4, bool)
-        for k in range(count):
-            got[offset + k * pitch:offset + k * pitch + width] = True
-        assert np.array_equal(got.reshape(-1, 4).all(1), want)
-        assert np.array_equal(got.reshape(-1, 4).any(1), want)
+    assert len(args) == len(fx._ENTRIES[name][1]) and not filled
+    if name not in ("index_gap", "index_overlap"):
+        assert not gaps
+        with pytest.raises(KeyError):
+            fx.gap_fill(name, shapes[0][0])
         return
-    assert bool(filled) == bool(gaps)
-    if gaps:
-        assert bool(out.isnan().all())
+    fill = fx.gap_fill(name, shapes[0][0])
+    assert args[3:] == fill
+    if name == "index_gap":
+        offset, pitch, width, count = fill
+    else:
+        (offset, width), pitch, count = fill, 0, 1
+    want = np.zeros(out.numel(), bool)
+    for a, b in gaps:
+        want[a:b] = True
+    got = np.zeros(out.numel() * 4, bool)
+    for k in range(count):
+        got[offset + k * pitch:offset + k * pitch + width] = True
+    assert np.array_equal(got.reshape(-1, 4).all(1), want)
+    assert np.array_equal(got.reshape(-1, 4).any(1), want)
 
 
-@pytest.mark.parametrize("name,shape", [("vmem_overflow", (1 << 15,)),
-                                        ("misaligned_tile", (200, LANES)),
-                                        ("index_gap", (16, LANES)),
-                                        ("f64_scratch", (16, LANES))])
-def test_vector_fixtures_refuse_an_x_off_16_bytes(name, shape):
-    """F1's, F2's and F3's bulk copies and F5's float4 need a 16-byte
-    aligned x: an x 4 bytes off raises before anything launches (no
-    plain fallback)."""
+@pytest.mark.parametrize("name,shapes,skewed", [
+    ("vmem_overflow", [(1 << 15,)], 0), ("misaligned_tile", [(200, LANES)], 0),
+    ("index_gap", [(16, LANES)], 0), ("index_overlap", [(32, LANES)], 0),
+    ("index_overlap", [(64, LANES)], 0), ("f64_scratch", [(16, LANES)], 0),
+    ("cost_mismatch", [(256, LANES), (LANES, LANES)], 0),
+    ("cost_mismatch", [(256, LANES), (LANES, LANES)], 1)])
+def test_vector_fixtures_refuse_an_x_off_16_bytes(name, shapes, skewed):
+    """F1's to F4's bulk copies, F5's float4 and F6's 16-byte cp.async
+    copies of x and y need 16-byte aligned inputs: an x (F6: or a y) 4 bytes off
+    raises before anything launches (no plain fallback)."""
     assert name in fx.VECTOR
-    n = int(np.prod(shape))
-    x = torch.zeros(n + 1)[1:].view(shape)
-    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    args = [torch.zeros(s) for s in shapes]
+    shape = shapes[skewed]
+    t = torch.zeros(int(np.prod(shape)) + 1)[1:].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 4
     with pytest.raises(ValueError, match="16-byte aligned"):
-        fx._launch_args(name, x)
-    fx._launch_args(name, torch.zeros(shape))
+        fx._launch_args(name, *(t if i == skewed else a
+                                for i, a in enumerate(args)))
+    fx._launch_args(name, *args)
+
+
+def _tf32(a):
+    """f32 ``a`` rounded to TF32 (10 stored mantissa bits), to nearest
+    with ties away from zero, as cvt.rna.tf32.f32 does."""
+    bits = a.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _f32_toward_zero(v):
+    """f64 ``v`` to f32, truncated toward zero."""
+    r = v.astype(np.float32)
+    over = np.abs(r.astype(np.float64)) > np.abs(v)
+    r[over] = np.nextafter(r[over], np.float32(0))
+    return r
+
+
+def _emulated_mma(x, y, passes):
+    """F6's arithmetic in numpy: each 32-deep slice summed from 0 by
+    m16n8k8 steps of 8, each step's result the f64-exact sum of its
+    products and the running value truncated to f32 (a pessimistic
+    tensor core), the ``passes`` in order; the slices added in f32."""
+    parts = {"hi": {}, "lo": {}}
+    for name, a in (("x", x), ("y", y)):
+        hi = _tf32(a)
+        parts["hi"][name] = hi.astype(np.float64)
+        parts["lo"][name] = _tf32(a - hi).astype(np.float64)
+    total = np.zeros((x.shape[0], y.shape[1]), np.float32)
+    for k0 in range(0, x.shape[1], 32):
+        acc = np.zeros_like(total)
+        for k in range(k0, k0 + 32, 8):
+            for a, b in passes:
+                acc = _f32_toward_zero(
+                    acc + parts[a]["x"][:, k:k + 8] @ parts[b]["y"][k:k + 8])
+        total += acc
+    return total
+
+
+@pytest.mark.parametrize("shapes", [[(256, LANES), (LANES, LANES)],
+                                    [(512, 256), (256, LANES)]])
+def test_3xtf32_split_is_within_the_f6_gate(shapes):
+    """F6's accuracy argument on the CPU: x and y split into TF32 high
+    and low parts, lo*hi + hi*lo + hi*hi a step, is within the card's
+    gate (1e-5 of the f64 product's largest element) at F6's two shapes,
+    even with every step truncated; one TF32 pass (hi*hi) is not."""
+    rng = np.random.default_rng(23)
+    x, y = (rng.random(s, dtype=np.float32) for s in shapes)
+    exact = x.astype(np.float64) @ y.astype(np.float64)
+    gate = 1e-5 * np.abs(exact).max()
+    three = _emulated_mma(x, y, [("lo", "hi"), ("hi", "lo"), ("hi", "hi")])
+    assert np.abs(three - exact).max() <= gate / 4
+    one = _emulated_mma(x, y, [("hi", "hi")])
+    assert np.abs(one - exact).max() > gate
 
 
 @pytest.mark.parametrize("call,err", [
     (lambda: fx.index_gap(torch.zeros(12, LANES)), ValueError),
+    (lambda: fx.index_overlap(torch.zeros(16, LANES)), ValueError),
     (lambda: fx.misaligned_tile(torch.zeros(200, 100)), ValueError),
     (lambda: fx.f64_scratch(torch.zeros(16, LANES, dtype=torch.float64)),
      TypeError),
@@ -630,8 +709,7 @@ def test_source_facts():
     assert bulk.static_smem == 16  # the 8-byte mbarrier, in 16-byte units
     assert [(d.dynamic, d.ctype) for d in bulk.shared] == [
         (True, "float"), (False, "uint64_t")]
-    assert fxs.kernels["fx_copy"].opt_in
-    # F2's and F3's kernel: a tile in dynamic shared memory (at most
+    # F2's, F3's and F4's kernel: a tile in dynamic shared memory (at most
     # 25,600 B, no opt-in) beside its 8-byte mbarrier; F2's 100 and F3's
     # 128 threads within its bounds.
     rows = fxs.kernels["fx_copy_rows"]
@@ -640,7 +718,16 @@ def test_source_facts():
     assert [(d.dynamic, d.ctype) for d in rows.shared] == [
         (True, "float"), (False, "uint64_t")]
     assert not fxs.kernels["fx_scratch"].opt_in
-    assert fxs.kernels["fx_matmul"].static_smem == 2 * 128 * 32 * 4
+    # F6's kernel: one warpgroup, its ring of stages (filled by cp.async,
+    # no mbarrier) in dynamic shared memory past 48 KB, opted in through
+    # the launch path's helper.
+    mm = fxs.kernels["fx_matmul_3xtf32"]
+    assert mm.opt_in and mm.launch_bounds == 128 == fxs.const("kMatThreads")
+    assert [(d.dynamic, d.ctype) for d in mm.shared] == [(True, "float")]
+    assert mm.static_smem == 0
+    assert fxs.const("kMatStages") * fxs.const("kMatStageFloats") * 4 > \
+        costs.device_spec().smem_default
+    assert "fx_copy" not in fxs.kernels
     for name, sym in (("ell_contrib", "ell_contrib_kernel"),
                       ("ell_contrib_partitioned", "ell_contrib_part_kernel")):
         k = K.read_source(name).kernels[sym]
@@ -752,16 +839,17 @@ def _recorded_facts(lib):
 
 def test_cuobjdump_parser_on_recorded_dumps():
     facts = _recorded_facts("defect_fixtures")
-    assert set(facts) == {"fx_copy", "fx_copy_bulk", "fx_copy_rows",
-                          "fx_scratch", "fx_matmul"}
+    assert set(facts) == {"fx_copy_bulk", "fx_copy_rows", "fx_scratch",
+                          "fx_matmul_3xtf32"}
     src = K.read_source("defect_fixtures")
     reserved = costs.device_spec().smem_reserved
     for sym, f in facts.items():
         assert f.shared == src.kernels[sym].static_smem + reserved
         assert f.max_threads == src.kernels[sym].launch_bounds
         assert f.regs > 0 and f.local == 0
-    assert facts["fx_matmul"].regs == 128
-    assert facts["fx_copy"].f64_ops == () == facts["fx_matmul"].f64_ops
+    assert facts["fx_matmul_3xtf32"].f64_ops == ()
+    assert facts["fx_matmul_3xtf32"].local == 0 == \
+        facts["fx_matmul_3xtf32"].stack
     assert facts["fx_copy_bulk"].f64_ops == ()
     assert facts["fx_copy_rows"].f64_ops == ()
     k1 = _recorded_facts("ell_contrib")
@@ -817,11 +905,15 @@ def test_compiled_rules_on_recorded_facts(defects, k1_real):
                for m in msgs)
     drift = dict(facts, **{sym: dataclasses.replace(
         facts[sym], shared=4096, regs=200, local=16, max_threads=256)
-        for sym in ("fx_copy", "fx_copy_bulk", "fx_copy_rows")})
+        for sym in ("fx_copy_bulk", "fx_copy_rows", "fx_matmul_3xtf32")})
     for label in ("fixture:index_gap", "fixture:index_overlap"):
         found = K.check_kernel_case(defects[label], facts=drift)
         assert {f.rule for f in found} == {"PTK001", "PTK002", "PTK003"}
         assert sum(f.rule == "PTK002" for f in found) == 2  # bounds, spill
+    found = K.check_kernel_case(defects["fixture:cost_mismatch"],
+                                facts=drift)  # 256 > its 128 bounds
+    assert {f.rule for f in found} == {"PTK001", "PTK002", "PTK005"}
+    assert sum(f.rule == "PTK002" for f in found) == 2  # bounds, spill
     found = K.check_kernel_case(defects["fixture:misaligned_tile"],
                                 facts=drift)  # + 100 threads
     assert {f.rule for f in found} == {"PTK001", "PTK002"}

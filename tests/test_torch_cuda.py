@@ -289,38 +289,62 @@ def test_defect_fixture_kernels_against_their_plain_versions(cuda, name):
         assert torch.equal(got.nan_to_num(-1.0), ref.nan_to_num(-1.0))
 
 
-@pytest.mark.parametrize("name,shape", [
-    ("vmem_overflow", (1 << 15,)), ("vmem_overflow", ((1 << 15) + 1,)),
-    ("vmem_overflow", (3,)), ("misaligned_tile", (200, 128)),
-    ("misaligned_tile", (300, 192)), ("index_gap", (16, 128)),
-    ("index_gap", (32, 128)), ("f64_scratch", (16, 128)),
-    ("f64_scratch", (64, 128))])
+@pytest.mark.parametrize("name,shapes", [
+    ("vmem_overflow", [(1 << 15,)]), ("vmem_overflow", [((1 << 15) + 1,)]),
+    ("vmem_overflow", [(3,)]), ("misaligned_tile", [(200, 128)]),
+    ("misaligned_tile", [(300, 192)]), ("index_gap", [(16, 128)]),
+    ("index_gap", [(32, 128)]), ("index_overlap", [(32, 128)]),
+    ("index_overlap", [(64, 128)]), ("f64_scratch", [(16, 128)]),
+    ("f64_scratch", [(64, 128)]),
+    ("cost_mismatch", [(256, 128), (128, 128)]),
+    ("cost_mismatch", [(512, 256), (256, 128)])])
 def test_bulk_and_vector_fixtures_against_their_plain_versions(cuda, name,
-                                                               shape):
+                                                               shapes):
     """F1 (bulk copies, a ragged tail by threads) at aligned and ragged
-    sizes, F2 and F3 (a bulk copy a tile row or a tile) at their
-    fixtures' shapes and a wider one, and F5 (float4) equal their plain
-    versions bit for bit, F3 with NaN at exactly its plain version's
-    (its entry's fill), through the wrapper and the bare launch of the
-    bound entry, one launch each; an x off 16 bytes raises and launches
-    nothing."""
+    sizes, F2, F3 and F4 (a bulk copy a tile row or a tile) at their
+    fixtures' shapes and a wider one, F5 (float4) and F6 (3xTF32 on the
+    tensor cores, 16-byte cp.async copies of x and y) through the wrapper and the
+    bare launch of the bound entry, one launch each: F1, F2, F3 and F5
+    equal their plain versions bit for bit, F3 and F4 with NaN at
+    exactly their plain versions' (their entries' fills); F4 holds one
+    of its two writers in every element; F6 is within 1e-5 of an f64
+    matmul, the two launches bit-identical. An x (F6: or y) off 16 bytes
+    raises and launches nothing."""
     g = torch.Generator(device=cuda)
     g.manual_seed(5)
-    x = torch.rand(shape, generator=g, device=cuda)
+    args = [torch.rand(s, generator=g, device=cuda) for s in shapes]
     before = defect_fixtures.launches[name]
-    got = getattr(defect_fixtures, name)(x)
-    bare = defect_fixtures.bind(name, x)()
+    got = getattr(defect_fixtures, name)(*args)
+    bare = defect_fixtures.bind(name, *args)()
     torch.cuda.synchronize()
     assert defect_fixtures.launches[name] == before + 2
-    want = getattr(defect_fixtures, f"{name}_reference")(x)
+    want = getattr(defect_fixtures, f"{name}_reference")(*args)
     for out in (got, bare):
         assert out.shape == want.shape
+        if name == "cost_mismatch":
+            exact = args[0].double() @ args[1].double()
+            err = float((out.double() - exact).abs().max())
+            assert err <= 1e-5 * float(exact.abs().max())
+            continue
         assert torch.equal(out.isnan(), want.isnan())
-        assert torch.equal(out.nan_to_num(-1.0), want.nan_to_num(-1.0))
-    skew = torch.empty(x.numel() + 1, device=cuda)[1:].view(shape)
-    skew.copy_(x)
-    with pytest.raises(ValueError, match="16-byte aligned"):
-        getattr(defect_fixtures, name)(skew)
+        if name == "index_overlap":
+            x = args[0]
+            for t in range(2):
+                o = out[t * 8:(t + 1) * 8]
+                writers = [x[u * 8:(u + 1) * 8]
+                           for u in range(t, x.shape[0] // 8, 2)]
+                assert bool(torch.stack([o == w for w in writers])
+                            .any(0).all())
+        else:
+            assert torch.equal(out.nan_to_num(-1.0), want.nan_to_num(-1.0))
+    if name == "cost_mismatch":
+        assert torch.equal(got, bare)
+    for i, t in enumerate(args):
+        skew = torch.empty(t.numel() + 1, device=cuda)[1:].view(t.shape)
+        skew.copy_(t)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            getattr(defect_fixtures, name)(
+                *(skew if j == i else u for j, u in enumerate(args)))
     assert defect_fixtures.launches[name] == before + 2
 
 
